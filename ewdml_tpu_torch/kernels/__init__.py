@@ -1,0 +1,97 @@
+"""Build and load the hand-written CUDA kernels (``compress.cu``).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, on first use, into ``kernels/_build/`` beside the
+source, and loaded with ``ctypes``. The library name carries a hash of the
+source, so an edited source is rebuilt and a stale build is never loaded.
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = (os.path.join(_HERE, "compress.cu"),)
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+#: Seconds the last build took (0.0 when a cached library was loaded).
+build_seconds = 0.0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "the CUDA kernels need nvcc (CUDA toolkit) to build; none found "
+            "on PATH or under $CUDA_HOME")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha1()
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels (if this source has no build yet); return the
+    library path. Raises with the compiler's output when nvcc fails."""
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"libewdml_compress_{_source_hash()}.so")
+    if os.path.exists(lib_path):
+        build_seconds = 0.0
+        return lib_path
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def _declare(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.ewdml_qsgd_quantize.argtypes = [p, p, i64, i64, ctypes.c_uint32, i32,
+                                        p, p]
+    lib.ewdml_dequant_mean.argtypes = [p, p, i32, i64, i64, i64,
+                                       ctypes.c_float, p, p]
+    lib.ewdml_block_top1.argtypes = [p, i32, i32, p, p, p]
+    for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
+               lib.ewdml_block_top1):
+        fn.restype = ctypes.c_int
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+        return _lib

@@ -1,0 +1,98 @@
+"""Stacked Top-k -> QSGD compression, the reference's Method 5
+(``ewdml_tpu/ops/chain.py:1-81``, ``:253-299``).
+
+Sparsify, then quantize the k surviving values: the wire carries
+(indices int32, levels int8, norm f32). Big fused buckets at sparse ratios
+take the strided block selection instead (``ops/blocktopk.py``). The
+shared-scale (homomorphic) half of the JAX module is a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ewdml_tpu_torch.ops import blocktopk, packing, qsgd, topk
+from ewdml_tpu_torch.ops.bytes import numel, tensor_nbytes
+
+
+@dataclasses.dataclass
+class TopKQSGDPayload:
+    indices: torch.Tensor  # int32 [k]
+    levels: torch.Tensor   # int8/int16 [k], or packed uint8
+    norm: torch.Tensor     # f32 0-d, or f32 [nblocks]
+    shape: tuple
+    s: int
+    packed: bool = False
+    block: Optional[int] = None
+
+    @property
+    def numel(self) -> int:
+        return numel(self.shape)
+
+    @property
+    def wire_bytes(self) -> int:
+        return (self.indices.numel() * 4 + tensor_nbytes(self.levels)
+                + 4 * self.norm.numel())
+
+
+def compress(key, g: torch.Tensor, ratio: float, s: int = 127, exact=None,
+             block=None):
+    """A :class:`TopKQSGDPayload`, or a ``BlockTopKQSGDPayload`` when the
+    selection resolves to 'block' (``topk.resolve_mode``)."""
+    if topk.resolve_mode(exact, g.numel(), ratio) == "block":
+        return blocktopk.compress(key, g, ratio, s, block=block)
+    sparse = topk.compress(g, ratio, exact)
+    quant = qsgd.compress(key, sparse.values, s, block=block)
+    return TopKQSGDPayload(indices=sparse.indices, levels=quant.levels,
+                           norm=quant.norm, shape=tuple(g.shape), s=s,
+                           packed=quant.packed, block=block)
+
+
+def dequant_values(p: TopKQSGDPayload) -> torch.Tensor:
+    """The k dequantized values, without scattering to dense."""
+    k = p.indices.numel()
+    lv = qsgd.levels_as_float(p.levels, p.s, k, p.packed)
+    return qsgd.scale_levels(lv, p.norm, p.s, p.block, k)
+
+
+def decompress(p: TopKQSGDPayload) -> torch.Tensor:
+    values = dequant_values(p)
+    dense = torch.zeros(p.numel, dtype=torch.float32, device=values.device)
+    dense[p.indices.long()] = values
+    return dense.reshape(p.shape)
+
+
+class TopKQSGDCompressor:
+    """Method-5 stack; s=127 is the int8 wire."""
+
+    def __init__(self, compress_ratio: float = 0.5, quantum_num: int = 127,
+                 exact=None, block: Optional[int] = None):
+        self.compress_ratio = compress_ratio
+        self.quantum_num = quantum_num
+        self.exact = exact
+        self.block = block
+
+    def compress(self, key, tensor: torch.Tensor):
+        return compress(key, tensor, self.compress_ratio, self.quantum_num,
+                        self.exact, self.block)
+
+    def decompress(self, payload) -> torch.Tensor:
+        if isinstance(payload, blocktopk.BlockTopKQSGDPayload):
+            return blocktopk.decompress(payload)
+        return decompress(payload)
+
+    def wire_bytes(self, shape) -> int:
+        n = numel(shape)
+        if topk.resolve_mode(self.exact, n, self.compress_ratio) == "block":
+            return blocktopk.wire_bytes_for(shape, self.compress_ratio,
+                                            self.quantum_num, self.block)
+        k = topk.static_k(n, self.compress_ratio)
+        norms = 1 if self.block is None else -(-k // self.block)
+        if packing.width_for(self.quantum_num) < 8:
+            return (k * 4 + packing.packed_nbytes(k, self.quantum_num)
+                    + 4 * norms)
+        itemsize = qsgd.level_dtype(self.quantum_num).itemsize
+        return k * (4 + itemsize) + 4 * norms

@@ -1,0 +1,335 @@
+"""The compression kernels of the training main path, with their dispatch.
+
+Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. Three of its seven
+Pallas kernels are on this path and are ported here as CUDA kernels for
+Hopper (``ewdml_tpu_torch/kernels/compress.cu``):
+
+=================  ======================================  ==================
+wrapper            replaces                                bound on the H100
+=================  ======================================  ==================
+``qsgd_quantize``  ``pallas_kernels.py:169`` (``:138``)    5n bytes
+``dequant_mean``   ``pallas_kernels.py:232`` (``:222``)    (W + 4)n bytes
+``block_top1``     ``pallas_kernels.py:290`` (``:278``)    4RC bytes
+=================  ======================================  ==================
+
+All three move bytes and do a few operations per byte, so HBM bandwidth
+bounds them; each streams its input once and keeps nothing in device memory
+between the read and the write.
+
+Each wrapper has a plain PyTorch version beside it (``*_ref``) that repeats
+the kernel's arithmetic in the same rounding order. A wrapper given a CPU
+tensor runs the plain version; given a CUDA tensor it launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches per wrapper.
+
+Dispatch mirrors ``pallas_kernels.active``/``active_for``, with two
+choices kept apart: which random stream quantizes (the murmur stream of the
+kernels, or ``jax.random``'s threefry stream, ``utils/prng.uniform``) and
+which implementation runs it.
+
+- ``auto``: on CUDA the kernels (murmur stream) at ``n >= MIN_ELEMS`` and
+  the threefry path below; on the CPU threefry everywhere (the JAX
+  package's CPU behaviour, where no kernel is available).
+- ``on``: the CUDA kernels at every size; raises on the CPU.
+- ``interpret``: the murmur stream at every size through the plain
+  versions (the CPU twin of JAX's ``--pallas interpret``).
+- ``off``: threefry and plain PyTorch everywhere.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_LANES = 128
+_BLOCK = 32 * _LANES
+
+#: Element count of the fused-collective quantization block (the int8 tile
+#: of the TPU kernels): one f32 scale per this many int8 levels.
+BLOCK_ELEMS = _BLOCK
+
+# Below this element count the threefry path is used in 'auto' mode, as the
+# JAX package does below its kernel launch gate (pallas_kernels.py:73).
+MIN_ELEMS = 1 << 17
+
+_MODE = "auto"  # auto | on | interpret | off
+
+#: Kernel launches per wrapper (CUDA only; the plain versions never count).
+LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def configure(mode: str) -> None:
+    """Select the kernel path: 'auto' | 'on' | 'interpret' | 'off'."""
+    global _MODE
+    if mode not in ("auto", "on", "interpret", "off"):
+        raise ValueError(f"unknown kernel mode {mode!r}")
+    _MODE = mode
+
+
+def active(device) -> str | None:
+    """``'kernel'`` (the CUDA kernel), ``'plain'`` (the kernel's murmur
+    stream through its plain version), or None (the threefry path)."""
+    device = torch.device(device)
+    if _MODE == "off":
+        return None
+    if _MODE == "interpret":
+        return "plain"
+    if _MODE == "on":
+        if device.type != "cuda":
+            raise RuntimeError("--pallas on needs CUDA tensors; got "
+                               f"{device.type}")
+        return "kernel"
+    return "kernel" if device.type == "cuda" else None
+
+
+def active_for(n: int, device) -> str | None:
+    """:func:`active` plus the ``MIN_ELEMS`` gate, in 'auto' mode only."""
+    impl = active(device)
+    if impl is not None and _MODE == "auto" and n < MIN_ELEMS:
+        return None
+    return impl
+
+
+def blockwise_supported(block) -> bool:
+    """Blockwise norms ride the kernels when ``block % 4096 == 0``."""
+    return block is not None and block % _BLOCK == 0
+
+
+def _check_norms(norms_size: int, n: int, block: int) -> None:
+    expected = -(-n // block)
+    if norms_size != expected:
+        raise ValueError(
+            f"blockwise norms length {norms_size} does not match "
+            f"ceil({n}/{block}) = {expected}")
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _require_cuda(t: torch.Tensor, name: str, dtype) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+# -- kernel 1: QSGD quantize --------------------------------------------------
+
+def uniform_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """The murmur3-finalizer uniform of ``pallas_kernels._uniform_hash``,
+    for int64 flat indices (uint32 arithmetic, masked)."""
+    mask = 0xFFFFFFFF
+    x = _mul32(idx & mask, 2654435761) ^ (seed & mask)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2^32`` for uint32 values in int64, without overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & 0xFFFFFFFF
+
+
+def _norm_per_element(norms: torch.Tensor, n: int, block) -> torch.Tensor:
+    if block is None:
+        return norms.reshape(-1)[:1].expand(n)
+    idx = torch.arange(n, device=norms.device) // block
+    return norms.reshape(-1)[idx]
+
+
+def quantize_levels(x: torch.Tensor, norm_el: torch.Tensor, u: torch.Tensor,
+                    s: int) -> torch.Tensor:
+    """``sign(x) * (floor(s/norm * |x|) + [u < frac])`` with zero levels for
+    a zero norm, as f32 (the arithmetic of the kernel and of the threefry
+    path alike)."""
+    safe = torch.where(norm_el == 0.0, torch.ones_like(norm_el), norm_el)
+    level_float = (torch.tensor(float(s), dtype=torch.float32,
+                                device=x.device) / safe) * x.abs()
+    previous = torch.floor(level_float)
+    level = previous + (u < (level_float - previous)).to(torch.float32)
+    return torch.sign(x) * level
+
+
+def qsgd_quantize_ref(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
+                      *, block=None) -> torch.Tensor:
+    """Plain version of :func:`qsgd_quantize` (same murmur stream, same
+    rounding order, saturating int8 cast)."""
+    _check_quantize_args(s, block)
+    x = x.reshape(-1).to(torch.float32)
+    n = x.numel()
+    norms = norm.to(torch.float32).reshape(-1)
+    if block is not None:
+        _check_norms(norms.numel(), n, block)
+    u = uniform_hash(torch.arange(n, dtype=torch.int64, device=x.device), seed)
+    v = quantize_levels(x, _norm_per_element(norms, n, block), u, s)
+    return v.clamp(-128, 127).to(torch.int8)
+
+
+def _check_quantize_args(s: int, block) -> None:
+    if s > 127:
+        raise ValueError(f"the kernel path is int8-only (s <= 127), got s={s}")
+    if block is not None and not blockwise_supported(block):
+        raise ValueError(f"block must be a multiple of {_BLOCK}, got {block}")
+
+
+def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
+                  *, block=None) -> torch.Tensor:
+    """Fused stochastic quantization of a flat f32 tensor to int8 levels.
+
+    ``norm``: scalar f32 (per tensor) or f32 ``[ceil(n/block)]`` with
+    ``block`` a multiple of 4096; ``seed``: int32. Levels are bit-equal to
+    ``pallas_kernels.qsgd_quantize`` for the same inputs. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return qsgd_quantize_ref(x, norm, seed, s, block=block)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_quantize_args(s, block)
+    x = x.reshape(-1)
+    _require_cuda(x, "qsgd_quantize", torch.float32)
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel's float4 loads need 16-byte alignment
+    n = x.numel()
+    norms = norm.to(device=x.device, dtype=torch.float32).reshape(-1).contiguous()
+    if block is not None:
+        _check_norms(norms.numel(), n, block)
+    elif norms.numel() != 1:
+        raise ValueError("per-tensor quantize takes one norm")
+    out = torch.empty(n, dtype=torch.int8, device=x.device)
+    rc = library().ewdml_qsgd_quantize(
+        x.data_ptr(), norms.data_ptr(), n, block or 0,
+        int(seed) & 0xFFFFFFFF, int(s), out.data_ptr(), _stream_ptr(x))
+    _launch_check(rc, "qsgd_quantize")
+    LAUNCHES["qsgd_quantize"] += 1
+    return out
+
+
+# -- kernel 2: dequantize + mean over workers ----------------------------------
+
+def dequant_mean_ref(levels: torch.Tensor, norms: torch.Tensor, s: int,
+                     *, block=None) -> torch.Tensor:
+    """Plain version of :func:`dequant_mean`: ``sum_w norm[w, b] * lv[w]``
+    accumulated in worker order, then times ``f32(1 / (s * W))``."""
+    _check_dequant_args(levels, block)
+    world, n = levels.shape
+    norms2 = norms.to(torch.float32).reshape(world, -1)
+    if block is not None:
+        _check_norms(norms2.shape[1], n, block)
+    acc = torch.zeros(n, dtype=torch.float32, device=levels.device)
+    for w in range(world):
+        acc = acc + _norm_per_element(norms2[w], n, block) * levels[w].to(
+            torch.float32)
+    factor = torch.tensor(1.0 / (s * world), dtype=torch.float32,
+                          device=levels.device)
+    return acc * factor
+
+
+def _check_dequant_args(levels: torch.Tensor, block) -> None:
+    if levels.dtype != torch.int8:
+        raise ValueError(f"dequant_mean is int8-only, got {levels.dtype}")
+    if levels.dim() != 2:
+        raise ValueError(f"dequant_mean takes [W, n] levels, got "
+                         f"{tuple(levels.shape)}")
+    if block is not None and not blockwise_supported(block):
+        raise ValueError(f"block must be a multiple of {_BLOCK}, got {block}")
+
+
+def dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int,
+                 *, block=None) -> torch.Tensor:
+    """Fused ``mean_w(norms[w] / s * levels[w])`` over the worker axis.
+
+    ``levels``: [W, n] int8; ``norms``: [W] f32 or [W, nblocks] with
+    ``block`` a multiple of 4096. Returns [n] f32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if levels.device.type == "cpu":
+        return dequant_mean_ref(levels, norms, s, block=block)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_dequant_args(levels, block)
+    _require_cuda(levels, "dequant_mean", torch.int8)
+    world, n = levels.shape
+    norms2 = norms.to(device=levels.device, dtype=torch.float32).reshape(
+        world, -1).contiguous()
+    nb = norms2.shape[1]
+    if block is not None:
+        _check_norms(nb, n, block)
+    elif nb != 1:
+        raise ValueError("per-tensor dequant_mean takes one norm per worker")
+    out = torch.empty(n, dtype=torch.float32, device=levels.device)
+    rc = library().ewdml_dequant_mean(
+        levels.data_ptr(), norms2.data_ptr(), world, n, nb, block or 0,
+        1.0 / (s * world), out.data_ptr(), _stream_ptr(levels))
+    _launch_check(rc, "dequant_mean")
+    LAUNCHES["dequant_mean"] += 1
+    return out
+
+
+# -- kernel 3: strided block-top-1 selection ----------------------------------
+
+def column_top1(x2: torch.Tensor):
+    """Per column, the first row of the largest |x| and its value as it is
+    (a -0 stays -0): the JAX package's non-kernel selection
+    (``blocktopk._select_xla``)."""
+    a = x2.abs()
+    mx = a.max(dim=0).values
+    r = x2.shape[0]
+    rows = torch.arange(r, dtype=torch.int32, device=x2.device)[:, None]
+    loc = torch.where(a == mx[None, :], rows,
+                      torch.full_like(rows, r)).min(dim=0).values
+    return x2.gather(0, loc[None, :].to(torch.int64))[0], loc
+
+
+def block_top1_ref(x2: torch.Tensor):
+    """Plain version of :func:`block_top1`: :func:`column_top1` plus zero,
+    which turns a -0 winner into +0 exactly as the TPU kernel's masked
+    column sum does."""
+    _check_top1_args(x2)
+    vals, loc = column_top1(x2)
+    return vals + 0.0, loc
+
+
+def _check_top1_args(x2: torch.Tensor) -> None:
+    if x2.dim() != 2:
+        raise ValueError(f"block_top1 takes an (R, C) matrix, got "
+                         f"{tuple(x2.shape)}")
+    r, c = x2.shape
+    if c % _LANES:
+        raise ValueError(f"C must be a multiple of {_LANES}, got {c}")
+    if r % 8:
+        raise ValueError(f"R must be a multiple of 8, got {r}")
+
+
+def block_top1(x2: torch.Tensor):
+    """Winner per column of an (R, C) f32 matrix: ``(vals [C] f32,
+    locs [C] int32)``, the signed value and first row of the largest |x|.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if x2.device.type == "cpu":
+        return block_top1_ref(x2)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_top1_args(x2)
+    _require_cuda(x2, "block_top1", torch.float32)
+    r, c = x2.shape
+    vals = torch.empty(c, dtype=torch.float32, device=x2.device)
+    locs = torch.empty(c, dtype=torch.int32, device=x2.device)
+    rc = library().ewdml_block_top1(x2.data_ptr(), r, c, vals.data_ptr(),
+                                    locs.data_ptr(), _stream_ptr(x2))
+    _launch_check(rc, "block_top1")
+    LAUNCHES["block_top1"] += 1
+    return vals, locs

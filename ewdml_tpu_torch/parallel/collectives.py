@@ -1,0 +1,279 @@
+"""Gradient exchange over the worker axis (``ewdml_tpu/parallel/collectives.py``),
+all-gather transport only.
+
+Semantics are the PS-faithful ones of the JAX package: each worker
+compresses its full local gradient, the payloads are gathered, and the
+W payloads are decompressed and averaged; the optional relay requantizes
+the average with a key shared by all ranks (the server's compressed
+broadcast of Methods 4/5). Gradients are per-worker lists of leaves, in the
+JAX tree's leaf order and element layout (``models/convert.py``). The
+average is rank-independent, so it is computed once and handed to every
+worker; only the per-rank "own payload" of error feedback differs.
+
+The ``ring``/``ring_rs``/``fused_q`` transports and the multi-slice
+exchange are later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ewdml_tpu_torch.core.world import LocalWorld
+from ewdml_tpu_torch.ops import kernels
+from ewdml_tpu_torch.ops import qsgd as qsgd_mod
+from ewdml_tpu_torch.ops.blocktopk import BlockTopKQSGDPayload
+from ewdml_tpu_torch.ops.bytes import take_payloads, unstack_payload
+from ewdml_tpu_torch.ops.chain import TopKQSGDCompressor, TopKQSGDPayload
+from ewdml_tpu_torch.ops.topk import TopKPayload, top_k_indices
+from ewdml_tpu_torch.utils import prng
+
+
+def dense_allreduce_mean(world: LocalWorld, grads: list) -> list:
+    """Method 1/3 dense path: one pmean per leaf (f32 wire).
+    ``grads[w]`` is worker w's list of leaves; returns the averaged leaves."""
+    return [world.pmean([g[i] for g in grads]) for i in range(len(grads[0]))]
+
+
+def fuse_tree(leaves: list):
+    """All leaves as one flat f32 vector; returns ``(flat, split)``."""
+    sizes = [l.numel() for l in leaves]
+    shapes = [tuple(l.shape) for l in leaves]
+    flat = torch.cat([l.to(torch.float32).reshape(-1) for l in leaves])
+
+    def split(v):
+        out, off = [], 0
+        for size, shape in zip(sizes, shapes):
+            out.append(v[off:off + size].reshape(shape))
+            off += size
+        return out
+
+    return flat, split
+
+
+def bucket_groups(sizes, bucket_bytes: int):
+    """Greedy leaf-order grouping into ~bucket_bytes f32 buckets; a leaf
+    larger than the threshold gets its own bucket (``collectives.py:196``)."""
+    groups, cur, cur_b = [], [], 0
+    for i, size in enumerate(sizes):
+        nb = size * 4
+        if cur and cur_b + nb > bucket_bytes:
+            groups.append(cur)
+            cur, cur_b = [], 0
+        cur.append(i)
+        cur_b += nb
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def bucket_tree(leaves: list, bucket_bytes: int):
+    """Pack leaves in order into ~bucket_bytes flat f32 buckets; returns
+    ``(buckets, unsplit)``."""
+    sizes = [l.numel() for l in leaves]
+    shapes = [tuple(l.shape) for l in leaves]
+    groups = bucket_groups(sizes, bucket_bytes)
+    buckets = [torch.cat([leaves[i].to(torch.float32).reshape(-1) for i in g])
+               for g in groups]
+
+    def unsplit(bucket_vals):
+        out = [None] * len(leaves)
+        for g, v in zip(groups, bucket_vals):
+            off = 0
+            for i in g:
+                out[i] = v[off:off + sizes[i]].reshape(shapes[i])
+                off += sizes[i]
+        return out
+
+    return buckets, unsplit
+
+
+def _accept_rotating(gathered, num_aggregate: int, world: int, step: int):
+    """K-of-N acceptance: keep origins ``{(step + j) % W : j < K}``, in that
+    order. Returns ``(gathered', k_accepted)``."""
+    k = num_aggregate if 0 < num_aggregate < world else world
+    if k < world:
+        gathered = take_payloads(gathered, [(step + j) % world for j in range(k)])
+    return gathered, k
+
+
+def _mean_of_decompressed(gathered, compressor, num_aggregate: int,
+                          world: int, step: int = 0):
+    """Decompress the gathered payloads and average (K-of-N aware); QSGD
+    payloads go through the fused ``dequant_mean`` kernel."""
+    gathered, k_acc = _accept_rotating(gathered, num_aggregate, world, step)
+    impl = None
+    if isinstance(gathered, qsgd_mod.QSGDPayload):
+        # Gated on the total work (W x n): one launch covers all payloads.
+        impl = kernels.active_for(gathered.levels.numel(),
+                                  gathered.levels.device)
+    if (impl is not None and not gathered.packed and gathered.s <= 127
+            and (gathered.block is None
+                 or kernels.blockwise_supported(gathered.block))):
+        mean = kernels.dequant_mean if impl == "kernel" else kernels.dequant_mean_ref
+        flat = mean(gathered.levels, gathered.norm, gathered.s,
+                    block=gathered.block)
+        return flat.reshape(gathered.shape)
+    dec = torch.stack([compressor.decompress(unstack_payload(gathered, w))
+                       for w in range(k_acc)])
+    return dec.mean(dim=0)
+
+
+def _sparse_mean(gathered, num_aggregate: int, world: int, step: int):
+    """Combine the gathered (indices, values) pairs with one dense
+    scatter-add. Returns ``(avg_flat [n], cand_idx [k_acc * k])``."""
+    from ewdml_tpu_torch.ops.chain import dequant_values
+
+    gathered, k_acc = _accept_rotating(gathered, num_aggregate, world, step)
+    if isinstance(gathered, TopKQSGDPayload):
+        vals = torch.stack([dequant_values(unstack_payload(gathered, w))
+                            for w in range(k_acc)])
+    else:
+        vals = gathered.values
+    cand = gathered.indices.reshape(-1)
+    dense = torch.zeros(gathered.numel, dtype=torch.float32, device=cand.device)
+    dense.index_add_(0, cand.long(), vals.reshape(-1).to(torch.float32))
+    return dense / k_acc, cand
+
+
+def _block_mean_relay(gathered, num_aggregate: int, world: int, step: int,
+                      relay: bool, compressor, rk):
+    """Aggregation + optional relay for block-top-k payloads: every worker's
+    winner for column c lives in column c (``collectives.py:318``)."""
+    from ewdml_tpu_torch.ops import blocktopk
+
+    gathered, k_acc = _accept_rotating(gathered, num_aggregate, world, step)
+    vals = torch.stack([blocktopk.dequant_values(unstack_payload(gathered, w))
+                        for w in range(k_acc)])            # (W', nb)
+    locs = gathered.locs.to(torch.int32)                  # (W', nb)
+    nb, blk_pad = gathered.nb, gathered.blk_pad
+    numel, shape = gathered.numel, gathered.shape
+    w_acc = vals.shape[0]
+    if not relay:
+        rows = torch.arange(blk_pad, dtype=torch.int32, device=vals.device)[:, None]
+        dense = torch.zeros((blk_pad, nb), dtype=torch.float32, device=vals.device)
+        zero = torch.zeros((), dtype=torch.float32, device=vals.device)
+        for w in range(w_acc):
+            dense = dense + torch.where(rows == locs[w][None, :],
+                                        vals[w][None, :], zero)
+        avg2 = dense / k_acc
+        return avg2.reshape(-1)[:numel].reshape(shape)
+    if w_acc == 1:
+        new_locs, new_vals = locs[0], vals[0] / k_acc
+    else:
+        eq = locs[:, None, :] == locs[None, :, :]
+        cand = torch.where(eq, vals[None, :, :],
+                           torch.zeros((), dtype=vals.dtype,
+                                       device=vals.device)).sum(dim=1) / k_acc
+        w_star = torch.argmax(cand.abs(), dim=0)          # first max
+        new_locs = locs.gather(0, w_star[None, :])[0]
+        new_vals = cand.gather(0, w_star[None, :])[0]
+    if isinstance(compressor, TopKQSGDCompressor):
+        q = qsgd_mod.compress(rk, new_vals, compressor.quantum_num,
+                              block=compressor.block)
+        new_vals = qsgd_mod.decompress(q)
+    return blocktopk.expand(new_vals, new_locs, nb, blk_pad, numel, shape)
+
+
+def _sparse_relay(avg_flat, cand_idx, k: int, compressor, rk, world: int = 0):
+    """The server's re-compression of the average over its candidate
+    support only (``collectives.py:387``): dedup the candidates, exact top-k
+    among them, quantize the winners."""
+    cand_idx = cand_idx.long()
+    cand_vals = avg_flat[cand_idx]
+    if world == 1 and cand_idx.numel() == k:
+        sel_idx, sel_vals = cand_idx, cand_vals
+    else:
+        order = torch.argsort(cand_idx, stable=True)
+        sorted_idx = cand_idx[order]
+        first = torch.cat([torch.ones(1, dtype=torch.bool, device=cand_idx.device),
+                           sorted_idx[1:] != sorted_idx[:-1]])
+        uniq = torch.zeros(cand_idx.shape, dtype=torch.bool,
+                           device=cand_idx.device)
+        uniq[order] = first
+        mag = torch.where(uniq, cand_vals.abs(),
+                          torch.full_like(cand_vals, -1.0))
+        pos = top_k_indices(mag, k)
+        sel_idx = cand_idx[pos]
+        sel_vals = cand_vals[pos]
+    if isinstance(compressor, TopKQSGDCompressor):
+        q = qsgd_mod.compress(rk, sel_vals, compressor.quantum_num,
+                              block=compressor.block)
+        sel_vals = qsgd_mod.decompress(q)
+    out = torch.zeros_like(avg_flat)
+    out[sel_idx] = sel_vals
+    return out
+
+
+def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
+                         num_aggregate: int = 0, relay: bool = False,
+                         relay_key=None, return_own_decompressed: bool = False,
+                         step: int = 0, fuse: bool = False,
+                         bucket_bytes: int | None = None):
+    """Compress -> gather -> decompress-average each leaf (``collectives.py:433``).
+
+    ``grads[w]`` is worker w's list of leaves. ``key`` is the step key; it
+    is folded per (rank, leaf) as in the JAX package. Returns the averaged
+    leaves (shared by all workers), and with ``return_own_decompressed``
+    also each worker's own decompressed payload (for error feedback)."""
+    if fuse and bucket_bytes:
+        raise ValueError("fuse and bucket_bytes are mutually exclusive")
+    if fuse or bucket_bytes:
+        parts = [fuse_tree(g) if fuse else bucket_tree(g, bucket_bytes)
+                 for g in grads]
+        units = [[p[0]] if fuse else p[0] for p in parts]
+        unsplit = parts[0][1]  # the same leaf shapes on every worker
+
+        def split(vals):
+            return unsplit(vals[0]) if fuse else unsplit(vals)
+        result = compressed_allreduce(
+            world, units, compressor, key, num_aggregate=num_aggregate,
+            relay=relay, relay_key=relay_key,
+            return_own_decompressed=return_own_decompressed, step=step)
+        if return_own_decompressed:
+            avg, own = result
+            return split(avg), [split(o) for o in own]
+        return split(result)
+
+    w_n = world.size
+    rkeys = [prng.rank_key(key, r) for r in world.ranks]
+    out, own = [], [[] for _ in world.ranks]
+    for i in range(len(grads[0])):
+        payloads = [compressor.compress(prng.layer_key(rkeys[r], i), grads[r][i])
+                    for r in world.ranks]
+        if return_own_decompressed:
+            for r in world.ranks:
+                own[r].append(compressor.decompress(payloads[r]))
+        gathered = world.all_gather(payloads)
+        payload = payloads[0]
+        rk = (prng.layer_key(relay_key if relay_key is not None else key, i)
+              if relay else None)
+        if isinstance(payload, BlockTopKQSGDPayload):
+            avg = _block_mean_relay(gathered, num_aggregate, w_n, step, relay,
+                                    compressor, rk)
+            out.append(avg.reshape(payload.shape))
+            continue
+        sparse = (isinstance(payload, (TopKPayload, TopKQSGDPayload))
+                  and payload.indices.numel() * w_n < payload.numel)
+        if sparse:
+            avg_flat, cand_idx = _sparse_mean(gathered, num_aggregate, w_n, step)
+            if relay:
+                avg_flat = _sparse_relay(avg_flat, cand_idx,
+                                         payload.indices.numel(), compressor,
+                                         rk, world=w_n)
+            out.append(avg_flat.reshape(payload.shape))
+            continue
+        avg = _mean_of_decompressed(gathered, compressor, num_aggregate, w_n,
+                                    step)
+        if relay:
+            avg = compressor.decompress(compressor.compress(rk, avg))
+        out.append(avg)
+    if return_own_decompressed:
+        return out, own
+    return out
+
+
+def adopt_best_worker(params: list, losses: torch.Tensor) -> list:
+    """Method 6 adoption (``collectives.py:786``): every worker takes the
+    params of the worker with the lowest local loss (the first on ties).
+    ``params[w]`` is worker w's list of tensors; ``losses`` is ``[W]``."""
+    return params[int(torch.argmin(losses))]

@@ -1,0 +1,137 @@
+"""Analytic bytes-on-wire plan and the per-step log schema
+(``ewdml_tpu/train/metrics.py:26-164``, the sync all-gather transport).
+
+The plan prices exactly the payloads the exchange ships: per transport unit
+(a leaf, or a fused bucket under the resolved fusion), the up-link payload
+and the down-link (dense weights for M1, dense averaged gradients for
+M2/M3, the compressed relay for M4/M5), amortized over Method 6's sync
+period. Unit names are the JAX package's (``conv1/kernel``,
+``<bucket-3>``), so the two plans compare row by row.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+
+from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
+                                         resolved_unit_sizes)
+from ewdml_tpu_torch.ops import make_compressor
+from ewdml_tpu_torch.ops.bytes import numel
+
+logger = logging.getLogger("ewdml_tpu_torch")
+
+
+@dataclass
+class WirePlan:
+    """Analytic bytes on the wire per worker per sync step, per direction."""
+
+    per_layer_up: dict
+    per_layer_down: dict
+    sync_every: int = 1
+    adopt_bytes: int = 0   # Method 6 best-worker weight adoption per sync
+
+    @property
+    def up_bytes(self) -> int:
+        return sum(self.per_layer_up.values())
+
+    @property
+    def down_bytes(self) -> int:
+        return sum(self.per_layer_down.values())
+
+    @property
+    def total_bytes(self) -> int:
+        return self.up_bytes + self.down_bytes
+
+    @property
+    def per_step_bytes(self) -> float:
+        """Average per-iteration gradient cost (Method 6 divides by the
+        sync period; adoption excluded, as in the paper's tables)."""
+        return self.total_bytes / self.sync_every
+
+    @property
+    def per_step_bytes_total(self) -> float:
+        """Everything on the wire, Method 6's weight adoption included."""
+        return (self.total_bytes + self.adopt_bytes) / self.sync_every
+
+
+def wire_plan(cfg: TrainConfig, leaves) -> WirePlan:
+    """Per-unit byte plan for a config. ``leaves`` is a list of
+    ``(name, jax_shape)`` in the JAX tree's leaf order
+    (``models/convert.leaf_specs``)."""
+    if cfg.gather_type in ("ring", "ring_rs") or cfg.collective == "fused_q" \
+            or cfg.num_slices > 1 or cfg.overlap != "off":
+        raise NotImplementedError("wire_plan covers the sync all-gather "
+                                  "transport only")
+    comp = make_compressor(cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio,
+                           cfg.topk_exact, cfg.qsgd_block)
+    leaves = [(name, tuple(shape)) for name, shape in leaves]
+    fusion = (resolve_fusion(cfg, len(leaves)) if cfg.compression_enabled
+              else "none")
+    if fusion == "none":
+        units = [(name, numel(shape)) for name, shape in leaves]
+    else:
+        sizes = [numel(shape) for _, shape in leaves]
+        label = "<fused-bucket>" if fusion == "all" else "<bucket-{}>"
+        units = [(label.format(j), n)
+                 for j, n in enumerate(resolved_unit_sizes(cfg, sizes))]
+    up, down = {}, {}
+    for name, elems in units:
+        dense_wire = elems * 4
+        up[name] = (comp.wire_bytes((elems,)) if cfg.compression_enabled
+                    else dense_wire)
+        if cfg.ps_mode == "weights":
+            down[name] = elems * 4          # weights broadcast (M1)
+        elif cfg.relay_compress and cfg.compression_enabled:
+            down[name] = comp.wire_bytes((elems,))  # compressed relay (M4/M5)
+        else:
+            down[name] = dense_wire         # dense down leg (M2/M3)
+    n_params = sum(numel(shape) for _, shape in leaves)
+    adopt = n_params * 4 + 4 if cfg.sync_every > 1 else 0
+    return WirePlan(up, down, sync_every=cfg.sync_every, adopt_bytes=adopt)
+
+
+@dataclass
+class StepTimer:
+    """Wall-clock accounting: compile (here: the first, warm-up window),
+    host data time, and step time."""
+
+    compile_s: float = 0.0
+    data_s: float = 0.0
+    step_s: float = 0.0
+    steps: int = 0
+    _t0: float = field(default=0.0, repr=False)
+
+    def tic(self):
+        self._t0 = time.perf_counter()
+
+    def toc_data(self):
+        self.data_s += time.perf_counter() - self._t0
+
+    def add_window(self, elapsed_s: float, n_steps: int):
+        self.step_s += max(0.0, elapsed_s)
+        self.steps += n_steps
+
+    @property
+    def mean_step_s(self) -> float:
+        return self.step_s / max(1, self.steps)
+
+    def as_dict(self) -> dict:
+        return {
+            "compile_s": round(self.compile_s, 4),
+            "data_s": round(self.data_s, 4),
+            "step_s": round(self.step_s, 4),
+            "steps": self.steps,
+            "mean_step_ms": round(self.mean_step_s * 1e3, 4),
+        }
+
+
+def log_step(rank: int, step: int, loss: float, step_time: float,
+             cum_mb_sent: float, cum_mb_recv: float, top1: float):
+    """Reference log schema (``distributed_worker.py:146-155,230-231``)."""
+    logger.info(
+        "Worker: %d, Step: %d, Loss: %.4f, Time Cost: %.4f, "
+        "Bytes sent: %.3f MB, Bytes received: %.3f MB, Prec@1: %.4f",
+        rank, step, loss, step_time, cum_mb_sent, cum_mb_recv, top1,
+    )
