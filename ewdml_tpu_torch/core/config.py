@@ -65,7 +65,7 @@ class TrainConfig:
     eval_freq: int = 50
     train_dir: str = "output/models/"
     compress_grad: str = "compress"   # compress|qsgd|topk|topk_qsgd|none
-    gather_type: str = "gather"       # gather (all_gather); ring/ring_rs later
+    gather_type: str = "gather"       # gather (all_gather) | ring | ring_rs
     comm_type: str = "Bcast"          # historical
     mode: str = "normal"              # 'normal' (sync) | 'async' (host PS)
     kill_threshold: float = 0.0
@@ -199,18 +199,31 @@ def validate_collective(cfg: TrainConfig) -> None:
     if cfg.compression_enabled:
         raise ValueError(
             "--collective fused_q is the DENSE exchange transport; "
-            "compressed configs ride --gather-type ring_rs instead")
+            "compressed configs ride --gather-type ring_rs instead (its "
+            "hops dispatch the same fused kernels when the payload is "
+            "pallas-eligible)")
     if cfg.mode == "async":
-        raise ValueError("--collective fused_q applies to the sync trainer")
+        raise ValueError(
+            "--collective fused_q applies to the sync SPMD trainer; the "
+            "async PS paths exchange over the host wire, not a device "
+            "collective")
     if cfg.num_slices > 1:
-        raise ValueError("--collective fused_q supports single-slice "
-                         "meshes only")
-    if cfg.precision_policy != "f32":
-        raise ValueError("--collective fused_q already narrows the dense "
-                         "wire; use --precision-policy f32 with it")
+        raise ValueError(
+            "--collective fused_q supports single-slice meshes only (the "
+            "hierarchical ICI+DCN exchange has its own two-level "
+            "requantization; fusing it is future work)")
+    if cfg.precision_policy in ("bf16_wire", "bf16_wire_state"):
+        raise ValueError(
+            "--collective fused_q already narrows the dense wire to int8 "
+            "levels + per-block f32 scales (4x under f32, 2x under bf16); "
+            "--precision-policy bf16_wire/bf16_wire_state would be a "
+            "second, weaker narrowing of the same bytes — use "
+            "--precision-policy f32 with fused_q")
     if cfg.adapt != "off":
-        raise ValueError("--collective fused_q is a dense transport; "
-                         "--adapt needs a compressed config")
+        raise ValueError(
+            "--collective fused_q is a dense transport; --adapt needs a "
+            "compressed config and per-leaf all_gather units "
+            "(adapt.validate_config)")
 
 
 def validate_overlap(cfg: TrainConfig) -> None:

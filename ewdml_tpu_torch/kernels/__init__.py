@@ -81,8 +81,13 @@ def _declare(lib) -> None:
     lib.ewdml_dequant_mean.argtypes = [p, p, i32, i64, i64, i64,
                                        ctypes.c_float, p, p]
     lib.ewdml_block_top1.argtypes = [p, i32, i32, p, p, p]
+    u32, f32 = ctypes.c_uint32, ctypes.c_float
+    lib.ewdml_chunk_encode.argtypes = [p, i64, i64, u32, i32, p, p, p]
+    lib.ewdml_dequant_acc_requant.argtypes = [p, p, p, i64, i64, u32, i32,
+                                              f32, f32, p, p, p]
     for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
-               lib.ewdml_block_top1):
+               lib.ewdml_block_top1, lib.ewdml_chunk_encode,
+               lib.ewdml_dequant_acc_requant):
         fn.restype = ctypes.c_int
 
 

@@ -2,8 +2,9 @@
 //
 // Hand-written counterparts of the Pallas TPU kernels in
 // ewdml_tpu/ops/pallas_kernels.py. Each is held bit for bit (quantize,
-// block_top1) or within its stated bound (dequant_mean) against the plain
-// PyTorch version beside its wrapper in ewdml_tpu_torch/ops/kernels.py.
+// block_top1, the ring hops) or within its stated bound (dequant_mean)
+// against the plain PyTorch version beside its wrapper in
+// ewdml_tpu_torch/ops/kernels.py.
 // Every float operation that could be contracted into an FMA is written
 // with an explicit round-to-nearest intrinsic, so the order of rounding is
 // the one the TPU kernel and the plain version use.
@@ -145,6 +146,126 @@ __global__ void block_top1_kernel(const float* __restrict__ x, int rows,
   locs[c] = loc;
 }
 
+// The fused ring hops: chunk_encode (pallas_kernels.py:431) and
+// dequant_acc_requant (pallas_kernels.py:479), one kernel body for both.
+// One thread block owns one quantization block of `block` elements with
+// T = block / 16 threads (256 for the 4096-element block); thread t holds
+// the 16 elements 4 * (t + T * j) + c (j, c in 0..3) in registers, read with
+// four 16-byte loads (neighbouring threads on neighbouring addresses). The
+// block's L2 norm is reduced in one fixed order: per thread in (j, c) order
+// from 0, then a halving tree over each warp's lanes (offsets 16 ... 1,
+// shuffles), then a halving tree over the T / 32 warp sums (offsets
+// T / 64 ... 1, in the first warp), then a correctly rounded sqrt. The
+// block is then quantized from the registers. So the input is read from
+// HBM once, and a hop's f32 partial sum never reaches HBM, as in the TPU
+// kernels; the plain versions (block_norms_ref, chunk_encode_ref,
+// dequant_acc_requant_ref) repeat that order, so the two agree bit for bit.
+// A hop computes (local + (norm[b] * (1/s)) * level) * scale per element.
+// Padding past n enters as zeros (adds nothing to the norm, never stored).
+// Bound: HBM bytes, 5n + 4nb for the encode and 6n + 8nb for a hop.
+constexpr int kRingVec = 16;  // elements per thread
+
+__device__ __forceinline__ float hop_value(float local, int8_t level,
+                                           float coef, float scale) {
+  return __fmul_rn(__fadd_rn(local, __fmul_rn(coef, (float)level)), scale);
+}
+
+template <bool kHop>
+__global__ void ring_encode_kernel(const float* __restrict__ x,
+                                   const int8_t* __restrict__ in_levels,
+                                   const float* __restrict__ in_norms,
+                                   float inv_s, float scale, int64_t n,
+                                   uint32_t seed, float s,
+                                   int8_t* __restrict__ out,
+                                   float* __restrict__ out_norms) {
+  __shared__ float warp_sums[32];
+  __shared__ float block_norm;
+  const int threads = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int64_t b = blockIdx.x;
+  const int64_t first = b * (int64_t)threads * kRingVec;
+  float coef = 0.0f;
+  if constexpr (kHop) coef = __fmul_rn(in_norms[b], inv_s);
+
+  float v[kRingVec];
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
+    float e[4];
+    if (i + 4 <= n) {
+      const float4 xv = *reinterpret_cast<const float4*>(x + i);
+      e[0] = xv.x;
+      e[1] = xv.y;
+      e[2] = xv.z;
+      e[3] = xv.w;
+      if constexpr (kHop) {
+        const char4 lv = *reinterpret_cast<const char4*>(in_levels + i);
+        e[0] = hop_value(e[0], lv.x, coef, scale);
+        e[1] = hop_value(e[1], lv.y, coef, scale);
+        e[2] = hop_value(e[2], lv.z, coef, scale);
+        e[3] = hop_value(e[3], lv.w, coef, scale);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool in = i + c < n;
+        e[c] = in ? x[i + c] : 0.0f;
+        if constexpr (kHop) {
+          e[c] = hop_value(e[c], in ? in_levels[i + c] : (int8_t)0, coef,
+                           scale);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      v[4 * j + c] = e[c];
+      ss = __fadd_rn(ss, __fmul_rn(e[c], e[c]));
+    }
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ss = __fadd_rn(ss, __shfl_down_sync(0xffffffffu, ss, off));
+  }
+  if (lane == 0) warp_sums[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = threads >> 5;
+    float w = lane < warps ? warp_sums[lane] : 0.0f;
+    for (int off = warps >> 1; off > 0; off >>= 1) {
+      w = __fadd_rn(w, __shfl_down_sync(0xffffffffu, w, off));
+    }
+    if (lane == 0) {
+      const float norm = __fsqrt_rn(w);
+      block_norm = norm;
+      out_norms[b] = norm;
+    }
+  }
+  __syncthreads();
+
+  const float qscale = safe_scale(s, block_norm);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
+    int8_t q[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      q[c] = quantize_one(v[4 * j + c], qscale, (uint32_t)(i + c), seed);
+    }
+    if (i + 4 <= n) {
+      *reinterpret_cast<char4*>(out + i) = make_char4(q[0], q[1], q[2], q[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (i + c < n) out[i + c] = q[c];
+      }
+    }
+  }
+}
+
 int grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond ~16 per SM
@@ -180,6 +301,34 @@ int ewdml_block_top1(const float* x, int rows, int cols, float* vals,
   if (cols > 0) {
     block_top1_kernel<<<(cols + 127) / 128, 128, 0, stream>>>(x, rows, cols,
                                                               vals, locs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// `block` is a multiple of 4096 and at most 16384 (T <= 1024 threads);
+// the wrapper checks both.
+int ewdml_chunk_encode(const float* x, int64_t n, int64_t block,
+                       uint32_t seed, int s, int8_t* levels, float* norms,
+                       cudaStream_t stream) {
+  if (n > 0) {
+    const int64_t nb = (n + block - 1) / block;
+    ring_encode_kernel<false><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
+                                stream>>>(x, nullptr, nullptr, 0.0f, 1.0f, n,
+                                          seed, (float)s, levels, norms);
+  }
+  return (int)cudaGetLastError();
+}
+
+int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
+                              const float* local, int64_t n, int64_t block,
+                              uint32_t seed, int s, float inv_s, float scale,
+                              int8_t* out, float* out_norms,
+                              cudaStream_t stream) {
+  if (n > 0) {
+    const int64_t nb = (n + block - 1) / block;
+    ring_encode_kernel<true><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
+                               stream>>>(local, levels, norms, inv_s, scale, n,
+                                         seed, (float)s, out, out_norms);
   }
   return (int)cudaGetLastError();
 }

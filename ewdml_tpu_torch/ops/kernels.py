@@ -1,20 +1,23 @@
-"""The compression kernels of the training main path, with their dispatch.
+"""The compression kernels of the training step, with their dispatch.
 
-Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. Three of its seven
-Pallas kernels are on this path and are ported here as CUDA kernels for
-Hopper (``ewdml_tpu_torch/kernels/compress.cu``):
+Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. Five of its seven
+Pallas kernels are on the sync trainer's paths and are ported here as CUDA
+kernels for Hopper (``ewdml_tpu_torch/kernels/compress.cu``):
 
-=================  ======================================  ==================
-wrapper            replaces                                bound on the H100
-=================  ======================================  ==================
-``qsgd_quantize``  ``pallas_kernels.py:169`` (``:138``)    5n bytes
-``dequant_mean``   ``pallas_kernels.py:232`` (``:222``)    (W + 4)n bytes
-``block_top1``     ``pallas_kernels.py:290`` (``:278``)    4RC bytes
-=================  ======================================  ==================
+=======================  ===========================  ======================
+wrapper                  replaces                     bound on the H100
+=======================  ===========================  ======================
+``qsgd_quantize``        ``pallas_kernels.py:169``    5n bytes
+``dequant_mean``         ``pallas_kernels.py:232``    (W + 4)n bytes
+``block_top1``           ``pallas_kernels.py:290``    4RC bytes
+``chunk_encode``         ``pallas_kernels.py:431``    5n + 4nb bytes
+``dequant_acc_requant``  ``pallas_kernels.py:479``    6n + 8nb bytes
+=======================  ===========================  ======================
 
-All three move bytes and do a few operations per byte, so HBM bandwidth
+All of them move bytes and do a few operations per byte, so HBM bandwidth
 bounds them; each streams its input once and keeps nothing in device memory
-between the read and the write.
+between the read and the write. The last two are the per-hop passes of the
+ring transports (``--collective fused_q``, ``--gather-type ring_rs``).
 
 Each wrapper has a plain PyTorch version beside it (``*_ref``) that repeats
 the kernel's arithmetic in the same rounding order. A wrapper given a CPU
@@ -33,6 +36,11 @@ which implementation runs it.
 - ``interpret``: the murmur stream at every size through the plain
   versions (the CPU twin of JAX's ``--pallas interpret``).
 - ``off``: threefry and plain PyTorch everywhere.
+
+The two ring kernels have no threefry variant and no size gate: the ring
+transports call :func:`active` (not :func:`active_for`), as the JAX package
+does, and take the kernel on CUDA at every size in ``auto``/``on`` and the
+plain version on the CPU or under ``off``/``interpret``.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ MIN_ELEMS = 1 << 17
 _MODE = "auto"  # auto | on | interpret | off
 
 #: Kernel launches per wrapper (CUDA only; the plain versions never count).
-LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0}
+LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0,
+            "chunk_encode": 0, "dequant_acc_requant": 0}
 
 
 def reset_launches() -> None:
@@ -333,3 +342,197 @@ def block_top1(x2: torch.Tensor):
     _launch_check(rc, "block_top1")
     LAUNCHES["block_top1"] += 1
     return vals, locs
+
+
+# -- kernels 4 + 5: the fused ring hops ----------------------------------------
+#
+# One CUDA thread block owns one quantization block of ``block`` elements
+# with T = block // 16 threads; thread t holds the 16 elements
+# ``4 * (t + T * j) + c`` (j, c in 0..3) in registers. The block's L2 norm is
+# summed in one fixed order, which the plain versions repeat exactly:
+#   1. each thread sums its 16 squares in (j, c) order, starting from 0;
+#   2. each warp of 32 threads halves its sums at offsets 16, 8, 4, 2, 1
+#      (lane i adds lane i + offset);
+#   3. the T / 32 warp sums halve the same way, at offsets T / 64, ..., 1;
+#   4. the norm is the correctly rounded square root of the total.
+# Every product and sum rounds on its own (no FMA), so kernel and plain
+# version agree bit for bit, norms and levels alike.
+
+_RING_VEC = 16              # elements per thread of the ring kernels
+_RING_MAX_BLOCK = 1024 * _RING_VEC  # one thread block has at most 1024 threads
+
+
+def _check_ring_args(s: int, block: int) -> None:
+    if s > 127:
+        raise ValueError(f"the fused collective wire is int8-only (s <= 127), "
+                         f"got s={s}")
+    if not blockwise_supported(block):
+        raise ValueError(f"block must be a multiple of {_BLOCK}, got {block}")
+
+
+def _pad_blocks(x: torch.Tensor, nb: int, block: int) -> torch.Tensor:
+    """``x`` flat, zero-padded to ``[nb, block]`` (its own dtype)."""
+    out = torch.zeros(nb * block, dtype=x.dtype, device=x.device)
+    out[:x.numel()] = x.reshape(-1)
+    return out.reshape(nb, block)
+
+
+def block_norms_ref(x2: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of each row of an f32 ``[nb, block]`` matrix, summed in
+    the ring kernels' order (see above)."""
+    nb, block = x2.shape
+    threads = block // _RING_VEC
+    sq = (x2 * x2).reshape(nb, 4, threads, 4).permute(0, 2, 1, 3).reshape(
+        nb, threads, _RING_VEC)
+    acc = torch.zeros((nb, threads), dtype=torch.float32, device=x2.device)
+    for k in range(_RING_VEC):
+        acc = acc + sq[:, :, k]
+    acc = acc.reshape(nb, threads // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:, :, :off] + acc[:, :, off:2 * off]
+    acc = acc[:, :, 0]
+    off = threads // 64
+    while off:
+        acc = acc[:, :off] + acc[:, off:2 * off]
+        off //= 2
+    return torch.sqrt(acc[:, 0])
+
+
+def encode_blocks_ref(x: torch.Tensor, norms: torch.Tensor, seed: int,
+                      s: int = 127, *, block: int = _BLOCK) -> torch.Tensor:
+    """The quantize half of the ring kernels, given the block norms: int8
+    levels ``[n]`` of ``pallas_kernels._encode_block`` (murmur stream over
+    the flat index, zero levels for a zero norm, saturating cast)."""
+    return qsgd_quantize_ref(x, norms, seed, s, block=block)
+
+
+def chunk_encode_ref(x: torch.Tensor, seed: int, s: int = 127, *,
+                     block: int = _BLOCK):
+    """Plain version of :func:`chunk_encode`."""
+    _check_ring_args(s, block)
+    x = x.reshape(-1).to(torch.float32)
+    norms = block_norms_ref(_pad_blocks(x, -(-x.numel() // block), block))
+    return encode_blocks_ref(x, norms, seed, s, block=block), norms
+
+
+def _check_hop_args(levels, norms, local, block) -> None:
+    if levels.dtype != torch.int8:
+        raise ValueError(f"dequant_acc_requant is int8-only, got {levels.dtype}")
+    n = local.numel()
+    if levels.numel() != n:
+        raise ValueError(f"levels size {levels.numel()} != local size {n}")
+    _check_norms(norms.numel(), n, block)
+
+
+def dequant_acc_requant_ref(levels: torch.Tensor, norms: torch.Tensor,
+                            local: torch.Tensor, seed: int, s: int = 127, *,
+                            block: int = _BLOCK, scale: float = 1.0):
+    """Plain version of :func:`dequant_acc_requant`: per element
+    ``(local + (norm[b] * f32(1/s)) * lv) * f32(scale)`` in that order, then
+    the block encode of :func:`chunk_encode_ref`."""
+    _check_ring_args(s, block)
+    _check_hop_args(levels, norms, local, block)
+    n = local.numel()
+    nb = -(-n // block)
+    coef = norms.to(torch.float32).reshape(-1) * torch.tensor(
+        1.0 / s, dtype=torch.float32, device=local.device)
+    acc = (_pad_blocks(local.to(torch.float32), nb, block)
+           + coef[:, None] * _pad_blocks(levels, nb, block).to(torch.float32))
+    acc = acc * torch.tensor(float(scale), dtype=torch.float32,
+                             device=local.device)
+    onorms = block_norms_ref(acc)
+    return encode_blocks_ref(acc.reshape(-1)[:n], onorms, seed, s,
+                             block=block), onorms
+
+
+def decode_blocks(levels: torch.Tensor, norms: torch.Tensor, s: int, *,
+                  block: int = _BLOCK) -> torch.Tensor:
+    """``levels * (norm[b] * f32(1/s))``: the decode leg of the fused wire
+    (``pallas_kernels.decode_blocks``, plain XLA there and a torch op
+    here, since its output is the dense result)."""
+    n = levels.numel()
+    lv = _pad_blocks(levels.to(torch.float32), -(-n // block), block)
+    coef = norms.to(torch.float32).reshape(-1)[:, None] * torch.tensor(
+        1.0 / s, dtype=torch.float32, device=levels.device)
+    return (lv * coef).reshape(-1)[:n]
+
+
+def _ring_kernel_block(block: int) -> None:
+    if block > _RING_MAX_BLOCK:
+        raise ValueError(f"the ring kernels take blocks of at most "
+                         f"{_RING_MAX_BLOCK} elements, got {block}")
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, copied if its address is not a multiple of ``nbytes`` (the
+    kernels' vector loads)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+def chunk_encode(x: torch.Tensor, seed: int, s: int = 127, *,
+                 block: int = _BLOCK):
+    """Encode a flat f32 chunk as ``(int8 levels [n], f32 norms [nb])``,
+    one L2 norm per ``block`` elements taken in the same pass as the
+    stochastic quantization. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return chunk_encode_ref(x, seed, s, block=block)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_ring_args(s, block)
+    _ring_kernel_block(block)
+    x = x.reshape(-1)
+    _require_cuda(x, "chunk_encode", torch.float32)
+    x = _aligned(x, 16)
+    n = x.numel()
+    levels = torch.empty(n, dtype=torch.int8, device=x.device)
+    norms = torch.empty(-(-n // block), dtype=torch.float32, device=x.device)
+    rc = library().ewdml_chunk_encode(
+        x.data_ptr(), n, block, int(seed) & 0xFFFFFFFF, int(s),
+        levels.data_ptr(), norms.data_ptr(), _stream_ptr(x))
+    _launch_check(rc, "chunk_encode")
+    LAUNCHES["chunk_encode"] += 1
+    return levels, norms
+
+
+def dequant_acc_requant(levels: torch.Tensor, norms: torch.Tensor,
+                        local: torch.Tensor, seed: int, s: int = 127, *,
+                        block: int = _BLOCK, scale: float = 1.0):
+    """One fused ring reduce-scatter hop: re-encode
+    ``scale * (local + norms / s * levels)`` as ``(int8 levels [n], f32
+    norms [nb])`` without writing the f32 partial sum to device memory.
+    ``scale`` is 1/W on a ring's last hop. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if local.device.type == "cpu":
+        return dequant_acc_requant_ref(levels, norms, local, seed, s,
+                                       block=block, scale=scale)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_ring_args(s, block)
+    _ring_kernel_block(block)
+    levels, local = levels.reshape(-1), local.reshape(-1)
+    _check_hop_args(levels, norms, local, block)
+    _require_cuda(levels, "dequant_acc_requant", torch.int8)
+    _require_cuda(local, "dequant_acc_requant", torch.float32)
+    levels, local = _aligned(levels, 4), _aligned(local, 16)
+    norms = norms.to(device=local.device, dtype=torch.float32).reshape(
+        -1).contiguous()
+    n = local.numel()
+    out = torch.empty(n, dtype=torch.int8, device=local.device)
+    onorms = torch.empty(norms.numel(), dtype=torch.float32, device=local.device)
+    rc = library().ewdml_dequant_acc_requant(
+        levels.data_ptr(), norms.data_ptr(), local.data_ptr(), n, block,
+        int(seed) & 0xFFFFFFFF, int(s), 1.0 / s, float(scale),
+        out.data_ptr(), onorms.data_ptr(), _stream_ptr(local))
+    _launch_check(rc, "dequant_acc_requant")
+    LAUNCHES["dequant_acc_requant"] += 1
+    return out, onorms
+
+
+def ring_hops(device):
+    """``(encode, hop)`` for the fused ring transports on ``device``: the
+    CUDA kernels under 'auto'/'on' on CUDA, else their plain versions
+    (``pallas_kernels.active``, with no size gate)."""
+    if active(device) == "kernel":
+        return chunk_encode, dequant_acc_requant
+    return chunk_encode_ref, dequant_acc_requant_ref

@@ -1,17 +1,33 @@
-"""Gradient exchange over the worker axis (``ewdml_tpu/parallel/collectives.py``),
-all-gather transport only.
+"""Gradient exchange over the worker axis (``ewdml_tpu/parallel/collectives.py``).
 
 Semantics are the PS-faithful ones of the JAX package: each worker
-compresses its full local gradient, the payloads are gathered, and the
+compresses its full local gradient, the payloads are exchanged, and the
 W payloads are decompressed and averaged; the optional relay requantizes
 the average with a key shared by all ranks (the server's compressed
 broadcast of Methods 4/5). Gradients are per-worker lists of leaves, in the
-JAX tree's leaf order and element layout (``models/convert.py``). The
-average is rank-independent, so it is computed once and handed to every
-worker; only the per-rank "own payload" of error feedback differs.
+JAX tree's leaf order and element layout (``models/convert.py``).
 
-The ``ring``/``ring_rs``/``fused_q`` transports and the multi-slice
-exchange are later slices.
+Transports, with the JAX package's math:
+
+- ``all_gather`` (default): one gather of the payloads, local
+  decompress-and-average.
+- ``ppermute`` (``--gather-type ring``): W - 1 ring hops of the payloads,
+  each arrival decompressed into a per-origin slot.
+- ``ring_rs`` (``--gather-type ring_rs``): ring reduce-scatter with a
+  requantization per hop, then a ring all-gather of the owned mean chunks;
+  an int8 blockwise QSGD wire runs its hops through the fused
+  ``chunk_encode``/``dequant_acc_requant`` kernels.
+- ``fused_q_allreduce_mean`` (``--collective fused_q``): the dense
+  exchange as an int8-wire ring over one flat buffer, on the same kernels.
+
+The ring hops of phase 1 differ per rank and all run. Where every rank
+would decode the same bytes (the average of the gather and ring
+transports, a ring's phase 2), the result is computed once and handed to
+every worker; the phase-2 hops still run, as they move (and
+``LocalWorld.ppermute_bytes`` counts) the bytes a real ring ships. Only
+the per-rank "own payload" of error feedback differs between ranks.
+
+The multi-slice exchange is a later slice.
 """
 
 from __future__ import annotations
@@ -19,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ewdml_tpu_torch.core.world import LocalWorld
-from ewdml_tpu_torch.ops import kernels
+from ewdml_tpu_torch.ops import kernels, packing
 from ewdml_tpu_torch.ops import qsgd as qsgd_mod
 from ewdml_tpu_torch.ops.blocktopk import BlockTopKQSGDPayload
 from ewdml_tpu_torch.ops.bytes import take_payloads, unstack_payload
@@ -32,6 +48,154 @@ def dense_allreduce_mean(world: LocalWorld, grads: list) -> list:
     """Method 1/3 dense path: one pmean per leaf (f32 wire).
     ``grads[w]`` is worker w's list of leaves; returns the averaged leaves."""
     return [world.pmean([g[i] for g in grads]) for i in range(len(grads[0]))]
+
+
+def fused_chunk_elems(n: int, world: int, block: int) -> int:
+    """Per-rank ring-chunk length of the fused quantized transports:
+    ``ceil(n / world)`` rounded up to whole quantization blocks (the zero
+    padding quantizes to zero levels and adds nothing to a block norm).
+    Shared with the analytic wire plan (``train/metrics.wire_plan``)."""
+    per_rank = -(-n // world)
+    return -(-per_rank // block) * block
+
+
+def _ring_chunks(flat: torch.Tensor, world: int, m: int) -> torch.Tensor:
+    """``flat`` zero-padded to ``world * m`` and viewed as ``[world, m]``."""
+    chunks = torch.zeros(world * m, dtype=torch.float32, device=flat.device)
+    chunks[:flat.numel()] = flat
+    return chunks.reshape(world, m)
+
+
+def _ring_seed(key, tag: int) -> int:
+    return prng.seed_from_key(prng.fold_in(key, tag))
+
+
+def _fused_reduce_scatter(world: LocalWorld, chunks: list, keys: list,
+                          s: int, block: int) -> list:
+    """Phase 1 of the fused rings: rank r encodes its chunk r, then at hop h
+    receives the running sum of chunk ``(r - h) % W`` and adds its own chunk
+    ``(r - h - 1) % W`` in one ``dequant_acc_requant`` pass (seed tags 0,
+    then h + 1; the last hop folds in the 1/W). Returns each rank's encoded
+    mean of chunk ``(r + 1) % W`` as ``(levels, norms)``."""
+    w = world.size
+    encode, hop = kernels.ring_hops(world.device)
+    pay = [encode(chunks[r][r], _ring_seed(keys[r], 0), s, block=block)
+           for r in world.ranks]
+    for h in range(w - 1):
+        pay = world.ppermute(pay)
+        scale = 1.0 / w if h == w - 2 else 1.0
+        pay = [hop(lv, nm, chunks[r][(r - h - 1) % w], _ring_seed(keys[r], h + 1),
+                   s, block=block, scale=scale)
+               for r, (lv, nm) in enumerate(pay)]
+    return pay
+
+
+def _ring_all_gather(world: LocalWorld, owned: list, decode, m: int):
+    """Phase 2 of the rings: rank r owns chunk ``(r + 1) % W``, and every
+    rank decodes every owner's payload from the same bytes. Each owner's
+    chunk is decoded once; the W - 1 hops then move the payloads (at hop
+    h rank r receives the chunk of origin ``(r - h - 1) % W``). Returns
+    the flat ``[W * m]`` result, the same on every rank."""
+    w = world.size
+    out = torch.empty((w, m), dtype=torch.float32, device=world.device)
+    for r in world.ranks:
+        out[(r + 1) % w] = decode(owned[r]).reshape(-1)
+    current = owned
+    for _ in range(w - 1):
+        current = world.ppermute(current)
+    return out.reshape(-1)
+
+
+def fused_q_allreduce_mean(world: LocalWorld, grads: list, key) -> list:
+    """The dense exchange as an int8-wire ring (``--collective fused_q``,
+    ``collectives.py:99``): the whole tree in one flat buffer, W chunks of
+    whole 4096-element blocks, a ring reduce-scatter whose hops re-encode
+    in one kernel pass each, then a ring all-gather of the encoded mean
+    chunks. ``key`` is the step key, folded per rank. Returns the averaged
+    leaves (the gradients untouched at W = 1)."""
+    w = world.size
+    if w == 1:
+        return grads[0]
+    s, block = 127, kernels.BLOCK_ELEMS
+    parts = [fuse_tree(g) for g in grads]
+    split = parts[0][1]
+    n = parts[0][0].numel()
+    m = fused_chunk_elems(n, w, block)
+    chunks = [_ring_chunks(flat, w, m) for flat, _ in parts]
+    keys = [prng.rank_key(key, r) for r in world.ranks]
+    owned = _fused_reduce_scatter(world, chunks, keys, s, block)
+    out = _ring_all_gather(
+        world, owned, lambda p: kernels.decode_blocks(*p, s, block=block), m)
+    return split(out[:n])
+
+
+def fused_ring_eligible(compressor) -> bool:
+    """Whether the ``ring_rs`` hops run as fused kernel passes
+    (``collectives.py:579``): an unpacked int8 QSGD wire with L2 norms per
+    block of a multiple of 4096 elements."""
+    return (isinstance(compressor, qsgd_mod.QSGDCompressor)
+            and compressor.quantum_num <= 127
+            and packing.width_for(compressor.quantum_num) >= 8
+            and compressor.norm_kind == "l2"
+            and kernels.blockwise_supported(compressor.block))
+
+
+def _ring_rs_exchange(world: LocalWorld, gs: list, compressor,
+                      keys: list) -> torch.Tensor:
+    """Compressed ring allreduce of one unit (``collectives.py:595``): ring
+    reduce-scatter with a requantization per hop, then a ring all-gather
+    of the compressed mean chunks. ``gs[r]``/``keys[r]`` are rank r's
+    tensor and key.
+
+    On an eligible wire (:func:`fused_ring_eligible`) phase 1 is the fused
+    ring of :func:`fused_q_allreduce_mean`, in chunks of whole blocks, and
+    the last hop's payload (the mean) is phase 2's. Otherwise each hop
+    compresses and decompresses with ``fold_in(key, h)`` and the owned
+    mean is compressed once more with ``fold_in(key, 0x46)``."""
+    w = world.size
+    n, shape = gs[0].numel(), tuple(gs[0].shape)
+    fused = fused_ring_eligible(compressor)
+    m = (fused_chunk_elems(n, w, compressor.block) if fused else -(-n // w))
+    chunks = [_ring_chunks(g.to(torch.float32).reshape(-1), w, m) for g in gs]
+    if fused:
+        qs, blk = compressor.quantum_num, compressor.block
+        owned = [qsgd_mod.QSGDPayload(levels=lv, norm=nm, shape=(m,), s=qs,
+                                      block=blk)
+                 for lv, nm in _fused_reduce_scatter(world, chunks, keys, qs,
+                                                     blk)]
+    else:
+        send = [chunks[r][r] for r in world.ranks]
+        for h in range(w - 1):
+            received = world.ppermute(
+                [compressor.compress(prng.fold_in(keys[r], h), send[r])
+                 for r in world.ranks])
+            send = [chunks[r][(r - h - 1) % w] + compressor.decompress(received[r])
+                    for r in world.ranks]
+        owned = [compressor.compress(prng.fold_in(keys[r], 0x46), send[r] / w)
+                 for r in world.ranks]
+    out = _ring_all_gather(world, owned, compressor.decompress, m)
+    return out[:n].reshape(shape)
+
+
+def _ring_exchange(world: LocalWorld, payloads: list, compressor,
+                   num_aggregate: int, step: int) -> torch.Tensor:
+    """The ``ppermute`` transport (``collectives.py:686``): the payloads go
+    W - 1 times round the ring, each arrival decompressed into the slot
+    of its origin, and the slots are summed in origin order (so every rank
+    sums the same values in the same order). K-of-N acceptance weighs
+    origins ``{(step + j) % W : j < K}`` by 1, the others by 0."""
+    w = world.size
+    k = num_aggregate if 0 < num_aggregate < w else w
+    current = payloads
+    for _ in range(w - 1):
+        current = world.ppermute(current)
+    acc, total = None, 0.0
+    for origin in world.ranks:
+        weight = 1.0 if k >= w or (origin - step) % w < k else 0.0
+        slot = weight * compressor.decompress(payloads[origin])
+        acc = slot if acc is None else acc + slot
+        total += weight
+    return acc / total
 
 
 def fuse_tree(leaves: list):
@@ -206,13 +370,15 @@ def _sparse_relay(avg_flat, cand_idx, k: int, compressor, rk, world: int = 0):
 
 def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
                          num_aggregate: int = 0, relay: bool = False,
-                         relay_key=None, return_own_decompressed: bool = False,
+                         relay_key=None, transport: str = "all_gather",
+                         return_own_decompressed: bool = False,
                          step: int = 0, fuse: bool = False,
                          bucket_bytes: int | None = None):
-    """Compress -> gather -> decompress-average each leaf (``collectives.py:433``).
+    """Compress -> exchange -> decompress-average each leaf (``collectives.py:433``).
 
     ``grads[w]`` is worker w's list of leaves. ``key`` is the step key; it
-    is folded per (rank, leaf) as in the JAX package. Returns the averaged
+    is folded per (rank, leaf) as in the JAX package. ``transport`` is
+    ``all_gather``, ``ppermute`` or ``ring_rs``. Returns the averaged
     leaves (shared by all workers), and with ``return_own_decompressed``
     also each worker's own decompressed payload (for error feedback)."""
     if fuse and bucket_bytes:
@@ -227,26 +393,50 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
             return unsplit(vals[0]) if fuse else unsplit(vals)
         result = compressed_allreduce(
             world, units, compressor, key, num_aggregate=num_aggregate,
-            relay=relay, relay_key=relay_key,
+            relay=relay, relay_key=relay_key, transport=transport,
             return_own_decompressed=return_own_decompressed, step=step)
         if return_own_decompressed:
             avg, own = result
             return split(avg), [split(o) for o in own]
         return split(result)
 
+    if transport == "ring_rs" and return_own_decompressed:
+        raise ValueError(
+            "ring_rs transport does not support error feedback (partial sums "
+            "are requantized per hop, so no per-rank 'own payload' exists); "
+            "use the all_gather transport")
     w_n = world.size
+    if transport == "ring_rs" and 0 < num_aggregate < w_n:
+        raise ValueError(
+            "ring_rs transport does not support K-of-N acceptance; use the "
+            "all_gather transport")
     rkeys = [prng.rank_key(key, r) for r in world.ranks]
     out, own = [], [[] for _ in world.ranks]
     for i in range(len(grads[0])):
+        rk = (prng.layer_key(relay_key if relay_key is not None else key, i)
+              if relay else None)
+        if transport == "ring_rs":
+            avg = _ring_rs_exchange(
+                world, [g[i] for g in grads], compressor,
+                [prng.layer_key(rkeys[r], i) for r in world.ranks])
+            if relay:
+                avg = compressor.decompress(compressor.compress(rk, avg))
+            out.append(avg)
+            continue
         payloads = [compressor.compress(prng.layer_key(rkeys[r], i), grads[r][i])
                     for r in world.ranks]
         if return_own_decompressed:
             for r in world.ranks:
                 own[r].append(compressor.decompress(payloads[r]))
+        if transport == "ppermute":
+            avg = _ring_exchange(world, payloads, compressor, num_aggregate,
+                                 step)
+            if relay:
+                avg = compressor.decompress(compressor.compress(rk, avg))
+            out.append(avg)
+            continue
         gathered = world.all_gather(payloads)
         payload = payloads[0]
-        rk = (prng.layer_key(relay_key if relay_key is not None else key, i)
-              if relay else None)
         if isinstance(payload, BlockTopKQSGDPayload):
             avg = _block_mean_relay(gathered, num_aggregate, w_n, step, relay,
                                     compressor, rk)

@@ -69,7 +69,8 @@ class Trainer:
             error_feedback=cfg.error_feedback and cfg.compression_enabled)
         self.train_step = make_train_step(self.model, self.optimizer, cfg,
                                           self.world)
-        self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape) for s in self.specs])
+        self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape) for s in self.specs],
+                                world=self.world.size)
         self.base_key = prng.key(cfg.seed)
         self._train_ds = None
         if cfg.compression_enabled:

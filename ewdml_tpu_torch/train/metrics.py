@@ -1,12 +1,14 @@
 """Analytic bytes-on-wire plan and the per-step log schema
-(``ewdml_tpu/train/metrics.py:26-164``, the sync all-gather transport).
+(``ewdml_tpu/train/metrics.py:26-304``, the single-slice sync trainer).
 
-The plan prices exactly the payloads the exchange ships: per transport unit
-(a leaf, or a fused bucket under the resolved fusion), the up-link payload
+The plan prices the payloads the exchange ships: per transport unit (a
+leaf, or a fused bucket under the resolved fusion), the up-link payload
 and the down-link (dense weights for M1, dense averaged gradients for
-M2/M3, the compressed relay for M4/M5), amortized over Method 6's sync
-period. Unit names are the JAX package's (``conv1/kernel``,
-``<bucket-3>``), so the two plans compare row by row.
+M2/M3, the compressed relay for M4/M5, one compressed payload for a
+``ring_rs`` phase 2), amortized over Method 6's sync period; under
+``--collective fused_q`` the one ``<fused-q-ring>`` unit holds the exact
+ring hop bytes of each phase. Unit names are the JAX package's
+(``conv1/kernel``, ``<bucket-3>``), so the two plans compare row by row.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ class WirePlan:
     per_layer_down: dict
     sync_every: int = 1
     adopt_bytes: int = 0   # Method 6 best-worker weight adoption per sync
+    dense_bytes: int = 0   # an uncompressed f32 exchange, up + down
+    transport: str = "gather"  # 'gather' | 'ring_rs' | 'fused_q'
+    world: int = 1         # workers on the exchange
 
     @property
     def up_bytes(self) -> int:
@@ -55,15 +60,35 @@ class WirePlan:
         """Everything on the wire, Method 6's weight adoption included."""
         return (self.total_bytes + self.adopt_bytes) / self.sync_every
 
+    @property
+    def per_rank_exchange_bytes(self) -> float:
+        """Bytes that cross the interconnect per rank per step under the
+        resolved transport: the rows themselves for a ring (``ring_rs``,
+        ``fused_q``: phase 1 up, phase 2 down), W up payloads for the
+        gather (each rank gathers all W; the relay is local)."""
+        if self.transport in ("ring_rs", "fused_q"):
+            return (self.up_bytes + self.down_bytes) / self.sync_every
+        return self.world * self.up_bytes / self.sync_every
 
-def wire_plan(cfg: TrainConfig, leaves) -> WirePlan:
+
+def ring_hop_bytes(n: int, world: int) -> int:
+    """Bytes one rank ships in one phase of the fused int8 ring over ``n``
+    elements: W - 1 chunk payloads of int8 levels plus one f32 norm per
+    4096-element block, padding included."""
+    from ewdml_tpu_torch.ops.kernels import BLOCK_ELEMS
+    from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
+
+    m = fused_chunk_elems(n, world, BLOCK_ELEMS)
+    return (world - 1) * (m + (m // BLOCK_ELEMS) * 4)
+
+
+def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
     """Per-unit byte plan for a config. ``leaves`` is a list of
     ``(name, jax_shape)`` in the JAX tree's leaf order
-    (``models/convert.leaf_specs``)."""
-    if cfg.gather_type in ("ring", "ring_rs") or cfg.collective == "fused_q" \
-            or cfg.num_slices > 1 or cfg.overlap != "off":
-        raise NotImplementedError("wire_plan covers the sync all-gather "
-                                  "transport only")
+    (``models/convert.leaf_specs``); ``world`` is the number of workers."""
+    if cfg.num_slices > 1 or cfg.overlap != "off":
+        raise NotImplementedError("wire_plan covers the single-slice sync "
+                                  "exchange without --overlap")
     comp = make_compressor(cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio,
                            cfg.topk_exact, cfg.qsgd_block)
     leaves = [(name, tuple(shape)) for name, shape in leaves]
@@ -76,20 +101,38 @@ def wire_plan(cfg: TrainConfig, leaves) -> WirePlan:
         label = "<fused-bucket>" if fusion == "all" else "<bucket-{}>"
         units = [(label.format(j), n)
                  for j, n in enumerate(resolved_unit_sizes(cfg, sizes))]
+    transport = "gather"
+    if cfg.compression_enabled:
+        if cfg.gather_type == "ring_rs":
+            transport = "ring_rs"
+    elif cfg.collective == "fused_q" and cfg.mode != "async":
+        transport = "fused_q"
+    w = max(1, int(world) if world else 1)
     up, down = {}, {}
+    if transport == "fused_q":
+        # One flat ring over the whole tree: exact hop bytes per phase.
+        hop = ring_hop_bytes(sum(elems for _, elems in units), w)
+        up["<fused-q-ring>"] = down["<fused-q-ring>"] = hop
+        units = []
     for name, elems in units:
         dense_wire = elems * 4
         up[name] = (comp.wire_bytes((elems,)) if cfg.compression_enabled
                     else dense_wire)
         if cfg.ps_mode == "weights":
             down[name] = elems * 4          # weights broadcast (M1)
+        elif transport == "ring_rs":
+            # Ring phase 2 circulates one compressed payload per unit,
+            # relay or not (priced as one full-unit payload, as the JAX
+            # plan does).
+            down[name] = comp.wire_bytes((elems,))
         elif cfg.relay_compress and cfg.compression_enabled:
             down[name] = comp.wire_bytes((elems,))  # compressed relay (M4/M5)
         else:
             down[name] = dense_wire         # dense down leg (M2/M3)
     n_params = sum(numel(shape) for _, shape in leaves)
     adopt = n_params * 4 + 4 if cfg.sync_every > 1 else 0
-    return WirePlan(up, down, sync_every=cfg.sync_every, adopt_bytes=adopt)
+    return WirePlan(up, down, sync_every=cfg.sync_every, adopt_bytes=adopt,
+                    dense_bytes=2 * n_params * 4, transport=transport, world=w)
 
 
 @dataclass

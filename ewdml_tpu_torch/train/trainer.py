@@ -1,8 +1,9 @@
 """The synchronous training step, Methods 1-6 (``ewdml_tpu/train/trainer.py:45-396``).
 
 One step: every worker runs forward/backward on its shard of the global
-batch; the gradients go through the exchange (dense pmean, or the
-compressed all-gather collective, with optional error feedback and K-of-N
+batch; the gradients go through the exchange (dense pmean or the int8-wire
+``fused_q`` ring; or the compressed collective over the gather, ``ring`` or
+``ring_rs`` transport, with optional error feedback and K-of-N
 acceptance); every worker applies SGD; under Method 6 the exchange runs only
 at sync steps, which also adopt the lowest-loss worker's weights.
 
@@ -62,9 +63,6 @@ def check_supported(cfg: TrainConfig) -> None:
         (cfg.mode != "normal", f"--mode {cfg.mode}"),
         (cfg.federated, "--federated"),
         (cfg.overlap != "off", "--overlap bucket"),
-        (cfg.collective != "gather", "--collective fused_q"),
-        (cfg.gather_type in ("ring", "ring_rs"),
-         f"--gather-type {cfg.gather_type}"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
         (cfg.lossy_weights_down, "--lossy-weights-down"),
         (cfg.feed == "device", "--feed device (and make_window_step)"),
@@ -97,6 +95,18 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                                      cfg.topk_ratio, cfg.topk_exact,
                                      cfg.qsgd_block)
     dense = isinstance(compressor, NoneCompressor)
+    fused_q = cfg.collective == "fused_q" and dense
+    if fused_q and 0 < cfg.num_aggregate < world.size:
+        raise ValueError(
+            "--collective fused_q does not support K-of-N "
+            "--num-aggregate (partial sums ride the ring; no per-rank "
+            "payload exists to drop); use the gather collective")
+    if cfg.gather_type == "ring_rs" and not dense and (
+            cfg.error_feedback or 0 < cfg.num_aggregate < world.size):
+        raise ValueError(
+            "--gather-type ring_rs is incompatible with --error-feedback "
+            "and with K-of-N --num-aggregate (per-hop requantization has "
+            "no per-rank own-payload); use the default gather transport")
     ef = cfg.error_feedback and not dense
     specs = leaf_specs(model)
     fusion = resolve_fusion(cfg, len(specs))
@@ -126,12 +136,18 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
         return contextlib.nullcontext()
 
     def exchange(grads, step, key, return_own=False):
-        if dense:
-            return collectives.dense_allreduce_mean(world, grads)
         skey = prng.step_key(key, step)
+        if dense:
+            if fused_q:
+                # The int8-wire ring; its hops draw from the step key,
+                # folded per rank inside the collective.
+                return collectives.fused_q_allreduce_mean(world, grads, skey)
+            return collectives.dense_allreduce_mean(world, grads)
         return collectives.compressed_allreduce(
             world, grads, compressor, skey, num_aggregate=cfg.num_aggregate,
             relay=relay, relay_key=prng.fold_in(skey, RELAY_TAG),
+            transport={"ring": "ppermute", "ring_rs": "ring_rs"}.get(
+                cfg.gather_type, "all_gather"),
             return_own_decompressed=return_own, step=step, fuse=fuse,
             bucket_bytes=bucket_bytes)
 

@@ -6,7 +6,9 @@ installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Oracles: quantize and block_top1 bit; dequant_mean bit (the kernel keeps
-the plain version's order of operations, with no FMA).
+the plain version's order of operations, with no FMA); chunk_encode and
+dequant_acc_requant bit, levels and norms (the plain versions repeat the
+kernels' summation order).
 """
 
 import pytest
@@ -66,6 +68,41 @@ def test_block_top1_kernel_is_the_plain_version(cuda, r, c):
     assert torch.equal(va.view(torch.int32), vb.view(torch.int32))
 
 
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [2_441_216, 530_442, 4097, 3])
+@pytest.mark.parametrize("block", [4096, 8192])
+def test_chunk_encode_kernel_is_the_plain_version(cuda, n, block):
+    x = torch.randn(n, device="cuda", generator=cuda) * 1e-2
+    x[: min(n, 50)] *= 1e4   # a few large entries: levels up to s
+    for seed in (0, -77, 2**31 - 1):
+        la, na = kernels.chunk_encode(x, seed, 127, block=block)
+        lb, nb = kernels.chunk_encode_ref(x, seed, 127, block=block)
+        assert _bits_equal(na, nb), (n, block, seed)
+        assert torch.equal(la, lb), (n, block, seed)
+    z = torch.zeros(n, device="cuda")
+    lz, nz = kernels.chunk_encode(z, 1, 127, block=block)
+    assert not lz.any() and not nz.any()
+
+
+@pytest.mark.parametrize("n", [2_441_216, 530_442, 4097, 3])
+@pytest.mark.parametrize("scale", [1.0, 0.25])
+def test_dequant_acc_requant_kernel_is_the_plain_version(cuda, n, scale):
+    local = torch.randn(n, device="cuda", generator=cuda) * 1e-2
+    lv = torch.randint(-127, 128, (n,), device="cuda",
+                       generator=cuda).to(torch.int8)
+    nm = torch.rand(-(-n // 4096), device="cuda", generator=cuda)
+    for seed in (0, -77, 2**31 - 1):
+        la, na = kernels.dequant_acc_requant(lv, nm, local, seed, 127,
+                                             scale=scale)
+        lb, nb = kernels.dequant_acc_requant_ref(lv, nm, local, seed, 127,
+                                                 scale=scale)
+        assert _bits_equal(na, nb), (n, scale, seed)
+        assert torch.equal(la, lb), (n, scale, seed)
+
+
 def test_wrappers_count_launches(cuda):
     kernels.reset_launches()
     x = torch.randn(4096, device="cuda", generator=cuda)
@@ -73,8 +110,11 @@ def test_wrappers_count_launches(cuda):
     kernels.block_top1(x.reshape(32, 128))
     kernels.dequant_mean(torch.zeros(2, 8, dtype=torch.int8, device="cuda"),
                          torch.ones(2, device="cuda"), 127)
+    lv, nm = kernels.chunk_encode(x, 2)
+    kernels.dequant_acc_requant(lv, nm, x, 3)
     assert kernels.LAUNCHES == {"qsgd_quantize": 1, "dequant_mean": 1,
-                                "block_top1": 1}
+                                "block_top1": 1, "chunk_encode": 1,
+                                "dequant_acc_requant": 1}
 
 
 @pytest.mark.parametrize("method", [4, 5])
@@ -95,3 +135,27 @@ def test_lenet_trains_through_the_kernels(cuda, tmp_path, method):
         assert kernels.LAUNCHES["dequant_mean"] == 3 * 8
     else:
         assert kernels.LAUNCHES["block_top1"] == 3 * 4
+
+
+@pytest.mark.parametrize("kw,units", [
+    (dict(method=3, collective="fused_q"), 1),
+    (dict(method=4, gather_type="ring_rs", qsgd_block=4096), 8),
+])
+def test_lenet_rings_run_through_the_kernels(cuda, kw, units):
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    cfg = TrainConfig(network="LeNet", dataset="mnist10k", batch_size=32,
+                      max_steps=3, epochs=100, num_workers=4,
+                      bf16_compute=False, log_every=1000, **kw)
+    trainer = Trainer(cfg)
+    kernels.reset_launches()
+    res = trainer.train()
+    torch.cuda.synchronize()
+    assert res.steps == 3 and torch.isfinite(torch.tensor(res.final_loss))
+    # Per step and ring unit: one encode per rank, W - 1 hops per rank.
+    assert kernels.LAUNCHES["chunk_encode"] == 3 * units * 4
+    assert kernels.LAUNCHES["dequant_acc_requant"] == 3 * units * 4 * 3
+    if "collective" in kw:
+        assert trainer.world.ppermute_bytes == \
+            3 * res.wire.per_rank_exchange_bytes
