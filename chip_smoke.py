@@ -15,6 +15,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    kernels chunk_encode and dequant_acc_requant (scale 1 and 1/4) on the
    ``--collective fused_q`` chunk of VGG11-BN at W = 4 (2 441 216
    elements) and on a chunk with a tail block (levels and norms bit).
+   The server-apply kernels: int_accumulate at K = 4 over that bucket, at
+   K = 5 over 9000 elements (an unaligned row) and K = 8 over 130 (forced
+   with the mode switch), and acc_decode per tensor at k = 4 and 3 and
+   blockwise 4096 and 8192 over the bucket and over a tail (bit).
    Each is timed with CUDA events (median of repeats, L2 flushed before
    each launch) beside its bound, its plain version, and one PyTorch call
    for the same function where there is one.
@@ -29,9 +33,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``fused_q``: the ring bytes the transport moved must equal the plan's
    exact hop bytes; under ``ring_rs`` the moved bytes are printed beside
    the plan's); the ring kernels must launch as often as the rings hop;
-   and every kernel's launch count over these runs must be above 0 (the
-   counts are zeroed just before each run and read just after it, so the
-   checks around a run do not count).
+   and the counts of each run are zeroed just before it and read just
+   after it, so the checks around a run do not count.
+4. Run the in-process async parameter server (``--mode async``) through the
+   CLI's config on the same model and shapes: W = 4 worker threads on the
+   card, K = 4 (``--num-aggregate 4``), 4 steps per worker, ``--fusion
+   none`` (the server ships one payload per leaf, which the wire plan then
+   prices): QSGD under ``--server-agg decode`` and ``homomorphic``, QSGD
+   with ``--qsgd-block 4096`` and Top-k QSGD at 1% under ``homomorphic``.
+   Each must make 16 pushes and 4 updates, pay one decode per round
+   (homomorphic) or K (decode), launch the kernels exactly as often as its
+   leaves and rounds say, report only finite losses, and receive exactly
+   the bytes of the wire plan's up-link in the pushes' frames.
+
+Every kernel's launch count over the runs of phases 3 and 4 must be above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -61,16 +76,19 @@ REPLACES = {
     "block_top1": "ewdml_tpu/ops/pallas_kernels.py:290",
     "chunk_encode": "ewdml_tpu/ops/pallas_kernels.py:431",
     "dequant_acc_requant": "ewdml_tpu/ops/pallas_kernels.py:479",
+    "int_accumulate": "ewdml_tpu/ops/pallas_kernels.py:587",
+    "acc_decode": "ewdml_tpu/ops/pallas_kernels.py:629",
 }
 # Operations per element, for the compute side of each bound (all of them
 # scalar int32/f32 work, counted against the f32 rate): the murmur hash
 # (11) plus the quantize arithmetic and cast (~14); W multiply-adds plus
 # one scale; one abs and one compare; the ring kernels' square-and-add of
 # the block norm (2) plus the quantize (25), and a hop's decode-accumulate
-# (4) before them.
+# (4) before them; K widening adds; one convert and one multiply.
 OPS_PER_ELEM = {"qsgd_quantize": 25, "dequant_mean": 2 * WORLD + 1,
                 "block_top1": 2, "chunk_encode": 2 + 25,
-                "dequant_acc_requant": 4 + 2 + 25}
+                "dequant_acc_requant": 4 + 2 + 25, "int_accumulate": WORLD,
+                "acc_decode": 2}
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple:
@@ -172,6 +190,7 @@ def check_kernels(torch, kernels, timer) -> dict:
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              shape=[blk_pad, nbc])
     out.update(check_ring_kernels(torch, kernels, timer, g))
+    out.update(check_apply_kernels(torch, kernels, timer, g))
     return out
 
 
@@ -228,6 +247,73 @@ def check_ring_kernels(torch, kernels, timer, g) -> dict:
     out["dequant_acc_requant"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                       bound_ms=bnd, bound_by=by,
                                       library_ms=None, shape=[m])
+    return out
+
+
+def check_apply_kernels(torch, kernels, timer, g) -> dict:
+    """The server-apply kernels against their plain versions (bit), at the
+    bucket and at unaligned and forced-small shapes; timed on the bucket at
+    K = W = 4."""
+    out = {}
+    kernels.configure("on")  # the dispatchers take the kernel at every size
+    try:
+        for world, n in ((WORLD, BUCKET), (5, 9000), (8, 130)):
+            lv = torch.randint(-127, 128, (world, n), device="cuda",
+                               generator=g).to(torch.int8)
+            before = kernels.LAUNCHES["int_accumulate"]
+            a = kernels.accumulate(lv)
+            b = kernels.int_accumulate_ref(lv)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES["int_accumulate"] != before + 1:
+                raise AssertionError(f"int_accumulate K={world} n={n} did "
+                                     "not launch the kernel")
+            if not torch.equal(a, b):
+                raise AssertionError(f"int_accumulate K={world} n={n}: "
+                                     f"{int((a != b).sum())} sums differ "
+                                     "from the plain version")
+        for n in (BUCKET, TAIL_CHUNK):
+            for k in (WORLD, 3):
+                acc = torch.randint(-127 * k, 127 * k + 1, (n,), device="cuda",
+                                    generator=g).to(torch.int32)
+                for block in (None, 4096, 8192):
+                    nb = 1 if block is None else -(-n // block)
+                    sc = torch.rand(nb, device="cuda", generator=g) * 1e-3
+                    before = kernels.LAUNCHES["acc_decode"]
+                    a = kernels.decode_sum(acc, sc, k, block=block)
+                    b = kernels.acc_decode_ref(acc, sc, k, block=block)
+                    torch.cuda.synchronize()
+                    if kernels.LAUNCHES["acc_decode"] != before + 1:
+                        raise AssertionError("acc_decode did not launch the "
+                                             "kernel")
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(
+                            f"acc_decode n={n} k={k} block={block}: "
+                            f"{int((a != b).sum())} values differ from the "
+                            "plain version")
+    finally:
+        kernels.configure("auto")
+    lv = torch.randint(-127, 128, (WORLD, BUCKET), device="cuda",
+                       generator=g).to(torch.int8)
+    ms = timer(lambda: kernels.int_accumulate(lv))
+    plain = timer(lambda: kernels.int_accumulate_ref(lv), reps=10)
+    lib = timer(lambda: torch.sum(lv, 0, dtype=torch.int32))
+    bnd, by = bound_ms(WORLD * BUCKET + 4 * BUCKET,
+                       OPS_PER_ELEM["int_accumulate"] * BUCKET)
+    out["int_accumulate"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                 bound_ms=bnd, bound_by=by, library_ms=lib,
+                                 shape=[WORLD, BUCKET])
+    acc = kernels.int_accumulate(lv)
+    sc = torch.rand(1, device="cuda", generator=g) * 1e-3
+    factor = sc * torch.tensor(1.0 / WORLD, dtype=torch.float32, device="cuda")
+    ms = timer(lambda: kernels.acc_decode(acc, sc, WORLD))
+    plain = timer(lambda: kernels.acc_decode_ref(acc, sc, WORLD), reps=10)
+    lib = timer(lambda: torch.mul(acc, factor))
+    bnd, by = bound_ms(4 * BUCKET + 4 + 4 * BUCKET,
+                       OPS_PER_ELEM["acc_decode"] * BUCKET)
+    out["acc_decode"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                             bound_ms=bnd, bound_by=by, library_ms=lib,
+                             shape=[BUCKET])
     return out
 
 
@@ -350,12 +436,152 @@ def train_phase(torch, kernels) -> tuple:
               f"eval_loss={ev['loss']:.4f} {extra}", flush=True)
         del trainer
         torch.cuda.empty_cache()
-    print("kernels: " + json.dumps(counts), flush=True)
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "main path")
     return counts, per_method
+
+
+# (name, flags): phase 4, the async parameter server on VGG11-BN.
+ASYNC_RUNS = [
+    ("qsgd decode", ["--compress-grad", "qsgd", "--server-agg", "decode"]),
+    ("qsgd homomorphic", ["--compress-grad", "qsgd",
+                          "--server-agg", "homomorphic"]),
+    ("qsgd block4096 homomorphic", ["--compress-grad", "qsgd",
+                                    "--qsgd-block", "4096",
+                                    "--server-agg", "homomorphic"]),
+    ("topk_qsgd homomorphic", ["--compress-grad", "topk_qsgd",
+                               "--topk-ratio", "0.01",
+                               "--server-agg", "homomorphic"]),
+]
+ASYNC_STEPS = 4  # per worker
+
+
+def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
+    """Kernel launches of one async run: per push (and once for the payload
+    schema's template) a quantize per leaf of at least MIN_ELEMS under
+    decode; per round (and once for the warm apply) an accumulate and a
+    decode per such leaf under homomorphic (the decode only for Top-k)."""
+    big = sum(1 for s in specs if math.prod(s.jax_shape) >= kernels.MIN_ELEMS)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    if cfg.server_agg == "decode":
+        if cfg.compress_grad == "qsgd":
+            want["qsgd_quantize"] = big * (pushes + 1)
+    else:
+        want["acc_decode"] = big * (updates + 1)
+        if cfg.compress_grad == "qsgd":
+            want["int_accumulate"] = big * (updates + 1)
+    return want
+
+
+def async_phase(torch, kernels) -> tuple:
+    """Phase 4: the async parameter server on VGG11-BN at full width."""
+    import numpy as np
+
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.cli import run_async
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+    from ewdml_tpu_torch.train.metrics import wire_plan
+
+    specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    runs = {}
+    for name, flags in ASYNC_RUNS:
+        argv = ["--mode", "async", "--network", "VGG11", "--dataset",
+                "Cifar10", "--synthetic-data", "--num-workers", str(WORLD),
+                "--num-aggregate", str(WORLD), "--batch-size", "128",
+                "--max-steps", str(WORLD * ASYNC_STEPS), "--fusion", "none",
+                *flags]
+        cfg = from_args(argv)
+        kernels.reset_launches()   # this run of the main path starts here
+        t0 = time.perf_counter()
+        _, stats = run_async(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)  # read just after it
+        for k, v in launched.items():
+            counts[k] += v
+        pushes, updates = WORLD * ASYNC_STEPS, ASYNC_STEPS
+        if (stats.pushes, stats.updates) != (pushes, updates):
+            raise AssertionError(f"async {name}: {stats.pushes} pushes and "
+                                 f"{stats.updates} updates, want {pushes} "
+                                 f"and {updates}")
+        per_round = 1 if cfg.server_agg == "homomorphic" else WORLD
+        if stats.decode_count != per_round * stats.apply_rounds:
+            raise AssertionError(f"async {name}: {stats.decode_count} decodes "
+                                 f"in {stats.apply_rounds} rounds")
+        want = expected_async_launches(cfg, specs, kernels, pushes, updates)
+        if launched != want:
+            raise AssertionError(f"async {name}: launches {launched}, want "
+                                 f"{want}")
+        losses = [l for _, l in stats.loss_history]
+        if len(losses) != pushes or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"async {name}: losses {losses}")
+        plan = wire_plan(cfg, [(s.name, s.jax_shape) for s in specs],
+                         world=WORLD)
+        frame = native.encoded_arrays_size([np.empty(plan.up_bytes,
+                                                     np.uint8)])
+        if stats.bytes_up != pushes * frame:
+            raise AssertionError(f"async {name}: {stats.bytes_up} B up, the "
+                                 f"wire plan's frames are {pushes} x {frame}")
+        runs[name] = dict(pushes=stats.pushes, updates=stats.updates,
+                          decode_count=stats.decode_count,
+                          apply_rounds=stats.apply_rounds,
+                          apply_ms_mean=stats.apply_ms_mean, wall_s=wall,
+                          bytes_up=stats.bytes_up, plan_up=plan.up_bytes,
+                          loss_tail=stats.loss_tail_mean(4),
+                          mean_staleness=stats.mean_staleness,
+                          launches=launched)
+        print(f"async {name}: pushes={stats.pushes} updates={stats.updates} "
+              f"decodes={stats.decode_count}/{stats.apply_rounds} rounds "
+              f"apply_ms_mean={stats.apply_ms_mean:.3f} wall={wall:.1f}s "
+              f"up={stats.bytes_up} B (plan {plan.up_bytes} B/push) "
+              f"loss_tail={stats.loss_tail_mean(4):.4f} launches={launched}",
+              flush=True)
+        torch.cuda.empty_cache()
+    return counts, runs
+
+
+def apply_alone(torch, flags, rounds: int = 6) -> float:
+    """The server's apply with no worker threads running: K = W = 4 pushes
+    of VGG11-BN payloads (compressed from one random gradient) per round,
+    from one thread; returns the mean apply wall in ms (an observation
+    beside the async runs' ``apply_ms_mean``, which shares the card and the
+    interpreter with the workers)."""
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs, to_jax
+    from ewdml_tpu_torch.ops import make_compressor
+    from ewdml_tpu_torch.ops.homomorphic import make_homomorphic
+    from ewdml_tpu_torch.optim import make_optimizer
+    from ewdml_tpu_torch.parallel import ps
+    from ewdml_tpu_torch.train.state import leaf_params
+    from ewdml_tpu_torch.utils import prng, transfer
+
+    cfg = from_args(flags)
+    model = build_model("VGG11", 10, dataset="Cifar10").cuda()
+    specs = leaf_specs(model)
+    params = [to_jax(p.detach(), s.kind).contiguous()
+              for p, s in zip(leaf_params(model, specs), specs)]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    grads = [torch.randn(p.shape, device="cuda", generator=g) * 1e-2
+             for p in params]
+    comp = make_compressor(cfg.compress_grad, cfg.quantum_num,
+                           cfg.topk_ratio, cfg.topk_exact, cfg.qsgd_block)
+    if cfg.server_agg == "homomorphic":
+        comp = make_homomorphic(comp, grads)
+    server = ps.ParameterServer(params, make_optimizer("sgd", 0.01, 0.9),
+                                comp, num_aggregate=WORLD,
+                                server_agg=cfg.server_agg, device="cuda")
+    compress = ps.make_compress_tree(comp)
+    server.register_payload_schema(compress(grads, prng.key(0)))
+    pack = transfer.make_device_packer()
+    msgs = [native.encode_arrays([pack(compress(grads, prng.key(w)))
+                                  .cpu().numpy()]) for w in range(WORLD)]
+    for _ in range(rounds):
+        for w, msg in enumerate(msgs):
+            server.push(ps.PushRecord(w, server.version, msg, 0.0))
+    return server.stats.apply_ms_mean
 
 
 def main() -> int:
@@ -392,6 +618,19 @@ def main() -> int:
 
     # Phase 3: the training main path.
     counts, per_method = train_phase(torch, kernels)
+    # Phase 4: the async parameter server.
+    async_counts, async_runs = async_phase(torch, kernels)
+    for name, flags in ASYNC_RUNS:
+        alone = apply_alone(torch, flags)
+        async_runs[name]["apply_alone_ms"] = alone
+        print(f"apply alone {name}: {alone:.3f} ms per round", flush=True)
+    for k, v in async_counts.items():
+        counts[k] += v
+    print("kernels: " + json.dumps(counts), flush=True)
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 "main path")
 
     line = {"kernels": [dict(
         name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -399,6 +638,7 @@ def main() -> int:
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
         library_ms=c["library_ms"]) for name, c in checks.items()]}
     print("train: " + json.dumps(per_method), flush=True)
+    print("async: " + json.dumps(async_runs), flush=True)
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

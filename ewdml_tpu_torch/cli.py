@@ -1,11 +1,15 @@
-"""CLI entry (``ewdml_tpu/cli.py``), the sync training path.
+"""CLI entry (``ewdml_tpu/cli.py``): the sync trainer and the async
+parameter server.
 
     python -m ewdml_tpu_torch.cli --network VGG11 --dataset Cifar10 \\
         --synthetic-data --num-workers 4 --method 5 --topk-ratio 0.01 \\
         --max-steps 5
+    python -m ewdml_tpu_torch.cli --mode async --compress-grad qsgd \\
+        --server-agg homomorphic --network LeNet --dataset mnist10k \\
+        --num-workers 4 --num-aggregate 2 --max-steps 16
 
-runs on the GPU (``--platform cpu`` runs on the CPU). The flags are the JAX
-package's; ``--mode async`` and ``--federated`` are later slices.
+run on the GPU (``--platform cpu`` runs on the CPU). The flags are the JAX
+package's; ``--federated`` is a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     cfg = from_args(argv)
+    if cfg.mode == "async" and not cfg.federated:
+        return _main_async(cfg)
     trainer = Trainer(cfg)
     result = trainer.train()
     print(
@@ -33,6 +39,70 @@ def main(argv=None) -> int:
     )
     ev = trainer.evaluate()
     print(f"eval: loss={ev['loss']:.4f} top1={ev['top1']:.4f} top5={ev['top5']:.4f}")
+    return 0
+
+
+def run_async(cfg):
+    """The ``--mode async`` run of a config: ``(params, PSStats)``, the
+    parameters in the JAX tree's leaf order and layout."""
+    from ewdml_tpu_torch.core.world import default_num_workers, resolve_device
+    from ewdml_tpu_torch.data import datasets, loader
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.ops import kernels, make_compressor
+    from ewdml_tpu_torch.optim import make_optimizer
+    from ewdml_tpu_torch.parallel.ps import run_async_ps
+    from ewdml_tpu_torch.train.trainer import check_supported
+
+    check_supported(cfg, async_path=True)
+    device = resolve_device(cfg.platform)
+    if cfg.pallas != "auto":
+        kernels.configure(cfg.pallas)
+    model = build_model(cfg.network, num_classes_for(cfg.dataset),
+                        dataset=cfg.dataset, seed=cfg.seed)
+    comp = (make_compressor(cfg.compress_grad, cfg.quantum_num,
+                            cfg.topk_ratio, cfg.topk_exact, cfg.qsgd_block)
+            if cfg.compression_enabled else None)
+    ds = datasets.load(cfg.dataset, cfg.data_dir, train=True,
+                       synthetic=cfg.synthetic_data, seed=cfg.seed,
+                       synthetic_size=cfg.synthetic_size)
+
+    def factory(worker_index):
+        # Async workers consume host-normalized f32, as in the JAX package.
+        return loader.global_batches(ds, cfg.batch_size, 1,
+                                     seed=cfg.seed + worker_index,
+                                     feed="f32")
+
+    num_workers = cfg.num_workers or default_num_workers(device)
+    return run_async_ps(
+        model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                              cfg.weight_decay, cfg.nesterov),
+        factory, num_workers=num_workers,
+        steps_per_worker=max(1, cfg.max_steps // num_workers),
+        # --num-aggregate 0 means "all workers" (distributed_nn.py:58).
+        compressor=comp, num_aggregate=cfg.num_aggregate or num_workers,
+        kill_threshold=(cfg.kill_threshold if cfg.kill_threshold > 0
+                        else None),
+        max_staleness=cfg.max_staleness if cfg.max_staleness > 0 else None,
+        fault_spec=cfg.fault_spec,
+        # The weights-down relay reproduces the reference's negative result
+        # and is not the M4/M5 presets' gradient relay.
+        relay_compress=False, down_mode=cfg.ps_down,
+        bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
+        server_agg=cfg.server_agg, seed=cfg.seed, device=device)
+
+
+def _main_async(cfg) -> int:
+    """``--mode async``: the in-process asynchronous parameter server."""
+    _, stats = run_async(cfg)
+    print(
+        f"async done: pushes={stats.pushes} updates={stats.updates} "
+        f"stale_dropped={stats.dropped_stale} stragglers={stats.dropped_straggler} "
+        f"crashes={stats.worker_crashes} kills={stats.kills_sent} "
+        f"excluded={sorted(stats.excluded_workers)} "
+        f"mean_staleness={stats.mean_staleness:.2f} "
+        f"loss_tail10={stats.loss_tail_mean(10):.4f} "
+        f"up={stats.bytes_up / 1e6:.2f}MB down={stats.bytes_down / 1e6:.2f}MB"
+    )
     return 0
 
 

@@ -247,6 +247,39 @@ def validate_overlap(cfg: TrainConfig) -> None:
                          "--gather-type " + cfg.gather_type)
 
 
+def validate_server_agg(cfg: TrainConfig) -> None:
+    """The ``--server-agg`` matrix (``config.py:777``, copied): fail at
+    config altitude, before a server is built."""
+    if cfg.server_agg not in ("decode", "homomorphic"):
+        raise ValueError(f"--server-agg must be 'decode' or 'homomorphic', "
+                         f"got {cfg.server_agg!r}")
+    if cfg.server_agg == "decode":
+        return
+    name = (cfg.compress_grad or "none").lower()
+    if name not in ("compress", "qsgd", "topk_qsgd", "topk-qsgd", "method5"):
+        raise ValueError(
+            "--server-agg homomorphic needs a QSGD-family compressor "
+            "(--compress-grad qsgd/topk_qsgd): dense pushes already sum "
+            "without a decode, and the plain top-k / terngrad wires have "
+            f"no shared-scale contract (got {cfg.compress_grad!r})")
+    if cfg.quantum_num > 127:
+        raise ValueError(
+            "--server-agg homomorphic needs an int8 level wire "
+            f"(--quantum-num <= 127, got {cfg.quantum_num}): the widened "
+            "int32 accumulator's overflow budget is sized for clipped "
+            "int8 levels (the s=128 reference-parity opt-in is an int16 "
+            "wire)")
+    if cfg.ps_down == "delta":
+        raise ValueError(
+            "--server-agg homomorphic requires --ps-down weights: the "
+            "delta stream compresses SERVER updates with per-push norms "
+            "(a different scale domain than the negotiated gradient "
+            "contract)")
+    if cfg.lossy_weights_down:
+        raise ValueError("--server-agg homomorphic is incompatible with "
+                         "the --lossy-weights-down negative-result mode")
+
+
 def apply_method_preset(cfg: TrainConfig, method: int) -> None:
     """Experiment matrix Methods 1-6 (Final Report pp.4-6)."""
     if method == 1:       # vanilla sync PS: dense grads up, weights down

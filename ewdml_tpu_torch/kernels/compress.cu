@@ -2,7 +2,8 @@
 //
 // Hand-written counterparts of the Pallas TPU kernels in
 // ewdml_tpu/ops/pallas_kernels.py. Each is held bit for bit (quantize,
-// block_top1, the ring hops) or within its stated bound (dequant_mean)
+// block_top1, the ring hops, the server apply's int_accumulate and
+// acc_decode) or within its stated bound (dequant_mean)
 // against the plain PyTorch version beside its wrapper in
 // ewdml_tpu_torch/ops/kernels.py.
 // Every float operation that could be contracted into an FMA is written
@@ -266,6 +267,93 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
   }
 }
 
+// The compressed-domain server apply (--server-agg homomorphic):
+// int_accumulate (pallas_kernels.py:587) and acc_decode
+// (pallas_kernels.py:629). Neither draws random bits, and the accumulate is
+// exact integer arithmetic, so both are bit-equal to their plain versions
+// by construction.
+//
+// int_accumulate: the exact int32 sum of K int8 planes [K, n]. One thread
+// owns 16 consecutive output elements and walks the K rows in order. Row w
+// starts at byte w * n, so the 16-byte vector loads are legal only when n
+// and the base address are multiples of 16 (kVec); otherwise every load is
+// a single byte. Bound: K * n + 4 * n bytes.
+constexpr int kAccVec = 16;  // elements per thread of int_accumulate
+
+template <bool kVec>
+__global__ void int_accumulate_kernel(const int8_t* __restrict__ levels,
+                                      int world, int64_t n,
+                                      int32_t* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t * kAccVec < n; t += stride) {
+    const int64_t base = t * kAccVec;
+    int32_t acc[kAccVec];
+#pragma unroll
+    for (int j = 0; j < kAccVec; ++j) acc[j] = 0;
+    for (int w = 0; w < world; ++w) {
+      const int8_t* row = levels + (int64_t)w * n + base;
+      if constexpr (kVec) {
+        const int4 v = *reinterpret_cast<const int4*>(row);
+        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+        for (int j = 0; j < kAccVec; ++j) acc[j] += (int32_t)b[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < kAccVec; ++j) {
+          if (base + j < n) acc[j] += (int32_t)row[j];
+        }
+      }
+    }
+    if constexpr (kVec) {
+      int4* o = reinterpret_cast<int4*>(out + base);
+#pragma unroll
+      for (int q = 0; q < kAccVec / 4; ++q) {
+        o[q] = make_int4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                         acc[4 * q + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kAccVec; ++j) {
+        if (base + j < n) out[base + j] = acc[j];
+      }
+    }
+  }
+}
+
+// acc_decode: out = f32(acc) * (scale[b] * inv_k), the factor formed once per
+// element's block in that order and every product rounded on its own (no
+// FMA), as the TPU kernel and the plain version do. `inv_k` is 1/k rounded
+// to f32 on the host. Four elements per thread with one 16-byte load and
+// store; a blockwise scale needs block % 4 == 0 (the wrapper passes
+// multiples of 4096), so the four share one scale. Bound: 8n bytes.
+__device__ __forceinline__ float decode_one(int32_t a, float factor) {
+  return __fmul_rn(__int2float_rn(a), factor);
+}
+
+__global__ void acc_decode_kernel(const int32_t* __restrict__ acc,
+                                  const float* __restrict__ scales,
+                                  float inv_k, int64_t n, int64_t block,
+                                  float* __restrict__ out) {
+  const int64_t nvec = n / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int4* a4 = reinterpret_cast<const int4*>(acc);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
+       v += stride) {
+    const int64_t i = v * 4;
+    const float factor = __fmul_rn(scales[block ? i / block : 0], inv_k);
+    const int4 a = a4[v];
+    o4[v] = make_float4(decode_one(a.x, factor), decode_one(a.y, factor),
+                        decode_one(a.z, factor), decode_one(a.w, factor));
+  }
+  const int64_t t = nvec * 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n) {
+    out[t] = decode_one(acc[t],
+                        __fmul_rn(scales[block ? t / block : 0], inv_k));
+  }
+}
+
 int grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond ~16 per SM
@@ -329,6 +417,34 @@ int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
     ring_encode_kernel<true><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
                                stream>>>(local, levels, norms, inv_s, scale, n,
                                          seed, (float)s, out, out_norms);
+  }
+  return (int)cudaGetLastError();
+}
+
+// `vec` != 0 only when n % 16 == 0 and `levels` is 16-byte aligned (the
+// wrapper decides).
+int ewdml_int_accumulate(const int8_t* levels, int world, int64_t n, int vec,
+                         int32_t* out, cudaStream_t stream) {
+  if (n > 0) {
+    const int grid = grid_for((n + kAccVec - 1) / kAccVec);
+    if (vec) {
+      int_accumulate_kernel<true><<<grid, kThreads, 0, stream>>>(levels, world,
+                                                                 n, out);
+    } else {
+      int_accumulate_kernel<false><<<grid, kThreads, 0, stream>>>(
+          levels, world, n, out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// `block` is 0 (one scale) or a multiple of 4096; `acc` is 16-byte aligned.
+int ewdml_acc_decode(const int32_t* acc, const float* scales, float inv_k,
+                     int64_t n, int64_t block, float* out,
+                     cudaStream_t stream) {
+  if (n > 0) {
+    acc_decode_kernel<<<grid_for(n / 4 + 1), kThreads, 0, stream>>>(
+        acc, scales, inv_k, n, block, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,14 @@
 """Stacked Top-k -> QSGD compression, the reference's Method 5
-(``ewdml_tpu/ops/chain.py:1-81``, ``:253-299``).
+(``ewdml_tpu/ops/chain.py:1-200``, ``:253-299``).
 
 Sparsify, then quantize the k surviving values: the wire carries
 (indices int32, levels int8, norm f32). Big fused buckets at sparse ratios
-take the strided block selection instead (``ops/blocktopk.py``). The
-shared-scale (homomorphic) half of the JAX module is a later slice.
+take the strided block selection instead (``ops/blocktopk.py``).
+
+The shared-scale (homomorphic) half (``chain.py:85-200``) quantizes each
+winner against its dense block's negotiated scale, so the server
+scatter-adds K workers' int8 levels into one int32 accumulator and decodes
+the sum once per round.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ewdml_tpu_torch.ops import blocktopk, packing, qsgd, topk
+from ewdml_tpu_torch.ops import blocktopk, kernels, packing, qsgd, topk
 from ewdml_tpu_torch.ops.bytes import numel, tensor_nbytes
 
 
@@ -63,6 +67,101 @@ def decompress(p: TopKQSGDPayload) -> torch.Tensor:
     dense = torch.zeros(p.numel, dtype=torch.float32, device=values.device)
     dense[p.indices.long()] = values
     return dense.reshape(p.shape)
+
+
+# -- shared-scale (tensor-homomorphic) Top-k mode ------------------------------
+
+@dataclasses.dataclass
+class SharedScaleTopKQSGDPayload:
+    """Homomorphic sparse wire: (int32 dense indices, int8 levels) on the
+    negotiated grid; no per-push norm."""
+
+    indices: torch.Tensor  # int32 [k]
+    levels: torch.Tensor   # int8 [k]
+    shape: tuple
+    s: int
+    block: Optional[int] = None
+
+    @property
+    def numel(self) -> int:
+        return numel(self.shape)
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.indices.numel() * 4 + self.levels.numel()
+
+
+def shared_wire_bytes(n: int, ratio: float) -> int:
+    """Wire bytes of the shared-scale Top-k payload over ``n`` elements:
+    an int32 index and an int8 level per winner."""
+    return topk.static_k(n, ratio) * 5
+
+
+def nonblock_exact(exact, numel: int, ratio: float) -> bool:
+    """Selection for the shared-scale stack: the block wire has no
+    homomorphic accumulate, so 'block' resolves to approx."""
+    return topk.resolve_mode(exact, numel, ratio) == "exact"
+
+
+def compress_shared(key, g: torch.Tensor, scales: torch.Tensor,
+                    ratio: float, s: int = 127, exact=None,
+                    block: Optional[int] = None) -> SharedScaleTopKQSGDPayload:
+    """Top-k select, then quantize each winner against its dense block's
+    negotiated scale (``qsgd.shared_levels``)."""
+    if s > 127:
+        raise ValueError(f"shared-scale wire is int8 (s <= 127), got s={s}")
+    n = g.numel()
+    sparse = topk.compress(g, ratio, nonblock_exact(exact, n, ratio))
+    per_value = qsgd.scales_at(scales, sparse.indices, block)
+    levels = qsgd.shared_levels(key, sparse.values, per_value, s)
+    return SharedScaleTopKQSGDPayload(indices=sparse.indices, levels=levels,
+                                      shape=tuple(g.shape), s=s, block=block)
+
+
+def decompress_shared(p: SharedScaleTopKQSGDPayload,
+                      scales: torch.Tensor) -> torch.Tensor:
+    """Scatter ``scale * level`` into dense zeros."""
+    per_value = qsgd.scales_at(scales, p.indices, p.block)
+    dense = torch.zeros(p.numel, dtype=torch.float32, device=p.levels.device)
+    dense[p.indices.long()] = per_value * p.levels.to(torch.float32)
+    return dense.reshape(p.shape)
+
+
+class SharedScaleTopKQSGD:
+    """One leaf's shared-scale Method-5 stack."""
+
+    def __init__(self, scales: torch.Tensor, compress_ratio: float = 0.5,
+                 quantum_num: int = 127, exact=None,
+                 block: Optional[int] = None):
+        self.scales = scales.to(torch.float32).reshape(-1)
+        self.compress_ratio = compress_ratio
+        self.quantum_num = quantum_num
+        self.exact = exact
+        self.block = block
+
+    def compress(self, key, tensor: torch.Tensor):
+        return compress_shared(key, tensor, self.scales, self.compress_ratio,
+                               self.quantum_num, self.exact, self.block)
+
+    def decompress(self, payload: SharedScaleTopKQSGDPayload) -> torch.Tensor:
+        return decompress_shared(payload, self.scales)
+
+    def homomorphic_mean(self, payloads) -> torch.Tensor:
+        """K sparse payloads -> one dense mean: integer scatter-add
+        (``index_add_``), then the round's one dequantize
+        (``kernels.decode_sum``)."""
+        k = len(payloads)
+        qsgd.check_sum_budget(self.quantum_num, k)
+        shape = payloads[0].shape
+        device = payloads[0].levels.device
+        acc = torch.zeros(numel(shape), dtype=torch.int32, device=device)
+        for p in payloads:
+            acc.index_add_(0, p.indices.long(), p.levels.to(torch.int32))
+        return kernels.decode_sum(acc, self.scales.to(device), k,
+                                  block=self.block).reshape(shape)
+
+    def wire_bytes(self, shape) -> int:
+        return shared_wire_bytes(numel(shape), self.compress_ratio)
 
 
 class TopKQSGDCompressor:

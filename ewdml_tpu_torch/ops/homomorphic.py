@@ -1,0 +1,154 @@
+"""Compressed-domain server aggregation: the shared-scale contract
+(``ewdml_tpu/ops/homomorphic.py:1-220``, the flat half).
+
+With one scale contract shared by every worker, quantized gradients sum
+exactly in the integer domain (THC, PAPERS.md): the server adds K workers'
+int8 levels in an int32 accumulator and dequantizes once per round, instead
+of decoding every payload to f32 first.
+
+- :func:`derive_contract`: the per-leaf (per-block) scales, derived
+  deterministically from a template gradient both endpoints hold (the warm
+  gradient of ``parallel/ps.run_async_ps``).
+- :class:`HomomorphicCompressor`: per-leaf shared-scale twins of the
+  config's QSGD-family compressor, dispatched through ``for_leaf(i)``.
+- :func:`homomorphic_mean`: the server apply's core; per leaf one integer
+  accumulate over the K payloads and one dequantize
+  (``ops/kernels.int_accumulate`` / ``acc_decode`` on the card).
+
+The aggregation-tree half of the JAX module (the int16 mid-tier wire) is a
+later slice.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ewdml_tpu_torch.ops import chain, none, qsgd
+
+#: Default headroom of the scale contract: gradients up to this multiple of
+#: the template's block norms encode without clipping.
+DEFAULT_HEADROOM = 2.0
+
+
+def _leaf_shared(sub, g_template: torch.Tensor, headroom: float):
+    """The shared-scale twin of one leaf's sub-compressor (dense units pass
+    through: f32 payloads already sum without a decode)."""
+    if isinstance(sub, none.NoneCompressor):
+        return sub
+    if isinstance(sub, qsgd.QSGDCompressor):
+        if sub.norm_kind != "l2":
+            raise ValueError(
+                "--server-agg homomorphic supports L2-scaled QSGD only "
+                f"(got norm_kind={sub.norm_kind!r}; the TernGrad linf grid "
+                "has no shared-scale contract here)")
+        scales = qsgd.shared_scales(g_template, sub.quantum_num, sub.block,
+                                    headroom)
+        return qsgd.SharedScaleQSGD(scales, sub.quantum_num, sub.block)
+    if isinstance(sub, chain.TopKQSGDCompressor):
+        scales = qsgd.shared_scales(g_template, sub.quantum_num, sub.block,
+                                    headroom)
+        return chain.SharedScaleTopKQSGD(scales, sub.compress_ratio,
+                                         sub.quantum_num, sub.exact,
+                                         sub.block)
+    raise TypeError(
+        f"--server-agg homomorphic needs a QSGD-family compressor "
+        f"(qsgd / topk_qsgd), got {type(sub).__name__}")
+
+
+def derive_contract(compressor, grads_template,
+                    headroom: float = DEFAULT_HEADROOM) -> tuple:
+    """Per-leaf shared-scale sub-compressors for ``compressor`` against
+    ``grads_template`` (a list of tensors in the JAX tree's leaf order)."""
+    per_unit = hasattr(compressor, "for_leaf")
+    return tuple(
+        _leaf_shared(compressor.for_leaf(i) if per_unit else compressor,
+                     g, headroom)
+        for i, g in enumerate(grads_template))
+
+
+class HomomorphicCompressor:
+    """Shared-scale wrapper around the config's compressor; workers encode
+    through ``for_leaf(i)``, the server averages with
+    :func:`homomorphic_mean`."""
+
+    def __init__(self, base, grads_template,
+                 headroom: float = DEFAULT_HEADROOM):
+        self.base = base
+        self.headroom = headroom
+        self._subs = derive_contract(base, grads_template, headroom)
+        self._crc = None
+
+    def for_leaf(self, i: int):
+        return self._subs[i]
+
+    def contract_checksum(self) -> int:
+        """CRC32 over every leaf's f32 scale bytes: two endpoints that
+        derived different grids get different checksums."""
+        if self._crc is None:
+            crc = 0
+            for sub in self._subs:
+                scales = getattr(sub, "scales", None)
+                if scales is not None:
+                    arr = scales.detach().to("cpu", torch.float32).numpy()
+                    crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+            self._crc = crc
+        return self._crc
+
+    def compress(self, key, tensor):  # pragma: no cover - misuse guard
+        raise TypeError("HomomorphicCompressor is per-unit; dispatch "
+                        "through for_leaf(i) (compress_tree_fn does)")
+
+    decompress = compress
+
+    def wire_bytes(self, shape, unit: Optional[int] = None) -> int:
+        if unit is None:
+            raise TypeError("HomomorphicCompressor.wire_bytes needs the "
+                            "unit index (per-leaf scale contracts)")
+        return int(self._subs[unit].wire_bytes(shape))
+
+
+def priced_wire_bytes(sub, n: int) -> int:
+    """Shared-scale wire bytes of one unit given its base sub-compressor
+    (the analytic wire plan holds no scale template)."""
+    if isinstance(sub, none.NoneCompressor):
+        return n * 4
+    if isinstance(sub, qsgd.QSGDCompressor):
+        return qsgd.shared_wire_bytes(n)
+    if isinstance(sub, chain.TopKQSGDCompressor):
+        return chain.shared_wire_bytes(n, sub.compress_ratio)
+    raise TypeError(
+        f"no shared-scale wire for {type(sub).__name__} "
+        "(--server-agg homomorphic supports qsgd / topk_qsgd)")
+
+
+def make_homomorphic(compressor, grads_template,
+                     headroom: float = DEFAULT_HEADROOM):
+    """The one constructor every surface uses, so both endpoints wrap
+    identically."""
+    if compressor is None:
+        raise ValueError("--server-agg homomorphic needs a compressed "
+                         "config: dense f32 pushes already sum without a "
+                         "decode, so there is nothing to save")
+    return HomomorphicCompressor(compressor, grads_template, headroom)
+
+
+def homomorphic_mean(compressor: HomomorphicCompressor,
+                     payload_trees) -> list:
+    """Mean gradients (a list in leaf order) of K same-contract payload
+    lists with one dequantize per leaf and round; dense leaves average in
+    f32. (The JAX function's ``k`` divisor override serves the
+    aggregation tree, a later slice.)"""
+    out = []
+    for i in range(len(payload_trees[0])):
+        sub = compressor.for_leaf(i)
+        ps = [t[i] for t in payload_trees]
+        if isinstance(sub, none.NoneCompressor):
+            stack = torch.stack([p.values for p in ps]).to(torch.float32)
+            out.append(stack.mean(dim=0).reshape(ps[0].shape))
+        else:
+            out.append(sub.homomorphic_mean(ps))
+    return out

@@ -1,8 +1,9 @@
 """The compression kernels of the training step, with their dispatch.
 
-Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. Five of its seven
-Pallas kernels are on the sync trainer's paths and are ported here as CUDA
-kernels for Hopper (``ewdml_tpu_torch/kernels/compress.cu``):
+Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. All seven of its
+Pallas kernels are ported here as CUDA kernels for Hopper
+(``ewdml_tpu_torch/kernels/compress.cu``): five on the sync trainer's
+paths, two in the parameter server's compressed-domain apply:
 
 =======================  ===========================  ======================
 wrapper                  replaces                     bound on the H100
@@ -12,12 +13,17 @@ wrapper                  replaces                     bound on the H100
 ``block_top1``           ``pallas_kernels.py:290``    4RC bytes
 ``chunk_encode``         ``pallas_kernels.py:431``    5n + 4nb bytes
 ``dequant_acc_requant``  ``pallas_kernels.py:479``    6n + 8nb bytes
+``int_accumulate``       ``pallas_kernels.py:587``    (K + 4)n bytes
+``acc_decode``           ``pallas_kernels.py:629``    8n bytes
 =======================  ===========================  ======================
 
 All of them move bytes and do a few operations per byte, so HBM bandwidth
 bounds them; each streams its input once and keeps nothing in device memory
-between the read and the write. The last two are the per-hop passes of the
-ring transports (``--collective fused_q``, ``--gather-type ring_rs``).
+between the read and the write. ``chunk_encode`` and
+``dequant_acc_requant`` are the per-hop passes of the ring transports
+(``--collective fused_q``, ``--gather-type ring_rs``); ``int_accumulate``
+and ``acc_decode`` sum K same-contract int8 payloads and decode the sum
+once per round (``--mode async --server-agg homomorphic``).
 
 Each wrapper has a plain PyTorch version beside it (``*_ref``) that repeats
 the kernel's arithmetic in the same rounding order. A wrapper given a CPU
@@ -41,9 +47,17 @@ The two ring kernels have no threefry variant and no size gate: the ring
 transports call :func:`active` (not :func:`active_for`), as the JAX package
 does, and take the kernel on CUDA at every size in ``auto``/``on`` and the
 plain version on the CPU or under ``off``/``interpret``.
+
+The server-apply pair draws no random bits; :func:`accumulate` and
+:func:`decode_sum` dispatch it as ``pallas_kernels`` does when no
+``interpret`` flag is given: the kernel where :func:`active_for` picks it
+(and, for ``acc_decode``, the scale is per tensor or its block a multiple
+of 4096), the plain version elsewhere.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -62,12 +76,21 @@ _MODE = "auto"  # auto | on | interpret | off
 
 #: Kernel launches per wrapper (CUDA only; the plain versions never count).
 LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0,
-            "chunk_encode": 0, "dequant_acc_requant": 0}
+            "chunk_encode": 0, "dequant_acc_requant": 0, "int_accumulate": 0,
+            "acc_decode": 0}
+# The parameter server's worker threads launch kernels concurrently.
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def configure(mode: str) -> None:
@@ -113,6 +136,13 @@ def _check_norms(norms_size: int, n: int, block: int) -> None:
         raise ValueError(
             f"blockwise norms length {norms_size} does not match "
             f"ceil({n}/{block}) = {expected}")
+
+
+def f32_scalar(value: float) -> torch.Tensor:
+    """``value`` rounded once to f32, as a 0-d CPU tensor. In an op with a
+    CUDA tensor it is passed by value: no host-to-device copy, no stream
+    synchronisation, and no rounding but the one to f32."""
+    return torch.tensor(value, dtype=torch.float32)
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -168,8 +198,7 @@ def quantize_levels(x: torch.Tensor, norm_el: torch.Tensor, u: torch.Tensor,
     a zero norm, as f32 (the arithmetic of the kernel and of the threefry
     path alike)."""
     safe = torch.where(norm_el == 0.0, torch.ones_like(norm_el), norm_el)
-    level_float = (torch.tensor(float(s), dtype=torch.float32,
-                                device=x.device) / safe) * x.abs()
+    level_float = (f32_scalar(float(s)) / safe) * x.abs()
     previous = torch.floor(level_float)
     level = previous + (u < (level_float - previous)).to(torch.float32)
     return torch.sign(x) * level
@@ -225,7 +254,7 @@ def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
         x.data_ptr(), norms.data_ptr(), n, block or 0,
         int(seed) & 0xFFFFFFFF, int(s), out.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "qsgd_quantize")
-    LAUNCHES["qsgd_quantize"] += 1
+    _count("qsgd_quantize")
     return out
 
 
@@ -244,8 +273,7 @@ def dequant_mean_ref(levels: torch.Tensor, norms: torch.Tensor, s: int,
     for w in range(world):
         acc = acc + _norm_per_element(norms2[w], n, block) * levels[w].to(
             torch.float32)
-    factor = torch.tensor(1.0 / (s * world), dtype=torch.float32,
-                          device=levels.device)
+    factor = f32_scalar(1.0 / (s * world))
     return acc * factor
 
 
@@ -285,7 +313,7 @@ def dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int,
         levels.data_ptr(), norms2.data_ptr(), world, n, nb, block or 0,
         1.0 / (s * world), out.data_ptr(), _stream_ptr(levels))
     _launch_check(rc, "dequant_mean")
-    LAUNCHES["dequant_mean"] += 1
+    _count("dequant_mean")
     return out
 
 
@@ -340,7 +368,7 @@ def block_top1(x2: torch.Tensor):
     rc = library().ewdml_block_top1(x2.data_ptr(), r, c, vals.data_ptr(),
                                     locs.data_ptr(), _stream_ptr(x2))
     _launch_check(rc, "block_top1")
-    LAUNCHES["block_top1"] += 1
+    _count("block_top1")
     return vals, locs
 
 
@@ -434,12 +462,10 @@ def dequant_acc_requant_ref(levels: torch.Tensor, norms: torch.Tensor,
     _check_hop_args(levels, norms, local, block)
     n = local.numel()
     nb = -(-n // block)
-    coef = norms.to(torch.float32).reshape(-1) * torch.tensor(
-        1.0 / s, dtype=torch.float32, device=local.device)
+    coef = norms.to(torch.float32).reshape(-1) * f32_scalar(1.0 / s)
     acc = (_pad_blocks(local.to(torch.float32), nb, block)
            + coef[:, None] * _pad_blocks(levels, nb, block).to(torch.float32))
-    acc = acc * torch.tensor(float(scale), dtype=torch.float32,
-                             device=local.device)
+    acc = acc * f32_scalar(float(scale))
     onorms = block_norms_ref(acc)
     return encode_blocks_ref(acc.reshape(-1)[:n], onorms, seed, s,
                              block=block), onorms
@@ -452,8 +478,7 @@ def decode_blocks(levels: torch.Tensor, norms: torch.Tensor, s: int, *,
     here, since its output is the dense result)."""
     n = levels.numel()
     lv = _pad_blocks(levels.to(torch.float32), -(-n // block), block)
-    coef = norms.to(torch.float32).reshape(-1)[:, None] * torch.tensor(
-        1.0 / s, dtype=torch.float32, device=levels.device)
+    coef = norms.to(torch.float32).reshape(-1)[:, None] * f32_scalar(1.0 / s)
     return (lv * coef).reshape(-1)[:n]
 
 
@@ -491,7 +516,7 @@ def chunk_encode(x: torch.Tensor, seed: int, s: int = 127, *,
         x.data_ptr(), n, block, int(seed) & 0xFFFFFFFF, int(s),
         levels.data_ptr(), norms.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "chunk_encode")
-    LAUNCHES["chunk_encode"] += 1
+    _count("chunk_encode")
     return levels, norms
 
 
@@ -525,7 +550,7 @@ def dequant_acc_requant(levels: torch.Tensor, norms: torch.Tensor,
         int(seed) & 0xFFFFFFFF, int(s), 1.0 / s, float(scale),
         out.data_ptr(), onorms.data_ptr(), _stream_ptr(local))
     _launch_check(rc, "dequant_acc_requant")
-    LAUNCHES["dequant_acc_requant"] += 1
+    _count("dequant_acc_requant")
     return out, onorms
 
 
@@ -536,3 +561,119 @@ def ring_hops(device):
     if active(device) == "kernel":
         return chunk_encode, dequant_acc_requant
     return chunk_encode_ref, dequant_acc_requant_ref
+
+
+# -- kernels 6 + 7: the compressed-domain server apply -------------------------
+
+def _check_accumulate_args(levels: torch.Tensor) -> None:
+    if levels.dtype != torch.int8:
+        raise ValueError(f"int_accumulate is int8-only, got {levels.dtype}")
+    if levels.dim() != 2:
+        raise ValueError(f"int_accumulate takes [K, n] levels, got "
+                         f"{tuple(levels.shape)}")
+
+
+def int_accumulate_ref(levels: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int_accumulate`: the widened int32 sum over
+    the K rows (exact, so its order does not matter)."""
+    _check_accumulate_args(levels)
+    return levels.to(torch.int32).sum(dim=0, dtype=torch.int32)
+
+
+def int_accumulate(levels: torch.Tensor) -> torch.Tensor:
+    """Sum K int8 level planes ``[K, n]`` into one int32 plane ``[n]``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if levels.device.type == "cpu":
+        return int_accumulate_ref(levels)
+    from ewdml_tpu_torch.kernels import library
+
+    _check_accumulate_args(levels)
+    _require_cuda(levels, "int_accumulate", torch.int8)
+    world, n = levels.shape
+    out = torch.empty(n, dtype=torch.int32, device=levels.device)
+    vec = int(n % 16 == 0 and levels.data_ptr() % 16 == 0)
+    rc = library().ewdml_int_accumulate(levels.data_ptr(), world, n, vec,
+                                        out.data_ptr(), _stream_ptr(levels))
+    _launch_check(rc, "int_accumulate")
+    _count("int_accumulate")
+    return out
+
+
+def _check_decode_args(acc: torch.Tensor, scales: torch.Tensor, block):
+    if acc.dtype != torch.int32:
+        raise ValueError(f"acc_decode is int32-only, got {acc.dtype}")
+    scales = scales.to(device=acc.device, dtype=torch.float32).reshape(-1)
+    per_tensor = block is None or scales.numel() == 1
+    if not per_tensor:
+        _check_norms(scales.numel(), acc.numel(), block)
+    return scales, per_tensor
+
+
+def acc_decode_ref(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
+                   block=None) -> torch.Tensor:
+    """Plain version of :func:`acc_decode`, in the kernel's order: the
+    factor ``scale[b] * f32(1/k)`` first, then ``f32(acc) * factor``."""
+    scales, per_tensor = _check_decode_args(acc, scales, block)
+    acc = acc.reshape(-1)
+    # 1/k rounded once to f32, as jnp.float32(1.0 / float(k)).
+    factor = scales * f32_scalar(1.0 / float(k))
+    if per_tensor:
+        return acc.to(torch.float32) * factor[0]
+    n = acc.numel()
+    nb = scales.numel()
+    a = _pad_blocks(acc, nb, block).to(torch.float32)
+    return (a * factor[:, None]).reshape(-1)[:n]
+
+
+def acc_decode(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
+               block=None) -> torch.Tensor:
+    """The round's one dequantize: ``f32(acc) * (scale[b] * f32(1/k))``.
+
+    ``acc``: [n] int32 (the sum over k payloads); ``scales``: f32 [1] (per
+    tensor) or [ceil(n/block)] with ``block`` a multiple of 4096. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    raises for any other block."""
+    if acc.device.type == "cpu":
+        return acc_decode_ref(acc, scales, k, block=block)
+    from ewdml_tpu_torch.kernels import library
+
+    scales, per_tensor = _check_decode_args(acc, scales, block)
+    if not (per_tensor or blockwise_supported(block)):
+        raise ValueError(f"the acc_decode kernel needs block % {_BLOCK} == 0, "
+                         f"got {block}")
+    acc = acc.reshape(-1)
+    _require_cuda(acc, "acc_decode", torch.int32)
+    acc = _aligned(acc, 16)
+    scales = scales.contiguous()
+    n = acc.numel()
+    out = torch.empty(n, dtype=torch.float32, device=acc.device)
+    inv_k = float(f32_scalar(1.0 / float(k)))
+    rc = library().ewdml_acc_decode(
+        acc.data_ptr(), scales.data_ptr(), inv_k, n,
+        0 if per_tensor else block, out.data_ptr(), _stream_ptr(acc))
+    _launch_check(rc, "acc_decode")
+    _count("acc_decode")
+    return out
+
+
+def accumulate(levels: torch.Tensor) -> torch.Tensor:
+    """``pallas_kernels.int_accumulate`` with no ``interpret`` flag: the
+    kernel where :func:`active_for` picks it, the plain version
+    elsewhere."""
+    _check_accumulate_args(levels)
+    if active_for(levels.shape[1], levels.device) == "kernel":
+        return int_accumulate(levels)
+    return int_accumulate_ref(levels)
+
+
+def decode_sum(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
+               block=None) -> torch.Tensor:
+    """``pallas_kernels.acc_decode`` with no ``interpret`` flag: the kernel
+    where :func:`active_for` picks it and the scale is per tensor or
+    blockwise on a multiple of 4096; the plain version elsewhere (the two
+    are bit-equal)."""
+    scales, per_tensor = _check_decode_args(acc, scales, block)
+    kernel_ok = per_tensor or blockwise_supported(block)
+    if kernel_ok and active_for(acc.numel(), acc.device) == "kernel":
+        return acc_decode(acc, scales, k, block=block)
+    return acc_decode_ref(acc, scales, k, block=block)

@@ -1,5 +1,6 @@
 """Analytic bytes-on-wire plan and the per-step log schema
-(``ewdml_tpu/train/metrics.py:26-304``, the single-slice sync trainer).
+(``ewdml_tpu/train/metrics.py:26-304``: the single-slice sync trainer and
+the async parameter server's rows).
 
 The plan prices the payloads the exchange ships: per transport unit (a
 leaf, or a fused bucket under the resolved fusion), the up-link payload
@@ -7,7 +8,11 @@ and the down-link (dense weights for M1, dense averaged gradients for
 M2/M3, the compressed relay for M4/M5, one compressed payload for a
 ``ring_rs`` phase 2), amortized over Method 6's sync period; under
 ``--collective fused_q`` the one ``<fused-q-ring>`` unit holds the exact
-ring hop bytes of each phase. Unit names are the JAX package's
+ring hop bytes of each phase. Under ``--mode async --server-agg
+homomorphic`` the up-link is the shared-scale wire. As in the JAX plan,
+an async run is priced on the units of the resolved fusion, though the
+parameter server ships one payload per leaf: the two agree under
+``--fusion none``. Unit names are the JAX package's
 (``conv1/kernel``, ``<bucket-3>``), so the two plans compare row by row.
 """
 
@@ -114,10 +119,20 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
         hop = ring_hop_bytes(sum(elems for _, elems in units), w)
         up["<fused-q-ring>"] = down["<fused-q-ring>"] = hop
         units = []
+    # Compressed-domain PS aggregation (--server-agg homomorphic on the
+    # async path): the up-link ships the shared-scale wire (unpacked int8
+    # levels, no per-push norms), priced by ops/homomorphic.
+    hom_up = (cfg.compression_enabled and cfg.mode == "async"
+              and cfg.server_agg == "homomorphic")
     for name, elems in units:
         dense_wire = elems * 4
-        up[name] = (comp.wire_bytes((elems,)) if cfg.compression_enabled
-                    else dense_wire)
+        if hom_up:
+            from ewdml_tpu_torch.ops.homomorphic import priced_wire_bytes
+
+            up[name] = priced_wire_bytes(comp, elems)
+        else:
+            up[name] = (comp.wire_bytes((elems,)) if cfg.compression_enabled
+                        else dense_wire)
         if cfg.ps_mode == "weights":
             down[name] = elems * 4          # weights broadcast (M1)
         elif transport == "ring_rs":

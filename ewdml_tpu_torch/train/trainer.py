@@ -29,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
-                                         validate_collective, validate_overlap)
+                                         validate_collective, validate_overlap,
+                                         validate_server_agg)
 from ewdml_tpu_torch.core.world import LocalWorld
 from ewdml_tpu_torch.data.datasets import _SPECS
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
@@ -55,12 +56,19 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):
             for k in ks]
 
 
-def check_supported(cfg: TrainConfig) -> None:
-    """Reject every option this slice does not implement, by name."""
+def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
+    """Reject every option the port does not implement yet, by name.
+
+    ``async_path`` checks a run of the in-process parameter server
+    (``--mode async``, ``parallel/ps.py``) instead of the sync trainer."""
+    if async_path:
+        _check_async_supported(cfg)
+        return
     validate_collective(cfg)
     validate_overlap(cfg)
     unsupported = [
-        (cfg.mode != "normal", f"--mode {cfg.mode}"),
+        (cfg.mode != "normal", f"--mode {cfg.mode} (the sync trainer; "
+                               "--mode async runs the parameter server)"),
         (cfg.federated, "--federated"),
         (cfg.overlap != "off", "--overlap bucket"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
@@ -74,6 +82,36 @@ def check_supported(cfg: TrainConfig) -> None:
         (cfg.trace_dir is not None, "--trace-dir"),
         (cfg.metrics_port is not None, "--metrics-port"),
         (cfg.health != "off", f"--health {cfg.health}"),
+        (cfg.debug_nans, "--debug-nans"),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
+
+
+def _check_async_supported(cfg: TrainConfig) -> None:
+    validate_server_agg(cfg)
+    validate_overlap(cfg)
+    unsupported = [
+        (cfg.mode != "async", f"--mode {cfg.mode} (not the parameter "
+                              "server)"),
+        (cfg.federated, "--federated"),
+        (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
+        (cfg.ps_down != "weights", f"--ps-down {cfg.ps_down}"),
+        (cfg.ps_bootstrap != "f32", f"--ps-bootstrap {cfg.ps_bootstrap}"),
+        (cfg.pull_delta, "--pull-delta (the publication stream)"),
+        (bool(cfg.replicas), "--replicas"),
+        (bool(cfg.agg_tree), "--agg-tree (aggregation-tree pseudo-pushes)"),
+        (bool(cfg.server_state_dir),
+         "--server-state-dir (durability and recovery)"),
+        (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
+        (cfg.precision_policy != "f32",
+         f"--precision-policy {cfg.precision_policy}"),
+        (cfg.health != "off", f"--health {cfg.health}"),
+        (cfg.profile_dir is not None, "--profile-dir"),
+        (cfg.trace_dir is not None, "--trace-dir"),
+        (cfg.metrics_port is not None, "--metrics-port"),
         (cfg.debug_nans, "--debug-nans"),
     ]
     for bad, what in unsupported:

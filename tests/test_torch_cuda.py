@@ -8,7 +8,8 @@ installed:
 Oracles: quantize and block_top1 bit; dequant_mean bit (the kernel keeps
 the plain version's order of operations, with no FMA); chunk_encode and
 dequant_acc_requant bit, levels and norms (the plain versions repeat the
-kernels' summation order).
+kernels' summation order); int_accumulate and acc_decode bit (exact
+integer sums, one f32 product per element in the same order).
 """
 
 import pytest
@@ -112,9 +113,79 @@ def test_wrappers_count_launches(cuda):
                          torch.ones(2, device="cuda"), 127)
     lv, nm = kernels.chunk_encode(x, 2)
     kernels.dequant_acc_requant(lv, nm, x, 3)
+    acc = kernels.int_accumulate(torch.stack([lv, lv]))
+    kernels.acc_decode(acc, torch.ones(1, device="cuda"), 2)
     assert kernels.LAUNCHES == {"qsgd_quantize": 1, "dequant_mean": 1,
                                 "block_top1": 1, "chunk_encode": 1,
-                                "dequant_acc_requant": 1}
+                                "dequant_acc_requant": 1, "int_accumulate": 1,
+                                "acc_decode": 1}
+
+
+@pytest.mark.parametrize("world,n", [(4, 2_359_296), (5, 9000), (8, 130),
+                                     (3, 4096)])
+def test_int_accumulate_kernel_is_the_plain_version(cuda, world, n):
+    lv = torch.randint(-127, 128, (world, n), device="cuda",
+                       generator=cuda).to(torch.int8)
+    lv[:, :3] = 127
+    assert torch.equal(kernels.int_accumulate(lv),
+                       kernels.int_accumulate_ref(lv))
+    # A base address that is not 16-byte aligned takes the byte loads.
+    big = torch.randint(-127, 128, (world * n + 1,), device="cuda",
+                        generator=cuda).to(torch.int8)
+    off = big[1:].reshape(world, n)
+    assert torch.equal(kernels.int_accumulate(off),
+                       kernels.int_accumulate_ref(off))
+
+
+@pytest.mark.parametrize("k", [4, 3])
+@pytest.mark.parametrize("n,block", [(2_359_296, None), (2_359_296, 4096),
+                                     (2_359_296, 8192), (3 * 8192 + 17, 4096),
+                                     (3 * 8192 + 17, 8192), (5, None)])
+def test_acc_decode_kernel_is_the_plain_version(cuda, k, n, block):
+    acc = torch.randint(-127 * k, 127 * k + 1, (n,), device="cuda",
+                        generator=cuda).to(torch.int32)
+    nb = 1 if block is None else -(-n // block)
+    sc = torch.rand(nb, device="cuda", generator=cuda) * 1e-3
+    a = kernels.acc_decode(acc, sc, k, block=block)
+    b = kernels.acc_decode_ref(acc, sc, k, block=block)
+    assert _bits_equal(a, b)
+
+
+def test_acc_decode_kernel_refuses_an_odd_block(cuda):
+    acc = torch.zeros(5000, dtype=torch.int32, device="cuda")
+    sc = torch.ones(5, device="cuda")
+    with pytest.raises(ValueError, match="4096"):
+        kernels.acc_decode(acc, sc, 2, block=1000)
+    # The dispatcher takes the plain version there, as the JAX twin serves.
+    kernels.reset_launches()
+    kernels.decode_sum(acc, sc, 2, block=1000)
+    assert kernels.LAUNCHES["acc_decode"] == 0
+
+
+@pytest.mark.parametrize("compress", ["qsgd", "topk_qsgd"])
+def test_lenet_async_runs_through_the_kernels(cuda, compress):
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.ops import make_compressor
+    from ewdml_tpu_torch.optim import SGD
+    from ewdml_tpu_torch.data import datasets, loader
+    from ewdml_tpu_torch.parallel.ps import run_async_ps
+
+    ds = datasets.load("mnist10k", train=True)
+    kernels.reset_launches()
+    _, stats = run_async_ps(
+        build_model("LeNet", 10, dataset="mnist10k"), SGD(0.01),
+        lambda i: loader.global_batches(ds, 32, 1, seed=i, feed="f32"),
+        num_workers=4, steps_per_worker=3,
+        compressor=make_compressor(compress, 127, topk_ratio=0.05),
+        num_aggregate=2, server_agg="homomorphic", device="cuda")
+    torch.cuda.synchronize()
+    assert stats.pushes == 12 and stats.updates == 6
+    assert stats.decode_count == stats.apply_rounds == 6
+    # LeNet's one leaf of at least 2^17 elements (fc1), per round and once
+    # for the warm apply.
+    assert kernels.LAUNCHES["acc_decode"] == 6 + 1
+    assert kernels.LAUNCHES["int_accumulate"] == (
+        6 + 1 if compress == "qsgd" else 0)
 
 
 @pytest.mark.parametrize("method", [4, 5])
