@@ -21,7 +21,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    blockwise 4096 and 8192 over the bucket and over a tail (bit).
    Each is timed with CUDA events (median of repeats, L2 flushed before
    each launch) beside its bound, its plain version, and one PyTorch call
-   for the same function where there is one.
+   for the same function where there is one. Then the per-shape table
+   (``shape`` lines): block_top1 at every (R, C) view VGG11-BN's M5 step
+   gives it at 1% (beside ``vector_norm(inf)``) and the ring hop at every
+   ``ring_rs --qsgd-block 4096`` chunk and at the ``fused_q`` chunk, each
+   bit-equal to its plain version there and timed beside its bound and its
+   launches per step, and its kernel's own time on the card read from a
+   ``torch.profiler`` trace (``device``; "not measured" where the trace
+   holds no device time);
+   block_top1 also on planted ties at (8, 128), (1000, 256), (104, 384)
+   and every path shape, and the hop on n = 4096, 4097, 33 * 4096,
+   144 * 4096 and the fused_q chunk with blocks of 4096, 8192 and 16384 at
+   scale 1 and 1/4 (bit); and the per-launch floor, a one-element
+   ``zero_()`` under the same timer.
+   ``--kernels-only`` stops here.
 3. Train VGG11-BN at full width (CIFAR-10 shapes, synthetic data, batch
    128 per worker, W = 4 workers emulated on the card, f32 with TF32 off)
    through the CLI's config and the Trainer: M1, M2, M4, M5 (1% top-k)
@@ -119,6 +132,28 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def device(self, fn, kernels: tuple, reps: int = 10):
+        """The mean time on the card of the kernels whose names hold one of
+        ``kernels`` over ``reps`` calls of ``fn`` (L2 flushed before each),
+        from a ``torch.profiler`` trace: the kernel alone, without the
+        launch. None where the trace holds no device time for them."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if any(k in e.key for k in kernels):
+                total_us += getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0.0))
+                count += e.count
+        return total_us / count / 1e3 if count and total_us > 0 else None
 
 
 def check_kernels(torch, kernels, timer) -> dict:
@@ -315,6 +350,173 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              shape=[BUCKET])
     return out
+
+
+def path_shapes() -> tuple:
+    """The shapes VGG11-BN's transport units (W = 4) give block_top1 and
+    dequant_acc_requant, with their launches per step: ``{(R, C, n): per M5
+    step}`` at the 1% ratio, and ``{blocks: (per step, path)}`` for the
+    hop at ``--qsgd-block 4096`` on ``ring_rs`` and on ``fused_q``."""
+    from ewdml_tpu_torch.core.config import from_args, resolved_unit_sizes
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+    from ewdml_tpu_torch.ops import blocktopk, topk
+    from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
+
+    specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
+    cfg = from_args(["--network", "VGG11", "--dataset", "Cifar10",
+                     "--num-workers", str(WORLD), "--method", "5"])
+    units = resolved_unit_sizes(cfg, [math.prod(s.jax_shape) for s in specs])
+    top1, hops = {}, {}
+    for n in units:
+        if topk.resolve_mode(None, n, 0.01) == "block":
+            nb, _, blk_pad = blocktopk.geometry(n, 0.01)
+            top1[(blk_pad, nb, n)] = top1.get((blk_pad, nb, n), 0) + WORLD
+        blocks = fused_chunk_elems(n, WORLD, 4096) // 4096
+        per_step = hops.get(blocks, (0,))[0] + WORLD * (WORLD - 1)
+        hops[blocks] = (per_step, "ring_rs")
+    hops[fused_chunk_elems(VGG11_PARAMS, WORLD, 4096) // 4096] = (
+        WORLD * (WORLD - 1), "fused_q")
+    return dict(sorted(top1.items(), reverse=True)), dict(sorted(hops.items()))
+
+
+def top1_edge_matrix(torch, r: int, c: int, g):
+    """Half-integers (ties in |x| all over), and planted columns: +-v and
+    equal v in rows far apart (in different row slices of the kernel), an
+    all-zero column whose first row is -0, an all -0 column, an all-equal
+    column, and a maximum in the last row. The first row of the column
+    maximum in columns 0-7 is 0, 0, 0, t, t, t, r - 1, 0 with
+    t = min(3, r - 7); ``tests/test_torch_cuda.py`` holds the kernel to
+    these planted cases as well."""
+    x2 = torch.round(torch.randn(r, c, device="cuda", generator=g) * 2) / 2
+    lo, hi = min(3, r - 1), max(r - 7, 0)
+    x2[:, :8] = 0.5
+    x2[:, 0] = 0.0
+    x2[0, 0] = -0.0
+    x2[:, 1] = -0.0
+    x2[:, 2] = 2.5
+    x2[lo, 3], x2[hi, 3] = 7.0, -7.0
+    x2[lo, 4], x2[hi, 4] = -7.0, 7.0
+    x2[lo, 5], x2[hi, 5] = 7.0, 7.0
+    x2[r - 1, 6] = -9.0
+    x2[0, 7], x2[r - 1, 7] = -9.0, 9.0
+    return x2
+
+
+def same_top1(torch, kernels, x2, what) -> None:
+    va, la = kernels.block_top1(x2)
+    vb, lb = kernels.block_top1_ref(x2)
+    torch.cuda.synchronize()
+    if not torch.equal(la, lb):
+        raise AssertionError(f"block_top1 {what}: {int((la != lb).sum())} "
+                             "rows differ from the plain version")
+    if not torch.equal(va.view(torch.int32), vb.view(torch.int32)):
+        raise AssertionError(f"block_top1 {what}: values differ from the "
+                             "plain version")
+
+
+def same_hop(torch, kernels, lv, nm, local, seed, block, scale,
+             what) -> None:
+    la, na = kernels.dequant_acc_requant(lv, nm, local, seed, 127,
+                                         block=block, scale=scale)
+    lb, nb = kernels.dequant_acc_requant_ref(lv, nm, local, seed, 127,
+                                             block=block, scale=scale)
+    torch.cuda.synchronize()
+    if not torch.equal(na.view(torch.int32), nb.view(torch.int32)):
+        raise AssertionError(f"dequant_acc_requant {what}: "
+                             f"{int((na != nb).sum())} norms differ from the "
+                             "plain version")
+    if not torch.equal(la, lb):
+        raise AssertionError(f"dequant_acc_requant {what}: "
+                             f"{int((la != lb).sum())} levels differ from the "
+                             "plain version")
+
+
+def hop_inputs(torch, n: int, block: int, g) -> tuple:
+    lv = torch.randint(-127, 128, (n,), device="cuda", generator=g).to(
+        torch.int8)
+    nm = torch.rand(-(-n // block), device="cuda", generator=g)
+    local = torch.randn(n, device="cuda", generator=g) * 1e-2
+    return lv, nm, local
+
+
+def check_path_shapes(torch, kernels, timer) -> dict:
+    """block_top1 and the hop bit-equal to their plain versions at the path's
+    shapes and the edge cases, then timed at the path's shapes beside their
+    bounds (and, for block_top1, the library call), with the time of a
+    one-element ``zero_()`` under the same timer as the per-launch floor."""
+    g = torch.Generator(device="cuda").manual_seed(40)
+    top1, hops = path_shapes()
+    for r, c in ((8, 128), (1000, 256), (104, 384)):
+        same_top1(torch, kernels, top1_edge_matrix(torch, r, c, g),
+                  f"edges ({r}, {c})")
+    for n in (4096, 4097, 33 * 4096, 144 * 4096, max(hops) * 4096):
+        for block in (4096, 8192, 16384):
+            lv, nm, local = hop_inputs(torch, n, block, g)
+            for scale in (1.0, 1.0 / WORLD):
+                same_hop(torch, kernels, lv, nm, local, n % 1000 - 500,
+                         block, scale, f"n={n} block={block} scale={scale}")
+    one = torch.zeros(1, device="cuda")
+    out = {"floor_ms": timer(lambda: one.zero_()), "block_top1": [],
+           "dequant_acc_requant": []}
+    for (r, c, n), per_step in top1.items():
+        x2 = torch.zeros(r * c, device="cuda")
+        x2[:n] = torch.randn(n, device="cuda", generator=g)
+        x2 = x2.reshape(r, c)
+        same_top1(torch, kernels, x2, f"({r}, {c})")
+        same_top1(torch, kernels, top1_edge_matrix(torch, r, c, g),
+                  f"edges ({r}, {c})")
+        ms = timer(lambda: kernels.block_top1(x2))
+        lib = timer(lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
+        dev = timer.device(lambda: kernels.block_top1(x2),
+                           ("block_top1_kernel",))
+        nbytes = 4 * r * c + 8 * c
+        bnd, _ = bound_ms(nbytes, OPS_PER_ELEM["block_top1"] * r * c)
+        out["block_top1"].append(dict(
+            shape=[r, c], per_m5_step=per_step, ms=ms, bound_ms=bnd,
+            share=bnd / ms, library_ms=lib, device_ms=dev, bytes=nbytes))
+    for blocks, (per_step, path) in hops.items():
+        n = blocks * 4096
+        lv, nm, local = hop_inputs(torch, n, 4096, g)
+
+        def hop():
+            return kernels.dequant_acc_requant(lv, nm, local, 7, 127,
+                                               scale=1.0 / WORLD)
+        same_hop(torch, kernels, lv, nm, local, blocks, 4096, 1.0 / WORLD,
+                 f"{blocks} blocks")
+        ms = timer(hop)
+        dev = timer.device(hop, ("ring_hop_kernel", "ring_encode_kernel"))
+        nbytes = 6 * n + 8 * blocks
+        bnd, _ = bound_ms(nbytes, OPS_PER_ELEM["dequant_acc_requant"] * n)
+        out["dequant_acc_requant"].append(dict(
+            blocks=blocks, n=n, path=path, per_step=per_step, ms=ms,
+            bound_ms=bnd, share=bnd / ms, device_ms=dev, bytes=nbytes))
+    return out
+
+
+def on_card(row: dict) -> str:
+    """A row's profiled kernel time and the HBM rate it implies."""
+    if row["device_ms"] is None:
+        return "device not measured"
+    rate = row["bytes"] / row["device_ms"] / 1e9  # TB/s
+    return (f"device {row['device_ms']:.4f} ms ({rate:.2f} TB/s, "
+            f"{100 * rate * 1e12 / HBM_BYTES_PER_S:.0f}% of HBM)")
+
+
+def print_path_shapes(shapes: dict) -> None:
+    print(f"shape floor: one-element zero_() {shapes['floor_ms']:.4f} ms",
+          flush=True)
+    for row in shapes["block_top1"]:
+        print(f"shape block_top1 {tuple(row['shape'])} x{row['per_m5_step']} "
+              f"per M5 step: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+              f"ms ({100 * row['share']:.1f}%), vector_norm(inf) "
+              f"{row['library_ms']:.4f} ms; {on_card(row)}", flush=True)
+    for row in shapes["dequant_acc_requant"]:
+        print(f"shape dequant_acc_requant {row['blocks']} blocks "
+              f"x{row['per_step']} per {row['path']} step: {row['ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.5f} ms "
+              f"({100 * row['share']:.1f}%); {on_card(row)}", flush=True)
+    print("shapes: " + json.dumps(shapes), flush=True)
 
 
 def shipped_up_bytes(trainer) -> int:
@@ -584,8 +786,16 @@ def apply_alone(torch, flags, rounds: int = 6) -> float:
     return server.stats.apply_ms_mean
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 2 (no training, no result "
+                             "line)")
+    kernels_only = parser.parse_args(argv).kernels_only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -608,6 +818,7 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     timer = Timer(torch)
     checks = check_kernels(torch, kernels, timer)
+    shapes = check_path_shapes(torch, kernels, timer)
     del timer
     torch.cuda.empty_cache()
     for name, c in checks.items():
@@ -615,6 +826,9 @@ def main() -> int:
               f"{c['bound_ms']:.4f} ms by {c['bound_by']}), plain "
               f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, "
               f"max_abs_err {c['max_abs_err']}", flush=True)
+    print_path_shapes(shapes)
+    if kernels_only:
+        return 0
 
     # Phase 3: the training main path.
     counts, per_method = train_phase(torch, kernels)

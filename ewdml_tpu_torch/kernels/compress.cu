@@ -14,8 +14,11 @@
 // with ctypes): each entry point launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -36,20 +39,24 @@ __device__ __forceinline__ float uniform_hash(uint32_t idx, uint32_t seed) {
   return __fmul_rn((float)(int32_t)(x >> 8), 1.0f / 16777216.0f);
 }
 
-// One element of pallas_kernels._quantize_kernel:
+// One element of pallas_kernels._quantize_kernel, given its uniform u:
 // sign(x) * (floor(s/norm * |x|) + [u < frac]) as int8, zero levels for a
 // zero norm. The float-to-int8 conversion saturates, as XLA's does.
-__device__ __forceinline__ int8_t quantize_one(float x, float scale,
-                                               uint32_t idx, uint32_t seed) {
+__device__ __forceinline__ int8_t quantize_level(float x, float scale,
+                                                 float u) {
   float level_float = __fmul_rn(scale, fabsf(x));
   float previous = floorf(level_float);
   float frac = __fsub_rn(level_float, previous);
-  float u = uniform_hash(idx, seed);
   float level = __fadd_rn(previous, u < frac ? 1.0f : 0.0f);
   float sgn = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
   float v = __fmul_rn(sgn, level);
   v = fminf(fmaxf(v, -128.0f), 127.0f);
   return (int8_t)__float2int_rz(v);
+}
+
+__device__ __forceinline__ int8_t quantize_one(float x, float scale,
+                                               uint32_t idx, uint32_t seed) {
+  return quantize_level(x, scale, uniform_hash(idx, seed));
 }
 
 __device__ __forceinline__ float safe_scale(float s, float norm) {
@@ -120,31 +127,74 @@ __global__ void dequant_mean_kernel(const int8_t* __restrict__ levels,
   }
 }
 
-// Strided block-top-1: one thread per column of the row-major (R, C)
-// matrix, walking the R rows; a warp reads 32 neighbouring columns of one
-// row per step (coalesced). The strict '>' keeps the first row of the
-// column maximum, as the TPU kernel's min-over-hit-rows does, and the
-// winner is written as v + 0 like the TPU kernel's masked sum (-0 -> +0).
-// Bound: 4 * R * C bytes read.
-__global__ void block_top1_kernel(const float* __restrict__ x, int rows,
-                                  int cols, float* __restrict__ vals,
-                                  int32_t* __restrict__ locs) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float best = fabsf(x[c]);
-  float val = x[c];
-  int loc = 0;
-  for (int r = 1; r < rows; ++r) {
-    const float v = x[(int64_t)r * cols + c];
-    const float a = fabsf(v);
-    if (a > best) {
-      best = a;
-      val = v;
-      loc = r;
+// Strided block-top-1 (pallas_kernels.py:290, block_top1): per column of
+// the row-major (R, C) matrix, the signed value and the first row of the
+// largest |x|. Bound: 4RC + 8C bytes of HBM traffic, a few microseconds at
+// the path's shapes, so the time is the latency of getting every row of a
+// column in flight. A thread block owns 32 neighbouring columns (one per
+// lane, so a warp reads 128 contiguous bytes of one row) and splits their
+// R rows into 8 slices of R / 8 rows (one per warp; R % 8 == 0). A thread
+// issues the loads of up to kTop1Rows rows before its first compare, so a
+// column's rows are all in flight at once for R <= 128 (the 1% ratio has
+// R = 104), and (C / 32) blocks cover the 132 SMs at every path shape.
+// Within a slice the strict '>' over ascending rows keeps the first row of
+// the slice maximum; the slices are then combined in ascending order with
+// the same strict '>', so the result is the first row of the column
+// maximum, as the TPU kernel's min-over-hit-rows gives. NaN never wins.
+// The winner is written as v + 0 like the TPU kernel's masked sum
+// (-0 -> +0).
+constexpr int kTop1Cols = 32;    // columns per thread block, one per lane
+constexpr int kTop1Slices = 8;   // row slices per column, one per warp
+constexpr int kTop1Rows = 16;    // row loads a thread has in flight
+
+__global__ void __launch_bounds__(kTop1Cols * kTop1Slices)
+    block_top1_kernel(const float* __restrict__ x, int rows, int cols,
+                      float* __restrict__ vals, int32_t* __restrict__ locs) {
+  __shared__ float s_abs[kTop1Slices][kTop1Cols];
+  __shared__ float s_val[kTop1Slices][kTop1Cols];
+  __shared__ int s_loc[kTop1Slices][kTop1Cols];
+  const int lane = threadIdx.x & 31;
+  const int slice = threadIdx.x >> 5;
+  const int c = blockIdx.x * kTop1Cols + lane;
+  const int per = rows / kTop1Slices;
+  const int lo = slice * per;
+  const int hi = lo + per;
+  float best = -1.0f;
+  float val = 0.0f;
+  int loc = lo;
+  for (int r0 = lo; r0 < hi; r0 += kTop1Rows) {
+    float v[kTop1Rows];
+#pragma unroll
+    for (int k = 0; k < kTop1Rows; ++k) {
+      v[k] = r0 + k < hi ? __ldg(x + (int64_t)(r0 + k) * cols + c) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kTop1Rows; ++k) {
+      const float a = fabsf(v[k]);
+      if (r0 + k < hi && a > best) {
+        best = a;
+        val = v[k];
+        loc = r0 + k;
+      }
     }
   }
-  vals[c] = __fadd_rn(val, 0.0f);
-  locs[c] = loc;
+  s_abs[slice][lane] = best;
+  s_val[slice][lane] = val;
+  s_loc[slice][lane] = loc;
+  __syncthreads();
+  if (slice == 0) {
+#pragma unroll
+    for (int k = 1; k < kTop1Slices; ++k) {
+      const float a = s_abs[k][lane];
+      if (a > best) {
+        best = a;
+        val = s_val[k][lane];
+        loc = s_loc[k][lane];
+      }
+    }
+    vals[c] = __fadd_rn(val, 0.0f);
+    locs[c] = loc;
+  }
 }
 
 // The fused ring hops: chunk_encode (pallas_kernels.py:431) and
@@ -255,6 +305,182 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       q[c] = quantize_one(v[4 * j + c], qscale, (uint32_t)(i + c), seed);
+    }
+    if (i + 4 <= n) {
+      *reinterpret_cast<char4*>(out + i) = make_char4(q[0], q[1], q[2], q[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (i + c < n) out[i + c] = q[c];
+      }
+    }
+  }
+}
+
+// dequant_acc_requant, one ring hop: per element
+// (local + (norm[b] * (1/s)) * level) * scale, then the block encode above.
+// Bound: 6n + 8nb bytes, at most 0.0011 ms at the ring_rs chunks of
+// VGG11-BN (1 to 144 blocks of 4096), under the ~0.005 ms a launch takes,
+// so there the time is the latency of one block's chain: load, norm, hash
+// and quantize, store. For such chunks (at most two blocks per SM) the
+// launcher shortens that chain in two ways.
+// - Early draw: the uniforms depend on the element's index and the seed
+//   alone, so each thread draws its 16 while its loads are in flight, and
+//   only the quantize arithmetic waits for the norm. The 16 uniforms cost
+//   16 registers (56 a thread in all).
+// - A block's T threads are spread over a thread-block cluster of
+//   kHopCluster = 2 CTAs on two SMs (thread t = rank * blockDim.x +
+//   threadIdx.x keeps its elements and its place in the norm order), so
+//   each SM runs half of the block's arithmetic. The warp sums cross the
+//   cluster through distributed shared memory: lane r of each warp pushes
+//   the warp's sum into CTA r's `warp_sums` with an asynchronous remote
+//   store that completes on CTA r's mbarrier, and each CTA waits on its own
+//   mbarrier for all T / 32 sums, then runs the same tree over its own
+//   copy, so all CTAs quantize with the same norm bits; rank 0 stores the
+//   norm. A CTA leaves only after every store into its shared memory has
+//   landed, and no CTA reads a peer's, so none exits while a peer still
+//   needs it. The relaxed cluster arrive at the start, waited for just
+//   before the first remote store, guarantees that every peer has started
+//   and initialised its mbarrier.
+// A larger chunk (the fused_q chunk of VGG11-BN has 596 blocks) fills the
+// card with one CTA per block, and its time is the bytes' and the
+// arithmetic's, not one chain's. There the early draw's registers cost a
+// second wave of CTAs and clusters schedule more slowly than they save, so
+// the launcher takes ring_encode_kernel<true> above (40 registers, 6 CTAs
+// per SM, the draw at the quantize). The switch, kHopClusterMaxBlocks, is
+// two blocks per SM of the H100's 132; it only has to separate the ring_rs
+// chunks (at most 144 blocks) from the fused_q chunk (596), since the
+// training paths make no chunk in between, and no size there was timed.
+constexpr int kHopCluster = 2;  // CTAs per quantization block
+constexpr int64_t kHopClusterMaxBlocks = 2 * 132;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of `local_addr` (this CTA's shared memory) in CTA `rank` of
+// the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local_addr,
+                                              uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(local_addr), "r"(rank));
+  return out;
+}
+
+__global__ void __cluster_dims__(kHopCluster, 1, 1)
+    ring_hop_kernel(const float* __restrict__ local,
+                    const int8_t* __restrict__ in_levels,
+                    const float* __restrict__ in_norms, float inv_s,
+                    float scale, int64_t n, uint32_t seed, float s,
+                    int8_t* __restrict__ out, float* __restrict__ out_norms) {
+  __shared__ float warp_sums[32];
+  __shared__ alignas(8) uint64_t sums_ready;  // mbarrier of the exchange
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int threads = blockDim.x * kHopCluster;
+  const int warps = threads >> 5;
+  const int t = rank * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = blockIdx.x / kHopCluster;
+  const int64_t first = b * (int64_t)threads * kRingVec;
+  if (threadIdx.x == 0) {
+    asm volatile(
+        "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+        "fence.mbarrier_init.release.cluster;\n"
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        :
+        : "r"(smem_u32(&sums_ready)), "r"(4 * warps)
+        : "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  float4 x4[4];
+  char4 l4[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
+    if (i + 4 <= n) {
+      x4[j] = *reinterpret_cast<const float4*>(local + i);
+      l4[j] = *reinterpret_cast<const char4*>(in_levels + i);
+    } else {
+      float e[4];
+      int8_t q[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool in = i + c < n;
+        e[c] = in ? local[i + c] : 0.0f;
+        q[c] = in ? in_levels[i + c] : (int8_t)0;
+      }
+      x4[j] = make_float4(e[0], e[1], e[2], e[3]);
+      l4[j] = make_char4(q[0], q[1], q[2], q[3]);
+    }
+  }
+  const float coef = __fmul_rn(in_norms[b], inv_s);
+  float u[kRingVec];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      u[4 * j + c] = uniform_hash((uint32_t)(i + c), seed);
+    }
+  }
+
+  float v[kRingVec];
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[4 * j] = hop_value(x4[j].x, l4[j].x, coef, scale);
+    v[4 * j + 1] = hop_value(x4[j].y, l4[j].y, coef, scale);
+    v[4 * j + 2] = hop_value(x4[j].z, l4[j].z, coef, scale);
+    v[4 * j + 3] = hop_value(x4[j].w, l4[j].w, coef, scale);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ss = __fadd_rn(ss, __fmul_rn(v[4 * j + c], v[4 * j + c]));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ss = __fadd_rn(ss, __shfl_down_sync(0xffffffffu, ss, off));
+  }
+  ss = __shfl_sync(0xffffffffu, ss, 0);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (lane < kHopCluster) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+        "[%0], %1, [%2];\n"
+        :
+        : "r"(peer_addr(smem_u32(&warp_sums[t >> 5]), lane)),
+          "r"(__float_as_uint(ss)),
+          "r"(peer_addr(smem_u32(&sums_ready), lane))
+        : "memory");
+  }
+  asm volatile(
+      "{\n"
+      ".reg .pred ready;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], 0;\n"
+      "@!ready bra WAIT;\n"
+      "}\n"
+      :
+      : "r"(smem_u32(&sums_ready))
+      : "memory");
+  float w = lane < warps ? warp_sums[lane] : 0.0f;
+  for (int off = warps >> 1; off > 0; off >>= 1) {
+    w = __fadd_rn(w, __shfl_down_sync(0xffffffffu, w, off));
+  }
+  const float norm = __shfl_sync(0xffffffffu, __fsqrt_rn(w), 0);
+  if (rank == 0 && threadIdx.x == 0) out_norms[b] = norm;
+
+  const float qscale = safe_scale(s, norm);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
+    int8_t q[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      q[c] = quantize_level(v[4 * j + c], qscale, u[4 * j + c]);
     }
     if (i + 4 <= n) {
       *reinterpret_cast<char4*>(out + i) = make_char4(q[0], q[1], q[2], q[3]);
@@ -384,11 +610,12 @@ int ewdml_dequant_mean(const int8_t* levels, const float* norms, int world,
   return (int)cudaGetLastError();
 }
 
+// `cols` % 128 == 0 and `rows` % 8 == 0 (the wrapper checks both).
 int ewdml_block_top1(const float* x, int rows, int cols, float* vals,
                      int32_t* locs, cudaStream_t stream) {
   if (cols > 0) {
-    block_top1_kernel<<<(cols + 127) / 128, 128, 0, stream>>>(x, rows, cols,
-                                                              vals, locs);
+    block_top1_kernel<<<cols / kTop1Cols, kTop1Cols * kTop1Slices, 0,
+                        stream>>>(x, rows, cols, vals, locs);
   }
   return (int)cudaGetLastError();
 }
@@ -407,6 +634,9 @@ int ewdml_chunk_encode(const float* x, int64_t n, int64_t block,
   return (int)cudaGetLastError();
 }
 
+// A chunk of at most kHopClusterMaxBlocks blocks takes ring_hop_kernel, a
+// cluster of kHopCluster CTAs per block; a larger one
+// ring_encode_kernel<true>, one CTA per block.
 int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
                               const float* local, int64_t n, int64_t block,
                               uint32_t seed, int s, float inv_s, float scale,
@@ -414,9 +644,16 @@ int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
                               cudaStream_t stream) {
   if (n > 0) {
     const int64_t nb = (n + block - 1) / block;
-    ring_encode_kernel<true><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
-                               stream>>>(local, levels, norms, inv_s, scale, n,
-                                         seed, (float)s, out, out_norms);
+    if (nb > kHopClusterMaxBlocks) {
+      ring_encode_kernel<true><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
+                                 stream>>>(local, levels, norms, inv_s, scale,
+                                           n, seed, (float)s, out, out_norms);
+    } else {
+      ring_hop_kernel<<<(unsigned)(nb * kHopCluster),
+                        (unsigned)(block / kRingVec / kHopCluster), 0,
+                        stream>>>(local, levels, norms, inv_s, scale, n, seed,
+                                  (float)s, out, out_norms);
+    }
   }
   return (int)cudaGetLastError();
 }

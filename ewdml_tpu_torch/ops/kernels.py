@@ -10,7 +10,7 @@ wrapper                  replaces                     bound on the H100
 =======================  ===========================  ======================
 ``qsgd_quantize``        ``pallas_kernels.py:169``    5n bytes
 ``dequant_mean``         ``pallas_kernels.py:232``    (W + 4)n bytes
-``block_top1``           ``pallas_kernels.py:290``    4RC bytes
+``block_top1``           ``pallas_kernels.py:290``    4RC + 8C bytes
 ``chunk_encode``         ``pallas_kernels.py:431``    5n + 4nb bytes
 ``dequant_acc_requant``  ``pallas_kernels.py:479``    6n + 8nb bytes
 ``int_accumulate``       ``pallas_kernels.py:587``    (K + 4)n bytes
@@ -19,7 +19,14 @@ wrapper                  replaces                     bound on the H100
 
 All of them move bytes and do a few operations per byte, so HBM bandwidth
 bounds them; each streams its input once and keeps nothing in device memory
-between the read and the write. ``chunk_encode`` and
+between the read and the write. At the shapes the training paths give
+them the bound is a few microseconds, less than one launch takes, so a
+kernel's time there is the latency of its chain: ``block_top1`` has every
+row of a column in flight at once (32 columns by 8 row slices per thread
+block), and the ring hop, on a chunk of at most two blocks per SM, draws
+its random bits while its loads are in flight and spreads each block over
+a cluster of two thread blocks (a larger chunk keeps one thread block per
+block, which fills the card). ``chunk_encode`` and
 ``dequant_acc_requant`` are the per-hop passes of the ring transports
 (``--collective fused_q``, ``--gather-type ring_rs``); ``int_accumulate``
 and ``acc_decode`` sum K same-contract int8 payloads and decode the sum

@@ -15,6 +15,7 @@ integer sums, one f32 product per element in the same order).
 import pytest
 import torch
 
+from chip_smoke import top1_edge_matrix
 from ewdml_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -58,15 +59,20 @@ def test_dequant_mean_kernel_is_the_plain_version(cuda, world, n, block):
                        kernels.dequant_mean_ref(lv, nm, 127, block=block))
 
 
-@pytest.mark.parametrize("r,c", [(104, 23680), (8, 128), (104, 4224)])
+@pytest.mark.parametrize("r,c", [(104, 23680), (104, 11904), (104, 9600),
+                                 (104, 5376), (8, 128), (1000, 256),
+                                 (104, 4224)])
 def test_block_top1_kernel_is_the_plain_version(cuda, r, c):
     x2 = torch.round(torch.randn(r, c, device="cuda", generator=cuda) * 2) / 2
     x2[:, 0] = 0.0
     x2[0, 0] = -0.0   # an all-zero column whose first row is -0
-    va, la = kernels.block_top1(x2)
-    vb, lb = kernels.block_top1_ref(x2)
-    assert torch.equal(la, lb)
-    assert torch.equal(va.view(torch.int32), vb.view(torch.int32))
+    for x in (x2, top1_edge_matrix(torch, r, c, cuda)):
+        va, la = kernels.block_top1(x)
+        vb, lb = kernels.block_top1_ref(x)
+        assert torch.equal(la, lb)
+        assert torch.equal(va.view(torch.int32), vb.view(torch.int32))
+    tie = min(3, r - 7)  # the first of the planted rows (3, r - 7)
+    assert la[:8].tolist() == [0, 0, 0, tie, tie, tie, r - 1, 0]
 
 
 def _bits_equal(a, b):
@@ -88,20 +94,23 @@ def test_chunk_encode_kernel_is_the_plain_version(cuda, n, block):
     assert not lz.any() and not nz.any()
 
 
-@pytest.mark.parametrize("n", [2_441_216, 530_442, 4097, 3])
+@pytest.mark.parametrize("n", [2_441_216, 144 * 4096, 530_442, 33 * 4096,
+                               4096, 4097, 3])
+@pytest.mark.parametrize("block", [4096, 8192, 16384])
 @pytest.mark.parametrize("scale", [1.0, 0.25])
-def test_dequant_acc_requant_kernel_is_the_plain_version(cuda, n, scale):
+def test_dequant_acc_requant_kernel_is_the_plain_version(cuda, n, block,
+                                                         scale):
     local = torch.randn(n, device="cuda", generator=cuda) * 1e-2
     lv = torch.randint(-127, 128, (n,), device="cuda",
                        generator=cuda).to(torch.int8)
-    nm = torch.rand(-(-n // 4096), device="cuda", generator=cuda)
+    nm = torch.rand(-(-n // block), device="cuda", generator=cuda)
     for seed in (0, -77, 2**31 - 1):
         la, na = kernels.dequant_acc_requant(lv, nm, local, seed, 127,
-                                             scale=scale)
+                                             block=block, scale=scale)
         lb, nb = kernels.dequant_acc_requant_ref(lv, nm, local, seed, 127,
-                                                 scale=scale)
-        assert _bits_equal(na, nb), (n, scale, seed)
-        assert torch.equal(la, lb), (n, scale, seed)
+                                                 block=block, scale=scale)
+        assert _bits_equal(na, nb), (n, block, scale, seed)
+        assert torch.equal(la, lb), (n, block, scale, seed)
 
 
 def test_wrappers_count_launches(cuda):

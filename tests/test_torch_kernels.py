@@ -124,8 +124,11 @@ def test_dequant_mean_rejects_non_int8():
                              torch.ones(2), 127)
 
 
-@pytest.mark.parametrize("r,c", [(8, 128), (104, 256), (16, 1024)])
-def test_block_top1_plain_matches_pallas_with_ties(r, c):
+@pytest.mark.parametrize("r,c,apart", [
+    (8, 128, None), (104, 256, None), (16, 1024, None),
+    (104, 384, (3, 97)), (1000, 256, (3, 997)),
+], ids=["8-128", "104-256", "16-1024", "104-384-apart", "1000-256-apart"])
+def test_block_top1_plain_matches_pallas_with_ties(r, c, apart):
     rng = np.random.RandomState(r * c)
     # Half-integers: many ties in |x|, including +-equal pairs and zeros.
     x2 = (np.round(rng.randn(r, c) * 2) / 2).astype(np.float32)
@@ -133,6 +136,12 @@ def test_block_top1_plain_matches_pallas_with_ties(r, c):
     x2[2, 0] = -1.5          # tie at the max: the first row must win
     x2[:, 1] = 0.0
     x2[5, 1] = -0.0          # an all-zero column with a -0
+    if apart is not None:    # ties in rows far apart (the CUDA kernel's
+        a, b = apart         # row slices): +-v, equal v, and a lone max
+        x2[:, 2:5] = 0.5
+        x2[a, 2], x2[b, 2] = -7.0, 7.0
+        x2[a, 3], x2[b, 3] = 7.0, 7.0
+        x2[b, 4] = -7.0
     vj, lj = pk.block_top1(jnp.asarray(x2), interpret=True)
     vt, lt = kernels.block_top1_ref(torch.from_numpy(x2))
     assert lt.dtype == torch.int32
@@ -140,6 +149,9 @@ def test_block_top1_plain_matches_pallas_with_ties(r, c):
     assert np.array_equal(vt.numpy().view(np.uint32),
                           np.asarray(vj).view(np.uint32))
     assert int(lt[0]) == 0 and float(vt[0]) == 1.5
+    if apart is not None:
+        assert lt[2:5].tolist() == [a, a, b]
+        assert vt[2:5].tolist() == [-7.0, 7.0, -7.0]
 
 
 def test_block_top1_rejects_bad_geometry():

@@ -80,22 +80,28 @@ def test_chunk_encode_zero_block_and_tail():
 
 
 @pytest.mark.parametrize("interpret", [True, None])
-@pytest.mark.parametrize("scale", [1.0, 0.25])
-def test_dequant_acc_requant_plain_matches_pallas(interpret, scale):
-    rng = np.random.RandomState(int(scale * 8) + (interpret is None))
-    lv = rng.randint(-127, 128, size=N).astype(np.int8)
-    nm = (rng.rand(4) * 3).astype(np.float32)
-    local = (rng.randn(N) * 0.02).astype(np.float32)
+@pytest.mark.parametrize("scale,n,block", [
+    pytest.param(scale, n, block,
+                 id=f"{scale}" if n == N else f"{scale}-{n}-{block}")
+    for n, block in ((N, 4096), (4096, 4096), (2 * 16384 + 100, 16384))
+    for scale in (1.0, 0.25)])
+def test_dequant_acc_requant_plain_matches_pallas(interpret, scale, n, block):
+    rng = np.random.RandomState(int(scale * 8) + (interpret is None)
+                                + (n if n != N else 0))
+    lv = rng.randint(-127, 128, size=n).astype(np.int8)
+    nm = (rng.rand(-(-n // block)) * 3).astype(np.float32)
+    local = (rng.randn(n) * 0.02).astype(np.float32)
     oj, onj = pk.dequant_acc_requant(jnp.asarray(lv), jnp.asarray(nm),
                                      jnp.asarray(local), jnp.int32(-5), 127,
-                                     scale=scale, interpret=interpret)
+                                     block=block, scale=scale,
+                                     interpret=interpret)
     ot, ont = kernels.dequant_acc_requant_ref(
         torch.from_numpy(lv), torch.from_numpy(nm), torch.from_numpy(local),
-        -5, 127, scale=scale)
+        -5, 127, block=block, scale=scale)
     _close_norms(ont, onj)
     d = np.abs(ot.numpy().astype(np.int32) - np.asarray(oj).astype(np.int32))
     assert d.max() <= 1
-    assert (d != 0).sum() <= 1e-3 * N
+    assert (d != 0).sum() <= 1e-3 * n
 
 
 def test_dequant_acc_requant_rejects_bad_args():
