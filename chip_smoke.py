@@ -21,14 +21,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    blockwise 4096 and 8192 over the bucket and over a tail (bit).
    Each is timed with CUDA events (median of repeats, L2 flushed before
    each launch) beside its bound, its plain version, and one PyTorch call
-   for the same function where there is one. Then the per-shape table
-   (``shape`` lines): block_top1 at every (R, C) view VGG11-BN's M5 step
-   gives it at 1% (beside ``vector_norm(inf)``) and the ring hop at every
-   ``ring_rs --qsgd-block 4096`` chunk and at the ``fused_q`` chunk, each
-   bit-equal to its plain version there and timed beside its bound and its
-   launches per step, and its kernel's own time on the card read from a
-   ``torch.profiler`` trace (``device``; "not measured" where the trace
-   holds no device time);
+   for the same function where there is one. A bound is the larger of the
+   bytes over the HBM rate and the instructions over the instruction rate at the
+   SM clock nvidia-smi reports. Then the per-shape table (``shape``
+   lines): block_top1 at every (R, C) view VGG11-BN's M5 step gives it at
+   1% (beside ``vector_norm(inf)``), the ring hop and chunk_encode at
+   every ``ring_rs --qsgd-block 4096`` chunk and at the ``fused_q`` chunk,
+   and qsgd_quantize per tensor at every unit of at least ``MIN_ELEMS``
+   elements and blockwise 4096 at the largest, each bit-equal to its plain
+   version there and timed beside its bound and its launches per step,
+   and its kernel's own time on the card read from a ``torch.profiler``
+   trace (``device``; "not measured" where the trace holds no device
+   time);
    block_top1 also on planted ties at (8, 128), (1000, 256), (104, 384)
    and every path shape, and the hop on n = 4096, 4097, 33 * 4096,
    144 * 4096 and the fused_q chunk with blocks of 4096, 8192 and 16384 at
@@ -77,7 +81,12 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# Instructions per clock: 132 SMs x 4 warp schedulers x 32 lanes (H100
+# SXM). Times the SM clock nvidia-smi reports as clocks.max.sm, this is the
+# rate the operations side of each bound is counted against (33.4e12 per
+# second at 1980 MHz); set by main().
+LANES_PER_CLOCK = 132 * 128
+ops_per_s = None
 BUCKET = 2_359_296          # VGG11-BN's largest 8 MB bucket (fusion 'bucket')
 VGG11_PARAMS = 9_756_426    # trainable parameters of build_model('VGG11')
 WORLD = 4
@@ -92,21 +101,31 @@ REPLACES = {
     "int_accumulate": "ewdml_tpu/ops/pallas_kernels.py:587",
     "acc_decode": "ewdml_tpu/ops/pallas_kernels.py:629",
 }
-# Operations per element, for the compute side of each bound (all of them
-# scalar int32/f32 work, counted against the f32 rate): the murmur hash
-# (11) plus the quantize arithmetic and cast (~14); W multiply-adds plus
-# one scale; one abs and one compare; the ring kernels' square-and-add of
-# the block norm (2) plus the quantize (25), and a hop's decode-accumulate
-# (4) before them; K widening adds; one convert and one multiply.
+# Instructions per element, for the operations side of each bound, each
+# counted once against the instruction rate (an f32 multiply and an add that the
+# kernels keep apart are two; no FMA is formed): the murmur hash (11) plus
+# the quantize arithmetic and cast (~14); W multiply-adds plus one scale;
+# one abs and one compare; the ring kernels' square-and-add of the block
+# norm (2) plus the quantize (25), and a hop's decode-accumulate (4) before
+# them; K widening adds; one convert and one multiply. The hash's three
+# integer multiplies run on the INT32 pipes at half the lanes, which at 3
+# of ~25 instructions stays inside the instruction rate.
 OPS_PER_ELEM = {"qsgd_quantize": 25, "dequant_mean": 2 * WORLD + 1,
                 "block_top1": 2, "chunk_encode": 2 + 25,
                 "dequant_acc_requant": 4 + 2 + 25, "int_accumulate": WORLD,
                 "acc_decode": 2}
 
 
+def sm_clock_mhz() -> float:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
 def bound_ms(nbytes: int, ops: int) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -353,31 +372,36 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
 
 
 def path_shapes() -> tuple:
-    """The shapes VGG11-BN's transport units (W = 4) give block_top1 and
-    dequant_acc_requant, with their launches per step: ``{(R, C, n): per M5
-    step}`` at the 1% ratio, and ``{blocks: (per step, path)}`` for the
-    hop at ``--qsgd-block 4096`` on ``ring_rs`` and on ``fused_q``."""
+    """The shapes VGG11-BN's transport units (W = 4) give block_top1, the
+    ring kernels and qsgd_quantize: ``{(R, C, n): per M5 step}`` at the 1%
+    ratio; ``{blocks: (units, path)}`` for the ring chunks at
+    ``--qsgd-block 4096`` on ``ring_rs`` and on ``fused_q`` (per step each
+    unit's chunk is encoded W times and hopped W (W - 1) times); and
+    ``{n: units}`` for the units of at least ``MIN_ELEMS`` elements, each
+    quantized W times per M2 step, W + 1 times per M4 step (the relay) and
+    once, blockwise, per M4 ``ring_rs`` step (the relay)."""
     from ewdml_tpu_torch.core.config import from_args, resolved_unit_sizes
     from ewdml_tpu_torch.models import build_model
     from ewdml_tpu_torch.models.convert import leaf_specs
-    from ewdml_tpu_torch.ops import blocktopk, topk
+    from ewdml_tpu_torch.ops import blocktopk, kernels, topk
     from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
 
     specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
     cfg = from_args(["--network", "VGG11", "--dataset", "Cifar10",
                      "--num-workers", str(WORLD), "--method", "5"])
     units = resolved_unit_sizes(cfg, [math.prod(s.jax_shape) for s in specs])
-    top1, hops = {}, {}
+    top1, rings, quant = {}, {}, {}
     for n in units:
         if topk.resolve_mode(None, n, 0.01) == "block":
             nb, _, blk_pad = blocktopk.geometry(n, 0.01)
             top1[(blk_pad, nb, n)] = top1.get((blk_pad, nb, n), 0) + WORLD
         blocks = fused_chunk_elems(n, WORLD, 4096) // 4096
-        per_step = hops.get(blocks, (0,))[0] + WORLD * (WORLD - 1)
-        hops[blocks] = (per_step, "ring_rs")
-    hops[fused_chunk_elems(VGG11_PARAMS, WORLD, 4096) // 4096] = (
-        WORLD * (WORLD - 1), "fused_q")
-    return dict(sorted(top1.items(), reverse=True)), dict(sorted(hops.items()))
+        rings[blocks] = (rings.get(blocks, (0,))[0] + 1, "ring_rs")
+        if n >= kernels.MIN_ELEMS:
+            quant[n] = quant.get(n, 0) + 1
+    rings[fused_chunk_elems(VGG11_PARAMS, WORLD, 4096) // 4096] = (1, "fused_q")
+    return (dict(sorted(top1.items(), reverse=True)), dict(sorted(rings.items())),
+            dict(sorted(quant.items(), reverse=True)))
 
 
 def top1_edge_matrix(torch, r: int, c: int, g):
@@ -440,13 +464,72 @@ def hop_inputs(torch, n: int, block: int, g) -> tuple:
     return lv, nm, local
 
 
+def same_encode(torch, kernels, x, seed, what) -> None:
+    la, na = kernels.chunk_encode(x, seed, 127)
+    lb, nb = kernels.chunk_encode_ref(x, seed, 127)
+    torch.cuda.synchronize()
+    if not torch.equal(na.view(torch.int32), nb.view(torch.int32)):
+        raise AssertionError(f"chunk_encode {what}: {int((na != nb).sum())} "
+                             "norms differ from the plain version")
+    if not torch.equal(la, lb):
+        raise AssertionError(f"chunk_encode {what}: {int((la != lb).sum())} "
+                             "levels differ from the plain version")
+
+
+def shape_row(timer, fn, names, nbytes, ops, **row) -> dict:
+    """A per-shape row: ``fn`` timed with events and, alone on the card,
+    from the trace of the kernels whose names hold one of ``names``."""
+    ms = timer(fn)
+    bnd, _ = bound_ms(nbytes, ops)
+    return dict(row, ms=ms, bound_ms=bnd, share=bnd / ms,
+                device_ms=timer.device(fn, names), bytes=nbytes)
+
+
+def quantize_rows(torch, kernels, timer, quant, g) -> list:
+    """qsgd_quantize bit-equal to its plain version and timed at every size
+    of the path: per tensor, and blockwise 4096 at the largest."""
+    rows = []
+    names = ("qsgd_quantize_kernel",)
+    for n, units in quant.items():
+        x = torch.randn(n, device="cuda", generator=g) * 1e-2
+        blocks = [None] + ([4096] if n == max(quant) else [])
+        for block in blocks:
+            if block is None:
+                norms = torch.linalg.vector_norm(x)
+                per_step = f"x{units * WORLD}/x{units * (WORLD + 1)} per M2/M4"
+            else:
+                nb = -(-n // block)
+                pad = torch.zeros(nb * block, device="cuda")
+                pad[:n] = x
+                norms = torch.linalg.vector_norm(pad.reshape(nb, block), dim=1)
+                per_step = f"x{units} per M4 ring_rs"
+            seed = n % 1000 - 500
+            a = kernels.qsgd_quantize(x, norms, seed, 127, block=block)
+            b = kernels.qsgd_quantize_ref(x, norms, seed, 127, block=block)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"qsgd_quantize n={n} block={block}: "
+                                     f"{int((a != b).sum())} levels differ "
+                                     "from the plain version")
+            rows.append(shape_row(
+                timer,
+                lambda: kernels.qsgd_quantize(x, norms, 5, 127, block=block),
+                names, 5 * n + 4 * norms.numel(),
+                OPS_PER_ELEM["qsgd_quantize"] * n, n=n, block=block,
+                per_step=per_step))
+    return rows
+
+
 def check_path_shapes(torch, kernels, timer) -> dict:
-    """block_top1 and the hop bit-equal to their plain versions at the path's
-    shapes and the edge cases, then timed at the path's shapes beside their
-    bounds (and, for block_top1, the library call), with the time of a
-    one-element ``zero_()`` under the same timer as the per-launch floor."""
+    """block_top1, the ring kernels and qsgd_quantize bit-equal to their
+    plain versions at the path's shapes and the edge cases, then timed at
+    the path's shapes beside their bounds (and, for block_top1, the library
+    call), with the time of a one-element ``zero_()`` under the same timer
+    as the per-launch floor."""
     g = torch.Generator(device="cuda").manual_seed(40)
-    top1, hops = path_shapes()
+    top1, rings, quant = path_shapes()
+    hops = {b: (units * WORLD * (WORLD - 1), path)
+            for b, (units, path) in rings.items()}
     for r, c in ((8, 128), (1000, 256), (104, 384)):
         same_top1(torch, kernels, top1_edge_matrix(torch, r, c, g),
                   f"edges ({r}, {c})")
@@ -458,7 +541,7 @@ def check_path_shapes(torch, kernels, timer) -> dict:
                          block, scale, f"n={n} block={block} scale={scale}")
     one = torch.zeros(1, device="cuda")
     out = {"floor_ms": timer(lambda: one.zero_()), "block_top1": [],
-           "dequant_acc_requant": []}
+           "dequant_acc_requant": [], "chunk_encode": []}
     for (r, c, n), per_step in top1.items():
         x2 = torch.zeros(r * c, device="cuda")
         x2[:n] = torch.randn(n, device="cuda", generator=g)
@@ -466,31 +549,35 @@ def check_path_shapes(torch, kernels, timer) -> dict:
         same_top1(torch, kernels, x2, f"({r}, {c})")
         same_top1(torch, kernels, top1_edge_matrix(torch, r, c, g),
                   f"edges ({r}, {c})")
-        ms = timer(lambda: kernels.block_top1(x2))
-        lib = timer(lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
-        dev = timer.device(lambda: kernels.block_top1(x2),
-                           ("block_top1_kernel",))
-        nbytes = 4 * r * c + 8 * c
-        bnd, _ = bound_ms(nbytes, OPS_PER_ELEM["block_top1"] * r * c)
-        out["block_top1"].append(dict(
-            shape=[r, c], per_m5_step=per_step, ms=ms, bound_ms=bnd,
-            share=bnd / ms, library_ms=lib, device_ms=dev, bytes=nbytes))
+        row = shape_row(timer, lambda: kernels.block_top1(x2),
+                        ("block_top1_kernel",), 4 * r * c + 8 * c,
+                        OPS_PER_ELEM["block_top1"] * r * c, shape=[r, c],
+                        per_m5_step=per_step)
+        row["library_ms"] = timer(
+            lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
+        out["block_top1"].append(row)
+    ring_names = ("ring_hop_kernel", "ring_encode_kernel")
     for blocks, (per_step, path) in hops.items():
         n = blocks * 4096
         lv, nm, local = hop_inputs(torch, n, 4096, g)
-
-        def hop():
-            return kernels.dequant_acc_requant(lv, nm, local, 7, 127,
-                                               scale=1.0 / WORLD)
         same_hop(torch, kernels, lv, nm, local, blocks, 4096, 1.0 / WORLD,
                  f"{blocks} blocks")
-        ms = timer(hop)
-        dev = timer.device(hop, ("ring_hop_kernel", "ring_encode_kernel"))
-        nbytes = 6 * n + 8 * blocks
-        bnd, _ = bound_ms(nbytes, OPS_PER_ELEM["dequant_acc_requant"] * n)
-        out["dequant_acc_requant"].append(dict(
-            blocks=blocks, n=n, path=path, per_step=per_step, ms=ms,
-            bound_ms=bnd, share=bnd / ms, device_ms=dev, bytes=nbytes))
+        out["dequant_acc_requant"].append(shape_row(
+            timer,
+            lambda: kernels.dequant_acc_requant(lv, nm, local, 7, 127,
+                                                scale=1.0 / WORLD),
+            ring_names, 6 * n + 8 * blocks,
+            OPS_PER_ELEM["dequant_acc_requant"] * n, blocks=blocks, n=n,
+            path=path, per_step=per_step))
+    for blocks, (units, path) in rings.items():
+        n = blocks * 4096
+        x = torch.randn(n, device="cuda", generator=g) * 1e-2
+        same_encode(torch, kernels, x, blocks, f"{blocks} blocks")
+        out["chunk_encode"].append(shape_row(
+            timer, lambda: kernels.chunk_encode(x, 7, 127), ring_names,
+            5 * n + 4 * blocks, OPS_PER_ELEM["chunk_encode"] * n,
+            blocks=blocks, n=n, path=path, per_step=units * WORLD))
+    out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
     return out
 
 
@@ -511,11 +598,18 @@ def print_path_shapes(shapes: dict) -> None:
               f"per M5 step: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
               f"ms ({100 * row['share']:.1f}%), vector_norm(inf) "
               f"{row['library_ms']:.4f} ms; {on_card(row)}", flush=True)
-    for row in shapes["dequant_acc_requant"]:
-        print(f"shape dequant_acc_requant {row['blocks']} blocks "
-              f"x{row['per_step']} per {row['path']} step: {row['ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.5f} ms "
-              f"({100 * row['share']:.1f}%); {on_card(row)}", flush=True)
+    def timed(row):
+        return (f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({100 * row['share']:.1f}%); {on_card(row)}")
+
+    for name in ("dequant_acc_requant", "chunk_encode"):
+        for row in shapes[name]:
+            print(f"shape {name} {row['blocks']} blocks x{row['per_step']} "
+                  f"per {row['path']} step: {timed(row)}", flush=True)
+    for row in shapes["qsgd_quantize"]:
+        how = "per tensor" if row["block"] is None else f"block {row['block']}"
+        print(f"shape qsgd_quantize {row['n']} {how} {row['per_step']} step: "
+              f"{timed(row)}", flush=True)
     print("shapes: " + json.dumps(shapes), flush=True)
 
 
@@ -808,6 +902,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the ewdml_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+
+    global ops_per_s
+    clock = sm_clock_mhz()
+    ops_per_s = LANES_PER_CLOCK * clock * 1e6
+    print(f"instruction rate: {ops_per_s:.4g} instructions/s at {clock:g} MHz",
+          flush=True)
 
     # Phase 1: build.
     t0 = time.perf_counter()

@@ -63,34 +63,63 @@ __device__ __forceinline__ float safe_scale(float s, float norm) {
   return __fdiv_rn(s, norm == 0.0f ? 1.0f : norm);
 }
 
-// QSGD quantize: a grid-stride pass, four elements per thread with one
-// 16-byte load and one 4-byte store. Blockwise norms need block % 4 == 0
-// (the wrapper only passes multiples of 4096), so the four elements of a
-// vector share one norm. Bound: 5n bytes of HBM traffic.
+// A 16-byte load of data read once: it bypasses L1 (so the L1 lines of a
+// blockwise norm stay) and asks L2 for 256 bytes at a time.
+__device__ __forceinline__ float4 load_once(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// QSGD quantize (pallas_kernels.py:169, _quantize_kernel :138): a
+// grid-stride pass, four elements per thread with one 16-byte load and one
+// 4-byte store, at most 16 CTAs of 256 threads per SM. Bound: 5n bytes of
+// HBM traffic, 0.0035 ms for the 2 359 296-element bucket; the ~25
+// instructions an element takes would fill half of that at the instruction rate.
+// With 64 warps on every SM, some warps' loads are in flight while others
+// draw and quantize, and the draw (a function of the index and the seed)
+// does not wait for the load, so the arithmetic hides under the bytes: on
+// the H100 the kernel takes within 0.0007 ms of the same schedule with a
+// sign in place of the quantize, which moves the same bytes. Schedules that
+// put 16 elements per thread in one resident wave, or stage tiles through
+// shared memory with cp.async, were no faster at the bucket and slower at
+// smaller sizes (PERF.md; scripts/kernel_limits.py). What the design saves
+// is per-vector work in blockwise mode: the norm is indexed in 32-bit
+// arithmetic (vectors per norm; the wrapper passes only blocks that are
+// multiples of 4096, so the four elements of a vector share one norm) and
+// stays in L1 (load_once); per tensor the scale is formed once per thread.
 __global__ void qsgd_quantize_kernel(const float* __restrict__ x,
                                      const float* __restrict__ norms,
-                                     int64_t n, int64_t block, uint32_t seed,
-                                     float s, int8_t* __restrict__ out) {
+                                     int64_t n, int vecs_per_norm,
+                                     uint32_t seed, float s,
+                                     int8_t* __restrict__ out) {
   const int64_t nvec = n / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   char4* out4 = reinterpret_cast<char4*>(out);
+  const float tensor_scale = vecs_per_norm ? 0.0f : safe_scale(s, norms[0]);
   for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
        v += stride) {
-    const int64_t i = v * 4;
-    const float scale = safe_scale(s, norms[block ? i / block : 0]);
-    const float4 xv = x4[v];
-    char4 q;
-    q.x = quantize_one(xv.x, scale, (uint32_t)i, seed);
-    q.y = quantize_one(xv.y, scale, (uint32_t)(i + 1), seed);
-    q.z = quantize_one(xv.z, scale, (uint32_t)(i + 2), seed);
-    q.w = quantize_one(xv.w, scale, (uint32_t)(i + 3), seed);
-    out4[v] = q;
+    const float4 xv = load_once(x4 + v);
+    const uint32_t i = (uint32_t)(v * 4);
+    const float scale =
+        vecs_per_norm
+            ? safe_scale(s, norms[(uint32_t)v / (uint32_t)vecs_per_norm])
+            : tensor_scale;
+    out4[v] = make_char4(quantize_one(xv.x, scale, i, seed),
+                         quantize_one(xv.y, scale, i + 1, seed),
+                         quantize_one(xv.z, scale, i + 2, seed),
+                         quantize_one(xv.w, scale, i + 3, seed));
   }
   // Ragged tail (n % 4 elements), one thread each.
   const int64_t t = nvec * 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t < n) {
-    const float scale = safe_scale(s, norms[block ? t / block : 0]);
+    const float scale =
+        vecs_per_norm
+            ? safe_scale(s, norms[(uint32_t)(t / 4) / (uint32_t)vecs_per_norm])
+            : tensor_scale;
     out[t] = quantize_one(x[t], scale, (uint32_t)t, seed);
   }
 }
@@ -197,31 +226,54 @@ __global__ void __launch_bounds__(kTop1Cols * kTop1Slices)
   }
 }
 
-// The fused ring hops: chunk_encode (pallas_kernels.py:431) and
-// dequant_acc_requant (pallas_kernels.py:479), one kernel body for both.
-// One thread block owns one quantization block of `block` elements with
-// T = block / 16 threads (256 for the 4096-element block); thread t holds
-// the 16 elements 4 * (t + T * j) + c (j, c in 0..3) in registers, read with
-// four 16-byte loads (neighbouring threads on neighbouring addresses). The
-// block's L2 norm is reduced in one fixed order: per thread in (j, c) order
-// from 0, then a halving tree over each warp's lanes (offsets 16 ... 1,
-// shuffles), then a halving tree over the T / 32 warp sums (offsets
-// T / 64 ... 1, in the first warp), then a correctly rounded sqrt. The
-// block is then quantized from the registers. So the input is read from
-// HBM once, and a hop's f32 partial sum never reaches HBM, as in the TPU
-// kernels; the plain versions (block_norms_ref, chunk_encode_ref,
-// dequant_acc_requant_ref) repeat that order, so the two agree bit for bit.
-// A hop computes (local + (norm[b] * (1/s)) * level) * scale per element.
-// Padding past n enters as zeros (adds nothing to the norm, never stored).
-// Bound: HBM bytes, 5n + 4nb for the encode and 6n + 8nb for a hop.
+// The fused ring kernels: chunk_encode (pallas_kernels.py:431) and the
+// hop dequant_acc_requant (pallas_kernels.py:479). One quantization block of
+// `block` elements is spread over T = block / 16 threads (256 for the
+// 4096-element block); thread t holds the 16 elements 4 * (t + T * j) + c
+// (j, c in 0..3) in registers. The block's L2 norm is reduced in one fixed
+// order: per thread in (j, c) order from 0, then a halving tree over each
+// warp's lanes (offsets 16 ... 1, shuffles), then a halving tree over the
+// T / 32 warp sums (offsets tree_top(T / 32) ... 1), then a correctly
+// rounded sqrt. The block is then quantized from the registers. So the
+// input is read from HBM once, and a hop's f32 partial sum never reaches
+// HBM, as in the TPU kernels; the plain versions (block_norms_ref,
+// chunk_encode_ref, dequant_acc_requant_ref) repeat that order, so the two
+// agree bit for bit. A hop computes (local + (norm[b] * (1/s)) * level) *
+// scale per element. Padding past n enters as zeros (adds nothing to the
+// norm, never stored). Bound: HBM bytes, 5n + 4nb for the encode and
+// 6n + 8nb for a hop.
 constexpr int kRingVec = 16;  // elements per thread
+
+// The first offset of the halving tree over `warps` warp sums: half the
+// next power of two, so that a count that is no power of two (24 warps for
+// a block of 12288) still sums every warp (the lanes past it add zeros).
+__host__ __device__ constexpr int tree_top(int warps) {
+  int p = 1;
+  while (p < warps) p <<= 1;
+  return p >> 1;
+}
+
+__device__ __forceinline__ void store_c4(int8_t* __restrict__ out, int64_t i,
+                                         int64_t n, char4 q) {
+  if (i + 4 <= n) {
+    *reinterpret_cast<char4*>(out + i) = q;
+  } else {
+    const int8_t e[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (i + c < n) out[i + c] = e[c];
+    }
+  }
+}
 
 __device__ __forceinline__ float hop_value(float local, int8_t level,
                                            float coef, float scale) {
   return __fmul_rn(__fadd_rn(local, __fmul_rn(coef, (float)level)), scale);
 }
 
-template <bool kHop>
+// The hop on a chunk of more than kHopClusterMaxBlocks blocks: one CTA of T
+// threads per block, the uniforms drawn at the quantize (40 registers, 6
+// CTAs per SM: fused_q's 596 blocks in one wave).
 __global__ void ring_encode_kernel(const float* __restrict__ x,
                                    const int8_t* __restrict__ in_levels,
                                    const float* __restrict__ in_norms,
@@ -237,8 +289,7 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
   const int warp = t >> 5;
   const int64_t b = blockIdx.x;
   const int64_t first = b * (int64_t)threads * kRingVec;
-  float coef = 0.0f;
-  if constexpr (kHop) coef = __fmul_rn(in_norms[b], inv_s);
+  const float coef = __fmul_rn(in_norms[b], inv_s);
 
   float v[kRingVec];
   float ss = 0.0f;
@@ -248,26 +299,17 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
     float e[4];
     if (i + 4 <= n) {
       const float4 xv = *reinterpret_cast<const float4*>(x + i);
-      e[0] = xv.x;
-      e[1] = xv.y;
-      e[2] = xv.z;
-      e[3] = xv.w;
-      if constexpr (kHop) {
-        const char4 lv = *reinterpret_cast<const char4*>(in_levels + i);
-        e[0] = hop_value(e[0], lv.x, coef, scale);
-        e[1] = hop_value(e[1], lv.y, coef, scale);
-        e[2] = hop_value(e[2], lv.z, coef, scale);
-        e[3] = hop_value(e[3], lv.w, coef, scale);
-      }
+      const char4 lv = *reinterpret_cast<const char4*>(in_levels + i);
+      e[0] = hop_value(xv.x, lv.x, coef, scale);
+      e[1] = hop_value(xv.y, lv.y, coef, scale);
+      e[2] = hop_value(xv.z, lv.z, coef, scale);
+      e[3] = hop_value(xv.w, lv.w, coef, scale);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const bool in = i + c < n;
-        e[c] = in ? x[i + c] : 0.0f;
-        if constexpr (kHop) {
-          e[c] = hop_value(e[c], in ? in_levels[i + c] : (int8_t)0, coef,
-                           scale);
-        }
+        e[c] = hop_value(in ? x[i + c] : 0.0f,
+                         in ? in_levels[i + c] : (int8_t)0, coef, scale);
       }
     }
 #pragma unroll
@@ -286,7 +328,7 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
   if (warp == 0) {
     const int warps = threads >> 5;
     float w = lane < warps ? warp_sums[lane] : 0.0f;
-    for (int off = warps >> 1; off > 0; off >>= 1) {
+    for (int off = tree_top(warps); off > 0; off >>= 1) {
       w = __fadd_rn(w, __shfl_down_sync(0xffffffffu, w, off));
     }
     if (lane == 0) {
@@ -306,28 +348,20 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
     for (int c = 0; c < 4; ++c) {
       q[c] = quantize_one(v[4 * j + c], qscale, (uint32_t)(i + c), seed);
     }
-    if (i + 4 <= n) {
-      *reinterpret_cast<char4*>(out + i) = make_char4(q[0], q[1], q[2], q[3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (i + c < n) out[i + c] = q[c];
-      }
-    }
+    store_c4(out, i, n, make_char4(q[0], q[1], q[2], q[3]));
   }
 }
 
-// dequant_acc_requant, one ring hop: per element
-// (local + (norm[b] * (1/s)) * level) * scale, then the block encode above.
-// Bound: 6n + 8nb bytes, at most 0.0011 ms at the ring_rs chunks of
-// VGG11-BN (1 to 144 blocks of 4096), under the ~0.005 ms a launch takes,
-// so there the time is the latency of one block's chain: load, norm, hash
-// and quantize, store. For such chunks (at most two blocks per SM) the
-// launcher shortens that chain in two ways.
+// chunk_encode at every size, and the hop on a chunk of at most
+// kHopClusterMaxBlocks blocks (every ring_rs chunk of VGG11-BN: 1 to 144
+// blocks of 4096). The bound there is at most 0.0011 ms, under the
+// ~0.005 ms a launch takes, so the time is the latency of one block's
+// chain: load, norm, hash and quantize, store. The kernel shortens that
+// chain in two ways.
 // - Early draw: the uniforms depend on the element's index and the seed
 //   alone, so each thread draws its 16 while its loads are in flight, and
 //   only the quantize arithmetic waits for the norm. The 16 uniforms cost
-//   16 registers (56 a thread in all).
+//   16 registers (55 a thread for the encode, 56 for the hop).
 // - A block's T threads are spread over a thread-block cluster of
 //   kHopCluster = 2 CTAs on two SMs (thread t = rank * blockDim.x +
 //   threadIdx.x keeps its elements and its place in the norm order), so
@@ -342,15 +376,17 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
 //   needs it. The relaxed cluster arrive at the start, waited for just
 //   before the first remote store, guarantees that every peer has started
 //   and initialised its mbarrier.
-// A larger chunk (the fused_q chunk of VGG11-BN has 596 blocks) fills the
-// card with one CTA per block, and its time is the bytes' and the
-// arithmetic's, not one chain's. There the early draw's registers cost a
-// second wave of CTAs and clusters schedule more slowly than they save, so
-// the launcher takes ring_encode_kernel<true> above (40 registers, 6 CTAs
-// per SM, the draw at the quantize). The switch, kHopClusterMaxBlocks, is
-// two blocks per SM of the H100's 132; it only has to separate the ring_rs
-// chunks (at most 144 blocks) from the fused_q chunk (596), since the
-// training paths make no chunk in between, and no size there was timed.
+// kHop selects the hop (levels and norms in, decode-accumulate before the
+// norm) or chunk_encode (the chunk itself is the block's values).
+// On fused_q's 596 blocks the encode also runs faster this way than one CTA
+// of 256 per block, with the draw at the quantize or early (PERF.md): its
+// CTAs of 128 threads spread the blocks over the SMs more evenly, and the
+// card holds nearly all of them at once. The hop's does not (measured):
+// with the levels array its CTAs need a second wave, so above
+// kHopClusterMaxBlocks, two blocks per SM of the H100's 132, the hop takes
+// ring_encode_kernel. That switch only has to separate the ring_rs chunks
+// (at most 144 blocks) from the fused_q chunk (596), since the training
+// paths make no chunk in between.
 constexpr int kHopCluster = 2;  // CTAs per quantization block
 constexpr int64_t kHopClusterMaxBlocks = 2 * 132;
 
@@ -369,6 +405,7 @@ __device__ __forceinline__ uint32_t peer_addr(uint32_t local_addr,
   return out;
 }
 
+template <bool kHop>
 __global__ void __cluster_dims__(kHopCluster, 1, 1)
     ring_hop_kernel(const float* __restrict__ local,
                     const int8_t* __restrict__ in_levels,
@@ -402,7 +439,9 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
     const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
     if (i + 4 <= n) {
       x4[j] = *reinterpret_cast<const float4*>(local + i);
-      l4[j] = *reinterpret_cast<const char4*>(in_levels + i);
+      if constexpr (kHop) {
+        l4[j] = *reinterpret_cast<const char4*>(in_levels + i);
+      }
     } else {
       float e[4];
       int8_t q[4];
@@ -410,13 +449,14 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
       for (int c = 0; c < 4; ++c) {
         const bool in = i + c < n;
         e[c] = in ? local[i + c] : 0.0f;
-        q[c] = in ? in_levels[i + c] : (int8_t)0;
+        if constexpr (kHop) q[c] = in ? in_levels[i + c] : (int8_t)0;
       }
       x4[j] = make_float4(e[0], e[1], e[2], e[3]);
-      l4[j] = make_char4(q[0], q[1], q[2], q[3]);
+      if constexpr (kHop) l4[j] = make_char4(q[0], q[1], q[2], q[3]);
     }
   }
-  const float coef = __fmul_rn(in_norms[b], inv_s);
+  float coef = 0.0f;
+  if constexpr (kHop) coef = __fmul_rn(in_norms[b], inv_s);
   float u[kRingVec];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -431,10 +471,17 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
   float ss = 0.0f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    v[4 * j] = hop_value(x4[j].x, l4[j].x, coef, scale);
-    v[4 * j + 1] = hop_value(x4[j].y, l4[j].y, coef, scale);
-    v[4 * j + 2] = hop_value(x4[j].z, l4[j].z, coef, scale);
-    v[4 * j + 3] = hop_value(x4[j].w, l4[j].w, coef, scale);
+    if constexpr (kHop) {
+      v[4 * j] = hop_value(x4[j].x, l4[j].x, coef, scale);
+      v[4 * j + 1] = hop_value(x4[j].y, l4[j].y, coef, scale);
+      v[4 * j + 2] = hop_value(x4[j].z, l4[j].z, coef, scale);
+      v[4 * j + 3] = hop_value(x4[j].w, l4[j].w, coef, scale);
+    } else {
+      v[4 * j] = x4[j].x;
+      v[4 * j + 1] = x4[j].y;
+      v[4 * j + 2] = x4[j].z;
+      v[4 * j + 3] = x4[j].w;
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       ss = __fadd_rn(ss, __fmul_rn(v[4 * j + c], v[4 * j + c]));
@@ -467,7 +514,7 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
       : "r"(smem_u32(&sums_ready))
       : "memory");
   float w = lane < warps ? warp_sums[lane] : 0.0f;
-  for (int off = warps >> 1; off > 0; off >>= 1) {
+  for (int off = tree_top(warps); off > 0; off >>= 1) {
     w = __fadd_rn(w, __shfl_down_sync(0xffffffffu, w, off));
   }
   const float norm = __shfl_sync(0xffffffffu, __fsqrt_rn(w), 0);
@@ -477,19 +524,11 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int64_t i = first + 4 * ((int64_t)t + (int64_t)threads * j);
-    int8_t q[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      q[c] = quantize_level(v[4 * j + c], qscale, u[4 * j + c]);
-    }
-    if (i + 4 <= n) {
-      *reinterpret_cast<char4*>(out + i) = make_char4(q[0], q[1], q[2], q[3]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (i + c < n) out[i + c] = q[c];
-      }
-    }
+    store_c4(out, i, n,
+             make_char4(quantize_level(v[4 * j], qscale, u[4 * j]),
+                        quantize_level(v[4 * j + 1], qscale, u[4 * j + 1]),
+                        quantize_level(v[4 * j + 2], qscale, u[4 * j + 2]),
+                        quantize_level(v[4 * j + 3], qscale, u[4 * j + 3])));
   }
 }
 
@@ -595,7 +634,7 @@ int ewdml_qsgd_quantize(const float* x, const float* norms, int64_t n,
                         cudaStream_t stream) {
   if (n > 0) {
     qsgd_quantize_kernel<<<grid_for(n / 4 + 1), kThreads, 0, stream>>>(
-        x, norms, n, block, seed, (float)s, out);
+        x, norms, n, (int)(block / 4), seed, (float)s, out);
   }
   return (int)cudaGetLastError();
 }
@@ -627,16 +666,17 @@ int ewdml_chunk_encode(const float* x, int64_t n, int64_t block,
                        cudaStream_t stream) {
   if (n > 0) {
     const int64_t nb = (n + block - 1) / block;
-    ring_encode_kernel<false><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
-                                stream>>>(x, nullptr, nullptr, 0.0f, 1.0f, n,
-                                          seed, (float)s, levels, norms);
+    ring_hop_kernel<false><<<(unsigned)(nb * kHopCluster),
+                             (unsigned)(block / kRingVec / kHopCluster), 0,
+                             stream>>>(x, nullptr, nullptr, 0.0f, 1.0f, n,
+                                       seed, (float)s, levels, norms);
   }
   return (int)cudaGetLastError();
 }
 
-// A chunk of at most kHopClusterMaxBlocks blocks takes ring_hop_kernel, a
-// cluster of kHopCluster CTAs per block; a larger one
-// ring_encode_kernel<true>, one CTA per block.
+// A chunk of at most kHopClusterMaxBlocks blocks takes ring_hop_kernel<true>,
+// a cluster of kHopCluster CTAs per block; a larger one ring_encode_kernel,
+// one CTA per block.
 int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
                               const float* local, int64_t n, int64_t block,
                               uint32_t seed, int s, float inv_s, float scale,
@@ -645,14 +685,14 @@ int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
   if (n > 0) {
     const int64_t nb = (n + block - 1) / block;
     if (nb > kHopClusterMaxBlocks) {
-      ring_encode_kernel<true><<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
-                                 stream>>>(local, levels, norms, inv_s, scale,
-                                           n, seed, (float)s, out, out_norms);
+      ring_encode_kernel<<<(unsigned)nb, (unsigned)(block / kRingVec), 0,
+                           stream>>>(local, levels, norms, inv_s, scale, n,
+                                     seed, (float)s, out, out_norms);
     } else {
-      ring_hop_kernel<<<(unsigned)(nb * kHopCluster),
-                        (unsigned)(block / kRingVec / kHopCluster), 0,
-                        stream>>>(local, levels, norms, inv_s, scale, n, seed,
-                                  (float)s, out, out_norms);
+      ring_hop_kernel<true><<<(unsigned)(nb * kHopCluster),
+                              (unsigned)(block / kRingVec / kHopCluster), 0,
+                              stream>>>(local, levels, norms, inv_s, scale, n,
+                                        seed, (float)s, out, out_norms);
     }
   }
   return (int)cudaGetLastError();

@@ -23,10 +23,14 @@ between the read and the write. At the shapes the training paths give
 them the bound is a few microseconds, less than one launch takes, so a
 kernel's time there is the latency of its chain: ``block_top1`` has every
 row of a column in flight at once (32 columns by 8 row slices per thread
-block), and the ring hop, on a chunk of at most two blocks per SM, draws
-its random bits while its loads are in flight and spreads each block over
-a cluster of two thread blocks (a larger chunk keeps one thread block per
-block, which fills the card). ``chunk_encode`` and
+block); ``chunk_encode`` at every size, and the hop on a chunk of at most
+two blocks per SM, draw their random bits while their loads are in flight
+and spread each block over a cluster of two thread blocks (a larger hop
+keeps one thread block per block, which fills the card). ``qsgd_quantize``
+keeps 64 warps on every SM, so the murmur hash (~25 instructions an
+element, half the byte time at the instruction rate) runs while other warps'
+loads are in flight; it takes within a microsecond of a pass that moves
+the same bytes with no arithmetic. ``chunk_encode`` and
 ``dequant_acc_requant`` are the per-hop passes of the ring transports
 (``--collective fused_q``, ``--gather-type ring_rs``); ``int_accumulate``
 and ``acc_decode`` sum K same-contract int8 payloads and decode the sum
@@ -388,7 +392,8 @@ def block_top1(x2: torch.Tensor):
 #   1. each thread sums its 16 squares in (j, c) order, starting from 0;
 #   2. each warp of 32 threads halves its sums at offsets 16, 8, 4, 2, 1
 #      (lane i adds lane i + offset);
-#   3. the T / 32 warp sums halve the same way, at offsets T / 64, ..., 1;
+#   3. the T / 32 warp sums halve the same way, from half the next power
+#      of two down to 1 (warps past T / 32 add zeros);
 #   4. the norm is the correctly rounded square root of the total.
 # Every product and sum rounds on its own (no FMA), so kernel and plain
 # version agree bit for bit, norms and levels alike.
@@ -425,8 +430,12 @@ def block_norms_ref(x2: torch.Tensor) -> torch.Tensor:
     acc = acc.reshape(nb, threads // 32, 32)
     for off in (16, 8, 4, 2, 1):
         acc = acc[:, :, :off] + acc[:, :, off:2 * off]
-    acc = acc[:, :, 0]
-    off = threads // 64
+    # The warp sums halve from half the next power of two, the missing
+    # warps entering as zeros (24 warps for a block of 12288).
+    warps = threads // 32
+    top = 1 << (warps - 1).bit_length()
+    acc = torch.nn.functional.pad(acc[:, :, 0], (0, top - warps))
+    off = top // 2
     while off:
         acc = acc[:, :off] + acc[:, off:2 * off]
         off //= 2

@@ -29,23 +29,40 @@ def cuda():
     kernels.configure("auto")
 
 
-@pytest.mark.parametrize("n", [2_359_296, 530_442, 4097, 3])
-@pytest.mark.parametrize("block", [None, 4096])
+def _norms(x, block):
+    if block is None:
+        return torch.linalg.vector_norm(x)
+    n = x.numel()
+    nb = -(-n // block)
+    pad = torch.zeros(nb * block, device="cuda")
+    pad[:n] = x
+    return torch.linalg.vector_norm(pad.reshape(nb, block), dim=1)
+
+
+@pytest.mark.parametrize("n", [2_359_296, 1_180_160, 959_616, 530_442, 4097,
+                               3])
+@pytest.mark.parametrize("block", [None, 4096, 8192, 16384])
 def test_quantize_kernel_is_the_plain_version(cuda, n, block):
     x = torch.randn(n, device="cuda", generator=cuda)
-    if block is None:
-        norm = torch.linalg.vector_norm(x)
-    else:
-        nb = -(-n // block)
-        pad = torch.zeros(nb * block, device="cuda")
-        pad[:n] = x
-        norm = torch.linalg.vector_norm(pad.reshape(nb, block), dim=1)
+    norm = _norms(x, block)
     for seed in (0, -77, 2**31 - 1):
         a = kernels.qsgd_quantize(x, norm, seed, 127, block=block)
         b = kernels.qsgd_quantize_ref(x, norm, seed, 127, block=block)
         assert torch.equal(a, b), (n, block, seed)
     z = torch.zeros(n, device="cuda")
     assert not kernels.qsgd_quantize(z, torch.zeros(()), 1, 127).any()
+
+
+@pytest.mark.parametrize("block", [None, 4096])
+def test_quantize_kernel_on_an_unaligned_view(cuda, block):
+    """A view 4 bytes into its storage (the wrapper copies it for the
+    kernel's 16-byte loads)."""
+    x = torch.randn(530_443, device="cuda", generator=cuda)[1:]
+    assert x.data_ptr() % 16 == 4
+    norm = _norms(x, block)
+    a = kernels.qsgd_quantize(x, norm, 9, 127, block=block)
+    assert torch.equal(a, kernels.qsgd_quantize_ref(x, norm, 9, 127,
+                                                    block=block))
 
 
 @pytest.mark.parametrize("world,n,block", [(1, 5000, None), (4, 530_442, None),
@@ -80,8 +97,20 @@ def _bits_equal(a, b):
 
 
 @pytest.mark.parametrize("n", [2_441_216, 530_442, 4097, 3])
-@pytest.mark.parametrize("block", [4096, 8192])
+@pytest.mark.parametrize("block", [4096, 8192, 12288, 16384])
 def test_chunk_encode_kernel_is_the_plain_version(cuda, n, block):
+    _check_encode(cuda, n, block)
+
+
+@pytest.mark.parametrize("blocks", [1, 33, 144, 264, 265, 596])
+@pytest.mark.parametrize("block", [4096, 16384])
+def test_chunk_encode_kernel_at_the_ring_chunk_sizes(cuda, blocks, block):
+    """The ring_rs and fused_q chunks of VGG11-BN and both sides of 264
+    blocks, where the hop (not the encode) changes kernel."""
+    _check_encode(cuda, blocks * block, block)
+
+
+def _check_encode(cuda, n, block):
     x = torch.randn(n, device="cuda", generator=cuda) * 1e-2
     x[: min(n, 50)] *= 1e4   # a few large entries: levels up to s
     for seed in (0, -77, 2**31 - 1):
@@ -96,7 +125,7 @@ def test_chunk_encode_kernel_is_the_plain_version(cuda, n, block):
 
 @pytest.mark.parametrize("n", [2_441_216, 144 * 4096, 530_442, 33 * 4096,
                                4096, 4097, 3])
-@pytest.mark.parametrize("block", [4096, 8192, 16384])
+@pytest.mark.parametrize("block", [4096, 8192, 12288, 16384])
 @pytest.mark.parametrize("scale", [1.0, 0.25])
 def test_dequant_acc_requant_kernel_is_the_plain_version(cuda, n, block,
                                                          scale):

@@ -75,7 +75,9 @@ def test_shared_scales_within_f32_reduction(n, block):
                                      (300_000, None), (300_000, 4096)])
 def test_dense_levels_bit_equal_given_jax_scales(n, block):
     g = _grad(n, 2)
-    sc = jqsgd.shared_scales(jnp.asarray(g), 127, block)
+    # A copy: jnp.asarray may share g's memory on the CPU, and the scales,
+    # dispatched asynchronously, could then read the entry set below.
+    sc = jqsgd.shared_scales(jnp.array(g), 127, block)
     g[7] = 100.0  # far beyond headroom x template: clips at s
     for seed in (0, 11, 2**31 - 1):
         jp = jqsgd.compress_shared(jax.random.key(seed), jnp.asarray(g), sc,

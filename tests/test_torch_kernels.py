@@ -43,6 +43,7 @@ def _norms(x: np.ndarray, block):
 @pytest.mark.parametrize("n,block,s", [
     (1000, None, 127), (4097, None, 127), (12345, None, 1),
     (9000, 4096, 127), (8192, 4096, 1), (8193, 8192, 127),
+    (3 * 16384 + 6, 16384, 127), (2 * 4096 + 2, None, 127),
 ])
 def test_quantize_plain_matches_pallas(n, block, s):
     rng = np.random.RandomState(n + s)

@@ -53,7 +53,9 @@ def _close_norms(nt: torch.Tensor, nj) -> None:
 @pytest.mark.parametrize("interpret", [True, None])
 @pytest.mark.parametrize("n,block,seed", [(N, 4096, -77), (N, 4096, 0),
                                           (4097, 4096, 2**31 - 1),
-                                          (20000, 8192, 5)])
+                                          (20000, 8192, 5),
+                                          (2 * 16384 + 100, 16384, 11),
+                                          (2 * 12288 + 100, 12288, -3)])
 def test_chunk_encode_plain_matches_pallas(interpret, n, block, seed):
     x = _x(seed & 0xFF, n)
     lj, nj = pk.chunk_encode(jnp.asarray(x), jnp.int32(seed), 127,
@@ -83,7 +85,8 @@ def test_chunk_encode_zero_block_and_tail():
 @pytest.mark.parametrize("scale,n,block", [
     pytest.param(scale, n, block,
                  id=f"{scale}" if n == N else f"{scale}-{n}-{block}")
-    for n, block in ((N, 4096), (4096, 4096), (2 * 16384 + 100, 16384))
+    for n, block in ((N, 4096), (4096, 4096), (2 * 16384 + 100, 16384),
+                     (2 * 12288 + 100, 12288))
     for scale in (1.0, 0.25)])
 def test_dequant_acc_requant_plain_matches_pallas(interpret, scale, n, block):
     rng = np.random.RandomState(int(scale * 8) + (interpret is None)
