@@ -9,27 +9,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the training paths give it (VGG11-BN's largest 8 MB gradient
    bucket, 2 359 296 elements): quantize per tensor and blockwise (bit),
-   dequant_mean at W = 4 (within W * 2^-23 * sum|norm * level| / (s * W);
-   the kernel keeps the plain version's order, so 0 is expected),
+   dequant_mean at W = 4 (bit: the kernel keeps the plain version's order),
    block_top1 on that bucket's (104, 23 680) block view (bit); the ring
    kernels chunk_encode and dequant_acc_requant (scale 1 and 1/4) on the
    ``--collective fused_q`` chunk of VGG11-BN at W = 4 (2 441 216
    elements) and on a chunk with a tail block (levels and norms bit).
-   The server-apply kernels: int_accumulate at K = 4 over that bucket, at
-   K = 5 over 9000 elements (an unaligned row) and K = 8 over 130 (forced
-   with the mode switch), and acc_decode per tensor at k = 4 and 3 and
-   blockwise 4096 and 8192 over the bucket and over a tail (bit).
-   Each is timed with CUDA events (median of repeats, L2 flushed before
-   each launch) beside its bound, its plain version, and one PyTorch call
-   for the same function where there is one. A bound is the larger of the
+   The worker-axis reduces (bit, with the mode switch forcing the kernel
+   at every size): int_accumulate at K = 1, 4, 8, 9 over the bucket, 16 over
+   530 442, and on unaligned rows, unaligned bases and n = 130, 17, 5;
+   dequant_mean at W = 1, 8 and 9 (blockwise 4096) over the bucket, at
+   [4, 530 442] (rows 1 and 3 2-byte aligned) per tensor and blockwise, on a
+   base 1 byte into its storage and at [3, 12 290] 3 bytes in. acc_decode
+   per tensor at k = 4 and 3 and blockwise 4096 and 8192 over the bucket and
+   over a tail (bit). Each is timed with CUDA events (median of repeats, L2
+   flushed before each launch) beside its bound, its plain version, one
+   PyTorch call for the same function where there is one, and its own time
+   on the card from a ``torch.profiler`` trace. A bound is the larger of the
    bytes over the HBM rate and the instructions over the instruction rate at the
    SM clock nvidia-smi reports. Then the per-shape table (``shape``
    lines): block_top1 at every (R, C) view VGG11-BN's M5 step gives it at
    1% (beside ``vector_norm(inf)``), the ring hop and chunk_encode at
    every ``ring_rs --qsgd-block 4096`` chunk and at the ``fused_q`` chunk,
-   and qsgd_quantize per tensor at every unit of at least ``MIN_ELEMS``
-   elements and blockwise 4096 at the largest, each bit-equal to its plain
-   version there and timed beside its bound and its launches per step,
+   qsgd_quantize and dequant_mean (W = 4) per tensor at every unit of at
+   least ``MIN_ELEMS`` elements and blockwise 4096 at the largest, and
+   int_accumulate (K = 4) at every leaf of VGG11-BN the homomorphic apply
+   sums, each bit-equal to its plain version there and timed beside its
+   bound and its launches per step or round,
    and its kernel's own time on the card read from a ``torch.profiler``
    trace (``device``; "not measured" where the trace holds no device
    time);
@@ -100,6 +105,16 @@ REPLACES = {
     "dequant_acc_requant": "ewdml_tpu/ops/pallas_kernels.py:479",
     "int_accumulate": "ewdml_tpu/ops/pallas_kernels.py:587",
     "acc_decode": "ewdml_tpu/ops/pallas_kernels.py:629",
+}
+# The names of each wrapper's kernels in a torch.profiler trace.
+KERNEL_NAMES = {
+    "qsgd_quantize": ("qsgd_quantize_kernel",),
+    "dequant_mean": ("dequant_mean_kernel",),
+    "block_top1": ("block_top1_kernel",),
+    "chunk_encode": ("ring_hop_kernel", "ring_encode_kernel"),
+    "dequant_acc_requant": ("ring_hop_kernel", "ring_encode_kernel"),
+    "int_accumulate": ("int_accumulate_kernel",),
+    "acc_decode": ("acc_decode_kernel",),
 }
 # Instructions per element, for the operations side of each bound, each
 # counted once against the instruction rate (an f32 multiply and an add that the
@@ -196,12 +211,15 @@ def check_kernels(torch, kernels, timer) -> dict:
                                  "differ from the plain version")
         if int(a.abs().max()) == 0:
             raise AssertionError("qsgd_quantize produced only zero levels")
-    ms = timer(lambda: kernels.qsgd_quantize(x, norm, seed, 127))
+    fn = lambda: kernels.qsgd_quantize(x, norm, seed, 127)
+    ms = timer(fn)
     plain = timer(lambda: kernels.qsgd_quantize_ref(x, norm, seed, 127), reps=10)
     bnd, by = bound_ms(5 * BUCKET + 4, OPS_PER_ELEM["qsgd_quantize"] * BUCKET)
     out["qsgd_quantize"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                 bound_ms=bnd, bound_by=by, library_ms=None,
-                                shape=[BUCKET])
+                                shape=[BUCKET],
+                                device_ms=timer.device(
+                                    fn, KERNEL_NAMES["qsgd_quantize"]))
 
     # -- dequant_mean: W gathered int8 payloads, per-tensor norms --
     lv = torch.randint(-127, 128, (WORLD, BUCKET), device="cuda",
@@ -211,16 +229,19 @@ def check_kernels(torch, kernels, timer) -> dict:
     b = kernels.dequant_mean_ref(lv, nm, 127)
     torch.cuda.synchronize()
     err = (a.double() - b.double()).abs()
-    mag = (nm[:, None].double() * lv.double()).abs().sum(0) / (127 * WORLD)
-    if bool((err > WORLD * 2.0 ** -23 * mag + 1e-45).any()):
-        raise AssertionError("dequant_mean is outside its stated bound")
-    ms = timer(lambda: kernels.dequant_mean(lv, nm, 127))
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"dequant_mean: {int((a != b).sum())} values "
+                             "differ from the plain version")
+    fn = lambda: kernels.dequant_mean(lv, nm, 127)
+    ms = timer(fn)
     plain = timer(lambda: kernels.dequant_mean_ref(lv, nm, 127), reps=10)
     bnd, by = bound_ms((WORLD + 4) * BUCKET + 4 * WORLD,
                        OPS_PER_ELEM["dequant_mean"] * BUCKET)
     out["dequant_mean"] = dict(max_abs_err=float(err.max()), ms=ms,
                                plain_ms=plain, bound_ms=bnd, bound_by=by,
-                               library_ms=None, shape=[WORLD, BUCKET])
+                               library_ms=None, shape=[WORLD, BUCKET],
+                               device_ms=timer.device(
+                                   fn, KERNEL_NAMES["dequant_mean"]))
 
     # -- block_top1: the bucket's (blk_pad, nb) view at the 1% ratio --
     from ewdml_tpu_torch.ops.blocktopk import geometry
@@ -234,7 +255,8 @@ def check_kernels(torch, kernels, timer) -> dict:
     if not (torch.equal(la, lb) and torch.equal(va.view(torch.int32),
                                                 vb.view(torch.int32))):
         raise AssertionError("block_top1 differs from the plain version")
-    ms = timer(lambda: kernels.block_top1(x2))
+    fn = lambda: kernels.block_top1(x2)
+    ms = timer(fn)
     plain = timer(lambda: kernels.block_top1_ref(x2), reps=10)
     # One PyTorch call for the winners' magnitudes: max |x| per column.
     lib = timer(lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
@@ -242,7 +264,9 @@ def check_kernels(torch, kernels, timer) -> dict:
                        OPS_PER_ELEM["block_top1"] * blk_pad * nbc)
     out["block_top1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
-                             shape=[blk_pad, nbc])
+                             shape=[blk_pad, nbc],
+                             device_ms=timer.device(
+                                 fn, KERNEL_NAMES["block_top1"]))
     out.update(check_ring_kernels(torch, kernels, timer, g))
     out.update(check_apply_kernels(torch, kernels, timer, g))
     return out
@@ -284,47 +308,100 @@ def check_ring_kernels(torch, kernels, timer, g) -> dict:
                      f"dequant_acc_requant n={n} scale={scale}")
     nb = m // kernels.BLOCK_ELEMS
     x = chunks[m]
-    ms = timer(lambda: kernels.chunk_encode(x, 5, 127))
+    fn = lambda: kernels.chunk_encode(x, 5, 127)
+    ms = timer(fn)
     plain = timer(lambda: kernels.chunk_encode_ref(x, 5, 127), reps=10)
     bnd, by = bound_ms(4 * m + m + 4 * nb, OPS_PER_ELEM["chunk_encode"] * m)
     out["chunk_encode"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                bound_ms=bnd, bound_by=by, library_ms=None,
-                               shape=[m])
+                               shape=[m],
+                               device_ms=timer.device(
+                                   fn, KERNEL_NAMES["chunk_encode"]))
     lv, nm = kernels.chunk_encode(x, 6, 127)
     local = torch.randn(m, device="cuda", generator=g) * 1e-2
-    ms = timer(lambda: kernels.dequant_acc_requant(lv, nm, local, 7, 127,
-                                                   scale=1.0 / WORLD))
+    fn = lambda: kernels.dequant_acc_requant(lv, nm, local, 7, 127,
+                                             scale=1.0 / WORLD)
+    ms = timer(fn)
     plain = timer(lambda: kernels.dequant_acc_requant_ref(
         lv, nm, local, 7, 127, scale=1.0 / WORLD), reps=10)
     bnd, by = bound_ms(m + 4 * m + m + 8 * nb,
                        OPS_PER_ELEM["dequant_acc_requant"] * m)
-    out["dequant_acc_requant"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                                      bound_ms=bnd, bound_by=by,
-                                      library_ms=None, shape=[m])
+    out["dequant_acc_requant"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=None, shape=[m],
+        device_ms=timer.device(fn, KERNEL_NAMES["dequant_acc_requant"]))
     return out
 
 
+def same_dequant(torch, kernels, lv, nm, block, what) -> None:
+    """dequant_mean bit-equal to its plain version, through the kernel."""
+    before = kernels.LAUNCHES["dequant_mean"]
+    a = kernels.dequant_mean(lv, nm, 127, block=block)
+    b = kernels.dequant_mean_ref(lv, nm, 127, block=block)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["dequant_mean"] != before + 1:
+        raise AssertionError(f"dequant_mean {what} did not launch the kernel")
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"dequant_mean {what}: {int((a != b).sum())} "
+                             "values differ from the plain version")
+
+
+def same_accumulate(torch, kernels, lv, what) -> None:
+    """int_accumulate bit-equal to its plain version, through the kernel."""
+    before = kernels.LAUNCHES["int_accumulate"]
+    a = kernels.accumulate(lv)
+    b = kernels.int_accumulate_ref(lv)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["int_accumulate"] != before + 1:
+        raise AssertionError(f"int_accumulate {what} did not launch the "
+                             "kernel")
+    if not torch.equal(a, b):
+        raise AssertionError(f"int_accumulate {what}: {int((a != b).sum())} "
+                             "sums differ from the plain version")
+
+
+def levels_on_card(torch, rows: int, n: int, g, offset: int = 0):
+    """Random int8 levels [rows, n]; with ``offset`` a view that many bytes
+    into its storage (a base that is not 16-byte aligned)."""
+    flat = torch.randint(-127, 128, (rows * n + offset,), device="cuda",
+                         generator=g).to(torch.int8)
+    return flat[offset:].reshape(rows, n)
+
+
+def dequant_norms(torch, world: int, n: int, block, g):
+    shape = (world,) if block is None else (world, -(-n // block))
+    return torch.rand(shape, device="cuda", generator=g) * 3
+
+
 def check_apply_kernels(torch, kernels, timer, g) -> dict:
-    """The server-apply kernels against their plain versions (bit), at the
-    bucket and at unaligned and forced-small shapes; timed on the bucket at
+    """The worker-axis reduces and the server decode against their plain
+    versions (bit): int_accumulate at K = 1 ... 9 and 16 over the bucket and
+    at unaligned and forced-small shapes, dequant_mean at W = 1, 8, 9 and on
+    a 2-byte-aligned row pitch and a base that is not 16-byte aligned,
+    acc_decode per tensor and blockwise; then timed on the bucket at
     K = W = 4."""
     out = {}
     kernels.configure("on")  # the dispatchers take the kernel at every size
     try:
-        for world, n in ((WORLD, BUCKET), (5, 9000), (8, 130)):
-            lv = torch.randint(-127, 128, (world, n), device="cuda",
-                               generator=g).to(torch.int8)
-            before = kernels.LAUNCHES["int_accumulate"]
-            a = kernels.accumulate(lv)
-            b = kernels.int_accumulate_ref(lv)
-            torch.cuda.synchronize()
-            if kernels.LAUNCHES["int_accumulate"] != before + 1:
-                raise AssertionError(f"int_accumulate K={world} n={n} did "
-                                     "not launch the kernel")
-            if not torch.equal(a, b):
-                raise AssertionError(f"int_accumulate K={world} n={n}: "
-                                     f"{int((a != b).sum())} sums differ "
-                                     "from the plain version")
+        for world, n, offset in ((WORLD, BUCKET, 0), (1, BUCKET, 0),
+                                 (8, BUCKET, 0), (9, BUCKET, 0),
+                                 (16, TAIL_CHUNK, 0), (WORLD, TAIL_CHUNK, 1),
+                                 (5, 9000, 0), (8, 130, 0), (9, 17, 3),
+                                 (2, 5, 1)):
+            same_accumulate(torch, kernels,
+                            levels_on_card(torch, world, n, g, offset),
+                            f"K={world} n={n} offset={offset}")
+        for world, n, block, offset in ((1, BUCKET, None, 0),
+                                        (8, BUCKET, None, 0),
+                                        (9, BUCKET, 4096, 0),
+                                        (WORLD, TAIL_CHUNK, None, 0),
+                                        (WORLD, TAIL_CHUNK, 4096, 0),
+                                        (WORLD, TAIL_CHUNK, None, 1),
+                                        (3, 12_290, 4096, 3)):
+            same_dequant(torch, kernels,
+                         levels_on_card(torch, world, n, g, offset),
+                         dequant_norms(torch, world, n, block, g), block,
+                         f"W={world} n={n} block={block} offset={offset}")
         for n in (BUCKET, TAIL_CHUNK):
             for k in (WORLD, 3):
                 acc = torch.randint(-127 * k, 127 * k + 1, (n,), device="cuda",
@@ -347,27 +424,32 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
                             "plain version")
     finally:
         kernels.configure("auto")
-    lv = torch.randint(-127, 128, (WORLD, BUCKET), device="cuda",
-                       generator=g).to(torch.int8)
-    ms = timer(lambda: kernels.int_accumulate(lv))
+    lv = levels_on_card(torch, WORLD, BUCKET, g)
+    fn = lambda: kernels.int_accumulate(lv)
+    ms = timer(fn)
     plain = timer(lambda: kernels.int_accumulate_ref(lv), reps=10)
     lib = timer(lambda: torch.sum(lv, 0, dtype=torch.int32))
     bnd, by = bound_ms(WORLD * BUCKET + 4 * BUCKET,
                        OPS_PER_ELEM["int_accumulate"] * BUCKET)
     out["int_accumulate"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                  bound_ms=bnd, bound_by=by, library_ms=lib,
-                                 shape=[WORLD, BUCKET])
+                                 shape=[WORLD, BUCKET],
+                                 device_ms=timer.device(
+                                     fn, KERNEL_NAMES["int_accumulate"]))
     acc = kernels.int_accumulate(lv)
     sc = torch.rand(1, device="cuda", generator=g) * 1e-3
     factor = sc * torch.tensor(1.0 / WORLD, dtype=torch.float32, device="cuda")
-    ms = timer(lambda: kernels.acc_decode(acc, sc, WORLD))
+    fn = lambda: kernels.acc_decode(acc, sc, WORLD)
+    ms = timer(fn)
     plain = timer(lambda: kernels.acc_decode_ref(acc, sc, WORLD), reps=10)
     lib = timer(lambda: torch.mul(acc, factor))
     bnd, by = bound_ms(4 * BUCKET + 4 + 4 * BUCKET,
                        OPS_PER_ELEM["acc_decode"] * BUCKET)
     out["acc_decode"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
-                             shape=[BUCKET])
+                             shape=[BUCKET],
+                             device_ms=timer.device(
+                                 fn, KERNEL_NAMES["acc_decode"]))
     return out
 
 
@@ -489,7 +571,7 @@ def quantize_rows(torch, kernels, timer, quant, g) -> list:
     """qsgd_quantize bit-equal to its plain version and timed at every size
     of the path: per tensor, and blockwise 4096 at the largest."""
     rows = []
-    names = ("qsgd_quantize_kernel",)
+    names = KERNEL_NAMES["qsgd_quantize"]
     for n, units in quant.items():
         x = torch.randn(n, device="cuda", generator=g) * 1e-2
         blocks = [None] + ([4096] if n == max(quant) else [])
@@ -518,6 +600,57 @@ def quantize_rows(torch, kernels, timer, quant, g) -> list:
                 OPS_PER_ELEM["qsgd_quantize"] * n, n=n, block=block,
                 per_step=per_step))
     return rows
+
+
+def apply_leaves() -> dict:
+    """``{n: leaves}`` for VGG11-BN's leaves of at least ``MIN_ELEMS``
+    elements: the server's homomorphic apply (``--fusion none``) runs one
+    int_accumulate on each per round."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+    from ewdml_tpu_torch.ops import kernels
+
+    leaves = {}
+    for spec in leaf_specs(build_model("VGG11", 10, dataset="Cifar10")):
+        n = math.prod(spec.jax_shape)
+        if n >= kernels.MIN_ELEMS:
+            leaves[n] = leaves.get(n, 0) + 1
+    return dict(sorted(leaves.items(), reverse=True))
+
+
+def reduce_rows(torch, kernels, timer, quant, g) -> tuple:
+    """dequant_mean at every unit M2/M4 decodes (per tensor, and blockwise
+    4096 at the largest) and int_accumulate at every leaf the homomorphic
+    apply sums, W = K = 4: each bit-equal to its plain version there, then
+    timed."""
+    dequant, accumulate = [], []
+    for n, units in quant.items():
+        lv = levels_on_card(torch, WORLD, n, g)
+        for block in [None] + ([4096] if n == max(quant) else []):
+            nm = dequant_norms(torch, WORLD, n, block, g)
+            same_dequant(torch, kernels, lv, nm, block, f"n={n} block={block}")
+            per_step = (f"x{units} per M2/M4" if block is None else
+                        f"x{units} per M2/M4 --qsgd-block 4096")
+            dequant.append(shape_row(
+                timer,
+                lambda lv=lv, nm=nm, block=block: kernels.dequant_mean(
+                    lv, nm, 127, block=block),
+                KERNEL_NAMES["dequant_mean"], (WORLD + 4) * n + 4 * nm.numel(),
+                OPS_PER_ELEM["dequant_mean"] * n, n=n, block=block,
+                per_step=per_step))
+    kernels.configure("on")
+    try:
+        for n, leaves in apply_leaves().items():
+            lv = levels_on_card(torch, WORLD, n, g)
+            same_accumulate(torch, kernels, lv, f"K={WORLD} n={n}")
+            accumulate.append(shape_row(
+                timer, lambda lv=lv: kernels.int_accumulate(lv),
+                KERNEL_NAMES["int_accumulate"], (WORLD + 4) * n,
+                OPS_PER_ELEM["int_accumulate"] * n, n=n,
+                per_step=f"x{leaves} per round"))
+    finally:
+        kernels.configure("auto")
+    return dequant, accumulate
 
 
 def check_path_shapes(torch, kernels, timer) -> dict:
@@ -550,13 +683,13 @@ def check_path_shapes(torch, kernels, timer) -> dict:
         same_top1(torch, kernels, top1_edge_matrix(torch, r, c, g),
                   f"edges ({r}, {c})")
         row = shape_row(timer, lambda: kernels.block_top1(x2),
-                        ("block_top1_kernel",), 4 * r * c + 8 * c,
+                        KERNEL_NAMES["block_top1"], 4 * r * c + 8 * c,
                         OPS_PER_ELEM["block_top1"] * r * c, shape=[r, c],
                         per_m5_step=per_step)
         row["library_ms"] = timer(
             lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
         out["block_top1"].append(row)
-    ring_names = ("ring_hop_kernel", "ring_encode_kernel")
+    ring_names = KERNEL_NAMES["chunk_encode"]
     for blocks, (per_step, path) in hops.items():
         n = blocks * 4096
         lv, nm, local = hop_inputs(torch, n, 4096, g)
@@ -578,6 +711,8 @@ def check_path_shapes(torch, kernels, timer) -> dict:
             5 * n + 4 * blocks, OPS_PER_ELEM["chunk_encode"] * n,
             blocks=blocks, n=n, path=path, per_step=units * WORLD))
     out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
+    out["dequant_mean"], out["int_accumulate"] = reduce_rows(
+        torch, kernels, timer, quant, g)
     return out
 
 
@@ -588,6 +723,16 @@ def on_card(row: dict) -> str:
     rate = row["bytes"] / row["device_ms"] / 1e9  # TB/s
     return (f"device {row['device_ms']:.4f} ms ({rate:.2f} TB/s, "
             f"{100 * rate * 1e12 / HBM_BYTES_PER_S:.0f}% of HBM)")
+
+
+def alone_vs_bound(c: dict) -> str:
+    """A kernel line's profiled kernel time, and what share of it the
+    bound is."""
+    if c["device_ms"] is None:
+        return "device not measured"
+    return (f"device {c['device_ms']:.4f} ms "
+            f"(the bound is {100 * c['bound_ms'] / c['device_ms']:.0f}% "
+            "of it)")
 
 
 def print_path_shapes(shapes: dict) -> None:
@@ -609,6 +754,13 @@ def print_path_shapes(shapes: dict) -> None:
     for row in shapes["qsgd_quantize"]:
         how = "per tensor" if row["block"] is None else f"block {row['block']}"
         print(f"shape qsgd_quantize {row['n']} {how} {row['per_step']} step: "
+              f"{timed(row)}", flush=True)
+    for row in shapes["dequant_mean"]:
+        how = "per tensor" if row["block"] is None else f"block {row['block']}"
+        print(f"shape dequant_mean [{WORLD}, {row['n']}] {how} "
+              f"{row['per_step']} step: {timed(row)}", flush=True)
+    for row in shapes["int_accumulate"]:
+        print(f"shape int_accumulate [{WORLD}, {row['n']}] {row['per_step']}: "
               f"{timed(row)}", flush=True)
     print("shapes: " + json.dumps(shapes), flush=True)
 
@@ -925,7 +1077,8 @@ def main(argv=None) -> int:
         print(f"kernel {name} {c['shape']}: {c['ms']:.4f} ms (bound "
               f"{c['bound_ms']:.4f} ms by {c['bound_by']}), plain "
               f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, "
-              f"max_abs_err {c['max_abs_err']}", flush=True)
+              f"max_abs_err {c['max_abs_err']}; {alone_vs_bound(c)}",
+              flush=True)
     print_path_shapes(shapes)
     if kernels_only:
         return 0

@@ -85,7 +85,7 @@ def _declare(lib) -> None:
     lib.ewdml_chunk_encode.argtypes = [p, i64, i64, u32, i32, p, p, p]
     lib.ewdml_dequant_acc_requant.argtypes = [p, p, p, i64, i64, u32, i32,
                                               f32, f32, p, p, p]
-    lib.ewdml_int_accumulate.argtypes = [p, i32, i64, i32, p, p]
+    lib.ewdml_int_accumulate.argtypes = [p, i32, i64, p, p]
     lib.ewdml_acc_decode.argtypes = [p, p, f32, i64, i64, p, p]
     for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
                lib.ewdml_block_top1, lib.ewdml_chunk_encode,

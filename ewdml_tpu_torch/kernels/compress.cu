@@ -1,10 +1,8 @@
 // Hopper (sm_90a) kernels of the gradient-compression hot path.
 //
 // Hand-written counterparts of the Pallas TPU kernels in
-// ewdml_tpu/ops/pallas_kernels.py. Each is held bit for bit (quantize,
-// block_top1, the ring hops, the server apply's int_accumulate and
-// acc_decode) or within its stated bound (dequant_mean)
-// against the plain PyTorch version beside its wrapper in
+// ewdml_tpu/ops/pallas_kernels.py. Each is held bit for bit against the
+// plain PyTorch version beside its wrapper in
 // ewdml_tpu_torch/ops/kernels.py.
 // Every float operation that could be contracted into an FMA is written
 // with an explicit round-to-nearest intrinsic, so the order of rounding is
@@ -121,38 +119,6 @@ __global__ void qsgd_quantize_kernel(const float* __restrict__ x,
             ? safe_scale(s, norms[(uint32_t)(t / 4) / (uint32_t)vecs_per_norm])
             : tensor_scale;
     out[t] = quantize_one(x[t], scale, (uint32_t)t, seed);
-  }
-}
-
-// Dequantize + mean over W gathered payloads: each thread owns four
-// consecutive elements and walks the W workers in order, accumulating
-// norm[w, b] * level in the TPU kernel's order, then scales by
-// 1 / (s * W). Bound: (W + 4) * n bytes.
-__global__ void dequant_mean_kernel(const int8_t* __restrict__ levels,
-                                    const float* __restrict__ norms,
-                                    int world, int64_t n, int64_t nb,
-                                    int64_t block, float factor,
-                                    float* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x * 4;
-  for (int64_t base = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-       base < n; base += stride) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int w = 0; w < world; ++w) {
-      const int8_t* row = levels + (int64_t)w * n;
-      const float* wn = norms + (int64_t)w * nb;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t i = base + j;
-        if (i < n) {
-          const float nm = wn[block ? i / block : 0];
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(nm, (float)row[i]));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (base + j < n) out[base + j] = __fmul_rn(acc[j], factor);
-    }
   }
 }
 
@@ -538,52 +504,293 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
 // exact integer arithmetic, so both are bit-equal to their plain versions
 // by construction.
 //
-// int_accumulate: the exact int32 sum of K int8 planes [K, n]. One thread
-// owns 16 consecutive output elements and walks the K rows in order. Row w
-// starts at byte w * n, so the 16-byte vector loads are legal only when n
-// and the base address are multiples of 16 (kVec); otherwise every load is
-// a single byte. Bound: K * n + 4 * n bytes.
-constexpr int kAccVec = 16;  // elements per thread of int_accumulate
+// The worker-axis reduce of dequant_mean (pallas_kernels.py:232) and
+// int_accumulate (pallas_kernels.py:587): K int8 rows [K, n] in, one 4-byte
+// plane [n] out. Bound: K * n + 4 * n bytes of HBM traffic (0.0056 ms at
+// K = 4 over the 2 359 296-element bucket); a few operations a byte.
+// - Word columns. A warp owns a tile of kReduceTile = 512 elements: lane l
+//   loads the 4-byte words 4 (l + 32 j), j < 4, of every row (a warp load
+//   covers 128 contiguous bytes of a row) and stores the four outputs of
+//   each word as one uint4 (a warp store covers 512 contiguous bytes).
+//   16-byte loads give a thread 16 consecutive outputs, which it can only
+//   store at a 64-byte lane stride (~0.004 ms slower at the bucket on the
+//   H100) or through
+//   a shared-memory transpose (no faster than word columns); two words a
+//   lane instead of four are no faster either (PERF.md;
+//   scripts/kernel_limits.py).
+// - All rows in flight. K is a template parameter for K <= 8, so a thread
+//   issues the 4 K loads of a tile before its first add; other K take the
+//   rows four at a time. Loads skip L1 and fetch 256 B into L2.
+// - One resident wave: the grid is the CTAs the card holds at once (or
+//   fewer), and the warps stride over the tiles, so no warp takes more than
+//   one tile beyond any other's.
+// - Scales hoisted (dequant_mean): per tensor the K norms are read once per
+//   thread; blockwise (a multiple of 4096 elements, so a tile never crosses
+//   a block) one 32-bit block index per tile, its K norm loads issued with
+//   the level loads.
+// - Rows not 4-byte aligned (row w starts at byte w * n; VGG11-BN's unit of
+//   530 442 elements puts rows 1 and 3 on 2-byte boundaries): a lane loads
+//   the aligned word below each of its words, takes the word above from
+//   the next lane with a shuffle once every load of the tile is issued, and
+//   realigns the pair in registers (__funnelshift_r); lane 31 loads one
+//   word more. No load leaves [levels, levels + K n): in the first
+//   and last tiles each word load is predicated on lying inside it, and an
+//   aligned word that straddles either end (a base or an end that is not
+//   4-byte aligned) is read a byte at a time after all the tile's other
+//   loads are issued, and only in a tile that holds such a word: an edge
+//   tile runs on one warp, so its extra instructions, or a load it waits
+//   on before the next word's loads issue, add straight to the kernel's
+//   time (about 0.001 and 0.004 ms at the 530 442 unit in builds that had
+//   them; PERF.md).
+// dequant_mean accumulates acc = acc + norm[w, b] * level in w order from 0,
+// every product and sum rounded on its own, then acc * factor: the order of
+// dequant_mean_ref, so the two are bit-equal. The accumulate is exact.
+constexpr int kReduceWords = 4;                         // words a lane, a row
+constexpr int kReduceTile = 32 * 4 * kReduceWords;      // elements a warp tile
+constexpr int kReduceThreads = 128;
 
-template <bool kVec>
-__global__ void int_accumulate_kernel(const int8_t* __restrict__ levels,
-                                      int world, int64_t n,
-                                      int32_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       t * kAccVec < n; t += stride) {
-    const int64_t base = t * kAccVec;
-    int32_t acc[kAccVec];
+struct ReduceArgs {
+  const int8_t* levels;  // [world, n]
+  const float* norms;    // dequant_mean: [world, nb]
+  int world;
+  int64_t n;
+  int64_t nb;
+  int tiles_per_block;   // dequant_mean blockwise: block / kReduceTile; else 0
+  float factor;          // dequant_mean: f32(1 / (s * world))
+  uint32_t* out;         // [n] f32 or int32
+};
+
+__device__ __forceinline__ uint32_t load_word_once(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];"
+      : "=r"(v)
+      : "l"(p));
+  return v;
+}
+
+// The aligned word at `p` (read once, skipping L1, 256 B fetched into L2).
+__device__ __forceinline__ uint32_t aligned_word(const int8_t* p) {
+  return load_word_once(reinterpret_cast<const uint32_t*>(p));
+}
+
+// The words of the first and last tiles. Every load there is predicated on
+// lying wholly inside the buffer [lo, hi) (words outside read as 0), so the
+// loads of a tile are still all issued before their first use. Bytes past a
+// row's end but inside the buffer are read and not stored.
+__device__ __forceinline__ bool word_inside(uintptr_t q, uintptr_t lo,
+                                            uintptr_t hi) {
+  return q >= lo && q + 4 <= hi;
+}
+
+template <bool kAligned>
+__device__ __forceinline__ uint32_t edge_word(const int8_t* p, uintptr_t lo,
+                                              uintptr_t hi) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uint32_t r = kAligned ? 0u : (uint32_t)(addr & 3);
+  const uintptr_t q = addr - r;
+  const uint32_t a =
+      word_inside(q, lo, hi)
+          ? load_word_once(reinterpret_cast<const uint32_t*>(q)) : 0u;
+  if constexpr (kAligned) return a;
+  const uint32_t b =
+      r && word_inside(q + 4, lo, hi)
+          ? load_word_once(reinterpret_cast<const uint32_t*>(q + 4)) : 0u;
+  return __funnelshift_r(a, b, 8 * r);
+}
+
+// The one-byte path: an aligned word that straddles `lo` (a base that is not
+// 4-byte aligned) or `hi` (an end that is not) is read a byte at a time.
+__device__ __forceinline__ bool word_straddles(uintptr_t q, uintptr_t lo,
+                                               uintptr_t hi) {
+  return (q < lo && q + 4 > lo) || (q < hi && q + 4 > hi);
+}
+
+__device__ __forceinline__ uint32_t word_bytes(uintptr_t q, uintptr_t lo,
+                                               uintptr_t hi) {
+  uint32_t w = 0;
 #pragma unroll
-    for (int j = 0; j < kAccVec; ++j) acc[j] = 0;
-    for (int w = 0; w < world; ++w) {
-      const int8_t* row = levels + (int64_t)w * n + base;
-      if constexpr (kVec) {
-        const int4 v = *reinterpret_cast<const int4*>(row);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+  for (int c = 0; c < 4; ++c) {
+    if (q + c >= lo && q + c < hi) {
+      w |= (uint32_t)(uint8_t)__ldg(reinterpret_cast<const int8_t*>(q + c))
+           << (8 * c);
+    }
+  }
+  return w;
+}
+
+// edge_word again for a word that needs the one-byte path, else `word`.
+__device__ __forceinline__ uint32_t edge_fixup(const int8_t* p, uintptr_t lo,
+                                               uintptr_t hi, uint32_t word) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  const uint32_t r = (uint32_t)(addr & 3);
+  const uintptr_t q = addr - r;
+  if (!word_straddles(q, lo, hi) && !(r && word_straddles(q + 4, lo, hi))) {
+    return word;
+  }
+  return __funnelshift_r(word_bytes(q, lo, hi),
+                         r ? word_bytes(q + 4, lo, hi) : 0u, 8 * r);
+}
+
+__device__ __forceinline__ int level_of(uint32_t w, int c) {
+  return (int)(int8_t)(w >> (8 * c));
+}
+
+// One warp tile. K = 0: a runtime row count, taken four rows at a time.
+template <bool kMean, int K, bool kAligned, bool kEdge>
+__device__ __forceinline__ void reduce_tile(const ReduceArgs a, int64_t t,
+                                            int lane, const float* tensor_nm) {
+  constexpr int kRows = K ? K : 4;
+  const int rows = K ? K : a.world;
+  const int64_t e0 = t * kReduceTile + 4 * lane;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(a.levels);
+  const uintptr_t hi = lo + (uintptr_t)((int64_t)a.world * a.n);
+  const uint32_t b = a.tiles_per_block
+                         ? (uint32_t)t / (uint32_t)a.tiles_per_block : 0u;
+  int isum[kReduceWords][4] = {};
+  float fsum[kReduceWords][4] = {};
+  for (int w0 = 0; w0 < rows; w0 += kRows) {
+    uint32_t v[kRows][kReduceWords];
+    uint32_t above[kRows];
+    float nm[kRows];
 #pragma unroll
-        for (int j = 0; j < kAccVec; ++j) acc[j] += (int32_t)b[j];
-      } else {
+    for (int i = 0; i < kRows; ++i) {
+      const int w = w0 + i;
+      if (K == 0 && w >= rows) break;
+      const int8_t* row = a.levels + (int64_t)w * a.n;
+      if constexpr (kMean && K > 0) {
+        nm[i] = a.tiles_per_block ? a.norms[(int64_t)w * a.nb + b]
+                                  : tensor_nm[i];
+      } else if constexpr (kMean) {
+        nm[i] = a.norms[(int64_t)w * a.nb + b];
+      }
+      // Interior: the aligned word below each of the lane's words (the
+      // word itself where the row is aligned) and, for lane 31 of a row
+      // that is not aligned, the word above its last one.
+      const uint32_t r = kAligned ? 0u : (uint32_t)(
+          reinterpret_cast<uintptr_t>(row) & 3);
 #pragma unroll
-        for (int j = 0; j < kAccVec; ++j) {
-          if (base + j < n) acc[j] += (int32_t)row[j];
+      for (int j = 0; j < kReduceWords; ++j) {
+        const int64_t e = e0 + 32 * 4 * j;
+        v[i][j] = kEdge ? edge_word<kAligned>(row + e, lo, hi)
+                        : aligned_word(row + e - r);
+      }
+      if constexpr (!kEdge && !kAligned) {
+        above[i] = r && lane == 31
+                       ? aligned_word(row + e0 + 32 * 4 * (kReduceWords - 1)
+                                      - r + 4)
+                       : 0u;
+      }
+    }
+    if constexpr (!kEdge && !kAligned) {
+      // Realign each row that is not 4-byte aligned: the word above a
+      // lane's word is the next lane's (lane 0's next column for lane 31,
+      // or the word it loaded past the last column), all loads issued.
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (K == 0 && w0 + i >= rows) break;
+        const int8_t* row = a.levels + (int64_t)(w0 + i) * a.n;
+        const uint32_t r = (uint32_t)(reinterpret_cast<uintptr_t>(row) & 3);
+        if (r == 0) continue;
+#pragma unroll
+        for (int j = 0; j < kReduceWords; ++j) {
+          uint32_t up = __shfl_down_sync(0xffffffffu, v[i][j], 1);
+          const uint32_t wrap = __shfl_sync(
+              0xffffffffu, j + 1 < kReduceWords ? v[i][j + 1] : 0u, 0);
+          if (lane == 31) up = j + 1 < kReduceWords ? wrap : above[i];
+          v[i][j] = __funnelshift_r(v[i][j], up, 8 * r);
         }
       }
     }
-    if constexpr (kVec) {
-      int4* o = reinterpret_cast<int4*>(out + base);
+    // Only a base or an end that is not 4-byte aligned has a word that
+    // straddles it, in the first or the last tile.
+    if (kEdge && !kAligned && (((lo & 3) && t == 0) || (hi & 3))) {
 #pragma unroll
-      for (int q = 0; q < kAccVec / 4; ++q) {
-        o[q] = make_int4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                         acc[4 * q + 3]);
+      for (int i = 0; i < kRows; ++i) {
+        if (K == 0 && w0 + i >= rows) break;
+        const int8_t* row = a.levels + (int64_t)(w0 + i) * a.n;
+#pragma unroll
+        for (int j = 0; j < kReduceWords; ++j) {
+          v[i][j] = edge_fixup(row + e0 + 32 * 4 * j, lo, hi, v[i][j]);
+        }
       }
-    } else {
+    }
 #pragma unroll
-      for (int j = 0; j < kAccVec; ++j) {
-        if (base + j < n) out[base + j] = acc[j];
+    for (int i = 0; i < kRows; ++i) {
+      if (K == 0 && w0 + i >= rows) break;
+#pragma unroll
+      for (int j = 0; j < kReduceWords; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (kMean) {
+            fsum[j][c] = __fadd_rn(
+                fsum[j][c], __fmul_rn(nm[i], (float)level_of(v[i][j], c)));
+          } else {
+            isum[j][c] += level_of(v[i][j], c);
+          }
+        }
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < kReduceWords; ++j) {
+    const int64_t e = e0 + 32 * 4 * j;
+    uint32_t o[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      o[c] = kMean ? __float_as_uint(__fmul_rn(fsum[j][c], a.factor))
+                   : (uint32_t)isum[j][c];
+    }
+    if (!kEdge || e + 4 <= a.n) {
+      *reinterpret_cast<uint4*>(a.out + e) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (e + c < a.n) a.out[e + c] = o[c];
+      }
+    }
+  }
+}
+
+template <bool kMean, int K, bool kAligned>
+__device__ __forceinline__ void worker_reduce(const ReduceArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t tiles = (a.n + kReduceTile - 1) / kReduceTile;
+  // Tiles [first, interior_end) read only whole words inside the buffer
+  // and store whole uint4; tile 0 reads below a base that is not 4-byte
+  // aligned.
+  const int64_t interior_end = a.n >= 4 ? (a.n - 4) / kReduceTile : 0;
+  const bool first_is_edge =
+      !kAligned && (reinterpret_cast<uintptr_t>(a.levels) & 3);
+  float tensor_nm[K ? K : 1];
+  if constexpr (kMean && K > 0) {
+    if (!a.tiles_per_block) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) tensor_nm[i] = a.norms[(int64_t)i * a.nb];
+    }
+  }
+  const int64_t first_tile =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  for (int64_t t = first_tile; t < tiles; t += warps) {
+    if (t >= interior_end || (t == 0 && first_is_edge)) {
+      reduce_tile<kMean, K, kAligned, true>(a, t, lane, tensor_nm);
+    } else {
+      reduce_tile<kMean, K, kAligned, false>(a, t, lane, tensor_nm);
+    }
+  }
+}
+
+template <int K, bool kAligned>
+__global__ void __launch_bounds__(kReduceThreads)
+    dequant_mean_kernel(const ReduceArgs a) {
+  worker_reduce<true, K, kAligned>(a);
+}
+
+template <int K, bool kAligned>
+__global__ void __launch_bounds__(kReduceThreads)
+    int_accumulate_kernel(const ReduceArgs a) {
+  worker_reduce<false, K, kAligned>(a);
 }
 
 // acc_decode: out = f32(acc) * (scale[b] * inv_k), the factor formed once per
@@ -625,6 +832,62 @@ int grid_for(int64_t work) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+// One resident wave of the reduce kernel (at most), cached per
+// instantiation: the SMs of the current device times the CTAs of
+// kReduceThreads each SM holds.
+template <bool kMean, int K, bool kAligned>
+int launch_reduce(const ReduceArgs& a, cudaStream_t stream) {
+  static int resident = 0;  // written once; racing writers agree
+  if (!resident) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if constexpr (kMean) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dequant_mean_kernel<K, kAligned>, kReduceThreads, 0);
+    } else {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, int_accumulate_kernel<K, kAligned>, kReduceThreads, 0);
+    }
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  constexpr int kWarps = kReduceThreads / 32;
+  const int64_t tiles = (a.n + kReduceTile - 1) / kReduceTile;
+  const int64_t needed = (tiles + kWarps - 1) / kWarps;
+  const int grid = (int)(needed < resident ? needed : resident);
+  if constexpr (kMean) {
+    dequant_mean_kernel<K, kAligned><<<grid, kReduceThreads, 0, stream>>>(a);
+  } else {
+    int_accumulate_kernel<K, kAligned><<<grid, kReduceThreads, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool kMean, bool kAligned>
+int reduce_for_rows(const ReduceArgs& a, cudaStream_t stream) {
+  switch (a.world) {
+    case 1: return launch_reduce<kMean, 1, kAligned>(a, stream);
+    case 2: return launch_reduce<kMean, 2, kAligned>(a, stream);
+    case 3: return launch_reduce<kMean, 3, kAligned>(a, stream);
+    case 4: return launch_reduce<kMean, 4, kAligned>(a, stream);
+    case 5: return launch_reduce<kMean, 5, kAligned>(a, stream);
+    case 6: return launch_reduce<kMean, 6, kAligned>(a, stream);
+    case 7: return launch_reduce<kMean, 7, kAligned>(a, stream);
+    case 8: return launch_reduce<kMean, 8, kAligned>(a, stream);
+    default: return launch_reduce<kMean, 0, kAligned>(a, stream);
+  }
+}
+
+// Every row starts 4-byte aligned when the base does and n % 4 == 0.
+template <bool kMean>
+int worker_reduce_launch(const ReduceArgs& a, cudaStream_t stream) {
+  if (a.n <= 0 || a.world <= 0) return (int)cudaGetLastError();
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(a.levels) % 4 == 0 && a.n % 4 == 0;
+  return aligned ? reduce_for_rows<kMean, true>(a, stream)
+                 : reduce_for_rows<kMean, false>(a, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -639,14 +902,15 @@ int ewdml_qsgd_quantize(const float* x, const float* norms, int64_t n,
   return (int)cudaGetLastError();
 }
 
+// `block` is 0 (per tensor, nb == 1) or a multiple of 4096; `out` is
+// 16-byte aligned.
 int ewdml_dequant_mean(const int8_t* levels, const float* norms, int world,
                        int64_t n, int64_t nb, int64_t block, float factor,
                        float* out, cudaStream_t stream) {
-  if (n > 0) {
-    dequant_mean_kernel<<<grid_for((n + 3) / 4), kThreads, 0, stream>>>(
-        levels, norms, world, n, nb, block, factor, out);
-  }
-  return (int)cudaGetLastError();
+  const ReduceArgs a{levels, norms, world, n, nb,
+                     (int)(block / kReduceTile), factor,
+                     reinterpret_cast<uint32_t*>(out)};
+  return worker_reduce_launch<true>(a, stream);
 }
 
 // `cols` % 128 == 0 and `rows` % 8 == 0 (the wrapper checks both).
@@ -698,21 +962,12 @@ int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
   return (int)cudaGetLastError();
 }
 
-// `vec` != 0 only when n % 16 == 0 and `levels` is 16-byte aligned (the
-// wrapper decides).
-int ewdml_int_accumulate(const int8_t* levels, int world, int64_t n, int vec,
+// `out` is 16-byte aligned; `levels` may start anywhere.
+int ewdml_int_accumulate(const int8_t* levels, int world, int64_t n,
                          int32_t* out, cudaStream_t stream) {
-  if (n > 0) {
-    const int grid = grid_for((n + kAccVec - 1) / kAccVec);
-    if (vec) {
-      int_accumulate_kernel<true><<<grid, kThreads, 0, stream>>>(levels, world,
-                                                                 n, out);
-    } else {
-      int_accumulate_kernel<false><<<grid, kThreads, 0, stream>>>(
-          levels, world, n, out);
-    }
-  }
-  return (int)cudaGetLastError();
+  const ReduceArgs a{levels, nullptr, world, n, 0, 0, 1.0f,
+                     reinterpret_cast<uint32_t*>(out)};
+  return worker_reduce_launch<false>(a, stream);
 }
 
 // `block` is 0 (one scale) or a multiple of 4096; `acc` is 16-byte aligned.

@@ -30,7 +30,12 @@ keeps one thread block per block, which fills the card). ``qsgd_quantize``
 keeps 64 warps on every SM, so the murmur hash (~25 instructions an
 element, half the byte time at the instruction rate) runs while other warps'
 loads are in flight; it takes within a microsecond of a pass that moves
-the same bytes with no arithmetic. ``chunk_encode`` and
+the same bytes with no arithmetic. ``dequant_mean`` and ``int_accumulate``
+share one worker-axis reduce: a warp owns 512 elements, each lane loads its
+four words of every row before the first add (the row count is a template
+parameter up to 8) and stores whole-warp ``uint4``; rows that start off a
+4-byte boundary are realigned in registers, and the grid is one resident
+wave. ``chunk_encode`` and
 ``dequant_acc_requant`` are the per-hop passes of the ring transports
 (``--collective fused_q``, ``--gather-type ring_rs``); ``int_accumulate``
 and ``acc_decode`` sum K same-contract int8 payloads and decode the sum
@@ -607,8 +612,7 @@ def int_accumulate(levels: torch.Tensor) -> torch.Tensor:
     _require_cuda(levels, "int_accumulate", torch.int8)
     world, n = levels.shape
     out = torch.empty(n, dtype=torch.int32, device=levels.device)
-    vec = int(n % 16 == 0 and levels.data_ptr() % 16 == 0)
-    rc = library().ewdml_int_accumulate(levels.data_ptr(), world, n, vec,
+    rc = library().ewdml_int_accumulate(levels.data_ptr(), world, n,
                                         out.data_ptr(), _stream_ptr(levels))
     _launch_check(rc, "int_accumulate")
     _count("int_accumulate")

@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""What holds qsgd_quantize and chunk_encode at their largest path shapes,
-and the schedules that were tried for them.
+"""What holds the port's kernels at their largest path shapes, and the
+schedules that were tried for them.
 
     python3 scripts/kernel_limits.py        # on a machine with an NVIDIA GPU
 
-``limits`` lines: the port's qsgd_quantize (per tensor and blockwise 4096,
-2 359 296 elements) and chunk_encode (fused_q's 596 blocks of 4096 at
-W = 4 on VGG11-BN) beside a pass that moves the same bytes on
-qsgd_quantize's schedule with a sign in place of the quantize (5n bytes: an
-f32 read and an int8 write per element). Each under two L2 flushes before
-every launch: chip_smoke.py's (a 512 MB ``zero_()``, which leaves the L2
-full of dirty lines that the kernel's own lines must evict) and a read of
-the same buffer (clean lines).
+``limits`` lines: each kernel beside a pass that moves the same bytes on
+its schedule with next to no arithmetic, under two L2 flushes before every
+launch: chip_smoke.py's (a 512 MB ``zero_()``, which leaves the L2 full of
+dirty lines that the kernel's own lines must evict) and a read of the same
+buffer (clean lines).
+- qsgd_quantize (per tensor and blockwise 4096, 2 359 296 elements) and
+  chunk_encode (fused_q's 596 blocks of 4096 at W = 4 on VGG11-BN) beside
+  a pass on qsgd_quantize's schedule with a sign in place of the quantize
+  (5n bytes: an f32 read and an int8 write per element);
+- int_accumulate and dequant_mean (per tensor) at K = W = 4 over the
+  2 359 296 bucket beside a pass on their shared schedule that XORs the K
+  words (K int8 rows read, one 4-byte plane written);
+- acc_decode (per tensor) over the bucket beside a copy on its own schedule
+  (4n bytes in, 4n out).
 
-``variant`` lines: the same two shapes through other schedules of the same
+``variant`` lines: the same shapes through other schedules of the same
 arithmetic, each bit-checked against the plain version and timed after
-chip_smoke.py's flush: a grid-stride quantize with one unhinted float4 per
-thread and a 64-bit norm index, and an encode with one CTA of 256 per
-block, two barriers and the draw at the quantize (the kernels' earlier
-schedules); one resident wave of whole tiles, 16
-elements a thread with the draw while the loads are in flight; and
-persistent CTAs that stage later tiles into shared memory with cp.async.
+chip_smoke.py's flush, beside the tree's kernel:
+- the quantize and the encode: a grid-stride quantize with one unhinted
+  float4 per thread and a 64-bit norm index, and an encode with one CTA of
+  256 per block, two barriers and the draw at the quantize (the kernels'
+  earlier schedules); one resident wave of whole tiles, 16 elements a
+  thread with the draw while the loads are in flight; and persistent CTAs
+  that stage later tiles into shared memory with cp.async;
+- the worker-axis reduce (int_accumulate, dequant_mean) at K = 4: word
+  columns with 4 or 2 words of each row a lane (the kept schedule is 4),
+  and 16-byte loads of 16 elements a lane with four uint4 stores at a
+  64-byte lane stride, or with the outputs transposed through shared
+  memory (one or two tiles a thread in flight);
+- dequant_mean at [4, 530 442], whose rows 1 and 3 start 2-byte aligned:
+  the interior tiles realigned with a branch on the alignment per word or
+  per row, with the upper word taken from the next lane by shuffle, or
+  without the L2 prefetch hint.
 
 Times are medians of 25 CUDA-event timings, and the kernel's own time on
 the card from a ``torch.profiler`` trace. The source below is built here
@@ -376,6 +392,354 @@ int staged_encode(const float* x, int64_t n, uint32_t seed, int8_t* out,
 }  // extern "C"
 """
 
+REDUCE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint4 ld_once_v4(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_once_u32(const void* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int sbyte(uint32_t w, int c) {
+  return (int)(w << (24 - 8 * c)) >> 24;
+}
+
+// The epilogues: 0 the int32 sum (int_accumulate), 1 the per-tensor
+// dequantized mean (dequant_mean), 2 the bytes alone (an XOR of the K words,
+// spread over the four outputs of a word).
+template <int kEpi, int K>
+__device__ __forceinline__ uint4 reduce_word(const uint32_t* w,
+                                             const float* nm, float factor) {
+  if constexpr (kEpi == 2) {
+    uint32_t x = w[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) x ^= w[k];
+    return make_uint4(x, x >> 8, x >> 16, x >> 24);
+  } else if constexpr (kEpi == 0) {
+    int s[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] += sbyte(w[k], c);
+    }
+    return make_uint4(s[0], s[1], s[2], s[3]);
+  } else {
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        a[c] = __fadd_rn(a[c], __fmul_rn(nm[k], (float)sbyte(w[k], c)));
+      }
+    }
+    return make_uint4(__float_as_uint(__fmul_rn(a[0], factor)),
+                      __float_as_uint(__fmul_rn(a[1], factor)),
+                      __float_as_uint(__fmul_rn(a[2], factor)),
+                      __float_as_uint(__fmul_rn(a[3], factor)));
+  }
+}
+
+// Word columns (CTAs of 128, as compress.cu's worker_reduce): lane l of a
+// warp tile owns the words 4 (l + 32 j), j < J, of
+// every row (a warp load covers 128 contiguous bytes of a row) and stores
+// their 4 J outputs as J uint4 (a warp store covers 512 contiguous bytes).
+template <int kEpi, int K, int J>
+__global__ void __launch_bounds__(128)
+    word_reduce_kernel(const int8_t* __restrict__ levels,
+                       const float* __restrict__ norms, int64_t n,
+                       float factor, uint4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t tiles = n / (128 * J);
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  float nm[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) nm[k] = kEpi == 1 ? norms[k] : 0.0f;
+  for (int64_t tile = (int64_t)blockIdx.x * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
+       tile < tiles; tile += warps) {
+    const int64_t e0 = tile * 128 * J + 4 * lane;
+    uint32_t w[J][K];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        w[j][k] = ld_once_u32(levels + (int64_t)k * n + e0 + 128 * j);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      out[(e0 + 128 * j) / 4] = reduce_word<kEpi, K>(w[j], nm, factor);
+    }
+  }
+}
+
+// 16-byte columns: lane l of a warp tile of 512 elements loads the 16
+// bytes 16 l of every row (G tiles in flight a thread). kSmem: the 16
+// outputs go through a swizzled shared-memory tile so that a warp store
+// covers 512 contiguous bytes; otherwise each thread stores its four uint4
+// at a 64-byte lane stride.
+template <int kEpi, int K, bool kSmem, int G>
+__global__ void __launch_bounds__(256)
+    vec_reduce_kernel(const int8_t* __restrict__ levels,
+                      const float* __restrict__ norms, int64_t n,
+                      float factor, uint4* __restrict__ out) {
+  __shared__ uint4 stage[kSmem ? 8 * 128 : 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tiles = n / 512;
+  const int64_t warps = (int64_t)gridDim.x * 8;
+  float nm[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) nm[k] = kEpi == 1 ? norms[k] : 0.0f;
+  for (int64_t t0 = (int64_t)blockIdx.x * 8 + warp; t0 < tiles;
+       t0 += warps * G) {
+    uint4 v[G][K];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t tile = t0 + warps * g;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        v[g][k] = tile < tiles
+                      ? ld_once_v4(levels + (int64_t)k * n + tile * 512 + 16 * lane)
+                      : make_uint4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t tile = t0 + warps * g;
+      if (tile >= tiles) break;
+      uint4 r[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t w[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          w[k] = c == 0 ? v[g][k].x : c == 1 ? v[g][k].y : c == 2 ? v[g][k].z : v[g][k].w;
+        }
+        r[c] = reduce_word<kEpi, K>(w, nm, factor);
+      }
+      uint4* o = out + tile * 128;
+      if constexpr (kSmem) {
+        uint4* st = stage + warp * 128;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[4 * lane + (c ^ ((lane >> 1) & 3))] = r[c];
+        __syncwarp();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int q = 32 * s + lane;  // the uint4 of the tile this lane stores
+          const int src = q >> 2;       // the lane that computed it
+          o[q] = st[4 * src + ((q & 3) ^ ((src >> 1) & 3))];
+        }
+        __syncwarp();
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[4 * lane + c] = r[c];
+      }
+    }
+  }
+}
+
+// The word columns of the kept schedule on rows that start anywhere (K = 4,
+// the dequant epilogue, the interior tiles [1, (n - 4) / 512) only). A row
+// whose start is not 4-byte aligned (r = its address % 4) realigns each
+// word from the two aligned words that cover it. kMode 0: the branch on r
+// per word (the kept kernel's first build); 1: one branch on r per row;
+// 2: one branch per row, and the word above taken from the next lane with
+// a shuffle (lane 31 takes lane 0's next column, or loads it); 3: as 1
+// with plain ld.global.nc loads (no L2 prefetch hint).
+template <int kMode>
+__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
+  if constexpr (kMode == 3) {
+    uint32_t v;
+    asm("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+  } else {
+    return ld_once_u32(p);
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(128)
+    realign_kernel(const int8_t* __restrict__ levels,
+                   const float* __restrict__ norms, int64_t n, float factor,
+                   uint4* __restrict__ out) {
+  constexpr int J = 4;
+  const int lane = threadIdx.x & 31;
+  const int64_t end = n >= 4 ? (n - 4) / 512 : 0;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  float nm[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) nm[k] = norms[k];
+  for (int64_t t = 1 + (int64_t)blockIdx.x * (blockDim.x >> 5) +
+                   (threadIdx.x >> 5);
+       t < end; t += warps) {
+    const int64_t e0 = t * 512 + 4 * lane;
+    uint32_t w[J][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int8_t* row = levels + (int64_t)k * n;
+      const uint32_t r = (uint32_t)(reinterpret_cast<uintptr_t>(row) & 3);
+      if constexpr (kMode == 0) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const uintptr_t addr = reinterpret_cast<uintptr_t>(row + e0 + 128 * j);
+          const uint32_t rr = (uint32_t)(addr & 3);
+          const uint32_t* q = reinterpret_cast<const uint32_t*>(addr - rr);
+          w[j][k] = rr == 0 ? ld_word<0>(q)
+                            : __funnelshift_r(ld_word<0>(q), ld_word<0>(q + 1),
+                                              8 * rr);
+        }
+      } else {
+        const uint32_t* q = reinterpret_cast<const uint32_t*>(
+            reinterpret_cast<uintptr_t>(row + e0) - r);
+        if (r == 0) {
+#pragma unroll
+          for (int j = 0; j < J; ++j) w[j][k] = ld_word<kMode>(q + 32 * j);
+        } else if constexpr (kMode == 2) {
+          uint32_t lo[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j) lo[j] = ld_word<kMode>(q + 32 * j);
+          const uint32_t extra =
+              lane == 31 ? ld_word<kMode>(q + 32 * (J - 1) + 1) : 0u;
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            uint32_t hi = __shfl_down_sync(0xffffffffu, lo[j], 1);
+            const uint32_t wrap =
+                __shfl_sync(0xffffffffu, j + 1 < J ? lo[j + 1] : 0u, 0);
+            if (lane == 31) hi = j + 1 < J ? wrap : extra;
+            w[j][k] = __funnelshift_r(lo[j], hi, 8 * r);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            w[j][k] = __funnelshift_r(ld_word<kMode>(q + 32 * j),
+                                      ld_word<kMode>(q + 32 * j + 1), 8 * r);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      out[(e0 + 128 * j) / 4] = reduce_word<1, 4>(w[j], nm, factor);
+    }
+  }
+}
+
+// acc_decode's schedule moving its bytes (4n in, 4n out) with no arithmetic.
+__global__ void decode_bytes_kernel(const int4* __restrict__ acc, int64_t nvec,
+                                    int4* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
+       v += stride) {
+    out[v] = acc[v];
+  }
+}
+
+template <typename Kernel>
+int resident_grid(Kernel kernel, int threads) {
+  static int sms = 0;
+  if (!sms) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * per_sm;
+}
+
+template <int kMode>
+int realign(const int8_t* levels, const float* norms, int64_t n, float factor,
+            void* out, cudaStream_t stream) {
+  realign_kernel<kMode><<<resident_grid(realign_kernel<kMode>, 128), 128, 0,
+                          stream>>>(levels, norms, n, factor,
+                                    reinterpret_cast<uint4*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int kEpi, int J>
+int word_reduce(const int8_t* levels, const float* norms, int64_t n,
+                float factor, void* out, cudaStream_t stream) {
+  word_reduce_kernel<kEpi, 4, J><<<
+      resident_grid(word_reduce_kernel<kEpi, 4, J>, 128), 128, 0, stream>>>(
+      levels, norms, n, factor, reinterpret_cast<uint4*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int kEpi, bool kSmem, int G>
+int vec_reduce(const int8_t* levels, const float* norms, int64_t n,
+               float factor, void* out, cudaStream_t stream) {
+  vec_reduce_kernel<kEpi, 4, kSmem, G><<<
+      resident_grid(vec_reduce_kernel<kEpi, 4, kSmem, G>, 256), 256, 0,
+      stream>>>(
+      levels, norms, n, factor, reinterpret_cast<uint4*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <int E> int word4(const int8_t* l, const float* m, int64_t n, float f, void* o, cudaStream_t s) { return word_reduce<E, 4>(l, m, n, f, o, s); }
+template <int E> int word2(const int8_t* l, const float* m, int64_t n, float f, void* o, cudaStream_t s) { return word_reduce<E, 2>(l, m, n, f, o, s); }
+template <int E> int vec_strided(const int8_t* l, const float* m, int64_t n, float f, void* o, cudaStream_t s) { return vec_reduce<E, false, 1>(l, m, n, f, o, s); }
+template <int E> int vec_smem(const int8_t* l, const float* m, int64_t n, float f, void* o, cudaStream_t s) { return vec_reduce<E, true, 1>(l, m, n, f, o, s); }
+template <int E> int vec_smem2(const int8_t* l, const float* m, int64_t n, float f, void* o, cudaStream_t s) { return vec_reduce<E, true, 2>(l, m, n, f, o, s); }
+
+}  // namespace
+
+// Every reduce entry takes K = 4 rows [4, n] with n a multiple of 512 and
+// a 16-byte aligned base, per-tensor norms [4] (the dequant epilogue) and
+// the mean's factor; `epi` is 0 (int32 sum), 1 (dequant mean), 2 (bytes).
+extern "C" {
+
+#define REDUCE_ENTRY(name, call)                                            \
+  int name(int epi, const int8_t* levels, const float* norms, int64_t n,    \
+           float factor, void* out, cudaStream_t stream) {                  \
+    if (epi == 0) return call<0>(levels, norms, n, factor, out, stream);    \
+    if (epi == 1) return call<1>(levels, norms, n, factor, out, stream);    \
+    return call<2>(levels, norms, n, factor, out, stream);                  \
+  }
+
+
+REDUCE_ENTRY(reduce_word4, word4)
+REDUCE_ENTRY(reduce_word2, word2)
+REDUCE_ENTRY(reduce_vec_strided, vec_strided)
+REDUCE_ENTRY(reduce_vec_smem, vec_smem)
+REDUCE_ENTRY(reduce_vec_smem2, vec_smem2)
+
+int realign_per_word(const int8_t* l, const float* m, int64_t n, float f,
+                     void* o, cudaStream_t s) {
+  return realign<0>(l, m, n, f, o, s);
+}
+int realign_per_row(const int8_t* l, const float* m, int64_t n, float f,
+                    void* o, cudaStream_t s) {
+  return realign<1>(l, m, n, f, o, s);
+}
+int realign_shuffle(const int8_t* l, const float* m, int64_t n, float f,
+                    void* o, cudaStream_t s) {
+  return realign<2>(l, m, n, f, o, s);
+}
+int realign_unhinted(const int8_t* l, const float* m, int64_t n, float f,
+                     void* o, cudaStream_t s) {
+  return realign<3>(l, m, n, f, o, s);
+}
+
+int decode_bytes(const int32_t* acc, int64_t n, int32_t* out,
+                 cudaStream_t stream) {
+  int64_t blocks = (n / 4 + 1 + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  decode_bytes_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      reinterpret_cast<const int4*>(acc), n / 4, reinterpret_cast<int4*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+"""
+
 
 def main() -> int:
     import torch
@@ -391,7 +755,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp()
     src, lib_path = os.path.join(tmp, "limits.cu"), os.path.join(tmp, "limits.so")
     with open(src, "w") as f:
-        f.write(SOURCE)
+        f.write(SOURCE + REDUCE_SOURCE)
     subprocess.run([nvcc_path(), "-gencode=arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                     "-o", lib_path, src], check=True)
@@ -402,6 +766,12 @@ def main() -> int:
         fn.argtypes = [p, p, i64, i64, u32, p, p]
     for fn in (lib.cta_encode, lib.tile_encode, lib.staged_encode):
         fn.argtypes = [p, i64, u32, p, p, p]
+    for name in REDUCE_VARIANTS:
+        getattr(lib, name).argtypes = [ctypes.c_int, p, p, i64,
+                                       ctypes.c_float, p, p]
+    lib.decode_bytes.argtypes = [p, i64, p, p]
+    for name in REALIGN_VARIANTS:
+        getattr(lib, name).argtypes = [p, p, i64, ctypes.c_float, p, p]
     timer = chip_smoke.Timer(torch)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -520,11 +890,131 @@ def main() -> int:
                 raise AssertionError(f"{name}: differs from the plain version")
             print(f"variant {name}: {events(run, False):.4f} ms, alone "
                   f"{alone(run, (kname,))}", flush=True)
+    reduce_limits(torch, lib, kernels, events, alone, stream)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
     return 0
+
+
+# The worker-axis reduce schedules (K = 4 rows): entry point, what it does,
+# its kernel's name in a trace.
+REDUCE_VARIANTS = {
+    "reduce_word4": ("word columns, 4 words of each row a thread, uint4 "
+                     "stores (the kept schedule)", "word_reduce_kernel"),
+    "reduce_word2": ("word columns, 2 words of each row a thread, uint4 "
+                     "stores", "word_reduce_kernel"),
+    "reduce_vec_strided": ("16-byte loads, four uint4 stores at a 64-byte "
+                           "lane stride", "vec_reduce_kernel"),
+    "reduce_vec_smem": ("16-byte loads, shared-memory transpose, uint4 "
+                        "stores", "vec_reduce_kernel"),
+    "reduce_vec_smem2": ("16-byte loads of two tiles, shared-memory "
+                         "transpose, uint4 stores", "vec_reduce_kernel"),
+}
+# Realignments of rows that are not 4-byte aligned (dequant_mean at
+# VGG11-BN's 530 442-element unit, W = 4: rows 1 and 3 start 2-byte
+# aligned): entry point, what it does.
+REALIGN_VARIANTS = {
+    "realign_per_word": "a branch on the row's alignment per word",
+    "realign_per_row": "one branch on the row's alignment per row",
+    "realign_shuffle": "one branch per row, the upper word from the next "
+                       "lane by shuffle",
+    "realign_unhinted": "one branch per row, no L2 prefetch hint",
+}
+# The schedule compress.cu's dequant_mean and int_accumulate keep.
+KEPT_REDUCE = "reduce_word4"
+
+
+def reduce_limits(torch, lib, kernels, events, alone, stream) -> None:
+    """dequant_mean and int_accumulate at K = W = 4 over the 2 359 296
+    bucket beside the same bytes (K int8 rows in, one 4-byte plane out) on
+    the kept schedule, acc_decode beside its own bytes (4n in, 4n out) on
+    its schedule; then the reduce schedules tried, each bit-checked."""
+    import chip_smoke
+
+    n = chip_smoke.BUCKET
+    g = torch.Generator(device="cuda").manual_seed(60)
+    lv = torch.randint(-127, 128, (4, n), device="cuda", generator=g).to(
+        torch.int8)
+    nm = torch.rand(4, device="cuda", generator=g) * 3
+    acc = kernels.int_accumulate(lv)
+    sc = torch.rand(1, device="cuda", generator=g) * 1e-3
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    factor = 1.0 / (127 * 4)
+
+    def reduce_pass(entry, epi):
+        return lambda: getattr(lib, entry)(epi, lv.data_ptr(), nm.data_ptr(),
+                                           n, factor, out.data_ptr(), stream)
+
+    limits = [
+        (f"bytes pass [4, {n}] on the kept reduce schedule",
+         reduce_pass(KEPT_REDUCE, 2), REDUCE_VARIANTS[KEPT_REDUCE][1]),
+        (f"int_accumulate [4, {n}]", lambda: kernels.int_accumulate(lv),
+         "int_accumulate_kernel"),
+        (f"dequant_mean [4, {n}] per tensor",
+         lambda: kernels.dequant_mean(lv, nm, 127), "dequant_mean_kernel"),
+        (f"bytes pass {n} on acc_decode's schedule",
+         lambda: lib.decode_bytes(acc.data_ptr(), n, out.data_ptr(), stream),
+         "decode_bytes_kernel"),
+        (f"acc_decode {n} per tensor", lambda: kernels.acc_decode(acc, sc, 4),
+         "acc_decode_kernel"),
+    ]
+    for _ in range(2):
+        for name, fn, kname in limits:
+            dirty, clean = events(fn, False), events(fn, True)
+            print(f"limits {name}: dirty flush {dirty:.4f} ms, clean flush "
+                  f"{clean:.4f} ms, alone (dirty) {alone(fn, (kname,))}",
+                  flush=True)
+
+    want = {0: kernels.int_accumulate_ref(lv),
+            1: kernels.dequant_mean_ref(lv, nm, 127).view(torch.int32)}
+    tree = {0: ("int_accumulate", lambda: kernels.int_accumulate(lv),
+                "int_accumulate_kernel"),
+            1: ("dequant_mean", lambda: kernels.dequant_mean(lv, nm, 127),
+                "dequant_mean_kernel")}
+    variants = []
+    for epi, (kname_tree, fn_tree, trace_tree) in tree.items():
+        for entry, (what, kname) in REDUCE_VARIANTS.items():
+            run = reduce_pass(entry, epi)
+
+            def check(run=run, epi=epi):
+                out.zero_()
+                return run() == 0 and torch.equal(out, want[epi])
+            variants.append((f"{kname_tree} [4, {n}] {what}", run, kname,
+                             check))
+        variants.append((
+            f"{kname_tree} [4, {n}] (the tree)", fn_tree, trace_tree,
+            lambda fn=fn_tree, epi=epi: torch.equal(
+                fn().view(torch.int32), want[epi])))
+    # The unit of 530 442: the interior tiles of each realignment against
+    # the plain version, then timed beside the tree.
+    m = chip_smoke.TAIL_CHUNK
+    lvm = torch.randint(-127, 128, (4, m), device="cuda", generator=g).to(
+        torch.int8)
+    wantm = kernels.dequant_mean_ref(lvm, nm, 127).view(torch.int32)
+    inner = slice(512, (m - 4) // 512 * 512)
+    for entry, what in REALIGN_VARIANTS.items():
+        def run(entry=entry):
+            return getattr(lib, entry)(lvm.data_ptr(), nm.data_ptr(), m,
+                                       factor, out.data_ptr(), stream)
+
+        def check(run=run):
+            out.zero_()
+            return run() == 0 and torch.equal(out[inner], wantm[inner])
+        variants.append((f"dequant_mean [4, {m}] {what}", run,
+                         "realign_kernel", check))
+    variants.append((
+        f"dequant_mean [4, {m}] (the tree)",
+        lambda: kernels.dequant_mean(lvm, nm, 127), "dequant_mean_kernel",
+        lambda: torch.equal(kernels.dequant_mean(lvm, nm, 127).view(
+            torch.int32), wantm)))
+    for _ in range(2):
+        for name, run, kname, check in variants:
+            if not check():
+                raise AssertionError(f"{name}: differs from the plain version")
+            print(f"variant {name}: {events(run, False):.4f} ms, alone "
+                  f"{alone(run, (kname,))}", flush=True)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Oracles: quantize and block_top1 bit; dequant_mean bit (the kernel keeps
-the plain version's order of operations, with no FMA); chunk_encode and
+the plain version's order of operations, with no FMA), at every row count
+its templates split on and on unaligned rows; chunk_encode and
 dequant_acc_requant bit, levels and norms (the plain versions repeat the
 kernels' summation order); int_accumulate and acc_decode bit (exact
 integer sums, one f32 product per element in the same order).
@@ -74,6 +75,40 @@ def test_dequant_mean_kernel_is_the_plain_version(cuda, world, n, block):
     nm = torch.rand(shape, device="cuda", generator=cuda)
     assert torch.equal(kernels.dequant_mean(lv, nm, 127, block=block),
                        kernels.dequant_mean_ref(lv, nm, 127, block=block))
+
+
+def _levels(cuda, rows, n, offset=0):
+    """Random int8 levels [rows, n], ``offset`` bytes into their storage."""
+    flat = torch.randint(-127, 128, (rows * n + offset,), device="cuda",
+                         generator=cuda).to(torch.int8)
+    return flat[offset:].reshape(rows, n)
+
+
+@pytest.mark.parametrize("world", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("n", [2_359_296, 530_442, 12_290, 9])
+@pytest.mark.parametrize("block", [None, 4096])
+def test_dequant_mean_kernel_at_every_row_count(cuda, world, n, block):
+    """The kernel's bodies for W <= 8 and the runtime one, on rows that
+    start 16-, 4- and 2-byte aligned, and on a base 1 and 3 bytes into its
+    storage (the kernel realigns; it never reads outside the levels)."""
+    shape = (world,) if block is None else (world, -(-n // block))
+    nm = torch.rand(shape, device="cuda", generator=cuda) * 3
+    for offset in (0, 1, 3):
+        lv = _levels(cuda, world, n, offset)
+        a = kernels.dequant_mean(lv, nm, 127, block=block)
+        b = kernels.dequant_mean_ref(lv, nm, 127, block=block)
+        assert _bits_equal(a, b), (world, n, block, offset)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4, 8, 9, 16])
+@pytest.mark.parametrize("n", [262_144, 294_912, 530_442, 17, 5])
+def test_int_accumulate_kernel_at_every_row_count(cuda, world, n):
+    for offset in (0, 1, 2):
+        lv = _levels(cuda, world, n, offset)
+        lv[:, :3] = 127
+        lv[:, -1] = -128
+        assert torch.equal(kernels.int_accumulate(lv),
+                           kernels.int_accumulate_ref(lv)), (world, n, offset)
 
 
 @pytest.mark.parametrize("r,c", [(104, 23680), (104, 11904), (104, 9600),
@@ -167,7 +202,7 @@ def test_int_accumulate_kernel_is_the_plain_version(cuda, world, n):
     lv[:, :3] = 127
     assert torch.equal(kernels.int_accumulate(lv),
                        kernels.int_accumulate_ref(lv))
-    # A base address that is not 16-byte aligned takes the byte loads.
+    # A base address that is not 4-byte aligned: every row realigned.
     big = torch.randint(-127, 128, (world * n + 1,), device="cuda",
                         generator=cuda).to(torch.int8)
     off = big[1:].reshape(world, n)

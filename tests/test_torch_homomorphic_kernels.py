@@ -27,7 +27,10 @@ def _bits(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("world,n", [(2, 4096), (5, 9000), (8, 130),
-                                     (4, 3 * 8192 + 17)])
+                                     (4, 3 * 8192 + 17),
+                                     # the CUDA kernel's K = 1 body and its
+                                     # runtime body (K > 8)
+                                     (1, 12290), (9, 8200), (16, 4099)])
 def test_int_accumulate_bit_equal(world, n):
     rng = np.random.RandomState(world * 1000 + n)
     lv = rng.randint(-127, 128, size=(world, n)).astype(np.int8)

@@ -103,6 +103,10 @@ def _dequant_bound(lv, norms, s, block):
 @pytest.mark.parametrize("world,block,n", [
     (1, None, 5000), (4, None, 5000), (1, 4096, 9000), (4, 4096, 9000),
     (4, None, 4093),
+    # The row counts the CUDA kernel's templates split on (1, 8, and 9
+    # through the runtime body), on rows of n % 16 = 2 and 8.
+    (1, None, 12290), (8, None, 12290), (9, 4096, 12290),
+    (1, 4096, 8200), (8, 4096, 8200), (9, None, 8200),
 ])
 def test_dequant_mean_plain_matches_pallas(world, block, n):
     rng = np.random.RandomState(world * 7 + n)
