@@ -42,7 +42,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and every path shape, and the hop on n = 4096, 4097, 33 * 4096,
    144 * 4096 and the fused_q chunk with blocks of 4096, 8192 and 16384 at
    scale 1 and 1/4 (bit); and the per-launch floor, a one-element
-   ``zero_()`` under the same timer.
+   ``zero_()`` under the same timer. The same table again (``shape
+   ResNet50 ...`` lines) at ResNet50's shapes (161 leaves, 14 units of
+   1 048 576 to 2 359 296 elements): block_top1 at its (104, 10 496) to
+   (104, 23 680) views, the hop and chunk_encode at its ``ring_rs``
+   chunks of 64 to 144 blocks and its ``fused_q`` chunk of 1 436 blocks
+   (above the hop's 264-block switch), qsgd_quantize and dequant_mean at
+   every unit, among them 1 069 066 (2 mod 4, so rows 1 and 3 of
+   dequant_mean's [4, n] start on 2-byte boundaries), and int_accumulate
+   at every ResNet50 leaf of at least ``MIN_ELEMS`` elements.
    ``--kernels-only`` stops here.
 3. Train VGG11-BN at full width (CIFAR-10 shapes, synthetic data, batch
    128 per worker, W = 4 workers emulated on the card, f32 with TF32 off)
@@ -57,18 +65,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the plan's); the ring kernels must launch as often as the rings hop;
    and the counts of each run are zeroed just before it and read just
    after it, so the checks around a run do not count.
+3b. The same runs, steps and checks on ResNet50 at full width (same data,
+   batch, W and precision; its 14 transport units, the 1 436-block
+   ``fused_q`` chunk). Every run of phases 3 and 3b prints a ``train`` line
+   with its ``network=`` and its launches per step.
 4. Run the in-process async parameter server (``--mode async``) through the
-   CLI's config on the same model and shapes: W = 4 worker threads on the
+   CLI's config on the same models and shapes: W = 4 worker threads on the
    card, K = 4 (``--num-aggregate 4``), 4 steps per worker, ``--fusion
    none`` (the server ships one payload per leaf, which the wire plan then
    prices): QSGD under ``--server-agg decode`` and ``homomorphic``, QSGD
-   with ``--qsgd-block 4096`` and Top-k QSGD at 1% under ``homomorphic``.
+   with ``--qsgd-block 4096`` and Top-k QSGD at 1% under ``homomorphic`` on
+   VGG11-BN; QSGD under ``homomorphic`` on ResNet50 (161 leaves, 34 of
+   them summed by int_accumulate and decoded by acc_decode each round).
    Each must make 16 pushes and 4 updates, pay one decode per round
    (homomorphic) or K (decode), launch the kernels exactly as often as its
    leaves and rounds say, report only finite losses, and receive exactly
    the bytes of the wire plan's up-link in the pushes' frames.
 
-Every kernel's launch count over the runs of phases 3 and 4 must be above 0.
+Every kernel's launch count over the runs of phases 3, 3b and 4 must be
+above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -95,6 +110,7 @@ ops_per_s = None
 BUCKET = 2_359_296          # VGG11-BN's largest 8 MB bucket (fusion 'bucket')
 VGG11_PARAMS = 9_756_426    # trainable parameters of build_model('VGG11')
 WORLD = 4
+NETWORKS = ("VGG11", "ResNet50")  # phase 3 and phase 3b
 TAIL_CHUNK = 530_442        # 129 whole 4096-blocks and a tail of 2058
 SOURCE = "ewdml_tpu_torch/kernels/compress.cu"
 REPLACES = {
@@ -453,8 +469,8 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
     return out
 
 
-def path_shapes() -> tuple:
-    """The shapes VGG11-BN's transport units (W = 4) give block_top1, the
+def path_shapes(network: str) -> tuple:
+    """The shapes the network's transport units (W = 4) give block_top1, the
     ring kernels and qsgd_quantize: ``{(R, C, n): per M5 step}`` at the 1%
     ratio; ``{blocks: (units, path)}`` for the ring chunks at
     ``--qsgd-block 4096`` on ``ring_rs`` and on ``fused_q`` (per step each
@@ -468,10 +484,11 @@ def path_shapes() -> tuple:
     from ewdml_tpu_torch.ops import blocktopk, kernels, topk
     from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
 
-    specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
-    cfg = from_args(["--network", "VGG11", "--dataset", "Cifar10",
+    specs = leaf_specs(build_model(network, 10, dataset="Cifar10"))
+    sizes = [math.prod(s.jax_shape) for s in specs]
+    cfg = from_args(["--network", network, "--dataset", "Cifar10",
                      "--num-workers", str(WORLD), "--method", "5"])
-    units = resolved_unit_sizes(cfg, [math.prod(s.jax_shape) for s in specs])
+    units = resolved_unit_sizes(cfg, sizes)
     top1, rings, quant = {}, {}, {}
     for n in units:
         if topk.resolve_mode(None, n, 0.01) == "block":
@@ -481,7 +498,7 @@ def path_shapes() -> tuple:
         rings[blocks] = (rings.get(blocks, (0,))[0] + 1, "ring_rs")
         if n >= kernels.MIN_ELEMS:
             quant[n] = quant.get(n, 0) + 1
-    rings[fused_chunk_elems(VGG11_PARAMS, WORLD, 4096) // 4096] = (1, "fused_q")
+    rings[fused_chunk_elems(sum(sizes), WORLD, 4096) // 4096] = (1, "fused_q")
     return (dict(sorted(top1.items(), reverse=True)), dict(sorted(rings.items())),
             dict(sorted(quant.items(), reverse=True)))
 
@@ -602,8 +619,8 @@ def quantize_rows(torch, kernels, timer, quant, g) -> list:
     return rows
 
 
-def apply_leaves() -> dict:
-    """``{n: leaves}`` for VGG11-BN's leaves of at least ``MIN_ELEMS``
+def apply_leaves(network: str) -> dict:
+    """``{n: leaves}`` for the network's leaves of at least ``MIN_ELEMS``
     elements: the server's homomorphic apply (``--fusion none``) runs one
     int_accumulate on each per round."""
     from ewdml_tpu_torch.models import build_model
@@ -611,14 +628,14 @@ def apply_leaves() -> dict:
     from ewdml_tpu_torch.ops import kernels
 
     leaves = {}
-    for spec in leaf_specs(build_model("VGG11", 10, dataset="Cifar10")):
+    for spec in leaf_specs(build_model(network, 10, dataset="Cifar10")):
         n = math.prod(spec.jax_shape)
         if n >= kernels.MIN_ELEMS:
             leaves[n] = leaves.get(n, 0) + 1
     return dict(sorted(leaves.items(), reverse=True))
 
 
-def reduce_rows(torch, kernels, timer, quant, g) -> tuple:
+def reduce_rows(torch, kernels, timer, quant, network, g) -> tuple:
     """dequant_mean at every unit M2/M4 decodes (per tensor, and blockwise
     4096 at the largest) and int_accumulate at every leaf the homomorphic
     apply sums, W = K = 4: each bit-equal to its plain version there, then
@@ -640,7 +657,7 @@ def reduce_rows(torch, kernels, timer, quant, g) -> tuple:
                 per_step=per_step))
     kernels.configure("on")
     try:
-        for n, leaves in apply_leaves().items():
+        for n, leaves in apply_leaves(network).items():
             lv = levels_on_card(torch, WORLD, n, g)
             same_accumulate(torch, kernels, lv, f"K={WORLD} n={n}")
             accumulate.append(shape_row(
@@ -653,14 +670,14 @@ def reduce_rows(torch, kernels, timer, quant, g) -> tuple:
     return dequant, accumulate
 
 
-def check_path_shapes(torch, kernels, timer) -> dict:
+def check_path_shapes(torch, kernels, timer, network: str) -> dict:
     """block_top1, the ring kernels and qsgd_quantize bit-equal to their
-    plain versions at the path's shapes and the edge cases, then timed at
-    the path's shapes beside their bounds (and, for block_top1, the library
-    call), with the time of a one-element ``zero_()`` under the same timer
-    as the per-launch floor."""
+    plain versions at the network's path shapes and the edge cases, then
+    timed at the path's shapes beside their bounds (and, for block_top1,
+    the library call), with the time of a one-element ``zero_()`` under the
+    same timer as the per-launch floor."""
     g = torch.Generator(device="cuda").manual_seed(40)
-    top1, rings, quant = path_shapes()
+    top1, rings, quant = path_shapes(network)
     hops = {b: (units * WORLD * (WORLD - 1), path)
             for b, (units, path) in rings.items()}
     for r, c in ((8, 128), (1000, 256), (104, 384)):
@@ -712,7 +729,7 @@ def check_path_shapes(torch, kernels, timer) -> dict:
             blocks=blocks, n=n, path=path, per_step=units * WORLD))
     out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
     out["dequant_mean"], out["int_accumulate"] = reduce_rows(
-        torch, kernels, timer, quant, g)
+        torch, kernels, timer, quant, network, g)
     return out
 
 
@@ -735,11 +752,12 @@ def alone_vs_bound(c: dict) -> str:
             "of it)")
 
 
-def print_path_shapes(shapes: dict) -> None:
-    print(f"shape floor: one-element zero_() {shapes['floor_ms']:.4f} ms",
-          flush=True)
+def print_path_shapes(shapes: dict, network: str) -> None:
+    print(f"shape {network} floor: one-element zero_() "
+          f"{shapes['floor_ms']:.4f} ms", flush=True)
     for row in shapes["block_top1"]:
-        print(f"shape block_top1 {tuple(row['shape'])} x{row['per_m5_step']} "
+        print(f"shape {network} block_top1 {tuple(row['shape'])} "
+              f"x{row['per_m5_step']} "
               f"per M5 step: {row['ms']:.4f} ms, bound {row['bound_ms']:.5f} "
               f"ms ({100 * row['share']:.1f}%), vector_norm(inf) "
               f"{row['library_ms']:.4f} ms; {on_card(row)}", flush=True)
@@ -749,20 +767,21 @@ def print_path_shapes(shapes: dict) -> None:
 
     for name in ("dequant_acc_requant", "chunk_encode"):
         for row in shapes[name]:
-            print(f"shape {name} {row['blocks']} blocks x{row['per_step']} "
-                  f"per {row['path']} step: {timed(row)}", flush=True)
+            print(f"shape {network} {name} {row['blocks']} blocks "
+                  f"x{row['per_step']} per {row['path']} step: "
+                  f"{timed(row)}", flush=True)
     for row in shapes["qsgd_quantize"]:
         how = "per tensor" if row["block"] is None else f"block {row['block']}"
-        print(f"shape qsgd_quantize {row['n']} {how} {row['per_step']} step: "
-              f"{timed(row)}", flush=True)
+        print(f"shape {network} qsgd_quantize {row['n']} {how} "
+              f"{row['per_step']} step: {timed(row)}", flush=True)
     for row in shapes["dequant_mean"]:
         how = "per tensor" if row["block"] is None else f"block {row['block']}"
-        print(f"shape dequant_mean [{WORLD}, {row['n']}] {how} "
+        print(f"shape {network} dequant_mean [{WORLD}, {row['n']}] {how} "
               f"{row['per_step']} step: {timed(row)}", flush=True)
     for row in shapes["int_accumulate"]:
-        print(f"shape int_accumulate [{WORLD}, {row['n']}] {row['per_step']}: "
-              f"{timed(row)}", flush=True)
-    print("shapes: " + json.dumps(shapes), flush=True)
+        print(f"shape {network} int_accumulate [{WORLD}, {row['n']}] "
+              f"{row['per_step']}: {timed(row)}", flush=True)
+    print(f"shapes {network}: " + json.dumps(shapes), flush=True)
 
 
 def shipped_up_bytes(trainer) -> int:
@@ -827,9 +846,9 @@ RUNS = [  # (name, steps, flags)
 ]
 
 
-def train_phase(torch, kernels) -> tuple:
-    """Phase 3: VGG11-BN at full width under Methods 1, 2, 4, 5, 6 and the
-    ring transports."""
+def train_phase(torch, kernels, network: str) -> tuple:
+    """Phases 3 and 3b: the network at full width under Methods 1, 2, 4, 5,
+    6 and the ring transports."""
     from ewdml_tpu_torch.core.config import from_args
     from ewdml_tpu_torch.train.loop import Trainer
 
@@ -838,7 +857,7 @@ def train_phase(torch, kernels) -> tuple:
     per_method = {}
     counts = {k: 0 for k in kernels.LAUNCHES}
     for name, steps, flags in RUNS:
-        argv = ["--network", "VGG11", "--dataset", "Cifar10",
+        argv = ["--network", network, "--dataset", "Cifar10",
                 "--synthetic-data", "--num-workers", str(WORLD),
                 "--batch-size", "128", "--topk-ratio", "0.01",
                 "--max-steps", str(steps), "--epochs", "100",
@@ -869,26 +888,28 @@ def train_phase(torch, kernels) -> tuple:
         ev = trainer.evaluate()
         if not math.isfinite(ev["loss"]):
             raise AssertionError(f"{name}: non-finite eval loss")
+        per_step = {k: v / steps for k, v in launched.items() if v}
         per_method[name] = dict(
-            steps=steps, final_loss=res.final_loss,
+            network=network, steps=steps, final_loss=res.final_loss,
             mean_step_ms=res.mean_step_s * 1e3, wall_s=wall,
             wire_per_step=res.wire.per_step_bytes,
             transport=res.wire.transport,
             units=len(res.wire.per_layer_up), launches=launched,
-            launches_per_step={k: v / steps for k, v in launched.items()},
-            **extra)
-        print(f"train {name}: steps={steps} loss={res.final_loss:.4f} "
+            launches_per_step=per_step, **extra)
+        print(f"train {name}: network={network} steps={steps} "
+              f"loss={res.final_loss:.4f} "
               f"mean_step={res.mean_step_s * 1e3:.2f}ms wall={wall:.1f}s "
               f"wire_per_step={res.wire.per_step_bytes} B "
               f"units={len(res.wire.per_layer_up)} launches={launched} "
-              f"eval_loss={ev['loss']:.4f} {extra}", flush=True)
+              f"per_step={per_step} eval_loss={ev['loss']:.4f} {extra}",
+              flush=True)
         del trainer
         torch.cuda.empty_cache()
     return counts, per_method
 
 
-# (name, flags): phase 4, the async parameter server on VGG11-BN.
-ASYNC_RUNS = [
+# {network: [(name, flags)]}: phase 4, the async parameter server.
+ASYNC_RUNS = {"VGG11": [
     ("qsgd decode", ["--compress-grad", "qsgd", "--server-agg", "decode"]),
     ("qsgd homomorphic", ["--compress-grad", "qsgd",
                           "--server-agg", "homomorphic"]),
@@ -898,7 +919,10 @@ ASYNC_RUNS = [
     ("topk_qsgd homomorphic", ["--compress-grad", "topk_qsgd",
                                "--topk-ratio", "0.01",
                                "--server-agg", "homomorphic"]),
-]
+], "ResNet50": [
+    ("qsgd homomorphic", ["--compress-grad", "qsgd",
+                          "--server-agg", "homomorphic"]),
+]}
 ASYNC_STEPS = 4  # per worker
 
 
@@ -919,8 +943,8 @@ def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
     return want
 
 
-def async_phase(torch, kernels) -> tuple:
-    """Phase 4: the async parameter server on VGG11-BN at full width."""
+def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
+    """Phase 4: the async parameter server on the network at full width."""
     import numpy as np
 
     from ewdml_tpu_torch import native
@@ -930,11 +954,11 @@ def async_phase(torch, kernels) -> tuple:
     from ewdml_tpu_torch.models.convert import leaf_specs
     from ewdml_tpu_torch.train.metrics import wire_plan
 
-    specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
+    specs = leaf_specs(build_model(network, 10, dataset="Cifar10"))
     counts = {k: 0 for k in kernels.LAUNCHES}
     runs = {}
-    for name, flags in ASYNC_RUNS:
-        argv = ["--mode", "async", "--network", "VGG11", "--dataset",
+    for name, flags in runs_flags:
+        argv = ["--mode", "async", "--network", network, "--dataset",
                 "Cifar10", "--synthetic-data", "--num-workers", str(WORLD),
                 "--num-aggregate", str(WORLD), "--batch-size", "128",
                 "--max-steps", str(WORLD * ASYNC_STEPS), "--fusion", "none",
@@ -971,7 +995,8 @@ def async_phase(torch, kernels) -> tuple:
         if stats.bytes_up != pushes * frame:
             raise AssertionError(f"async {name}: {stats.bytes_up} B up, the "
                                  f"wire plan's frames are {pushes} x {frame}")
-        runs[name] = dict(pushes=stats.pushes, updates=stats.updates,
+        runs[name] = dict(network=network, leaves=len(specs),
+                          pushes=stats.pushes, updates=stats.updates,
                           decode_count=stats.decode_count,
                           apply_rounds=stats.apply_rounds,
                           apply_ms_mean=stats.apply_ms_mean, wall_s=wall,
@@ -979,7 +1004,8 @@ def async_phase(torch, kernels) -> tuple:
                           loss_tail=stats.loss_tail_mean(4),
                           mean_staleness=stats.mean_staleness,
                           launches=launched)
-        print(f"async {name}: pushes={stats.pushes} updates={stats.updates} "
+        print(f"async {name}: network={network} leaves={len(specs)} "
+              f"pushes={stats.pushes} updates={stats.updates} "
               f"decodes={stats.decode_count}/{stats.apply_rounds} rounds "
               f"apply_ms_mean={stats.apply_ms_mean:.3f} wall={wall:.1f}s "
               f"up={stats.bytes_up} B (plan {plan.up_bytes} B/push) "
@@ -989,10 +1015,10 @@ def async_phase(torch, kernels) -> tuple:
     return counts, runs
 
 
-def apply_alone(torch, flags, rounds: int = 6) -> float:
+def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
     """The server's apply with no worker threads running: K = W = 4 pushes
-    of VGG11-BN payloads (compressed from one random gradient) per round,
-    from one thread; returns the mean apply wall in ms (an observation
+    of the network's payloads (compressed from one random gradient) per
+    round, from one thread; returns the mean apply wall in ms (an observation
     beside the async runs' ``apply_ms_mean``, which shares the card and the
     interpreter with the workers)."""
     from ewdml_tpu_torch import native
@@ -1007,7 +1033,7 @@ def apply_alone(torch, flags, rounds: int = 6) -> float:
     from ewdml_tpu_torch.utils import prng, transfer
 
     cfg = from_args(flags)
-    model = build_model("VGG11", 10, dataset="Cifar10").cuda()
+    model = build_model(network, 10, dataset="Cifar10").cuda()
     specs = leaf_specs(model)
     params = [to_jax(p.detach(), s.kind).contiguous()
               for p, s in zip(leaf_params(model, specs), specs)]
@@ -1070,7 +1096,8 @@ def main(argv=None) -> int:
     # Phase 2: kernels against their plain versions.
     timer = Timer(torch)
     checks = check_kernels(torch, kernels, timer)
-    shapes = check_path_shapes(torch, kernels, timer)
+    shapes = {net: check_path_shapes(torch, kernels, timer, net)
+              for net in NETWORKS}
     del timer
     torch.cuda.empty_cache()
     for name, c in checks.items():
@@ -1079,20 +1106,30 @@ def main(argv=None) -> int:
               f"{c['plain_ms']:.4f} ms, library {c['library_ms']}, "
               f"max_abs_err {c['max_abs_err']}; {alone_vs_bound(c)}",
               flush=True)
-    print_path_shapes(shapes)
+    for net in NETWORKS:
+        print_path_shapes(shapes[net], net)
     if kernels_only:
         return 0
 
-    # Phase 3: the training main path.
-    counts, per_method = train_phase(torch, kernels)
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    per_method, async_runs = {}, {}
+    # Phase 3 (VGG11-BN) and 3b (ResNet50): the training main path.
+    for net in NETWORKS:
+        net_counts, runs = train_phase(torch, kernels, net)
+        per_method.update({f"{net} {k}": v for k, v in runs.items()})
+        for k, v in net_counts.items():
+            counts[k] += v
     # Phase 4: the async parameter server.
-    async_counts, async_runs = async_phase(torch, kernels)
-    for name, flags in ASYNC_RUNS:
-        alone = apply_alone(torch, flags)
-        async_runs[name]["apply_alone_ms"] = alone
-        print(f"apply alone {name}: {alone:.3f} ms per round", flush=True)
-    for k, v in async_counts.items():
-        counts[k] += v
+    for net, runs_flags in ASYNC_RUNS.items():
+        net_counts, runs = async_phase(torch, kernels, net, runs_flags)
+        for name, flags in runs_flags:
+            alone = apply_alone(torch, flags, net)
+            runs[name]["apply_alone_ms"] = alone
+            print(f"apply alone {net} {name}: {alone:.3f} ms per round",
+                  flush=True)
+        async_runs.update({f"{net} {k}": v for k, v in runs.items()})
+        for k, v in net_counts.items():
+            counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:

@@ -54,7 +54,7 @@ PARTITION_SCHEMES = ("iid", "dirichlet", "shard")
 @dataclasses.dataclass
 class TrainConfig:
     # -- reference CLI surface (distributed_nn.py:24-72) --
-    network: str = "LeNet"            # LeNet | VGG11 (ResNet: a later slice)
+    network: str = "LeNet"            # LeNet | ResNet18..152 | VGG11 | ...
     dataset: str = "MNIST"            # MNIST | mnist10k | Cifar10 | ...
     batch_size: int = 128             # per-worker batch
     test_batch_size: int = 1000

@@ -5,9 +5,11 @@ order, block-top-1 columns, blockwise norms and the murmur stream follow
 the flat element order. So the trainer hands the compressor its gradients
 as the JAX tree would hold them:
 
-- leaves in ``jax.tree.flatten`` order: layer names sorted as strings
-  (``bn0 < bn10 < ... < conv0 < ... < fc1``), then ``bias`` before
-  ``kernel``/``scale``;
+- leaves in ``jax.tree.flatten`` order: the keys of every level of the
+  nested tree sorted as strings (``bn0 < bn10 < ... < conv0 < ... < fc1``;
+  ``layer3_1 < layer3_10 < layer3_2``), then ``bias`` before
+  ``kernel``/``scale``. A leaf's Flax path is its PyTorch module path with
+  every ``.`` a ``/`` (``layer1_0.conv1.weight`` -> ``layer1_0/conv1/kernel``);
 - elements in Flax layout: conv kernels HWIO (PyTorch keeps OIHW), Dense
   kernels ``[in, out]`` (PyTorch keeps ``[out, in]``).
 
@@ -26,7 +28,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
-    name: str        # Flax path, e.g. "conv0/kernel"
+    name: str        # Flax path, e.g. "conv0/kernel", "layer1_0/bn1/scale"
     torch_name: str  # state-dict key, e.g. "conv0.weight"
     kind: str        # "conv" | "dense" | "vector"
     jax_shape: tuple
@@ -57,9 +59,24 @@ def leaf_specs(model: torch.nn.Module) -> list:
             shape = (kh, kw, i, o)
         elif kind == "dense" and attr == "weight":
             shape = (shape[1], shape[0])
-        specs.append(LeafSpec(f"{layer}/{leaf}", tname,
+        specs.append(LeafSpec(_flax_path(layer, leaf), tname,
                               kind if attr == "weight" else "vector", shape))
     return sorted(specs, key=lambda s: tuple(s.name.split("/")))
+
+
+def _flax_path(module_path: str, leaf: str) -> str:
+    return "/".join(module_path.split(".") + [leaf])
+
+
+def _stat_paths(model: torch.nn.Module) -> list:
+    """``(buffer name, Flax batch_stats path)`` of every BatchNorm
+    statistic, e.g. ``("layer1_0.bn1.running_mean", "layer1_0/bn1/mean")``."""
+    out = []
+    for name, _ in model.named_buffers():
+        layer, attr = name.rsplit(".", 1)
+        flax_attr = {"running_mean": "mean", "running_var": "var"}[attr]
+        out.append((name, _flax_path(layer, flax_attr)))
+    return out
 
 
 def to_jax(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -87,6 +104,13 @@ def _get(tree: dict, path: str):
     return node
 
 
+def _put(tree: dict, path: str, value) -> None:
+    *parents, leaf = path.split("/")
+    for part in parents:
+        tree = tree.setdefault(part, {})
+    tree[leaf] = value
+
+
 def flax_to_torch(model: torch.nn.Module, params: dict,
                   batch_stats: dict | None = None) -> dict:
     """State dict for ``model`` from Flax ``params`` (and ``batch_stats``,
@@ -95,11 +119,8 @@ def flax_to_torch(model: torch.nn.Module, params: dict,
     for spec in leaf_specs(model):
         arr = torch.from_numpy(np.array(_get(params, spec.name), np.float32))
         sd[spec.torch_name] = from_jax(arr, spec.kind).contiguous()
-    for name, _ in model.named_buffers():
-        layer, attr = name.rsplit(".", 1)
-        flax_attr = {"running_mean": "mean", "running_var": "var"}[attr]
-        arr = np.array(_get(batch_stats or {}, f"{layer}/{flax_attr}"),
-                       np.float32)
+    for name, path in _stat_paths(model):
+        arr = np.array(_get(batch_stats or {}, path), np.float32)
         sd[name] = torch.from_numpy(arr)
     return sd
 
@@ -110,12 +131,9 @@ def torch_to_flax(model: torch.nn.Module) -> tuple:
     sd = model.state_dict()
     params: dict = {}
     for spec in leaf_specs(model):
-        layer, leaf = spec.name.split("/")
         t = to_jax(sd[spec.torch_name].detach().cpu(), spec.kind)
-        params.setdefault(layer, {})[leaf] = t.contiguous().numpy()
+        _put(params, spec.name, t.contiguous().numpy())
     stats: dict = {}
-    for name, buf in model.named_buffers():
-        layer, attr = name.rsplit(".", 1)
-        flax_attr = {"running_mean": "mean", "running_var": "var"}[attr]
-        stats.setdefault(layer, {})[flax_attr] = buf.detach().cpu().numpy()
+    for name, path in _stat_paths(model):
+        _put(stats, path, sd[name].detach().cpu().numpy())
     return params, stats

@@ -5,7 +5,8 @@
   normalization and the running average, and the running stats move as
   ``momentum * running + (1 - momentum) * batch`` with ``momentum = 0.9``.
   ``torch.nn.BatchNorm2d`` keeps an unbiased running variance instead.
-  Statistics are taken in float32 under autocast, as Flax forces.
+  Statistics are taken in at least float32 (float32 under autocast,
+  float64 in a float64 model), as Flax does.
 - :class:`Dropout`: draws its mask from an explicit ``torch.Generator``
   (the per-rank dropout stream of the train step), and keeps
   ``x / keep`` where the draw is below ``keep``, as Flax does.
@@ -32,7 +33,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shape = (1, -1, 1, 1)
         if train:
             mean = xf.mean(dim=(0, 2, 3))
@@ -104,3 +105,12 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
     """Flatten NCHW activations in Flax's NHWC (h, w, c) order, so a Dense
     kernel converted from Flax applies unchanged."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """Fold each 2x2 pixel block of NHWC ``x`` into channels in the JAX
+    package's order (``[b, h, w, c] -> [b, h/2, w/2, 4c]``, the channel
+    index ``(dy, dx, c)``)."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h // 2, w // 2, 4 * c))

@@ -5,6 +5,10 @@ dropout -> 512 -> relu -> dropout -> 512 -> relu -> num_classes, Kaiming
 fan-out normal conv init (``vgg.py:31``). Layers are named after the config
 index as in Flax (``conv0, bn0, conv2, ...``) so the converter maps them by
 name. Inputs are NHWC, as in the JAX package.
+
+``vgg11_s2d`` puts the space-to-depth reshape in front of ``conv0`` and
+drops the first max-pool (``ewdml_tpu/models/vgg.py:54-57,94-102``); the
+layers keep their config-index names, so the names shift as in Flax.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch.nn.functional as F
 
 from ewdml_tpu_torch.models.layers import (BatchNorm, Dropout, flatten_hwc,
                                            lecun_normal_dense_,
-                                           variance_scaling_)
+                                           space_to_depth, variance_scaling_)
 
 CFG = {
     "A": [64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"],
@@ -32,12 +36,16 @@ CFG = {
 class VGG(nn.Module):
     def __init__(self, cfg: Sequence = tuple(CFG["A"]), batch_norm: bool = True,
                  num_classes: int = 10, in_channels: int = 3,
-                 input_hw: int = 32, seed: int = 0):
+                 input_hw: int = 32, seed: int = 0,
+                 space_to_depth: bool = False):
         super().__init__()
         self.cfg = tuple(cfg)
         self.batch_norm = batch_norm
+        self.space_to_depth = space_to_depth
         g = torch.Generator().manual_seed(seed)
         c, hw = in_channels, input_hw
+        if space_to_depth:
+            c, hw = 4 * c, hw // 2
         for i, v in enumerate(self.cfg):
             if v == "M":
                 hw //= 2
@@ -61,6 +69,8 @@ class VGG(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.space_to_depth:
+            x = space_to_depth(x)
         x = x.permute(0, 3, 1, 2)
         for i, v in enumerate(self.cfg):
             if v == "M":
@@ -85,6 +95,16 @@ def vgg11(num_classes=10, **kw):
 def vgg11_bn(num_classes=10, **kw):
     """VGG11 + BN: the network the reference trains as ``VGG11``."""
     return VGG(cfg=tuple(CFG["A"]), batch_norm=True, num_classes=num_classes, **kw)
+
+
+def vgg11_s2d(num_classes=10, **kw):
+    """VGG11-BN with the space-to-depth stem (a documented deviation from
+    the reference, as in the JAX package): the first max-pool is dropped,
+    since the reshape already halves the spatial dims."""
+    cfg_a = list(CFG["A"])
+    cfg_a.remove("M")  # the first "M"
+    return VGG(cfg=tuple(cfg_a), batch_norm=True, num_classes=num_classes,
+               space_to_depth=True, **kw)
 
 
 def vgg13_bn(num_classes=10, **kw):

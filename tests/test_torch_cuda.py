@@ -40,8 +40,8 @@ def _norms(x, block):
     return torch.linalg.vector_norm(pad.reshape(nb, block), dim=1)
 
 
-@pytest.mark.parametrize("n", [2_359_296, 1_180_160, 959_616, 530_442, 4097,
-                               3])
+@pytest.mark.parametrize("n", [2_359_296, 1_180_160, 1_069_066, 959_616,
+                               530_442, 4097, 3])
 @pytest.mark.parametrize("block", [None, 4096, 8192, 16384])
 def test_quantize_kernel_is_the_plain_version(cuda, n, block):
     x = torch.randn(n, device="cuda", generator=cuda)
@@ -67,8 +67,12 @@ def test_quantize_kernel_on_an_unaligned_view(cuda, block):
 
 
 @pytest.mark.parametrize("world,n,block", [(1, 5000, None), (4, 530_442, None),
-                                           (4, 2_359_296, 4096)])
+                                           (4, 2_359_296, 4096),
+                                           (4, 1_069_066, None),
+                                           (4, 1_069_066, 4096)])
 def test_dequant_mean_kernel_is_the_plain_version(cuda, world, n, block):
+    """Among the shapes, ResNet50's unit of 1 069 066 (2 mod 4: rows 1 and
+    3 start on 2-byte boundaries)."""
     lv = torch.randint(-127, 128, (world, n), device="cuda",
                        generator=cuda).to(torch.int8)
     shape = (world,) if block is None else (world, -(-n // block))
@@ -113,7 +117,7 @@ def test_int_accumulate_kernel_at_every_row_count(cuda, world, n):
 
 @pytest.mark.parametrize("r,c", [(104, 23680), (104, 11904), (104, 9600),
                                  (104, 5376), (8, 128), (1000, 256),
-                                 (104, 4224)])
+                                 (104, 4224), (104, 10496), (104, 10752)])
 def test_block_top1_kernel_is_the_plain_version(cuda, r, c):
     x2 = torch.round(torch.randn(r, c, device="cuda", generator=cuda) * 2) / 2
     x2[:, 0] = 0.0
@@ -137,11 +141,12 @@ def test_chunk_encode_kernel_is_the_plain_version(cuda, n, block):
     _check_encode(cuda, n, block)
 
 
-@pytest.mark.parametrize("blocks", [1, 33, 144, 264, 265, 596])
+@pytest.mark.parametrize("blocks", [1, 33, 64, 66, 144, 264, 265, 596, 1436])
 @pytest.mark.parametrize("block", [4096, 16384])
 def test_chunk_encode_kernel_at_the_ring_chunk_sizes(cuda, blocks, block):
-    """The ring_rs and fused_q chunks of VGG11-BN and both sides of 264
-    blocks, where the hop (not the encode) changes kernel."""
+    """The ring_rs and fused_q chunks of VGG11-BN and ResNet50 (64 to 144
+    blocks, and 1 436) and both sides of 264 blocks, where the hop (not the
+    encode) changes kernel."""
     _check_encode(cuda, blocks * block, block)
 
 
@@ -158,8 +163,8 @@ def _check_encode(cuda, n, block):
     assert not lz.any() and not nz.any()
 
 
-@pytest.mark.parametrize("n", [2_441_216, 144 * 4096, 530_442, 33 * 4096,
-                               4096, 4097, 3])
+@pytest.mark.parametrize("n", [1436 * 4096, 2_441_216, 144 * 4096, 530_442,
+                               64 * 4096, 33 * 4096, 4096, 4097, 3])
 @pytest.mark.parametrize("block", [4096, 8192, 12288, 16384])
 @pytest.mark.parametrize("scale", [1.0, 0.25])
 def test_dequant_acc_requant_kernel_is_the_plain_version(cuda, n, block,

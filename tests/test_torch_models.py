@@ -73,8 +73,14 @@ def _run_both(jmodel, tmodel, x, y, bn: bool):
 
 
 def _check(jmodel, tmodel, x, y, bn):
-    (jloss, jlogits, jupd, jgrads), (tloss, tlogits) = _run_both(
-        jmodel, tmodel, x, y, bn)
+    _compare(*_run_both(jmodel, tmodel, x, y, bn), tmodel, bn)
+
+
+def _compare(ref, port, tmodel, bn):
+    """The tolerances of the module docstring: ``ref`` is the Flax side's
+    ``(loss, logits, updates, grads)``, ``port`` the port's
+    ``(loss, logits)`` with the gradients in ``tmodel``."""
+    (jloss, jlogits, jupd, jgrads), (tloss, tlogits) = ref, port
     _close(tlogits.detach().numpy(), jlogits, 1e-5, 1e-5)
     _close(float(tloss.detach()), float(jloss), 1e-5, 0)
     flat = {"/".join(p.key for p in path): np.asarray(g) for path, g in
@@ -90,10 +96,12 @@ def _check(jmodel, tmodel, x, y, bn):
                                    atol=1e-5 * gmax, err_msg=s.name)
     if bn:
         for name, buf in tmodel.named_buffers():
-            layer, attr = name.rsplit(".", 1)
-            ref = jupd["batch_stats"][layer][
-                {"running_mean": "mean", "running_var": "var"}[attr]]
-            _close(buf.numpy(), ref, 1e-5, 1e-5)
+            *modules, attr = name.split(".")
+            stat = jupd["batch_stats"]
+            for m in modules:
+                stat = stat[m]
+            stat = stat[{"running_mean": "mean", "running_var": "var"}[attr]]
+            _close(buf.numpy(), stat, 1e-5, 1e-5)
 
 
 def test_lenet_matches_flax():

@@ -159,7 +159,7 @@ def run_pair(tmp_path, after_preset=None, **kw) -> Pair:
     jres = jt.train()
     tres = tt.train()
     jparams = [jax.tree.map(lambda x, w=w: np.asarray(x[w]), jt.state.worker.params)
-               for w in range(W)]
+               for w in range(tcfg.num_workers)]
     tparams = [torch_to_flax(ws.model)[0] for ws in tt.state.workers]
     return Pair(jt, tt, jres, tres, jparams, tparams, init)
 
@@ -178,7 +178,7 @@ def _leaves(params):
 
 
 def check_dense(pair: Pair):
-    for w in range(W):
+    for w in range(len(pair.jparams)):
         jl, tl = _leaves(pair.jparams[w]), _leaves(pair.tparams[w])
         assert list(jl) == list(tl)
         for name in jl:
@@ -190,7 +190,7 @@ def check_dense(pair: Pair):
 def check_with_flips(pair: Pair) -> None:
     """The compressed-method oracle of the module docstring."""
     init_l = _leaves(pair.init)
-    for w in range(W):
+    for w in range(len(pair.jparams)):
         jl, tl = _leaves(pair.jparams[w]), _leaves(pair.tparams[w])
         assert list(jl) == list(tl)
         for name in jl:
