@@ -69,6 +69,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    batch, W and precision; its 14 transport units, the 1 436-block
    ``fused_q`` chunk). Every run of phases 3 and 3b prints a ``train`` line
    with its ``network=`` and its launches per step.
+3c. The device-resident feed and the scan window (``--feed device
+   --scan-window K``): VGG11-BN at the same shapes under M1, M4, M5 and M4
+   ``ring_rs --qsgd-block 4096`` with K = 8 for 24 steps, M6 with the auto
+   K = 20 (its sync period) for 60 steps, and ResNet50 M4 with K = 8 for
+   24 steps (capture at 161 leaves). Each runs twice from the same state,
+   per-step (``--scan-window 1``) and windowed (a warm-up window of K
+   per-step dispatches, then one CUDA graph captured and replayed once per
+   window), with deterministic kernels. Every metrics row, parameter,
+   BatchNorm statistic, momentum buffer and residual must be bit-equal
+   between the two, the windowed run must make one replay per window after
+   the first, and both must launch each kernel as often (the graph's
+   launches times its windows). ``window`` lines print the ms per step both
+   ways.
 4. Run the in-process async parameter server (``--mode async``) through the
    CLI's config on the same models and shapes: W = 4 worker threads on the
    card, K = 4 (``--num-aggregate 4``), 4 steps per worker, ``--fusion
@@ -82,7 +95,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    leaves and rounds say, report only finite losses, and receive exactly
    the bytes of the wire plan's up-link in the pushes' frames.
 
-Every kernel's launch count over the runs of phases 3, 3b and 4 must be
+Every kernel's launch count over the runs of phases 3, 3b, 3c and 4 must be
 above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
@@ -160,6 +173,14 @@ def bound_ms(nbytes: int, ops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def table_seed(torch, value: int):
+    """A murmur seed as the drawing kernels take it on the training path:
+    one int32 slot of a device buffer (the step's key table)."""
+    buf = torch.zeros(8, dtype=torch.int32, device="cuda")
+    buf[5] = value
+    return buf[5:6]
+
+
 class Timer:
     """CUDA-event timing of single launches, L2 flushed before each."""
 
@@ -216,7 +237,7 @@ def check_kernels(torch, kernels, timer) -> dict:
     norm = torch.linalg.vector_norm(x)
     nb = BUCKET // 4096
     bnorms = torch.linalg.vector_norm(x.reshape(nb, 4096), dim=1)
-    seed = -123456789
+    seed = table_seed(torch, -123456789)
     for block, norms in ((None, norm), (4096, bnorms)):
         a = kernels.qsgd_quantize(x, norms, seed, 127, block=block)
         b = kernels.qsgd_quantize_ref(x, norms, seed, 127, block=block)
@@ -311,10 +332,11 @@ def check_ring_kernels(torch, kernels, timer, g) -> dict:
     chunks = {n: torch.randn(n, device="cuda", generator=g) * 1e-2
               for n in (m, TAIL_CHUNK)}
     for n, x in chunks.items():
-        for seed in (0, -77, 2**31 - 1):
+        for value in (0, -77, 2**31 - 1):
+            seed = table_seed(torch, value)
             same(kernels.chunk_encode(x, seed, 127),
                  kernels.chunk_encode_ref(x, seed, 127), f"chunk_encode n={n}")
-            lv, nm = kernels.chunk_encode_ref(x, seed + 1, 127)
+            lv, nm = kernels.chunk_encode_ref(x, value + 1, 127)
             local = torch.randn(n, device="cuda", generator=g) * 1e-2
             for scale in (1.0, 1.0 / WORLD):
                 same(kernels.dequant_acc_requant(lv, nm, local, seed, 127,
@@ -324,9 +346,10 @@ def check_ring_kernels(torch, kernels, timer, g) -> dict:
                      f"dequant_acc_requant n={n} scale={scale}")
     nb = m // kernels.BLOCK_ELEMS
     x = chunks[m]
-    fn = lambda: kernels.chunk_encode(x, 5, 127)
+    seed = table_seed(torch, 5)
+    fn = lambda: kernels.chunk_encode(x, seed, 127)
     ms = timer(fn)
-    plain = timer(lambda: kernels.chunk_encode_ref(x, 5, 127), reps=10)
+    plain = timer(lambda: kernels.chunk_encode_ref(x, seed, 127), reps=10)
     bnd, by = bound_ms(4 * m + m + 4 * nb, OPS_PER_ELEM["chunk_encode"] * m)
     out["chunk_encode"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                bound_ms=bnd, bound_by=by, library_ms=None,
@@ -335,11 +358,12 @@ def check_ring_kernels(torch, kernels, timer, g) -> dict:
                                    fn, KERNEL_NAMES["chunk_encode"]))
     lv, nm = kernels.chunk_encode(x, 6, 127)
     local = torch.randn(m, device="cuda", generator=g) * 1e-2
-    fn = lambda: kernels.dequant_acc_requant(lv, nm, local, 7, 127,
+    seed = table_seed(torch, 7)
+    fn = lambda: kernels.dequant_acc_requant(lv, nm, local, seed, 127,
                                              scale=1.0 / WORLD)
     ms = timer(fn)
     plain = timer(lambda: kernels.dequant_acc_requant_ref(
-        lv, nm, local, 7, 127, scale=1.0 / WORLD), reps=10)
+        lv, nm, local, seed, 127, scale=1.0 / WORLD), reps=10)
     bnd, by = bound_ms(m + 4 * m + m + 8 * nb,
                        OPS_PER_ELEM["dequant_acc_requant"] * m)
     out["dequant_acc_requant"] = dict(
@@ -540,6 +564,7 @@ def same_top1(torch, kernels, x2, what) -> None:
 
 def same_hop(torch, kernels, lv, nm, local, seed, block, scale,
              what) -> None:
+    seed = table_seed(torch, seed)
     la, na = kernels.dequant_acc_requant(lv, nm, local, seed, 127,
                                          block=block, scale=scale)
     lb, nb = kernels.dequant_acc_requant_ref(lv, nm, local, seed, 127,
@@ -564,6 +589,7 @@ def hop_inputs(torch, n: int, block: int, g) -> tuple:
 
 
 def same_encode(torch, kernels, x, seed, what) -> None:
+    seed = table_seed(torch, seed)
     la, na = kernels.chunk_encode(x, seed, 127)
     lb, nb = kernels.chunk_encode_ref(x, seed, 127)
     torch.cuda.synchronize()
@@ -602,7 +628,7 @@ def quantize_rows(torch, kernels, timer, quant, g) -> list:
                 pad[:n] = x
                 norms = torch.linalg.vector_norm(pad.reshape(nb, block), dim=1)
                 per_step = f"x{units} per M4 ring_rs"
-            seed = n % 1000 - 500
+            seed = table_seed(torch, n % 1000 - 500)
             a = kernels.qsgd_quantize(x, norms, seed, 127, block=block)
             b = kernels.qsgd_quantize_ref(x, norms, seed, 127, block=block)
             torch.cuda.synchronize()
@@ -612,7 +638,7 @@ def quantize_rows(torch, kernels, timer, quant, g) -> list:
                                      "from the plain version")
             rows.append(shape_row(
                 timer,
-                lambda: kernels.qsgd_quantize(x, norms, 5, 127, block=block),
+                lambda: kernels.qsgd_quantize(x, norms, seed, 127, block=block),
                 names, 5 * n + 4 * norms.numel(),
                 OPS_PER_ELEM["qsgd_quantize"] * n, n=n, block=block,
                 per_step=per_step))
@@ -707,6 +733,7 @@ def check_path_shapes(torch, kernels, timer, network: str) -> dict:
             lambda: torch.linalg.vector_norm(x2, float("inf"), dim=0))
         out["block_top1"].append(row)
     ring_names = KERNEL_NAMES["chunk_encode"]
+    seed = table_seed(torch, 7)
     for blocks, (per_step, path) in hops.items():
         n = blocks * 4096
         lv, nm, local = hop_inputs(torch, n, 4096, g)
@@ -714,7 +741,7 @@ def check_path_shapes(torch, kernels, timer, network: str) -> dict:
                  f"{blocks} blocks")
         out["dequant_acc_requant"].append(shape_row(
             timer,
-            lambda: kernels.dequant_acc_requant(lv, nm, local, 7, 127,
+            lambda: kernels.dequant_acc_requant(lv, nm, local, seed, 127,
                                                 scale=1.0 / WORLD),
             ring_names, 6 * n + 8 * blocks,
             OPS_PER_ELEM["dequant_acc_requant"] * n, blocks=blocks, n=n,
@@ -724,7 +751,7 @@ def check_path_shapes(torch, kernels, timer, network: str) -> dict:
         x = torch.randn(n, device="cuda", generator=g) * 1e-2
         same_encode(torch, kernels, x, blocks, f"{blocks} blocks")
         out["chunk_encode"].append(shape_row(
-            timer, lambda: kernels.chunk_encode(x, 7, 127), ring_names,
+            timer, lambda: kernels.chunk_encode(x, seed, 127), ring_names,
             5 * n + 4 * blocks, OPS_PER_ELEM["chunk_encode"] * n,
             blocks=blocks, n=n, path=path, per_step=units * WORLD))
     out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
@@ -908,6 +935,126 @@ def train_phase(torch, kernels, network: str) -> tuple:
     return counts, per_method
 
 
+# Phase 3c: the device-resident feed and the scan window. (name, network,
+# steps, K, flags); K = 0 is the auto window (Method 6: its sync period, 20).
+# Three windows a run: the warm-up (K per-step dispatches), the capture and
+# its first replay, a replay.
+WINDOW_RUNS = [
+    ("M1", "VGG11", 24, 8, ["--method", "1"]),
+    ("M4", "VGG11", 24, 8, ["--method", "4"]),
+    ("M5", "VGG11", 24, 8, ["--method", "5"]),
+    ("M4 ring_rs", "VGG11", 24, 8, ["--method", "4", "--gather-type",
+                                     "ring_rs", "--qsgd-block", "4096"]),
+    ("M6", "VGG11", 60, 0, ["--method", "6"]),
+    ("M4", "ResNet50", 24, 8, ["--method", "4"]),
+]
+
+
+def same_state(a, b, what: str) -> None:
+    """Every parameter, BatchNorm statistic, momentum buffer and residual
+    of two trainers' workers bit-equal."""
+    import torch
+
+    for w, (x, y) in enumerate(zip(a.state.workers, b.state.workers)):
+        pairs = list(zip(x.model.state_dict().items(),
+                         y.model.state_dict().items()))
+        pairs += [((f"momentum {i}", p), (None, q)) for i, (p, q) in enumerate(
+            zip(x.opt_state.momentum_buf, y.opt_state.momentum_buf))]
+        pairs += [((f"residual {i}", p), (None, q)) for i, (p, q) in
+                  enumerate(zip(x.residual, y.residual))]
+        for (name, p), (_, q) in pairs:
+            if not torch.equal(p, q):
+                raise AssertionError(f"{what}: worker {w} {name} differs "
+                                     "between the windowed and the per-step "
+                                     "run")
+
+
+def window_phase(torch, kernels) -> tuple:
+    """Phase 3c: each run twice from the same state, per-step
+    (``--scan-window 1``) and windowed, through the CLI's config and the
+    Trainer, both on ``--feed device``; deterministic kernels (cuDNN's
+    weight gradients and ``index_add_`` sum with atomics otherwise)."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {}
+    try:
+        for name, network, steps, k, flags in WINDOW_RUNS:
+            runs = []
+            for window in (1, k):
+                argv = ["--network", network, "--dataset", "Cifar10",
+                        "--synthetic-data", "--num-workers", str(WORLD),
+                        "--batch-size", "128", "--topk-ratio", "0.01",
+                        "--max-steps", str(steps), "--epochs", "100",
+                        "--log-every", "1000", "--no-bf16", "--feed",
+                        "device", *flags]
+                if window:
+                    argv += ["--scan-window", str(window)]
+                trainer = Trainer(from_args(argv))
+                kernels.reset_launches()   # this run of the main path
+                t0 = time.perf_counter()
+                res = trainer.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = dict(kernels.LAUNCHES)  # read just after it
+                for kk, v in launched.items():
+                    counts[kk] += v
+                if not math.isfinite(res.final_loss):
+                    raise AssertionError(f"window {network} {name}: "
+                                         f"non-finite loss {res.final_loss}")
+                runs.append((trainer, res, launched, wall))
+            (ref, rres, rl, rwall), (win, wres, wl, wwall) = runs
+            what = f"window {network} {name}"
+            ws = win.window_step
+            kwin = win.scan_window
+            windows = steps // kwin
+            if ref.window_step is not None or ws is None:
+                raise AssertionError(f"{what}: the runs are not per-step "
+                                     "and windowed")
+            if (ws.eager_windows, ws.captures, ws.replays) != (
+                    1, 1, windows - 1):
+                raise AssertionError(
+                    f"{what}: {ws.eager_windows} eager windows, "
+                    f"{ws.captures} captures, {ws.replays} replays; want "
+                    f"1, 1, {windows - 1} (one replay per window)")
+            if rres.rows.shape != (steps, WORLD, 3) or not torch.equal(
+                    torch.from_numpy(wres.rows), torch.from_numpy(rres.rows)):
+                raise AssertionError(f"{what}: metrics rows differ")
+            same_state(ref, win, what)
+            per_replay = next(iter(ws._graphs.values())).launches
+            if wl != rl or any(per_replay[kk] * windows != rl[kk]
+                               for kk in rl):
+                raise AssertionError(
+                    f"{what}: launches {wl} windowed, {rl} per-step, "
+                    f"{per_replay} per replay of {windows} windows")
+            row = dict(network=network, steps=steps, window=kwin,
+                       per_step_ms=rres.mean_step_s * 1e3,
+                       window_ms=wres.mean_step_s * 1e3,
+                       capture_s=ws.capture_s, replays=ws.replays,
+                       launches=wl, launches_per_replay=per_replay,
+                       wall_s=[rwall, wwall], final_loss=wres.final_loss)
+            out[f"{network} {name}"] = row
+            print(f"window {name}: network={network} K={kwin} steps={steps} "
+                  f"per_step={rres.mean_step_s * 1e3:.2f}ms "
+                  f"windowed={wres.mean_step_s * 1e3:.2f}ms "
+                  f"capture={ws.capture_s:.2f}s replays={ws.replays} "
+                  f"per_replay={ {kk: v for kk, v in per_replay.items() if v} } "
+                  f"bit_equal=rows,state,launches "
+                  f"loss={wres.final_loss:.4f}", flush=True)
+            del runs, ref, win, ws
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return counts, out
+
+
 # {network: [(name, flags)]}: phase 4, the async parameter server.
 ASYNC_RUNS = {"VGG11": [
     ("qsgd decode", ["--compress-grad", "qsgd", "--server-agg", "decode"]),
@@ -1072,6 +1219,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    # Phase 3c's deterministic cuBLAS needs this before the first handle.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from ewdml_tpu_torch import kernels as build
@@ -1082,6 +1231,7 @@ def main(argv=None) -> int:
         return 2
 
     global ops_per_s
+    t_start = time.perf_counter()
     clock = sm_clock_mhz()
     ops_per_s = LANES_PER_CLOCK * clock * 1e6
     print(f"instruction rate: {ops_per_s:.4g} instructions/s at {clock:g} MHz",
@@ -1119,6 +1269,10 @@ def main(argv=None) -> int:
         per_method.update({f"{net} {k}": v for k, v in runs.items()})
         for k, v in net_counts.items():
             counts[k] += v
+    # Phase 3c: the device feed and the scan window (CUDA graphs).
+    net_counts, windows = window_phase(torch, kernels)
+    for k, v in net_counts.items():
+        counts[k] += v
     # Phase 4: the async parameter server.
     for net, runs_flags in ASYNC_RUNS.items():
         net_counts, runs = async_phase(torch, kernels, net, runs_flags)
@@ -1143,6 +1297,8 @@ def main(argv=None) -> int:
         library_ms=c["library_ms"]) for name, c in checks.items()]}
     print("train: " + json.dumps(per_method), flush=True)
     print("async: " + json.dumps(async_runs), flush=True)
+    print("window: " + json.dumps(windows), flush=True)
+    print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,7 +9,14 @@ parameter server.
         --num-workers 4 --num-aggregate 2 --max-steps 16
 
 run on the GPU (``--platform cpu`` runs on the CPU). The flags are the JAX
-package's; ``--federated`` is a later slice.
+package's; ``--federated`` is a later slice. ``--feed device`` keeps the
+training split on the device, and ``--scan-window K`` (auto under
+``--feed device``) then runs K steps per host launch, one CUDA graph a
+window on the GPU:
+
+    python -m ewdml_tpu_torch.cli --network VGG11 --dataset Cifar10 \\
+        --synthetic-data --num-workers 4 --method 4 --feed device \\
+        --scan-window 8 --max-steps 24
 """
 
 from __future__ import annotations

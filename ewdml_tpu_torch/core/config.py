@@ -189,6 +189,28 @@ def resolved_unit_sizes(cfg: TrainConfig, sizes) -> list:
     return [sum(sizes[i] for i in g) for g in groups]
 
 
+def resolve_scan_window(cfg: TrainConfig) -> int:
+    """The window length K of ``--scan-window`` (``config.py:662``): K
+    steps per host launch (``train/trainer.make_window_step``; a CUDA graph
+    on the GPU), which needs the device-resident feed.
+
+    - ``--adapt``: 1 (its decisions are host work between steps);
+    - a streaming feed (u8/f32): 1 (a host batch crosses every step);
+    - an explicit K: K (at least 1);
+    - auto under Method 6 (``sync_every > 1``): the sync period;
+    - auto otherwise: ``min(log_every, 8)``.
+    """
+    if cfg.adapt != "off":
+        return 1
+    if cfg.feed != "device":
+        return 1
+    if cfg.scan_window:
+        return max(1, cfg.scan_window)
+    if cfg.sync_every > 1:
+        return cfg.sync_every
+    return max(1, min(cfg.log_every, 8))
+
+
 def validate_collective(cfg: TrainConfig) -> None:
     """The ``--collective`` matrix of the sync trainer (fail before a step)."""
     if cfg.collective not in ("gather", "fused_q"):

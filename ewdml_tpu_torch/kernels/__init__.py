@@ -76,14 +76,14 @@ def build() -> str:
 
 def _declare(lib) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ewdml_qsgd_quantize.argtypes = [p, p, i64, i64, ctypes.c_uint32, i32,
-                                        p, p]
+    # The murmur seed is a pointer to an int32 in device memory.
+    lib.ewdml_qsgd_quantize.argtypes = [p, p, i64, i64, p, i32, p, p]
     lib.ewdml_dequant_mean.argtypes = [p, p, i32, i64, i64, i64,
                                        ctypes.c_float, p, p]
     lib.ewdml_block_top1.argtypes = [p, i32, i32, p, p, p]
-    u32, f32 = ctypes.c_uint32, ctypes.c_float
-    lib.ewdml_chunk_encode.argtypes = [p, i64, i64, u32, i32, p, p, p]
-    lib.ewdml_dequant_acc_requant.argtypes = [p, p, p, i64, i64, u32, i32,
+    f32 = ctypes.c_float
+    lib.ewdml_chunk_encode.argtypes = [p, i64, i64, p, i32, p, p, p]
+    lib.ewdml_dequant_acc_requant.argtypes = [p, p, p, i64, i64, p, i32,
                                               f32, f32, p, p, p]
     lib.ewdml_int_accumulate.argtypes = [p, i32, i64, p, p]
     lib.ewdml_acc_decode.argtypes = [p, p, f32, i64, i64, p, p]

@@ -26,6 +26,9 @@ constexpr int kThreads = 256;
 // finalizer of pallas_kernels._uniform_hash. The TPU kernel's counter
 // b * 4096 + r * 128 + c is the flat element index, so this is a function of
 // the index alone. uint32 arithmetic wraps exactly as jnp.uint32 does.
+// The kernels that draw read their seed from device memory (a slot of the
+// step's key table), once per thread: a CUDA graph that captured a launch
+// then draws a new stream on each replay.
 __device__ __forceinline__ float uniform_hash(uint32_t idx, uint32_t seed) {
   uint32_t x = (idx * 2654435761u) ^ seed;
   x ^= x >> 16;
@@ -91,8 +94,9 @@ __device__ __forceinline__ float4 load_once(const float4* p) {
 __global__ void qsgd_quantize_kernel(const float* __restrict__ x,
                                      const float* __restrict__ norms,
                                      int64_t n, int vecs_per_norm,
-                                     uint32_t seed, float s,
-                                     int8_t* __restrict__ out) {
+                                     const uint32_t* __restrict__ seed_ptr,
+                                     float s, int8_t* __restrict__ out) {
+  const uint32_t seed = __ldg(seed_ptr);
   const int64_t nvec = n / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -244,11 +248,12 @@ __global__ void ring_encode_kernel(const float* __restrict__ x,
                                    const int8_t* __restrict__ in_levels,
                                    const float* __restrict__ in_norms,
                                    float inv_s, float scale, int64_t n,
-                                   uint32_t seed, float s,
-                                   int8_t* __restrict__ out,
+                                   const uint32_t* __restrict__ seed_ptr,
+                                   float s, int8_t* __restrict__ out,
                                    float* __restrict__ out_norms) {
   __shared__ float warp_sums[32];
   __shared__ float block_norm;
+  const uint32_t seed = __ldg(seed_ptr);
   const int threads = blockDim.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -376,10 +381,12 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
     ring_hop_kernel(const float* __restrict__ local,
                     const int8_t* __restrict__ in_levels,
                     const float* __restrict__ in_norms, float inv_s,
-                    float scale, int64_t n, uint32_t seed, float s,
+                    float scale, int64_t n,
+                    const uint32_t* __restrict__ seed_ptr, float s,
                     int8_t* __restrict__ out, float* __restrict__ out_norms) {
   __shared__ float warp_sums[32];
   __shared__ alignas(8) uint64_t sums_ready;  // mbarrier of the exchange
+  const uint32_t seed = __ldg(seed_ptr);
   const int rank = (int)cg::this_cluster().block_rank();
   const int threads = blockDim.x * kHopCluster;
   const int warps = threads >> 5;
@@ -893,7 +900,7 @@ int worker_reduce_launch(const ReduceArgs& a, cudaStream_t stream) {
 extern "C" {
 
 int ewdml_qsgd_quantize(const float* x, const float* norms, int64_t n,
-                        int64_t block, uint32_t seed, int s, int8_t* out,
+                        int64_t block, const uint32_t* seed, int s, int8_t* out,
                         cudaStream_t stream) {
   if (n > 0) {
     qsgd_quantize_kernel<<<grid_for(n / 4 + 1), kThreads, 0, stream>>>(
@@ -926,7 +933,8 @@ int ewdml_block_top1(const float* x, int rows, int cols, float* vals,
 // `block` is a multiple of 4096 and at most 16384 (T <= 1024 threads);
 // the wrapper checks both.
 int ewdml_chunk_encode(const float* x, int64_t n, int64_t block,
-                       uint32_t seed, int s, int8_t* levels, float* norms,
+                       const uint32_t* seed, int s, int8_t* levels,
+                       float* norms,
                        cudaStream_t stream) {
   if (n > 0) {
     const int64_t nb = (n + block - 1) / block;
@@ -943,7 +951,8 @@ int ewdml_chunk_encode(const float* x, int64_t n, int64_t block,
 // one CTA per block.
 int ewdml_dequant_acc_requant(const int8_t* levels, const float* norms,
                               const float* local, int64_t n, int64_t block,
-                              uint32_t seed, int s, float inv_s, float scale,
+                              const uint32_t* seed, int s, float inv_s,
+                              float scale,
                               int8_t* out, float* out_norms,
                               cudaStream_t stream) {
   if (n > 0) {

@@ -33,11 +33,12 @@ def stack_payloads(payloads: list):
 
 def take_payloads(gathered, idx: list):
     """Rows ``idx`` (worker indices, in order) of every tensor field of a
-    gathered payload."""
+    gathered payload. The rows are taken one by one with Python ints, so no
+    index tensor crosses from the host (a CUDA graph can hold the copy)."""
     kw = {}
     for f in dataclasses.fields(gathered):
         v = getattr(gathered, f.name)
-        kw[f.name] = (v[torch.tensor(idx, device=v.device)]
+        kw[f.name] = (torch.stack([v[int(i)] for i in idx])
                       if isinstance(v, torch.Tensor) else v)
     return type(gathered)(**kw)
 

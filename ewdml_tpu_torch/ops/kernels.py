@@ -104,6 +104,15 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
+def add_launches(counts: dict) -> None:
+    """Count the launches a CUDA graph replay makes: the wrappers count
+    while a window is captured, the window takes those counts back out
+    (nothing launched then), and adds them again at every replay."""
+    with _launch_lock:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
+
+
 def _count(name: str) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
@@ -181,11 +190,33 @@ def _require_cuda(t: torch.Tensor, name: str, dtype) -> None:
 
 # -- kernel 1: QSGD quantize --------------------------------------------------
 
-def uniform_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
+def _seed_u32(seed):
+    """An int32 seed (a Python int, or a one-element tensor) as its uint32
+    value: an int, or a 0-d int64 tensor on the seed's device."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(-1)[0].to(torch.int64) & 0xFFFFFFFF
+    return int(seed) & 0xFFFFFFFF
+
+
+def _seed_arg(seed, device) -> torch.Tensor:
+    """The seed as the kernels take it: an int32 ``[1]`` tensor in device
+    memory (a Python int is filled into one there, with no host copy)."""
+    if not isinstance(seed, torch.Tensor):
+        v = int(seed) & 0xFFFFFFFF
+        return torch.full((1,), v - (1 << 32) if v >= 1 << 31 else v,
+                          dtype=torch.int32, device=device)
+    if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != device:
+        raise ValueError(f"the seed must be one int32 on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return seed
+
+
+def uniform_hash(idx: torch.Tensor, seed) -> torch.Tensor:
     """The murmur3-finalizer uniform of ``pallas_kernels._uniform_hash``,
-    for int64 flat indices (uint32 arithmetic, masked)."""
+    for int64 flat indices (uint32 arithmetic, masked). ``seed``: an int,
+    or an int32 tensor of one element on ``idx``'s device."""
     mask = 0xFFFFFFFF
-    x = _mul32(idx & mask, 2654435761) ^ (seed & mask)
+    x = _mul32(idx & mask, 2654435761) ^ _seed_u32(seed)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -220,7 +251,7 @@ def quantize_levels(x: torch.Tensor, norm_el: torch.Tensor, u: torch.Tensor,
     return torch.sign(x) * level
 
 
-def qsgd_quantize_ref(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
+def qsgd_quantize_ref(x: torch.Tensor, norm: torch.Tensor, seed, s: int,
                       *, block=None) -> torch.Tensor:
     """Plain version of :func:`qsgd_quantize` (same murmur stream, same
     rounding order, saturating int8 cast)."""
@@ -242,14 +273,16 @@ def _check_quantize_args(s: int, block) -> None:
         raise ValueError(f"block must be a multiple of {_BLOCK}, got {block}")
 
 
-def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
+def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed, s: int,
                   *, block=None) -> torch.Tensor:
     """Fused stochastic quantization of a flat f32 tensor to int8 levels.
 
     ``norm``: scalar f32 (per tensor) or f32 ``[ceil(n/block)]`` with
-    ``block`` a multiple of 4096; ``seed``: int32. Levels are bit-equal to
-    ``pallas_kernels.qsgd_quantize`` for the same inputs. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    ``block`` a multiple of 4096; ``seed``: an int32, as an int or as a
+    one-element int32 tensor on ``x``'s device (the kernel reads it from
+    there, so a captured launch takes each replay's seed). Levels are
+    bit-equal to ``pallas_kernels.qsgd_quantize`` for the same inputs. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return qsgd_quantize_ref(x, norm, seed, s, block=block)
     from ewdml_tpu_torch.kernels import library
@@ -265,10 +298,11 @@ def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed: int, s: int,
         _check_norms(norms.numel(), n, block)
     elif norms.numel() != 1:
         raise ValueError("per-tensor quantize takes one norm")
+    seed = _seed_arg(seed, x.device)
     out = torch.empty(n, dtype=torch.int8, device=x.device)
     rc = library().ewdml_qsgd_quantize(
-        x.data_ptr(), norms.data_ptr(), n, block or 0,
-        int(seed) & 0xFFFFFFFF, int(s), out.data_ptr(), _stream_ptr(x))
+        x.data_ptr(), norms.data_ptr(), n, block or 0, seed.data_ptr(),
+        int(s), out.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "qsgd_quantize")
     _count("qsgd_quantize")
     return out
@@ -447,7 +481,7 @@ def block_norms_ref(x2: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(acc[:, 0])
 
 
-def encode_blocks_ref(x: torch.Tensor, norms: torch.Tensor, seed: int,
+def encode_blocks_ref(x: torch.Tensor, norms: torch.Tensor, seed,
                       s: int = 127, *, block: int = _BLOCK) -> torch.Tensor:
     """The quantize half of the ring kernels, given the block norms: int8
     levels ``[n]`` of ``pallas_kernels._encode_block`` (murmur stream over
@@ -455,7 +489,7 @@ def encode_blocks_ref(x: torch.Tensor, norms: torch.Tensor, seed: int,
     return qsgd_quantize_ref(x, norms, seed, s, block=block)
 
 
-def chunk_encode_ref(x: torch.Tensor, seed: int, s: int = 127, *,
+def chunk_encode_ref(x: torch.Tensor, seed, s: int = 127, *,
                      block: int = _BLOCK):
     """Plain version of :func:`chunk_encode`."""
     _check_ring_args(s, block)
@@ -474,7 +508,7 @@ def _check_hop_args(levels, norms, local, block) -> None:
 
 
 def dequant_acc_requant_ref(levels: torch.Tensor, norms: torch.Tensor,
-                            local: torch.Tensor, seed: int, s: int = 127, *,
+                            local: torch.Tensor, seed, s: int = 127, *,
                             block: int = _BLOCK, scale: float = 1.0):
     """Plain version of :func:`dequant_acc_requant`: per element
     ``(local + (norm[b] * f32(1/s)) * lv) * f32(scale)`` in that order, then
@@ -515,12 +549,12 @@ def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
-def chunk_encode(x: torch.Tensor, seed: int, s: int = 127, *,
+def chunk_encode(x: torch.Tensor, seed, s: int = 127, *,
                  block: int = _BLOCK):
     """Encode a flat f32 chunk as ``(int8 levels [n], f32 norms [nb])``,
     one L2 norm per ``block`` elements taken in the same pass as the
-    stochastic quantization. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    stochastic quantization. ``seed`` as for :func:`qsgd_quantize`. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return chunk_encode_ref(x, seed, s, block=block)
     from ewdml_tpu_torch.kernels import library
@@ -533,22 +567,24 @@ def chunk_encode(x: torch.Tensor, seed: int, s: int = 127, *,
     n = x.numel()
     levels = torch.empty(n, dtype=torch.int8, device=x.device)
     norms = torch.empty(-(-n // block), dtype=torch.float32, device=x.device)
+    seed = _seed_arg(seed, x.device)
     rc = library().ewdml_chunk_encode(
-        x.data_ptr(), n, block, int(seed) & 0xFFFFFFFF, int(s),
-        levels.data_ptr(), norms.data_ptr(), _stream_ptr(x))
+        x.data_ptr(), n, block, seed.data_ptr(), int(s), levels.data_ptr(),
+        norms.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "chunk_encode")
     _count("chunk_encode")
     return levels, norms
 
 
 def dequant_acc_requant(levels: torch.Tensor, norms: torch.Tensor,
-                        local: torch.Tensor, seed: int, s: int = 127, *,
+                        local: torch.Tensor, seed, s: int = 127, *,
                         block: int = _BLOCK, scale: float = 1.0):
     """One fused ring reduce-scatter hop: re-encode
     ``scale * (local + norms / s * levels)`` as ``(int8 levels [n], f32
     norms [nb])`` without writing the f32 partial sum to device memory.
-    ``scale`` is 1/W on a ring's last hop. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    ``scale`` is 1/W on a ring's last hop; ``seed`` as for
+    :func:`qsgd_quantize`. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if local.device.type == "cpu":
         return dequant_acc_requant_ref(levels, norms, local, seed, s,
                                        block=block, scale=scale)
@@ -566,10 +602,11 @@ def dequant_acc_requant(levels: torch.Tensor, norms: torch.Tensor,
     n = local.numel()
     out = torch.empty(n, dtype=torch.int8, device=local.device)
     onorms = torch.empty(norms.numel(), dtype=torch.float32, device=local.device)
+    seed = _seed_arg(seed, local.device)
     rc = library().ewdml_dequant_acc_requant(
         levels.data_ptr(), norms.data_ptr(), local.data_ptr(), n, block,
-        int(seed) & 0xFFFFFFFF, int(s), 1.0 / s, float(scale),
-        out.data_ptr(), onorms.data_ptr(), _stream_ptr(local))
+        seed.data_ptr(), int(s), 1.0 / s, float(scale), out.data_ptr(),
+        onorms.data_ptr(), _stream_ptr(local))
     _launch_check(rc, "dequant_acc_requant")
     _count("dequant_acc_requant")
     return out, onorms

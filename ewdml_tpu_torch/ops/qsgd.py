@@ -95,7 +95,7 @@ def compress(key, g: torch.Tensor, s: int = 127, norm_kind: str = "l2",
         quantize = (kernels.qsgd_quantize if impl == "kernel"
                     else kernels.qsgd_quantize_ref)
         levels = quantize(flat, norm[0] if block is None else norm,
-                          prng.seed_from_key(key), s,
+                          prng.seed_tensor(key, flat.device), s,
                           block=block).to(torch.int32)
     else:
         u = prng.uniform(key, rows.shape, device=flat.device)

@@ -66,8 +66,8 @@ def _ring_chunks(flat: torch.Tensor, world: int, m: int) -> torch.Tensor:
     return chunks.reshape(world, m)
 
 
-def _ring_seed(key, tag: int) -> int:
-    return prng.seed_from_key(prng.fold_in(key, tag))
+def _ring_seed(key, tag: int, device) -> torch.Tensor:
+    return prng.seed_tensor(prng.fold_in(key, tag), device)
 
 
 def _fused_reduce_scatter(world: LocalWorld, chunks: list, keys: list,
@@ -79,13 +79,15 @@ def _fused_reduce_scatter(world: LocalWorld, chunks: list, keys: list,
     mean of chunk ``(r + 1) % W`` as ``(levels, norms)``."""
     w = world.size
     encode, hop = kernels.ring_hops(world.device)
-    pay = [encode(chunks[r][r], _ring_seed(keys[r], 0), s, block=block)
+    pay = [encode(chunks[r][r], _ring_seed(keys[r], 0, world.device), s,
+                  block=block)
            for r in world.ranks]
     for h in range(w - 1):
         pay = world.ppermute(pay)
         scale = 1.0 / w if h == w - 2 else 1.0
-        pay = [hop(lv, nm, chunks[r][(r - h - 1) % w], _ring_seed(keys[r], h + 1),
-                   s, block=block, scale=scale)
+        pay = [hop(lv, nm, chunks[r][(r - h - 1) % w],
+                   _ring_seed(keys[r], h + 1, world.device), s, block=block,
+                   scale=scale)
                for r, (lv, nm) in enumerate(pay)]
     return pay
 
@@ -465,5 +467,11 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
 def adopt_best_worker(params: list, losses: torch.Tensor) -> list:
     """Method 6 adoption (``collectives.py:786``): every worker takes the
     params of the worker with the lowest local loss (the first on ties).
-    ``params[w]`` is worker w's list of tensors; ``losses`` is ``[W]``."""
-    return params[int(torch.argmin(losses))]
+    ``params[w]`` is worker w's list of tensors; ``losses`` is ``[W]``.
+
+    The choice stays on the device (no read of the losses by the host,
+    which a CUDA graph could not hold): each leaf is stacked over the
+    workers and the best row selected. Returns new tensors."""
+    best = torch.argmin(losses).reshape(1)
+    return [torch.stack(list(leaf)).index_select(0, best)[0]
+            for leaf in zip(*params)]

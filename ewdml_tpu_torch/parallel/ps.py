@@ -363,9 +363,8 @@ def make_grad_fn(specs):
             for p, leaf, spec in zip(mparams, params, specs):
                 p.copy_(from_jax(leaf, spec.kind))
         module.zero_grad(set_to_none=True)
-        gen = torch.Generator(device=images.device)
-        gen.manual_seed((key[0] << 32) | key[1])
-        logits = module(images, train=True, generator=gen)
+        logits = module(images, train=True,
+                        generator=prng.generator(key, images.device))
         loss = cross_entropy(logits.float(), labels.long())
         loss.backward()
         grads = [to_jax(p.grad, s.kind).contiguous()

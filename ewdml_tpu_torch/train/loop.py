@@ -1,13 +1,16 @@
 """The training loop (``ewdml_tpu/train/loop.py``, the sync path).
 
 Builds the world, model, optimizer and state from a config, streams the
-global batches, runs steps, and logs per-worker loss / top-1 with the
-analytic wire bytes. Checkpointing, the polling evaluator, adaptive
-compression and observability are later slices.
+global batches (or, under ``--feed device``, uploads the split once), runs
+steps one host dispatch at a time or K per launch (``--scan-window``), and
+logs per-worker loss / top-1 with the analytic wire bytes. Checkpointing,
+the polling evaluator, adaptive compression and observability are later
+slices.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from dataclasses import dataclass, field
@@ -16,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ewdml_tpu_torch.core.config import TrainConfig
+from ewdml_tpu_torch.core.config import TrainConfig, resolve_scan_window
 from ewdml_tpu_torch.core.world import (LocalWorld, default_num_workers,
                                         resolve_device)
 from ewdml_tpu_torch.data import datasets, loader
@@ -26,7 +29,8 @@ from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import make_optimizer
 from ewdml_tpu_torch.train import metrics as M
 from ewdml_tpu_torch.train.state import make_train_state
-from ewdml_tpu_torch.train.trainer import check_supported, make_train_step
+from ewdml_tpu_torch.train.trainer import (check_supported, make_train_step,
+                                           make_window_step)
 from ewdml_tpu_torch.utils import prng
 
 logger = logging.getLogger("ewdml_tpu_torch")
@@ -42,6 +46,9 @@ class TrainResult:
     wire: M.WirePlan
     history: list = field(default_factory=list)
     timing: dict = field(default_factory=dict)
+    #: Every step's per-worker metrics, ``[steps, W, 3]`` (loss, top-1,
+    #: top-5), read back at the loop's read points.
+    rows: Optional[np.ndarray] = None
 
 
 class Trainer:
@@ -67,12 +74,29 @@ class Trainer:
         self.state = make_train_state(
             self.model, self.optimizer, self.world.size, self.device,
             error_feedback=cfg.error_feedback and cfg.compression_enabled)
+        self._train_ds = None
+        # The device feed augments as the loaded split says (a synthetic
+        # split never does), as the streaming feeds do.
+        device_augment = (self._train_split().augment
+                          if cfg.feed == "device" else None)
         self.train_step = make_train_step(self.model, self.optimizer, cfg,
-                                          self.world)
+                                          self.world,
+                                          device_augment=device_augment)
+        # K steps per host launch (--scan-window; 1 for the streaming feeds).
+        self.scan_window = resolve_scan_window(cfg)
+        self.window_step = None
+        if self.scan_window > 1:
+            self.window_step = make_window_step(
+                self.model, self.optimizer, cfg, self.world, self.scan_window,
+                device_augment=device_augment)
+            logger.info("scan window: %d steps per host launch (%s)",
+                        self.scan_window,
+                        "one CUDA graph" if self.device.type == "cuda"
+                        else "a loop on the CPU")
+        self._device_arrays = None
         self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape) for s in self.specs],
                                 world=self.world.size)
         self.base_key = prng.key(cfg.seed)
-        self._train_ds = None
         if cfg.compression_enabled:
             logger.info("compressor=%s s=%d block=%s topk_ratio=%s "
                         "wire=%.4f MB/step/worker", cfg.compress_grad,
@@ -119,6 +143,19 @@ class Trainer:
                 synthetic_size=cfg.synthetic_size)
         return self._train_ds
 
+    def _device_split(self, ds):
+        """The whole split on the device for ``--feed device`` (uint8 where
+        the dataset has raw pixels, else f32; int32 labels), uploaded once
+        per Trainer."""
+        if self._device_arrays is None:
+            x_all = ds.raw if ds.raw is not None else ds.images
+            self._device_arrays = self._to_device(x_all,
+                                                  ds.labels.astype(np.int32))
+            logger.info("device-resident feed: %d examples uploaded once "
+                        "(%.1f MB %s + labels)", len(ds), x_all.nbytes / 1e6,
+                        x_all.dtype)
+        return self._device_arrays
+
     def _to_device(self, images: np.ndarray, labels: np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(images))
         y = torch.from_numpy(np.ascontiguousarray(labels))
@@ -135,26 +172,66 @@ class Trainer:
         steps_per_epoch = max(1, len(ds) // (cfg.batch_size * self.world.size))
         steps_target = min(steps_target, cfg.epochs * steps_per_epoch)
         timer = M.StepTimer()
-        history = []
+        history, rows = [], []
+        ws = self.window_step
+        if ws is not None:  # --feed device, K > 1
+            if ws.stream is not None:
+                ws.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with ws.stream_context():
+                last = self._run_windows(start_step, steps_target,
+                                         self._device_split(ds), timer,
+                                         history, rows)
+            if ws.stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(ws.stream)
+        else:
+            if cfg.feed == "device":
+                batches = itertools.repeat(self._device_split(ds))
+            else:
+                batches = (self._to_device(*b) for b in loader.global_batches(
+                    ds, cfg.batch_size, self.world.size,
+                    seed=cfg.seed + start_step, feed=cfg.feed))
+            last = self._run_steps(start_step, steps_target, batches, timer,
+                                   history, rows)
+        return TrainResult(steps=steps_target, final_loss=last[0],
+                           final_top1=last[1], mean_step_s=timer.mean_step_s,
+                           compile_s=timer.compile_s, wire=self.wire,
+                           history=history, timing=timer.as_dict(),
+                           rows=np.concatenate(rows) if rows else None)
+
+    def _log_row(self, step: int, m: np.ndarray, timer) -> None:
+        """The per-worker log lines of one due step (``m`` is ``[W, 3]``)."""
+        cum_mb = self.wire.per_step_bytes * (step + 1) / 1e6
+        total = max(1, self.wire.total_bytes)
+        for rank in range(m.shape[0]):
+            M.log_step(rank + 1, step, float(m[rank, 0]), timer.mean_step_s,
+                       cum_mb * self.wire.up_bytes / total,
+                       cum_mb * self.wire.down_bytes / total,
+                       float(m[rank, 1]))
+
+    def _run_steps(self, start_step, steps_target, batches, timer, history,
+                   rows):
+        """One host dispatch per step; metrics are read back (which waits
+        for the device) only at the first, due-log and last steps, the
+        steps between with them."""
+        cfg = self.cfg
         last = (float("nan"), float("nan"))
-        batches = loader.global_batches(ds, cfg.batch_size, self.world.size,
-                                        seed=cfg.seed + start_step,
-                                        feed=cfg.feed)
-        window_t0, window_n = None, 0
+        window_t0, window_n, pending = None, 0, []
         for step in range(start_step, steps_target):
             timer.tic()
-            x, y = self._to_device(*next(batches))
+            x, y = next(batches)
             timer.toc_data()
             if window_t0 is None:
                 window_t0 = time.perf_counter()
                 data_mark = timer.data_s
-            step_metrics = self.train_step(self.state, x, y, self.base_key)
+            pending.append(self.train_step(self.state, x, y, self.base_key))
             window_n += 1
             first = step == start_step
             due_log = step % cfg.log_every == 0
             if not (first or due_log or step == steps_target - 1):
                 continue
-            m = step_metrics.cpu().numpy()  # [W, 3]; waits for the device
+            rows.append(torch.stack(pending).cpu().numpy())  # waits
+            pending = []
+            m = rows[-1][-1]  # [W, 3]
             elapsed = time.perf_counter() - window_t0 - (timer.data_s - data_mark)
             if first:
                 timer.compile_s += elapsed
@@ -163,19 +240,66 @@ class Trainer:
             window_t0, window_n = None, 0
             last = (float(m[:, 0].mean()), float(m[:, 1].mean()))
             if due_log:
-                cum_mb = self.wire.per_step_bytes * (step + 1) / 1e6
-                total = max(1, self.wire.total_bytes)
-                for rank in range(m.shape[0]):
-                    M.log_step(rank + 1, step, float(m[rank, 0]),
-                               timer.mean_step_s,
-                               cum_mb * self.wire.up_bytes / total,
-                               cum_mb * self.wire.down_bytes / total,
-                               float(m[rank, 1]))
+                self._log_row(step, m, timer)
                 history.append((step, last[0], last[1]))
-        return TrainResult(steps=steps_target, final_loss=last[0],
-                           final_top1=last[1], mean_step_s=timer.mean_step_s,
-                           compile_s=timer.compile_s, wire=self.wire,
-                           history=history, timing=timer.as_dict())
+        return last
+
+    def _run_windows(self, start_step, steps_target, split, timer, history,
+                     rows):
+        """One host launch per K steps (``--scan-window``; the reference's
+        ``_run_windows``, ``loop.py:731``). Windows are launched without
+        waiting, and the metrics (``[K, W, 3]`` per window) are read back
+        only at log points, after at most ``read_period`` steps, and at
+        the end; every due step's row is logged. A tail shorter than K runs
+        as per-step dispatches. The first group is the warm-up window and
+        counts as compile time, as do the graph captures."""
+        cfg = self.cfg
+        k_win = self.scan_window
+        data, labels = split
+        last = (float("nan"), float("nan"))
+        read_period = max(k_win, min(cfg.log_every, 32))
+        pending, group_t0, first = [], None, True
+        step = start_step
+        while step < steps_target:
+            k = min(k_win, steps_target - step)
+            if group_t0 is None:
+                group_t0 = time.perf_counter()
+                capture_mark = self.window_step.capture_s
+            if k == k_win:
+                stacked = self.window_step(self.state, data, labels,
+                                           self.base_key)
+            else:
+                stacked = torch.stack([
+                    self.train_step(self.state, data, labels, self.base_key)
+                    for _ in range(k)])
+            pending.append((step, k, stacked))
+            step += k
+            due_log = any(s % cfg.log_every == 0 for s in range(step - k, step))
+            n_pending = sum(p[1] for p in pending)
+            if not (first or due_log or n_pending >= read_period
+                    or step >= steps_target):
+                continue
+            mats = [(s0, st.cpu().numpy()) for s0, _, st in pending]
+            elapsed = time.perf_counter() - group_t0
+            captured = self.window_step.capture_s - capture_mark
+            if first:
+                timer.compile_s += elapsed
+                first = False
+            else:
+                timer.compile_s += captured
+                timer.add_window(elapsed - captured, n_pending)
+            group_t0, pending = None, []
+            rows += [m_all for _, m_all in mats]
+            for s0, m_all in mats:
+                for j in range(m_all.shape[0]):
+                    if (s0 + j) % cfg.log_every:
+                        continue
+                    self._log_row(s0 + j, m_all[j], timer)
+                    history.append((s0 + j, float(m_all[j, :, 0].mean()),
+                                    float(m_all[j, :, 1].mean())))
+            m_last = mats[-1][1][-1]
+            last = (float(m_last[:, 0].mean()), float(m_last[:, 1].mean()))
+        return last
 
     @torch.no_grad()
     def evaluate(self, synthetic: Optional[bool] = None) -> dict:

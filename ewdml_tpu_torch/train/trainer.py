@@ -18,7 +18,10 @@ Method dispatch (Final Report pp.4-6):
 The JAX package compiles this as one ``shard_map``-ed program; here it is
 a plain Python step over the W workers of a :class:`LocalWorld`, and it
 updates the state in place. Keys and the per-rank dropout stream derive
-from the same chain as in the JAX package (``utils/prng.py``).
+from the same chain as in the JAX package (``utils/prng.py``). Under
+``--feed device`` the step gathers its batches from the device-resident
+split (``data/device_feed.py``), and ``make_window_step`` runs K steps per
+host launch (``train/window.py``; one CUDA graph on the GPU).
 """
 
 from __future__ import annotations
@@ -32,13 +35,17 @@ from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
                                          validate_collective, validate_overlap,
                                          validate_server_agg)
 from ewdml_tpu_torch.core.world import LocalWorld
+from ewdml_tpu_torch.data import device_feed
 from ewdml_tpu_torch.data.datasets import _SPECS
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
+from ewdml_tpu_torch.models.layers import Dropout
 from ewdml_tpu_torch.ops import make_compressor
 from ewdml_tpu_torch.ops.none import NoneCompressor
 from ewdml_tpu_torch.parallel import collectives
 from ewdml_tpu_torch.train.state import TrainState, leaf_params
+from ewdml_tpu_torch.train.window import WindowStep
 from ewdml_tpu_torch.utils import prng
+from ewdml_tpu_torch.utils.keytable import HostKeys
 
 #: Key tags of the JAX step (``trainer.py:236``).
 RELAY_TAG = 0x5EED
@@ -54,6 +61,10 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, ks=(1, 5)):
     order = torch.argsort(-logits, dim=1, stable=True)
     return [(order[:, :k] == labels[:, None]).any(dim=1).float().mean()
             for k in ks]
+
+
+def has_dropout(model: torch.nn.Module) -> bool:
+    return any(isinstance(m, Dropout) for m in model.modules())
 
 
 def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
@@ -73,8 +84,6 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
         (cfg.overlap != "off", "--overlap bucket"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
         (cfg.lossy_weights_down, "--lossy-weights-down"),
-        (cfg.feed == "device", "--feed device (and make_window_step)"),
-        (cfg.scan_window > 1, "--scan-window (make_window_step)"),
         (cfg.precision_policy != "f32",
          f"--precision-policy {cfg.precision_policy}"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
@@ -120,13 +129,19 @@ def _check_async_supported(cfg: TrainConfig) -> None:
                 f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
 
 
-def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
-                    world: LocalWorld, compressor=None):
-    """Build ``step(state, images, labels, key) -> metrics [W, 3]``.
+def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
+                    world: LocalWorld, compressor=None, device_augment=None):
+    """Build ``body(state, images, labels, keys) -> metrics [W, 3]``, the
+    one step that the per-step dispatch and the window both run.
 
-    ``images``/``labels`` are the global batch on the world's device,
-    worker w's shard at rows ``[w * B, (w + 1) * B)``. The state is updated
-    in place and its step advanced."""
+    ``keys`` is the step's key source (``utils/keytable``): host values, or
+    a window's key table. Under ``--feed device`` ``images``/``labels`` are
+    the whole device-resident split and each worker gathers its own batch
+    (``data/device_feed``); otherwise they are the global batch on the
+    world's device, worker w's shard at rows ``[w * B, (w + 1) * B)``. The
+    state is updated in place (residuals and statistics included, so a CUDA
+    graph of the step finds its state where it left it) and its step
+    advanced."""
     check_supported(cfg)
     if compressor is None:
         compressor = make_compressor(cfg.compress_grad, cfg.quantum_num,
@@ -158,6 +173,10 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
     if spec is not None:
         norm_consts = (torch.tensor(spec["mean"], dtype=torch.float32, device=device),
                        torch.tensor(spec["std"], dtype=torch.float32, device=device))
+    if device_augment is None:
+        device_augment = bool(spec and spec["augment"] and not cfg.synthetic_data)
+    feeds = {}  # base key -> DeviceFeed
+    dropout = has_dropout(model)
 
     def normalize(images: torch.Tensor) -> torch.Tensor:
         # The u8 feed ships raw pixels and normalizes here: (x/255 - m)/s.
@@ -170,11 +189,13 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
 
     def compute_ctx():
         if cfg.bf16_compute:
-            return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
+            # No cast cache: a captured window re-casts every step, as the
+            # per-step path does.
+            return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
+                                  cache_enabled=False)
         return contextlib.nullcontext()
 
-    def exchange(grads, step, key, return_own=False):
-        skey = prng.step_key(key, step)
+    def exchange(grads, step, skey, return_own=False):
         if dense:
             if fused_q:
                 # The int8-wire ring; its hops draw from the step key,
@@ -189,19 +210,32 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             return_own_decompressed=return_own, step=step, fuse=fuse,
             bucket_bytes=bucket_bytes)
 
-    def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
-                key) -> torch.Tensor:
+    def worker_batches(images, labels, step, keys):
+        w_n = world.size
+        if cfg.feed == "device":
+            feed = feeds.get(keys.base)
+            if feed is None:
+                feed = feeds[keys.base] = device_feed.DeviceFeed(
+                    keys.base, images.shape[0], cfg.batch_size, w_n,
+                    device_augment)
+            return feed.batches(images, labels, step, keys)
+        per = images.shape[0] // w_n
+        return [(images[r * per:(r + 1) * per], labels[r * per:(r + 1) * per])
+                for r in range(w_n)]
+
+    def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+             keys) -> torch.Tensor:
         step = state.step
         w_n = world.size
-        per = images.shape[0] // w_n
-        skey = prng.step_key(key, step)
+        skey = keys.step_key(step)
         grads, rows = [], []
+        batches = worker_batches(images, labels, step, keys)
         for r, ws in enumerate(state.workers):
-            x = normalize(images[r * per:(r + 1) * per])
-            y = labels[r * per:(r + 1) * per].long()
-            dkey = prng.fold_in(skey, r)  # the per-rank dropout stream
-            gen = torch.Generator(device=device)
-            gen.manual_seed((dkey[0] << 32) | dkey[1])
+            x = normalize(batches[r][0])
+            y = batches[r][1].long()
+            # The per-rank dropout stream (a model without dropout takes none).
+            gen = (prng.generator(prng.fold_in(skey, r), device)
+                   if dropout else None)
             ws.model.zero_grad(set_to_none=True)
             with compute_ctx():
                 logits = ws.model(x, train=True, generator=gen)
@@ -220,17 +254,18 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
         elif ef:
             g_eff = [[g + res for g, res in zip(grads[r], ws.residual)]
                      for r, ws in enumerate(state.workers)]
-            avg, own = exchange(g_eff, step, key, return_own=True)
+            avg, own = exchange(g_eff, step, skey, return_own=True)
             # K-of-N: a rank whose payload was not accepted this step keeps
             # its whole g_eff as the residual.
             k = cfg.num_aggregate if 0 < cfg.num_aggregate < w_n else w_n
-            for r, ws in enumerate(state.workers):
-                accepted = ((r - step) % w_n) < k
-                ws.residual = [ge - o if accepted else ge
-                               for ge, o in zip(g_eff[r], own[r])]
+            with torch.no_grad():
+                for r, ws in enumerate(state.workers):
+                    accepted = ((r - step) % w_n) < k
+                    for res, ge, o in zip(ws.residual, g_eff[r], own[r]):
+                        res.copy_(ge - o if accepted else ge)
             grads_used = [avg] * w_n
         else:
-            grads_used = [exchange(grads, step, key)] * w_n
+            grads_used = [exchange(grads, step, skey)] * w_n
 
         for r, ws in enumerate(state.workers):
             params = leaf_params(ws.model, specs)
@@ -238,15 +273,58 @@ def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             optimizer.update(g_torch, ws.opt_state, params)
 
         if cfg.sync_every > 1 and is_sync:
-            best = collectives.adopt_best_worker(
-                [leaf_params(ws.model, specs) for ws in state.workers],
-                metrics[:, 0])
             with torch.no_grad():
+                best = collectives.adopt_best_worker(
+                    [leaf_params(ws.model, specs) for ws in state.workers],
+                    metrics[:, 0])
                 for ws in state.workers:
                     for p, b in zip(leaf_params(ws.model, specs), best):
-                        if p is not b:
-                            p.copy_(b)
+                        p.copy_(b)
         state.step = step + 1
         return metrics
 
+    return body
+
+
+def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
+                    world: LocalWorld, compressor=None, device_augment=None):
+    """Build ``step(state, images, labels, key) -> metrics [W, 3]``: one
+    step dispatched from the host, its keys host values derived from the
+    base ``key``. ``images``/``labels`` as for the step body (under
+    ``--feed device`` the whole split). The state is updated in place and
+    its step advanced."""
+    body = _make_step_body(model, optimizer, cfg, world, compressor,
+                           device_augment)
+
+    def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+                key) -> torch.Tensor:
+        return body(state, images, labels, HostKeys(key))
+
     return step_fn
+
+
+def make_window_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
+                     world: LocalWorld, window: int, device_augment=None):
+    """The multi-step window (``trainer.py:500``): one host launch runs
+    ``window`` training steps. Returns a :class:`~ewdml_tpu_torch.train.
+    window.WindowStep`, ``(state, data, labels_all, key) -> metrics
+    [K, W, 3]``, row k what the per-step dispatch at ``state.step + k``
+    returns, bit for bit. Requires ``--feed device``: a streaming feed ships
+    a host batch per step."""
+    window = int(window)
+    if window < 1:
+        raise ValueError(f"scan window must be >= 1, got {window}")
+    if cfg.feed != "device":
+        raise ValueError(
+            "make_window_step requires --feed device: the streaming feeds "
+            "(u8/f32) receive one host-fed batch per step, so K steps "
+            "cannot fold into one launch (resolve_scan_window forces K=1 "
+            "there)")
+    if cfg.adapt != "off":
+        raise ValueError(
+            "make_window_step is incompatible with --adapt: decision "
+            "boundaries are host work between launches "
+            "(resolve_scan_window forces K=1 for adaptive runs)")
+    body = _make_step_body(model, optimizer, cfg, world,
+                           device_augment=device_augment)
+    return WindowStep(body, cfg, world, window, dropout=has_dropout(model))

@@ -8,10 +8,17 @@ run and a JAX run with the same seed quantize with the same random bits.
 
 The threefry rounds run as uint32 arithmetic on int64 tensors (every
 intermediate is masked back to 32 bits), on whatever device the draw is for.
+
+A :class:`Key` is a key of a step bound to a :class:`~ewdml_tpu_torch.utils.
+keytable.KeyTable`: it remembers how it derives from its step, and the
+draws it feeds read its words (or its murmur seed) from the table's device
+buffer instead of taking them as host constants, so a CUDA graph that
+captured the draws replays them for any later step.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -43,9 +50,30 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+class Key(tuple):
+    """The words ``(k0, k1)`` of a key, with ``table`` (the
+    :class:`~ewdml_tpu_torch.utils.keytable.KeyTable` it is bound to) and
+    ``path`` (how the table derives it again for another step)."""
+
+    def __new__(cls, words, table, path):
+        k = super().__new__(cls, (int(words[0]), int(words[1])))
+        k.table, k.path = table, path
+        return k
+
+
 def fold_in(k: tuple, data: int) -> tuple:
     """``jax.random.fold_in``: threefry of the counter pair ``(0, data)``."""
-    return threefry2x32(k[0], k[1], 0, int(data) & _MASK)
+    data = int(data) & _MASK
+    words = threefry2x32(k[0], k[1], 0, data)
+    if isinstance(k, Key):
+        return Key(words, k.table, k.path + (data,))
+    return words
+
+
+def split(k: tuple, num: int = 2) -> tuple:
+    """``jax.random.split`` (partitionable): key i is threefry of the
+    counter pair ``(0, i)``, which is ``fold_in(k, i)``."""
+    return tuple(fold_in(k, i) for i in range(num))
 
 
 def step_key(base: tuple, step: int) -> tuple:
@@ -70,21 +98,94 @@ def seed_from_key(k: tuple) -> int:
     return w - (1 << 32) if w >= (1 << 31) else w
 
 
+def seed_tensor(k: tuple, device) -> torch.Tensor:
+    """The murmur seed of ``k`` (:func:`seed_from_key`) as an int32 ``[1]``
+    tensor on ``device``, the kernels' seed argument: a slot of the key
+    table for a :class:`Key`, else a tensor filled on the device (no
+    host-to-device copy)."""
+    if isinstance(k, Key):
+        return k.table.seed(k)
+    return torch.full((1,), seed_from_key(k), dtype=torch.int32, device=device)
+
+
+def key_words(k: tuple):
+    """The two words a draw takes: Python ints, or for a :class:`Key` 0-d
+    int64 tensors read from the key table."""
+    if isinstance(k, Key):
+        return k.table.words(k)
+    return k[0], k[1]
+
+
+def generator(k: tuple, device) -> torch.Generator:
+    """The ``torch.Generator`` of a dropout stream, seeded from both words
+    of ``k`` (for a :class:`Key`, the table's, reseeded before each replay)."""
+    if isinstance(k, Key):
+        return k.table.generator(k)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((k[0] << 32) | k[1])
+    return gen
+
+
 def random_bits(k: tuple, n: int, device) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` under the partitionable layout:
     element i is ``y0 ^ y1`` of threefry(k, (i >> 32, i & mask)). Returned as
     int64 holding uint32 values."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK)
+    k0, k1 = key_words(k)
+    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
     return y0 ^ y1
 
 
 def uniform(k: tuple, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1): the top 23 bits
     become the mantissa of a float in [1, 2), minus one (exact)."""
+    bits = random_bits(k, _numel(shape), device)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return f.reshape(tuple(shape))
+
+
+def _numel(shape) -> int:
     n = 1
     for d in shape:
         n *= int(d)
-    bits = random_bits(k, n, device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(tuple(shape))
+    return n
+
+
+def permutation(k: tuple, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: ``ceil(3 ln n / ln(2^32 - 1))``
+    rounds, each a split, 32 random bits per element and a stable sort of
+    the elements by their bits (``lax.sort_key_val``; ties among the bits
+    keep their order, so stability decides the result). int64 ``[n]``."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, n, device), stable=True).indices
+        x = x.index_select(0, order)
+    return x
+
+
+def randint(k: tuple, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32): two 32-bit
+    draws from a split, combined modulo the span in uint32 arithmetic as
+    jax does (``hi % span * (2^32 % span) + lo % span``, then mod span);
+    ``minval`` where ``maxval <= minval``."""
+    lo32, hi32 = -(1 << 31), (1 << 31) - 1
+    if not (lo32 <= minval <= hi32 and lo32 <= maxval <= hi32):
+        raise ValueError("randint takes int32 bounds")
+    k1, k2 = split(k)
+    n = _numel(shape)
+    hi, lo = random_bits(k1, n, device), random_bits(k2, n, device)
+    span = max(1, maxval - minval)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    off = (off & _MASK) % span
+    return (off + minval).to(torch.int32).reshape(tuple(shape))
+
+
+def bernoulli(k: tuple, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform < p`` in float32."""
+    return uniform(k, shape, device) < float(np.float32(p))

@@ -145,6 +145,33 @@ def test_dense_allreduce_mean_matches():
 
 
 def test_adopt_best_worker_takes_the_first_lowest_loss():
-    params = [[torch.full((3,), float(w))] for w in range(W)]
+    # The selection stays on the device: new tensors holding worker 1's
+    # values (the first of the two lowest losses), never worker 2's.
+    params = [[torch.full((3,), float(w)), torch.full((2, 2), 10.0 + w)]
+              for w in range(W)]
     best = tcoll.adopt_best_worker(params, torch.tensor([0.5, 0.2, 0.2, 0.9]))
-    assert best is params[1]
+    assert len(best) == 2
+    assert torch.equal(best[0], params[1][0])
+    assert torch.equal(best[1], params[1][1])
+
+
+def test_take_payloads_takes_rows_in_order_without_an_index_tensor(
+        monkeypatch):
+    # K-of-N keeps origins (step + j) % W in that order; the rows are taken
+    # with Python ints, so no index tensor is copied from the host (which a
+    # CUDA graph could not hold).
+    from ewdml_tpu_torch.ops.bytes import take_payloads
+    from ewdml_tpu_torch.ops.qsgd import QSGDPayload
+
+    levels = torch.arange(W * 6, dtype=torch.int8).reshape(W, 6)
+    norms = torch.arange(W, dtype=torch.float32) + 0.5
+    gathered = QSGDPayload(levels=levels, norm=norms, shape=(6,), s=127)
+
+    def no_tensor(*a, **k):
+        raise AssertionError("take_payloads built a tensor from the host")
+
+    monkeypatch.setattr(torch, "tensor", no_tensor)
+    got = take_payloads(gathered, [3, 0])
+    assert torch.equal(got.levels, levels[[3, 0]])
+    assert torch.equal(got.norm, norms[[3, 0]])
+    assert (got.shape, got.s) == ((6,), 127)

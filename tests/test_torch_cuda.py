@@ -308,3 +308,185 @@ def test_lenet_rings_run_through_the_kernels(cuda, kw, units):
     if "collective" in kw:
         assert trainer.world.ppermute_bytes == \
             3 * res.wire.per_rank_exchange_bytes
+
+
+# -- the seed from device memory, and the captured window ------------------------
+
+def _table_seed(seed: int, slot: int = 3) -> torch.Tensor:
+    """``seed`` as a key table holds it: one int32 slot of a device buffer."""
+    buf = torch.zeros(8, dtype=torch.int32, device="cuda")
+    buf[slot] = seed
+    return buf[slot:slot + 1]
+
+
+@pytest.mark.parametrize("case", ["quantize", "quantize_4096", "encode_596",
+                                  "encode_144", "hop_144", "hop_1436"])
+def test_table_seed_kernels_are_the_plain_versions(cuda, case):
+    """The three drawing kernels with their seed read from a table slot, at
+    the shapes the paths give them, against their plain versions given the
+    same slot and given the seed as an int."""
+    n, block = {"quantize": (2_359_296, None), "quantize_4096": (2_359_296, 4096),
+                "encode_596": (2_441_216, 4096), "encode_144": (144 * 4096, 4096),
+                "hop_144": (144 * 4096, 4096),
+                "hop_1436": (1436 * 4096, 4096)}[case]
+    x = torch.randn(n, device="cuda", generator=cuda) * 1e-2
+    lv = torch.randint(-127, 128, (n,), device="cuda",
+                       generator=cuda).to(torch.int8)
+    nm = torch.rand(-(-n // 4096), device="cuda", generator=cuda)
+    for seed in (0, -77, 2**31 - 1):
+        st = _table_seed(seed)
+        if case.startswith("quantize"):
+            norm = _norms(x, block)
+            got = kernels.qsgd_quantize(x, norm, st, 127, block=block)
+            want = [kernels.qsgd_quantize_ref(x, norm, s, 127, block=block)
+                    for s in (st, seed)]
+        elif case.startswith("encode"):
+            got = kernels.chunk_encode(x, st, 127)
+            want = [kernels.chunk_encode_ref(x, s, 127) for s in (st, seed)]
+        else:
+            got = kernels.dequant_acc_requant(lv, nm, x, st, 127, scale=0.25)
+            want = [kernels.dequant_acc_requant_ref(lv, nm, x, s, 127,
+                                                    scale=0.25)
+                    for s in (st, seed)]
+        for w in want:
+            if isinstance(got, tuple):
+                assert torch.equal(got[0], w[0]) and _bits_equal(got[1], w[1])
+            else:
+                assert torch.equal(got, w), (case, seed)
+
+
+def test_captured_kernels_draw_each_replays_seed(cuda):
+    """A graph that captured the three launches draws from whatever seeds
+    the table holds at each replay."""
+    n = 144 * 4096
+    x = torch.randn(n, device="cuda", generator=cuda) * 1e-2
+    lv = torch.randint(-127, 128, (n,), device="cuda",
+                       generator=cuda).to(torch.int8)
+    nm = torch.rand(n // 4096, device="cuda", generator=cuda)
+    norm = torch.linalg.vector_norm(x)
+    table = torch.zeros(3, dtype=torch.int32, device="cuda")
+
+    def launch():
+        return (kernels.qsgd_quantize(x, norm, table[0:1], 127),
+                kernels.chunk_encode(x, table[1:2], 127),
+                kernels.dequant_acc_requant(lv, nm, x, table[2:3], 127))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, (el, en), (hl, hn) = launch()
+    for seeds in ((1, 2, 3), (-5, 7, 2**31 - 1)):
+        table.copy_(torch.tensor(seeds, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(q, kernels.qsgd_quantize_ref(x, norm, seeds[0], 127))
+        rl, rn = kernels.chunk_encode_ref(x, seeds[1], 127)
+        assert torch.equal(el, rl) and _bits_equal(en, rn)
+        rl, rn = kernels.dequant_acc_requant_ref(lv, nm, x, seeds[2], 127)
+        assert torch.equal(hl, rl) and _bits_equal(hn, rn)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """Bit-equal runs on the card need deterministic kernels (cuDNN's
+    weight gradients and ``index_add_`` sum with atomics otherwise)."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("kw", [
+    dict(network="LeNet", dataset="MNIST", method=4),
+    dict(network="LeNet", dataset="MNIST", method=6, topk_ratio=0.1,
+         sync_every=4),
+    dict(network="LeNet", dataset="MNIST", method=4, num_aggregate=2),
+    dict(network="VGG11", dataset="Cifar10", method=5, topk_ratio=0.01),
+    dict(network="LeNet", dataset="MNIST", method=4, bf16_compute=True),
+], ids=["lenet_m4", "lenet_m6", "lenet_kofn", "vgg_m5_dropout",
+        "lenet_m4_bf16"])
+def test_captured_window_replays_match_per_step(deterministic, kw):
+    """12 steps at K = 4 (a warm-up window, a capture replayed, a replay)
+    against 12 per-step dispatches: every metrics row, parameter, BatchNorm
+    statistic and momentum buffer bit-equal, and as many kernel launches."""
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    kw = dict(kw)
+    sync_every = kw.pop("sync_every", None)
+    kw.setdefault("bf16_compute", False)
+    runs = []
+    for k in (1, 4):
+        cfg = TrainConfig(batch_size=32, max_steps=12, epochs=100,
+                          num_workers=4, log_every=1000, synthetic_data=True,
+                          feed="device", scan_window=k, **kw)
+        if sync_every:
+            cfg.sync_every = sync_every   # after the Method 6 preset
+        t = Trainer(cfg)
+        kernels.reset_launches()
+        res = t.train()
+        torch.cuda.synchronize()
+        runs.append((t, res, dict(kernels.LAUNCHES)))
+    (ref, rres, rl), (win, wres, wl) = runs
+    ws = win.window_step
+    assert (ws.eager_windows, ws.captures, ws.replays) == (1, 1, 2)
+    assert torch.equal(torch.from_numpy(wres.rows), torch.from_numpy(rres.rows))
+    assert wl == rl and sum(rl.values()) > 0
+    for a, b in zip(ref.state.workers, win.state.workers):
+        for (name, x), (_, y) in zip(a.model.state_dict().items(),
+                                     b.model.state_dict().items()):
+            assert torch.equal(x, y), name
+        for x, y in zip(a.opt_state.momentum_buf, b.opt_state.momentum_buf):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method=6, topk_ratio=0.1, sync_every=4),
+    dict(method=4, num_aggregate=2),
+], ids=["m6", "kofn"])
+def test_captured_window_off_a_period_boundary(deterministic, kw):
+    """One per-step dispatch, then three windows of K = 4 starting at steps
+    1, 5 and 9: off the sync period and the K-of-N rotation, so the graph
+    is captured for phase 1 and syncs (M6) inside the window. Against 13
+    per-step dispatches, bit for bit."""
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    kw = dict(kw)
+    sync_every = kw.pop("sync_every", None)
+    trainers = []
+    for k in (1, 4):
+        cfg = TrainConfig(network="LeNet", dataset="MNIST", batch_size=32,
+                          epochs=100, num_workers=4, bf16_compute=False,
+                          synthetic_data=True, feed="device", scan_window=k,
+                          **kw)
+        if sync_every:
+            cfg.sync_every = sync_every
+        trainers.append(Trainer(cfg))
+    ref, win = trainers
+    rx, ry = ref._device_split(ref._train_split())
+    ref_rows = torch.stack([ref.train_step(ref.state, rx, ry, ref.base_key)
+                            for _ in range(13)])
+    x, y = win._device_split(win._train_split())
+    rows = [win.train_step(win.state, x, y, win.base_key)[None]]
+    ws = win.window_step
+    ws.stream.wait_stream(torch.cuda.current_stream())
+    with ws.stream_context():
+        rows += [ws(win.state, x, y, win.base_key) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(ws.stream)
+    assert (ws.eager_windows, ws.captures, ws.replays) == (1, 1, 2)
+    assert ws.phase(5) == ((1, 0) if sync_every else (0, 1))
+    assert torch.equal(torch.cat(rows), ref_rows)
+    for a, b in zip(ref.state.workers, win.state.workers):
+        for (name, p), (_, q) in zip(a.model.state_dict().items(),
+                                     b.model.state_dict().items()):
+            assert torch.equal(p, q), name
