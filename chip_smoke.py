@@ -50,7 +50,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (above the hop's 264-block switch), qsgd_quantize and dequant_mean at
    every unit, among them 1 069 066 (2 mod 4, so rows 1 and 3 of
    dequant_mean's [4, n] start on 2-byte boundaries), and int_accumulate
-   at every ResNet50 leaf of at least ``MIN_ELEMS`` elements.
+   at every ResNet50 leaf of at least ``MIN_ELEMS`` elements; and
+   acc_decode per tensor at every leaf the homomorphic apply decodes (the
+   34 of ResNet50, the 8 of VGG11-BN), each bit-equal there.
    ``--kernels-only`` stops here.
 3. Train VGG11-BN at full width (CIFAR-10 shapes, synthetic data, batch
    128 per worker, W = 4 workers emulated on the card, f32 with TF32 off)
@@ -95,8 +97,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    leaves and rounds say, report only finite losses, and receive exactly
    the bytes of the wire plan's up-link in the pushes' frames.
 
-Every kernel's launch count over the runs of phases 3, 3b, 3c and 4 must be
-above 0.
+5. Checkpoints, resume, the polling evaluator and the trace layer on
+   VGG11-BN at the same shapes, ``--feed device`` under deterministic
+   kernels: M4 per step (8 + 8 steps, ``--eval-freq 8``), M6 per step saved
+   inside its local phase (10 + 10, ``--eval-freq 10``, sync period 20, a
+   full ``[W, ...]`` blob whose workers differ) and M4 windowed (K = 8,
+   8 + 8). Each run stopped at its save, restored in a fresh Trainer and
+   carried on must equal the uninterrupted run bit for bit (parameters,
+   BatchNorm statistics, momentum, residuals, metrics rows), and the
+   restored tensors the saved ones; the windowed run's fresh Trainer has
+   captured its graph before the restore and replays it on the restored
+   state, under ``--profile-dir`` (the Chrome trace must hold
+   ``qsgd_quantize_kernel`` and ``dequant_mean_kernel``; the share of the
+   profiled window some kernel runs is printed). The M4 run's stopped
+   Trainer runs with ``--trace-dir`` (the shard's span counts are checked),
+   and ``python -m ewdml_tpu_torch.train.evaluator --max-polls 1`` on its
+   checkpoint must give worker 0's loss, top-1 and top-5 to 1e-6 relative.
+   Phase 4's homomorphic VGG11-BN run traces too (its ``ps/*`` and
+   ``worker/grad`` spans are counted). Printed with the card's name and
+   power limit: the checkpoint's size, save and restore seconds (VGG11-BN,
+   and ResNet50 at W = 4), and the FLOPs of one VGG11-BN M1 step
+   (``torch.utils.flop_counter``) with its MFU at phase 3c's windowed step
+   time against the FP32 peak.
+
+Every kernel's launch count over the runs of phases 3, 3b, 3c, 4 and 5 must
+be above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -108,12 +133,16 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+# The card's memory rate in bytes per second, from the data-sheet table of
+# ewdml_tpu_torch/train/flops.py (3.35e12 for an H100 SXM); set by main().
+hbm_bytes_per_s = None
 # Instructions per clock: 132 SMs x 4 warp schedulers x 32 lanes (H100
 # SXM). Times the SM clock nvidia-smi reports as clocks.max.sm, this is the
 # rate the operations side of each bound is counted against (33.4e12 per
@@ -160,6 +189,17 @@ OPS_PER_ELEM = {"qsgd_quantize": 25, "dequant_mean": 2 * WORLD + 1,
                 "acc_decode": 2}
 
 
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    from ewdml_tpu_torch.utils import provenance
+
+    line = provenance.smi_name_power()
+    if line is None:
+        raise RuntimeError("nvidia-smi did not give the card's name and "
+                           "power limit")
+    return line
+
+
 def sm_clock_mhz() -> float:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -168,7 +208,7 @@ def sm_clock_mhz() -> float:
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / hbm_bytes_per_s * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -663,10 +703,10 @@ def apply_leaves(network: str) -> dict:
 
 def reduce_rows(torch, kernels, timer, quant, network, g) -> tuple:
     """dequant_mean at every unit M2/M4 decodes (per tensor, and blockwise
-    4096 at the largest) and int_accumulate at every leaf the homomorphic
-    apply sums, W = K = 4: each bit-equal to its plain version there, then
-    timed."""
-    dequant, accumulate = [], []
+    4096 at the largest), and int_accumulate and acc_decode (per tensor) at
+    every leaf the homomorphic apply sums and decodes, W = K = 4: each
+    bit-equal to its plain version there, then timed."""
+    dequant, accumulate, decode = [], [], []
     for n, units in quant.items():
         lv = levels_on_card(torch, WORLD, n, g)
         for block in [None] + ([4096] if n == max(quant) else []):
@@ -691,9 +731,31 @@ def reduce_rows(torch, kernels, timer, quant, network, g) -> tuple:
                 KERNEL_NAMES["int_accumulate"], (WORLD + 4) * n,
                 OPS_PER_ELEM["int_accumulate"] * n, n=n,
                 per_step=f"x{leaves} per round"))
+            acc = kernels.int_accumulate(lv)
+            sc = torch.rand(1, device="cuda", generator=g) * 1e-3
+            same_decode(torch, kernels, acc, sc, f"k={WORLD} n={n}")
+            decode.append(shape_row(
+                timer, lambda acc=acc, sc=sc: kernels.acc_decode(acc, sc,
+                                                                 WORLD),
+                KERNEL_NAMES["acc_decode"], 8 * n + 4,
+                OPS_PER_ELEM["acc_decode"] * n, n=n,
+                per_step=f"x{leaves} per round"))
     finally:
         kernels.configure("auto")
-    return dequant, accumulate
+    return dequant, accumulate, decode
+
+
+def same_decode(torch, kernels, acc, sc, what) -> None:
+    """acc_decode bit-equal to its plain version, through the kernel."""
+    before = kernels.LAUNCHES["acc_decode"]
+    a = kernels.decode_sum(acc, sc, WORLD)
+    b = kernels.acc_decode_ref(acc, sc, WORLD)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["acc_decode"] != before + 1:
+        raise AssertionError(f"acc_decode {what} did not launch the kernel")
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"acc_decode {what}: {int((a != b).sum())} "
+                             "values differ from the plain version")
 
 
 def check_path_shapes(torch, kernels, timer, network: str) -> dict:
@@ -755,8 +817,8 @@ def check_path_shapes(torch, kernels, timer, network: str) -> dict:
             5 * n + 4 * blocks, OPS_PER_ELEM["chunk_encode"] * n,
             blocks=blocks, n=n, path=path, per_step=units * WORLD))
     out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
-    out["dequant_mean"], out["int_accumulate"] = reduce_rows(
-        torch, kernels, timer, quant, network, g)
+    out["dequant_mean"], out["int_accumulate"], out["acc_decode"] = \
+        reduce_rows(torch, kernels, timer, quant, network, g)
     return out
 
 
@@ -766,7 +828,7 @@ def on_card(row: dict) -> str:
         return "device not measured"
     rate = row["bytes"] / row["device_ms"] / 1e9  # TB/s
     return (f"device {row['device_ms']:.4f} ms ({rate:.2f} TB/s, "
-            f"{100 * rate * 1e12 / HBM_BYTES_PER_S:.0f}% of HBM)")
+            f"{100 * rate * 1e12 / hbm_bytes_per_s:.0f}% of HBM)")
 
 
 def alone_vs_bound(c: dict) -> str:
@@ -807,6 +869,9 @@ def print_path_shapes(shapes: dict, network: str) -> None:
               f"{row['per_step']} step: {timed(row)}", flush=True)
     for row in shapes["int_accumulate"]:
         print(f"shape {network} int_accumulate [{WORLD}, {row['n']}] "
+              f"{row['per_step']}: {timed(row)}", flush=True)
+    for row in shapes["acc_decode"]:
+        print(f"shape {network} acc_decode {row['n']} per tensor k={WORLD} "
               f"{row['per_step']}: {timed(row)}", flush=True)
     print(f"shapes {network}: " + json.dumps(shapes), flush=True)
 
@@ -888,7 +953,8 @@ def train_phase(torch, kernels, network: str) -> tuple:
                 "--synthetic-data", "--num-workers", str(WORLD),
                 "--batch-size", "128", "--topk-ratio", "0.01",
                 "--max-steps", str(steps), "--epochs", "100",
-                "--log-every", "1000", "--no-bf16", *flags]
+                "--log-every", "1000", "--no-bf16", "--eval-freq", "0",
+                *flags]
         trainer = Trainer(from_args(argv))
         trainer.world.ppermute_bytes = 0
         kernels.reset_launches()   # this run of the main path starts here
@@ -965,8 +1031,7 @@ def same_state(a, b, what: str) -> None:
         for (name, p), (_, q) in pairs:
             if not torch.equal(p, q):
                 raise AssertionError(f"{what}: worker {w} {name} differs "
-                                     "between the windowed and the per-step "
-                                     "run")
+                                     "between the two runs")
 
 
 def window_phase(torch, kernels) -> tuple:
@@ -993,7 +1058,7 @@ def window_phase(torch, kernels) -> tuple:
                         "--batch-size", "128", "--topk-ratio", "0.01",
                         "--max-steps", str(steps), "--epochs", "100",
                         "--log-every", "1000", "--no-bf16", "--feed",
-                        "device", *flags]
+                        "device", "--eval-freq", "0", *flags]
                 if window:
                     argv += ["--scan-window", str(window)]
                 trainer = Trainer(from_args(argv))
@@ -1071,6 +1136,29 @@ ASYNC_RUNS = {"VGG11": [
                           "--server-agg", "homomorphic"]),
 ]}
 ASYNC_STEPS = 4  # per worker
+ASYNC_TRACED = ("VGG11", "qsgd homomorphic")  # the run with --trace-dir
+
+
+def traced_spans(trace_dir: str, kind=None) -> dict:
+    """Shut the process's tracer down (flushing its shard) and count the
+    shard's events by name (of ``kind`` only, if given)."""
+    from ewdml_tpu_torch.obs import trace
+
+    trace.shutdown()
+    shards = [f for f in os.listdir(trace_dir) if f.startswith("shard-")]
+    if len(shards) != 1:
+        raise AssertionError(f"{trace_dir} holds shards {shards}, want one")
+    counts = {}
+    with open(os.path.join(trace_dir, shards[0])) as f:
+        meta = json.loads(f.readline())
+        if meta.get("kind") != "meta":
+            raise AssertionError(f"{shards[0]} has no meta line first")
+        for line in f:
+            ev = json.loads(line)
+            if kind is None or ev["kind"] == kind:
+                counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    shutil.rmtree(trace_dir)
+    return counts
 
 
 def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
@@ -1099,6 +1187,7 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
     from ewdml_tpu_torch.core.config import from_args
     from ewdml_tpu_torch.models import build_model
     from ewdml_tpu_torch.models.convert import leaf_specs
+    from ewdml_tpu_torch.obs.registry import MetricsRegistry
     from ewdml_tpu_torch.train.metrics import wire_plan
 
     specs = leaf_specs(build_model(network, 10, dataset="Cifar10"))
@@ -1110,10 +1199,15 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
                 "--num-aggregate", str(WORLD), "--batch-size", "128",
                 "--max-steps", str(WORLD * ASYNC_STEPS), "--fusion", "none",
                 *flags]
+        trace_dir = None
+        if (network, name) == ASYNC_TRACED:
+            trace_dir = tempfile.mkdtemp(prefix="ewdml_async_trace_")
+            argv += ["--trace-dir", trace_dir]
         cfg = from_args(argv)
+        reg = MetricsRegistry()
         kernels.reset_launches()   # this run of the main path starts here
         t0 = time.perf_counter()
-        _, stats = run_async(cfg)
+        _, stats = run_async(cfg, registry=reg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = dict(kernels.LAUNCHES)  # read just after it
@@ -1124,6 +1218,11 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
             raise AssertionError(f"async {name}: {stats.pushes} pushes and "
                                  f"{stats.updates} updates, want {pushes} "
                                  f"and {updates}")
+        gauges = reg.snapshot()["gauges"]
+        if (gauges["ps.pushes"], gauges["ps.updates"]) != (pushes, updates):
+            raise AssertionError(f"async {name}: the registry holds "
+                                 f"{gauges}, want {pushes} pushes and "
+                                 f"{updates} updates")
         per_round = 1 if cfg.server_agg == "homomorphic" else WORLD
         if stats.decode_count != per_round * stats.apply_rounds:
             raise AssertionError(f"async {name}: {stats.decode_count} decodes "
@@ -1142,6 +1241,15 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
         if stats.bytes_up != pushes * frame:
             raise AssertionError(f"async {name}: {stats.bytes_up} B up, the "
                                  f"wire plan's frames are {pushes} x {frame}")
+        if trace_dir is not None:
+            spans = traced_spans(trace_dir, "span")
+            want = {"ps/pull": pushes, "ps/push": pushes,
+                    "worker/grad": pushes, "ps/apply": updates}
+            if spans != want:
+                raise AssertionError(f"async {name}: trace spans {spans}, "
+                                     f"want {want}")
+            print(f"trace async {name}: network={network} spans={spans}",
+                  flush=True)
         runs[name] = dict(network=network, leaves=len(specs),
                           pushes=stats.pushes, updates=stats.updates,
                           decode_count=stats.decode_count,
@@ -1160,6 +1268,305 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
               flush=True)
         torch.cuda.empty_cache()
     return counts, runs
+
+
+# Phase 5: checkpoints, resume, the evaluator, the trace layer and the
+# profiler on VGG11-BN at full width, --feed device, deterministic kernels.
+# (name, steps before the save, steps in all, flags).
+RESUME_RUNS = [
+    ("M4", 8, 16, ["--method", "4", "--scan-window", "1",
+                   "--eval-freq", "8"]),
+    # Saved at step 10, inside the local phase of the 20-step sync period.
+    ("M6", 10, 20, ["--method", "6", "--scan-window", "1",
+                    "--eval-freq", "10"]),
+    ("M4 windowed", 8, 16, ["--method", "4", "--scan-window", "8",
+                            "--eval-freq", "8"]),
+]
+TRACE_SPANS = {"train/dispatch": 8, "train/compile": 1, "train/window": 1,
+               "train/checkpoint": 2, "eval/full_test": 1}
+
+
+def vgg_argv(steps: int, flags, train_dir: str, network: str = "VGG11"):
+    return ["--network", network, "--dataset", "Cifar10", "--synthetic-data",
+            "--num-workers", str(WORLD), "--batch-size", "128",
+            "--topk-ratio", "0.01", "--max-steps", str(steps), "--epochs",
+            "100", "--log-every", "1000", "--no-bf16", "--feed", "device",
+            "--train-dir", train_dir, *flags]
+
+
+def cpu_tree(tree):
+    """A worker tree's leaves copied to the host."""
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone()
+
+
+def same_tree(torch, a, b, what: str, path: str = "") -> None:
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{what}: keys differ at {path}")
+        for k in a:
+            same_tree(torch, a[k], b[k], what, f"{path}/{k}")
+    elif not torch.equal(a.cpu(), b.cpu()):
+        raise AssertionError(f"{what}: {path} differs")
+
+
+def blob_world(path: str) -> int:
+    """The worker count a checkpoint records (its arrays are not read)."""
+    import mmap
+
+    from ewdml_tpu_torch.utils.msgpack import Reader
+
+    with open(path, "rb") as f, \
+            mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        reader = Reader(mm, arrays=False)
+        try:
+            return int(reader.value()["world"])
+        finally:
+            reader.release()
+
+
+def kernel_share(profile_dir: str) -> dict:
+    """From a ``--profile-dir`` Chrome trace: the kernels' names and the
+    share of the profiled window (the first ``train/dispatch`` range's start
+    to the last kernel's end) during which some kernel runs."""
+    (name,) = os.listdir(profile_dir)
+    with open(os.path.join(profile_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") == "kernel" and "dur" in e)
+    starts = [float(e["ts"]) for e in events
+              if e.get("name") == "train/dispatch" and "dur" in e]
+    if not spans or not starts:
+        raise AssertionError(f"{name}: {len(spans)} kernels, "
+                             f"{len(starts)} train/dispatch ranges")
+    t0, t1 = min(starts), max(end for _, end in spans)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    shutil.rmtree(profile_dir)
+    return dict(share=busy / (t1 - t0), busy_ms=busy / 1e3,
+                window_ms=(t1 - t0) / 1e3, kernels=len(spans), names=names)
+
+
+def timed(fn) -> float:
+    """Seconds of one call of ``fn``, the card idle before and after."""
+    from ewdml_tpu_torch.utils import timing
+
+    timing.synchronize()
+    return timing.timed_window(fn, iters=1) / 1e3
+
+
+def run_evaluator(argv: list) -> dict:
+    """``python -m ewdml_tpu_torch.train.evaluator`` on the card, one poll;
+    its one ``validation`` line. TF32 is off there as here."""
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    out = subprocess.run(
+        [sys.executable, "-m", "ewdml_tpu_torch.train.evaluator", *argv,
+         "--max-polls", "1", "--eval-interval", "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"evaluator exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("validation ")]
+    if len(lines) != 1:
+        raise AssertionError(f"evaluator printed {lines}")
+    return json.loads(lines[0][len("validation "):])
+
+
+def resume_run(torch, kernels, counts, name, first, total, flags, root,
+               smi) -> dict:
+    """One run of phase 5: uninterrupted, and stopped at a save then
+    restored in a fresh Trainer and carried on; bit-equal. The windowed
+    run's fresh Trainer first trains on its own (capturing its graph), is
+    then restored in place and replays that graph on the restored state,
+    under ``--profile-dir``. The M4 per-step run's stopped Trainer traces
+    (``--trace-dir``), times a save and a restore, and its checkpoint is
+    evaluated by the polling evaluator in a second process."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train import checkpoint
+    from ewdml_tpu_torch.train.loop import Trainer
+    from ewdml_tpu_torch.train.state import state_tree
+
+    def run(trainer, max_steps=None):
+        kernels.reset_launches()   # this run of the main path starts here
+        res = trainer.train(max_steps)
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():  # read just after it
+            counts[k] += v
+        return res
+
+    what = f"resume {name}"
+    per_step_m4 = name == "M4"
+    windowed = "--scan-window" in flags and \
+        flags[flags.index("--scan-window") + 1] != "1"
+    out = {}
+    full = Trainer(from_args(vgg_argv(total, flags,
+                                      os.path.join(root, "full"))))
+    fres = run(full)
+    d = os.path.join(root, "stopped")
+    argv = vgg_argv(first, flags, d)
+    trace_dir = tempfile.mkdtemp(prefix="ewdml_trace_") if per_step_m4 \
+        else None
+    stopped = Trainer(from_args(argv + (["--trace-dir", trace_dir]
+                                        if trace_dir else [])))
+    sres = run(stopped)
+    path = checkpoint.latest_path(d)
+    if checkpoint.peek_step(path) != first:
+        raise AssertionError(f"{what}: the checkpoint is at step "
+                             f"{checkpoint.peek_step(path)}, not {first}")
+    world = blob_world(path)
+    saved = cpu_tree(state_tree(stopped.state.workers, stopped.specs,
+                                stacked=True))
+    if world != WORLD:  # VGG11-BN's statistics are per worker
+        raise AssertionError(f"{what}: a blob of world {world}")
+    leaf = saved["params"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    differ = not all(torch.equal(leaf[0], leaf[r]) for r in range(1, WORLD))
+    if name == "M6" and not differ:
+        raise AssertionError(f"{what}: the workers' parameters are equal "
+                             "inside the local phase")
+    if per_step_m4:
+        ref = stopped.evaluate()
+        spans = traced_spans(trace_dir)
+        if spans != TRACE_SPANS:
+            raise AssertionError(f"{what}: trace spans {spans}, want "
+                                 f"{TRACE_SPANS}")
+        out["spans"] = spans
+        print(f"trace {name}: network=VGG11 spans={spans}; {smi}",
+              flush=True)
+        out["save_s"] = timed(lambda: stopped._save_ckpt(first))
+        out["bytes"] = os.path.getsize(path)
+        got = run_evaluator(argv)
+        for key in ("loss", "top1", "top5"):
+            if abs(got[key] - ref[key]) > 1e-6 * abs(ref[key]):
+                raise AssertionError(f"{what}: the evaluator's {key} "
+                                     f"{got[key]} against {ref[key]}")
+        if got["step"] != first:
+            raise AssertionError(f"{what}: the evaluator read step "
+                                 f"{got['step']}")
+        out["evaluator"] = got
+        print(f"evaluator {name}: network=VGG11 step={got['step']} "
+              f"loss={got['loss']!r} top1={got['top1']!r} "
+              f"top5={got['top5']!r}, run_eval of worker 0 loss="
+              f"{ref['loss']!r} top1={ref['top1']!r} top5={ref['top5']!r}; "
+              f"{smi}", flush=True)
+    del stopped
+    if windowed:
+        pre = os.path.join(root, "pre")
+        resumed = Trainer(from_args(vgg_argv(total, flags, pre)))
+        run(resumed)
+        shutil.copyfile(path, os.path.join(pre, checkpoint.CKPT_BASENAME))
+        captures = resumed.window_step.captures
+    else:
+        resumed = Trainer(from_args(vgg_argv(total, flags, d)))
+    restore_s = timed(resumed.maybe_restore)
+    if resumed.state.step != first:
+        raise AssertionError(f"{what}: restored at {resumed.state.step}")
+    same_tree(torch, state_tree(resumed.state.workers, resumed.specs,
+                                stacked=True), saved,
+              f"{what}: restored against saved")
+    if per_step_m4:
+        out["restore_s"] = restore_s
+    if windowed:
+        replays = resumed.window_step.replays
+        resumed.cfg.profile_dir = tempfile.mkdtemp(prefix="ewdml_profile_")
+    rres = run(resumed)
+    if windowed:
+        ws = resumed.window_step
+        if ws.captures != captures or ws.replays != replays + 1:
+            raise AssertionError(f"{what}: {ws.captures - captures} "
+                                 "captures and "
+                                 f"{ws.replays - replays} replays after the "
+                                 "restore; want 0 and 1")
+        prof = kernel_share(resumed.cfg.profile_dir)
+        for kname in ("qsgd_quantize_kernel", "dequant_mean_kernel"):
+            if not any(kname in n for n in prof["names"]):
+                raise AssertionError(f"{what}: no {kname} in the profile")
+        out["kernel_share"] = prof["share"]
+        print(f"profile {name}: one replay of K=8 steps after the restore: "
+              f"kernels busy {100 * prof['share']:.1f}% of the profiled "
+              f"window ({prof['busy_ms']:.3f} of {prof['window_ms']:.3f} "
+              f"ms, {prof['kernels']} kernels); {smi}", flush=True)
+    same_state(full, resumed, what)
+    if not torch.equal(torch.from_numpy(fres.rows[first:]),
+                       torch.from_numpy(rres.rows)):
+        raise AssertionError(f"{what}: metrics rows after the restore differ")
+    out.update(first=first, total=total, world=world,
+               workers_differ=differ)
+    print(f"resume {name}: network=VGG11 {first}+{total - first} steps, "
+          f"blob world={world}, workers differ={differ}, bit_equal="
+          f"restored,params,stats,momentum,residuals,rows; {smi}",
+          flush=True)
+    return out
+
+
+def checkpoint_phase(torch, kernels, windows: dict, smi: str) -> tuple:
+    """Phase 5 (see the module docstring)."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train import flops
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {}
+    root = tempfile.mkdtemp(prefix="ewdml_ckpt_")
+    try:
+        for name, first, total, flags in RESUME_RUNS:
+            out[name] = resume_run(torch, kernels, counts, name, first,
+                                   total, flags, os.path.join(root, name),
+                                   smi)
+            torch.cuda.empty_cache()
+        m4 = out["M4"]
+        print(f"checkpoint VGG11 W={WORLD}: {m4['bytes']} B, save "
+              f"{m4['save_s']:.3f} s, restore {m4['restore_s']:.3f} s; "
+              f"{smi}", flush=True)
+        r50 = Trainer(from_args(vgg_argv(0, ["--method", "4"],
+                                         os.path.join(root, "r50"),
+                                         network="ResNet50")))
+        save_s = timed(lambda: r50._save_ckpt(0))
+        size = os.path.getsize(os.path.join(root, "r50", "model_step_"))
+        restore_s = timed(r50.maybe_restore)
+        out["ResNet50"] = dict(bytes=size, save_s=save_s,
+                               restore_s=restore_s)
+        print(f"checkpoint ResNet50 W={WORLD}: {size} B, save {save_s:.3f} "
+              f"s, restore {restore_s:.3f} s; {smi}", flush=True)
+        del r50
+        # The FLOPs of one VGG11-BN M1 step (W = 4 workers on this card),
+        # and its MFU at phase 3c's windowed step time.
+        m1 = Trainer(from_args(vgg_argv(1, ["--method", "1",
+                                            "--scan-window", "1",
+                                            "--eval-freq", "0"],
+                                        os.path.join(root, "m1"))))
+        x, y = m1._device_split(m1._train_split())
+        fl = flops.count_flops(m1.train_step, m1.state, x, y, m1.base_key)
+        step_s = windows["VGG11 M1"]["window_ms"] / 1e3
+        mfu = flops.mfu(fl, step_s, device=torch.device("cuda"), bf16=False)
+        peak = flops.peak_tflops(torch.device("cuda"), bf16=False)
+        out["flops_m1"] = dict(flops=fl, step_s=step_s, mfu=mfu,
+                               peak_tflops=peak)
+        print(f"flops VGG11 M1: {fl:.6g} FLOP a step (W={WORLD}, batch 128 "
+              f"each), windowed {step_s * 1e3:.2f} ms a step, mfu {mfu} of "
+              f"the FP32 peak {peak} TFLOP/s; {smi}", flush=True)
+        del m1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return counts, out
 
 
 def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
@@ -1230,8 +1637,18 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    global ops_per_s
+    from ewdml_tpu_torch.train import flops
+    from ewdml_tpu_torch.utils import provenance
+
+    global hbm_bytes_per_s, ops_per_s
     t_start = time.perf_counter()
+    print("provenance: " + json.dumps(provenance.hardware_provenance(1)),
+          flush=True)
+    gbs = flops.hbm_peak_gbs(torch.device("cuda"))
+    if gbs is None:
+        raise RuntimeError(f"no memory rate known for "
+                           f"{torch.cuda.get_device_name(0)!r}")
+    hbm_bytes_per_s = gbs * 1e9
     clock = sm_clock_mhz()
     ops_per_s = LANES_PER_CLOCK * clock * 1e6
     print(f"instruction rate: {ops_per_s:.4g} instructions/s at {clock:g} MHz",
@@ -1284,6 +1701,12 @@ def main(argv=None) -> int:
         async_runs.update({f"{net} {k}": v for k, v in runs.items()})
         for k, v in net_counts.items():
             counts[k] += v
+    # Phase 5: checkpoints, resume, the evaluator, trace and profile.
+    t5 = time.perf_counter()
+    net_counts, ckpt = checkpoint_phase(torch, kernels, windows, smi_line())
+    print(f"phase 5: {time.perf_counter() - t5:.1f}s", flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -1298,12 +1721,10 @@ def main(argv=None) -> int:
     print("train: " + json.dumps(per_method), flush=True)
     print("async: " + json.dumps(async_runs), flush=True)
     print("window: " + json.dumps(windows), flush=True)
+    print("checkpoint: " + json.dumps(ckpt), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,11 +17,18 @@ window on the GPU:
     python -m ewdml_tpu_torch.cli --network VGG11 --dataset Cifar10 \\
         --synthetic-data --num-workers 4 --method 4 --feed device \\
         --scan-window 8 --max-steps 24
+
+A sync run saves a checkpoint every ``--eval-freq`` steps and at the end
+into ``--train-dir``, and resumes from the one it finds there; the polling
+evaluator (``python -m ewdml_tpu_torch.train.evaluator``, same flags)
+evaluates it from a second process. ``--trace-dir`` writes a trace shard,
+``--profile-dir`` a ``torch.profiler`` Chrome trace.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 
 from ewdml_tpu_torch.core.config import from_args
@@ -38,6 +45,7 @@ def main(argv=None) -> int:
     if cfg.mode == "async" and not cfg.federated:
         return _main_async(cfg)
     trainer = Trainer(cfg)
+    trainer.maybe_restore()
     result = trainer.train()
     print(
         f"done: steps={result.steps} loss={result.final_loss:.4f} "
@@ -49,19 +57,30 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_async(cfg):
+def run_async(cfg, registry=None):
     """The ``--mode async`` run of a config: ``(params, PSStats)``, the
-    parameters in the JAX tree's leaf order and layout."""
+    parameters in the JAX tree's leaf order and layout. ``registry`` (an
+    ``obs.registry.MetricsRegistry``) absorbs the server's run totals and
+    its straggler policy's snapshot at the end."""
     from ewdml_tpu_torch.core.world import default_num_workers, resolve_device
     from ewdml_tpu_torch.data import datasets, loader
     from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.obs import trace as otrace
     from ewdml_tpu_torch.ops import kernels, make_compressor
     from ewdml_tpu_torch.optim import make_optimizer
     from ewdml_tpu_torch.parallel.ps import run_async_ps
+    from ewdml_tpu_torch.train.loop import profiled
     from ewdml_tpu_torch.train.trainer import check_supported
 
     check_supported(cfg, async_path=True)
     device = resolve_device(cfg.platform)
+    # The server and its worker threads share this process's shard; each
+    # worker thread records under its own role.
+    role = os.environ.get("EWDML_TRACE_ROLE") or "ps-server"
+    if cfg.trace_dir:
+        otrace.configure(cfg.trace_dir, role=role)
+    else:
+        otrace.maybe_configure_from_env(role=role)
     if cfg.pallas != "auto":
         kernels.configure(cfg.pallas)
     model = build_model(cfg.network, num_classes_for(cfg.dataset),
@@ -80,22 +99,25 @@ def run_async(cfg):
                                      feed="f32")
 
     num_workers = cfg.num_workers or default_num_workers(device)
-    return run_async_ps(
-        model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                              cfg.weight_decay, cfg.nesterov),
-        factory, num_workers=num_workers,
-        steps_per_worker=max(1, cfg.max_steps // num_workers),
-        # --num-aggregate 0 means "all workers" (distributed_nn.py:58).
-        compressor=comp, num_aggregate=cfg.num_aggregate or num_workers,
-        kill_threshold=(cfg.kill_threshold if cfg.kill_threshold > 0
-                        else None),
-        max_staleness=cfg.max_staleness if cfg.max_staleness > 0 else None,
-        fault_spec=cfg.fault_spec,
-        # The weights-down relay reproduces the reference's negative result
-        # and is not the M4/M5 presets' gradient relay.
-        relay_compress=False, down_mode=cfg.ps_down,
-        bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
-        server_agg=cfg.server_agg, seed=cfg.seed, device=device)
+    with profiled(cfg.profile_dir, device):
+        return run_async_ps(
+            model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                                  cfg.weight_decay, cfg.nesterov),
+            factory, num_workers=num_workers,
+            steps_per_worker=max(1, cfg.max_steps // num_workers),
+            # --num-aggregate 0 means "all workers" (distributed_nn.py:58).
+            compressor=comp, num_aggregate=cfg.num_aggregate or num_workers,
+            kill_threshold=(cfg.kill_threshold if cfg.kill_threshold > 0
+                            else None),
+            max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
+                           else None),
+            fault_spec=cfg.fault_spec,
+            # The weights-down relay reproduces the reference's negative
+            # result and is not the M4/M5 presets' gradient relay.
+            relay_compress=False, down_mode=cfg.ps_down,
+            bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
+            server_agg=cfg.server_agg, seed=cfg.seed, device=device,
+            debug_nans=cfg.debug_nans, registry=registry)
 
 
 def _main_async(cfg) -> int:

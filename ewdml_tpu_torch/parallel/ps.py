@@ -50,6 +50,7 @@ import torch
 from ewdml_tpu_torch import native
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
 from ewdml_tpu_torch.obs import clock
+from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.parallel.faults import FaultCrash, FaultSpec
 from ewdml_tpu_torch.parallel.policy import StragglerKilled, StragglerPolicy
@@ -282,7 +283,11 @@ class ParameterServer:
     def pull(self, worker: Optional[int] = None):
         """Down link: ``("weights", packed uint8 numpy buffer, version,
         nbytes)``. An excluded worker's pull raises
-        :class:`StragglerKilled`."""
+        :class:`StragglerKilled`. Traced as ``ps/pull``."""
+        with otrace.span("ps/pull", worker=worker):
+            return self._pull(worker)
+
+    def _pull(self, worker: Optional[int] = None):
         if worker is not None:
             self._check_worker(worker)
         with self._lock:
@@ -302,7 +307,12 @@ class ParameterServer:
     def push(self, record: PushRecord) -> bool:
         """Gradients-up link. Returns False if the push was dropped as
         stale; raises :class:`StragglerKilled` for an excluded pusher. The
-        push that completes a K-of-N batch runs the apply in its thread."""
+        push that completes a K-of-N batch runs the apply in its thread.
+        Traced as ``ps/push``, the apply within it as ``ps/apply``."""
+        with otrace.span("ps/push", worker=record.worker):
+            return self._push(record)
+
+    def _push(self, record: PushRecord) -> bool:
         if self._apply_fn is None:
             raise RuntimeError("register_payload_schema first")
         self._check_worker(record.worker)
@@ -328,7 +338,8 @@ class ParameterServer:
     def _apply_batch(self, batch) -> bool:
         """The released batch's apply and commit, outside the state lock
         (``_update_lock`` keeps applies ordered)."""
-        with self._update_lock, self._on_stream(), torch.no_grad():
+        with self._update_lock, self._on_stream(), torch.no_grad(), \
+                otrace.span("ps/apply", k=len(batch), version=self.version):
             bufs = torch.from_numpy(np.stack(batch)).to(self.device)
             self._sync()
             t_apply = clock.monotonic()
@@ -411,7 +422,8 @@ class AsyncWorker(threading.Thread):
                  steps: int = 10, seed: int = 0, delay_s: float = 0.0,
                  compress_tree=None, pack_payloads=None, unpack_params=None,
                  crash_at: Optional[int] = None,
-                 nan_at: frozenset = frozenset()):
+                 nan_at: frozenset = frozenset(), specs=None,
+                 debug_nans: bool = False):
         super().__init__(daemon=True, name=f"ps-worker-{index}")
         self.index = index
         self.device = _indexed(device)
@@ -429,6 +441,22 @@ class AsyncWorker(threading.Thread):
         self._compress_tree = compress_tree
         self._pack_payloads = pack_payloads
         self._unpack_params = unpack_params
+        self.specs = specs
+        self.debug_nans = debug_nans
+
+    def _check_finite(self, step: int, loss, grads) -> None:
+        """``--debug-nans``: raise ``FloatingPointError`` naming the step
+        and the leaf where this worker's loss or a gradient is not
+        finite."""
+        flags = torch.stack([torch.isfinite(loss).all()]
+                            + [torch.isfinite(g).all() for g in grads]).cpu()
+        if bool(flags.all()):
+            return
+        bad = int((~flags).nonzero()[0, 0])
+        what = ("loss" if bad == 0 else
+                f"gradient {self.specs[bad - 1].name}")
+        raise FloatingPointError(f"--debug-nans: non-finite {what} at "
+                                 f"step {step} (async worker {self.index})")
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -437,6 +465,9 @@ class AsyncWorker(threading.Thread):
         try:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
+            # One role per thread: the in-process server and its workers
+            # share one process and one trace shard.
+            otrace.set_role(f"worker-{self.index}")
             for step in range(self.steps):
                 if self.crash_at is not None and step == self.crash_at:
                     raise FaultCrash(self.index, step)
@@ -444,9 +475,12 @@ class AsyncWorker(threading.Thread):
                 params = self._unpack_params(self._to_device(payload))
                 images, labels = next(self.data_iter)
                 k = prng.step_key(self.key, step)
-                loss, grads = self.grad_fn(self.module, params,
-                                           self._to_device(images),
-                                           self._to_device(labels), k)
+                with otrace.span("worker/grad", step=step):
+                    loss, grads = self.grad_fn(self.module, params,
+                                               self._to_device(images),
+                                               self._to_device(labels), k)
+                if self.debug_nans:
+                    self._check_finite(step, loss, grads)
                 if self.delay_s:
                     time.sleep(self.delay_s)
                 with torch.no_grad():
@@ -475,7 +509,7 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
                  bootstrap: str = "f32", fault_spec=None,
                  precision: str = "f32", adapt_cfg=None,
                  server_agg: str = "decode", health=None, device=None,
-                 devices=None):
+                 devices=None, debug_nans: bool = False, registry=None):
     """Drive an async PS run: one thread per worker.
 
     The initial parameters and BatchNorm statistics are ``model``'s own.
@@ -486,7 +520,10 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
     parameters, dropout key ``key(0)``) fixes the push schema and, under
     ``server_agg='homomorphic'``, the scale contract. ``fault_spec``'s
     ``delay`` clauses merge into ``straggler_delays``, ``crash`` clauses kill
-    a worker thread at a step. Returns ``(final_params, PSStats)``, the
+    a worker thread at a step. ``debug_nans`` makes a worker raise
+    ``FloatingPointError`` at a non-finite loss or gradient (re-raised
+    here). ``registry`` absorbs the run's ``PSStats`` and the policy's
+    snapshot at the end. Returns ``(final_params, PSStats)``, the
     parameters as a list in the JAX tree's leaf order and layout."""
     from ewdml_tpu_torch.core.world import resolve_device
 
@@ -536,7 +573,7 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
             delay_s=straggler_delays.get(i, 0.0), crash_at=crashes.get(i),
             nan_at=fault_spec.for_worker(i).nan_at,
             compress_tree=shared_compress, pack_payloads=pack_payloads,
-            unpack_params=unpack_params)
+            unpack_params=unpack_params, specs=specs, debug_nans=debug_nans)
         for i in range(num_workers)
     ]
     t0 = clock.monotonic()
@@ -567,4 +604,8 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
                  and w.index not in server.stats.excluded_workers]
     server.stats.dropped_straggler = (
         len(server.stats.excluded_workers) + len(abandoned))
+    if registry is not None:
+        registry.absorb_ps_stats(server.stats)
+        registry.absorb_policy(server.policy.snapshot())
+    otrace.flush()
     return server.params, server.stats

@@ -3,15 +3,32 @@
 Builds the world, model, optimizer and state from a config, streams the
 global batches (or, under ``--feed device``, uploads the split once), runs
 steps one host dispatch at a time or K per launch (``--scan-window``), and
-logs per-worker loss / top-1 with the analytic wire bytes. Checkpointing,
-the polling evaluator, adaptive compression and observability are later
-slices.
+logs per-worker loss / top-1 with the analytic wire bytes.
+
+- Checkpoints: every ``--eval-freq`` steps into ``--train-dir`` (under a
+  scan window, at the end of the window holding the due step) and once at
+  the end (``train/checkpoint.py``); :meth:`Trainer.maybe_restore` resumes
+  from the latest one, in place, so a CUDA graph captured before replays
+  on the restored state. After a resume the streaming feed is re-seeded
+  with ``seed + start step``; the device feed derives its batches from the
+  step.
+- Observability: ``--trace-dir`` records the JAX package's spans
+  (``train/dispatch``, ``train/compile``, ``train/window``,
+  ``train/checkpoint``, ``eval/full_test``; ``obs/trace.py``),
+  ``--profile-dir`` runs ``torch.profiler`` around the steps and writes a
+  Chrome trace, and ``--debug-nans`` raises ``FloatingPointError`` at the
+  first step (or window) whose loss, gradients or parameters are not
+  finite.
+- :func:`run_eval` is the full-test evaluation of one model, shared with
+  the polling evaluator (``train/evaluator.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -23,12 +40,17 @@ from ewdml_tpu_torch.core.config import TrainConfig, resolve_scan_window
 from ewdml_tpu_torch.core.world import (LocalWorld, default_num_workers,
                                         resolve_device)
 from ewdml_tpu_torch.data import datasets, loader
-from ewdml_tpu_torch.models import build_model, num_classes_for
-from ewdml_tpu_torch.models.convert import flax_to_torch, leaf_specs
+from ewdml_tpu_torch.models import build_model, convert, num_classes_for
+from ewdml_tpu_torch.obs import clock
+from ewdml_tpu_torch.obs import trace as otrace
+from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import make_optimizer
+from ewdml_tpu_torch.train import checkpoint
 from ewdml_tpu_torch.train import metrics as M
-from ewdml_tpu_torch.train.state import make_train_state
+from ewdml_tpu_torch.train.state import (leaf_params, load_state_tree,
+                                         make_train_state, state_template,
+                                         state_tree)
 from ewdml_tpu_torch.train.trainer import (check_supported, make_train_step,
                                            make_window_step)
 from ewdml_tpu_torch.utils import prng
@@ -60,6 +82,15 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, device=None):
         check_supported(cfg)
         self.cfg = cfg
+        # A sweep parent's EWDML_TRACE_ROLE wins over the plain "trainer".
+        role = os.environ.get("EWDML_TRACE_ROLE") or "trainer"
+        if cfg.trace_dir:
+            otrace.configure(cfg.trace_dir, role=role)
+        else:
+            otrace.maybe_configure_from_env(role=role)
+        self._tracing = otrace.enabled()
+        #: This trainer's counters and histograms (``obs/registry.py``).
+        self.metrics = MetricsRegistry()
         self.device = resolve_device(cfg.platform, device)
         if cfg.pallas != "auto":
             kernels.configure(cfg.pallas)
@@ -67,7 +98,7 @@ class Trainer:
                                 self.device)
         self.model = build_model(cfg.network, num_classes_for(cfg.dataset),
                                  dataset=cfg.dataset, seed=cfg.seed)
-        self.specs = leaf_specs(self.model)
+        self.specs = convert.leaf_specs(self.model)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
                                         cfg.weight_decay, cfg.nesterov)
         self._stabilize_ef_quantizer()
@@ -130,7 +161,7 @@ class Trainer:
     def load_flax_state(self, params: dict, batch_stats: dict | None = None):
         """Start every worker from Flax ``params``/``batch_stats`` (numpy
         nested dicts), e.g. the JAX trainer's initial state."""
-        sd = flax_to_torch(self.model, params, batch_stats)
+        sd = convert.flax_to_torch(self.model, params, batch_stats)
         for ws in self.state.workers:
             ws.model.load_state_dict(sd)
 
@@ -157,13 +188,99 @@ class Trainer:
         return self._device_arrays
 
     def _to_device(self, images: np.ndarray, labels: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        y = torch.from_numpy(np.ascontiguousarray(labels))
-        if self.device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        return (x.to(self.device, non_blocking=True),
-                y.to(self.device, non_blocking=True))
+        return to_device(images, labels, self.device)
 
+    # -- checkpoints -------------------------------------------------------
+    @property
+    def _divergent_state(self) -> bool:
+        """Whether the workers' states can differ: Method 6's local phases,
+        error-feedback residuals, or per-replica BatchNorm statistics. Only
+        then is a checkpoint written full (``[W, ...]``); otherwise worker 0's
+        collapsed view loses nothing."""
+        cfg = self.cfg
+        return (cfg.sync_every > 1
+                or (cfg.error_feedback and cfg.compression_enabled)
+                or any(True for _ in self.model.buffers()))
+
+    def _save_ckpt(self, step: int) -> None:
+        with otrace.span("train/checkpoint", step=step), \
+                self._ranged("train/checkpoint"):
+            full = self._divergent_state
+            checkpoint.save(self.cfg.train_dir,
+                            state_tree(self.state.workers, self.specs,
+                                       stacked=full),
+                            step, world=self.world.size if full else 0)
+
+    def maybe_restore(self) -> bool:
+        """Resume from the latest checkpoint in ``--train-dir`` if there is
+        one (``ewdml_tpu/train/loop.py:378``).
+
+        The template is the full ``[W, ...]`` tree, so a full checkpoint
+        restores every worker's own state and a collapsed one is broadcast
+        to all. The values are copied into the state's existing tensors.
+        A blob of at most one worker's view restored onto W > 1 workers
+        with error feedback restarts the residuals at zero: the blob held
+        at most worker 0's, and broadcasting it would apply rank 0's
+        untransmitted mass W times."""
+        path = checkpoint.latest_path(self.cfg.train_dir)
+        if path is None:
+            return False
+        workers = self.state.workers
+        tree, step, blob_world = checkpoint.restore(
+            path, state_template(workers, self.specs, stacked=True))
+        load_state_tree(workers, tree, self.specs, stacked=True)
+        if blob_world <= 1 < self.world.size:
+            with torch.no_grad():
+                for ws in workers:
+                    for res in ws.residual:
+                        res.zero_()
+        self.state.step = step
+        logger.info("restored checkpoint %s at step %d (world=%d)", path,
+                    step, blob_world)
+        return True
+
+    # -- profiling and --debug-nans ---------------------------------------
+    def _ranged(self, name: str):
+        """A ``torch.profiler`` range named as the trace span, while
+        ``--profile-dir`` profiles this run."""
+        if self.cfg.profile_dir:
+            return torch.profiler.record_function(name)
+        return contextlib.nullcontext()
+
+    def _check_finite(self, first: int, last: int, metrics) -> None:
+        """``--debug-nans``: raise ``FloatingPointError`` if a loss of steps
+        ``first``..``last`` (``metrics`` ``[.., W, 3]``), or a gradient or
+        parameter after step ``last``, is not finite; the message names
+        the step, the worker and the leaf (its Flax path)."""
+        w_n = self.world.size
+        losses = metrics.reshape(-1, w_n, 3)[..., 0]
+        named, flags = [], [torch.isfinite(losses).reshape(-1)]
+        params = [leaf_params(ws.model, self.specs)
+                  for ws in self.state.workers]
+        for kind in ("gradient", "parameter"):
+            for r, ps in enumerate(params):
+                for p, s in zip(ps, self.specs):
+                    t = p.grad if kind == "gradient" else p
+                    if t is not None:
+                        named.append((kind, s.name, r))
+                        flags.append(torch.isfinite(t).all().reshape(1))
+        ok = torch.cat(flags).cpu()
+        if bool(ok.all()):
+            return
+        bad = int((~ok).nonzero()[0, 0])
+        if bad < losses.numel():
+            j, r = divmod(bad, w_n)
+            raise FloatingPointError(
+                f"--debug-nans: non-finite loss at step {first + j} "
+                f"(worker {r})")
+        kind, name, r = named[bad - losses.numel()]
+        where = (f"step {last}" if first == last else
+                 f"step {last}, the end of the window of steps "
+                 f"{first}-{last}")
+        raise FloatingPointError(f"--debug-nans: non-finite {kind} {name} "
+                                 f"after {where} (worker {r})")
+
+    # -- the loop ----------------------------------------------------------
     def train(self, max_steps: Optional[int] = None) -> TrainResult:
         cfg = self.cfg
         steps_target = max_steps or cfg.max_steps
@@ -173,29 +290,51 @@ class Trainer:
         steps_target = min(steps_target, cfg.epochs * steps_per_epoch)
         timer = M.StepTimer()
         history, rows = [], []
+        nan = float("nan")
+        if start_step >= steps_target:
+            # A restored checkpoint covers the whole budget: nothing to
+            # train, and the checkpoint is not overwritten.
+            logger.info("restored step %d >= target %d; nothing to do",
+                        start_step, steps_target)
+            return TrainResult(steps=start_step, final_loss=nan,
+                               final_top1=nan, mean_step_s=0.0, compile_s=0.0,
+                               wire=self.wire, history=history,
+                               timing=timer.as_dict())
         ws = self.window_step
-        if ws is not None:  # --feed device, K > 1
-            if ws.stream is not None:
-                ws.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with ws.stream_context():
-                last = self._run_windows(start_step, steps_target,
-                                         self._device_split(ds), timer,
-                                         history, rows)
-            if ws.stream is not None:
-                torch.cuda.current_stream(self.device).wait_stream(ws.stream)
-        else:
-            if cfg.feed == "device":
-                batches = itertools.repeat(self._device_split(ds))
+        with profiled(cfg.profile_dir, self.device):
+            if ws is not None:  # --feed device, K > 1
+                if ws.stream is not None:
+                    ws.stream.wait_stream(
+                        torch.cuda.current_stream(self.device))
+                with ws.stream_context():
+                    last = self._run_windows(start_step, steps_target,
+                                             self._device_split(ds), timer,
+                                             history, rows)
+                if ws.stream is not None:
+                    torch.cuda.current_stream(self.device).wait_stream(
+                        ws.stream)
             else:
-                batches = (self._to_device(*b) for b in loader.global_batches(
-                    ds, cfg.batch_size, self.world.size,
-                    seed=cfg.seed + start_step, feed=cfg.feed))
-            last = self._run_steps(start_step, steps_target, batches, timer,
-                                   history, rows)
+                if cfg.feed == "device":
+                    batches = itertools.repeat(self._device_split(ds))
+                else:
+                    # Re-seeded by the start step on a resume: a fresh
+                    # shuffle, not a replay of the interrupted epoch.
+                    batches = (self._to_device(*b)
+                               for b in loader.global_batches(
+                                   ds, cfg.batch_size, self.world.size,
+                                   seed=cfg.seed + start_step, feed=cfg.feed))
+                last = self._run_steps(start_step, steps_target, batches,
+                                       timer, history, rows)
+        if cfg.eval_freq:
+            self._save_ckpt(steps_target)
+        timing = timer.as_dict()
+        self.metrics.absorb_step_timer(timing)
+        if self._tracing:
+            otrace.flush()
         return TrainResult(steps=steps_target, final_loss=last[0],
                            final_top1=last[1], mean_step_s=timer.mean_step_s,
                            compile_s=timer.compile_s, wire=self.wire,
-                           history=history, timing=timer.as_dict(),
+                           history=history, timing=timing,
                            rows=np.concatenate(rows) if rows else None)
 
     def _log_row(self, step: int, m: np.ndarray, timer) -> None:
@@ -211,9 +350,10 @@ class Trainer:
     def _run_steps(self, start_step, steps_target, batches, timer, history,
                    rows):
         """One host dispatch per step; metrics are read back (which waits
-        for the device) only at the first, due-log and last steps, the
-        steps between with them."""
+        for the device) only at the first, due-log, due-checkpoint and last
+        steps, the steps between with them."""
         cfg = self.cfg
+        tracing = self._tracing
         last = (float("nan"), float("nan"))
         window_t0, window_n, pending = None, 0, []
         for step in range(start_step, steps_target):
@@ -221,18 +361,31 @@ class Trainer:
             x, y = next(batches)
             timer.toc_data()
             if window_t0 is None:
-                window_t0 = time.perf_counter()
+                window_t0 = clock.monotonic()
                 data_mark = timer.data_s
-            pending.append(self.train_step(self.state, x, y, self.base_key))
+            if tracing:
+                otrace.instant("train/dispatch", step=step)
+            with self._ranged("train/dispatch"):
+                metrics = self.train_step(self.state, x, y, self.base_key)
+            if cfg.debug_nans:
+                self._check_finite(step, step, metrics)
+            pending.append(metrics)
             window_n += 1
             first = step == start_step
             due_log = step % cfg.log_every == 0
-            if not (first or due_log or step == steps_target - 1):
+            due_ckpt = cfg.eval_freq and (step + 1) % cfg.eval_freq == 0
+            if not (first or due_log or due_ckpt or step == steps_target - 1):
                 continue
             rows.append(torch.stack(pending).cpu().numpy())  # waits
             pending = []
             m = rows[-1][-1]  # [W, 3]
-            elapsed = time.perf_counter() - window_t0 - (timer.data_s - data_mark)
+            raw = clock.monotonic() - window_t0
+            elapsed = raw - (timer.data_s - data_mark)
+            if tracing:
+                # Recorded after the fence, outside the timed region.
+                otrace.complete("train/compile" if first else "train/window",
+                                int(window_t0 * 1e9), int(raw * 1e9),
+                                steps=window_n, step_s=round(elapsed, 6))
             if first:
                 timer.compile_s += elapsed
             else:
@@ -242,6 +395,8 @@ class Trainer:
             if due_log:
                 self._log_row(step, m, timer)
                 history.append((step, last[0], last[1]))
+            if due_ckpt:
+                self._save_ckpt(step + 1)
         return last
 
     def _run_windows(self, start_step, steps_target, split, timer, history,
@@ -249,11 +404,14 @@ class Trainer:
         """One host launch per K steps (``--scan-window``; the reference's
         ``_run_windows``, ``loop.py:731``). Windows are launched without
         waiting, and the metrics (``[K, W, 3]`` per window) are read back
-        only at log points, after at most ``read_period`` steps, and at
-        the end; every due step's row is logged. A tail shorter than K runs
-        as per-step dispatches. The first group is the warm-up window and
-        counts as compile time, as do the graph captures."""
+        only at log and checkpoint points, after at most ``read_period``
+        steps, and at the end; every due step's row is logged, and a
+        checkpoint snaps to the end of the window holding its due step. A
+        tail shorter than K runs as per-step dispatches. The first group is
+        the warm-up window and counts as compile time, as do the graph
+        captures."""
         cfg = self.cfg
+        tracing = self._tracing
         k_win = self.scan_window
         data, labels = split
         last = (float("nan"), float("nan"))
@@ -263,25 +421,42 @@ class Trainer:
         while step < steps_target:
             k = min(k_win, steps_target - step)
             if group_t0 is None:
-                group_t0 = time.perf_counter()
+                group_t0 = clock.monotonic()
                 capture_mark = self.window_step.capture_s
             if k == k_win:
-                stacked = self.window_step(self.state, data, labels,
-                                           self.base_key)
+                if tracing:
+                    otrace.instant("train/dispatch", step=step, steps=k)
+                with self._ranged("train/dispatch"):
+                    stacked = self.window_step(self.state, data, labels,
+                                               self.base_key)
             else:
-                stacked = torch.stack([
-                    self.train_step(self.state, data, labels, self.base_key)
-                    for _ in range(k)])
+                tail = []
+                for j in range(k):
+                    if tracing:
+                        otrace.instant("train/dispatch", step=step + j)
+                    with self._ranged("train/dispatch"):
+                        tail.append(self.train_step(self.state, data, labels,
+                                                    self.base_key))
+                stacked = torch.stack(tail)
+            if cfg.debug_nans:
+                self._check_finite(step, step + k - 1, stacked)
             pending.append((step, k, stacked))
             step += k
             due_log = any(s % cfg.log_every == 0 for s in range(step - k, step))
+            due_ckpt = cfg.eval_freq and any(
+                (s + 1) % cfg.eval_freq == 0 for s in range(step - k, step))
             n_pending = sum(p[1] for p in pending)
-            if not (first or due_log or n_pending >= read_period
+            if not (first or due_log or due_ckpt or n_pending >= read_period
                     or step >= steps_target):
                 continue
             mats = [(s0, st.cpu().numpy()) for s0, _, st in pending]
-            elapsed = time.perf_counter() - group_t0
+            elapsed = clock.monotonic() - group_t0
             captured = self.window_step.capture_s - capture_mark
+            if tracing:
+                otrace.complete("train/compile" if first else "train/window",
+                                int(group_t0 * 1e9), int(elapsed * 1e9),
+                                steps=n_pending, dispatches=len(pending),
+                                step_s=round(elapsed - captured, 6))
             if first:
                 timer.compile_s += elapsed
                 first = False
@@ -299,19 +474,69 @@ class Trainer:
                                     float(m_all[j, :, 1].mean())))
             m_last = mats[-1][1][-1]
             last = (float(m_last[:, 0].mean()), float(m_last[:, 1].mean()))
+            if due_ckpt:
+                self._save_ckpt(step)  # snapped to the window's end
         return last
 
-    @torch.no_grad()
     def evaluate(self, synthetic: Optional[bool] = None) -> dict:
-        """Full-test-set metrics of worker 0's model (the checkpointed view)."""
-        cfg = self.cfg
-        model = self.state.workers[0].model
+        """Full-test-set metrics of worker 0's model (the checkpointed
+        view)."""
+        return run_eval(self.state.workers[0].model, self.cfg, self.device,
+                        synthetic=synthetic, registry=self.metrics)
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str], device):
+    """``--profile-dir``: ``torch.profiler`` (CPU, and CUDA on the card)
+    around the body, its Chrome trace written into ``profile_dir`` (the
+    counterpart of ``jax.profiler.start_trace``); nothing without a
+    directory."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"torch_trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("profile: %s", path)
+
+
+def to_device(images: np.ndarray, labels: np.ndarray, device):
+    """A host batch on ``device`` (through pinned memory on the card)."""
+    x = torch.from_numpy(np.ascontiguousarray(images))
+    y = torch.from_numpy(np.ascontiguousarray(labels))
+    if device.type == "cuda":
+        x, y = x.pin_memory(), y.pin_memory()
+    return x.to(device, non_blocking=True), y.to(device, non_blocking=True)
+
+
+@torch.no_grad()
+def run_eval(model: torch.nn.Module, cfg: TrainConfig, device,
+             synthetic: Optional[bool] = None,
+             registry: Optional[MetricsRegistry] = None) -> dict:
+    """Full-test-set loss, top-1 and top-5 of one model (reference
+    ``_evaluate_model``, ``distributed_worker.py:365-390``), shared by
+    :meth:`Trainer.evaluate` and the polling evaluator; traced as
+    ``eval/full_test``, its wall observed as ``eval.full_test_s`` in
+    ``registry``."""
+    t_eval = clock.monotonic()
+    with otrace.span("eval/full_test", dataset=cfg.dataset):
         ds = datasets.load(cfg.dataset, cfg.data_dir, train=False,
                            synthetic=cfg.synthetic_data if synthetic is None
                            else synthetic, seed=cfg.seed)
         total, loss_sum, top1_sum, top5_sum = 0, 0.0, 0.0, 0.0
-        for images, labels, mask in loader.eval_batches(ds, cfg.test_batch_size):
-            x, y = self._to_device(images, labels)
+        for images, labels, mask in loader.eval_batches(ds,
+                                                        cfg.test_batch_size):
+            x, y = to_device(images, labels, device)
             logits = model(x, train=False).float()
             logp = torch.log_softmax(logits, dim=-1)
             y = y.long()
@@ -319,10 +544,13 @@ class Trainer:
             order = torch.argsort(-logits, dim=1, stable=True)
             top1 = (order[:, 0] == y).float()
             top5 = (order[:, :5] == y[:, None]).any(dim=1).float()
-            m = torch.from_numpy(mask.astype(np.float32)).to(self.device)
+            m = torch.from_numpy(mask.astype(np.float32)).to(device)
             loss_sum += float((loss * m).sum())
             top1_sum += float((top1 * m).sum())
             top5_sum += float((top5 * m).sum())
             total += int(mask.sum())
-        return {"loss": loss_sum / total, "top1": top1_sum / total,
-                "top5": top5_sum / total, "examples": total}
+    if registry is not None:
+        registry.histogram("eval.full_test_s").observe(
+            clock.monotonic() - t_eval)
+    return {"loss": loss_sum / total, "top1": top1_sum / total,
+            "top5": top5_sum / total, "examples": total}

@@ -52,3 +52,122 @@ def make_train_state(model: torch.nn.Module, optimizer, num_workers: int,
                      for s in specs] if error_feedback else [])
         workers.append(WorkerState(replica, optimizer.init(params), residual))
     return TrainState(step=0, workers=workers)
+
+
+# -- the Flax state dict of WorkerState (the checkpoint's "worker" tree) ------
+
+def _nested(pairs) -> dict:
+    """A nested dict from ``(Flax path, value)`` pairs, every level's keys
+    in sorted order (the order ``jax.tree`` gives a dict, and so the order
+    of a JAX checkpoint's maps)."""
+    out: dict = {}
+    for path, value in sorted(pairs, key=lambda kv: tuple(kv[0].split("/"))):
+        *parents, leaf = path.split("/")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """``{Flax path: leaf}`` of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _stat_buffers(model: torch.nn.Module) -> list:
+    from ewdml_tpu_torch.models.convert import _stat_paths
+
+    buffers = dict(model.named_buffers())
+    return [(path, buffers[name]) for name, path in _stat_paths(model)]
+
+
+def state_tree(workers: list, specs=None, stacked: bool = False,
+               leaf=None) -> dict:
+    """The Flax state dict of the JAX package's ``WorkerState`` for
+    ``workers``: ``params``, ``opt_state`` (``SGDState``: ``momentum_buf``
+    and ``initialized``), ``batch_stats`` and ``residual`` (``{}`` without
+    error feedback), in Flax paths and layouts. ``stacked`` gives every
+    leaf a leading ``[W]`` axis (a full checkpoint); otherwise the tree is
+    worker 0's. ``leaf(tensors)`` turns the W workers' tensors of one leaf
+    into the tree's leaf (default: worker 0's, or their stack)."""
+    from ewdml_tpu_torch.models.convert import to_jax
+
+    model0 = workers[0].model
+    specs = specs or leaf_specs(model0)
+    if leaf is None:
+        leaf = torch.stack if stacked else (lambda ts: ts[0])
+
+    def per_spec(get):
+        lists = [get(ws) for ws in workers]
+        return _nested((s.name, leaf([to_jax(ts[i], s.kind) for ts in lists]))
+                       for i, s in enumerate(specs))
+
+    params = per_spec(lambda ws: leaf_params(ws.model, specs))
+    momentum = per_spec(lambda ws: ws.opt_state.momentum_buf)
+    initialized = leaf([torch.tensor(bool(ws.opt_state.initialized))
+                        for ws in workers])
+    stats = [_stat_buffers(ws.model) for ws in workers]
+    batch_stats = _nested((path, leaf([s[j][1] for s in stats]))
+                          for j, (path, _) in enumerate(stats[0]))
+    residual = ({} if not workers[0].residual else
+                _nested((s.name, leaf([ws.residual[i] for ws in workers]))
+                        for i, s in enumerate(specs)))
+    return {"params": params,
+            "opt_state": {"momentum_buf": momentum,
+                          "initialized": initialized},
+            "batch_stats": batch_stats, "residual": residual}
+
+
+def state_template(workers: list, specs=None, stacked: bool = False) -> dict:
+    """:func:`state_tree`'s shapes and dtypes as ``meta`` tensors (no
+    memory): the template ``train/checkpoint.restore`` reconciles against."""
+    def meta(ts):
+        t = ts[0]
+        shape = ((len(ts),) if stacked else ()) + tuple(t.shape)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    return state_tree(workers, specs, leaf=meta)
+
+
+@torch.no_grad()
+def load_state_tree(workers: list, tree: dict, specs=None,
+                    stacked: bool = False) -> None:
+    """Copy a worker tree into ``workers``' own tensors, in place: the
+    parameters, momentum buffers, BatchNorm statistics and residuals keep
+    their storage (a CUDA graph captured before reads the loaded values).
+    ``stacked``: the tree's leaves are ``[W, ...]``, worker w takes row w;
+    otherwise every worker takes the same leaf. ``meta`` leaves (fields the
+    blob did not hold) leave the worker's value as it is."""
+    from ewdml_tpu_torch.models.convert import from_jax
+
+    specs = specs or leaf_specs(workers[0].model)
+
+    def row(t, w):
+        return t[w] if stacked else t
+
+    def put(dst, src, w, kind="vector"):
+        if src.device.type != "meta":
+            dst.copy_(from_jax(row(src, w), kind))
+
+    params = _flat(tree["params"])
+    opt = tree["opt_state"]
+    momentum = _flat(opt["momentum_buf"])
+    stats = _flat(tree["batch_stats"])
+    residual = _flat(tree["residual"])
+    for w, ws in enumerate(workers):
+        for i, (p, s) in enumerate(zip(leaf_params(ws.model, specs), specs)):
+            put(p, params[s.name], w, s.kind)
+            put(ws.opt_state.momentum_buf[i], momentum[s.name], w, s.kind)
+            if ws.residual:
+                put(ws.residual[i], residual[s.name], w)
+        if opt["initialized"].device.type != "meta":
+            ws.opt_state.initialized = bool(row(opt["initialized"], w))
+        for path, buf in _stat_buffers(ws.model):
+            put(buf, stats[path], w)

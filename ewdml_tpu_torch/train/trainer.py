@@ -87,16 +87,9 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
         (cfg.precision_policy != "f32",
          f"--precision-policy {cfg.precision_policy}"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
-        (cfg.profile_dir is not None, "--profile-dir"),
-        (cfg.trace_dir is not None, "--trace-dir"),
-        (cfg.metrics_port is not None, "--metrics-port"),
-        (cfg.health != "off", f"--health {cfg.health}"),
-        (cfg.debug_nans, "--debug-nans"),
+        *_serving_rows(cfg),
     ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
+    _reject(unsupported)
 
 
 def _check_async_supported(cfg: TrainConfig) -> None:
@@ -117,12 +110,26 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
         (cfg.precision_policy != "f32",
          f"--precision-policy {cfg.precision_policy}"),
-        (cfg.health != "off", f"--health {cfg.health}"),
-        (cfg.profile_dir is not None, "--profile-dir"),
-        (cfg.trace_dir is not None, "--trace-dir"),
-        (cfg.metrics_port is not None, "--metrics-port"),
-        (cfg.debug_nans, "--debug-nans"),
+        *_serving_rows(cfg),
     ]
+    _reject(unsupported)
+
+
+def check_evaluator_supported(cfg: TrainConfig) -> None:
+    """Reject, by name, the evaluator's flags the port does not implement:
+    it takes every trainer flag and honours only what it reads."""
+    _reject(_serving_rows(cfg))
+
+
+def _serving_rows(cfg: TrainConfig) -> list:
+    return [
+        (cfg.metrics_port is not None, "--metrics-port (the live metrics "
+                                       "endpoint, obs/serve)"),
+        (cfg.health != "off", f"--health {cfg.health}"),
+    ]
+
+
+def _reject(unsupported) -> None:
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(

@@ -19,6 +19,7 @@ momentum, residuals), so a replay finds it where the last one left it.
   replay adds them (``ops/kernels.add_launches``). The ring's moved bytes
   (``LocalWorld.ppermute_bytes``) are kept the same way.
 - A capture or replay that fails raises: nothing falls back to eager steps.
+- Under ``--trace-dir`` each capture is a ``train/compile`` span.
 
 On the CPU a window is the same K steps run in a loop, with their keys
 from a key table (the caller asked for the CPU; there is no graph).
@@ -32,6 +33,7 @@ import time
 
 import torch
 
+from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.utils.keytable import HostKeys, KeyTable
 
@@ -103,7 +105,8 @@ class WindowStep:
             return self._steps(state, data, labels, HostKeys(key))
         cap = self._graphs.get((tuple(key), self.phase(start)))
         if cap is None:
-            cap = self._capture(state, data, labels, key)
+            with otrace.span("train/compile", capture=list(self.phase(start))):
+                cap = self._capture(state, data, labels, key)
             self._graphs[(tuple(key), self.phase(start))] = cap
         cap.table.load(start)
         cap.graph.replay()

@@ -274,7 +274,7 @@ def test_lenet_trains_through_the_kernels(cuda, tmp_path, method):
     cfg = TrainConfig(network="LeNet", dataset="mnist10k", batch_size=32,
                       max_steps=3, epochs=100, num_workers=4, method=method,
                       topk_ratio=0.01, bf16_compute=False, log_every=1000,
-                      pallas="on")
+                      pallas="on", train_dir=str(tmp_path) + "/")
     kernels.reset_launches()
     res = Trainer(cfg).train()
     torch.cuda.synchronize()
@@ -290,13 +290,14 @@ def test_lenet_trains_through_the_kernels(cuda, tmp_path, method):
     (dict(method=3, collective="fused_q"), 1),
     (dict(method=4, gather_type="ring_rs", qsgd_block=4096), 8),
 ])
-def test_lenet_rings_run_through_the_kernels(cuda, kw, units):
+def test_lenet_rings_run_through_the_kernels(cuda, tmp_path, kw, units):
     from ewdml_tpu_torch.core.config import TrainConfig
     from ewdml_tpu_torch.train.loop import Trainer
 
     cfg = TrainConfig(network="LeNet", dataset="mnist10k", batch_size=32,
                       max_steps=3, epochs=100, num_workers=4,
-                      bf16_compute=False, log_every=1000, **kw)
+                      bf16_compute=False, log_every=1000,
+                      train_dir=str(tmp_path) + "/", **kw)
     trainer = Trainer(cfg)
     kernels.reset_launches()
     res = trainer.train()
@@ -414,7 +415,7 @@ def deterministic(cuda):
     dict(network="LeNet", dataset="MNIST", method=4, bf16_compute=True),
 ], ids=["lenet_m4", "lenet_m6", "lenet_kofn", "vgg_m5_dropout",
         "lenet_m4_bf16"])
-def test_captured_window_replays_match_per_step(deterministic, kw):
+def test_captured_window_replays_match_per_step(deterministic, tmp_path, kw):
     """12 steps at K = 4 (a warm-up window, a capture replayed, a replay)
     against 12 per-step dispatches: every metrics row, parameter, BatchNorm
     statistic and momentum buffer bit-equal, and as many kernel launches."""
@@ -428,7 +429,8 @@ def test_captured_window_replays_match_per_step(deterministic, kw):
     for k in (1, 4):
         cfg = TrainConfig(batch_size=32, max_steps=12, epochs=100,
                           num_workers=4, log_every=1000, synthetic_data=True,
-                          feed="device", scan_window=k, **kw)
+                          feed="device", scan_window=k,
+                          train_dir=str(tmp_path / f"k{k}") + "/", **kw)
         if sync_every:
             cfg.sync_every = sync_every   # after the Method 6 preset
         t = Trainer(cfg)
@@ -490,3 +492,79 @@ def test_captured_window_off_a_period_boundary(deterministic, kw):
         for (name, p), (_, q) in zip(a.model.state_dict().items(),
                                      b.model.state_dict().items()):
             assert torch.equal(p, q), name
+
+
+def _resume_cfg(train_dir, **kw):
+    from ewdml_tpu_torch.core.config import TrainConfig
+
+    kw = dict(kw)
+    sync_every = kw.pop("sync_every", None)
+    cfg = TrainConfig(network="LeNet", dataset="MNIST", batch_size=32,
+                      epochs=100, num_workers=4, log_every=1000,
+                      bf16_compute=False, synthetic_data=True, feed="device",
+                      train_dir=str(train_dir) + "/", **kw)
+    if sync_every:
+        cfg.sync_every = sync_every   # after the Method 6 preset
+    return cfg
+
+
+def _worker_tensors(t) -> list:
+    out = []
+    for ws in t.state.workers:
+        out += list(ws.model.state_dict().values())
+        out += list(ws.opt_state.momentum_buf) + list(ws.residual)
+    return out
+
+
+@pytest.mark.parametrize("case", ["m4_per_step", "m6_local_phase",
+                                  "m4_window_captured_before_restore"])
+def test_resume_equals_the_uninterrupted_run(deterministic, tmp_path, case):
+    """Stopped at a save, restored in a fresh Trainer (in place) and
+    carried on: bit-equal to the uninterrupted run, and the restored
+    tensors equal the saved ones. M6 is saved inside its local phase (the
+    workers differ); the windowed Trainer has captured its graph before
+    the restore and replays it on the restored state."""
+    import shutil
+
+    from ewdml_tpu_torch.train import checkpoint
+    from ewdml_tpu_torch.train.loop import Trainer
+    from ewdml_tpu_torch.train.state import state_tree
+
+    kw, stop, total = {
+        "m4_per_step": (dict(method=4, scan_window=1, eval_freq=4), 4, 8),
+        "m6_local_phase": (dict(method=6, topk_ratio=0.1, sync_every=4,
+                                scan_window=1, eval_freq=5), 5, 8),
+        "m4_window_captured_before_restore": (
+            dict(method=4, scan_window=4, eval_freq=4), 4, 8),
+    }[case]
+    full = Trainer(_resume_cfg(tmp_path / "full", max_steps=total, **kw))
+    fres = full.train()
+    stopped = Trainer(_resume_cfg(tmp_path / "stop", max_steps=stop, **kw))
+    sres = stopped.train()
+    saved = [t.cpu().clone() for t in _worker_tensors(stopped)]
+    path = checkpoint.latest_path(str(tmp_path / "stop"))
+    if case.startswith("m4_window"):
+        t = Trainer(_resume_cfg(tmp_path / "pre", max_steps=total, **kw))
+        t.train()
+        assert t.window_step.captures == 1
+        shutil.copyfile(path, str(tmp_path / "pre" / "model_step_"))
+        replays = t.window_step.replays
+    else:
+        t = Trainer(_resume_cfg(tmp_path / "stop", max_steps=total, **kw))
+    assert t.maybe_restore() and t.state.step == stop
+    for a, b in zip(_worker_tensors(t), saved):
+        assert torch.equal(a.cpu(), b)
+    if case == "m6_local_phase":
+        leaf = state_tree(t.state.workers, t.specs, stacked=True)["params"]
+        leaf = leaf["conv1"]["kernel"]
+        assert not all(torch.equal(leaf[0], leaf[r]) for r in range(1, 4))
+    rres = t.train()
+    torch.cuda.synchronize()
+    if case.startswith("m4_window"):
+        assert t.window_step.captures == 1
+        assert t.window_step.replays == replays + 1
+    for a, b in zip(_worker_tensors(full), _worker_tensors(t)):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.from_numpy(fres.rows[stop:]),
+                       torch.from_numpy(rres.rows))
+    assert sres.steps == stop

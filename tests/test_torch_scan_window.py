@@ -40,19 +40,27 @@ K = 4
 W = 4
 
 
+BASE = dict(network="LeNet", dataset="MNIST", batch_size=4, lr=0.01,
+            synthetic_data=True, synthetic_size=64, max_steps=8,
+            epochs=1000, log_every=1000, bf16_compute=False, feed="device",
+            num_workers=W, platform="cpu")
+
+
 @pytest.fixture(autouse=True)
 def _restore_modes():
     yield
     kernels.configure("auto")
 
 
+@pytest.fixture(autouse=True)
+def _train_dir(tmp_path, monkeypatch):
+    """``Trainer.train`` saves a checkpoint at its end: into the test's own
+    directory."""
+    monkeypatch.setitem(BASE, "train_dir", str(tmp_path) + "/")
+
+
 def _cfg(after=None, **kw):
-    base = dict(network="LeNet", dataset="MNIST", batch_size=4, lr=0.01,
-                synthetic_data=True, synthetic_size=64, max_steps=8,
-                epochs=1000, log_every=1000, bf16_compute=False, feed="device",
-                num_workers=W, platform="cpu")
-    base.update(kw)
-    cfg = TrainConfig(**base)
+    cfg = TrainConfig(**dict(BASE, **kw))
     for k, v in (after or {}).items():   # set after the method preset
         setattr(cfg, k, v)
     return cfg
