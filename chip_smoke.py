@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. Build the CUDA kernels from ``ewdml_tpu_torch/kernels/compress.cu``.
+1. Build the CUDA kernels from ``ewdml_tpu_torch/kernels/compress.cu`` and
+   ``precision.cu`` (one ``nvcc`` per source, started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the training paths give it (VGG11-BN's largest 8 MB gradient
    bucket, 2 359 296 elements): quantize per tensor and blockwise (bit),
@@ -120,8 +121,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (``torch.utils.flop_counter``) with its MFU at phase 3c's windowed step
    time against the FP32 peak.
 
-Every kernel's launch count over the runs of phases 3, 3b, 3c, 4 and 5 must
-be above 0.
+6. The precision policy, Adam, the paper's negative result and
+   ``--overlap bucket`` on VGG11-BN at the same shapes (6a runs with phase
+   2): (a) ``stochastic_round_bf16`` against its plain version at every
+   VGG11-BN and ResNet50 leaf shape (conv leaves in PyTorch's layout, the
+   draw by the JAX index) and on specials (bit; NaN by ``isnan``), under a
+   key read from a key table; timed at the 512x512x3x3 leaf beside its
+   bound (6 bytes an element; the instructions an element counted from the
+   kernel's SASS with ``cuobjdump``), its plain version and its time alone,
+   and a ``shape stochastic_round`` row per VGG11-BN leaf; (b) M1
+   ``bf16_wire`` (the dense payload the step ships is the plan's and half
+   of M1's f32 plan) and M4 ``--error-feedback --precision-policy
+   bf16_wire_state`` (bf16 residuals and momentum, the kernel launched
+   leaves x W x 2 times a step, the replicas bit-identical), 5 steps each;
+   (c) M2 ``--optimizer adam`` under f32 and ``bf16_wire_state``; (d)
+   ``--compress-grad qsgd --ps-mode weights --lossy-weights-down`` beside
+   ``--method 2``, 40 steps each (``--feed device``, deterministic
+   kernels): after every step every weight leaf equals ``dec(compress(W))``
+   of the plain compressor under the step's key (W from a twin Trainer
+   without the lossy broadcast, from the same state), and the example's
+   criterion holds (lossy final loss > 5 x max(0.01, M2's)); both loss
+   curves are printed; (e) M1, M1 ``bf16_wire``, M3 ``fused_q`` and M4 EF
+   under ``--overlap bucket`` at the auto bucket count and at 4: the
+   side-stream schedule bit-equal to the inline one (rows, state,
+   launches), the per-bucket bytes summing to ``per_step_bytes``, the step
+   time with overlap on and off printed; (f) phase 3c's check on VGG11-BN
+   M4 EF Adam ``bf16_wire_state`` and ResNet50 M4 ``bf16_wire_state`` (K =
+   8, 24 steps) and phase 5's resume on the VGG11-BN one (8 + 8); (g) the
+   async PS (phase 4's checks) with dense ``bf16_wire`` frames (half the
+   f32 bytes, the plan's) and QSGD decode under Adam ``bf16_wire_state``.
+
+Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5 and 6
+must be above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -163,7 +194,10 @@ REPLACES = {
     "dequant_acc_requant": "ewdml_tpu/ops/pallas_kernels.py:479",
     "int_accumulate": "ewdml_tpu/ops/pallas_kernels.py:587",
     "acc_decode": "ewdml_tpu/ops/pallas_kernels.py:629",
+    # A port-only kernel: the JAX package computes it in XLA, not Pallas.
+    "stochastic_round": "ewdml_tpu/core/precision.py:87",
 }
+SOURCES = {"stochastic_round": "ewdml_tpu_torch/kernels/precision.cu"}
 # The names of each wrapper's kernels in a torch.profiler trace.
 KERNEL_NAMES = {
     "qsgd_quantize": ("qsgd_quantize_kernel",),
@@ -173,6 +207,7 @@ KERNEL_NAMES = {
     "dequant_acc_requant": ("ring_hop_kernel", "ring_encode_kernel"),
     "int_accumulate": ("int_accumulate_kernel",),
     "acc_decode": ("acc_decode_kernel",),
+    "stochastic_round": ("stochastic_round_kernel",),
 }
 # Instructions per element, for the operations side of each bound, each
 # counted once against the instruction rate (an f32 multiply and an add that the
@@ -891,7 +926,11 @@ def shipped_up_bytes(trainer) -> int:
 
     cfg = trainer.cfg
     if not cfg.compression_enabled:
-        return sum(4 * p.numel() for p in trainer.state.workers[0].model.parameters())
+        # The dense payload: each gradient leaf at the policy's wire dtype.
+        from ewdml_tpu_torch.core.precision import wire_cast
+        grads = [p.grad for p in trainer.state.workers[0].model.parameters()]
+        return sum(t.numel() * t.element_size()
+                   for t in wire_cast(grads, cfg.precision.wire_dtype))
     comp = make_compressor(cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio,
                            cfg.topk_exact, cfg.qsgd_block)
     ws = trainer.state.workers[0]
@@ -1016,16 +1055,26 @@ WINDOW_RUNS = [
 ]
 
 
+def opt_tensors(opt_state) -> list:
+    """``(name, tensor)`` of an optimizer state: SGD's momentum buffers, or
+    Adam's count and moments."""
+    if hasattr(opt_state, "mu"):
+        return ([("adam count", opt_state.count)]
+                + [(f"adam mu {i}", t) for i, t in enumerate(opt_state.mu)]
+                + [(f"adam nu {i}", t) for i, t in enumerate(opt_state.nu)])
+    return [(f"momentum {i}", t) for i, t in enumerate(opt_state.momentum_buf)]
+
+
 def same_state(a, b, what: str) -> None:
-    """Every parameter, BatchNorm statistic, momentum buffer and residual
+    """Every parameter, BatchNorm statistic, optimizer buffer and residual
     of two trainers' workers bit-equal."""
     import torch
 
     for w, (x, y) in enumerate(zip(a.state.workers, b.state.workers)):
         pairs = list(zip(x.model.state_dict().items(),
                          y.model.state_dict().items()))
-        pairs += [((f"momentum {i}", p), (None, q)) for i, (p, q) in enumerate(
-            zip(x.opt_state.momentum_buf, y.opt_state.momentum_buf))]
+        pairs += [((name, p), (None, q)) for (name, p), (_, q) in zip(
+            opt_tensors(x.opt_state), opt_tensors(y.opt_state))]
         pairs += [((f"residual {i}", p), (None, q)) for i, (p, q) in
                   enumerate(zip(x.residual, y.residual))]
         for (name, p), (_, q) in pairs:
@@ -1034,11 +1083,12 @@ def same_state(a, b, what: str) -> None:
                                      "between the two runs")
 
 
-def window_phase(torch, kernels) -> tuple:
-    """Phase 3c: each run twice from the same state, per-step
-    (``--scan-window 1``) and windowed, through the CLI's config and the
-    Trainer, both on ``--feed device``; deterministic kernels (cuDNN's
-    weight gradients and ``index_add_`` sum with atomics otherwise)."""
+def window_phase(torch, kernels, runs_list=None) -> tuple:
+    """Phase 3c (and 6f with ``runs_list``): each run twice from the same
+    state, per-step (``--scan-window 1``) and windowed, through the CLI's
+    config and the Trainer, both on ``--feed device``; deterministic
+    kernels (cuDNN's weight gradients and ``index_add_`` sum with atomics
+    otherwise)."""
     from ewdml_tpu_torch.core.config import from_args
     from ewdml_tpu_torch.train.loop import Trainer
 
@@ -1050,7 +1100,7 @@ def window_phase(torch, kernels) -> tuple:
     counts = {k: 0 for k in kernels.LAUNCHES}
     out = {}
     try:
-        for name, network, steps, k, flags in WINDOW_RUNS:
+        for name, network, steps, k, flags in runs_list or WINDOW_RUNS:
             runs = []
             for window in (1, k):
                 argv = ["--network", network, "--dataset", "Cifar10",
@@ -1175,6 +1225,11 @@ def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
         want["acc_decode"] = big * (updates + 1)
         if cfg.compress_grad == "qsgd":
             want["int_accumulate"] = big * (updates + 1)
+    if cfg.precision.bf16_state:
+        # The server's optimizer stores every leaf's state per update (and
+        # once in the warm apply): Adam's two moments, SGD's momentum.
+        stores = 2 if cfg.optimizer == "adam" else 1
+        want["stochastic_round"] = len(specs) * stores * (updates + 1)
     return want
 
 
@@ -1223,7 +1278,8 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
             raise AssertionError(f"async {name}: the registry holds "
                                  f"{gauges}, want {pushes} pushes and "
                                  f"{updates} updates")
-        per_round = 1 if cfg.server_agg == "homomorphic" else WORLD
+        per_round = (0 if not cfg.compression_enabled
+                     else 1 if cfg.server_agg == "homomorphic" else WORLD)
         if stats.decode_count != per_round * stats.apply_rounds:
             raise AssertionError(f"async {name}: {stats.decode_count} decodes "
                                  f"in {stats.apply_rounds} rounds")
@@ -1612,6 +1668,462 @@ def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
     return server.stats.apply_ms_mean
 
 
+# -- Phase 6: the precision policy, Adam, the negative result, overlap --------
+
+SROUND_SHAPE = (512, 512, 3, 3)   # VGG11-BN's largest leaf, a conv kernel
+SROUND_SPECIALS = [0.0, -0.0, 1e-40, -1e-40, 3.4028235e38, -3.4028235e38,
+                   float("inf"), float("-inf"), float("nan"), 1.0, -2.5,
+                   0.15625]
+
+
+def sass_ops_per_elem(build) -> dict:
+    """Instructions an element of each ``stochastic_round_kernel`` variant,
+    from the SASS of the built library (``cuobjdump -sass``): the body of
+    the kernel's grid-stride loop (its widest backward branch) over the
+    stores in it. ``{"permuted": n, "identity": n}``."""
+    import re
+
+    lib = build.build()
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    txt = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    out = {}
+    for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
+                         txt, re.S):
+        if "stochastic_round_kernel" not in m.group(1):
+            continue
+        ins = []
+        for line in m.group(2).splitlines():
+            mm = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if mm:
+                ins.append((int(mm.group(1), 16), mm.group(2)))
+        body = ins
+        spans = []
+        for addr, text in ins:
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < addr:
+                spans.append((addr - int(b.group(1), 16),
+                              int(b.group(1), 16), addr))
+        if spans:
+            _, lo, hi = max(spans)
+            body = [(a, t) for a, t in ins if lo <= a <= hi]
+        stores = sum(1 for _, t in body if "STG" in t) or 1
+        body = [t for _, t in body if not t.strip().startswith("NOP")]
+        kind = "permuted" if "ILb1E" in m.group(1) else "identity"
+        out[kind] = len(body) / stores
+    if set(out) != {"permuted", "identity"}:
+        raise AssertionError(f"no stochastic_round_kernel SASS found: {out}")
+    return out
+
+
+def same_bf16(torch, a, b, what: str) -> None:
+    """Bit-equal bf16 tensors, NaN lanes compared by ``isnan``."""
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    if not torch.equal(na, nb) or not torch.equal(
+            a.view(torch.int16)[~na], b.view(torch.int16)[~nb]):
+        raise AssertionError(f"{what}: the kernel differs from its plain "
+                             "version")
+
+
+def leaf_shapes(network: str) -> list:
+    """``(kind, torch shape)`` of the network's leaves, each once."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    model = build_model(network, 10, dataset="Cifar10")
+    named = dict(model.named_parameters())
+    return sorted({(s.kind, tuple(named[s.torch_name].shape))
+                   for s in leaf_specs(model)})
+
+
+def check_sround(torch, kernels, timer, build) -> tuple:
+    """6a: the stochastic-round kernel against its plain version at every
+    VGG11-BN and ResNet50 leaf shape and on specials, under keys read from
+    a key table; timed at VGG11-BN's largest leaf beside its bound (6n
+    bytes, the SASS instructions an element), its plain version and its
+    own time from a trace; per-shape rows at VGG11-BN's leaves."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    g = torch.Generator(device="cuda").manual_seed(60)
+    table = KeyTable(prng.key(6), "cuda", 0)
+    key = prng.layer_key(prng.fold_in(table.step_key(0), 0x0917), 5)
+    table.load(0)
+    cases = 0
+    for network in NETWORKS:
+        for kind, shape in leaf_shapes(network):
+            x = torch.randn(shape, device="cuda", generator=g) * 1e-2
+            flat = x.view(-1)
+            n = min(len(SROUND_SPECIALS), flat.numel())
+            flat[:n] = torch.tensor(SROUND_SPECIALS[:n], device="cuda")
+            a = kernels.stochastic_round_bf16(x, key, kind)
+            b = kernels.stochastic_round_ref(x, key, kind)
+            torch.cuda.synchronize()
+            same_bf16(torch, a, b, f"stochastic_round {network} {kind} "
+                                   f"{shape}")
+            cases += 1
+    ops = sass_ops_per_elem(build)
+    print(f"sass stochastic_round_kernel: {ops['identity']:.1f} instructions "
+          f"an element (identity layout), {ops['permuted']:.1f} (permuted); "
+          f"{cases} leaf shapes bit-equal", flush=True)
+    x = torch.randn(SROUND_SHAPE, device="cuda", generator=g)
+    n = x.numel()
+    out = torch.empty(SROUND_SHAPE, dtype=torch.bfloat16, device="cuda")
+    fn = lambda: kernels.stochastic_round_bf16(x, key, "conv", out=out)
+    ms = timer(fn)
+    plain = timer(lambda: kernels.stochastic_round_ref(x, key, "conv"),
+                  reps=10)
+    bnd, by = bound_ms(6 * n, ops["permuted"] * n)
+    print(f"stochastic_round {SROUND_SHAPE}: bytes "
+          f"{6 * n / hbm_bytes_per_s * 1e3:.5f} ms, instructions "
+          f"{ops['permuted'] * n / ops_per_s * 1e3:.5f} ms at the card's "
+          "rates", flush=True)
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
+               bound_by=by, library_ms=None, shape=list(SROUND_SHAPE),
+               device_ms=timer.device(fn, KERNEL_NAMES["stochastic_round"]),
+               sass_ops=ops, cases=cases)
+    rows = []
+    for kind, shape in leaf_shapes("VGG11"):
+        xs = torch.randn(shape, device="cuda", generator=g)
+        m = xs.numel()
+        rows.append(shape_row(
+            timer, lambda: kernels.stochastic_round_bf16(xs, key, kind),
+            KERNEL_NAMES["stochastic_round"], 6 * m,
+            ops["permuted" if kind != "vector" else "identity"] * m,
+            kind=kind, shape=list(shape), n=m))
+    flat = x.view(-1)
+    rows.append(shape_row(
+        timer, lambda: kernels.stochastic_round_bf16(flat, key),
+        KERNEL_NAMES["stochastic_round"], 6 * n, ops["identity"] * n,
+        kind="vector", shape=[n], n=n))
+    return row, rows
+
+
+def print_sround_rows(rows, launches_per_step: dict) -> None:
+    for r in rows:
+        print(f"shape stochastic_round {r['kind']} {tuple(r['shape'])} "
+              f"x{WORLD} per leaf and step ({launches_per_step}): "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({100 * r['share']:.1f}%); {on_card(r)}", flush=True)
+
+
+def policy_argv(steps: int, flags, network: str = "VGG11") -> list:
+    return ["--network", network, "--dataset", "Cifar10", "--synthetic-data",
+            "--num-workers", str(WORLD), "--batch-size", "128",
+            "--topk-ratio", "0.01", "--max-steps", str(steps), "--epochs",
+            "100", "--log-every", "1000", "--no-bf16", "--eval-freq", "0",
+            *flags]
+
+
+def run_counted(torch, kernels, counts, trainer, max_steps=None):
+    """Train ``trainer`` as a run of the main path: the counts are zeroed
+    just before and read just after. Returns ``(res, launched, wall)``."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.train(max_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)
+    for k, v in launched.items():
+        counts[k] += v
+    if not math.isfinite(res.final_loss):
+        raise AssertionError(f"non-finite loss {res.final_loss}")
+    return res, launched, wall
+
+
+POLICY_RUNS = [  # 6b and 6c: (name, flags, optimizer-state stores a leaf)
+    ("M1 bf16_wire", ["--method", "1", "--precision-policy", "bf16_wire"], 0),
+    ("M4 EF bf16_wire_state", ["--method", "4", "--error-feedback",
+                               "--precision-policy", "bf16_wire_state"], 2),
+    ("M2 adam", ["--method", "2", "--optimizer", "adam", "--lr", "0.001"], 0),
+    ("M2 adam bf16_wire_state", ["--method", "2", "--optimizer", "adam",
+                                 "--lr", "0.001", "--precision-policy",
+                                 "bf16_wire_state"], 2),
+]
+POLICY_STEPS = 5
+
+
+def policy_runs(torch, kernels, counts) -> dict:
+    """6b and 6c: the policies and Adam on VGG11-BN, 5 steps each."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train.loop import Trainer
+    from ewdml_tpu_torch.train.metrics import wire_plan
+
+    out = {}
+    for name, flags, stores in POLICY_RUNS:
+        trainer = Trainer(from_args(policy_argv(POLICY_STEPS, flags)))
+        res, launched, wall = run_counted(torch, kernels, counts, trainer)
+        cfg = trainer.cfg
+        leaves = len(trainer.specs)
+        want = POLICY_STEPS * leaves * WORLD * stores
+        if launched["stochastic_round"] != want:
+            raise AssertionError(
+                f"policy {name}: {launched['stochastic_round']} "
+                f"stochastic-round launches, want {want}")
+        ws = trainer.state.workers
+        if cfg.precision.bf16_state:
+            bufs = [t for _, t in opt_tensors(ws[0].opt_state)
+                    if t.dim() > 0]
+            if any(t.dtype != torch.bfloat16 for t in bufs + ws[0].residual):
+                raise AssertionError(f"policy {name}: a state buffer is not "
+                                     "bf16")
+            # The optimizer key is rank-shared: the replicas stay equal.
+            for w in ws[1:]:
+                for a, b in zip(ws[0].model.parameters(),
+                                w.model.parameters()):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"policy {name}: the replicas "
+                                             "differ")
+        extra = {}
+        if not cfg.compression_enabled:
+            shipped = shipped_up_bytes(trainer)
+            f32 = wire_plan(from_args(policy_argv(POLICY_STEPS, ["--method",
+                                                                 "1"])),
+                            [(s.name, s.jax_shape) for s in trainer.specs],
+                            world=WORLD)
+            if shipped != res.wire.up_bytes or 2 * shipped != f32.up_bytes:
+                raise AssertionError(
+                    f"policy {name}: the payloads ship {shipped} B, the plan "
+                    f"says {res.wire.up_bytes} B, f32 {f32.up_bytes} B")
+            extra = dict(shipped=shipped, f32_plan=f32.up_bytes)
+        out[name] = dict(final_loss=res.final_loss,
+                         mean_step_ms=res.mean_step_s * 1e3, wall_s=wall,
+                         wire_per_step=res.wire.per_step_bytes,
+                         launches=launched, **extra)
+        print(f"policy {name}: network=VGG11 steps={POLICY_STEPS} "
+              f"loss={res.final_loss:.4f} mean_step="
+              f"{res.mean_step_s * 1e3:.2f}ms wire_per_step="
+              f"{res.wire.per_step_bytes} B launches="
+              f"{ {k: v for k, v in launched.items() if v} } {extra}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+NEGATIVE_STEPS = 40
+
+
+def deterministic(torch, on: bool) -> None:
+    torch.use_deterministic_algorithms(on)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = on
+
+
+def negative_phase(torch, kernels, counts) -> dict:
+    """6d: ``--lossy-weights-down`` (the settings of
+    ``examples/weight_compression_negative.py`` at this phase's shapes)
+    beside ``--method 2``, 40 steps each, ``--feed device`` and
+    deterministic kernels. After each lossy step every weight leaf must
+    equal ``dec(compress(W))`` of the plain compressor (the kernel wrapper
+    swapped for its plain version) under the step's key, W the weights a
+    twin Trainer without the lossy broadcast reaches from the same state.
+    Then the example's criterion: lossy final loss > 5 x max(0.01, M2's)."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.models.convert import from_jax, to_jax
+    from ewdml_tpu_torch.ops import make_compressor
+    from ewdml_tpu_torch.train.loop import Trainer
+    from ewdml_tpu_torch.train.state import (leaf_params, load_state_tree,
+                                             state_tree)
+    from ewdml_tpu_torch.utils import prng
+
+    weights = ["--compress-grad", "qsgd", "--ps-mode", "weights"]
+    feed = ["--feed", "device", "--scan-window", "1", "--lr", "0.01"]
+    lossy = Trainer(from_args(policy_argv(NEGATIVE_STEPS, weights + feed
+                                          + ["--lossy-weights-down"])))
+    twin = Trainer(from_args(policy_argv(NEGATIVE_STEPS, weights + feed)))
+    comp = make_compressor("qsgd", 127)
+    x, y = lossy._device_split(lossy._train_split())
+    tx, ty = twin._device_split(twin._train_split())
+    curve = []
+    deterministic(torch, True)
+    try:
+        for step in range(NEGATIVE_STEPS):
+            load_state_tree(twin.state.workers,
+                            state_tree(lossy.state.workers, lossy.specs,
+                                       stacked=True),
+                            lossy.specs, stacked=True)
+            twin.state.step = step
+            kernels.reset_launches()   # this step of the main path
+            m = lossy.train_step(lossy.state, x, y, lossy.base_key)
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                counts[k] += v
+            twin.train_step(twin.state, tx, ty, twin.base_key)
+            curve.append(float(m[:, 0].mean()))
+            wkey = prng.fold_in(prng.step_key(lossy.base_key, step), 0xBAD)
+            quantize = kernels.qsgd_quantize
+            kernels.qsgd_quantize = kernels.qsgd_quantize_ref
+            try:
+                with torch.no_grad():
+                    for ws, tw in zip(lossy.state.workers,
+                                      twin.state.workers):
+                        for i, (p, q, s) in enumerate(zip(
+                                leaf_params(ws.model, lossy.specs),
+                                leaf_params(tw.model, twin.specs),
+                                lossy.specs)):
+                            dec = comp.decompress(comp.compress(
+                                prng.layer_key(wkey, i),
+                                to_jax(q, s.kind).contiguous()))
+                            want = from_jax(dec.reshape(s.jax_shape), s.kind)
+                            if not torch.equal(p, want):
+                                raise AssertionError(
+                                    f"negative: step {step} leaf {s.name} "
+                                    "is not dec(compress(W))")
+            finally:
+                kernels.qsgd_quantize = quantize
+    finally:
+        deterministic(torch, False)
+    del lossy, twin
+    m2 = Trainer(from_args(policy_argv(NEGATIVE_STEPS, ["--method", "2"]
+                                       + feed + ["--log-every", "1"])))
+    res, _, _ = run_counted(torch, kernels, counts, m2)
+    m2_curve = [float(r[:, 0].mean()) for r in res.rows]
+    reproduced = curve[-1] > 5 * max(0.01, m2_curve[-1])
+    print("negative lossy-weights-down curve: "
+          + " ".join(f"{v:.4g}" for v in curve), flush=True)
+    print("negative method2-grads curve: "
+          + " ".join(f"{v:.4g}" for v in m2_curve), flush=True)
+    if not reproduced:
+        raise AssertionError(f"negative: lossy final {curve[-1]} is not > 5 x "
+                             f"max(0.01, M2 final {m2_curve[-1]})")
+    print(f"negative: reproduced, lossy final {curve[-1]:.6g} > 5 x max(0.01,"
+          f" M2 final {m2_curve[-1]:.6g}); every weight leaf of every step "
+          "equals dec(compress(W)) of the plain compressor", flush=True)
+    del m2
+    torch.cuda.empty_cache()
+    return dict(lossy_curve=curve, m2_curve=m2_curve, steps=NEGATIVE_STEPS)
+
+
+OVERLAP_RUNS = [  # 6e
+    ("M1", ["--method", "1"]),
+    ("M1 bf16_wire", ["--method", "1", "--precision-policy", "bf16_wire"]),
+    ("M3 fused_q", ["--method", "3", "--collective", "fused_q"]),
+    ("M4 EF", ["--method", "4", "--error-feedback"]),
+]
+OVERLAP_STEPS = 5
+
+
+def overlap_phase(torch, kernels, counts) -> dict:
+    """6e: ``--overlap bucket`` on VGG11-BN, each run at the auto bucket
+    count and at 4, on the side-stream schedule and inline (bit-equal,
+    deterministic kernels), and once with overlap off (the step time beside
+    it, an observation). The per-bucket bytes sum to ``per_step_bytes``."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.parallel import overlap
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    out = {}
+    deterministic(torch, True)
+    try:
+        for name, flags in OVERLAP_RUNS:
+            row = {}
+            off = Trainer(from_args(policy_argv(OVERLAP_STEPS, flags)))
+            res, _, _ = run_counted(torch, kernels, counts, off)
+            row["off_ms"] = res.mean_step_s * 1e3
+            del off
+            for buckets in ("0", "4"):
+                runs = []
+                for schedule in ("stream", "inline"):
+                    overlap.configure(schedule)
+                    t = Trainer(from_args(policy_argv(
+                        OVERLAP_STEPS, flags + ["--overlap", "bucket",
+                                                "--overlap-buckets",
+                                                buckets])))
+                    res, launched, _ = run_counted(torch, kernels, counts, t)
+                    runs.append((t, res, launched))
+                overlap.configure("stream")
+                (a, ares, al), (b, bres, bl) = runs
+                what = f"overlap {name} buckets={buckets}"
+                if al != bl or not torch.equal(torch.from_numpy(ares.rows),
+                                               torch.from_numpy(bres.rows)):
+                    raise AssertionError(f"{what}: the schedules differ in "
+                                         "launches or metrics")
+                same_state(a, b, what)
+                plan = ares.wire
+                if sum(plan.per_bucket_bytes.values()) != plan.per_step_bytes:
+                    raise AssertionError(f"{what}: the per-bucket bytes do "
+                                         "not sum to per_step_bytes")
+                row[f"buckets_{buckets}"] = dict(
+                    n_buckets=len(plan.per_bucket_up),
+                    per_bucket_bytes=plan.per_bucket_bytes,
+                    stream_ms=ares.mean_step_s * 1e3,
+                    inline_ms=bres.mean_step_s * 1e3)
+                print(f"overlap {name} buckets={buckets}: network=VGG11 "
+                      f"{len(plan.per_bucket_up)} buckets, per_bucket="
+                      f"{list(plan.per_bucket_bytes.values())} B, stream "
+                      f"{ares.mean_step_s * 1e3:.2f} ms, inline "
+                      f"{bres.mean_step_s * 1e3:.2f} ms, off "
+                      f"{row['off_ms']:.2f} ms a step; bit_equal="
+                      "rows,state,launches", flush=True)
+                del runs, a, b
+                torch.cuda.empty_cache()
+            out[name] = row
+    finally:
+        overlap.configure("stream")
+        deterministic(torch, False)
+    return out
+
+
+POLICY_WINDOW_RUNS = [  # 6f
+    ("M4 EF adam bf16_wire_state", "VGG11", 24, 8,
+     ["--method", "4", "--error-feedback", "--optimizer", "adam", "--lr",
+      "0.001", "--precision-policy", "bf16_wire_state"]),
+    ("M4 bf16_wire_state", "ResNet50", 24, 8,
+     ["--method", "4", "--precision-policy", "bf16_wire_state"]),
+]
+POLICY_RESUME = ("M4 EF adam bf16_wire_state", 8, 16,
+                 ["--method", "4", "--error-feedback", "--optimizer", "adam",
+                  "--lr", "0.001", "--precision-policy", "bf16_wire_state",
+                  "--scan-window", "1", "--eval-freq", "8"])
+ASYNC_POLICY_RUNS = {"VGG11": [  # 6g
+    ("dense bf16_wire", ["--compress-grad", "none", "--precision-policy",
+                         "bf16_wire"]),
+    ("qsgd decode adam bf16_wire_state",
+     ["--compress-grad", "qsgd", "--server-agg", "decode", "--optimizer",
+      "adam", "--lr", "0.001", "--precision-policy", "bf16_wire_state"]),
+]}
+
+
+def policy_phase(torch, kernels, smi: str) -> tuple:
+    """Phase 6b-6g (see the module docstring); 6a runs with phase 2."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train.metrics import wire_plan
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {"policy": policy_runs(torch, kernels, counts)}
+    out["negative"] = negative_phase(torch, kernels, counts)
+    out["overlap"] = overlap_phase(torch, kernels, counts)
+    wcounts, out["window"] = window_phase(torch, kernels, POLICY_WINDOW_RUNS)
+    name, first, total, flags = POLICY_RESUME
+    root = tempfile.mkdtemp(prefix="ewdml_policy_ckpt_")
+    deterministic(torch, True)
+    try:
+        out["resume"] = resume_run(torch, kernels, counts, name, first, total,
+                                   flags, root, smi)
+    finally:
+        deterministic(torch, False)
+        shutil.rmtree(root, ignore_errors=True)
+    acounts, out["async"] = async_phase(torch, kernels, "VGG11",
+                                        ASYNC_POLICY_RUNS["VGG11"])
+    specs = leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))
+    leaves = [(s.name, s.jax_shape) for s in specs]
+    dense = wire_plan(from_args(["--mode", "async", "--compress-grad", "none",
+                                 "--fusion", "none"]), leaves, world=WORLD)
+    bf16 = out["async"]["dense bf16_wire"]["plan_up"]
+    if 2 * bf16 != dense.up_bytes:
+        raise AssertionError(f"async dense bf16_wire: {bf16} B a push, f32 "
+                             f"{dense.up_bytes} B")
+    for c in (wcounts, acounts):
+        for k, v in c.items():
+            counts[k] += v
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1665,6 +2177,9 @@ def main(argv=None) -> int:
     checks = check_kernels(torch, kernels, timer)
     shapes = {net: check_path_shapes(torch, kernels, timer, net)
               for net in NETWORKS}
+    # Phase 6a: the stochastic-round kernel, with the other seven.
+    checks["stochastic_round"], sround_rows = check_sround(torch, kernels,
+                                                           timer, build)
     del timer
     torch.cuda.empty_cache()
     for name, c in checks.items():
@@ -1675,6 +2190,11 @@ def main(argv=None) -> int:
               flush=True)
     for net in NETWORKS:
         print_path_shapes(shapes[net], net)
+    print_sround_rows(sround_rows, {
+        "VGG11 bf16_wire_state": f"{38 * WORLD} a step, "
+                                 f"{2 * 38 * WORLD} with EF",
+        "ResNet50": f"{161 * WORLD}, {2 * 161 * WORLD} with EF"})
+    print("shapes stochastic_round: " + json.dumps(sround_rows), flush=True)
     if kernels_only:
         return 0
 
@@ -1707,6 +2227,12 @@ def main(argv=None) -> int:
     print(f"phase 5: {time.perf_counter() - t5:.1f}s", flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 6: the precision policy, Adam, the negative result, overlap.
+    t6 = time.perf_counter()
+    net_counts, policy = policy_phase(torch, kernels, smi_line())
+    print(f"phase 6: {time.perf_counter() - t6:.1f}s", flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -1714,7 +2240,8 @@ def main(argv=None) -> int:
                                  "main path")
 
     line = {"kernels": [dict(
-        name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+        name=name, route="cuda", source=SOURCES.get(name, SOURCE),
+        replaces=REPLACES[name],
         launches=counts[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
         library_ms=c["library_ms"]) for name, c in checks.items()]}
@@ -1722,6 +2249,7 @@ def main(argv=None) -> int:
     print("async: " + json.dumps(async_runs), flush=True)
     print("window: " + json.dumps(windows), flush=True)
     print("checkpoint: " + json.dumps(ckpt), flush=True)
+    print("policy: " + json.dumps(policy), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -102,7 +102,8 @@ def run_async(cfg, registry=None):
     with profiled(cfg.profile_dir, device):
         return run_async_ps(
             model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                                  cfg.weight_decay, cfg.nesterov),
+                                  cfg.weight_decay, cfg.nesterov,
+                                  state_dtype=cfg.precision.state_dtype),
             factory, num_workers=num_workers,
             steps_per_worker=max(1, cfg.max_steps // num_workers),
             # --num-aggregate 0 means "all workers" (distributed_nn.py:58).

@@ -159,6 +159,14 @@ class TrainConfig:
     def compression_enabled(self) -> bool:
         return (self.compress_grad or "none").lower() not in ("none", "non", "dense")
 
+    @property
+    def precision(self):
+        """The resolved :class:`~ewdml_tpu_torch.core.precision.
+        PrecisionPolicy`: the dtype contract of every layer that moves or
+        holds gradient-shaped bytes."""
+        from ewdml_tpu_torch.core.precision import resolve_policy
+        return resolve_policy(self.precision_policy)
+
 
 # Trees with at least this many gradient leaves get fused buckets under
 # fusion='auto': LeNet (8 leaves) stays per layer, VGG11-BN (38) fuses.
@@ -180,8 +188,13 @@ def resolved_unit_sizes(cfg: TrainConfig, sizes) -> list:
     fusion = resolve_fusion(cfg, len(sizes))
     if fusion == "none":
         return list(sizes)
-    if cfg.overlap == "bucket":
-        raise NotImplementedError("--overlap bucket is not ported yet")
+    if (cfg.overlap == "bucket" and cfg.mode != "async"
+            and cfg.num_slices == 1):
+        # The overlap bucket is the fusion unit (its leaves ship as one
+        # payload), so the units are the planner's buckets.
+        from ewdml_tpu_torch.parallel.overlap import plan_buckets
+        plan = plan_buckets([n * 4 for n in sizes], cfg.overlap_buckets)
+        return [sum(sizes[i] for i in idxs) for idxs in plan.buckets]
     if fusion == "all":
         return [sum(sizes)]
     from ewdml_tpu_torch.parallel.collectives import bucket_groups
@@ -267,6 +280,21 @@ def validate_overlap(cfg: TrainConfig) -> None:
     if cfg.compression_enabled and cfg.gather_type in ("ring", "ring_rs"):
         raise ValueError("--overlap bucket rides the gather transport; drop "
                          "--gather-type " + cfg.gather_type)
+
+
+def validate_lossy_weights(cfg: TrainConfig) -> None:
+    """``--lossy-weights-down`` (``trainer.py:100``) reproduces the
+    reference's compressed weight broadcast: it needs ``--ps-mode
+    weights``, a compressor and relay compression."""
+    if not cfg.lossy_weights_down:
+        return
+    if cfg.ps_mode != "weights" or not cfg.compression_enabled \
+            or not cfg.relay_compress:
+        raise ValueError(
+            "--lossy-weights-down reproduces the reference's compressed "
+            "weight broadcast: it requires --ps-mode weights, a "
+            "compressor, and relay compression (there is no weight "
+            "down-link to compress in grads mode)")
 
 
 def validate_server_agg(cfg: TrainConfig) -> None:

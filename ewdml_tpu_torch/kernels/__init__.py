@@ -1,9 +1,12 @@
-"""Build and load the hand-written CUDA kernels (``compress.cu``).
+"""Build and load the hand-written CUDA kernels (``compress.cu``,
+``precision.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, on first use, into ``kernels/_build/`` beside the
-source, and loaded with ``ctypes``. The library name carries a hash of the
-source, so an edited source is rebuilt and a stale build is never loaded.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once (one ``nvcc`` process per source), on first use, into
+``kernels/_build/`` beside the sources; the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+library name carries a hash of the sources, so an edited source is rebuilt
+and a stale build is never loaded.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no CUDA toolkit.
 """
@@ -19,10 +22,11 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "compress.cu"),)
+SOURCES = (os.path.join(_HERE, "compress.cu"),
+           os.path.join(_HERE, "precision.cu"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -63,12 +67,30 @@ def build() -> str:
         build_seconds = 0.0
         return lib_path
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    nvcc = nvcc_path()
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    try:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for obj, src in zip(objs, SOURCES)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outs = [p.communicate() for p in procs]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        for cmd, p, (out, err) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
@@ -87,10 +109,13 @@ def _declare(lib) -> None:
                                               f32, f32, p, p, p]
     lib.ewdml_int_accumulate.argtypes = [p, i32, i64, p, p]
     lib.ewdml_acc_decode.argtypes = [p, p, f32, i64, i64, p, p]
+    # The key is a pointer to one uint64 in device memory; the layout's
+    # dims and strides are host arrays of four int64 (or null).
+    lib.ewdml_stochastic_round.argtypes = [p, i64, p, p, p, p, p]
     for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
                lib.ewdml_block_top1, lib.ewdml_chunk_encode,
                lib.ewdml_dequant_acc_requant, lib.ewdml_int_accumulate,
-               lib.ewdml_acc_decode):
+               lib.ewdml_acc_decode, lib.ewdml_stochastic_round):
         fn.restype = ctypes.c_int
 
 

@@ -3,22 +3,28 @@
 Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. All seven of its
 Pallas kernels are ported here as CUDA kernels for Hopper
 (``ewdml_tpu_torch/kernels/compress.cu``): five on the sync trainer's
-paths, two in the parameter server's compressed-domain apply:
+paths, two in the parameter server's compressed-domain apply. An eighth,
+``stochastic_round_bf16`` (``kernels/precision.cu``), has no Pallas
+counterpart: it is the precision policy's seeded bf16 store
+(``ewdml_tpu/core/precision.py:87``, computed there by XLA), and the only
+kernel here whose bound is its instructions (the 20 threefry rounds of its
+draw), not its bytes.
 
-=======================  ===========================  ======================
-wrapper                  replaces                     bound on the H100
-=======================  ===========================  ======================
-``qsgd_quantize``        ``pallas_kernels.py:169``    5n bytes
-``dequant_mean``         ``pallas_kernels.py:232``    (W + 4)n bytes
-``block_top1``           ``pallas_kernels.py:290``    4RC + 8C bytes
-``chunk_encode``         ``pallas_kernels.py:431``    5n + 4nb bytes
-``dequant_acc_requant``  ``pallas_kernels.py:479``    6n + 8nb bytes
-``int_accumulate``       ``pallas_kernels.py:587``    (K + 4)n bytes
-``acc_decode``           ``pallas_kernels.py:629``    8n bytes
-=======================  ===========================  ======================
+=========================  =========================  ======================
+wrapper                    replaces                   bound on the H100
+=========================  =========================  ======================
+``qsgd_quantize``          ``pallas_kernels.py:169``  5n bytes
+``dequant_mean``           ``pallas_kernels.py:232``  (W + 4)n bytes
+``block_top1``             ``pallas_kernels.py:290``  4RC + 8C bytes
+``chunk_encode``           ``pallas_kernels.py:431``  5n + 4nb bytes
+``dequant_acc_requant``    ``pallas_kernels.py:479``  6n + 8nb bytes
+``int_accumulate``         ``pallas_kernels.py:587``  (K + 4)n bytes
+``acc_decode``             ``pallas_kernels.py:629``  8n bytes
+``stochastic_round_bf16``  ``precision.py:87``      92n-155n instructions
+=========================  =========================  ======================
 
-All of them move bytes and do a few operations per byte, so HBM bandwidth
-bounds them; each streams its input once and keeps nothing in device memory
+The first seven move bytes and do a few operations per byte, so HBM
+bandwidth bounds them; each streams its input once and keeps nothing in device memory
 between the read and the write. At the shapes the training paths give
 them the bound is a few microseconds, less than one launch takes, so a
 kernel's time there is the latency of its chain: ``block_top1`` has every
@@ -73,6 +79,8 @@ of 4096), the plain version elsewhere.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 
 import torch
@@ -93,7 +101,7 @@ _MODE = "auto"  # auto | on | interpret | off
 #: Kernel launches per wrapper (CUDA only; the plain versions never count).
 LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0,
             "chunk_encode": 0, "dequant_acc_requant": 0, "int_accumulate": 0,
-            "acc_decode": 0}
+            "acc_decode": 0, "stochastic_round": 0}
 # The parameter server's worker threads launch kernels concurrently.
 _launch_lock = threading.Lock()
 
@@ -734,3 +742,135 @@ def decode_sum(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
     if kernel_ok and active_for(acc.numel(), acc.device) == "kernel":
         return acc_decode(acc, scales, k, block=block)
     return acc_decode_ref(acc, scales, k, block=block)
+
+
+# -- the precision policy's bf16 store: seeded stochastic rounding ------------
+
+def jax_strides(shape, kind: str):
+    """For a tensor of ``shape`` in PyTorch's layout of a leaf of ``kind``
+    (``models/convert``): its dims padded to four and, for each, the stride
+    of that coordinate in the JAX layout; None where the layouts agree."""
+    if kind == "conv":
+        o, i, kh, kw = shape
+        return (o, i, kh, kw), (1, o, kw * i * o, i * o)
+    if kind == "dense":
+        o, i = shape
+        return (o, i, 1, 1), (1, o, 0, 0)
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def jax_index(shape, kind: str, device) -> torch.Tensor:
+    """The flat JAX-layout index of each element of a ``kind`` leaf held in
+    PyTorch's layout, in PyTorch's element order (int64). Cached per
+    shape: the caller must not write into it."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    t = torch.arange(n, dtype=torch.int64, device=device)
+    lay = jax_strides(tuple(shape), kind)
+    if lay is None:
+        return t
+    dims, strides = lay
+    j = torch.zeros_like(t)
+    for d in (3, 2, 1, 0):
+        j += (t % dims[d]) * strides[d]
+        t = t // dims[d]
+    return j
+
+
+def _i32(v):
+    """A uint32 value (a Python int, or an int64 tensor) as int32 bits."""
+    if isinstance(v, torch.Tensor):
+        return (v & 0xFFFFFFFF).to(torch.int32)
+    v = int(v) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def threefry_bits(k0, k1, idx: torch.Tensor) -> torch.Tensor:
+    """``y0 ^ y1`` of ``threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)``
+    (``prng.random_bits`` at the int64 counters ``idx``) as int32 bits:
+    the rounds of ``prng.threefry2x32`` in wrapping int32 arithmetic, the
+    right shift of each rotation masked to a logical one. ``k0``/``k1`` are
+    Python ints or 0-d int64 tensors (a key table's words)."""
+    from ewdml_tpu_torch.utils.prng import _ROT
+
+    k0, k1 = _i32(k0), _i32(k1)
+    ks = (k0, k1, _i32(k0 ^ k1 ^ 0x1BD11BDA))
+    x0 = (idx >> 32).to(torch.int32) + ks[0]
+    x1 = (idx & 0xFFFFFFFF).to(torch.int32) + ks[1]
+    hi = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 += x1
+            torch.bitwise_right_shift(x1, 32 - r, out=hi)
+            hi &= (1 << r) - 1
+            x1 <<= r
+            x1 |= hi
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += _i32(ks[(i + 2) % 3] + i + 1)
+    return x0 ^ x1
+
+
+def stochastic_round_ref(x: torch.Tensor, key, kind: str = "vector",
+                         out=None) -> torch.Tensor:
+    """Plain version of :func:`stochastic_round_bf16`: the dither is the
+    low 16 bits of ``prng.random_bits`` at each element's JAX index, added
+    to the f32 bits and truncated; non-finite elements take the plain cast.
+    ``key`` is a key of ``utils/prng`` (host words, or a key-table key)."""
+    from ewdml_tpu_torch.utils import prng
+
+    f = x.to(torch.float32)
+    idx = jax_index(tuple(f.shape), kind, f.device)
+    dither = threefry_bits(*prng.key_words(key), idx) & 0xFFFF
+    bits = f.contiguous().reshape(-1).view(torch.int32)
+    up = ((bits + dither) >> 16) & 0xFFFF   # the upper half, wrapping add
+    up = up - ((up >> 15) << 16)  # as a signed 16-bit value
+    rounded = up.to(torch.int16).view(torch.bfloat16).reshape(f.shape)
+    res = torch.where(torch.isfinite(f), rounded, f.to(torch.bfloat16))
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def stochastic_round_bf16(x: torch.Tensor, key, kind: str = "vector",
+                          out=None) -> torch.Tensor:
+    """Seeded stochastic rounding of f32 ``x`` to bf16 (``precision.py:87``,
+    ``E[SR(x)] == x``), written into ``out`` (a bf16 tensor of ``x``'s
+    shape) where given. ``x`` is a leaf of ``kind`` in PyTorch's layout
+    (``"vector"``: the layouts agree), and the draw is indexed by the JAX
+    layout, so a leaf rounds as the JAX package rounds it. CPU tensors take
+    the plain version; CUDA tensors launch the kernel, which reads the
+    packed key from device memory (``prng.key_tensor``: a key-table slot
+    under a captured window)."""
+    if x.device.type == "cpu":
+        return stochastic_round_ref(x, key, kind, out)
+    from ewdml_tpu_torch.kernels import library
+    from ewdml_tpu_torch.utils import prng
+
+    x = x.contiguous()
+    _require_cuda(x, "stochastic_round_bf16", torch.float32)
+    n = x.numel()
+    lay = jax_strides(tuple(x.shape), kind)
+    if lay is not None and n >= 1 << 32:
+        raise ValueError("stochastic_round_bf16: a permuted leaf takes "
+                         "fewer than 2^32 elements")
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    _require_cuda(out, "stochastic_round_bf16 out", torch.bfloat16)
+    if out.shape != x.shape:
+        raise ValueError(f"stochastic_round_bf16: out has shape "
+                         f"{tuple(out.shape)}, x {tuple(x.shape)}")
+    keyt = prng.key_tensor(key, x.device)
+    dims = strides = None
+    if lay is not None:
+        arr = ctypes.c_int64 * 4
+        dims, strides = arr(*lay[0]), arr(*lay[1])
+    rc = library().ewdml_stochastic_round(
+        x.data_ptr(), n, keyt.data_ptr(), dims, strides, out.data_ptr(),
+        _stream_ptr(x))
+    _launch_check(rc, "stochastic_round")
+    _count("stochastic_round")
+    return out

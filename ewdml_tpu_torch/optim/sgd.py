@@ -10,6 +10,15 @@ torch SGD's, in the JAX package's order of operations:
     p  += -lr * d_p
 
 The update is in place on the parameters and the momentum buffers.
+
+``state_dtype=torch.bfloat16`` (``--precision-policy bf16_wire_state``)
+stores the buffers at half width: the new buffer is computed in f32,
+stored through ``core/precision.store_round`` under ``layer_key(key, i)``
+(seeded stochastic rounding; round-to-nearest without a key), and the step
+is taken from the *stored* value, so the trajectory is a function of the
+stored state alone. ``kinds`` names each leaf's layout (``models/
+convert``): the trainer holds its parameters and buffers in PyTorch's
+layout, and the rounding draws by the JAX layout's index.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ class SGDState:
 
 class SGD:
     def __init__(self, lr: float, momentum: float = 0.0, dampening: float = 0.0,
-                 weight_decay: float = 0.0, nesterov: bool = False):
+                 weight_decay: float = 0.0, nesterov: bool = False,
+                 state_dtype=None):
         if nesterov and (momentum <= 0 or dampening != 0):
             raise ValueError("Nesterov momentum requires a momentum and zero "
                              "dampening")
@@ -36,36 +46,37 @@ class SGD:
         self.dampening = dampening
         self.weight_decay = weight_decay
         self.nesterov = nesterov
+        self.state_dtype = state_dtype
 
     def init(self, params: list) -> SGDState:
-        return SGDState([torch.zeros_like(p) for p in params], False)
+        return SGDState([torch.zeros_like(p, dtype=self.state_dtype or p.dtype)
+                         for p in params], False)
 
     @torch.no_grad()
-    def update(self, grads: list, state: SGDState, params: list) -> None:
-        """Apply one step to ``params`` (in place) from ``grads``."""
+    def update(self, grads: list, state: SGDState, params: list, key=None,
+               kinds=None) -> None:
+        """Apply one step to ``params`` (in place) from ``grads``. ``key``
+        seeds the bf16 stores (leaf i under ``layer_key(key, i)``)."""
+        from ewdml_tpu_torch.core.precision import store_round
+        from ewdml_tpu_torch.utils import prng
+
         mu, damp = self.momentum, self.dampening
-        for g, p, buf in zip(grads, params, state.momentum_buf):
+        for i, (g, p, buf) in enumerate(zip(grads, params,
+                                            state.momentum_buf)):
             g = g.to(torch.float32)
             d_p = g + self.weight_decay * p if self.weight_decay else g
             if mu:
-                if state.initialized:
-                    buf.copy_(mu * buf + (1.0 - damp) * d_p)
-                else:
-                    buf.copy_(d_p)
-                step_dir = d_p + mu * buf if self.nesterov else buf
+                new = (mu * buf.float() + (1.0 - damp) * d_p
+                       if state.initialized else d_p)
+                # The layer key only where the store rounds (bf16 state).
+                lk = (prng.layer_key(key, i)
+                      if key is not None and buf.dtype != torch.float32
+                      else None)
+                store_round(lk, new, buf.dtype,
+                            kinds[i] if kinds else "vector", out=buf)
+                used = buf.float()
+                step_dir = d_p + mu * used if self.nesterov else used
             else:
                 step_dir = d_p
             p.add_(-self.lr * step_dir)
         state.initialized = True
-
-
-def make_optimizer(name: str, lr: float, momentum: float = 0.9,
-                   weight_decay: float = 0.0, nesterov: bool = False):
-    """``sgd`` only in this slice; Adam is a later one."""
-    name = name.lower()
-    if name == "sgd":
-        return SGD(lr, momentum=momentum, weight_decay=weight_decay,
-                   nesterov=nesterov)
-    if name == "adam":
-        raise NotImplementedError("--optimizer adam is not ported yet")
-    raise ValueError(f"unknown optimizer {name!r}")

@@ -44,10 +44,30 @@ from ewdml_tpu_torch.ops.topk import TopKPayload, top_k_indices
 from ewdml_tpu_torch.utils import prng
 
 
-def dense_allreduce_mean(world: LocalWorld, grads: list) -> list:
-    """Method 1/3 dense path: one pmean per leaf (f32 wire).
-    ``grads[w]`` is worker w's list of leaves; returns the averaged leaves."""
-    return [world.pmean([g[i] for g in grads]) for i in range(len(grads[0]))]
+def dense_allreduce_mean(world: LocalWorld, grads: list,
+                         wire_dtype=None) -> list:
+    """Method 1/3 dense path: one pmean per leaf. ``grads[w]`` is worker
+    w's list of leaves; returns the averaged leaves.
+
+    ``wire_dtype=torch.bfloat16`` (``--precision-policy bf16_wire``,
+    ``collectives.py:46-84``) halves the payload: each f32 leaf is gathered
+    as bf16 (what crosses the wire) and the mean is taken in f32 over the
+    upcast gather, so accumulation stays f32. A non-f32 leaf crosses
+    untouched and its mean keeps its dtype. Under f32 the path is the plain
+    pmean."""
+    n = len(grads[0])
+    if wire_dtype is None or wire_dtype == torch.float32:
+        return [world.pmean([g[i] for g in grads]) for i in range(n)]
+    out = []
+    for i in range(n):
+        leaf = [g[i] for g in grads]
+        dtype = leaf[0].dtype
+        wire = [x.to(wire_dtype) for x in leaf] if dtype == torch.float32 \
+            else leaf
+        gathered = world.all_gather(wire).to(torch.float32)
+        mean = gathered.sum(dim=0) / world.size
+        out.append(mean if dtype == torch.float32 else mean.to(dtype))
+    return out
 
 
 def fused_chunk_elems(n: int, world: int, block: int) -> int:

@@ -26,12 +26,17 @@ The server applies on its own CUDA stream and synchronizes it before it
 reads the clock, so ``apply_s_sum`` is the apply's device time plus its
 host dispatch, not the work the workers queue on the default stream.
 
+The precision policy (``core/precision.py``): under ``bf16_wire*`` the
+dense push frames carry bf16 (``wire_cast``) and the server's mean stays
+f32; the server's optimizer state is stored at the policy's state dtype,
+its bf16 stores rounding under ``fold_in(key(seed ^ 0x0917), version)``.
+
 Options of later slices raise ``NotImplementedError`` by name here or in
 ``train/trainer.check_supported(async_path=True)``: durability and
 recovery, the publication stream, aggregation-tree pseudo-pushes, round
 pipelines and cohort policies, the lossy weights-down relay, ``--adapt``,
-``--ps-down delta``, ``--ps-bootstrap bf16``, ``--precision-policy`` and
-``--health``.
+``--ps-down delta``, ``--ps-bootstrap bf16`` (it needs the delta down-link)
+and ``--health``.
 """
 
 from __future__ import annotations
@@ -48,10 +53,12 @@ import numpy as np
 import torch
 
 from ewdml_tpu_torch import native
+from ewdml_tpu_torch.core.precision import resolve_policy, wire_cast
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
 from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.ops import kernels
+from ewdml_tpu_torch.optim import update_accepts_key
 from ewdml_tpu_torch.parallel.faults import FaultCrash, FaultSpec
 from ewdml_tpu_torch.parallel.policy import StragglerKilled, StragglerPolicy
 from ewdml_tpu_torch.train.state import leaf_params
@@ -165,7 +172,7 @@ class ParameterServer:
                  down_mode: str = "weights", bootstrap: str = "f32",
                  kill_threshold: Optional[float] = None,
                  precision: str = "f32", adapt=None,
-                 server_agg: str = "decode", health=None):
+                 server_agg: str = "decode", health=None, seed: int = 0):
         if server_agg not in ("decode", "homomorphic"):
             raise ValueError(f"server_agg must be 'decode' or 'homomorphic',"
                              f" got {server_agg!r}")
@@ -191,8 +198,6 @@ class ParameterServer:
         for bad, what in ((adapt is not None, "--adapt"),
                           (down_mode != "weights", f"--ps-down {down_mode}"),
                           (bootstrap != "f32", f"--ps-bootstrap {bootstrap}"),
-                          (precision != "f32",
-                           f"--precision-policy {precision}"),
                           (health is not None, "--health"),
                           (relay_compress, "the lossy weights-down relay")):
             if bad:
@@ -203,6 +208,12 @@ class ParameterServer:
                        for p in params]
         self.optimizer = optimizer
         self.opt_state = optimizer.init(self.params)
+        # The dense push wire's dtype (the registered template must match:
+        # run_async_ps casts it as the workers cast their frames) and the
+        # seed of the bf16 optimizer-state stores
+        # (``ewdml_tpu/parallel/ps.py:337-343``).
+        self.precision = resolve_policy(precision)
+        self._opt_key = prng.key(seed ^ 0x0917)
         self.compressor = compressor
         self.policy = StragglerPolicy(
             kill_threshold=kill_threshold, max_staleness=max_staleness,
@@ -241,8 +252,9 @@ class ParameterServer:
         k = self._schema_k = self.policy.num_aggregate
         optimizer = self.optimizer
         homomorphic = self.server_agg == "homomorphic"
+        takes_key = update_accepts_key(optimizer)
 
-        def apply_bufs(params, opt_state, bufs):  # uint8 [K, n]
+        def apply_bufs(params, opt_state, bufs, okey):  # uint8 [K, n]
             trees = [unpack(bufs[i]) for i in range(k)]
             if homomorphic:
                 from ewdml_tpu_torch.ops.homomorphic import homomorphic_mean
@@ -251,12 +263,17 @@ class ParameterServer:
             else:
                 if comp is not None:
                     trees = [decompress_tree(comp, t) for t in trees]
+                # f32 accumulation whatever the wire dtype: bf16 push
+                # frames upcast before the mean.
                 kk = kernels.f32_scalar(float(k))
                 grads = [torch.stack(xs).to(torch.float32).sum(dim=0) / kk
                          for xs in zip(*trees)]
             new_params = [p.clone() for p in params]
             new_opt = _clone_state(opt_state)
-            optimizer.update(grads, new_opt, new_params)
+            if takes_key:
+                optimizer.update(grads, new_opt, new_params, key=okey)
+            else:
+                optimizer.update(grads, new_opt, new_params)
             return new_params, new_opt
 
         self._apply_fn = apply_bufs
@@ -264,7 +281,8 @@ class ParameterServer:
         with self._on_stream(), torch.no_grad():
             bufs0 = torch.zeros((k, nbytes), dtype=torch.uint8,
                                 device=self.device)
-            self._apply_fn(self.params, self.opt_state, bufs0)
+            self._apply_fn(self.params, self.opt_state, bufs0,
+                           prng.fold_in(self._opt_key, 0))
         self._sync()
 
     def _check_worker(self, worker) -> None:
@@ -341,10 +359,13 @@ class ParameterServer:
         with self._update_lock, self._on_stream(), torch.no_grad(), \
                 otrace.span("ps/apply", k=len(batch), version=self.version):
             bufs = torch.from_numpy(np.stack(batch)).to(self.device)
+            # The bf16 state stores' key, one per applied update (the
+            # version advances only under _update_lock, held here).
+            okey = prng.fold_in(self._opt_key, self.version)
             self._sync()
             t_apply = clock.monotonic()
             new_params, new_opt = self._apply_fn(self.params, self.opt_state,
-                                                 bufs)
+                                                 bufs, okey)
             self._sync()
             apply_s = clock.monotonic() - t_apply
             decodes = (0 if self.compressor is None
@@ -423,7 +444,7 @@ class AsyncWorker(threading.Thread):
                  compress_tree=None, pack_payloads=None, unpack_params=None,
                  crash_at: Optional[int] = None,
                  nan_at: frozenset = frozenset(), specs=None,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, wire_dtype=None):
         super().__init__(daemon=True, name=f"ps-worker-{index}")
         self.index = index
         self.device = _indexed(device)
@@ -443,6 +464,7 @@ class AsyncWorker(threading.Thread):
         self._unpack_params = unpack_params
         self.specs = specs
         self.debug_nans = debug_nans
+        self.wire_dtype = wire_dtype
 
     def _check_finite(self, step: int, loss, grads) -> None:
         """``--debug-nans``: raise ``FloatingPointError`` naming the step
@@ -484,9 +506,12 @@ class AsyncWorker(threading.Thread):
                 if self.delay_s:
                     time.sleep(self.delay_s)
                 with torch.no_grad():
-                    payloads = (self._compress_tree(grads, k)
-                                if self._compress_tree is not None
-                                else grads)
+                    if self._compress_tree is not None:
+                        payloads = self._compress_tree(grads, k)
+                    elif self.wire_dtype is not None:
+                        payloads = wire_cast(grads, self.wire_dtype)
+                    else:
+                        payloads = grads
                     buf = self._pack_payloads(payloads).cpu().numpy()
                 message = native.encode_arrays([buf])
                 self.server.push(PushRecord(
@@ -557,10 +582,17 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
                              bootstrap=bootstrap,
                              kill_threshold=kill_threshold,
                              precision=precision, server_agg=server_agg,
-                             health=health)
+                             health=health, seed=seed)
     shared_compress = make_compress_tree(compressor)
     payload_template = (grads0 if shared_compress is None
                         else shared_compress(grads0, prng.key(0)))
+    # Dense push frames honour the policy: the template and the workers'
+    # per-step cast share one definition (core/precision.wire_cast).
+    wire_dtype = (server.precision.wire_dtype
+                  if shared_compress is None and server.precision.bf16_wire
+                  else None)
+    if wire_dtype is not None:
+        payload_template = wire_cast(payload_template, wire_dtype)
     server.register_payload_schema(payload_template)
     pack_payloads = transfer.make_device_packer()
     unpack_params = transfer.make_device_unpacker(params)
@@ -573,7 +605,8 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
             delay_s=straggler_delays.get(i, 0.0), crash_at=crashes.get(i),
             nan_at=fault_spec.for_worker(i).nan_at,
             compress_tree=shared_compress, pack_payloads=pack_payloads,
-            unpack_params=unpack_params, specs=specs, debug_nans=debug_nans)
+            unpack_params=unpack_params, specs=specs, debug_nans=debug_nans,
+            wire_dtype=wire_dtype)
         for i in range(num_workers)
     ]
     t0 = clock.monotonic()

@@ -58,10 +58,13 @@ class DistributedEvaluator:
         self.specs = leaf_specs(self.model)
         # The restore template: one worker's state as the model and the
         # optimizer's init give it (no train step is built).
+        policy = cfg.precision
         optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                                   cfg.weight_decay, cfg.nesterov)
+                                   cfg.weight_decay, cfg.nesterov,
+                                   state_dtype=policy.state_dtype)
         ef = cfg.error_feedback and cfg.compression_enabled
-        residual = ([torch.zeros(s.jax_shape, device=self.device)
+        residual = ([torch.zeros(s.jax_shape, dtype=policy.wire_dtype,
+                                 device=self.device)
                      for s in self.specs] if ef else [])
         self._worker = WorkerState(
             self.model, optimizer.init(leaf_params(self.model, self.specs)),

@@ -99,12 +99,24 @@ class Trainer:
         self.model = build_model(cfg.network, num_classes_for(cfg.dataset),
                                  dataset=cfg.dataset, seed=cfg.seed)
         self.specs = convert.leaf_specs(self.model)
+        # The precision policy (core/precision.py): the optimizer state's
+        # storage here, the dense wire and the EF residuals' dtype below.
+        # Weights stay f32 under every policy.
+        policy = cfg.precision
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                                        cfg.weight_decay, cfg.nesterov)
+                                        cfg.weight_decay, cfg.nesterov,
+                                        state_dtype=policy.state_dtype)
         self._stabilize_ef_quantizer()
         self.state = make_train_state(
             self.model, self.optimizer, self.world.size, self.device,
-            error_feedback=cfg.error_feedback and cfg.compression_enabled)
+            error_feedback=cfg.error_feedback and cfg.compression_enabled,
+            residual_dtype=policy.wire_dtype)
+        if policy.name != "f32":
+            logger.info(
+                "precision policy %s: dense wire + EF residual %s, "
+                "optimizer state %s, weights f32 (Method-2 invariant)",
+                policy.name, str(policy.wire_dtype).replace("torch.", ""),
+                str(policy.state_dtype).replace("torch.", ""))
         self._train_ds = None
         # The device feed augments as the loaded split says (a synthetic
         # split never does), as the streaming feeds do.

@@ -16,6 +16,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ewdml_tpu_torch.models.convert import leaf_specs
+from ewdml_tpu_torch.optim import AdamState
 
 
 @dataclass
@@ -40,15 +41,19 @@ def leaf_params(model: torch.nn.Module, specs=None) -> list:
 
 
 def make_train_state(model: torch.nn.Module, optimizer, num_workers: int,
-                     device, error_feedback: bool = False) -> TrainState:
+                     device, error_feedback: bool = False,
+                     residual_dtype=None) -> TrainState:
     """W identical replicas of ``model`` on ``device`` (the JAX package
-    tiles one init over the worker axis)."""
+    tiles one init over the worker axis). ``residual_dtype`` stores the
+    error-feedback residuals at the precision policy's wire dtype
+    (``state.py:53-82``; default f32)."""
     specs = leaf_specs(model)
     workers = []
+    dtype = residual_dtype or torch.float32
     for _ in range(num_workers):
         replica = copy.deepcopy(model).to(device)
         params = leaf_params(replica, specs)
-        residual = ([torch.zeros(s.jax_shape, dtype=torch.float32, device=device)
+        residual = ([torch.zeros(s.jax_shape, dtype=dtype, device=device)
                      for s in specs] if error_feedback else [])
         workers.append(WorkerState(replica, optimizer.init(params), residual))
     return TrainState(step=0, workers=workers)
@@ -92,8 +97,9 @@ def state_tree(workers: list, specs=None, stacked: bool = False,
                leaf=None) -> dict:
     """The Flax state dict of the JAX package's ``WorkerState`` for
     ``workers``: ``params``, ``opt_state`` (``SGDState``: ``momentum_buf``
-    and ``initialized``), ``batch_stats`` and ``residual`` (``{}`` without
-    error feedback), in Flax paths and layouts. ``stacked`` gives every
+    and ``initialized``; ``AdamState``: ``count``, ``mu`` and ``nu``),
+    ``batch_stats`` and ``residual`` (``{}`` without error feedback), in
+    Flax paths and layouts. ``stacked`` gives every
     leaf a leading ``[W]`` axis (a full checkpoint); otherwise the tree is
     worker 0's. ``leaf(tensors)`` turns the W workers' tensors of one leaf
     into the tree's leaf (default: worker 0's, or their stack)."""
@@ -110,18 +116,22 @@ def state_tree(workers: list, specs=None, stacked: bool = False,
                        for i, s in enumerate(specs))
 
     params = per_spec(lambda ws: leaf_params(ws.model, specs))
-    momentum = per_spec(lambda ws: ws.opt_state.momentum_buf)
-    initialized = leaf([torch.tensor(bool(ws.opt_state.initialized))
-                        for ws in workers])
+    if isinstance(workers[0].opt_state, AdamState):
+        opt_state = {"count": leaf([ws.opt_state.count for ws in workers]),
+                     "mu": per_spec(lambda ws: ws.opt_state.mu),
+                     "nu": per_spec(lambda ws: ws.opt_state.nu)}
+    else:
+        opt_state = {
+            "momentum_buf": per_spec(lambda ws: ws.opt_state.momentum_buf),
+            "initialized": leaf([torch.tensor(bool(ws.opt_state.initialized))
+                                 for ws in workers])}
     stats = [_stat_buffers(ws.model) for ws in workers]
     batch_stats = _nested((path, leaf([s[j][1] for s in stats]))
                           for j, (path, _) in enumerate(stats[0]))
     residual = ({} if not workers[0].residual else
                 _nested((s.name, leaf([ws.residual[i] for ws in workers]))
                         for i, s in enumerate(specs)))
-    return {"params": params,
-            "opt_state": {"momentum_buf": momentum,
-                          "initialized": initialized},
+    return {"params": params, "opt_state": opt_state,
             "batch_stats": batch_stats, "residual": residual}
 
 
@@ -158,16 +168,21 @@ def load_state_tree(workers: list, tree: dict, specs=None,
 
     params = _flat(tree["params"])
     opt = tree["opt_state"]
-    momentum = _flat(opt["momentum_buf"])
+    adam = isinstance(workers[0].opt_state, AdamState)
+    bufs = ({k: _flat(opt[k]) for k in ("mu", "nu")} if adam
+            else {"momentum_buf": _flat(opt["momentum_buf"])})
     stats = _flat(tree["batch_stats"])
     residual = _flat(tree["residual"])
     for w, ws in enumerate(workers):
         for i, (p, s) in enumerate(zip(leaf_params(ws.model, specs), specs)):
             put(p, params[s.name], w, s.kind)
-            put(ws.opt_state.momentum_buf[i], momentum[s.name], w, s.kind)
+            for k, flat in bufs.items():
+                put(getattr(ws.opt_state, k)[i], flat[s.name], w, s.kind)
             if ws.residual:
                 put(ws.residual[i], residual[s.name], w)
-        if opt["initialized"].device.type != "meta":
+        if adam:
+            put(ws.opt_state.count, opt["count"], w)
+        elif opt["initialized"].device.type != "meta":
             ws.opt_state.initialized = bool(row(opt["initialized"], w))
         for path, buf in _stat_buffers(ws.model):
             put(buf, stats[path], w)

@@ -7,6 +7,17 @@ batch; the gradients go through the exchange (dense pmean or the int8-wire
 acceptance); every worker applies SGD; under Method 6 the exchange runs only
 at sync steps, which also adopt the lowest-loss worker's weights.
 
+The precision policy (``core/precision.py``) narrows the dense wire and the
+error-feedback residuals to bf16 under ``bf16_wire`` and the optimizer
+state too under ``bf16_wire_state``; every bf16 store is seeded stochastic
+rounding (the residuals under a rank-folded key, the optimizer state under
+a rank-shared one, so the synchronous replicas stay bit-identical).
+``--overlap bucket`` exchanges size-balanced buckets, each issued on a side
+CUDA stream while the last worker's backward still runs
+(``parallel/overlap.py``). ``--lossy-weights-down`` reproduces the paper's
+negative result: after every update each worker adopts the compressed and
+decompressed weights.
+
 Method dispatch (Final Report pp.4-6):
 - M1 'weights' PS: dense grads up, weights down (dense data parallel).
 - M2: compressed up, dense down (``relay=False``).
@@ -27,28 +38,43 @@ host launch (``train/window.py``; one CUDA graph on the GPU).
 from __future__ import annotations
 
 import contextlib
+import logging
 
 import torch
 import torch.nn.functional as F
 
 from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
-                                         validate_collective, validate_overlap,
+                                         validate_collective,
+                                         validate_lossy_weights,
+                                         validate_overlap,
                                          validate_server_agg)
+from ewdml_tpu_torch.core.precision import resolve_policy, store_round
 from ewdml_tpu_torch.core.world import LocalWorld
 from ewdml_tpu_torch.data import device_feed
 from ewdml_tpu_torch.data.datasets import _SPECS
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
 from ewdml_tpu_torch.models.layers import Dropout
 from ewdml_tpu_torch.ops import make_compressor
+from ewdml_tpu_torch.ops.bytes import numel
 from ewdml_tpu_torch.ops.none import NoneCompressor
+from ewdml_tpu_torch.optim import update_accepts_key
 from ewdml_tpu_torch.parallel import collectives
+from ewdml_tpu_torch.parallel import overlap as ovl
 from ewdml_tpu_torch.train.state import TrainState, leaf_params
 from ewdml_tpu_torch.train.window import WindowStep
 from ewdml_tpu_torch.utils import prng
 from ewdml_tpu_torch.utils.keytable import HostKeys
 
-#: Key tags of the JAX step (``trainer.py:236``).
+#: Key tags of the JAX step (``trainer.py``): the relay (``:236``), the
+#: optimizer's rank-shared bf16 stores (``:342``), the residuals'
+#: rank-folded bf16 stores (``:305``) and the lossy weight broadcast
+#: (``:378``).
 RELAY_TAG = 0x5EED
+OPT_TAG = 0x0917
+RESIDUAL_TAG = 0x0E5F
+LOSSY_TAG = 0xBAD
+
+logger = logging.getLogger("ewdml_tpu_torch")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -77,15 +103,13 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
         return
     validate_collective(cfg)
     validate_overlap(cfg)
+    validate_lossy_weights(cfg)
+    resolve_policy(cfg.precision_policy)
     unsupported = [
         (cfg.mode != "normal", f"--mode {cfg.mode} (the sync trainer; "
                                "--mode async runs the parameter server)"),
         (cfg.federated, "--federated"),
-        (cfg.overlap != "off", "--overlap bucket"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
-        (cfg.lossy_weights_down, "--lossy-weights-down"),
-        (cfg.precision_policy != "f32",
-         f"--precision-policy {cfg.precision_policy}"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
         *_serving_rows(cfg),
     ]
@@ -108,8 +132,7 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (bool(cfg.server_state_dir),
          "--server-state-dir (durability and recovery)"),
         (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
-        (cfg.precision_policy != "f32",
-         f"--precision-policy {cfg.precision_policy}"),
+        (cfg.lossy_weights_down, "--lossy-weights-down on the async path"),
         *_serving_rows(cfg),
     ]
     _reject(unsupported)
@@ -155,6 +178,11 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                                      cfg.topk_ratio, cfg.topk_exact,
                                      cfg.qsgd_block)
     dense = isinstance(compressor, NoneCompressor)
+    if cfg.lossy_weights_down:
+        logger.warning(
+            "--lossy-weights-down: the weight broadcast is QSGD-compressed; "
+            "this reproduces the reference's NEGATIVE result (Final Report "
+            "p.5) and training is expected to stall or diverge")
     fused_q = cfg.collective == "fused_q" and dense
     if fused_q and 0 < cfg.num_aggregate < world.size:
         raise ValueError(
@@ -169,12 +197,22 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             "no per-rank own-payload); use the default gather transport")
     ef = cfg.error_feedback and not dense
     specs = leaf_specs(model)
+    kinds = [s.kind for s in specs]
     fusion = resolve_fusion(cfg, len(specs))
     fuse = fusion == "all"
     bucket_bytes = (int(cfg.fusion_threshold_mb * (1 << 20))
                     if fusion == "bucket" else None)
     relay = cfg.relay_compress and cfg.ps_mode == "grads"
+    policy = cfg.precision
+    wire_dtype = policy.wire_dtype if dense and policy.bf16_wire else None
     device = world.device
+    # --overlap bucket: the planner's buckets over the JAX tree, and (on
+    # the card) the side stream each bucket's exchange is issued on.
+    plan = (ovl.plan_buckets([4 * numel(s.jax_shape) for s in specs],
+                             cfg.overlap_buckets)
+            if cfg.overlap == "bucket" else None)
+    side_stream = (torch.cuda.Stream(device)
+                   if plan is not None and device.type == "cuda" else None)
     spec = _SPECS.get((cfg.dataset or "").lower())
     norm_consts = None
     if spec is not None:
@@ -208,7 +246,8 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                 # The int8-wire ring; its hops draw from the step key,
                 # folded per rank inside the collective.
                 return collectives.fused_q_allreduce_mean(world, grads, skey)
-            return collectives.dense_allreduce_mean(world, grads)
+            return collectives.dense_allreduce_mean(world, grads,
+                                                    wire_dtype=wire_dtype)
         return collectives.compressed_allreduce(
             world, grads, compressor, skey, num_aggregate=cfg.num_aggregate,
             relay=relay, relay_key=prng.fold_in(skey, RELAY_TAG),
@@ -216,6 +255,43 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                 cfg.gather_type, "all_gather"),
             return_own_decompressed=return_own, step=step, fuse=fuse,
             bucket_bytes=bucket_bytes)
+
+    def store_residuals(state, step, skey, g_eff, own, idxs):
+        """The residuals of leaves ``idxs``: what the wire dropped, all of
+        ``g_eff`` for a rank whose payload K-of-N did not accept; stored at
+        the wire dtype, bf16 through the rank-folded seeded rounding."""
+        w_n = world.size
+        k = cfg.num_aggregate if 0 < cfg.num_aggregate < w_n else w_n
+        with torch.no_grad():
+            for r, ws in enumerate(state.workers):
+                accepted = ((r - step) % w_n) < k
+                rkey = (prng.fold_in(prng.fold_in(skey, RESIDUAL_TAG), r)
+                        if policy.bf16_wire else None)
+                for j, i in enumerate(idxs):
+                    ge = g_eff[r][j]
+                    store_round(None if rkey is None else
+                                prng.layer_key(rkey, i),
+                                ge - own[r][j] if accepted else ge,
+                                ws.residual[i].dtype, out=ws.residual[i])
+
+    def run_bucket(state, grads, avg, step, skey, b):
+        """``--overlap bucket``: bucket b's exchange (with its residuals
+        under error feedback), its averages written into ``avg``."""
+        idxs = plan.buckets[b]
+        sub = [[g[i] for i in idxs] for g in grads]
+        if ef:
+            sub = [[g + ws.residual[i] for g, i in zip(sub[r], idxs)]
+                   for r, ws in enumerate(state.workers)]
+        res = ovl.exchange_bucket(
+            world, sub, ovl.bucket_key(skey, b),
+            compressor=None if dense else compressor, wire_dtype=wire_dtype,
+            fused_q=fused_q, num_aggregate=cfg.num_aggregate, relay=relay,
+            fuse=fusion != "none", step=step, return_own=ef)
+        if ef:
+            res, own = res
+            store_residuals(state, step, skey, sub, own, idxs)
+        for i, g in zip(idxs, res):
+            avg[i] = g
 
     def worker_batches(images, labels, step, keys):
         w_n = world.size
@@ -235,7 +311,11 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
         step = state.step
         w_n = world.size
         skey = keys.step_key(step)
+        is_sync = (cfg.sync_every <= 1
+                   or step % cfg.sync_every == cfg.sync_every - 1)
         grads, rows = [], []
+        avg = [None] * len(specs)
+        sched, hooks = None, []
         batches = worker_batches(images, labels, step, keys)
         for r, ws in enumerate(state.workers):
             x = normalize(batches[r][0])
@@ -244,40 +324,63 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             gen = (prng.generator(prng.fold_in(skey, r), device)
                    if dropout else None)
             ws.model.zero_grad(set_to_none=True)
+            params = leaf_params(ws.model, specs)
+            if (plan is not None and is_sync and r == w_n - 1
+                    and ovl.use_stream(device)):
+                # Each bucket is issued once the last worker's backward
+                # has produced all of its leaves.
+                last = [None] * len(specs)
+                grads.append(last)
+                sched = ovl.StreamSchedule(
+                    plan, lambda b: run_bucket(state, grads, avg, step, skey,
+                                               b), side_stream)
+                hooks = [p.register_post_accumulate_grad_hook(
+                    _leaf_hook(sched, last, i, s.kind))
+                    for i, (p, s) in enumerate(zip(params, specs))]
             with compute_ctx():
                 logits = ws.model(x, train=True, generator=gen)
             loss = cross_entropy(logits.float(), y)
             loss.backward()
-            params = leaf_params(ws.model, specs)
-            grads.append([to_jax(p.grad, s.kind) for p, s in zip(params, specs)])
+            for h in hooks:
+                h.remove()
+            if sched is None or r < w_n - 1:
+                grads.append([to_jax(p.grad, s.kind)
+                              for p, s in zip(params, specs)])
             top1, top5 = topk_accuracy(logits.detach().float(), y)
             rows.append(torch.stack([loss.detach(), top1, top5]))
 
         metrics = torch.stack(rows)  # [W, 3]: loss, top-1, top-5
-        is_sync = (cfg.sync_every <= 1
-                   or step % cfg.sync_every == cfg.sync_every - 1)
         if not is_sync:
             grads_used = grads  # Method 6 local step; residuals kept
+        elif plan is not None:
+            if sched is not None:
+                sched.join()
+            else:
+                for b in range(plan.n_buckets):
+                    run_bucket(state, grads, avg, step, skey, b)
+            grads_used = [avg] * w_n
         elif ef:
             g_eff = [[g + res for g, res in zip(grads[r], ws.residual)]
                      for r, ws in enumerate(state.workers)]
             avg, own = exchange(g_eff, step, skey, return_own=True)
-            # K-of-N: a rank whose payload was not accepted this step keeps
-            # its whole g_eff as the residual.
-            k = cfg.num_aggregate if 0 < cfg.num_aggregate < w_n else w_n
-            with torch.no_grad():
-                for r, ws in enumerate(state.workers):
-                    accepted = ((r - step) % w_n) < k
-                    for res, ge, o in zip(ws.residual, g_eff[r], own[r]):
-                        res.copy_(ge - o if accepted else ge)
+            store_residuals(state, step, skey, g_eff, own, range(len(specs)))
             grads_used = [avg] * w_n
         else:
             grads_used = [exchange(grads, step, skey)] * w_n
 
+        # The optimizer's bf16 stores round under a rank-shared key, so the
+        # synchronous replicas stay bit-identical.
+        okey = prng.fold_in(skey, OPT_TAG)
         for r, ws in enumerate(state.workers):
             params = leaf_params(ws.model, specs)
             g_torch = [from_jax(g, s.kind) for g, s in zip(grads_used[r], specs)]
-            optimizer.update(g_torch, ws.opt_state, params)
+            # Resolved each step: a caller may swap the optimizer's update
+            # for one of the plain protocol after the step is built.
+            if update_accepts_key(optimizer):
+                optimizer.update(g_torch, ws.opt_state, params, key=okey,
+                                 kinds=kinds)
+            else:
+                optimizer.update(g_torch, ws.opt_state, params)
 
         if cfg.sync_every > 1 and is_sync:
             with torch.no_grad():
@@ -287,10 +390,32 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                 for ws in state.workers:
                     for p, b in zip(leaf_params(ws.model, specs), best):
                         p.copy_(b)
+        if cfg.lossy_weights_down:
+            # Every worker adopts dec(compress(W)) under the step's shared
+            # key, leaf i under layer_key(fold_in(step_key, 0xBAD), i), in
+            # the JAX layout (trainer.py:369-385).
+            wkey = prng.fold_in(skey, LOSSY_TAG)
+            with torch.no_grad():
+                for ws in state.workers:
+                    for i, (p, s) in enumerate(zip(leaf_params(ws.model, specs),
+                                                   specs)):
+                        pj = to_jax(p, s.kind).contiguous()
+                        dec = compressor.decompress(
+                            compressor.compress(prng.layer_key(wkey, i), pj))
+                        p.copy_(from_jax(dec.reshape(s.jax_shape), s.kind))
         state.step = step + 1
         return metrics
 
     return body
+
+
+def _leaf_hook(sched, grads: list, i: int, kind: str):
+    """The post-accumulate-grad hook of leaf ``i``: record its gradient (in
+    the JAX layout) and count its bucket down."""
+    def hook(p):
+        grads[i] = to_jax(p.grad, kind)
+        sched.leaf_ready(i)
+    return hook
 
 
 def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,

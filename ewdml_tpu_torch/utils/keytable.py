@@ -111,6 +111,13 @@ class KeyTable:
         self._write_int(i + 1, k[1])
         return self._ints[i], self._ints[i + 1]
 
+    def packed(self, k: prng.Key) -> torch.Tensor:
+        """The words of ``k`` packed into one int64 (``prng.packed_key``)
+        as an int64 ``[1]`` view."""
+        i = self._take_ints((k.path, "packed"))
+        self._write_int(i, prng.packed_key(k))
+        return self._ints[i:i + 1]
+
     def generator(self, k: prng.Key) -> torch.Generator:
         """A dropout stream seeded from ``k``: on the CPU a new generator,
         on CUDA the next registered one (seeded by :meth:`load`)."""
@@ -158,7 +165,11 @@ class KeyTable:
             self._seed_host[i] = prng.seed_from_key(self._derive(path, memo))
         for i, (path, word) in enumerate(self._int_paths):
             v = self._derive(path, memo)
-            self._int_host[i] = v if word is None else v[word]
+            if word == "packed":
+                v = prng.packed_key(v)
+            elif word is not None:
+                v = v[word]
+            self._int_host[i] = v
         for gen, path in zip(self._pool, self._gen_paths):
             k = self._derive(path, memo)
             gen.manual_seed((k[0] << 32) | k[1])

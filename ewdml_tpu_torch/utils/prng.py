@@ -108,6 +108,22 @@ def seed_tensor(k: tuple, device) -> torch.Tensor:
     return torch.full((1,), seed_from_key(k), dtype=torch.int32, device=device)
 
 
+def packed_key(k: tuple) -> int:
+    """The words of ``k`` as one int64 (``k0 << 32 | k1``, two's
+    complement), the form the stochastic-round kernel reads."""
+    v = ((int(k[0]) & _MASK) << 32) | (int(k[1]) & _MASK)
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def key_tensor(k: tuple, device) -> torch.Tensor:
+    """:func:`packed_key` of ``k`` as an int64 ``[1]`` tensor on
+    ``device``: a slot of the key table for a :class:`Key`, else a tensor
+    filled on the device (no host-to-device copy)."""
+    if isinstance(k, Key):
+        return k.table.packed(k)
+    return torch.full((1,), packed_key(k), dtype=torch.int64, device=device)
+
+
 def key_words(k: tuple):
     """The two words a draw takes: Python ints, or for a :class:`Key` 0-d
     int64 tensors read from the key table."""

@@ -309,3 +309,71 @@ def test_resume_matches_the_jax_resume(tmp_path, jax_twins):
                             jt2.state.worker.params) for w in range(W)]
     tparams = [torch_to_flax(ws.model)[0] for ws in tt2.state.workers]
     check_with_flips(Pair(jt2, tt2, jres, tres, jparams, tparams, init))
+
+
+# -- Adam and the precision policy -------------------------------------------
+
+POLICY = dict(INTEROP, optimizer="adam", lr=1e-3,
+              precision_policy="bf16_wire_state", pallas="off")
+
+
+def test_jax_adam_bf16_checkpoint_restores_in_the_port(tmp_path):
+    """A JAX run under Adam and ``bf16_wire_state`` (bf16 moments and
+    residuals, an int32 count) restores bit for bit in the port, and the
+    port's save of it is the JAX file's bytes."""
+    cfg = dict(POLICY, max_steps=2, eval_freq=2)
+    jt = JTrainer(JConfig(train_dir=str(tmp_path) + "/", **cfg))
+    jt.train()
+    path = jckpt.latest_path(str(tmp_path))
+    tt = Trainer(TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
+                             **cfg))
+    assert tt.maybe_restore() and tt.state.step == 2
+    ws = tt.state.workers[0]
+    assert ws.opt_state.mu[0].dtype == torch.bfloat16
+    assert ws.residual[0].dtype == torch.bfloat16
+    want = flax.serialization.to_state_dict(
+        jax.tree.map(np.asarray, jt.state.worker))
+    got = state_tree(tt.state.workers, tt.specs, stacked=True)
+    assert checkpoint.save(str(tmp_path / "port"), got, 2, world=W)
+    with open(path, "rb") as a, \
+            open(str(tmp_path / "port" / "model_step_"), "rb") as b:
+        assert a.read() == b.read()
+    assert int(want["opt_state"]["count"][0]) == 2
+
+
+def test_a_policy_change_casts_the_state_on_restore(tmp_path, caplog):
+    """A checkpoint saved under f32 restores into a ``bf16_wire_state`` run:
+    ``opt_state/`` and ``residual/`` leaves cast to bf16 (to nearest, as
+    the JAX package casts them), the parameters stay f32."""
+    cfg = dict(POLICY, max_steps=2, eval_freq=2, precision_policy="f32")
+    f32 = Trainer(TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
+                              **cfg))
+    f32.train()
+    bf = Trainer(TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
+                             **dict(cfg, precision_policy="bf16_wire_state")))
+    assert bf.maybe_restore()
+    for a, b in zip(f32.state.workers, bf.state.workers):
+        assert torch.equal(a.opt_state.mu[0].to(torch.bfloat16),
+                           b.opt_state.mu[0])
+        assert torch.equal(a.residual[3].to(torch.bfloat16), b.residual[3])
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            assert q.dtype == torch.float32 and torch.equal(p, q)
+    assert "precision-policy changed" in caplog.text
+
+
+def test_bf16_params_are_still_a_hard_error(tmp_path):
+    """The weights stay f32 under every policy: a blob whose parameters are
+    bf16 is a wrong train_dir, not a policy change."""
+    jws = _lenet_state(False)
+    jws = jws.replace(params=jax.tree.map(
+        lambda a: np.asarray(jax.numpy.asarray(a, jax.numpy.bfloat16)),
+        jws.params))
+    path = str(tmp_path / "model_step_")
+    with open(path, "wb") as f:
+        f.write(flax.serialization.to_bytes(
+            {"step": 1, "world": 0, "worker": jws}))
+    tt = Trainer(TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
+                             **dict(INTEROP,
+                                    precision_policy="bf16_wire_state")))
+    with pytest.raises(ValueError, match="params"):
+        tt.maybe_restore()

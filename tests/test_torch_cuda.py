@@ -193,10 +193,11 @@ def test_wrappers_count_launches(cuda):
     kernels.dequant_acc_requant(lv, nm, x, 3)
     acc = kernels.int_accumulate(torch.stack([lv, lv]))
     kernels.acc_decode(acc, torch.ones(1, device="cuda"), 2)
+    kernels.stochastic_round_bf16(x, (1, 2))
     assert kernels.LAUNCHES == {"qsgd_quantize": 1, "dequant_mean": 1,
                                 "block_top1": 1, "chunk_encode": 1,
                                 "dequant_acc_requant": 1, "int_accumulate": 1,
-                                "acc_decode": 1}
+                                "acc_decode": 1, "stochastic_round": 1}
 
 
 @pytest.mark.parametrize("world,n", [(4, 2_359_296), (5, 9000), (8, 130),
@@ -568,3 +569,163 @@ def test_resume_equals_the_uninterrupted_run(deterministic, tmp_path, case):
     assert torch.equal(torch.from_numpy(fres.rows[stop:]),
                        torch.from_numpy(rres.rows))
     assert sres.steps == stop
+
+
+# -- the precision policy's store, Adam and --overlap bucket ---------------------
+
+# ±0, subnormals, the largest finite in both signs, ±inf, NaN, values on
+# the bf16 grid.
+SPECIALS = [0.0, -0.0, 1e-40, -1e-40, 3.4028235e38, -3.4028235e38,
+            float("inf"), float("-inf"), float("nan"), 1.0, -2.5, 0.15625]
+
+
+def _same_bf16(a, b, what=""):
+    """Bit-equal bf16 tensors, NaN lanes compared by ``isnan``."""
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    assert torch.equal(na, nb), what
+    assert torch.equal(a.view(torch.int16)[~na], b.view(torch.int16)[~nb]), \
+        what
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("conv", (256, 128, 3, 3)), ("conv", (64, 3, 3, 3)),
+    ("dense", (10, 512)), ("vector", (4097,)), ("vector", (2_359_296,))])
+def test_stochastic_round_kernel_is_the_plain_version(cuda, kind, shape):
+    x = torch.randn(shape, device="cuda", generator=cuda)
+    x.view(-1)[:len(SPECIALS)] = torch.tensor(SPECIALS, device="cuda")
+    for key in ((0, 42), (0x9E3779B9, 0x7F4A7C15)):
+        a = kernels.stochastic_round_bf16(x, key, kind)
+        b = kernels.stochastic_round_ref(x, key, kind)
+        _same_bf16(a, b, (kind, shape, key))
+        out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        assert kernels.stochastic_round_bf16(x, key, kind, out=out) is out
+        _same_bf16(out, b)
+
+
+def test_captured_stochastic_round_reads_each_replays_key(cuda):
+    """A graph that captured the launch with a key-table key rounds under
+    the key the table holds at each replay."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    x = torch.randn(64, 3, 3, 3, device="cuda", generator=cuda)
+    table = KeyTable(prng.key(7), "cuda", 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.stochastic_round_bf16(x, (1, 2), "conv")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.stochastic_round_bf16(
+            x, prng.layer_key(table.step_key(0), 3), "conv")
+    for start in (0, 5):
+        table.load(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = prng.layer_key(prng.step_key(prng.key(7), start), 3)
+        _same_bf16(out, kernels.stochastic_round_ref(x, want, "conv"))
+
+
+def _state_tensors(trainer) -> list:
+    out = []
+    for ws in trainer.state.workers:
+        out += list(ws.model.state_dict().values()) + list(ws.residual)
+        st = ws.opt_state
+        out += ([st.count] + list(st.mu) + list(st.nu)
+                if hasattr(st, "mu") else list(st.momentum_buf))
+    return out
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_lenet_bf16_state_runs_through_the_kernel(cuda, tmp_path, optimizer):
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    cfg = TrainConfig(network="LeNet", dataset="mnist10k", batch_size=32,
+                      max_steps=3, epochs=100, num_workers=4, method=4,
+                      error_feedback=True, optimizer=optimizer,
+                      precision_policy="bf16_wire_state", bf16_compute=False,
+                      log_every=1000, train_dir=str(tmp_path) + "/")
+    t = Trainer(cfg)
+    kernels.reset_launches()
+    res = t.train()
+    torch.cuda.synchronize()
+    assert res.steps == 3 and torch.isfinite(torch.tensor(res.final_loss))
+    stores = 2 if optimizer == "adam" else 1
+    # Per step, leaf and worker: the optimizer's stores and one residual.
+    assert kernels.LAUNCHES["stochastic_round"] == 3 * 8 * 4 * (stores + 1)
+    ws = t.state.workers
+    assert all(r.dtype == torch.bfloat16 for r in ws[0].residual)
+    # The optimizer key is rank-shared: the replicas stay bit-identical.
+    for w in ws[1:]:
+        for a, b in zip(ws[0].model.parameters(), w.model.parameters()):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method=1, precision_policy="bf16_wire"),
+    dict(method=3, collective="fused_q"),
+    dict(method=4, error_feedback=True, precision_policy="bf16_wire_state"),
+], ids=["m1_bf16", "m3_fused_q", "m4_ef_bf16_state"])
+def test_overlap_stream_schedule_is_the_inline_one(deterministic, tmp_path,
+                                                   kw):
+    """``--overlap bucket``: the side-stream schedule (each bucket issued
+    from the last worker's backward hooks) against every bucket inline
+    after the backward, bit for bit."""
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.parallel import overlap
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    runs = []
+    try:
+        for schedule in ("stream", "inline"):
+            overlap.configure(schedule)
+            cfg = TrainConfig(network="LeNet", dataset="mnist10k",
+                              batch_size=32, max_steps=3, epochs=100,
+                              num_workers=4, overlap="bucket",
+                              overlap_buckets=3, bf16_compute=False,
+                              log_every=1000,
+                              train_dir=str(tmp_path / schedule) + "/", **kw)
+            t = Trainer(cfg)
+            res = t.train()
+            torch.cuda.synchronize()
+            runs.append((t, res))
+    finally:
+        overlap.configure("stream")
+    (a, ares), (b, bres) = runs
+    assert torch.equal(torch.from_numpy(ares.rows), torch.from_numpy(bres.rows))
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+
+
+def test_overlap_bf16_adam_window_replays_match_per_step(deterministic,
+                                                         tmp_path):
+    """M4 with error feedback, ``bf16_wire_state``, Adam and ``--overlap
+    bucket``: 12 steps at K = 4 against 12 per-step dispatches, bit for
+    bit (the side stream forked and joined inside the capture)."""
+    from ewdml_tpu_torch.core.config import TrainConfig
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    runs = []
+    for k in (1, 4):
+        cfg = TrainConfig(network="LeNet", dataset="MNIST", batch_size=32,
+                          max_steps=12, epochs=100, num_workers=4, method=4,
+                          error_feedback=True, optimizer="adam",
+                          precision_policy="bf16_wire_state",
+                          overlap="bucket", overlap_buckets=2,
+                          bf16_compute=False, log_every=1000,
+                          synthetic_data=True, feed="device", scan_window=k,
+                          train_dir=str(tmp_path / f"k{k}") + "/")
+        t = Trainer(cfg)
+        kernels.reset_launches()
+        res = t.train()
+        torch.cuda.synchronize()
+        runs.append((t, res, dict(kernels.LAUNCHES)))
+    (ref, rres, rl), (win, wres, wl) = runs
+    assert (win.window_step.captures, win.window_step.replays) == (1, 2)
+    assert torch.equal(torch.from_numpy(wres.rows), torch.from_numpy(rres.rows))
+    assert wl == rl and rl["stochastic_round"] == 12 * 8 * 4 * 3
+    for x, y in zip(_state_tensors(ref), _state_tensors(win)):
+        assert torch.equal(x, y)

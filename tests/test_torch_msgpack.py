@@ -184,3 +184,59 @@ def test_a_leaf_flax_would_chunk_raises():
     big = torch.empty(2 ** 28, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="chunk"):
         msgpack.packb({"x": big})
+
+
+def _jax_policy_state(jmodel, shape, full: bool, seed: int, optimizer: str,
+                      bf16: bool):
+    """:func:`jax_worker_state` under ``optimizer`` (``AdamState`` with a
+    count for Adam), its optimizer state and residuals bf16 when ``bf16``
+    (``--precision-policy bf16_wire_state``)."""
+    from ewdml_tpu.optim.adam import Adam as JAdam
+
+    jws = jax_worker_state(jmodel, shape, full, seed)
+    rng = np.random.RandomState(seed + 1)
+    narrow = ((lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))) if bf16
+              else (lambda a: a))
+    if optimizer == "adam":
+        def rand(p):
+            return narrow(np.abs(rng.randn(*p.shape)).astype(np.float32))
+        st = JAdam(1e-3).init(jax.tree.map(jnp.asarray, jws.params))
+        opt = st._replace(
+            count=np.asarray([5] * W if full else 5, np.int32),
+            mu=jax.tree.map(rand, jws.params),
+            nu=jax.tree.map(rand, jws.params))
+    else:
+        opt = jws.opt_state._replace(
+            momentum_buf=jax.tree.map(narrow, jws.opt_state.momentum_buf))
+    return jws.replace(opt_state=opt,
+                       residual=jax.tree.map(narrow, jws.residual))
+
+
+@pytest.mark.parametrize("optimizer,bf16", [("adam", False), ("adam", True),
+                                            ("sgd", True)],
+                         ids=["adam", "adam_bf16", "sgd_bf16"])
+@pytest.mark.parametrize("full", [False, True], ids=["collapsed", "full"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_policy_and_adam_state_bytes_equal_flax_to_bytes(name, full,
+                                                         optimizer, bf16):
+    """Under Adam and under bf16 state the port writes flax's bytes, the
+    bf16 leaves included, and reads them back bit for bit."""
+    from ewdml_tpu_torch.optim import make_optimizer
+
+    jmodel, tmodel, shape = MODELS[name]
+    jws = _jax_policy_state(jmodel(), shape, full, len(name), optimizer, bf16)
+    world = W if full else 0
+    want = flax.serialization.to_bytes(
+        {"step": 7, "world": world, "worker": jws})
+    dtype = torch.bfloat16 if bf16 else None
+    workers = make_train_state(
+        tmodel(), make_optimizer(optimizer, 0.1, state_dtype=dtype),
+        W if full else 1, "cpu", error_feedback=True,
+        residual_dtype=dtype).workers
+    load_state_tree(workers, to_torch(flax.serialization.to_state_dict(jws)),
+                    stacked=full)
+    tree = state_tree(workers, stacked=full)
+    got = msgpack.packb({"step": 7, "world": world, "worker": tree})
+    assert got == want
+    back = msgpack.unpackb(got)["worker"]
+    assert back["opt_state"].keys() == tree["opt_state"].keys()

@@ -229,11 +229,18 @@ def test_constructor_validation_matches():
         # The same error; the port's message ends naming its own callers.
         assert str(te.value)[:120] == str(je.value)[:120]
     for kw in (dict(down_mode="delta"), dict(bootstrap="bf16"),
-               dict(precision="bf16_wire"), dict(relay_compress=True),
+               dict(relay_compress=True),
                dict(health=object()), dict(adapt=object())):
         with pytest.raises(NotImplementedError):
             ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
                                device="cpu", **kw)
+    # The precision policies are ported; an unknown one fails as in JAX.
+    for name in ("bf16_wire", "bf16_wire_state"):
+        assert ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
+                                  device="cpu", precision=name) \
+            .precision.name == name
+    with pytest.raises(ValueError):
+        ps.ParameterServer(tparams, SGD(0.1), device="cpu", precision="fp8")
 
 
 @pytest.mark.parametrize("network,dataset", [("LeNet", "mnist10k"),

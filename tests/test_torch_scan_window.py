@@ -99,8 +99,10 @@ def test_window_step_rejects_streaming_feeds_and_adapt():
 def _state(t) -> list:
     out = []
     for ws in t.state.workers:
-        out += list(ws.model.state_dict().values())
-        out += list(ws.opt_state.momentum_buf) + list(ws.residual)
+        out += list(ws.model.state_dict().values()) + list(ws.residual)
+        st = ws.opt_state
+        out += ([st.count] + list(st.mu) + list(st.nu) if hasattr(st, "mu")
+                else list(st.momentum_buf))
     return out
 
 
@@ -110,6 +112,14 @@ CASES = {
     "m5": dict(method=5, topk_ratio=0.1),
     "m6_adopt": dict(method=6, topk_ratio=0.1, after=dict(sync_every=4)),
     "kofn_ef": dict(method=4, num_aggregate=2, error_feedback=True),
+    # The precision policy's seeded stores and Adam's device count take
+    # their keys from the window's key table.
+    "bf16_state_adam_ef": dict(method=4, error_feedback=True,
+                               optimizer="adam",
+                               precision_policy="bf16_wire_state"),
+    "bf16_state_overlap_ef": dict(method=4, error_feedback=True,
+                                  precision_policy="bf16_wire_state",
+                                  overlap="bucket", overlap_buckets=2),
 }
 
 

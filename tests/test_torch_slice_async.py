@@ -140,3 +140,49 @@ def test_cli_async_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
               "mnist10k", "--num-workers", "2", "--max-steps", "2",
               "--compress-grad", "qsgd", "--server-agg", "homomorphic",
               "--train-dir", str(tmp_path) + "/"])
+
+
+@pytest.mark.parametrize("compress", [None, "qsgd"], ids=["dense", "qsgd"])
+def test_bf16_frames_and_adam_w1_match_reference(compress):
+    """W = 1, K = 1, 2 steps under ``--precision-policy bf16_wire_state``
+    with Adam (bf16 moments, rounded under ``fold_in(key(seed ^ 0x0917),
+    version)``): dense bf16 push frames (half the f32 bytes) or QSGD under
+    ``decode``. The bounded-flip oracle of the module docstring; the frames'
+    bytes equal."""
+    from ewdml_tpu.optim import Adam as JAdam
+    from ewdml_tpu_torch.optim import Adam
+
+    jf, tf = _factories()
+    jmodel = jbuild("LeNet", 10)
+    sample = np.zeros((2, 28, 28, 1), np.float32)
+    init = jax.tree.map(np.asarray, init_variables(
+        jmodel, jax.random.key(SEED), jnp.asarray(sample))["params"])
+    jparams, jstats = j_run_async_ps(
+        jmodel, JAdam(1e-3, state_dtype=jnp.bfloat16), jf, num_workers=1,
+        steps_per_worker=2,
+        compressor=compress and jmake_compressor(compress, 127),
+        num_aggregate=1, sample_input=sample, seed=SEED,
+        precision="bf16_wire_state")
+    model = build_model("LeNet", 10, dataset="mnist10k")
+    model.load_state_dict(flax_to_torch(model, init))
+    tparams, tstats = run_async_ps(
+        model, Adam(1e-3, state_dtype=torch.bfloat16), tf, num_workers=1,
+        steps_per_worker=2,
+        compressor=compress and make_compressor(compress, 127),
+        num_aggregate=1, seed=SEED, device="cpu",
+        precision="bf16_wire_state")
+    for field in ("pushes", "updates", "bytes_up", "bytes_down"):
+        assert getattr(tstats, field) == getattr(jstats, field), field
+    if compress is None:
+        n = sum(p.numel() for p in tparams)
+        assert tstats.bytes_up < 2 * (2 * n + 4096)  # bf16 frames
+    for spec, tp in zip(leaf_specs(model), tparams):
+        layer, leaf = spec.name.split("/")
+        j = np.asarray(jparams[layer][leaf], np.float64)
+        t = tp.numpy().astype(np.float64)
+        m = j - np.asarray(init[layer][leaf], np.float64)
+        d = t - j
+        tol = 1e-5 * np.abs(j).max()
+        assert np.linalg.norm(d) <= 2e-2 * np.linalg.norm(m) \
+            + tol * np.sqrt(d.size), spec.name
+        assert np.abs(d).max() <= np.abs(m).max() + tol, spec.name
