@@ -151,8 +151,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    async PS (phase 4's checks) with dense ``bf16_wire`` frames (half the
    f32 bytes, the plan's) and QSGD decode under Adam ``bf16_wire_state``.
 
-Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5 and 6
-must be above 0.
+7. The published-table reproduction (``ewdml_tpu_torch/experiments``).
+   (a) In process, ``collect.run_cell`` at the smoke budget (VGG11-BN,
+   batch 4 per worker, W = 2, 4 steps, the committed ``mnist10k32``
+   stand-in) for ``baseline`` ``vgg11_cifar10/m5`` and ``baseline_bf16``
+   ``vgg11_cifar10/m4``, each traced so that the measured comm/comp probe
+   runs (its span in the shard, ``comm_split_source == "measured"``); the
+   rows' ``comm_mb_per_iter`` and ``wire_mb_per_step_worker`` must equal
+   the port's wire plan of the same config, and their hardware must name
+   the card and its power limit; qsgd_quantize, dequant_mean and
+   stochastic_round launch inside the cells (block_top1 does not: the
+   table's M5/M6 keep the default top-k ratio 0.5, above the 1/8 its
+   selection needs). Then ``baseline_scan`` ``lenet_mnist/m6_scan`` at its
+   full-table config for 3 epochs of 70 steps: epoch by epoch, windows of
+   K = 20 with a 10-step per-step tail, so each window phase (0 and 10)
+   is captured once for the cell and replayed in every later epoch.
+   (b) ``run_sweep("baseline", smoke=True)``: all 12 cells as child
+   processes on the card with ``--fault-spec crash@1=3``: the crashed cell
+   journals ``cell_retry`` with rc 13 and resumes from step 2, every cell
+   finishes, ``REPRO.md`` is written, and a second invocation journals 12
+   ``cell_skipped`` and launches no child. Each cell's wall is printed.
+
+Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6 and
+7a must be above 0.
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2124,6 +2145,194 @@ def policy_phase(torch, kernels, smi: str) -> tuple:
     return counts, out
 
 
+# -- Phase 7: the published-table reproduction ---------------------------------
+
+# (table, cell) of 7a, traced; and the windowed cell with its epochs.
+REPRO_CELLS = (("baseline", "vgg11_cifar10/m5"),
+               ("baseline_bf16", "vgg11_cifar10/m4"))
+REPRO_SCAN = ("baseline_scan", "lenet_mnist/m6_scan", 3)
+# 7a's cells launch these; block_top1 needs a top-k ratio <= 1/8 and the
+# table's M5/M6 keep the default 0.5, so it must stay at 0 there.
+REPRO_KERNELS = ("qsgd_quantize", "dequant_mean", "stochastic_round")
+REPRO_CRASH = "crash@1=3"  # lenet_mnist/m2 dies at step 3
+
+
+def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
+               smi: str, epochs: int = 0) -> dict:
+    """One cell through ``collect.run_cell`` in this process: smoke, traced
+    (the measured split), or at its full config for ``epochs`` epochs."""
+    from ewdml_tpu_torch.experiments import collect, registry
+    from ewdml_tpu_torch.obs import trace
+    from ewdml_tpu_torch.train.metrics import wire_plan
+
+    spec = {c.cell_id: c for c in registry.table_cells(table)}[cell_id]
+    train_dir = os.path.join(root, table, cell_id)
+    cfg = spec.to_config(data_dir="data/", train_dir=train_dir,
+                         smoke=not epochs)
+    trace_dir = None
+    if not epochs:
+        trace.shutdown()
+        trace_dir = os.path.join(root, "trace", table, cell_id)
+        cfg.trace_dir = trace_dir
+    kernels.reset_launches()   # this cell's run of the main path starts here
+    row = collect.run_cell(cfg, device="cuda", max_epochs=epochs or None,
+                           budget_epochs=epochs or None,
+                           per_epoch_eval=bool(epochs))
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)   # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    what = f"repro {table} {cell_id}"
+    if not all(v is not None and math.isfinite(v)
+               for v in (row["final_loss"], row["eval"]["loss"])):
+        raise AssertionError(f"{what}: loss not finite: {row['final_loss']}, "
+                             f"{row['eval']}")
+    if row["data_source"] != "real":
+        raise AssertionError(f"{what}: trained on {row['data_source']} data")
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    specs = leaf_specs(build_model(cfg.network, num_classes_for(cfg.dataset),
+                                   dataset=cfg.dataset))
+    plan = wire_plan(cfg, [(s.name, s.jax_shape) for s in specs],
+                     world=cfg.num_workers)
+    want = {"comm_mb_per_iter": round(plan.per_step_bytes * cfg.num_workers
+                                      / 1e6, 4),
+            "wire_mb_per_step_worker": round(plan.per_step_bytes / 1e6, 4)}
+    got = {"comm_mb_per_iter": row["metrics"]["comm_mb_per_iter"],
+           "wire_mb_per_step_worker": row["wire_mb_per_step_worker"]}
+    if got != want:
+        raise AssertionError(f"{what}: wire fields {got}, plan {want}")
+    if row["hardware"].get("name_power_limit") != smi:
+        raise AssertionError(f"{what}: hardware names "
+                             f"{row['hardware'].get('name_power_limit')!r}, "
+                             f"the card is {smi!r}")
+    out = {"launches": {k: v for k, v in launched.items() if v},
+           "wall_s": row["wall_s"], "mean_step_ms": row["mean_step_ms"],
+           "comm_split_source": row["comm_split_source"],
+           "comm_frac": row["comm_frac"], "top1_pct":
+           row["metrics"]["top1_pct"], **want}
+    if trace_dir is not None:
+        if row["comm_split_source"] != "measured":
+            raise AssertionError(f"{what}: comm/comp split "
+                                 f"{row['comm_split_source']}, want measured")
+        spans = traced_spans(trace_dir, kind="span")
+        if spans.get("collect/comm_probe") != 1:
+            raise AssertionError(f"{what}: trace spans {spans}")
+        out["probe"] = row["comm_split_probe"]
+    if epochs:
+        win = row["window"]
+        spe = row["steps_per_epoch"]
+        k = win["k"]
+        windows = sum((spe - spe % k) // k for _ in range(epochs))
+        phases = {(e * spe) % k for e in range(epochs)}
+        if (row["epochs_trained"] != epochs or win["captures"] != len(phases)
+                or win["eager_windows"] != 1
+                or win["replays"] != windows - 1):
+            raise AssertionError(
+                f"{what}: {row['epochs_trained']} epochs, window {win}; want "
+                f"{len(phases)} captures (phases {sorted(phases)}), 1 eager "
+                f"window, {windows - 1} replays")
+        out["window"] = win
+        out["epochs"] = row["epochs_trained"]
+    print(f"{what}: " + json.dumps(out), flush=True)
+    return out
+
+
+def repro_sweep(root: str) -> dict:
+    """7b: the smoke sweep of the ``baseline`` table, each cell a child
+    process on the card, one of them crashed and resumed; then its
+    re-invocation, which skips every cell."""
+    from ewdml_tpu_torch.experiments import runner
+    from ewdml_tpu_torch.parallel.faults import CRASH_EXIT_CODE
+
+    out_dir = os.path.join(root, "sweep")
+    t0 = time.perf_counter()
+    summary = runner.run_sweep("baseline", out_dir=out_dir, smoke=True,
+                               platform="cuda", fault_spec=REPRO_CRASH)
+    first_s = time.perf_counter() - t0
+    events = runner.Ledger(os.path.join(out_dir, "ledger.jsonl")).events()
+    if summary["failed"] or summary["done_total"] != 12:
+        raise AssertionError(f"repro sweep: {summary}")
+    retries = [e for e in events if e["event"] == "cell_retry"]
+    if (len(retries) != 1 or retries[0]["cell"] != "lenet_mnist/m2"
+            or not retries[0]["reason"].startswith(f"rc={CRASH_EXIT_CODE};")
+            or retries[0]["resume_step"] != 2):
+        raise AssertionError(f"repro sweep: retries {retries}")
+    done = {e["cell"]: e for e in events if e["event"] == "cell_done"}
+    crashed = done["lenet_mnist/m2"]["row"]
+    if crashed["resumed_from_step"] != 2 or done["lenet_mnist/m2"][
+            "attempts"] != 2:
+        raise AssertionError(f"repro sweep: the crashed cell's row "
+                             f"{crashed['resumed_from_step']}")
+    if not os.path.isfile(summary["repro_md"]):
+        raise AssertionError("repro sweep: no REPRO.md")
+    starts = {}
+    cells = {}
+    for e in events:
+        if e["event"] == "cell_start":
+            starts.setdefault(e["cell"], e["ts"])
+        elif e["event"] == "cell_done":
+            row = e["row"]
+            cells[e["cell"]] = {
+                "wall_s": row["wall_s"],
+                "child_s": round(e["ts"] - starts[e["cell"]], 3),
+                "mean_step_ms": row["mean_step_ms"],
+                "top1_pct": row["metrics"]["top1_pct"],
+                "comm_mb_per_iter": row["metrics"]["comm_mb_per_iter"]}
+            if row["hardware"]["platform"] != "gpu":
+                raise AssertionError(f"repro sweep: {e['cell']} ran on "
+                                     f"{row['hardware']['platform']}")
+            print(f"repro cell {e['cell']}: " + json.dumps(cells[e["cell"]]),
+                  flush=True)
+    t1 = time.perf_counter()
+    again = runner.run_sweep("baseline", out_dir=out_dir, smoke=True,
+                             platform="cuda", fault_spec=REPRO_CRASH)
+    second_s = time.perf_counter() - t1
+    events2 = runner.Ledger(os.path.join(out_dir, "ledger.jsonl")).events()
+    new = events2[len(events):]
+    skips = [e for e in new if e["event"] == "cell_skipped"]
+    if (len(skips) != 12 or again["ran"] or again["failed"]
+            or any(e["event"] == "cell_start" for e in new)):
+        raise AssertionError(f"repro re-invocation: {again}")
+    with open(summary["repro_md"]) as f:
+        md = f.read()
+    if "Pending cells" in md or "NVIDIA" not in md:
+        raise AssertionError("repro sweep: REPRO.md is partial or names no "
+                             "card")
+    return {"sweep_s": round(first_s, 1), "reinvocation_s": round(second_s, 1),
+            "retry": retries[0]["reason"][:40], "cells": cells}
+
+
+def repro_phase(torch, kernels, smi: str) -> tuple:
+    """Phase 7 (see the module docstring)."""
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    root = tempfile.mkdtemp(prefix="ewdml_repro_")
+    out = {}
+    try:
+        cell_counts = {k: 0 for k in kernels.LAUNCHES}
+        for table, cell_id in REPRO_CELLS:
+            out[f"{table} {cell_id}"] = repro_cell(
+                torch, kernels, cell_counts, table, cell_id, root, smi)
+        for name in REPRO_KERNELS:
+            if cell_counts[name] <= 0:
+                raise AssertionError(f"phase 7a: {name} never launched "
+                                     f"inside a cell: {cell_counts}")
+        if cell_counts["block_top1"]:
+            raise AssertionError(f"phase 7a: block_top1 launched at the "
+                                 f"table's top-k ratio: {cell_counts}")
+        table, cell_id, epochs = REPRO_SCAN
+        out[f"{table} {cell_id}"] = repro_cell(
+            torch, kernels, cell_counts, table, cell_id, root, smi, epochs)
+        for k, v in cell_counts.items():
+            counts[k] += v
+        torch.cuda.empty_cache()
+        out["sweep"] = repro_sweep(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2233,6 +2442,12 @@ def main(argv=None) -> int:
     print(f"phase 6: {time.perf_counter() - t6:.1f}s", flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 7: the published-table reproduction.
+    t7 = time.perf_counter()
+    net_counts, repro = repro_phase(torch, kernels, smi_line())
+    print(f"phase 7: {time.perf_counter() - t7:.1f}s", flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -2250,6 +2465,7 @@ def main(argv=None) -> int:
     print("window: " + json.dumps(windows), flush=True)
     print("checkpoint: " + json.dumps(ckpt), flush=True)
     print("policy: " + json.dumps(policy), flush=True)
+    print("repro: " + json.dumps(repro), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

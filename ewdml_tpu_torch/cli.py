@@ -23,6 +23,10 @@ into ``--train-dir``, and resumes from the one it finds there; the polling
 evaluator (``python -m ewdml_tpu_torch.train.evaluator``, same flags)
 evaluates it from a second process. ``--trace-dir`` writes a trace shard,
 ``--profile-dir`` a ``torch.profiler`` Chrome trace.
+
+``python -m ewdml_tpu_torch.cli repro --table baseline`` runs the paper's
+published table (``experiments/``), as ``python -m
+ewdml_tpu_torch.experiments`` does.
 """
 
 from __future__ import annotations
@@ -37,6 +41,12 @@ from ewdml_tpu_torch.train.loop import Trainer
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["repro"]:
+        # The resumable published-table sweep, one subcommand off the
+        # trainer's entry point (as in the JAX package's cli.py).
+        from ewdml_tpu_torch.experiments.__main__ import main as repro_main
+
+        return repro_main(argv[1:])
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",

@@ -11,6 +11,7 @@ JAX package for the same seed. ``raw`` carries the uint8 pixels of the
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -142,16 +143,45 @@ def _load_real(name: str, data_dir: str, train: bool) -> Dataset | None:
     )
 
 
+#: has_real verdicts per (name, directory, split): the probe is a full load,
+#: and the experiments registry asks once per cell a sweep plans.
+_HAS_REAL_CACHE: dict = {}
+
+
+def has_real(name: str, data_dir: str = "data/", train: bool = True) -> bool:
+    """Whether a real on-disk split of ``name`` loads from ``data_dir``.
+
+    The experiments registry's choice between the paper's dataset and the
+    committed stand-in. A load attempt, not a path check, so a corrupt
+    cache counts as absent as it does for :func:`load`. Memoized per
+    (name, directory, split); only the verdict is kept."""
+    key = (name.lower(), os.path.abspath(data_dir), train)
+    if key not in _HAS_REAL_CACHE:
+        _HAS_REAL_CACHE[key] = (key[0] in _SPECS and
+                                _load_real(key[0], data_dir, train)
+                                is not None)
+    return _HAS_REAL_CACHE[key]
+
+
 def load(name: str, data_dir: str = "data/", train: bool = True,
          synthetic: bool = False, seed: int = 0,
-         synthetic_size: int | None = None) -> Dataset:
+         synthetic_size: int | None = None,
+         require_real: bool = False) -> Dataset:
     """``prepare_data`` equivalent for one split; falls back to the
-    synthetic split when the on-disk files are absent."""
+    synthetic split when the on-disk files are absent, unless
+    ``require_real`` is set: a published-table cell never trains on
+    synthetic data, so it gets a ``FileNotFoundError`` instead."""
     key = name.lower()
     if key not in _SPECS:
         raise ValueError(f"unknown dataset {name!r}; choose from {sorted(_SPECS)}")
+    if require_real and synthetic:
+        raise ValueError("require_real=True contradicts synthetic=True")
     if not synthetic:
         real = _load_real(key, data_dir, train)
         if real is not None:
             return real
+    if require_real:
+        raise FileNotFoundError(
+            f"no real on-disk files for {name!r} under {data_dir!r} "
+            "(require_real=True refuses the synthetic fallback)")
     return _synthetic_split(key, train, seed, synthetic_size)

@@ -6,8 +6,10 @@
                 ``--trace-dir`` (or ``EWDML_TRACE_DIR``) is set
 - ``hist``      the fixed-log-bucket quantile histogram (p50/p95/p99)
 - ``registry``  counters, gauges and histograms behind one ``snapshot()``
+- ``health``    the watchdog's exit code and abort exception (constants
+                only; the watchdog is a later slice)
 
 The shard format is the JAX package's, so ``ewdml_tpu/obs/merge.py`` puts a
-port shard and a JAX shard on one timeline. Live export, health, merge and
-reports are later slices.
+port shard and a JAX shard on one timeline. Live export, the health
+watchdog, merge and reports are later slices.
 """

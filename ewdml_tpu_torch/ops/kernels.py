@@ -50,7 +50,8 @@ once per round (``--mode async --server-agg homomorphic``).
 Each wrapper has a plain PyTorch version beside it (``*_ref``) that repeats
 the kernel's arithmetic in the same rounding order. A wrapper given a CPU
 tensor runs the plain version; given a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches per wrapper.
+raises. ``LAUNCHES`` counts kernel launches per wrapper, and
+:func:`kernel_bytes` tallies the bytes they read and write.
 
 Dispatch mirrors ``pallas_kernels.active``/``active_for``, with two
 choices kept apart: which random stream quantizes (the murmur stream of the
@@ -79,11 +80,15 @@ of 4096), the plain version elsewhere.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import threading
 
 import torch
+
+from ewdml_tpu_torch.ops.bytes import tensor_nbytes
 
 _LANES = 128
 _BLOCK = 32 * _LANES
@@ -121,9 +126,42 @@ def add_launches(counts: dict) -> None:
             LAUNCHES[k] += v
 
 
-def _count(name: str) -> None:
+#: The byte tallies open in :func:`kernel_bytes` (``flops.count_bytes``).
+_byte_tallies: list = []
+
+
+@dataclasses.dataclass
+class ByteTally:
+    """Bytes the kernels read and wrote while a tally was open."""
+
+    nbytes: int = 0
+
+
+@contextlib.contextmanager
+def kernel_bytes():
+    """Tally the bytes every kernel launch reads and writes (each operand
+    once, each result once: what a bound counts). The kernels are called
+    through ``ctypes``, outside the dispatcher that ``flops.count_bytes``
+    counts the aten ops in, so each wrapper reports its own."""
+    tally = ByteTally()
+    with _launch_lock:
+        _byte_tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        with _launch_lock:
+            _byte_tallies.remove(tally)
+
+
+def _count(name: str, *tensors: torch.Tensor) -> None:
+    """Count one launch of ``name``, whose operands and results are
+    ``tensors``."""
     with _launch_lock:
         LAUNCHES[name] += 1
+        if _byte_tallies:
+            nbytes = sum(map(tensor_nbytes, tensors))
+            for tally in _byte_tallies:
+                tally.nbytes += nbytes
 
 
 def configure(mode: str) -> None:
@@ -312,7 +350,7 @@ def qsgd_quantize(x: torch.Tensor, norm: torch.Tensor, seed, s: int,
         x.data_ptr(), norms.data_ptr(), n, block or 0, seed.data_ptr(),
         int(s), out.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "qsgd_quantize")
-    _count("qsgd_quantize")
+    _count("qsgd_quantize", x, norms, out)
     return out
 
 
@@ -371,7 +409,7 @@ def dequant_mean(levels: torch.Tensor, norms: torch.Tensor, s: int,
         levels.data_ptr(), norms2.data_ptr(), world, n, nb, block or 0,
         1.0 / (s * world), out.data_ptr(), _stream_ptr(levels))
     _launch_check(rc, "dequant_mean")
-    _count("dequant_mean")
+    _count("dequant_mean", levels, norms2, out)
     return out
 
 
@@ -426,7 +464,7 @@ def block_top1(x2: torch.Tensor):
     rc = library().ewdml_block_top1(x2.data_ptr(), r, c, vals.data_ptr(),
                                     locs.data_ptr(), _stream_ptr(x2))
     _launch_check(rc, "block_top1")
-    _count("block_top1")
+    _count("block_top1", x2, vals, locs)
     return vals, locs
 
 
@@ -580,7 +618,7 @@ def chunk_encode(x: torch.Tensor, seed, s: int = 127, *,
         x.data_ptr(), n, block, seed.data_ptr(), int(s), levels.data_ptr(),
         norms.data_ptr(), _stream_ptr(x))
     _launch_check(rc, "chunk_encode")
-    _count("chunk_encode")
+    _count("chunk_encode", x, levels, norms)
     return levels, norms
 
 
@@ -616,7 +654,7 @@ def dequant_acc_requant(levels: torch.Tensor, norms: torch.Tensor,
         seed.data_ptr(), int(s), 1.0 / s, float(scale), out.data_ptr(),
         onorms.data_ptr(), _stream_ptr(local))
     _launch_check(rc, "dequant_acc_requant")
-    _count("dequant_acc_requant")
+    _count("dequant_acc_requant", levels, norms, local, out, onorms)
     return out, onorms
 
 
@@ -660,7 +698,7 @@ def int_accumulate(levels: torch.Tensor) -> torch.Tensor:
     rc = library().ewdml_int_accumulate(levels.data_ptr(), world, n,
                                         out.data_ptr(), _stream_ptr(levels))
     _launch_check(rc, "int_accumulate")
-    _count("int_accumulate")
+    _count("int_accumulate", levels, out)
     return out
 
 
@@ -717,7 +755,7 @@ def acc_decode(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
         acc.data_ptr(), scales.data_ptr(), inv_k, n,
         0 if per_tensor else block, out.data_ptr(), _stream_ptr(acc))
     _launch_check(rc, "acc_decode")
-    _count("acc_decode")
+    _count("acc_decode", acc, scales, out)
     return out
 
 
@@ -872,5 +910,5 @@ def stochastic_round_bf16(x: torch.Tensor, key, kind: str = "vector",
         x.data_ptr(), n, keyt.data_ptr(), dims, strides, out.data_ptr(),
         _stream_ptr(x))
     _launch_check(rc, "stochastic_round")
-    _count("stochastic_round")
+    _count("stochastic_round", x, out)
     return out

@@ -18,7 +18,13 @@ seconds, or a step for the others), ``serverkill@N`` (an apply count) or
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
+
+#: Exit status of a process that executed a ``crash`` clause (a sweep's
+#: cell child, ``experiments/runner.py``), distinct from the straggler kill
+#: (77) and the health abort (76).
+CRASH_EXIT_CODE = 13
 
 _KINDS = ("delay", "crash", "reset", "drop", "nan", "partition", "join")
 
@@ -56,6 +62,12 @@ class WorkerFaults:
     partition_at: dict = dataclasses.field(default_factory=dict)
     join_after: Optional[float] = None  # ``join`` clause: seconds to wait
                                         # before late admission
+
+    def sleep_if_due(self) -> float:
+        """Apply the delay clause; returns the seconds slept."""
+        if self.delay_s > 0:
+            time.sleep(self.delay_s)
+        return self.delay_s
 
 
 class FaultSpec:

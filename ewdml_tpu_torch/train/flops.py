@@ -9,6 +9,11 @@ hand-written kernels are not counted.
 
 MFU = FLOPs per second per device / the device's peak, as in the JAX
 package.
+
+:func:`count_bytes` is the counterpart of the bytes the JAX package reads
+from XLA's cost model: the operand and result bytes of every aten op of one
+call, plus what each hand-written kernel reads and writes. It counts before
+any fusion, so it is not comparable with XLA's figure.
 """
 
 from __future__ import annotations
@@ -80,6 +85,44 @@ def count_flops(fn, *args, **kwargs) -> float:
     with FlopCounterMode(display=False) as counter:
         fn(*args, **kwargs)
     return float(counter.get_total_flops())
+
+
+def _tensor_bytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+
+    from ewdml_tpu_torch.ops.bytes import tensor_nbytes
+
+    return sum(tensor_nbytes(t) for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def count_bytes(fn, *args, **kwargs) -> float:
+    """The bytes one call ``fn(*args, **kwargs)`` moves, counted while it
+    runs (its side effects happen, as for :func:`count_flops`): each aten
+    op's tensor operands read once and results written once, views and
+    allocations none; each kernel launch its operands and results
+    (``ops/kernels.kernel_bytes``: the kernels bypass the dispatcher)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ewdml_tpu_torch.ops import kernels
+
+    aten = torch.ops.aten
+    no_bytes = (aten.empty, aten.empty_like, aten.empty_strided,
+                aten.new_empty, aten.new_empty_strided, aten._unsafe_view)
+
+    class _Counter(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not (func.is_view or func.overloadpacket in no_bytes):
+                self.total += _tensor_bytes((args, kwargs)) + \
+                    _tensor_bytes(out)
+            return out
+
+    with kernels.kernel_bytes() as tally, _Counter() as counter:
+        fn(*args, **kwargs)
+    return float(counter.total + tally.nbytes)
 
 
 def mfu(flops_per_step: float, step_s: float, n_devices: int = 1,
