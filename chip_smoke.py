@@ -76,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    --scan-window K``): VGG11-BN at the same shapes under M1, M4, M5 and M4
    ``ring_rs --qsgd-block 4096`` with K = 8 for 24 steps, M6 with the auto
    K = 20 (its sync period) for 60 steps, and ResNet50 M4 with K = 8 for
-   24 steps (capture at 161 leaves). Each runs twice from the same state,
+   16 steps (capture at 161 leaves, one replay). Each runs twice from the same state,
    per-step (``--scan-window 1``) and windowed (a warm-up window of K
    per-step dispatches, then one CUDA graph captured and replayed once per
    window), with deterministic kernels. Every metrics row, parameter,
@@ -87,13 +87,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ways.
 4. Run the in-process async parameter server (``--mode async``) through the
    CLI's config on the same models and shapes: W = 4 worker threads on the
-   card, K = 4 (``--num-aggregate 4``), 4 steps per worker, ``--fusion
-   none`` (the server ships one payload per leaf, which the wire plan then
+   card, K = 4 (``--num-aggregate 4``), 4 steps per worker (2 on
+   ResNet50), ``--fusion none`` (the server ships one payload per leaf, which the wire plan then
    prices): QSGD under ``--server-agg decode`` and ``homomorphic``, QSGD
    with ``--qsgd-block 4096`` and Top-k QSGD at 1% under ``homomorphic`` on
    VGG11-BN; QSGD under ``homomorphic`` on ResNet50 (161 leaves, 34 of
    them summed by int_accumulate and decoded by acc_decode each round).
-   Each must make 16 pushes and 4 updates, pay one decode per round
+   Each must make 16 pushes and 4 updates (8 and 2 on ResNet50), pay one
+   decode per round
    (homomorphic) or K (decode), launch the kernels exactly as often as its
    leaves and rounds say, report only finite losses, and receive exactly
    the bytes of the wire plan's up-link in the pushes' frames.
@@ -147,7 +148,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launches), the per-bucket bytes summing to ``per_step_bytes``, the step
    time with overlap on and off printed; (f) phase 3c's check on VGG11-BN
    M4 EF Adam ``bf16_wire_state`` and ResNet50 M4 ``bf16_wire_state`` (K =
-   8, 24 steps) and phase 5's resume on the VGG11-BN one (8 + 8); (g) the
+   8, 24 and 16 steps) and phase 5's resume on the VGG11-BN one (8 + 8); (g) the
    async PS (phase 4's checks) with dense ``bf16_wire`` frames (half the
    f32 bytes, the plan's) and QSGD decode under Adam ``bf16_wire_state``.
 
@@ -172,8 +173,39 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    finishes, ``REPRO.md`` is written, and a second invocation journals 12
    ``cell_skipped`` and launches no child. Each cell's wall is printed.
 
-Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6 and
-7a must be above 0.
+8. The async parameter server's down-link and the run-health watchdog,
+   phase 4's shapes (W = K = 4, batch 128, 4 steps a worker, 2 on
+   ResNet50, ``--fusion none``). (a) VGG11-BN ``--compress-grad qsgd --qsgd-block 4096
+   --ps-down delta --ps-bootstrap bf16 --server-agg decode`` through
+   ``cli.build_async``: ``bytes_down`` equals its reckoning (4 bf16
+   bootstraps of half the dense bytes, then the deltas each pull shipped,
+   every delta the same size, no dense fallback), the replay of the
+   deltas from the f32 start equals the server's shadow and each worker's
+   final pull lands on its bf16 base plus the later deltas, both bit for
+   bit, and qsgd_quantize launches once per big leaf for every push, the
+   schema's template, every update's delta step and its warm-up; beside
+   it the ``--ps-down weights`` twin (its apply ms and dense bytes). (b)
+   The same with ``--compress-grad topk_qsgd --topk-ratio 0.01``:
+   block_top1 per leaf the Top-k stack selects in block mode, the same
+   count of compresses. (c) ResNet50 with (a)'s flags. (d) The lossy
+   weights-down relay, ``run_async_ps(relay_compress=True)``, beside the
+   same run without it: VGG11-BN QSGD decode, W = 4 at K = 1, 40 updates;
+   every pull ships the compressor's wire bytes; both loss curves
+   printed (the paper's negative result on this path). (e) ``--health``
+   through ``cli.main`` in process: VGG11-BN M4 ``--feed device
+   --scan-window 8 --fault-spec nan@0=12`` exits 76 under ``abort`` at the
+   read covering step 12 with one ``nan`` event in ``health.jsonl``;
+   under ``warn`` it completes with the same event and its final
+   checkpoint equals ``--health off``'s byte for byte (deterministic
+   kernels); the async run of (a)'s flags at ``--lr 0.001`` with
+   ``nan@1=2 --health abort`` exits 76 on a ``nan`` verdict, and the
+   workers stop with fewer pushes than one worker's budget of 50. Each
+   down-link run is followed by the server's apply and delta step alone
+   (no worker threads).
+
+Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a
+and 8 must be above 0. ``--phase8-only`` builds and runs phase 8 alone
+(no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -1072,7 +1104,8 @@ WINDOW_RUNS = [
     ("M4 ring_rs", "VGG11", 24, 8, ["--method", "4", "--gather-type",
                                      "ring_rs", "--qsgd-block", "4096"]),
     ("M6", "VGG11", 60, 0, ["--method", "6"]),
-    ("M4", "ResNet50", 24, 8, ["--method", "4"]),
+    # ResNet50's window is replayed once (16 steps), VGG11-BN's twice.
+    ("M4", "ResNet50", 16, 8, ["--method", "4"]),
 ]
 
 
@@ -1206,7 +1239,9 @@ ASYNC_RUNS = {"VGG11": [
     ("qsgd homomorphic", ["--compress-grad", "qsgd",
                           "--server-agg", "homomorphic"]),
 ]}
-ASYNC_STEPS = 4  # per worker
+# Steps per worker; ResNet50's runs are cut to 2 (2 updates) to keep the
+# whole script well inside its time limit.
+ASYNC_STEPS = {"VGG11": 4, "ResNet50": 2}
 ASYNC_TRACED = ("VGG11", "qsgd homomorphic")  # the run with --trace-dir
 
 
@@ -1273,7 +1308,8 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
         argv = ["--mode", "async", "--network", network, "--dataset",
                 "Cifar10", "--synthetic-data", "--num-workers", str(WORLD),
                 "--num-aggregate", str(WORLD), "--batch-size", "128",
-                "--max-steps", str(WORLD * ASYNC_STEPS), "--fusion", "none",
+                "--max-steps", str(WORLD * ASYNC_STEPS[network]),
+                "--fusion", "none",
                 *flags]
         trace_dir = None
         if (network, name) == ASYNC_TRACED:
@@ -1289,7 +1325,7 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
         launched = dict(kernels.LAUNCHES)  # read just after it
         for k, v in launched.items():
             counts[k] += v
-        pushes, updates = WORLD * ASYNC_STEPS, ASYNC_STEPS
+        pushes, updates = WORLD * ASYNC_STEPS[network], ASYNC_STEPS[network]
         if (stats.pushes, stats.updates) != (pushes, updates):
             raise AssertionError(f"async {name}: {stats.pushes} pushes and "
                                  f"{stats.updates} updates, want {pushes} "
@@ -1646,12 +1682,13 @@ def checkpoint_phase(torch, kernels, windows: dict, smi: str) -> tuple:
     return counts, out
 
 
-def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
+def apply_alone(torch, flags, network: str, rounds: int = 6):
     """The server's apply with no worker threads running: K = W = 4 pushes
     of the network's payloads (compressed from one random gradient) per
-    round, from one thread; returns the mean apply wall in ms (an observation
-    beside the async runs' ``apply_ms_mean``, which shares the card and the
-    interpreter with the workers)."""
+    round, from one thread; returns the server's ``PSStats``, whose
+    ``apply_ms_mean`` (and, under ``--ps-down delta``, ``delta_ms_mean``)
+    is an observation beside the async runs', which share the card and the
+    interpreter with the workers."""
     from ewdml_tpu_torch import native
     from ewdml_tpu_torch.core.config import from_args
     from ewdml_tpu_torch.models import build_model
@@ -1677,7 +1714,9 @@ def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
         comp = make_homomorphic(comp, grads)
     server = ps.ParameterServer(params, make_optimizer("sgd", 0.01, 0.9),
                                 comp, num_aggregate=WORLD,
-                                server_agg=cfg.server_agg, device="cuda")
+                                server_agg=cfg.server_agg, device="cuda",
+                                down_mode=cfg.ps_down,
+                                bootstrap=cfg.ps_bootstrap)
     compress = ps.make_compress_tree(comp)
     server.register_payload_schema(compress(grads, prng.key(0)))
     pack = transfer.make_device_packer()
@@ -1686,7 +1725,7 @@ def apply_alone(torch, flags, network: str, rounds: int = 6) -> float:
     for _ in range(rounds):
         for w, msg in enumerate(msgs):
             server.push(ps.PushRecord(w, server.version, msg, 0.0))
-    return server.stats.apply_ms_mean
+    return server.stats
 
 
 # -- Phase 6: the precision policy, Adam, the negative result, overlap --------
@@ -2090,7 +2129,7 @@ POLICY_WINDOW_RUNS = [  # 6f
     ("M4 EF adam bf16_wire_state", "VGG11", 24, 8,
      ["--method", "4", "--error-feedback", "--optimizer", "adam", "--lr",
       "0.001", "--precision-policy", "bf16_wire_state"]),
-    ("M4 bf16_wire_state", "ResNet50", 24, 8,
+    ("M4 bf16_wire_state", "ResNet50", 16, 8,
      ["--method", "4", "--precision-policy", "bf16_wire_state"]),
 ]
 POLICY_RESUME = ("M4 EF adam bf16_wire_state", 8, 16,
@@ -2333,6 +2372,395 @@ def repro_phase(torch, kernels, smi: str) -> tuple:
     return counts, out
 
 
+# -- Phase 8: the async down-link and the run-health watchdog -----------------
+
+DELTA_FLAGS = ["--compress-grad", "qsgd", "--qsgd-block", "4096",
+               "--ps-down", "delta", "--ps-bootstrap", "bf16",
+               "--server-agg", "decode"]
+DOWNLINK_RUNS = [  # 8a (with its --ps-down weights twin), 8b, 8c
+    ("qsgd delta", "VGG11", DELTA_FLAGS),
+    ("qsgd weights", "VGG11", DELTA_FLAGS[:4] + ["--server-agg", "decode"]),
+    ("topk_qsgd delta", "VGG11",
+     ["--compress-grad", "topk_qsgd", "--topk-ratio", "0.01"]
+     + DELTA_FLAGS[2:]),
+    ("qsgd delta", "ResNet50", DELTA_FLAGS),
+]
+DEVICE = "cuda"       # where phase 8 builds what it compares
+RELAY_STEPS = 10      # 8d: per worker at K = 1, so 40 updates
+HEALTH_STEPS = 24     # 8e: three windows of K = 8
+HEALTH_ASYNC_STEPS = 50  # 8e: the async step budget per worker
+
+
+def async_argv(network: str, steps: int, flags) -> list:
+    """Phase 4's async run: W = K = 4, batch 128, ``steps`` per worker."""
+    return ["--mode", "async", "--network", network, "--dataset", "Cifar10",
+            "--synthetic-data", "--num-workers", str(WORLD),
+            "--num-aggregate", str(WORLD), "--batch-size", "128",
+            "--max-steps", str(WORLD * steps), "--fusion", "none", *flags]
+
+
+def compress_launches(cfg, shapes, kernels) -> dict:
+    """Kernel launches of one compress of the whole tree (a push, the
+    payload schema's template, a delta step): a quantize per quantized
+    vector of at least MIN_ELEMS, a block_top1 per leaf the Top-k stack
+    selects in block mode (``ops/topk.resolve_mode``)."""
+    from ewdml_tpu_torch.ops import blocktopk, topk
+
+    want = {k: 0 for k in kernels.LAUNCHES}
+    for shape in shapes:
+        n = math.prod(shape)
+        if cfg.compress_grad == "topk_qsgd":
+            if topk.resolve_mode(cfg.topk_exact, n, cfg.topk_ratio) == "block":
+                want["block_top1"] += 1
+                n = blocktopk.geometry(n, cfg.topk_ratio)[0]
+            else:
+                n = topk.static_k(n, cfg.topk_ratio)
+        if n >= kernels.MIN_ELEMS:
+            want["qsgd_quantize"] += 1
+    return want
+
+
+def initial_params(torch, cfg) -> list:
+    """The async run's initial parameters on the card, as ``run_async_ps``
+    takes them from the model ``cli.run_async`` builds (JAX leaf order and
+    layout)."""
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.models.convert import leaf_specs, to_jax
+    from ewdml_tpu_torch.train.state import leaf_params
+
+    model = build_model(cfg.network, num_classes_for(cfg.dataset),
+                        dataset=cfg.dataset, seed=cfg.seed).to(DEVICE)
+    specs = leaf_specs(model)
+    return [to_jax(p.detach(), s.kind).contiguous().clone()
+            for p, s in zip(leaf_params(model, specs), specs)]
+
+
+def check_replays(torch, name, server, workers, init, updates) -> None:
+    """The shadow at every version is the replay of the deltas from the f32
+    start, bit for bit; each worker's final pull replays onto its base
+    (the shadow at its first pull, in bf16) plus the later deltas, bit for
+    bit, by the same ops on the same card."""
+    from ewdml_tpu_torch.parallel import ps
+
+    apply_delta = ps.make_apply_delta(server.compressor,
+                                      server.payload_unpack)
+    deltas = [torch.from_numpy(server._deltas[v].copy()).to(DEVICE)
+              for v in range(1, updates + 1)]
+    shadows = [init]
+    for d in deltas:
+        shadows.append(apply_delta(shadows[-1], d))
+    if not all(torch.equal(a, b) for a, b in zip(shadows[-1],
+                                                 server._shadow)):
+        raise AssertionError(f"downlink {name}: the replay from the start "
+                             "is not the server's shadow")
+    for w in workers:
+        w.pull_params()
+        base = [x.to(torch.bfloat16).to(torch.float32)
+                for x in shadows[w.base_version]]
+        for d in deltas[w.base_version:]:
+            base = apply_delta(base, d)
+        if w.version != updates or not all(
+                torch.equal(a, b) for a, b in zip(w.params, base)):
+            raise AssertionError(f"downlink {name}: worker {w.index} at "
+                                 f"version {w.version} did not replay onto "
+                                 f"its base of version {w.base_version}")
+    torch.cuda.synchronize()
+
+
+def downlink_run(torch, kernels, counts, name, network, flags) -> dict:
+    """8a-8c: one async run through ``cli.build_async`` (``run_async``'s
+    run, its server and workers kept); launches, the down-link's bytes
+    reckoned pull by pull, and the replays."""
+    from ewdml_tpu_torch.cli import build_async
+    from ewdml_tpu_torch.core.config import from_args
+
+    cfg = from_args(async_argv(network, ASYNC_STEPS[network], flags))
+    kernels.reset_launches()   # this run of the main path starts here
+    t0 = time.perf_counter()
+    run = build_async(cfg)
+    _, stats = run.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    server, workers = run.server, run.workers
+    label = f"{network} {name}"
+    pushes, updates = WORLD * ASYNC_STEPS[network], ASYNC_STEPS[network]
+    if (stats.pushes, stats.updates) != (pushes, updates):
+        raise AssertionError(f"downlink {label}: {stats.pushes} pushes, "
+                             f"{stats.updates} updates")
+    delta = cfg.ps_down == "delta"
+    init = initial_params(torch, cfg)
+    per_call = compress_launches(cfg, [p.shape for p in init], kernels)
+    # The pushes and the schema's template; in delta mode the delta step
+    # of every update and its warm-up.
+    calls = pushes + 1 + (updates + 1 if delta else 0)
+    want = {k: v * calls for k, v in per_call.items()}
+    if launched != want:
+        raise AssertionError(f"downlink {label}: launches {launched}, want "
+                             f"{want} ({per_call} a compress, {calls})")
+    dense = sum(p.numel() * 4 for p in init)
+    modes = dict(stats.pulls_by_mode)
+    if sum(modes.values()) != pushes:
+        raise AssertionError(f"downlink {label}: pulls {modes}")
+    if delta:
+        sizes = {b.nbytes for b in server._deltas.values()}
+        if sorted(server._deltas) != list(range(1, updates + 1)) or \
+                len(sizes) != 1:
+            raise AssertionError(f"downlink {label}: deltas {sizes}")
+        per_delta = sizes.pop()
+        if modes.get("weights_bf16") != WORLD or modes.get("weights", 0):
+            raise AssertionError(f"downlink {label}: pulls {modes}, want "
+                                 f"{WORLD} bf16 bootstraps, no fallback")
+        reckoned = WORLD * dense // 2 + stats.deltas_down * per_delta
+    else:
+        per_delta = 0
+        reckoned = pushes * dense
+    if stats.bytes_down != reckoned:
+        raise AssertionError(f"downlink {label}: {stats.bytes_down} B down, "
+                             f"reckoned {reckoned}")
+    losses = [l for _, l in stats.loss_history]
+    if len(losses) != pushes or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"downlink {label}: losses {losses}")
+    if delta:
+        check_replays(torch, label, server, workers, init, updates)
+    del server, workers, run
+    # The server alone (no worker threads): the apply, and the delta step
+    # (the weights twin's apply is the same program).
+    alone = apply_alone(torch, flags, network) if delta else None
+    row = dict(network=network, pushes=pushes, updates=updates,
+               pulls=modes, deltas_down=stats.deltas_down,
+               delta_bytes=per_delta, bytes_down=stats.bytes_down,
+               dense_pull=dense, apply_ms_mean=stats.apply_ms_mean,
+               delta_ms_mean=stats.delta_ms_mean,
+               apply_alone_ms=alone and alone.apply_ms_mean,
+               delta_alone_ms=alone and alone.delta_ms_mean, wall_s=wall,
+               loss_tail=stats.loss_tail_mean(4), launches=launched,
+               launches_per_compress=per_call)
+    print(f"downlink {label}: bytes_down={stats.bytes_down} (pulls {modes}, "
+          f"{stats.deltas_down} deltas of {per_delta} B, dense pull "
+          f"{dense} B) apply_ms_mean={stats.apply_ms_mean:.3f} "
+          f"delta_ms_mean={stats.delta_ms_mean:.3f}"
+          + (f" (alone {alone.apply_ms_mean:.3f} and "
+             f"{alone.delta_ms_mean:.3f})" if alone else "")
+          + f" wall={wall:.1f}s loss_tail={stats.loss_tail_mean(4):.4f} "
+          f"launches={launched}"
+          + (" replays bit-equal" if delta else ""), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def relay_runs(torch, kernels, counts) -> dict:
+    """8d: the lossy weights-down relay (``run_async_ps(relay_compress=
+    True)``, every pulled version through compress then decompress on the
+    server) beside the same run without it, VGG11-BN QSGD decode, W = 4 at
+    K = 1, 40 updates each: the paper's negative result on the PS path."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.data import datasets, loader
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.ops import make_compressor
+    from ewdml_tpu_torch.optim import make_optimizer
+    from ewdml_tpu_torch.parallel.ps import run_async_ps
+
+    cfg = from_args(async_argv("VGG11", RELAY_STEPS, [
+        "--compress-grad", "qsgd", "--num-aggregate", "1"]))
+    shapes = [p.shape for p in initial_params(torch, cfg)]
+    comp = make_compressor("qsgd", cfg.quantum_num)
+    big = compress_launches(cfg, shapes, kernels)["qsgd_quantize"]
+    wire = sum(comp.wire_bytes(tuple(s)) for s in shapes)
+    ds = datasets.load(cfg.dataset, cfg.data_dir, train=True,
+                       synthetic=cfg.synthetic_data, seed=cfg.seed,
+                       synthetic_size=cfg.synthetic_size)
+    pushes = WORLD * RELAY_STEPS
+    out = {}
+    for relay in (False, True):
+        name = "relay" if relay else "no relay"
+        kernels.reset_launches()   # this run of the main path starts here
+        t0 = time.perf_counter()
+        _, stats = run_async_ps(
+            build_model(cfg.network, num_classes_for(cfg.dataset),
+                        dataset=cfg.dataset, seed=cfg.seed),
+            make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                           cfg.weight_decay, cfg.nesterov),
+            lambda i: loader.global_batches(ds, cfg.batch_size, 1,
+                                            seed=cfg.seed + i, feed="f32"),
+            num_workers=WORLD, steps_per_worker=RELAY_STEPS,
+            compressor=comp, num_aggregate=1, relay_compress=relay,
+            seed=cfg.seed, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)  # read just after it
+        for k, v in launched.items():
+            counts[k] += v
+        if (stats.pushes, stats.updates) != (pushes, pushes):
+            raise AssertionError(f"relay {name}: {stats.pushes} pushes, "
+                                 f"{stats.updates} updates")
+        ups = big * (pushes + 1)   # the pushes and the template
+        relayed = launched["qsgd_quantize"] - ups
+        # Under the relay, one quantize per big leaf per version packed
+        # (at least once; racing pulls may each pack a new version).
+        lo, hi = (big, big * pushes) if relay else (0, 0)
+        if relayed % max(1, big) or not lo <= relayed <= hi:
+            raise AssertionError(f"relay {name}: launches {launched}, "
+                                 f"{ups} for the pushes")
+        per_pull = wire if relay else sum(math.prod(s) * 4 for s in shapes)
+        if stats.bytes_down != pushes * per_pull or \
+                stats.pulls_by_mode != {"weights": pushes}:
+            raise AssertionError(f"relay {name}: {stats.bytes_down} B down "
+                                 f"in {stats.pulls_by_mode}, want "
+                                 f"{pushes} x {per_pull}")
+        tail = stats.loss_tail_mean(10)
+        curve = [l for _, l in stats.loss_history]
+        out[name] = dict(loss_tail10=tail, bytes_down=stats.bytes_down,
+                         per_pull=per_pull,
+                         versions_packed=relayed // max(1, big),
+                         wall_s=wall,
+                         apply_ms_mean=stats.apply_ms_mean)
+        print(f"relay {name}: loss_tail10={tail:.6g} bytes_down="
+              f"{stats.bytes_down} ({pushes} x {per_pull} B) versions "
+              f"packed through the relay={out[name]['versions_packed']} "
+              f"wall={wall:.1f}s curve=" + " ".join(f"{v:.4g}" for v in curve),
+              flush=True)
+        torch.cuda.empty_cache()
+    print(f"relay: the negative result on the PS path, loss tail "
+          f"{out['relay']['loss_tail10']:.6g} against "
+          f"{out['no relay']['loss_tail10']:.6g} without the relay",
+          flush=True)
+    return out
+
+
+def cli_rc(argv) -> tuple:
+    """``cli.main(argv)`` in process: (return code, its standard output)."""
+    import contextlib
+    import io
+
+    from ewdml_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    sys.stdout.write(buf.getvalue())
+    return rc, buf.getvalue()
+
+
+def health_runs(torch, kernels, counts, root: str) -> dict:
+    """8e: ``--health`` through ``cli.main`` in process. Sync: VGG11-BN M4,
+    ``--feed device --scan-window 8``, ``nan@0=12`` under ``abort`` exits
+    76 at the read after the window covering step 12 (step 15) with one
+    ``nan`` event in ``health.jsonl``; under ``warn`` the run completes and
+    its final checkpoint is byte-equal to ``--health off``'s (deterministic
+    kernels). Async: ``nan@1=2`` under ``abort`` exits 76, and the workers
+    together push fewer times than one worker's budget."""
+    from ewdml_tpu_torch.cli import build_async
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.obs.health import HealthAbort, read_events
+    from ewdml_tpu_torch.train import checkpoint
+
+    out = {}
+    sync = ["--method", "4", "--scan-window", "8", "--log-every", "8",
+            "--fault-spec", "nan@0=12"]
+    ckpts = {}
+    deterministic(torch, True)
+    try:
+        for mode in ("abort", "warn", "off"):
+            d = os.path.join(root, f"sync_{mode}")
+            kernels.reset_launches()   # this run of the main path
+            t0 = time.perf_counter()
+            rc, text = cli_rc(vgg_argv(HEALTH_STEPS, sync
+                                       + ["--health", mode], d))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for k, v in kernels.LAUNCHES.items():  # read just after it
+                counts[k] += v
+            events = [(e["kind"], e["step"]) for e in
+                      read_events(os.path.join(d, "health.jsonl"))]
+            want_rc, want_events = {"abort": (76, [("nan", 15)]),
+                                    "warn": (0, [("nan", 15)]),
+                                    "off": (0, [])}[mode]
+            if rc != want_rc or events != want_events or (
+                    mode == "abort"
+                    and "HEALTH_ABORT kind=nan step=15" not in text):
+                raise AssertionError(f"health sync {mode}: rc {rc}, events "
+                                     f"{events}")
+            if mode != "abort":
+                path = checkpoint.latest_path(d)
+                if checkpoint.peek_step(path) != HEALTH_STEPS:
+                    raise AssertionError(f"health sync {mode}: checkpoint "
+                                         f"at {checkpoint.peek_step(path)}")
+                with open(path, "rb") as f:
+                    ckpts[mode] = f.read()
+            out[f"sync {mode}"] = dict(rc=rc, events=events, wall_s=wall)
+            print(f"health sync {mode}: rc={rc} events={events} "
+                  f"wall={wall:.1f}s", flush=True)
+    finally:
+        deterministic(torch, False)
+    if ckpts["warn"] != ckpts["off"]:
+        raise AssertionError("health sync: the warn run's final checkpoint "
+                             "differs from the off run's")
+    print(f"health sync: warn's final checkpoint equals off's byte for byte "
+          f"({len(ckpts['off'])} B)", flush=True)
+    # lr 0.001 so that the injected NaN is the verdict checked: at the
+    # default 0.01 both packages' watchdogs read the first update's loss
+    # drop (3.3 to 2.4) as a spike and abort a healthy run (ROADMAP Queue
+    # 3 item 17, pinned on the CPU by tests/test_torch_health.py).
+    argv = async_argv("VGG11", HEALTH_ASYNC_STEPS, DELTA_FLAGS + [
+        "--lr", "0.001", "--fault-spec", "nan@1=2", "--health", "abort"])
+    d = os.path.join(root, "async_abort")
+    kernels.reset_launches()   # this run of the main path
+    rc, text = cli_rc(argv + ["--train-dir", d])
+    torch.cuda.synchronize()
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v
+    events = [e["kind"] for e in read_events(os.path.join(d, "health.jsonl"))]
+    if rc != 76 or "HEALTH_ABORT kind=nan" not in text or events[:1] != [
+            "nan"]:
+        raise AssertionError(f"health async: rc {rc}, events {events}")
+    kernels.reset_launches()
+    run = build_async(from_args(argv + ["--train-dir", d + "_run"]))
+    try:
+        run.run()
+        raise AssertionError("health async: no abort")
+    except HealthAbort as e:
+        verdict = (e.kind, e.step)
+    torch.cuda.synchronize()
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v
+    server, workers = run.server, run.workers
+    pushes = server.stats.pushes
+    if verdict[0] != "nan" or any(w.is_alive() for w in workers) or \
+            pushes >= HEALTH_ASYNC_STEPS:
+        raise AssertionError(f"health async: verdict {verdict}, {pushes} "
+                             f"pushes of {WORLD * HEALTH_ASYNC_STEPS}")
+    out["async abort"] = dict(rc=rc, verdict=verdict, pushes=pushes,
+                              budget=WORLD * HEALTH_ASYNC_STEPS)
+    print(f"health async: rc={rc} verdict={verdict}, the workers stopped "
+          f"after {pushes} pushes of a {WORLD * HEALTH_ASYNC_STEPS}-push "
+          f"budget", flush=True)
+    del server, workers, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def downlink_phase(torch, kernels) -> tuple:
+    """Phase 8 (see the module docstring)."""
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {"downlink": {}}
+    for name, network, flags in DOWNLINK_RUNS:
+        out["downlink"][f"{network} {name}"] = downlink_run(
+            torch, kernels, counts, name, network, flags)
+    out["relay"] = relay_runs(torch, kernels, counts)
+    root = tempfile.mkdtemp(prefix="ewdml_health_")
+    try:
+        out["health"] = health_runs(torch, kernels, counts, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in ("qsgd_quantize", "block_top1"):
+        if counts[k] <= 0:
+            raise AssertionError(f"phase 8: {k} never launched")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2342,7 +2770,11 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 2 (no training, no result "
                              "line)")
-    kernels_only = parser.parse_args(argv).kernels_only
+    parser.add_argument("--phase8-only", action="store_true",
+                        help="build, then run phase 8 alone (no result "
+                             "line)")
+    args = parser.parse_args(argv)
+    kernels_only = args.kernels_only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2380,6 +2812,13 @@ def main(argv=None) -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f}s (nvcc {build.build_seconds:.1f}s)",
           flush=True)
+    if args.phase8_only:
+        t8 = time.perf_counter()
+        _, downlink = downlink_phase(torch, kernels)
+        print(f"phase 8: {time.perf_counter() - t8:.1f}s", flush=True)
+        print("downlink: " + json.dumps(downlink), flush=True)
+        print(smi_line(), flush=True)
+        return 0
 
     # Phase 2: kernels against their plain versions.
     timer = Timer(torch)
@@ -2423,7 +2862,7 @@ def main(argv=None) -> int:
     for net, runs_flags in ASYNC_RUNS.items():
         net_counts, runs = async_phase(torch, kernels, net, runs_flags)
         for name, flags in runs_flags:
-            alone = apply_alone(torch, flags, net)
+            alone = apply_alone(torch, flags, net).apply_ms_mean
             runs[name]["apply_alone_ms"] = alone
             print(f"apply alone {net} {name}: {alone:.3f} ms per round",
                   flush=True)
@@ -2448,6 +2887,12 @@ def main(argv=None) -> int:
     print(f"phase 7: {time.perf_counter() - t7:.1f}s", flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 8: the async down-link and the run-health watchdog.
+    t8 = time.perf_counter()
+    net_counts, downlink = downlink_phase(torch, kernels)
+    print(f"phase 8: {time.perf_counter() - t8:.1f}s", flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -2466,6 +2911,7 @@ def main(argv=None) -> int:
     print("checkpoint: " + json.dumps(ckpt), flush=True)
     print("policy: " + json.dumps(policy), flush=True)
     print("repro: " + json.dumps(repro), flush=True)
+    print("downlink: " + json.dumps(downlink), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

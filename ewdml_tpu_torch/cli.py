@@ -24,6 +24,10 @@ evaluator (``python -m ewdml_tpu_torch.train.evaluator``, same flags)
 evaluates it from a second process. ``--trace-dir`` writes a trace shard,
 ``--profile-dir`` a ``torch.profiler`` Chrome trace.
 
+``--health warn|abort`` watches the run's loss (``obs/health.py``): an
+aborted run prints ``HEALTH_ABORT kind=... step=...`` and exits 76 on both
+paths.
+
 ``python -m ewdml_tpu_torch.cli repro --table baseline`` runs the paper's
 published table (``experiments/``), as ``python -m
 ewdml_tpu_torch.experiments`` does.
@@ -36,6 +40,8 @@ import os
 import sys
 
 from ewdml_tpu_torch.core.config import from_args
+from ewdml_tpu_torch.obs.health import (HEALTH_EXIT_CODE, HealthAbort,
+                                        make_watchdog)
 from ewdml_tpu_torch.train.loop import Trainer
 
 
@@ -56,7 +62,10 @@ def main(argv=None) -> int:
         return _main_async(cfg)
     trainer = Trainer(cfg)
     trainer.maybe_restore()
-    result = trainer.train()
+    try:
+        result = trainer.train()
+    except HealthAbort as e:
+        return _health_abort(e)
     print(
         f"done: steps={result.steps} loss={result.final_loss:.4f} "
         f"top1={result.final_top1:.4f} step_time={result.mean_step_s * 1e3:.2f}ms "
@@ -67,19 +76,40 @@ def main(argv=None) -> int:
     return 0
 
 
+def _health_abort(e: HealthAbort) -> int:
+    """The watchdog's abort verdict as the exit status a supervisor
+    journals as a retryable event."""
+    print(f"HEALTH_ABORT kind={e.kind} step={e.step}", flush=True)
+    return HEALTH_EXIT_CODE
+
+
 def run_async(cfg, registry=None):
     """The ``--mode async`` run of a config: ``(params, PSStats)``, the
-    parameters in the JAX tree's leaf order and layout. ``registry`` (an
-    ``obs.registry.MetricsRegistry``) absorbs the server's run totals and
-    its straggler policy's snapshot at the end."""
+    parameters in the JAX tree's leaf order and layout, profiled under
+    ``--profile-dir``. ``registry`` (an ``obs.registry.MetricsRegistry``)
+    absorbs the server's run totals and its straggler policy's snapshot at
+    the end, and holds the watchdog's counters under ``--health``. A
+    ``--health abort`` verdict raises ``HealthAbort``."""
+    from ewdml_tpu_torch.core.world import resolve_device
+    from ewdml_tpu_torch.train.loop import profiled
+
+    # build_async checks the flags before it resolves the device.
+    device = resolve_device(cfg.platform) if cfg.profile_dir else None
+    with profiled(cfg.profile_dir, device):
+        return build_async(cfg, registry).run()
+
+
+def build_async(cfg, registry=None):
+    """The ``--mode async`` run of a config, built and not started: a
+    ``parallel.ps.AsyncRun`` whose ``run()`` is :func:`run_async`'s result
+    and whose ``server`` and ``workers`` stay open after it."""
     from ewdml_tpu_torch.core.world import default_num_workers, resolve_device
     from ewdml_tpu_torch.data import datasets, loader
     from ewdml_tpu_torch.models import build_model, num_classes_for
     from ewdml_tpu_torch.obs import trace as otrace
     from ewdml_tpu_torch.ops import kernels, make_compressor
     from ewdml_tpu_torch.optim import make_optimizer
-    from ewdml_tpu_torch.parallel.ps import run_async_ps
-    from ewdml_tpu_torch.train.loop import profiled
+    from ewdml_tpu_torch.parallel.ps import build_async_ps
     from ewdml_tpu_torch.train.trainer import check_supported
 
     check_supported(cfg, async_path=True)
@@ -109,31 +139,35 @@ def run_async(cfg, registry=None):
                                      feed="f32")
 
     num_workers = cfg.num_workers or default_num_workers(device)
-    with profiled(cfg.profile_dir, device):
-        return run_async_ps(
-            model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                                  cfg.weight_decay, cfg.nesterov,
-                                  state_dtype=cfg.precision.state_dtype),
-            factory, num_workers=num_workers,
-            steps_per_worker=max(1, cfg.max_steps // num_workers),
-            # --num-aggregate 0 means "all workers" (distributed_nn.py:58).
-            compressor=comp, num_aggregate=cfg.num_aggregate or num_workers,
-            kill_threshold=(cfg.kill_threshold if cfg.kill_threshold > 0
-                            else None),
-            max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
-                           else None),
-            fault_spec=cfg.fault_spec,
-            # The weights-down relay reproduces the reference's negative
-            # result and is not the M4/M5 presets' gradient relay.
-            relay_compress=False, down_mode=cfg.ps_down,
-            bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
-            server_agg=cfg.server_agg, seed=cfg.seed, device=device,
-            debug_nans=cfg.debug_nans, registry=registry)
+    return build_async_ps(
+        model, make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                              cfg.weight_decay, cfg.nesterov,
+                              state_dtype=cfg.precision.state_dtype),
+        factory, num_workers=num_workers,
+        steps_per_worker=max(1, cfg.max_steps // num_workers),
+        # --num-aggregate 0 means "all workers" (distributed_nn.py:58).
+        compressor=comp, num_aggregate=cfg.num_aggregate or num_workers,
+        kill_threshold=(cfg.kill_threshold if cfg.kill_threshold > 0
+                        else None),
+        max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
+                       else None),
+        fault_spec=cfg.fault_spec,
+        # The weights-down relay reproduces the reference's negative
+        # result and is not the M4/M5 presets' gradient relay.
+        relay_compress=False, down_mode=cfg.ps_down,
+        bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
+        server_agg=cfg.server_agg, seed=cfg.seed, device=device,
+        # Every push's loss the server keeps is observed.
+        health=make_watchdog(cfg, role="ps-server", registry=registry),
+        debug_nans=cfg.debug_nans, registry=registry)
 
 
 def _main_async(cfg) -> int:
     """``--mode async``: the in-process asynchronous parameter server."""
-    _, stats = run_async(cfg)
+    try:
+        _, stats = run_async(cfg)
+    except HealthAbort as e:
+        return _health_abort(e)
     print(
         f"async done: pushes={stats.pushes} updates={stats.updates} "
         f"stale_dropped={stats.dropped_stale} stragglers={stats.dropped_straggler} "

@@ -55,14 +55,17 @@ def main(argv=None) -> int:
     p.add_argument("--fault-spec", default="",
                    help="injection, clause worker = cell index in the run "
                         "list: delay@I=S (a straggling cell), crash@I=N "
-                        "(the child dies at step N, first journaled attempt "
-                        "only); parallel/faults.py grammar")
+                        "(the child dies at step N), nan@I=N (the watchdog "
+                        "observes a NaN loss at step N), the last two on "
+                        "the first journaled attempt only; "
+                        "parallel/faults.py grammar")
     p.add_argument("--cells", nargs="*", default=None,
                    help="subset of cell ids (e.g. lenet_mnist/m1); the "
                         "others stay pending")
     p.add_argument("--health", default="off",
                    choices=["off", "warn", "abort"],
-                   help="the run-health watchdog: only 'off' is ported")
+                   help="the run-health watchdog in every cell child; "
+                        "an abort exits 76, journaled as a retry")
     p.add_argument("--trace-dir", default=None,
                    help="trace the sweep and every cell child into this "
                         "dir; also switches the comm/comp split from the "

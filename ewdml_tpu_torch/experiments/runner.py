@@ -30,9 +30,12 @@ makes it die at step N with ``faults.CRASH_EXIT_CODE`` on the cell's
 first journaled attempt (attempts are numbered across invocations through
 the ledger, so the clause fires once per cell history). Either way the
 ledger records a retry, the next attempt resumes from the checkpoint, and
-only a completed attempt writes the cell's row. ``nan@`` clauses feed the
-health watchdog, which is not ported, and are rejected by name, as is
-``--health`` other than ``off``.
+only a completed attempt writes the cell's row. ``--health warn|abort``
+arms the run-health watchdog in every cell child, and ``nan@I=N`` makes
+cell I's trainer observe a NaN loss at the fence covering step N, on its
+first journaled attempt; under ``abort`` the child exits
+``obs/health.HEALTH_EXIT_CODE`` and the ledger records a retry whose
+reason starts ``health_abort``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ewdml_tpu_torch.experiments import registry
 from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.health import HEALTH_EXIT_CODE, HealthAbort
+from ewdml_tpu_torch.parallel.faults import FaultSpec
 
 #: Seconds of budget below which no further cell is launched.
 _MIN_LAUNCH_S = 10.0
@@ -146,22 +150,6 @@ def _check_platform(platform: str) -> None:
                          f"{platform!r}")
 
 
-def _check_unported(health: str, fault_spec: str) -> None:
-    """Reject, by name, what would need the health watchdog."""
-    from ewdml_tpu_torch.parallel.faults import FaultSpec
-
-    if health != "off":
-        raise NotImplementedError(
-            f"--health {health} is not ported to ewdml_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 4)")
-    FaultSpec.parse(fault_spec)  # a malformed spec fails here first
-    if any(c.strip().lower().startswith("nan@")
-           for c in fault_spec.split(",")):
-        raise NotImplementedError(
-            "nan@ fault clauses (forwarded to the --health watchdog) are "
-            "not ported to ewdml_tpu_torch yet (ROADMAP.md Queue 1 item 4)")
-
-
 def _child_env(platform: str) -> dict:
     """The environment of a cell child: the repo on ``PYTHONPATH``; a CPU
     child runs two OpenMP threads (sweeps share a machine)."""
@@ -196,11 +184,9 @@ def run_cell_child(table: str, cell_id: str, *, out_dir: str, data_dir: str,
     the child the parent spawned; tests may call it in process."""
     from ewdml_tpu_torch.data import datasets
     from ewdml_tpu_torch.experiments import collect
-    from ewdml_tpu_torch.parallel.faults import (CRASH_EXIT_CODE, FaultCrash,
-                                                 FaultSpec)
+    from ewdml_tpu_torch.parallel.faults import CRASH_EXIT_CODE, FaultCrash
 
     _check_platform(platform)
-    _check_unported(health, fault_spec)
     if platform == "cpu":
         import torch
 
@@ -213,6 +199,14 @@ def run_cell_child(table: str, cell_id: str, *, out_dir: str, data_dir: str,
 
     cfg = spec.to_config(data_dir=data_dir,
                          train_dir=cell_dirs(out_dir, cell_id), smoke=smoke)
+    # The sweep's --health applies to every cell (hash-excluded). A
+    # nan@I=N clause for this cell poisons the trainer's observed loss at
+    # step N (nan@0=N), on the first journaled attempt only: the abort
+    # fires before the fence's checkpoint, so a re-armed clause would
+    # abort every retry.
+    cfg.health = health
+    if faults.nan_at and attempt == 1:
+        cfg.fault_spec = ",".join(f"nan@0={n}" for n in sorted(faults.nan_at))
     if os.environ.get("EWDML_TRACE_DIR"):
         # The sweep parent armed tracing: the cell traces into the shared
         # directory and collect.py measures the comm/comp split
@@ -256,7 +250,7 @@ def run_cell_child(table: str, cell_id: str, *, out_dir: str, data_dir: str,
 
 def _launch_cell(table: str, spec, *, index: int, out_dir: str, data_dir: str,
                  smoke: bool, platform: str, fault_spec: str, attempt: int,
-                 timeout_s: float | None, env: dict):
+                 timeout_s: float | None, env: dict, health: str = "off"):
     """One child attempt; returns ``(row | None, reason)``."""
     cmd = [sys.executable, "-m", "ewdml_tpu_torch.experiments",
            "--run-cell", spec.cell_id, "--table", table,
@@ -267,6 +261,8 @@ def _launch_cell(table: str, spec, *, index: int, out_dir: str, data_dir: str,
         cmd.append("--smoke")
     if fault_spec:
         cmd += ["--fault-spec", fault_spec]
+    if health != "off":
+        cmd += ["--health", health]
     try:
         proc = subprocess.run(cmd, cwd=_repo_root(), env=env,
                               timeout=timeout_s, capture_output=True,
@@ -302,7 +298,7 @@ def run_sweep(table: str, *, out_dir: str, data_dir: str = "data/",
     ``cell:<id>``) into one directory, and makes each cell measure its
     comm/comp split."""
     _check_platform(platform)
-    _check_unported(health, fault_spec)
+    FaultSpec.parse(fault_spec)  # a malformed spec fails before any child
     # Children run from the repo root: anchor relative paths now, or the
     # ledger and the checkpoints would land in different trees.
     out_dir, data_dir = os.path.abspath(out_dir), os.path.abspath(data_dir)
@@ -391,7 +387,8 @@ def run_sweep(table: str, *, out_dir: str, data_dir: str = "data/",
             row, reason = _launch_cell(
                 table, spec, index=index, out_dir=out_dir, data_dir=data_dir,
                 smoke=smoke, platform=platform, fault_spec=fault_spec,
-                attempt=attempt, timeout_s=eff_timeout, env=cell_env)
+                attempt=attempt, timeout_s=eff_timeout, env=cell_env,
+                health=health)
             if row is not None:
                 # End to end counts the work the retries threw away: the
                 # journaled walls of earlier failed attempts of this spec.

@@ -6,10 +6,10 @@
                 ``--trace-dir`` (or ``EWDML_TRACE_DIR``) is set
 - ``hist``      the fixed-log-bucket quantile histogram (p50/p95/p99)
 - ``registry``  counters, gauges and histograms behind one ``snapshot()``
-- ``health``    the watchdog's exit code and abort exception (constants
-                only; the watchdog is a later slice)
+- ``health``    the run-health watchdog (NaN, spike, gradient explosion,
+                stall), its ``health.jsonl`` and the abort exit code 76
 
 The shard format is the JAX package's, so ``ewdml_tpu/obs/merge.py`` puts a
-port shard and a JAX shard on one timeline. Live export, the health
-watchdog, merge and reports are later slices.
+port shard and a JAX shard on one timeline. Live export, merge and reports
+are later slices.
 """

@@ -69,6 +69,10 @@ class WorkerFaults:
             time.sleep(self.delay_s)
         return self.delay_s
 
+    def nan_due(self, step: int) -> bool:
+        """Whether a ``nan`` clause poisons the loss observed at ``step``."""
+        return step in self.nan_at
+
 
 class FaultSpec:
     """Parsed ``--fault-spec``: per-worker deterministic fault schedules."""

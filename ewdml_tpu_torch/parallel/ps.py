@@ -31,12 +31,26 @@ dense push frames carry bf16 (``wire_cast``) and the server's mean stays
 f32; the server's optimizer state is stored at the policy's state dtype,
 its bf16 stores rounding under ``fold_in(key(seed ^ 0x0917), version)``.
 
+The down-link (``ewdml_tpu/parallel/ps.py:405-446``): ``down_mode='weights'``
+ships the packed parameters on every pull; ``'delta'`` publishes, per
+update, the compressed difference between the new parameters and a
+server-side shadow, ``d_k = compress(params_k - shadow_{k-1})`` keyed
+``fold_in(key(seed ^ 0x5EED), k)``, and advances the shadow by
+``decompress(d_k)`` (error feedback on the server), so a worker that
+replays ``d_{v+1}..d_k`` on its copy lands on ``shadow_k``. A worker more
+than ``down_window`` versions behind gets the shadow dense. Under
+``bootstrap='bf16'`` a worker's first pull (version -1) ships the shadow
+in bf16, half the bytes. ``relay_compress`` is the paper's negative
+result on this path: every pulled version goes through compress then
+decompress on the server, and the bytes counted are the compressor's.
+
+``health`` (``obs/health.py``) observes the loss of every push the server
+keeps; after an abort verdict the workers stop.
+
 Options of later slices raise ``NotImplementedError`` by name here or in
 ``train/trainer.check_supported(async_path=True)``: durability and
 recovery, the publication stream, aggregation-tree pseudo-pushes, round
-pipelines and cohort policies, the lossy weights-down relay, ``--adapt``,
-``--ps-down delta``, ``--ps-bootstrap bf16`` (it needs the delta down-link)
-and ``--health``.
+pipelines and cohort policies, and ``--adapt``.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -57,6 +72,7 @@ from ewdml_tpu_torch.core.precision import resolve_policy, wire_cast
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
 from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.obs import trace as otrace
+from ewdml_tpu_torch.obs.health import HealthAbort
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import update_accepts_key
 from ewdml_tpu_torch.parallel.faults import FaultCrash, FaultSpec
@@ -112,6 +128,11 @@ class PSStats:
     decode_count: int = 0
     apply_rounds: int = 0
     apply_s_sum: float = 0.0
+    # Of the port only: the delta down-link's step per update (encode,
+    # shadow update and the packed D2H), outside apply_s_sum as in JAX;
+    # the pulls answered per mode, and the deltas they shipped.
+    delta_s_sum: float = 0.0
+    deltas_down: int = 0
     fed_rejected: int = 0
     agg_pushes: int = 0
     agg_weight: int = 0
@@ -124,6 +145,7 @@ class PSStats:
     snapshots: int = 0
     joins: int = 0
     excluded_workers: dict = dataclasses.field(default_factory=dict)
+    pulls_by_mode: dict = dataclasses.field(default_factory=dict)
     staleness_hist: dict = dataclasses.field(default_factory=dict)
     loss_history: list = dataclasses.field(default_factory=list)
 
@@ -148,6 +170,12 @@ class PSStats:
         return (self.apply_s_sum / self.apply_rounds * 1e3
                 if self.apply_rounds else 0.0)
 
+    @property
+    def delta_ms_mean(self) -> float:
+        """Mean delta step per update (ms; 0 in weights mode)."""
+        return (self.delta_s_sum / self.updates * 1e3
+                if self.updates else 0.0)
+
 
 def _clone_state(state):
     """A copy of an optimizer state dataclass whose tensors (and lists of
@@ -169,10 +197,13 @@ class ParameterServer:
     def __init__(self, params, optimizer, compressor=None,
                  num_aggregate: int = 1, max_staleness: Optional[int] = None,
                  relay_compress: bool = False, device=None,
-                 down_mode: str = "weights", bootstrap: str = "f32",
+                 down_mode: str = "weights", down_window: int = 16,
+                 bootstrap: str = "f32",
                  kill_threshold: Optional[float] = None,
                  precision: str = "f32", adapt=None,
                  server_agg: str = "decode", health=None, seed: int = 0):
+        # The run-health watchdog (None: --health off).
+        self.health = health
         if server_agg not in ("decode", "homomorphic"):
             raise ValueError(f"server_agg must be 'decode' or 'homomorphic',"
                              f" got {server_agg!r}")
@@ -195,13 +226,8 @@ class ParameterServer:
                     "contract: wrap the compressor with "
                     "ops.homomorphic.make_homomorphic(comp, grads_template)"
                     " (run_async_ps does)")
-        for bad, what in ((adapt is not None, "--adapt"),
-                          (down_mode != "weights", f"--ps-down {down_mode}"),
-                          (bootstrap != "f32", f"--ps-bootstrap {bootstrap}"),
-                          (health is not None, "--health"),
-                          (relay_compress, "the lossy weights-down relay")):
-            if bad:
-                _unsupported(what)
+        if adapt is not None:
+            _unsupported("--adapt")
         self.device = _indexed(device if device is not None
                                else params[0].device)
         self.params = [p.detach().to(self.device, torch.float32, copy=True)
@@ -218,6 +244,11 @@ class ParameterServer:
         self.policy = StragglerPolicy(
             kill_threshold=kill_threshold, max_staleness=max_staleness,
             num_aggregate=num_aggregate)
+        # The lossy weights-down relay (the paper's negative result,
+        # Final Report p.5) and the wire of a first pull ("f32" | "bf16").
+        self.relay_compress = relay_compress and compressor is not None
+        self.bootstrap = bootstrap if bootstrap in ("f32", "bf16") else "f32"
+        self._relay_key = prng.key(seed ^ 0x5EED)
         self.version = 0
         self.stats = PSStats()
         # Canonical order: _update_lock before _lock, never the reverse.
@@ -227,11 +258,44 @@ class ParameterServer:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._pack = transfer.make_device_packer()
-        self._packed_cache: tuple = (None, -1)
-        self._down_bytes = sum(p.numel() * p.element_size()
-                               for p in self.params)
+        # One packed pull per wire and version (one D2H each).
+        self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}
+        if self.relay_compress:
+            self._down_bytes = sum(compressor.wire_bytes(tuple(p.shape))
+                                   for p in self.params)
+            self._down_bytes_boot = self._down_bytes
+        else:
+            self._down_bytes = sum(p.numel() * p.element_size()
+                                   for p in self.params)
+            self._down_bytes_boot = sum(
+                p.numel() * (2 if self.bootstrap == "bf16"
+                             and p.dtype == torch.float32
+                             else p.element_size())
+                for p in self.params)
         self._apply_fn = None
         self._schema_k = None
+        self.down_mode = down_mode if compressor is not None else "weights"
+        if self.bootstrap == "bf16" and self.down_mode != "delta":
+            # In weights mode every pull is a first pull's wire, so the
+            # cast would re-round every version: the negative result.
+            raise ValueError(
+                "--ps-bootstrap bf16 requires the delta down-link "
+                "(--ps-down delta with a compressor): in weights mode the "
+                "cast would re-round every pull, reproducing the lossy-"
+                "weights negative result instead of a one-time bootstrap "
+                "rounding")
+        if (self.down_mode == "delta"
+                and getattr(compressor, "block", None) is None):
+            logger.warning(
+                "--ps-down delta with a per-tensor-norm compressor is "
+                "unstable on tensors larger than ~4s^2 elements; pass "
+                "--qsgd-block 4096 (blockwise norms) for a bounded-error "
+                "delta stream")
+        self.down_window = down_window
+        self._deltas: dict = {}   # version -> packed d_k (numpy uint8)
+        self._shadow = self.params
+        self._delta_fn = None
+        self.payload_unpack = None
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
@@ -247,7 +311,8 @@ class ParameterServer:
         or decode-then-mean, then the optimizer update. The apply is run
         once on zeroed buffers (its result discarded) before any worker is
         timed, as the JAX server warms its compiled apply."""
-        unpack = transfer.make_device_unpacker(payload_template)
+        unpack = self.payload_unpack = transfer.make_device_unpacker(
+            payload_template)
         comp = self.compressor
         k = self._schema_k = self.policy.num_aggregate
         optimizer = self.optimizer
@@ -277,12 +342,18 @@ class ParameterServer:
             return new_params, new_opt
 
         self._apply_fn = apply_bufs
+        if self.down_mode == "delta":
+            self._delta_fn = functools.partial(delta_step, comp,
+                                               transfer.make_device_packer())
         nbytes = sum(s.nbytes for s in transfer.specs_of(payload_template))
         with self._on_stream(), torch.no_grad():
             bufs0 = torch.zeros((k, nbytes), dtype=torch.uint8,
                                 device=self.device)
             self._apply_fn(self.params, self.opt_state, bufs0,
                            prng.fold_in(self._opt_key, 0))
+            if self._delta_fn is not None:  # warmed too, result discarded
+                self._delta_fn(self.params, self._shadow,
+                               prng.fold_in(self._relay_key, 0))
         self._sync()
 
     def _check_worker(self, worker) -> None:
@@ -298,29 +369,68 @@ class ParameterServer:
             raise StragglerKilled(worker, reason)
 
     # -- worker-facing API (the wire) ------------------------------------
-    def pull(self, worker: Optional[int] = None):
-        """Down link: ``("weights", packed uint8 numpy buffer, version,
-        nbytes)``. An excluded worker's pull raises
+    def pull(self, worker_version: int = -1, worker: Optional[int] = None):
+        """Down link: ``(mode, payload, version, nbytes)``. ``mode`` is
+        ``"weights"`` (the packed parameters, a uint8 numpy buffer),
+        ``"weights_bf16"`` (the same in bf16: only a delta-mode first pull,
+        ``worker_version`` -1, under ``bootstrap='bf16'``; a worker that
+        fell behind the window gets f32) or ``"delta"`` (the list of packed
+        deltas after ``worker_version``). An excluded worker's pull raises
         :class:`StragglerKilled`. Traced as ``ps/pull``."""
         with otrace.span("ps/pull", worker=worker):
-            return self._pull(worker)
+            return self._pull(worker_version, worker)
 
-    def _pull(self, worker: Optional[int] = None):
+    def _pull(self, worker_version: int = -1, worker: Optional[int] = None):
         if worker is not None:
             self._check_worker(worker)
         with self._lock:
-            params, version = self.params, self.version
-            cached, cached_version = self._packed_cache
+            # The shadow advances with the version, under this lock.
+            params, shadow, version = self.params, self._shadow, self.version
+        delta = self.down_mode == "delta"
+        if delta and 0 <= worker_version <= version:
+            with self._lock:
+                bufs = [self._deltas.get(v)
+                        for v in range(worker_version + 1, version + 1)]
+            if all(b is not None for b in bufs):
+                nbytes = sum(b.nbytes for b in bufs)
+                self._count_pull("delta", nbytes, len(bufs))
+                return "delta", bufs, version, nbytes
+            # The gap exceeds the window: a dense pull of the shadow, which
+            # later deltas move (the parameters would leave the residual).
+        src = shadow if delta else params
+        boot = self.bootstrap == "bf16" and worker_version < 0
+        wire = "bf16" if boot else "f32"
+        nbytes = self._down_bytes_boot if boot else self._down_bytes
+        with self._lock:
+            cached, cached_version = self._packed_cache[wire]
         if cached_version != version:
             with self._on_stream(), torch.no_grad():
-                cached = self._pack(params).cpu().numpy()  # one D2H
+                cached = self._pull_pack(src, version, boot).cpu().numpy()
             with self._lock:
                 # A racing pull may have cached a newer version; keep it.
-                if version > self._packed_cache[1]:
-                    self._packed_cache = (cached, version)
+                if version > self._packed_cache[wire][1]:
+                    self._packed_cache[wire] = (cached, version)
+        mode = "weights_bf16" if boot else "weights"
+        self._count_pull(mode, nbytes)
+        return mode, cached, version, nbytes
+
+    def _count_pull(self, mode: str, nbytes: int, deltas: int = 0) -> None:
         with self._lock:
-            self.stats.bytes_down += self._down_bytes
-        return "weights", cached, version, self._down_bytes
+            self.stats.bytes_down += nbytes
+            self.stats.deltas_down += deltas
+            self.stats.pulls_by_mode[mode] = (
+                self.stats.pulls_by_mode.get(mode, 0) + 1)
+
+    def _pull_pack(self, src: list, version: int, bf16: bool):
+        """The packed pull of ``src``: through compress then decompress
+        under the relay (keyed ``layer_key(fold_in(relay key, version),
+        i)``), in bf16 for a bootstrap."""
+        if self.relay_compress:
+            comp = self.compressor
+            key = prng.fold_in(self._relay_key, version)
+            src = [comp.decompress(comp.compress(prng.layer_key(key, i), p))
+                   for i, p in enumerate(src)]
+        return self._pack(_bf16_wire(src) if bf16 else src)
 
     def push(self, record: PushRecord) -> bool:
         """Gradients-up link. Returns False if the push was dropped as
@@ -336,6 +446,16 @@ class ParameterServer:
         self._check_worker(record.worker)
         # Decode (CRC verify + copy) outside the lock.
         buf = native.decode_arrays(record.message)[0]
+        health = self.health
+        if health is not None:
+            if health.aborted is not None:
+                return False  # unobserved: the run's verdict is the first
+            if not self.policy.stale(self.version - record.version):
+                # Outside the lock (an event is an fsync'd write), and not
+                # for a push about to be dropped as stale: its loss was
+                # computed on long-gone weights. An abort raises here,
+                # before any state changes.
+                health.observe_loss(self.version, record.loss)
         with self._lock:
             self.stats.pushes += 1
             self.stats.bytes_up += record.wire_bytes
@@ -371,13 +491,30 @@ class ParameterServer:
             decodes = (0 if self.compressor is None
                        else 1 if self.server_agg == "homomorphic"
                        else len(batch))
+            delta_buf, new_shadow = None, self._shadow
+            if self._delta_fn is not None:
+                # The new version's delta on this stream, one D2H; the
+                # version advances only under _update_lock, held here.
+                t_delta = clock.monotonic()
+                packed, new_shadow = self._delta_fn(
+                    new_params, self._shadow,
+                    prng.fold_in(self._relay_key, self.version + 1))
+                delta_buf = packed.cpu().numpy()
+                delta_s = clock.monotonic() - t_delta
             with self._lock:
                 self.stats.apply_rounds += 1
                 self.stats.apply_s_sum += apply_s
                 self.stats.decode_count += decodes
                 self.params, self.opt_state = new_params, new_opt
+                self._shadow = new_shadow
                 self.version += 1
                 self.stats.updates += 1
+                if delta_buf is not None:
+                    self.stats.delta_s_sum += delta_s
+                    self._deltas[self.version] = delta_buf
+                    for old in [v for v in self._deltas
+                                if v <= self.version - self.down_window]:
+                        del self._deltas[old]
         return True
 
 
@@ -423,6 +560,40 @@ def decompress_tree(compressor, payload_tree) -> list:
             for i, p in enumerate(payload_tree)]
 
 
+def delta_step(compressor, pack, params, shadow, key):
+    """The delta down-link's step (``ewdml_tpu/parallel/ps.py:643-657``):
+    ``(packed compress(params - shadow), shadow + decompress(...))``, each
+    leaf keyed ``layer_key(key, i)``."""
+    diff = [a - b for a, b in zip(params, shadow)]
+    payloads = compress_tree_fn(compressor, diff, key)
+    dec = decompress_tree(compressor, payloads)
+    return pack(payloads), [sh + d for sh, d in zip(shadow, dec)]
+
+
+def make_apply_delta(compressor, unpack_payload):
+    """A worker's replay of one packed delta: ``params + decompress``, the
+    server's shadow update on the same values."""
+
+    def apply_delta(params, buf):
+        dec = decompress_tree(compressor, unpack_payload(buf))
+        return [p + d for p, d in zip(params, dec)]
+
+    return apply_delta
+
+
+def _bf16_wire(leaves: list) -> list:
+    """The bf16 bootstrap's wire view of a parameter list: f32 leaves
+    halve (round to nearest even), the others pass through."""
+    return wire_cast(leaves, torch.bfloat16)
+
+
+def make_bf16_unpacker(params_template):
+    """Unpack a ``weights_bf16`` pull back to the parameters' dtypes."""
+    unpack_wire = transfer.make_device_unpacker(_bf16_wire(params_template))
+    dtypes = [p.dtype for p in params_template]
+    return lambda buf: [x.to(d) for x, d in zip(unpack_wire(buf), dtypes)]
+
+
 def make_compress_tree(compressor):
     """Whole-tree compress (or None for the dense path)."""
     if compressor is None:
@@ -436,12 +607,17 @@ class AsyncWorker(threading.Thread):
     ``module`` is this worker's own copy of the model (its BatchNorm
     statistics are worker-local); its key chain is
     ``fold_in(key(seed), index)`` then ``step_key`` per step, as in the JAX
-    package."""
+    package. ``params`` and ``version`` are the parameters it last pulled
+    (or replayed) and their server version (-1 before its first pull),
+    ``base_version`` the version of its last dense pull, on which it
+    replays deltas. It stops at a step's start once the server's watchdog
+    has aborted."""
 
     def __init__(self, index: int, device, server: ParameterServer,
                  grad_fn, data_iter, module,
                  steps: int = 10, seed: int = 0, delay_s: float = 0.0,
                  compress_tree=None, pack_payloads=None, unpack_params=None,
+                 apply_delta=None, unpack_params_bf16=None,
                  crash_at: Optional[int] = None,
                  nan_at: frozenset = frozenset(), specs=None,
                  debug_nans: bool = False, wire_dtype=None):
@@ -462,9 +638,30 @@ class AsyncWorker(threading.Thread):
         self._compress_tree = compress_tree
         self._pack_payloads = pack_payloads
         self._unpack_params = unpack_params
+        self._unpack_params_bf16 = unpack_params_bf16
+        self._apply_delta = apply_delta
         self.specs = specs
         self.debug_nans = debug_nans
         self.wire_dtype = wire_dtype
+        self.params: Optional[list] = None
+        self.version = -1
+        self.base_version = -1
+
+    def pull_params(self) -> None:
+        """Pull, and update ``params`` and ``version`` by the mode the
+        server answers with."""
+        mode, payload, version, _ = self.server.pull(self.version,
+                                                     worker=self.index)
+        if mode == "delta":
+            for b in payload:
+                self.params = self._apply_delta(self.params,
+                                                self._to_device(b))
+        else:
+            unpack = (self._unpack_params_bf16 if mode == "weights_bf16"
+                      else self._unpack_params)
+            self.params = unpack(self._to_device(payload))
+            self.base_version = version
+        self.version = version
 
     def _check_finite(self, step: int, loss, grads) -> None:
         """``--debug-nans``: raise ``FloatingPointError`` naming the step
@@ -493,12 +690,15 @@ class AsyncWorker(threading.Thread):
             for step in range(self.steps):
                 if self.crash_at is not None and step == self.crash_at:
                     raise FaultCrash(self.index, step)
-                _, payload, version, _ = self.server.pull(worker=self.index)
-                params = self._unpack_params(self._to_device(payload))
+                health = self.server.health
+                if health is not None and health.aborted is not None:
+                    break  # every later push would be dropped
+                self.pull_params()
+                version = self.version
                 images, labels = next(self.data_iter)
                 k = prng.step_key(self.key, step)
                 with otrace.span("worker/grad", step=step):
-                    loss, grads = self.grad_fn(self.module, params,
+                    loss, grads = self.grad_fn(self.module, self.params,
                                                self._to_device(images),
                                                self._to_device(labels), k)
                 if self.debug_nans:
@@ -520,22 +720,88 @@ class AsyncWorker(threading.Thread):
                           else float(loss))))
         except StragglerKilled as e:
             self.killed = e.reason
-        except BaseException as e:  # noqa: BLE001 -- surfaced by run_async_ps
+        except BaseException as e:  # noqa: BLE001 -- surfaced by AsyncRun.run
             self.exc = e
 
 
-def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
-                 steps_per_worker: int, compressor=None,
-                 num_aggregate: int = 1,
-                 max_staleness: Optional[int] = None, seed: int = 0,
-                 kill_threshold: Optional[float] = None,
-                 relay_compress: bool = False, down_mode: str = "weights",
-                 straggler_delays: Optional[dict] = None,
-                 bootstrap: str = "f32", fault_spec=None,
-                 precision: str = "f32", adapt_cfg=None,
-                 server_agg: str = "decode", health=None, device=None,
-                 devices=None, debug_nans: bool = False, registry=None):
-    """Drive an async PS run: one thread per worker.
+def run_async_ps(*args, **kwargs):
+    """Drive an async PS run: :func:`build_async_ps`'s arguments, then
+    :meth:`AsyncRun.run`. Returns ``(final_params, PSStats)``, the
+    parameters as a list in the JAX tree's leaf order and layout."""
+    return build_async_ps(*args, **kwargs).run()
+
+
+class AsyncRun:
+    """An async PS run, built and not started: its ``server`` and its
+    ``workers`` (one thread each), open to inspection after :meth:`run`."""
+
+    def __init__(self, server, workers, *, steps_per_worker: int,
+                 kill_threshold: Optional[float], health, registry):
+        self.server = server
+        self.workers = workers
+        self._budget = (kill_threshold * steps_per_worker
+                        if kill_threshold is not None else None)
+        self._health = health
+        self._registry = registry
+
+    def run(self):
+        """Start the workers and wait for them: ``(final_params,
+        PSStats)``. The watchdog's abort verdict raises ``HealthAbort``."""
+        server, workers = self.server, self.workers
+        health, registry, budget = self._health, self._registry, self._budget
+        t0 = clock.monotonic()
+        for w in workers:
+            w.start()
+        for w in workers:
+            if budget is None:
+                w.join()
+            else:
+                w.join(timeout=max(0.0, budget - (clock.monotonic() - t0)))
+                if w.is_alive():
+                    logger.warning("worker %d exceeded kill threshold; "
+                                   "abandoned", w.index)
+        if health is not None and health.aborted is not None:
+            # Workers racing the verdict may each have raised: surface the
+            # first, which stopped the run.
+            a = health.aborted
+            raise HealthAbort(a["kind"], a["step"], a["detail"])
+        for w in workers:
+            if w.killed is not None:
+                logger.warning("worker %d killed by policy: %s", w.index,
+                               w.killed)
+            if isinstance(w.exc, FaultCrash):
+                server.stats.worker_crashes += 1
+                logger.warning("worker %d crashed (injected): %s", w.index,
+                               w.exc)
+            elif w.exc is not None and not w.is_alive():
+                raise w.exc
+        server.stats.excluded_workers = server.policy.excluded()
+        server.stats.kills_sent = server.policy.kills_sent
+        abandoned = [w.index for w in workers
+                     if w.is_alive()
+                     and w.index not in server.stats.excluded_workers]
+        server.stats.dropped_straggler = (
+            len(server.stats.excluded_workers) + len(abandoned))
+        if registry is not None:
+            registry.absorb_ps_stats(server.stats)
+            registry.absorb_policy(server.policy.snapshot())
+        otrace.flush()
+        return server.params, server.stats
+
+
+def build_async_ps(model, optimizer, data_iter_factory, *,
+                   num_workers: int, steps_per_worker: int, compressor=None,
+                   num_aggregate: int = 1,
+                   max_staleness: Optional[int] = None, seed: int = 0,
+                   kill_threshold: Optional[float] = None,
+                   relay_compress: bool = False, down_mode: str = "weights",
+                   straggler_delays: Optional[dict] = None,
+                   bootstrap: str = "f32", fault_spec=None,
+                   precision: str = "f32", adapt_cfg=None,
+                   server_agg: str = "decode", health=None, device=None,
+                   devices=None, debug_nans: bool = False,
+                   registry=None) -> AsyncRun:
+    """Build an async PS run: the server and one worker thread each.
 
     The initial parameters and BatchNorm statistics are ``model``'s own.
     ``device`` is where the server lives (CUDA unless the caller asks for
@@ -548,8 +814,11 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
     a worker thread at a step. ``debug_nans`` makes a worker raise
     ``FloatingPointError`` at a non-finite loss or gradient (re-raised
     here). ``registry`` absorbs the run's ``PSStats`` and the policy's
-    snapshot at the end. Returns ``(final_params, PSStats)``, the
-    parameters as a list in the JAX tree's leaf order and layout."""
+    snapshot at the end. ``down_mode``, ``bootstrap`` and
+    ``relay_compress`` choose the down-link (see :class:`ParameterServer`);
+    ``health`` (``obs/health.HealthWatchdog``) observes the pushes' losses,
+    and its abort verdict raises ``HealthAbort`` from :meth:`AsyncRun.run`.
+    """
     from ewdml_tpu_torch.core.world import resolve_device
 
     if adapt_cfg is not None:
@@ -595,7 +864,12 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
         payload_template = wire_cast(payload_template, wire_dtype)
     server.register_payload_schema(payload_template)
     pack_payloads = transfer.make_device_packer()
+    # f32 for every "weights" pull; bf16 only for a first pull's bootstrap.
     unpack_params = transfer.make_device_unpacker(params)
+    unpack_params_bf16 = (make_bf16_unpacker(params)
+                          if server.bootstrap == "bf16" else None)
+    apply_delta = (make_apply_delta(compressor, server.payload_unpack)
+                   if server.down_mode == "delta" else None)
     workers = [
         AsyncWorker(
             i, devices[i % len(devices)], server, grad_fn,
@@ -605,40 +879,11 @@ def run_async_ps(model, optimizer, data_iter_factory, *, num_workers: int,
             delay_s=straggler_delays.get(i, 0.0), crash_at=crashes.get(i),
             nan_at=fault_spec.for_worker(i).nan_at,
             compress_tree=shared_compress, pack_payloads=pack_payloads,
-            unpack_params=unpack_params, specs=specs, debug_nans=debug_nans,
-            wire_dtype=wire_dtype)
+            unpack_params=unpack_params, apply_delta=apply_delta,
+            unpack_params_bf16=unpack_params_bf16, specs=specs,
+            debug_nans=debug_nans, wire_dtype=wire_dtype)
         for i in range(num_workers)
     ]
-    t0 = clock.monotonic()
-    for w in workers:
-        w.start()
-    budget = (kill_threshold * steps_per_worker
-              if kill_threshold is not None else None)
-    for w in workers:
-        if budget is None:
-            w.join()
-        else:
-            w.join(timeout=max(0.0, budget - (clock.monotonic() - t0)))
-            if w.is_alive():
-                logger.warning("worker %d exceeded kill threshold; abandoned",
-                               w.index)
-    for w in workers:
-        if w.killed is not None:
-            logger.warning("worker %d killed by policy: %s", w.index, w.killed)
-        if isinstance(w.exc, FaultCrash):
-            server.stats.worker_crashes += 1
-            logger.warning("worker %d crashed (injected): %s", w.index, w.exc)
-        elif w.exc is not None and not w.is_alive():
-            raise w.exc
-    server.stats.excluded_workers = server.policy.excluded()
-    server.stats.kills_sent = server.policy.kills_sent
-    abandoned = [w.index for w in workers
-                 if w.is_alive()
-                 and w.index not in server.stats.excluded_workers]
-    server.stats.dropped_straggler = (
-        len(server.stats.excluded_workers) + len(abandoned))
-    if registry is not None:
-        registry.absorb_ps_stats(server.stats)
-        registry.absorb_policy(server.policy.snapshot())
-    otrace.flush()
-    return server.params, server.stats
+    return AsyncRun(server, workers, steps_per_worker=steps_per_worker,
+                    kill_threshold=kill_threshold, health=health,
+                    registry=registry)

@@ -19,6 +19,11 @@ logs per-worker loss / top-1 with the analytic wire bytes.
   Chrome trace, and ``--debug-nans`` raises ``FloatingPointError`` at the
   first step (or window) whose loss, gradients or parameters are not
   finite.
+- Run health: ``--health warn|abort`` observes the mean loss at every read
+  point (a window fence) with the watchdog of ``obs/health.py``; under
+  ``abort`` a non-finite or spiking loss raises ``HealthAbort`` there. A
+  ``nan@0=N`` fault clause poisons the loss observed at the fence covering
+  step N, never the training state.
 - :func:`run_eval` is the full-test evaluation of one model, shared with
   the polling evaluator (``train/evaluator.py``).
 """
@@ -42,10 +47,12 @@ from ewdml_tpu_torch.core.world import (LocalWorld, default_num_workers,
 from ewdml_tpu_torch.data import datasets, loader
 from ewdml_tpu_torch.models import build_model, convert, num_classes_for
 from ewdml_tpu_torch.obs import clock
+from ewdml_tpu_torch.obs import health as ohealth
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import make_optimizer
+from ewdml_tpu_torch.parallel.faults import FaultSpec
 from ewdml_tpu_torch.train import checkpoint
 from ewdml_tpu_torch.train import metrics as M
 from ewdml_tpu_torch.train.state import (leaf_params, load_state_tree,
@@ -56,6 +63,11 @@ from ewdml_tpu_torch.train.trainer import (check_supported, make_train_step,
 from ewdml_tpu_torch.utils import prng
 
 logger = logging.getLogger("ewdml_tpu_torch")
+
+#: The trainer's stall deadline (s), as in the JAX package: a kernel build
+#: at first use (~30 s on the card) or a window's graph capture (~6 s on
+#: ResNet50) falls well inside it. Fences heartbeat.
+HEALTH_STALL_DEADLINE_S = 600.0
 
 
 @dataclass
@@ -91,6 +103,18 @@ class Trainer:
         self._tracing = otrace.enabled()
         #: This trainer's counters and histograms (``obs/registry.py``).
         self.metrics = MetricsRegistry()
+        # The run-health watchdog (None under --health off). Its stall
+        # deadline runs only inside train(): between runs no progress is
+        # expected. A nan@0=N clause poisons the observed fence loss.
+        self._health = ohealth.make_watchdog(
+            cfg, role=role, stall_deadline_s=HEALTH_STALL_DEADLINE_S,
+            registry=self.metrics)
+        self._health_faults = None
+        self._health_mark = -1
+        if self._health is not None:
+            self._health.set_idle(True)
+            self._health_faults = FaultSpec.parse(cfg.fault_spec) \
+                .for_worker(0)
         self.device = resolve_device(cfg.platform, device)
         if cfg.pallas != "auto":
             kernels.configure(cfg.pallas)
@@ -313,18 +337,25 @@ class Trainer:
                                wire=self.wire, history=history,
                                timing=timer.as_dict())
         ws = self.window_step
-        with profiled(cfg.profile_dir, self.device):
+        if self._health is not None:
+            # Arm the stall deadline. The fence mark starts at the resume
+            # step: a restored run does not re-poison steps it trained past.
+            self._health_mark = start_step - 1
+            self._health.set_idle(False)
+        with profiled(cfg.profile_dir, self.device), self._health_armed():
             if ws is not None:  # --feed device, K > 1
                 if ws.stream is not None:
                     ws.stream.wait_stream(
                         torch.cuda.current_stream(self.device))
-                with ws.stream_context():
-                    last = self._run_windows(start_step, steps_target,
-                                             self._device_split(ds), timer,
-                                             history, rows)
-                if ws.stream is not None:
-                    torch.cuda.current_stream(self.device).wait_stream(
-                        ws.stream)
+                try:
+                    with ws.stream_context():
+                        last = self._run_windows(start_step, steps_target,
+                                                 self._device_split(ds),
+                                                 timer, history, rows)
+                finally:  # also when a health abort ends the run
+                    if ws.stream is not None:
+                        torch.cuda.current_stream(self.device).wait_stream(
+                            ws.stream)
             else:
                 if cfg.feed == "device":
                     batches = itertools.repeat(self._device_split(ds))
@@ -348,6 +379,28 @@ class Trainer:
                            compile_s=timer.compile_s, wire=self.wire,
                            history=history, timing=timing,
                            rows=np.concatenate(rows) if rows else None)
+
+    @contextlib.contextmanager
+    def _health_armed(self):
+        """Suspends the stall deadline again when the steps end."""
+        try:
+            yield
+        finally:
+            if self._health is not None:
+                self._health.set_idle(True)
+
+    def _observe_health(self, fence_step: int, mean_loss: float) -> None:
+        """One watchdog observation per read point: the fence's mean loss,
+        NaN when a ``nan@0=N`` clause covers a step since the last fence."""
+        if self._health is None:
+            return
+        mark, self._health_mark = self._health_mark, fence_step
+        loss = mean_loss
+        if self._health_faults is not None and any(
+                self._health_faults.nan_due(s)
+                for s in range(mark + 1, fence_step + 1)):
+            loss = float("nan")
+        self._health.observe_loss(fence_step, loss)
 
     def _log_row(self, step: int, m: np.ndarray, timer) -> None:
         """The per-worker log lines of one due step (``m`` is ``[W, 3]``)."""
@@ -404,6 +457,7 @@ class Trainer:
                 timer.add_window(elapsed, window_n)
             window_t0, window_n = None, 0
             last = (float(m[:, 0].mean()), float(m[:, 1].mean()))
+            self._observe_health(step, last[0])
             if due_log:
                 self._log_row(step, m, timer)
                 history.append((step, last[0], last[1]))
@@ -486,6 +540,7 @@ class Trainer:
                                     float(m_all[j, :, 1].mean())))
             m_last = mats[-1][1][-1]
             last = (float(m_last[:, 0].mean()), float(m_last[:, 1].mean()))
+            self._observe_health(step - 1, last[0])
             if due_ckpt:
                 self._save_ckpt(step)  # snapped to the window's end
         return last

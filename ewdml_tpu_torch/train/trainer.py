@@ -124,14 +124,14 @@ def _check_async_supported(cfg: TrainConfig) -> None:
                               "server)"),
         (cfg.federated, "--federated"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
-        (cfg.ps_down != "weights", f"--ps-down {cfg.ps_down}"),
-        (cfg.ps_bootstrap != "f32", f"--ps-bootstrap {cfg.ps_bootstrap}"),
         (cfg.pull_delta, "--pull-delta (the publication stream)"),
         (bool(cfg.replicas), "--replicas"),
         (bool(cfg.agg_tree), "--agg-tree (aggregation-tree pseudo-pushes)"),
         (bool(cfg.server_state_dir),
          "--server-state-dir (durability and recovery)"),
         (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
+        # The JAX CLI accepts it here and never arms the relay (ROADMAP
+        # Queue 3); run_async_ps(relay_compress=True) is the relay.
         (cfg.lossy_weights_down, "--lossy-weights-down on the async path"),
         *_serving_rows(cfg),
     ]
@@ -140,7 +140,8 @@ def _check_async_supported(cfg: TrainConfig) -> None:
 
 def check_evaluator_supported(cfg: TrainConfig) -> None:
     """Reject, by name, the evaluator's flags the port does not implement:
-    it takes every trainer flag and honours only what it reads."""
+    it takes every trainer flag and honours only what it reads (it never
+    reads ``--health``, as in the JAX package)."""
     _reject(_serving_rows(cfg))
 
 
@@ -148,7 +149,6 @@ def _serving_rows(cfg: TrainConfig) -> list:
     return [
         (cfg.metrics_port is not None, "--metrics-port (the live metrics "
                                        "endpoint, obs/serve)"),
-        (cfg.health != "off", f"--health {cfg.health}"),
     ]
 
 

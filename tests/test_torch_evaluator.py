@@ -99,10 +99,18 @@ def test_evaluator_and_single_trainer_refuse_a_missing_gpu():
     (dict(health="warn"), "--health warn"),
 ])
 def test_evaluator_rejects_the_serving_flags(tmp_path, kw, flag):
-    """Exact: the evaluator takes every trainer flag; the two it does not
-    honour raise by name, as ``check_supported`` does."""
+    """Exact: the evaluator takes every trainer flag. ``--metrics-port``,
+    which it does not honour, raises by name, as ``check_supported`` does;
+    ``--health``, which it never reads, is accepted and ignored, as in the
+    JAX package."""
     cfg = TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
                       **dict(CFG, **kw))
+    if flag == "--health warn":
+        ev = DistributedEvaluator(cfg)
+        # No checkpoint yet: one poll, nothing evaluated, no watchdog.
+        assert list(ev.evaluate(interval_s=0, max_polls=1)) == []
+        assert not os.path.exists(tmp_path / "health.jsonl")
+        return
     with pytest.raises(NotImplementedError, match=flag):
         DistributedEvaluator(cfg)
 

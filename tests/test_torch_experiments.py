@@ -325,18 +325,37 @@ def test_cell_row_wire_fields_equal_jax_wire_plan(tmp_path, capsys,
     assert 0 <= row["metrics"]["top1_pct"] <= 100  # observation only
 
 
-# -- what the health watchdog would need is rejected by name ---------------
+# -- the health watchdog and nan@ clauses in a cell (ported) --------------
 
 @pytest.mark.parametrize("health,fault_spec,what", [
     ("warn", "", "--health warn"), ("abort", "", "--health abort"),
     ("off", "crash@0=2,nan@0=3", "nan@")])
-def test_health_and_nan_clauses_rejected_by_name(tmp_path, health,
+def test_health_and_nan_clauses_rejected_by_name(tmp_path, capsys, health,
                                                  fault_spec, what):
-    with pytest.raises(NotImplementedError, match=what):
-        runner.run_sweep("baseline", out_dir=str(tmp_path), smoke=True,
-                         platform="cpu", cells=["lenet_mnist/m1"],
-                         health=health, fault_spec=fault_spec)
-    assert not os.path.exists(tmp_path / "ledger.jsonl")
+    """Once rejected by name, now ported (the name is kept): ``--health``
+    reaches the cell's trainer and ``nan@`` clauses parse beside the
+    others. Exact (behaviour): under ``warn`` a nan clause is journaled in
+    the cell's ``health.jsonl`` and the cell completes; a healthy cell
+    under ``abort`` completes with no event; with the watchdog off a nan
+    clause is inert and the crash clause beside it fires."""
+    from ewdml_tpu_torch.obs.health import read_events
+    from ewdml_tpu_torch.parallel.faults import CRASH_EXIT_CODE
+
+    out = str(tmp_path)
+    spec = fault_spec or ("nan@0=2" if health == "warn" else "")
+    rc = runner.run_cell_child("baseline", "lenet_mnist/m1", out_dir=out,
+                               data_dir="data/", smoke=True, platform="cpu",
+                               fault_spec=spec, health=health)
+    printed = capsys.readouterr().out
+    events = read_events(os.path.join(
+        runner.cell_dirs(out, "lenet_mnist/m1"), "health.jsonl"))
+    if health == "off":
+        assert rc == CRASH_EXIT_CODE and events == []
+        assert "CELL_FAULT_CRASH lenet_mnist/m1 at step 2" in printed
+        return
+    assert rc == 0 and runner.RESULT_MARK in printed
+    assert [e["kind"] for e in events] == (["nan"] if health == "warn"
+                                           else [])
 
 
 def test_cli_repro_route_reaches_the_sweep():

@@ -20,8 +20,8 @@ Oracles:
   worker and the leaf of an injected NaN or infinity: in a loss, in a
   parameter after an update (per step and at the end of a window), in an
   async worker's loss.
-- ``check_supported`` accepts the three flags and still rejects
-  ``--metrics-port`` and ``--health`` by name.
+- ``check_supported`` accepts the three flags and ``--health``, and still
+  rejects ``--metrics-port`` by name.
 """
 
 import json
@@ -339,7 +339,10 @@ def test_check_supported_accepts_the_three_flags(tmp_path):
                                 "--profile-dir", str(tmp_path),
                                 "--debug-nans"])
         check_supported(cfg, async_path=async_path)
-        for flag, what in ((["--metrics-port", "0"], "--metrics-port"),
-                           (["--health", "warn"], "--health warn")):
-            with pytest.raises(NotImplementedError, match=what):
-                check_supported(from_args(mode + flag), async_path=async_path)
+        # --health is ported (tests/test_torch_health.py); --metrics-port
+        # still raises by name.
+        check_supported(from_args(mode + ["--health", "warn"]),
+                        async_path=async_path)
+        with pytest.raises(NotImplementedError, match="--metrics-port"):
+            check_supported(from_args(mode + ["--metrics-port", "0"]),
+                            async_path=async_path)

@@ -322,10 +322,11 @@ def test_the_trainer_takes_the_policies(policy):
     with pytest.raises(ValueError, match="fused_q"):
         check_supported(tconfig.TrainConfig(precision_policy=policy,
                                             method=3, collective="fused_q"))
-    with pytest.raises(NotImplementedError, match="ps-bootstrap"):
-        check_supported(tconfig.TrainConfig(precision_policy=policy,
-                                            mode="async", ps_bootstrap="bf16"),
-                        async_path=True)
+    # The bf16 bootstrap is ported (tests/test_torch_ps_downlink.py).
+    check_supported(tconfig.TrainConfig(precision_policy=policy,
+                                        mode="async", ps_down="delta",
+                                        ps_bootstrap="bf16"),
+                    async_path=True)
     with pytest.raises(NotImplementedError, match="lossy"):
         check_supported(tconfig.TrainConfig(
             mode="async", compress_grad="qsgd", ps_mode="weights",

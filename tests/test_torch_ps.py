@@ -13,6 +13,9 @@ Oracles, per test:
   too, by an ulp of the gradient.
 - the server's counters (pushes, updates, decode_count, apply_rounds,
   bytes_up, dropped_stale): equal.
+- the constructor's validation: the same ``ValueError``s; the down-link
+  modes, the relay and a watchdog are accepted, ``--adapt`` raises by
+  name.
 """
 
 import jax
@@ -228,12 +231,20 @@ def test_constructor_validation_matches():
             ps.ParameterServer(tparams, SGD(0.1), device="cpu", **tkw)
         # The same error; the port's message ends naming its own callers.
         assert str(te.value)[:120] == str(je.value)[:120]
-    for kw in (dict(down_mode="delta"), dict(bootstrap="bf16"),
-               dict(relay_compress=True),
-               dict(health=object()), dict(adapt=object())):
-        with pytest.raises(NotImplementedError):
-            ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
-                               device="cpu", **kw)
+    # The down-link modes, the relay and the watchdog are ported (their
+    # behaviour: tests/test_torch_ps_downlink.py, test_torch_health.py);
+    # --adapt still raises by name.
+    for kw, attr, want in (
+            (dict(down_mode="delta"), "down_mode", "delta"),
+            (dict(down_mode="delta", bootstrap="bf16"), "bootstrap", "bf16"),
+            (dict(relay_compress=True), "relay_compress", True),
+            (dict(health="watchdog"), "health", "watchdog")):
+        server = ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
+                                    device="cpu", **kw)
+        assert getattr(server, attr) == want
+    with pytest.raises(NotImplementedError, match="--adapt"):
+        ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
+                           device="cpu", adapt=object())
     # The precision policies are ported; an unknown one fails as in JAX.
     for name in ("bf16_wire", "bf16_wire_state"):
         assert ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
