@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. Build the CUDA kernels from ``ewdml_tpu_torch/kernels/compress.cu`` and
-   ``precision.cu`` (one ``nvcc`` per source, started together).
+1. Build the CUDA kernels from ``ewdml_tpu_torch/kernels/compress.cu``,
+   ``precision.cu`` and ``random.cu`` (one ``nvcc`` per source, started
+   together; the last two include ``threefry.cuh``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the training paths give it (VGG11-BN's largest 8 MB gradient
    bucket, 2 359 296 elements): quantize per tensor and blockwise (bit),
@@ -53,7 +54,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    dequant_mean's [4, n] start on 2-byte boundaries), and int_accumulate
    at every ResNet50 leaf of at least ``MIN_ELEMS`` elements; and
    acc_decode per tensor at every leaf the homomorphic apply decodes (the
-   34 of ResNet50, the 8 of VGG11-BN), each bit-equal there.
+   34 of ResNet50, the 8 of VGG11-BN), each bit-equal there. Then 6a (the
+   store kernel) and:
+2b. The threefry draw kernel (``random_bits``, ``kernels/random.cu``)
+   against its plain version at the path's sizes (every VGG11-BN and
+   ResNet50 leaf size, whole for QSGD's threefry stream below
+   ``MIN_ELEMS`` and the async server's shared-scale encode, and the 1%
+   top-k count of each for its Top-k QSGD encode, uniform, up to 2 359 296
+   elements, past the size where the kernel's grid stops growing and its
+   threads loop; the feed's (128,) draws and the 50 000-element
+   permutation, bits) and at n = 1, 7, 4099 and
+   2^17 - 1, bits and uniform (bit, one launch a draw), under host keys
+   and captured under key-table keys (each replay's keys); timed at every
+   path size beside its bound, its plain version and its own time from a
+   trace; the kernels the card runs for one draw, plain and kernel.
    ``--kernels-only`` stops here.
 3. Train VGG11-BN at full width (CIFAR-10 shapes, synthetic data, batch
    128 per worker, W = 4 workers emulated on the card, f32 with TF32 off)
@@ -124,17 +138,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 6. The precision policy, Adam, the paper's negative result and
    ``--overlap bucket`` on VGG11-BN at the same shapes (6a runs with phase
-   2): (a) ``stochastic_round_bf16`` against its plain version at every
-   VGG11-BN and ResNet50 leaf shape (conv leaves in PyTorch's layout, the
-   draw by the JAX index) and on specials (bit; NaN by ``isnan``), under a
-   key read from a key table; timed at the 512x512x3x3 leaf beside its
-   bound (6 bytes an element; the instructions an element counted from the
-   kernel's SASS with ``cuobjdump``), its plain version and its time alone,
-   and a ``shape stochastic_round`` row per VGG11-BN leaf; (b) M1
+   2): (a) the stochastic-round kernel against its plain version at every
+   VGG11-BN and ResNet50 leaf shape singly (conv leaves in PyTorch's
+   layout, the draw by the JAX index) and on specials (bit; NaN by
+   ``isnan``), and as each network's SGD, Adam and residual store sets in
+   one call (``round_launches`` launches each), also captured under a
+   key-table key and replayed for two windows; timed at the 512x512x3x3
+   leaf and as a vector of its size beside its bound (6 bytes or 71.5
+   operations an element; the SASS instructions an element of each index
+   map counted with ``cuobjdump``), its plain version and its time alone;
+   a whole VGG11-BN store set per step and replayed in a window; and a
+   ``shape stochastic_round`` row per VGG11-BN leaf; (b) M1
    ``bf16_wire`` (the dense payload the step ships is the plan's and half
    of M1's f32 plan) and M4 ``--error-feedback --precision-policy
    bf16_wire_state`` (bf16 residuals and momentum, the kernel launched
-   leaves x W x 2 times a step, the replicas bit-identical), 5 steps each;
+   once a worker's optimizer set and once for the residual set a step, the
+   replicas bit-identical), 5 steps each;
    (c) M2 ``--optimizer adam`` under f32 and ``bf16_wire_state``; (d)
    ``--compress-grad qsgd --ps-mode weights --lossy-weights-down`` beside
    ``--method 2``, 40 steps each (``--feed device``, deterministic
@@ -247,10 +266,12 @@ REPLACES = {
     "dequant_acc_requant": "ewdml_tpu/ops/pallas_kernels.py:479",
     "int_accumulate": "ewdml_tpu/ops/pallas_kernels.py:587",
     "acc_decode": "ewdml_tpu/ops/pallas_kernels.py:629",
-    # A port-only kernel: the JAX package computes it in XLA, not Pallas.
+    # Port-only kernels: the JAX package computes them in XLA, not Pallas.
     "stochastic_round": "ewdml_tpu/core/precision.py:87",
+    "random_bits": "ewdml_tpu/ops/qsgd.py:122,230",
 }
-SOURCES = {"stochastic_round": "ewdml_tpu_torch/kernels/precision.cu"}
+SOURCES = {"stochastic_round": "ewdml_tpu_torch/kernels/precision.cu",
+           "random_bits": "ewdml_tpu_torch/kernels/random.cu"}
 # The names of each wrapper's kernels in a torch.profiler trace.
 KERNEL_NAMES = {
     "qsgd_quantize": ("qsgd_quantize_kernel",),
@@ -261,6 +282,7 @@ KERNEL_NAMES = {
     "int_accumulate": ("int_accumulate_kernel",),
     "acc_decode": ("acc_decode_kernel",),
     "stochastic_round": ("stochastic_round_kernel",),
+    "random_bits": ("random_bits_kernel",),
 }
 # Instructions per element, for the operations side of each bound, each
 # counted once against the instruction rate (an f32 multiply and an add that the
@@ -332,27 +354,32 @@ class Timer:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def device(self, fn, kernels: tuple, reps: int = 10):
+    def device(self, fn, kernels: tuple, reps: int = 10, tries: int = 2):
         """The mean time on the card of the kernels whose names hold one of
         ``kernels`` over ``reps`` calls of ``fn`` (L2 flushed before each),
         from a ``torch.profiler`` trace: the kernel alone, without the
-        launch. None where the trace holds no device time for them."""
+        launch. A trace that holds no device time for them is taken again,
+        up to ``tries`` traces (now and then one misses the card's events
+        that a second holds); None where none holds it."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
         fn()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        total_us, count = 0.0, 0
-        for e in prof.key_averages():
-            if any(k in e.key for k in kernels):
-                total_us += getattr(e, "device_time_total",
-                                    getattr(e, "cuda_time_total", 0.0))
-                count += e.count
-        return total_us / count / 1e3 if count and total_us > 0 else None
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            total_us, count = 0.0, 0
+            for e in prof.key_averages():
+                if any(k in e.key for k in kernels):
+                    total_us += getattr(e, "device_time_total",
+                                        getattr(e, "cuda_time_total", 0.0))
+                    count += e.count
+            if count and total_us > 0:
+                return total_us / count / 1e3
+        return None
 
 
 def check_kernels(torch, kernels, timer) -> dict:
@@ -731,11 +758,13 @@ def same_encode(torch, kernels, x, seed, what) -> None:
 
 def shape_row(timer, fn, names, nbytes, ops, **row) -> dict:
     """A per-shape row: ``fn`` timed with events and, alone on the card,
-    from the trace of the kernels whose names hold one of ``names``."""
+    from the trace of the kernels whose names hold one of ``names`` (none:
+    not traced)."""
     ms = timer(fn)
     bnd, _ = bound_ms(nbytes, ops)
     return dict(row, ms=ms, bound_ms=bnd, share=bnd / ms,
-                device_ms=timer.device(fn, names), bytes=nbytes)
+                device_ms=timer.device(fn, names) if names else None,
+                bytes=nbytes)
 
 
 def quantize_rows(torch, kernels, timer, quant, g) -> list:
@@ -1269,23 +1298,31 @@ def traced_spans(trace_dir: str, kind=None) -> dict:
 
 def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
     """Kernel launches of one async run: per push (and once for the payload
-    schema's template) a quantize per leaf of at least MIN_ELEMS under
-    decode; per round (and once for the warm apply) an accumulate and a
-    decode per such leaf under homomorphic (the decode only for Top-k)."""
-    big = sum(1 for s in specs if math.prod(s.jax_shape) >= kernels.MIN_ELEMS)
+    schema's template) a quantize per leaf of at least MIN_ELEMS and a
+    threefry draw per smaller leaf under decode, a draw per leaf (the
+    shared-scale encode) under homomorphic; per round (and once for the
+    warm apply) an accumulate and a decode per leaf of at least MIN_ELEMS
+    under homomorphic (the decode only for Top-k), and a stochastic-round
+    launch per ``round_launches`` of the optimizer's stored leaves."""
     want = {k: 0 for k in kernels.LAUNCHES}
+    shapes = [s.jax_shape for s in specs]
+    big = sum(1 for s in shapes if math.prod(s) >= kernels.MIN_ELEMS)
     if cfg.server_agg == "decode":
         if cfg.compress_grad == "qsgd":
-            want["qsgd_quantize"] = big * (pushes + 1)
+            for k, v in compress_launches(cfg, shapes, kernels).items():
+                want[k] = v * (pushes + 1)
     else:
         want["acc_decode"] = big * (updates + 1)
         if cfg.compress_grad == "qsgd":
             want["int_accumulate"] = big * (updates + 1)
+        want["random_bits"] = len(shapes) * (pushes + 1)
     if cfg.precision.bf16_state:
         # The server's optimizer stores every leaf's state per update (and
-        # once in the warm apply): Adam's two moments, SGD's momentum.
+        # once in the warm apply) as one set: Adam's two moments, SGD's
+        # momentum.
         stores = 2 if cfg.optimizer == "adam" else 1
-        want["stochastic_round"] = len(specs) * stores * (updates + 1)
+        want["stochastic_round"] = kernels.round_launches(
+            len(specs) * stores) * (updates + 1)
     return want
 
 
@@ -1734,20 +1771,43 @@ SROUND_SHAPE = (512, 512, 3, 3)   # VGG11-BN's largest leaf, a conv kernel
 SROUND_SPECIALS = [0.0, -0.0, 1e-40, -1e-40, 3.4028235e38, -3.4028235e38,
                    float("inf"), float("-inf"), float("nan"), 1.0, -2.5,
                    0.15625]
+# The function's own operations an element, the bound's operations side of
+# both threefry kernels, counted as the card's three-input adds and logic
+# ops and its funnel shift compute them, with the counter's high word (0
+# below 2^32 elements) folded into the key: the low word plus its key (1),
+# 20 rounds of an add, a rotation and an xor (60; the first four key
+# injections into x0 fold into the next round's three-input add), the five
+# injections into x1 and the last into x0 (6), and the output's xor (1):
+# 68 (THREEFRY_OPS). The store adds the dither's add (its 16-bit mask folds
+# into the xor), the NaN test and its select, and half a byte permute that
+# packs two bf16 into a word (71.5: the compiled identity loop takes 74.50
+# SASS instructions an element, loads, store and loop control included);
+# the draw adds nothing for the bits (the int64's high word is a zero
+# register) and a shift-with-add and a subtract for a uniform (70). The
+# rotations and xors (40 an element) run on the INT32 pipe, at half the
+# issue rate: 64 lanes an SM a clock (INT32_LANES_PER_CLOCK).
+THREEFRY_OPS = 68
+SROUND_OPS = THREEFRY_OPS + 3.5
+DRAW_OPS = {"bits": THREEFRY_OPS, "uniform": THREEFRY_OPS + 2}
+INT32_OPS = 40
+INT32_LANES_PER_CLOCK = 132 * 64
+RESIDUAL_TAG = 0x0E5F   # train/trainer.RESIDUAL_TAG
 
 
 def sass_ops_per_elem(build) -> dict:
-    """Instructions an element of each ``stochastic_round_kernel`` variant,
-    from the SASS of the built library (``cuobjdump -sass``): the body of
-    the kernel's grid-stride loop (its widest backward branch) over the
-    stores in it. ``{"permuted": n, "identity": n}``."""
+    """Instructions an element of the round kernel's three index maps, from
+    the SASS of the built library (``cuobjdump -sass``): each of its
+    vector loops (the backward branches whose body holds a 16-byte store)
+    over the elements its stores write (8 a store). The smallest is the
+    identity layout, the largest the carry chain of an innermost dim
+    shorter than 8, the middle one every other permuted leaf.
+    ``{"identity": n, "permuted": n, "narrow": n}``."""
     import re
 
     lib = build.build()
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     txt = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
-    out = {}
     for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)",
                          txt, re.S):
         if "stochastic_round_kernel" not in m.group(1):
@@ -1757,23 +1817,21 @@ def sass_ops_per_elem(build) -> dict:
             mm = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
             if mm:
                 ins.append((int(mm.group(1), 16), mm.group(2)))
-        body = ins
-        spans = []
+        loops = []
         for addr, text in ins:
             b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
             if b and int(b.group(1), 16) < addr:
-                spans.append((addr - int(b.group(1), 16),
-                              int(b.group(1), 16), addr))
-        if spans:
-            _, lo, hi = max(spans)
-            body = [(a, t) for a, t in ins if lo <= a <= hi]
-        stores = sum(1 for _, t in body if "STG" in t) or 1
-        body = [t for _, t in body if not t.strip().startswith("NOP")]
-        kind = "permuted" if "ILb1E" in m.group(1) else "identity"
-        out[kind] = len(body) / stores
-    if set(out) != {"permuted", "identity"}:
-        raise AssertionError(f"no stochastic_round_kernel SASS found: {out}")
-    return out
+                lo = int(b.group(1), 16)
+                body = [t for a, t in ins if lo <= a <= addr
+                        and not t.strip().startswith("NOP")]
+                stores = sum(1 for t in body if "STG.E.128" in t)
+                if stores:
+                    loops.append(len(body) / (8 * stores))
+        if len(loops) == 3:
+            ident, wide, narrow = sorted(loops)
+            return {"identity": ident, "permuted": wide, "narrow": narrow}
+        raise AssertionError(f"{m.group(1)}: vector loops {loops}, want 3")
+    raise AssertionError("no stochastic_round_kernel SASS found")
 
 
 def same_bf16(torch, a, b, what: str) -> None:
@@ -1785,30 +1843,168 @@ def same_bf16(torch, a, b, what: str) -> None:
                              "version")
 
 
-def leaf_shapes(network: str) -> list:
-    """``(kind, torch shape)`` of the network's leaves, each once."""
+def leaf_shapes(network: str, unique: bool = True) -> list:
+    """``(kind, torch shape)`` of the network's leaves, each once (sorted),
+    or all of them in the JAX order."""
     from ewdml_tpu_torch.models import build_model
     from ewdml_tpu_torch.models.convert import leaf_specs
 
     model = build_model(network, 10, dataset="Cifar10")
     named = dict(model.named_parameters())
-    return sorted({(s.kind, tuple(named[s.torch_name].shape))
-                   for s in leaf_specs(model)})
+    leaves = [(s.kind, tuple(named[s.torch_name].shape))
+              for s in leaf_specs(model)]
+    return sorted(set(leaves)) if unique else leaves
 
 
-def check_sround(torch, kernels, timer, build) -> tuple:
-    """6a: the stochastic-round kernel against its plain version at every
-    VGG11-BN and ResNet50 leaf shape and on specials, under keys read from
-    a key table; timed at VGG11-BN's largest leaf beside its bound (6n
-    bytes, the SASS instructions an element), its plain version and its
-    own time from a trace; per-shape rows at VGG11-BN's leaves."""
+def store_sets(torch, network: str, g) -> dict:
+    """The network's three store sets on the card, as the training path
+    gives them: ``name: (xs, kinds, paths)`` for an SGD update (paths
+    ``(i,)``), an Adam update (``(i, 0)``, ``(i, 1)``) and the residuals of
+    W workers (flat, ``(RESIDUAL_TAG, r, i)``), specials in every leaf."""
+    leaves = leaf_shapes(network, unique=False)
+    xs, kinds = [], [k for k, _ in leaves]
+    for _, shape in leaves:
+        x = torch.randn(shape, device="cuda", generator=g) * 1e-2
+        n = min(len(SROUND_SPECIALS), x.numel())
+        x.view(-1)[:n] = torch.tensor(SROUND_SPECIALS[:n], device="cuda")
+        xs.append(x)
+    n = len(xs)
+    flat = [x.reshape(-1) for x in xs]
+    return {"sgd": (xs, kinds, [(i,) for i in range(n)]),
+            "adam": (xs + xs, kinds * 2,
+                     [(i, 0) for i in range(n)] + [(i, 1) for i in range(n)]),
+            "residual": (flat * WORLD, ["vector"] * n * WORLD,
+                         [(RESIDUAL_TAG, r, i) for r in range(WORLD)
+                          for i in range(n)])}
+
+
+def captured(torch, fn):
+    """``fn()`` captured in a CUDA graph (after a warm-up call on a side
+    stream): ``(graph, what the capture returned)``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def check_sets(torch, kernels, g) -> dict:
+    """6a's sets: each of the network's three store sets, in one call of
+    the grouped kernel, against the grouped plain version under two host
+    keys (launches: ``round_launches`` of the set), then captured under a
+    key-table key and replayed for two windows (each replay's parent key,
+    from the table); ResNet50's under one key and one replay."""
     from ewdml_tpu_torch.utils import prng
     from ewdml_tpu_torch.utils.keytable import KeyTable
 
-    g = torch.Generator(device="cuda").manual_seed(60)
+    out = {}
+    for network in NETWORKS:
+        # ResNet50's sets (161 to 644 leaves) under one host key and one
+        # replay: the plain version's time, not the kernel's, is the cost.
+        keys = ((0, 42), (0x9E3779B9, 0x7F4A7C15))[:2 if network == "VGG11"
+                                                    else 1]
+        starts = (0, 9)[:len(keys)]
+        for name, (xs, kinds, paths) in store_sets(torch, network,
+                                                   g).items():
+            for key in keys:
+                before = kernels.LAUNCHES["stochastic_round"]
+                got = kernels.stochastic_round_set(key, xs, paths, kinds)
+                launched = kernels.LAUNCHES["stochastic_round"] - before
+                if launched != kernels.round_launches(len(xs)):
+                    raise AssertionError(
+                        f"{network} {name} set: {launched} launches for "
+                        f"{len(xs)} leaves")
+                want = kernels.stochastic_round_set_ref(key, xs, paths,
+                                                        kinds)
+                torch.cuda.synchronize()
+                for a, b, p in zip(got, want, paths):
+                    same_bf16(torch, a, b, f"{network} {name} set {p}")
+            table = KeyTable(prng.key(6), "cuda", 0)
+            graph, got = captured(torch, lambda: kernels.stochastic_round_set(
+                prng.fold_in(table.step_key(0), 0x0917), xs, paths, kinds))
+            for start in starts:
+                table.load(start)
+                graph.replay()
+                want = kernels.stochastic_round_set_ref(
+                    prng.fold_in(prng.step_key(prng.key(6), start), 0x0917),
+                    xs, paths, kinds)
+                torch.cuda.synchronize()
+                for a, b, p in zip(got, want, paths):
+                    same_bf16(torch, a, b, f"{network} {name} set {p}, "
+                                           f"replay at {start}")
+            del graph, got
+            out[f"{network} {name}"] = dict(
+                leaves=len(xs), launches=kernels.round_launches(len(xs)),
+                elements=sum(x.numel() for x in xs))
+            print(f"set {network} {name}: {len(xs)} leaves, "
+                  f"{out[f'{network} {name}']['elements']} elements, "
+                  f"{kernels.round_launches(len(xs))} launch(es), bit-equal "
+                  "under host keys and replayed key-table keys", flush=True)
+    return out
+
+
+def time_set(torch, kernels, timer, g) -> dict:
+    """One whole VGG11-BN SGD store set (its 38 leaves): per step (the
+    host packs the descriptors and launches, 20 calls back to back, host
+    clock to the synchronize) and inside a window (one captured launch
+    under a key-table key, replayed 20 times between CUDA events); the
+    kernel's own time from a trace; the bound of the set's elements."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    xs, kinds, paths = store_sets(torch, "VGG11", g)["sgd"]
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16, device="cuda")
+            for x in xs]
+    n = sum(x.numel() for x in xs)
+    fn = lambda: kernels.stochastic_round_set((0, 5), xs, paths, kinds, outs)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / 20 * 1e3
     table = KeyTable(prng.key(6), "cuda", 0)
-    key = prng.layer_key(prng.fold_in(table.step_key(0), 0x0917), 5)
+    graph, _ = captured(torch, lambda: kernels.stochastic_round_set(
+        table.step_key(0), xs, paths, kinds, outs))
     table.load(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    start.record()
+    for _ in range(20):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    window = start.elapsed_time(end) / 20
+    bnd, by = bound_ms(6 * n, SROUND_OPS * n)
+    row = dict(leaves=len(xs), elements=n, per_step_ms=per_step,
+               window_ms=window, bound_ms=bnd, bound_by=by,
+               device_ms=timer.device(fn, KERNEL_NAMES["stochastic_round"]),
+               launches=kernels.round_launches(len(xs)))
+    dev = ("device not measured" if row["device_ms"] is None
+           else f"device {row['device_ms']:.4f} ms")
+    print(f"set VGG11 sgd timed: {len(xs)} leaves ({n} elements) in "
+          f"{row['launches']} launch: {per_step:.4f} ms a call per step, "
+          f"{window:.4f} ms a replay in a window, {dev}, bound "
+          f"{bnd:.4f} ms ({by})", flush=True)
+    return row
+def check_sround(torch, kernels, timer, build) -> tuple:
+    """6a: the stochastic-round kernel against its plain version at every
+    VGG11-BN and ResNet50 leaf shape singly (a set of one) and as each
+    network's SGD, Adam and residual store sets (also captured under
+    key-table keys); timed at VGG11-BN's largest leaf and as a vector of
+    its size beside the bound (6 bytes or 71.5 operations an element) and
+    the SASS instructions an element, its plain version and its own time
+    from a trace; a whole VGG11-BN set per step and in a window; per-shape
+    rows at VGG11-BN's leaves."""
+    g = torch.Generator(device="cuda").manual_seed(60)
+    key = (0x5EED, 0x0917)
     cases = 0
     for network in NETWORKS:
         for kind, shape in leaf_shapes(network):
@@ -1822,49 +2018,191 @@ def check_sround(torch, kernels, timer, build) -> tuple:
             same_bf16(torch, a, b, f"stochastic_round {network} {kind} "
                                    f"{shape}")
             cases += 1
+    sets = check_sets(torch, kernels, g)
     ops = sass_ops_per_elem(build)
-    print(f"sass stochastic_round_kernel: {ops['identity']:.1f} instructions "
-          f"an element (identity layout), {ops['permuted']:.1f} (permuted); "
-          f"{cases} leaf shapes bit-equal", flush=True)
-    x = torch.randn(SROUND_SHAPE, device="cuda", generator=g)
-    n = x.numel()
-    out = torch.empty(SROUND_SHAPE, dtype=torch.bfloat16, device="cuda")
-    fn = lambda: kernels.stochastic_round_bf16(x, key, "conv", out=out)
-    ms = timer(fn)
-    plain = timer(lambda: kernels.stochastic_round_ref(x, key, "conv"),
-                  reps=10)
-    bnd, by = bound_ms(6 * n, ops["permuted"] * n)
-    print(f"stochastic_round {SROUND_SHAPE}: bytes "
-          f"{6 * n / hbm_bytes_per_s * 1e3:.5f} ms, instructions "
-          f"{ops['permuted'] * n / ops_per_s * 1e3:.5f} ms at the card's "
-          "rates", flush=True)
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bnd,
-               bound_by=by, library_ms=None, shape=list(SROUND_SHAPE),
-               device_ms=timer.device(fn, KERNEL_NAMES["stochastic_round"]),
-               sass_ops=ops, cases=cases)
-    rows = []
+    print(f"sass stochastic_round_kernel: {ops['identity']:.2f} instructions "
+          f"an element (identity layout), {ops['permuted']:.2f} (permuted), "
+          f"{ops['narrow']:.2f} (innermost dim under 8); {cases} leaf "
+          f"shapes bit-equal singly, {len(sets)} sets", flush=True)
+    rows, timed = [], {}
+    for kind, shape in (("conv", SROUND_SHAPE),
+                        ("vector", (math.prod(SROUND_SHAPE),))):
+        x = torch.randn(shape, device="cuda", generator=g)
+        n = x.numel()
+        out = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        fn = lambda: kernels.stochastic_round_bf16(x, key, kind, out=out)
+        bnd, by = bound_ms(6 * n, SROUND_OPS * n)
+        timed[kind] = dict(
+            max_abs_err=0.0, ms=timer(fn), bound_ms=bnd, bound_by=by,
+            plain_ms=timer(lambda: kernels.stochastic_round_ref(x, key, kind),
+                           reps=10),
+            library_ms=None, shape=list(shape),
+            device_ms=timer.device(fn, KERNEL_NAMES["stochastic_round"]),
+            sass_ops=ops, cases=cases)
+        int32 = INT32_OPS * n / (ops_per_s / LANES_PER_CLOCK
+                                 * INT32_LANES_PER_CLOCK) * 1e3
+        sass = ops[index_map(kernels, shape, kind)]
+        print(f"stochastic_round {shape}: bytes "
+              f"{6 * n / hbm_bytes_per_s * 1e3:.5f} ms, {SROUND_OPS} "
+              f"operations {SROUND_OPS * n / ops_per_s * 1e3:.5f} ms at the "
+              f"issue rate, {INT32_OPS} INT32 operations {int32:.5f} ms at "
+              f"the INT32 pipe's, {sass:.2f} SASS instructions "
+              f"{sass * n / ops_per_s * 1e3:.5f} ms; event {timed[kind]['ms']:.4f} ms, "
+              f"{alone_vs_bound(timed[kind])}", flush=True)
+    row = timed["conv"]
+    row["vector"] = timed["vector"]
+    row["sets"] = sets
+    row["set_time"] = time_set(torch, kernels, timer, g)
     for kind, shape in leaf_shapes("VGG11"):
         xs = torch.randn(shape, device="cuda", generator=g)
         m = xs.numel()
         rows.append(shape_row(
             timer, lambda: kernels.stochastic_round_bf16(xs, key, kind),
-            KERNEL_NAMES["stochastic_round"], 6 * m,
-            ops["permuted" if kind != "vector" else "identity"] * m,
-            kind=kind, shape=list(shape), n=m))
-    flat = x.view(-1)
-    rows.append(shape_row(
-        timer, lambda: kernels.stochastic_round_bf16(flat, key),
-        KERNEL_NAMES["stochastic_round"], 6 * n, ops["identity"] * n,
-        kind="vector", shape=[n], n=n))
+            KERNEL_NAMES["stochastic_round"], 6 * m, SROUND_OPS * m,
+            kind=kind, shape=list(shape), n=m,
+            sass=ops[index_map(kernels, shape, kind)]))
     return row, rows
+
+
+def index_map(kernels, shape, kind: str) -> str:
+    """Which of the round kernel's index maps a leaf takes (the keys of
+    :func:`sass_ops_per_elem`)."""
+    lay = kernels.round_layout(tuple(shape), kind)
+    if not lay.permuted:
+        return "identity"
+    return "permuted" if lay.d2 >= kernels.ROUND_VEC else "narrow"
 
 
 def print_sround_rows(rows, launches_per_step: dict) -> None:
     for r in rows:
         print(f"shape stochastic_round {r['kind']} {tuple(r['shape'])} "
-              f"x{WORLD} per leaf and step ({launches_per_step}): "
+              f"({launches_per_step}): "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({100 * r['share']:.1f}%); {on_card(r)}", flush=True)
+
+
+def draw_sizes() -> dict:
+    """The path's draw sizes. Uniform: every leaf size of VGG11-BN and
+    ResNet50 (QSGD's threefry stream below ``MIN_ELEMS``, the async
+    server's shared-scale encode of a whole leaf at any size) and the top-k
+    count of each at the 1% ratio the phases run (the shared-scale Top-k
+    QSGD encode draws a uniform of its winners). Bits: the feed's (128,)
+    crops and flips and the 50 000-element permutation."""
+    from ewdml_tpu_torch.ops import topk
+
+    whole = {math.prod(shape) for net in NETWORKS
+             for _, shape in leaf_shapes(net)}
+    winners = {topk.static_k(n, 0.01) for n in whole}
+    return {"uniform": sorted(whole | winners), "bits": [128, 50_000]}
+
+
+def device_kernels(torch, fn):
+    """The operations the card ran for one call of ``fn`` (kernels, copies
+    and fills), from a ``torch.profiler`` trace of the card alone: every
+    event but the CUDA runtime's own (``cuda*``, ``cu*``); None where the
+    trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = sum(1 for e in prof.events() if not e.name.startswith("cu"))
+    return count or None
+
+
+def check_draws(torch, kernels, timer) -> tuple:
+    """Phase 2b: the threefry draw kernel against its plain version at the
+    path's sizes and at n = 1, 7, 4099 and 2^17 - 1, bits and uniform,
+    under two host keys (one launch a draw) and captured under key-table
+    keys (each replay's keys); timed at every path size beside its bound
+    (8 or 4 bytes, or 68 or 70 operations, an element), its plain version and its
+    own time from a trace; kernels on the card a draw, plain and kernel."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    sizes = draw_sizes()
+    every = sorted(set(sizes["uniform"] + sizes["bits"]
+                       + [1, 7, 4099, 2**17 - 1]))
+    cases = 0
+    for n in every:
+        for key in ((0, 42), (0x9E3779B9, 0x7F4A7C15)):
+            for uniform in (False, True):
+                before = kernels.LAUNCHES["random_bits"]
+                a = kernels.random_bits(key, n, "cuda", uniform=uniform)
+                if kernels.LAUNCHES["random_bits"] != before + 1:
+                    raise AssertionError(f"random_bits n={n}: not one launch")
+                b = kernels.random_bits_ref(key, n, "cuda", uniform=uniform)
+                torch.cuda.synchronize()
+                if not torch.equal(a.view(torch.int32) if uniform else a,
+                                   b.view(torch.int32) if uniform else b):
+                    raise AssertionError(f"random_bits n={n} key={key} "
+                                         f"uniform={uniform}: the kernel "
+                                         "differs from its plain version")
+                cases += 1
+    table = KeyTable(prng.key(13), "cuda", 0)
+
+    def draws():
+        k = table.step_key(0)
+        return ([prng.uniform(prng.fold_in(k, i), (n,), "cuda")
+                 for i, n in enumerate(sizes["uniform"])]
+                + [prng.random_bits(prng.fold_in(k, 1000 + i), n, "cuda")
+                   for i, n in enumerate(sizes["bits"])])
+    graph, got = captured(torch, draws)
+    for start in (0, 7):
+        table.load(start)
+        graph.replay()
+        k = prng.step_key(prng.key(13), start)
+        want = ([kernels.random_bits_ref(prng.fold_in(k, i), n, "cuda", True)
+                 for i, n in enumerate(sizes["uniform"])]
+                + [kernels.random_bits_ref(prng.fold_in(k, 1000 + i), n,
+                                           "cuda")
+                   for i, n in enumerate(sizes["bits"])])
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if not torch.equal(a.view(torch.int32) if a.is_floating_point()
+                               else a, b.view(torch.int32)
+                               if b.is_floating_point() else b):
+                raise AssertionError(f"random_bits replay at {start}: the "
+                                     "kernel differs from its plain version")
+            cases += 1
+    del graph, got
+    rows = []
+    # The kernel's own time from a trace at the smallest and largest
+    # uniform and at the bits' sizes (a trace a size takes about a second).
+    traced = {sizes["uniform"][0], sizes["uniform"][-1], *sizes["bits"]}
+    for kind, ns in sizes.items():
+        uniform = kind == "uniform"
+        for n in ns:
+            fn = lambda: kernels.random_bits((3, 4), n, "cuda", uniform)
+            nbytes = (4 if uniform else 8) * n
+            r = shape_row(timer, fn, KERNEL_NAMES["random_bits"] if n in
+                          traced else (), nbytes, DRAW_OPS[kind] * n,
+                          kind=kind, shape=[n], n=n)
+            r["plain_ms"] = timer(lambda: kernels.random_bits_ref(
+                (3, 4), n, "cuda", uniform), reps=10)
+            rows.append(r)
+    n = sizes["bits"][-1]
+    per_draw = {
+        "plain": device_kernels(torch, lambda: kernels.random_bits_ref(
+            (3, 4), n, "cuda")),
+        "kernel": device_kernels(torch, lambda: kernels.random_bits(
+            (3, 4), n, "cuda"))}
+    head = max(rows, key=lambda r: r["n"] if r["kind"] == "uniform" else 0)
+    bnd, by = bound_ms(head["bytes"], DRAW_OPS["uniform"] * head["n"])
+    row = dict(max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=bnd, bound_by=by, library_ms=None,
+               shape=[head["n"]], device_ms=head["device_ms"], cases=cases,
+               kernels_per_draw=per_draw)
+    print(f"random_bits: {cases} draws bit-equal (host keys, replayed "
+          f"key-table keys); kernels on the card a draw of {n}: plain "
+          f"{per_draw['plain']}, kernel {per_draw['kernel']}", flush=True)
+    for r in rows:
+        print(f"shape random_bits {r['kind']} ({r['n']},): {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({100 * r['share']:.1f}%); {on_card(r)}", flush=True)
+    return row, rows
 
 
 def policy_argv(steps: int, flags, network: str = "VGG11") -> list:
@@ -1891,14 +2229,18 @@ def run_counted(torch, kernels, counts, trainer, max_steps=None):
     return res, launched, wall
 
 
-POLICY_RUNS = [  # 6b and 6c: (name, flags, optimizer-state stores a leaf)
-    ("M1 bf16_wire", ["--method", "1", "--precision-policy", "bf16_wire"], 0),
+POLICY_RUNS = [  # 6b and 6c: (name, flags, optimizer stores a leaf,
+    #                              bf16 residuals)
+    ("M1 bf16_wire", ["--method", "1", "--precision-policy", "bf16_wire"], 0,
+     False),
     ("M4 EF bf16_wire_state", ["--method", "4", "--error-feedback",
-                               "--precision-policy", "bf16_wire_state"], 2),
-    ("M2 adam", ["--method", "2", "--optimizer", "adam", "--lr", "0.001"], 0),
+                               "--precision-policy", "bf16_wire_state"], 1,
+     True),
+    ("M2 adam", ["--method", "2", "--optimizer", "adam", "--lr", "0.001"], 0,
+     False),
     ("M2 adam bf16_wire_state", ["--method", "2", "--optimizer", "adam",
                                  "--lr", "0.001", "--precision-policy",
-                                 "bf16_wire_state"], 2),
+                                 "bf16_wire_state"], 2, False),
 ]
 POLICY_STEPS = 5
 
@@ -1910,12 +2252,17 @@ def policy_runs(torch, kernels, counts) -> dict:
     from ewdml_tpu_torch.train.metrics import wire_plan
 
     out = {}
-    for name, flags, stores in POLICY_RUNS:
+    for name, flags, stores, residuals in POLICY_RUNS:
         trainer = Trainer(from_args(policy_argv(POLICY_STEPS, flags)))
         res, launched, wall = run_counted(torch, kernels, counts, trainer)
         cfg = trainer.cfg
         leaves = len(trainer.specs)
-        want = POLICY_STEPS * leaves * WORLD * stores
+        # A step stores one set a worker's optimizer update and one set of
+        # every worker's residuals.
+        want = POLICY_STEPS * (
+            (WORLD * kernels.round_launches(leaves * stores) if stores
+             else 0)
+            + (kernels.round_launches(leaves * WORLD) if residuals else 0))
         if launched["stochastic_round"] != want:
             raise AssertionError(
                 f"policy {name}: {launched['stochastic_round']} "
@@ -1949,8 +2296,10 @@ def policy_runs(torch, kernels, counts) -> dict:
         out[name] = dict(final_loss=res.final_loss,
                          mean_step_ms=res.mean_step_s * 1e3, wall_s=wall,
                          wire_per_step=res.wire.per_step_bytes,
-                         launches=launched, **extra)
+                         launches=launched,
+                         round_launches_per_step=want / POLICY_STEPS, **extra)
         print(f"policy {name}: network=VGG11 steps={POLICY_STEPS} "
+              f"stochastic_round={want // POLICY_STEPS} a step "
               f"loss={res.final_loss:.4f} mean_step="
               f"{res.mean_step_s * 1e3:.2f}ms wire_per_step="
               f"{res.wire.per_step_bytes} B launches="
@@ -2402,8 +2751,9 @@ def async_argv(network: str, steps: int, flags) -> list:
 def compress_launches(cfg, shapes, kernels) -> dict:
     """Kernel launches of one compress of the whole tree (a push, the
     payload schema's template, a delta step): a quantize per quantized
-    vector of at least MIN_ELEMS, a block_top1 per leaf the Top-k stack
-    selects in block mode (``ops/topk.resolve_mode``)."""
+    vector of at least MIN_ELEMS, else a threefry draw (``prng.uniform``),
+    a block_top1 per leaf the Top-k stack selects in block mode
+    (``ops/topk.resolve_mode``)."""
     from ewdml_tpu_torch.ops import blocktopk, topk
 
     want = {k: 0 for k in kernels.LAUNCHES}
@@ -2417,6 +2767,8 @@ def compress_launches(cfg, shapes, kernels) -> dict:
                 n = topk.static_k(n, cfg.topk_ratio)
         if n >= kernels.MIN_ELEMS:
             want["qsgd_quantize"] += 1
+        elif n > 0:
+            want["random_bits"] += 1
     return want
 
 
@@ -2768,8 +3120,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 2 (no training, no result "
-                             "line)")
+                        help="stop after phases 2, 6a and 2b (no training, "
+                             "no result line)")
     parser.add_argument("--phase8-only", action="store_true",
                         help="build, then run phase 8 alone (no result "
                              "line)")
@@ -2828,6 +3180,8 @@ def main(argv=None) -> int:
     # Phase 6a: the stochastic-round kernel, with the other seven.
     checks["stochastic_round"], sround_rows = check_sround(torch, kernels,
                                                            timer, build)
+    # Phase 2b: the threefry draw kernel.
+    checks["random_bits"], draw_rows = check_draws(torch, kernels, timer)
     del timer
     torch.cuda.empty_cache()
     for name, c in checks.items():
@@ -2838,11 +3192,13 @@ def main(argv=None) -> int:
               flush=True)
     for net in NETWORKS:
         print_path_shapes(shapes[net], net)
+    r = kernels.round_launches
     print_sround_rows(sround_rows, {
-        "VGG11 bf16_wire_state": f"{38 * WORLD} a step, "
-                                 f"{2 * 38 * WORLD} with EF",
-        "ResNet50": f"{161 * WORLD}, {2 * 161 * WORLD} with EF"})
+        f"launches a step, {net} bf16_wire_state":
+            f"{WORLD * r(n)}, {WORLD * r(n) + r(n * WORLD)} with EF"
+        for net, n in (("VGG11", 38), ("ResNet50", 161))})
     print("shapes stochastic_round: " + json.dumps(sround_rows), flush=True)
+    print("shapes random_bits: " + json.dumps(draw_rows), flush=True)
     if kernels_only:
         return 0
 

@@ -23,9 +23,11 @@ reproduces it on purpose). bf16 is a storage and wire format here, never
 an arithmetic one: every sum runs in f32.
 
 On the card the store is one hand-written kernel
-(``ops/kernels.stochastic_round_bf16``), which draws the JAX package's
-threefry bits for each element in registers; elsewhere its plain version
-runs, bit for bit the same.
+(``ops/kernels.stochastic_round_set``), which draws the JAX package's
+threefry bits for each element in registers, one launch for a whole store
+set (:func:`tree_store_round`: every leaf an optimizer update stores, or
+every residual of a step); elsewhere its plain version runs, bit for bit
+the same.
 """
 
 from __future__ import annotations
@@ -115,20 +117,48 @@ def store_round(key, x: torch.Tensor, dtype: torch.dtype,
     return res
 
 
-def tree_store_round(key, leaves: list, like: list, kinds=None,
-                     outs=None) -> list:
-    """:func:`store_round` of each leaf at the dtype of the matching
-    ``like`` leaf, leaf ``i`` under ``prng.layer_key(key, i)``: the one
-    keying convention of seeded bf16 stores. ``kinds`` (default: every
-    leaf in the JAX layout) and ``outs`` per leaf."""
-    from ewdml_tpu_torch.utils import prng
+def round_set(key, xs: list, paths: list, kinds=None, outs=None) -> list:
+    """:func:`stochastic_round` of a store set: leaf ``i`` under the key its
+    fold-in path ``paths[i]`` derives from ``key``. Dispatched as
+    :func:`stochastic_round`: on CUDA the kernel (one launch for up to
+    ``kernels.ROUND_MAX_LEAVES`` leaves, each leaf's key derived there),
+    else the plain version leaf by leaf."""
+    from ewdml_tpu_torch.ops import kernels
 
+    xs = [x.to(torch.float32) for x in xs]
+    if xs and kernels.active(xs[0].device) == "kernel":
+        return kernels.stochastic_round_set(key, xs, paths, kinds, outs)
+    return kernels.stochastic_round_set_ref(key, xs, paths, kinds, outs)
+
+
+def tree_store_round(key, leaves: list, like: list, kinds=None, outs=None,
+                     paths=None) -> list:
+    """:func:`store_round` of each leaf at the dtype of the matching
+    ``like`` leaf, leaf ``i`` under the key its fold-in path ``paths[i]``
+    derives from ``key`` (default ``(i,)``: ``prng.layer_key(key, i)``, the
+    one keying convention of seeded bf16 stores). The leaves that round
+    (bf16, under a key) are stored as one set (:func:`round_set`).
+    ``kinds`` (default: every leaf in the JAX layout) and ``outs`` per
+    leaf."""
     n = len(leaves)
     kinds = kinds or ["vector"] * n
     outs = outs or [None] * n
-    return [store_round(None if key is None else prng.layer_key(key, i),
-                        x, l.dtype, kinds[i], outs[i])
-            for i, (x, l) in enumerate(zip(leaves, like))]
+    paths = paths or [(i,) for i in range(n)]
+    res = [None] * n
+    rounded = []
+    for i, (x, l) in enumerate(zip(leaves, like)):
+        if key is not None and l.dtype == torch.bfloat16:
+            rounded.append(i)
+        else:
+            res[i] = store_round(None, x, l.dtype, kinds[i], outs[i])
+    if rounded:
+        got = round_set(key, [leaves[i] for i in rounded],
+                        [paths[i] for i in rounded],
+                        [kinds[i] for i in rounded],
+                        [outs[i] for i in rounded])
+        for i, r in zip(rounded, got):
+            res[i] = r
+    return res
 
 
 def wire_cast(leaves: list, wire_dtype: torch.dtype = torch.bfloat16) -> list:

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (``compress.cu``,
-``precision.cu``).
+``precision.cu``, ``random.cu``; the last two include ``threefry.cuh``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once (one ``nvcc`` process per source), on first use, into
 ``kernels/_build/`` beside the sources; the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The
-library name carries a hash of the sources, so an edited source is rebuilt
-and a stale build is never loaded.
+library name carries a hash of the sources and the headers they include,
+so an edited source or header is rebuilt and a stale build is never
+loaded.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no CUDA toolkit.
 """
@@ -23,7 +24,10 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_HERE, "compress.cu"),
-           os.path.join(_HERE, "precision.cu"))
+           os.path.join(_HERE, "precision.cu"),
+           os.path.join(_HERE, "random.cu"))
+#: Headers the sources include: hashed with them, not compiled alone.
+HEADERS = (os.path.join(_HERE, "threefry.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -50,7 +54,7 @@ def nvcc_path() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha1()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -109,13 +113,17 @@ def _declare(lib) -> None:
                                               f32, f32, p, p, p]
     lib.ewdml_int_accumulate.argtypes = [p, i32, i64, p, p]
     lib.ewdml_acc_decode.argtypes = [p, p, f32, i64, i64, p, p]
-    # The key is a pointer to one uint64 in device memory; the layout's
-    # dims and strides are host arrays of four int64 (or null).
-    lib.ewdml_stochastic_round.argtypes = [p, i64, p, p, p, p, p]
+    # The threefry kernels' key: a pointer to one uint64 in device memory,
+    # or null and the packed key by value. A store set's leaves are a host
+    # array of packed descriptors.
+    u64 = ctypes.c_uint64
+    lib.ewdml_stochastic_round_set.argtypes = [p, u64, p, i32, p]
+    lib.ewdml_random_bits.argtypes = [p, u64, i64, i32, p, p]
     for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
                lib.ewdml_block_top1, lib.ewdml_chunk_encode,
                lib.ewdml_dequant_acc_requant, lib.ewdml_int_accumulate,
-               lib.ewdml_acc_decode, lib.ewdml_stochastic_round):
+               lib.ewdml_acc_decode, lib.ewdml_stochastic_round_set,
+               lib.ewdml_random_bits):
         fn.restype = ctypes.c_int
 
 

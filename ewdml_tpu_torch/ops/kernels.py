@@ -3,12 +3,15 @@
 Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. All seven of its
 Pallas kernels are ported here as CUDA kernels for Hopper
 (``ewdml_tpu_torch/kernels/compress.cu``): five on the sync trainer's
-paths, two in the parameter server's compressed-domain apply. An eighth,
-``stochastic_round_bf16`` (``kernels/precision.cu``), has no Pallas
-counterpart: it is the precision policy's seeded bf16 store
-(``ewdml_tpu/core/precision.py:87``, computed there by XLA), and the only
-kernel here whose bound is its instructions (the 20 threefry rounds of its
-draw), not its bytes.
+paths, two in the parameter server's compressed-domain apply. Two more
+have no Pallas counterpart and draw the JAX package's threefry bits (XLA
+code there), so their bound is their operations (20 threefry rounds an
+element), not their bytes: ``stochastic_round_set`` (``kernels/
+precision.cu``), the precision policy's seeded bf16 store
+(``ewdml_tpu/core/precision.py:87``), one launch a store set; and
+``random_bits`` (``kernels/random.cu``), ``jax.random.bits`` and
+``uniform`` (``ewdml_tpu/ops/qsgd.py:122,230``, the device feed's
+permutation, crops and flips), one launch a draw.
 
 =========================  =========================  ======================
 wrapper                    replaces                   bound on the H100
@@ -20,7 +23,8 @@ wrapper                    replaces                   bound on the H100
 ``dequant_acc_requant``    ``pallas_kernels.py:479``  6n + 8nb bytes
 ``int_accumulate``         ``pallas_kernels.py:587``  (K + 4)n bytes
 ``acc_decode``             ``pallas_kernels.py:629``  8n bytes
-``stochastic_round_bf16``  ``precision.py:87``      92n-155n instructions
+``stochastic_round_set``   ``precision.py:87``        77n operations
+``random_bits``            ``qsgd.py:122,230``        75n operations
 =========================  =========================  ======================
 
 The first seven move bytes and do a few operations per byte, so HBM
@@ -86,6 +90,7 @@ import dataclasses
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from ewdml_tpu_torch.ops.bytes import tensor_nbytes
@@ -106,7 +111,7 @@ _MODE = "auto"  # auto | on | interpret | off
 #: Kernel launches per wrapper (CUDA only; the plain versions never count).
 LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0,
             "chunk_encode": 0, "dequant_acc_requant": 0, "int_accumulate": 0,
-            "acc_decode": 0, "stochastic_round": 0}
+            "acc_decode": 0, "stochastic_round": 0, "random_bits": 0}
 # The parameter server's worker threads launch kernels concurrently.
 _launch_lock = threading.Lock()
 
@@ -817,6 +822,157 @@ def jax_index(shape, kind: str, device) -> torch.Tensor:
     return j
 
 
+def _magic(d: int) -> tuple:
+    """The multiplier and shift by which the round kernel divides by ``d``
+    (``1 <= d < 2^32``): ``t // d == (umulhi(t, m) + t) >> s`` for every
+    uint32 ``t``, the sum taken in 64 bits."""
+    s = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << s) - d)) // d + 1, s
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundLayout:
+    """A leaf's index map as the round kernel takes it: PyTorch's element
+    ``t`` has coordinates ``(c0, c1, c2)`` (innermost ``c2``) over dims
+    ``(-, d1, d2)`` and JAX index ``c0 * s0 + c1 * s1 + c2 * s2``; ``m``
+    and ``sh`` divide by ``d1``, ``d2`` (:func:`_magic`). ``permuted`` is
+    False where the two layouts agree (the index is ``t``)."""
+
+    n: int
+    permuted: bool
+    d1: int
+    d2: int
+    m1: int
+    m2: int
+    sh1: int
+    sh2: int
+    s0: int
+    s1: int
+    s2: int
+
+
+@functools.lru_cache(maxsize=1024)
+def round_layout(shape: tuple, kind: str) -> RoundLayout:
+    """The :class:`RoundLayout` of a ``kind`` leaf of ``shape`` (PyTorch's
+    layout): :func:`jax_strides` with the size-1 dims dropped and the dims
+    that are contiguous in both layouts merged (a convolution's kh and kw),
+    which leaves at most three."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    lay = jax_strides(tuple(shape), kind)
+    dims, strides = lay if lay is not None else ((n,), (1,))
+    merged = []
+    for d, st in zip(dims, strides):
+        if d <= 1:  # a size-1 dim, or an empty leaf (no element to map)
+            continue
+        if merged and merged[-1][1] == d * st:
+            merged[-1] = (merged[-1][0] * d, st)
+        else:
+            merged.append((int(d), int(st)))
+    permuted = not (not merged or (len(merged) == 1 and merged[0][1] == 1))
+    if len(merged) > 3:
+        raise ValueError(f"a {kind} leaf of shape {shape} has more than "
+                         "three dims in its index map")
+    merged = [(1, 0)] * (3 - len(merged)) + merged
+    (_, s0), (d1, s1), (d2, s2) = merged
+    (m1, sh1), (m2, sh2) = _magic(d1), _magic(d2)
+    return RoundLayout(n, permuted, d1, d2, m1, m2, sh1, sh2, s0, s1, s2)
+
+
+def round_index_twin(lay: RoundLayout, t) -> torch.Tensor:
+    """The round kernel's index map on the host, in its uint32 arithmetic:
+    for each element ``t`` (an int64 tensor) the JAX index the kernel draws
+    at, reached as the kernel reaches it. The coordinates of the first
+    element of ``t``'s 8-element vector come by multiply-high and shift;
+    where the innermost dim is at least 8 long, element k of the vector is
+    the first's index plus k strides plus one adjustment past the
+    innermost coordinate's wrap, else a carry chain steps to it."""
+    mask = 0xFFFFFFFF
+    t = torch.as_tensor(t, dtype=torch.int64)
+    if not lay.permuted:
+        return t.clone()
+
+    def div(v, m, sh):  # v * m < 2^64: the product's top half, exactly
+        hi = ((v >> 16) * m + (((v & 0xFFFF) * m) >> 16)) >> 16
+        return (hi + v) >> sh
+
+    base = t - t % ROUND_VEC
+    q = div(base, lay.m2, lay.sh2)
+    c2 = base - q * lay.d2
+    c0 = div(q, lay.m1, lay.sh1)
+    c1 = q - c0 * lay.d1
+    j = (c0 * lay.s0 + c1 * lay.s1 + c2 * lay.s2) & mask
+    wrap2 = (lay.s1 - lay.d2 * lay.s2) & mask
+    wrap1 = (lay.s0 - lay.d1 * lay.s1) & mask
+    steps = t - base
+    if lay.d2 >= ROUND_VEC:
+        adj = wrap2 + (c1 + 1 == lay.d1) * wrap1
+        past = steps >= lay.d2 - c2
+        return (j + steps * lay.s2 + past * adj) & mask
+    for k in range(1, ROUND_VEC):
+        go = steps >= k
+        c2 = c2 + go
+        j = j + go * lay.s2
+        w2 = c2 == lay.d2
+        c2 = torch.where(w2, 0, c2)
+        c1 = c1 + w2
+        j = j + w2 * wrap2
+        w1 = c1 == lay.d1
+        c1 = torch.where(w1, 0, c1)
+        j = (j + w1 * wrap1) & mask
+    return j
+
+
+#: Elements a round-kernel thread takes at once, a thread block in all, and
+#: the leaves one launch takes (``kernels/precision.cu``: kVec, kBlockElems,
+#: kMaxLeaves; 448 descriptors of 72 bytes hold a launch's parameters under
+#: the 32 KB that CUDA 12.1 and later allow).
+ROUND_VEC = 8
+ROUND_BLOCK_ELEMS = 4096
+ROUND_MAX_LEAVES = 448
+
+#: One packed leaf of a round set (``RoundLeaf`` in ``precision.cu``).
+ROUND_LEAF = np.dtype([
+    ("x", "<u8"), ("out", "<u8"), ("n", "<u4"), ("first_block", "<u4"),
+    ("d1", "<u4"), ("d2", "<u4"), ("m1", "<u4"), ("m2", "<u4"),
+    ("s0", "<u4"), ("s1", "<u4"), ("s2", "<u4"), ("meta", "<u4"),
+    ("path", "<u4", (3,)), ("pad", "<u4")])
+_PERMUTED, _ALIGNED = 1 << 24, 1 << 25
+
+
+def round_descriptors(leaves, max_leaves: int = ROUND_MAX_LEAVES,
+                      block_elems: int = ROUND_BLOCK_ELEMS) -> list:
+    """The round kernel's launches for a store set: ``leaves`` is a list of
+    ``(x_ptr, out_ptr, layout, path)`` (a :class:`RoundLayout`, a fold-in
+    path of up to three words); returns one array of packed descriptors
+    per launch, at most ``max_leaves`` each, the leaves in order, each
+    leaf's first thread block counted from 0 in its launch. Empty leaves
+    take no descriptor."""
+    rows, out = [], []
+    first = 0
+    for xp, op, lay, path in leaves:
+        if lay.n == 0:
+            continue
+        if len(path) > 3:
+            raise ValueError(f"a fold-in path of {len(path)} words; the "
+                             "round kernel takes at most three")
+        if len(rows) == max_leaves:
+            out.append(np.array(rows, ROUND_LEAF))
+            rows, first = [], 0
+        meta = (lay.sh1 | lay.sh2 << 8 | len(path) << 16
+                | (_PERMUTED if lay.permuted else 0)
+                | (_ALIGNED if xp % 16 == 0 and op % 16 == 0 else 0))
+        words = tuple(int(w) & 0xFFFFFFFF for w in path)
+        rows.append((xp, op, lay.n, first, lay.d1, lay.d2, lay.m1, lay.m2,
+                     lay.s0, lay.s1, lay.s2, meta,
+                     words + (0,) * (3 - len(words)), 0))
+        first += -(-lay.n // block_elems)
+    if rows:
+        out.append(np.array(rows, ROUND_LEAF))
+    return out
+
+
 def _i32(v):
     """A uint32 value (a Python int, or an int64 tensor) as int32 bits."""
     if isinstance(v, torch.Tensor):
@@ -873,42 +1029,156 @@ def stochastic_round_ref(x: torch.Tensor, key, kind: str = "vector",
     return out
 
 
+def stochastic_round_set_ref(key, xs: list, paths: list, kinds=None,
+                             outs=None) -> list:
+    """Plain version of :func:`stochastic_round_set`: leaf by leaf,
+    :func:`stochastic_round_ref` under the key its path folds from
+    ``key``."""
+    from ewdml_tpu_torch.utils import prng
+
+    n = len(xs)
+    kinds = kinds or ["vector"] * n
+    outs = outs or [None] * n
+    return [stochastic_round_ref(x, prng.fold_path(key, path), kind, out)
+            for x, path, kind, out in zip(xs, paths, kinds, outs)]
+
+
+def round_launches(leaves: int) -> int:
+    """Launches of one store set of ``leaves`` non-empty leaves."""
+    return -(-leaves // ROUND_MAX_LEAVES)
+
+
+def _key_arg(key, device) -> tuple:
+    """A threefry kernel's key: ``(pointer, value)``, the key-table slot of
+    a key bound to a table (``prng.key_tensor``; a captured launch reads
+    each replay's key there), else no pointer and the packed key by value
+    (no device tensor, no launch to fill one)."""
+    from ewdml_tpu_torch.utils import prng
+
+    if isinstance(key, prng.Key):
+        return prng.key_tensor(key, device).data_ptr(), 0
+    return None, prng.packed_key(key) & 0xFFFFFFFFFFFFFFFF
+
+
+def stochastic_round_set(key, xs: list, paths: list, kinds=None,
+                         outs=None) -> list:
+    """Seeded stochastic rounding of a store set: f32 leaf ``xs[i]`` (of
+    ``kinds[i]``, in PyTorch's layout) to bf16 under the key its fold-in
+    path ``paths[i]`` (up to three words) derives from the parent ``key``,
+    written into ``outs[i]`` where given. The leaves go to the kernel in
+    launches of up to ``ROUND_MAX_LEAVES``, one counted launch each;
+    each leaf's key is derived in the kernel, from the parent key read
+    once. CPU tensors take the plain version."""
+    if xs and xs[0].device.type == "cpu":
+        return stochastic_round_set_ref(key, xs, paths, kinds, outs)
+    from ewdml_tpu_torch.kernels import library
+
+    n_leaves = len(xs)
+    kinds = kinds or ["vector"] * n_leaves
+    outs = list(outs) if outs else [None] * n_leaves
+    if not xs:
+        return []
+    device = xs[0].device
+    res, live, items = [], [], []
+    for x, path, kind, out in zip(xs, paths, kinds, outs):
+        x = x.contiguous()
+        _require_cuda(x, "stochastic_round_bf16", torch.float32)
+        if x.device != device:
+            raise ValueError("stochastic_round_bf16: a set lies on one "
+                             f"device; got {device} and {x.device}")
+        if x.numel() >= 1 << 31:
+            raise ValueError("stochastic_round_bf16: a leaf takes fewer "
+                             "than 2^31 elements")
+        if out is None:
+            out = torch.empty(x.shape, dtype=torch.bfloat16, device=device)
+        _require_cuda(out, "stochastic_round_bf16 out", torch.bfloat16)
+        if out.shape != x.shape:
+            raise ValueError(f"stochastic_round_bf16: out has shape "
+                             f"{tuple(out.shape)}, x {tuple(x.shape)}")
+        res.append(out)
+        if x.numel():
+            live += [x, out]
+            items.append((x.data_ptr(), out.data_ptr(),
+                          round_layout(tuple(x.shape), kind), tuple(path)))
+    lib = library()
+    keyp, keyv = _key_arg(key, device)
+    stream = _stream_ptr(xs[0])
+    per = ROUND_MAX_LEAVES
+    for c, desc in enumerate(round_descriptors(items)):
+        rc = lib.ewdml_stochastic_round_set(keyp, keyv, desc.ctypes.data,
+                                            len(desc), stream)
+        _launch_check(rc, "stochastic_round")
+        _count("stochastic_round", *live[2 * c * per:2 * (c + 1) * per])
+    return res
+
+
 def stochastic_round_bf16(x: torch.Tensor, key, kind: str = "vector",
                           out=None) -> torch.Tensor:
     """Seeded stochastic rounding of f32 ``x`` to bf16 (``precision.py:87``,
     ``E[SR(x)] == x``), written into ``out`` (a bf16 tensor of ``x``'s
-    shape) where given. ``x`` is a leaf of ``kind`` in PyTorch's layout
-    (``"vector"``: the layouts agree), and the draw is indexed by the JAX
-    layout, so a leaf rounds as the JAX package rounds it. CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which reads the
-    packed key from device memory (``prng.key_tensor``: a key-table slot
-    under a captured window)."""
+    shape) where given: a store set of one leaf under ``key`` itself.
+    ``x`` is a leaf of ``kind`` in PyTorch's layout (``"vector"``: the
+    layouts agree), and the draw is indexed by the JAX layout, so a leaf
+    rounds as the JAX package rounds it. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, which reads a key-table key
+    from device memory (``prng.key_tensor``: a slot under a captured
+    window)."""
     if x.device.type == "cpu":
         return stochastic_round_ref(x, key, kind, out)
-    from ewdml_tpu_torch.kernels import library
+    return stochastic_round_set(key, [x], [()], [kind], [out])[0]
+
+
+# -- jax.random's threefry draws ----------------------------------------------
+
+def random_bits_ref(key, n: int, device, uniform: bool = False):
+    """Plain version of :func:`random_bits`: the threefry rounds of
+    ``prng.threefry2x32`` on int64 tensors holding uint32 values."""
     from ewdml_tpu_torch.utils import prng
 
-    x = x.contiguous()
-    _require_cuda(x, "stochastic_round_bf16", torch.float32)
-    n = x.numel()
-    lay = jax_strides(tuple(x.shape), kind)
-    if lay is not None and n >= 1 << 32:
-        raise ValueError("stochastic_round_bf16: a permuted leaf takes "
-                         "fewer than 2^32 elements")
-    if out is None:
-        out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
-    _require_cuda(out, "stochastic_round_bf16 out", torch.bfloat16)
-    if out.shape != x.shape:
-        raise ValueError(f"stochastic_round_bf16: out has shape "
-                         f"{tuple(out.shape)}, x {tuple(x.shape)}")
-    keyt = prng.key_tensor(key, x.device)
-    dims = strides = None
-    if lay is not None:
-        arr = ctypes.c_int64 * 4
-        dims, strides = arr(*lay[0]), arr(*lay[1])
-    rc = library().ewdml_stochastic_round(
-        x.data_ptr(), n, keyt.data_ptr(), dims, strides, out.data_ptr(),
-        _stream_ptr(x))
-    _launch_check(rc, "stochastic_round")
-    _count("stochastic_round", x, out)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    k0, k1 = prng.key_words(key)
+    y0, y1 = prng.threefry2x32(k0, k1, idx >> 32, idx & 0xFFFFFFFF)
+    bits = y0 ^ y1
+    if not uniform:
+        return bits
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def random_bits(key, n: int, device, uniform: bool = False) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` under the partitionable
+    layout, as int64 holding uint32 values; with ``uniform``,
+    ``jax.random.uniform``'s f32 in [0, 1) from the same bits. CPU devices
+    take the plain version; on CUDA one launch of the draw kernel, which
+    reads a key-table key from device memory (a captured launch draws each
+    replay's bits) and takes a host key by value."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return random_bits_ref(key, n, device, uniform)
+    from ewdml_tpu_torch.kernels import library
+
+    if n >= 1 << 32:
+        raise ValueError("random_bits: a draw takes fewer than 2^32 "
+                         "elements")
+    out = torch.empty(n, dtype=torch.float32 if uniform else torch.int64,
+                      device=device)
+    if n == 0:
+        return out
+    _require_cuda(out, "random_bits", out.dtype)
+    keyp, keyv = _key_arg(key, device)
+    rc = library().ewdml_random_bits(keyp, keyv, n, int(uniform),
+                                     out.data_ptr(), _stream_ptr(out))
+    _launch_check(rc, "random_bits")
+    _count("random_bits", out)
     return out
+
+
+def threefry_draw(key, n: int, device, uniform: bool = False):
+    """The draw of ``prng.random_bits`` / ``prng.uniform``, dispatched as
+    the kernels are: the draw kernel on CUDA (``--pallas auto`` or
+    ``on``), the plain version on the CPU and under ``off`` or
+    ``interpret``."""
+    device = torch.device(device if device is not None else "cpu")
+    if device.type == "cuda" and active(device) == "kernel":
+        return random_bits(key, n, device, uniform)
+    return random_bits_ref(key, n, device, uniform)

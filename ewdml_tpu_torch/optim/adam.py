@@ -15,11 +15,12 @@ are computed from it on the device, so a captured window reads no host
 value.
 
 ``state_dtype=torch.bfloat16`` (``--precision-policy bf16_wire_state``)
-stores both moments at half width: they are computed in f32 and stored
-through ``core/precision.store_round``, ``mu`` under ``fold_in(layer_key(
-key, i), 0)`` and ``nu`` under ``fold_in(..., 1)``, and the update is taken
-from the *stored* moments. ``nu`` stays non-negative (both bf16
-neighbours of a non-negative f32 are non-negative). ``kinds`` as for
+stores both moments at half width: every leaf's moments are computed in
+f32 and both stored as one set by ``core/precision.tree_store_round`` (one
+kernel launch on the card), ``mu`` under ``fold_in(layer_key(key, i), 0)``
+and ``nu`` under ``fold_in(..., 1)``, and the update is taken from the
+*stored* moments. ``nu`` stays non-negative (both bf16 neighbours of a
+non-negative f32 are non-negative). ``kinds`` as for
 :class:`~ewdml_tpu_torch.optim.sgd.SGD`.
 """
 
@@ -58,27 +59,25 @@ class Adam:
     def update(self, grads: list, state: AdamState, params: list, key=None,
                kinds=None) -> None:
         """Apply one step to ``params`` (in place) from ``grads``."""
-        from ewdml_tpu_torch.core.precision import store_round
-        from ewdml_tpu_torch.utils import prng
+        from ewdml_tpu_torch.core.precision import tree_store_round
 
         state.count.add_(1)
         t = state.count.to(torch.float32)
         bc1 = 1.0 - torch.pow(self.b1, t)
         bc2 = 1.0 - torch.pow(self.b2, t)
-        for i, (g, p, m, v) in enumerate(zip(grads, params, state.mu,
-                                             state.nu)):
+        n = len(params)
+        m_f, v_f = [], []
+        for g, p, m, v in zip(grads, params, state.mu, state.nu):
             g = g.to(torch.float32)
             if self.weight_decay:
                 g = g + self.weight_decay * p
-            m_f = self.b1 * m.float() + (1 - self.b1) * g
-            v_f = self.b2 * v.float() + (1 - self.b2) * torch.square(g)
-            kind = kinds[i] if kinds else "vector"
-            if key is not None and m.dtype != torch.float32:
-                lk = prng.layer_key(key, i)
-                km, kv = prng.fold_in(lk, 0), prng.fold_in(lk, 1)
-            else:
-                km = kv = None
-            store_round(km, m_f, m.dtype, kind, out=m)
-            store_round(kv, v_f, v.dtype, kind, out=v)
+            m_f.append(self.b1 * m.float() + (1 - self.b1) * g)
+            v_f.append(self.b2 * v.float() + (1 - self.b2) * torch.square(g))
+        kinds = list(kinds) if kinds else ["vector"] * n
+        stored = state.mu + state.nu
+        tree_store_round(key, m_f + v_f, stored, kinds * 2, outs=stored,
+                         paths=[(i, 0) for i in range(n)]
+                         + [(i, 1) for i in range(n)])
+        for p, m, v in zip(params, state.mu, state.nu):
             p.add_(-self.lr * (m.float() / bc1)
                    / (torch.sqrt(v.float() / bc2) + self.eps))

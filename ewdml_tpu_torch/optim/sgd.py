@@ -12,13 +12,15 @@ torch SGD's, in the JAX package's order of operations:
 The update is in place on the parameters and the momentum buffers.
 
 ``state_dtype=torch.bfloat16`` (``--precision-policy bf16_wire_state``)
-stores the buffers at half width: the new buffer is computed in f32,
-stored through ``core/precision.store_round`` under ``layer_key(key, i)``
-(seeded stochastic rounding; round-to-nearest without a key), and the step
-is taken from the *stored* value, so the trajectory is a function of the
-stored state alone. ``kinds`` names each leaf's layout (``models/
-convert``): the trainer holds its parameters and buffers in PyTorch's
-layout, and the rounding draws by the JAX layout's index.
+stores the buffers at half width: every leaf's new buffer is computed in
+f32, the whole set is stored in one call of
+``core/precision.tree_store_round``, leaf i under ``layer_key(key, i)``
+(seeded stochastic rounding, one kernel launch on the card;
+round-to-nearest without a key), and the step is taken from the *stored*
+values, so the trajectory is a function of the stored state alone.
+``kinds`` names each leaf's layout (``models/convert``): the trainer holds
+its parameters and buffers in PyTorch's layout, and the rounding draws by
+the JAX layout's index.
 """
 
 from __future__ import annotations
@@ -57,23 +59,20 @@ class SGD:
                kinds=None) -> None:
         """Apply one step to ``params`` (in place) from ``grads``. ``key``
         seeds the bf16 stores (leaf i under ``layer_key(key, i)``)."""
-        from ewdml_tpu_torch.core.precision import store_round
-        from ewdml_tpu_torch.utils import prng
+        from ewdml_tpu_torch.core.precision import tree_store_round
 
         mu, damp = self.momentum, self.dampening
-        for i, (g, p, buf) in enumerate(zip(grads, params,
-                                            state.momentum_buf)):
-            g = g.to(torch.float32)
-            d_p = g + self.weight_decay * p if self.weight_decay else g
+        bufs = state.momentum_buf
+        d_ps = [g.to(torch.float32) + self.weight_decay * p
+                if self.weight_decay else g.to(torch.float32)
+                for g, p in zip(grads, params)]
+        if mu:
+            new = [mu * buf.float() + (1.0 - damp) * d_p
+                   if state.initialized else d_p
+                   for d_p, buf in zip(d_ps, bufs)]
+            tree_store_round(key, new, bufs, kinds, outs=bufs)
+        for p, buf, d_p in zip(params, bufs, d_ps):
             if mu:
-                new = (mu * buf.float() + (1.0 - damp) * d_p
-                       if state.initialized else d_p)
-                # The layer key only where the store rounds (bf16 state).
-                lk = (prng.layer_key(key, i)
-                      if key is not None and buf.dtype != torch.float32
-                      else None)
-                store_round(lk, new, buf.dtype,
-                            kinds[i] if kinds else "vector", out=buf)
                 used = buf.float()
                 step_dir = d_p + mu * used if self.nesterov else used
             else:

@@ -48,7 +48,7 @@ from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
                                          validate_lossy_weights,
                                          validate_overlap,
                                          validate_server_agg)
-from ewdml_tpu_torch.core.precision import resolve_policy, store_round
+from ewdml_tpu_torch.core.precision import resolve_policy, tree_store_round
 from ewdml_tpu_torch.core.world import LocalWorld
 from ewdml_tpu_torch.data import device_feed
 from ewdml_tpu_torch.data.datasets import _SPECS
@@ -259,20 +259,22 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
     def store_residuals(state, step, skey, g_eff, own, idxs):
         """The residuals of leaves ``idxs``: what the wire dropped, all of
         ``g_eff`` for a rank whose payload K-of-N did not accept; stored at
-        the wire dtype, bf16 through the rank-folded seeded rounding."""
+        the wire dtype, bf16 through the seeded rounding, every rank's as
+        one set, leaf i of rank r under the path (RESIDUAL_TAG, r, i) from
+        the step key."""
         w_n = world.size
         k = cfg.num_aggregate if 0 < cfg.num_aggregate < w_n else w_n
         with torch.no_grad():
+            xs, stored, paths = [], [], []
             for r, ws in enumerate(state.workers):
                 accepted = ((r - step) % w_n) < k
-                rkey = (prng.fold_in(prng.fold_in(skey, RESIDUAL_TAG), r)
-                        if policy.bf16_wire else None)
                 for j, i in enumerate(idxs):
                     ge = g_eff[r][j]
-                    store_round(None if rkey is None else
-                                prng.layer_key(rkey, i),
-                                ge - own[r][j] if accepted else ge,
-                                ws.residual[i].dtype, out=ws.residual[i])
+                    xs.append(ge - own[r][j] if accepted else ge)
+                    stored.append(ws.residual[i])
+                    paths.append((RESIDUAL_TAG, r, i))
+            tree_store_round(skey if policy.bf16_wire else None, xs, stored,
+                             outs=stored, paths=paths)
 
     def run_bucket(state, grads, avg, step, skey, b):
         """``--overlap bucket``: bucket b's exchange (with its residuals

@@ -6,8 +6,11 @@ A key is a pair of uint32 words held as Python ints, exactly the
 ``jax_threefry_partitionable=True`` (the default since jax 0.5), so a port
 run and a JAX run with the same seed quantize with the same random bits.
 
-The threefry rounds run as uint32 arithmetic on int64 tensors (every
-intermediate is masked back to 32 bits), on whatever device the draw is for.
+The draws (:func:`random_bits`, :func:`uniform` and what builds on them)
+run on CUDA as one launch of a hand-written kernel
+(``ops/kernels.random_bits``, ``kernels/random.cu``); on the CPU, and under
+``--pallas off`` or ``interpret``, the threefry rounds run as uint32
+arithmetic on int64 tensors (every intermediate masked back to 32 bits).
 
 A :class:`Key` is a key of a step bound to a :class:`~ewdml_tpu_torch.utils.
 keytable.KeyTable`: it remembers how it derives from its step, and the
@@ -68,6 +71,13 @@ def fold_in(k: tuple, data: int) -> tuple:
     if isinstance(k, Key):
         return Key(words, k.table, k.path + (data,))
     return words
+
+
+def fold_path(k: tuple, path) -> tuple:
+    """``k`` folded with each word of ``path`` in turn (``()``: ``k``)."""
+    for data in path:
+        k = fold_in(k, data)
+    return k
 
 
 def split(k: tuple, num: int = 2) -> tuple:
@@ -146,18 +156,18 @@ def random_bits(k: tuple, n: int, device) -> torch.Tensor:
     """``jax.random.bits(k, (n,), uint32)`` under the partitionable layout:
     element i is ``y0 ^ y1`` of threefry(k, (i >> 32, i & mask)). Returned as
     int64 holding uint32 values."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    k0, k1 = key_words(k)
-    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
-    return y0 ^ y1
+    from ewdml_tpu_torch.ops import kernels
+
+    return kernels.threefry_draw(k, n, device)
 
 
 def uniform(k: tuple, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32)`` in [0, 1): the top 23 bits
     become the mantissa of a float in [1, 2), minus one (exact)."""
-    bits = random_bits(k, _numel(shape), device)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(tuple(shape))
+    from ewdml_tpu_torch.ops import kernels
+
+    return kernels.threefry_draw(k, _numel(shape), device,
+                                 uniform=True).reshape(tuple(shape))
 
 
 def _numel(shape) -> int:

@@ -13,6 +13,7 @@ kernels' summation order); int_accumulate and acc_decode bit (exact
 integer sums, one f32 product per element in the same order).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -194,10 +195,12 @@ def test_wrappers_count_launches(cuda):
     acc = kernels.int_accumulate(torch.stack([lv, lv]))
     kernels.acc_decode(acc, torch.ones(1, device="cuda"), 2)
     kernels.stochastic_round_bf16(x, (1, 2))
+    kernels.random_bits((1, 2), 100, "cuda")
     assert kernels.LAUNCHES == {"qsgd_quantize": 1, "dequant_mean": 1,
                                 "block_top1": 1, "chunk_encode": 1,
                                 "dequant_acc_requant": 1, "int_accumulate": 1,
-                                "acc_decode": 1, "stochastic_round": 1}
+                                "acc_decode": 1, "stochastic_round": 1,
+                                "random_bits": 1}
 
 
 @pytest.mark.parametrize("world,n", [(4, 2_359_296), (5, 9000), (8, 130),
@@ -628,6 +631,170 @@ def test_captured_stochastic_round_reads_each_replays_key(cuda):
         _same_bf16(out, kernels.stochastic_round_ref(x, want, "conv"))
 
 
+def _network_leaves(network: str) -> list:
+    """``(kind, torch shape)`` of the network's leaves, in JAX order."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    model = build_model(network, 10, dataset="Cifar10")
+    named = dict(model.named_parameters())
+    return [(s.kind, tuple(named[s.torch_name].shape))
+            for s in leaf_specs(model)]
+
+
+@pytest.mark.parametrize("network", ["VGG11", "ResNet50"])
+def test_round_set_kernel_is_the_plain_version(cuda, network):
+    """Every leaf shape singly, then the network's optimizer set (paths
+    (i,)), its Adam set ((i, 0), (i, 1)) and a residual set of two
+    workers ((tag, r, i)), with specials in each leaf, one launch per
+    ``ROUND_MAX_LEAVES`` leaves."""
+    leaves = _network_leaves(network)
+    xs = []
+    for kind, shape in leaves:
+        x = torch.randn(shape, device="cuda", generator=cuda) * 1e-2
+        n = min(len(SPECIALS), x.numel())
+        x.view(-1)[:n] = torch.tensor(SPECIALS[:n], device="cuda")
+        xs.append(x)
+    kinds = [k for k, _ in leaves]
+    for x, kind in sorted({(tuple(x.shape), k): (x, k)
+                           for x, k in zip(xs, kinds)}.values(),
+                          key=lambda v: tuple(v[0].shape)):
+        _same_bf16(kernels.stochastic_round_bf16(x, (3, 4), kind),
+                   kernels.stochastic_round_ref(x, (3, 4), kind),
+                   (network, kind, tuple(x.shape)))
+    n = len(xs)
+    flat = [x.reshape(-1) for x in xs]  # residuals: the JAX layout's
+    sets = [(xs, kinds, [(i,) for i in range(n)]),
+            (xs + xs, kinds * 2,
+             [(i, 0) for i in range(n)] + [(i, 1) for i in range(n)]),
+            (flat + flat, ["vector"] * 2 * n,
+             [(0x0E5F, r, i) for r in range(2) for i in range(n)])]
+    for key in ((0, 42), (0x9E3779B9, 0x7F4A7C15)):
+        for sx, sk, paths in sets:
+            kernels.reset_launches()
+            got = kernels.stochastic_round_set(key, sx, paths, sk)
+            assert kernels.LAUNCHES["stochastic_round"] == \
+                kernels.round_launches(len(sx))
+            want = kernels.stochastic_round_set_ref(key, sx, paths, sk)
+            for a, b, p in zip(got, want, paths):
+                _same_bf16(a, b, (network, key, p))
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("dense", (10, 5)), ("dense", (7, 3)), ("conv", (6, 2, 2, 2)),
+    ("conv", (3, 5, 3, 1)), ("dense", (9, 4097)), ("conv", (1, 5, 3, 3))])
+def test_round_kernel_on_narrow_and_odd_leaves(cuda, kind, shape):
+    """An innermost dim shorter than a vector (the carry chain), and odd
+    sizes with a scalar tail."""
+    x = torch.randn(shape, device="cuda", generator=cuda)
+    for key in ((0, 42), (0x9E3779B9, 0x7F4A7C15)):
+        _same_bf16(kernels.stochastic_round_bf16(x, key, kind),
+                   kernels.stochastic_round_ref(x, key, kind), (kind, shape))
+
+
+def test_round_set_kernel_on_unaligned_leaves(cuda):
+    """Leaves off a 16-byte boundary take the kernel's scalar path."""
+    base = torch.randn(4 * 4099 + 3, device="cuda", generator=cuda)
+    xs = [base[1:4100], base[4100:4100 + 7], base[8200:8200 + 4096]]
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16,
+                        device="cuda") for x in xs]
+    ragged = torch.empty(4100, dtype=torch.bfloat16, device="cuda")[1:]
+    outs[0] = ragged
+    paths = [(1,), (2, 3), (4, 5, 6)]
+    got = kernels.stochastic_round_set((7, 8), xs, paths, outs=outs)
+    want = kernels.stochastic_round_set_ref((7, 8), xs, paths)
+    for a, b in zip(got, want):
+        _same_bf16(a, b)
+
+
+def test_captured_round_set_reads_each_replays_key(cuda):
+    """A graph that captured a set's launch under a key-table parent key
+    rounds each leaf under the key its path folds from the key the table
+    holds at each replay."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    leaves = _network_leaves("VGG11")
+    xs = [torch.randn(s, device="cuda", generator=cuda) for _, s in leaves]
+    kinds = [k for k, _ in leaves]
+    paths = [(i,) for i in range(len(xs))]
+    table = KeyTable(prng.key(7), "cuda", 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.stochastic_round_set((1, 2), xs, paths, kinds)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = kernels.stochastic_round_set(
+            prng.fold_in(table.step_key(0), 0x0917), xs, paths, kinds)
+    for start in (0, 5):
+        table.load(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = prng.fold_in(prng.step_key(prng.key(7), start), 0x0917)
+        for a, b in zip(outs, kernels.stochastic_round_set_ref(
+                want, xs, paths, kinds)):
+            _same_bf16(a, b)
+
+
+# 2 359 296 (VGG11-BN's and ResNet50's largest leaf, the shared-scale
+# encode's draw) and 2 359 299 pass the 132 x 8 blocks of 1 024 elements
+# where the grid stops growing, so the threads loop, the second with a tail.
+@pytest.mark.parametrize("n", [1, 7, 4099, 2**17 - 1, 2_359_296, 2_359_299])
+def test_draw_kernel_is_the_plain_version(cuda, n):
+    """The bits (int64) and uniform (f32) against the plain versions (a
+    key-table key: the captured test below); one launch a draw, also in
+    permutation (a draw a round), randint (two) and uniform."""
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    for key in ((0, 42), (0x9E3779B9, 0x7F4A7C15)):
+        for uniform in (False, True):
+            kernels.reset_launches()
+            a = kernels.random_bits(key, n, "cuda", uniform=uniform)
+            assert kernels.LAUNCHES["random_bits"] == 1
+            b = kernels.random_bits_ref(key, n, "cuda", uniform=uniform)
+            assert a.dtype == b.dtype and a.shape == b.shape == (n,)
+            assert torch.equal(a.view(torch.int32) if uniform else a,
+                               b.view(torch.int32) if uniform else b), \
+                (n, key, uniform)
+    tkey = KeyTable(prng.key(9), "cuda", 3).step_key(4)
+    kernels.reset_launches()
+    prng.permutation(tkey, n, "cuda")
+    prng.randint(tkey, (n,), 0, 9, "cuda")
+    prng.uniform(tkey, (n,), "cuda")
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(2**32 - 1)))
+    assert kernels.LAUNCHES["random_bits"] == rounds + 2 + 1
+
+
+def test_captured_draw_reads_each_replays_key(cuda):
+    from ewdml_tpu_torch.utils import prng
+    from ewdml_tpu_torch.utils.keytable import KeyTable
+
+    table = KeyTable(prng.key(5), "cuda", 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.random_bits((1, 2), 4099, "cuda")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bits = prng.random_bits(prng.fold_in(table.step_key(0), 3), 4099,
+                                "cuda")
+        u = prng.uniform(prng.fold_in(table.step_key(0), 4), (4099,), "cuda")
+    for start in (0, 5):
+        table.load(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        skey = prng.step_key(prng.key(5), start)
+        assert torch.equal(bits, kernels.random_bits_ref(
+            prng.fold_in(skey, 3), 4099, "cuda"))
+        assert torch.equal(u.view(torch.int32), kernels.random_bits_ref(
+            prng.fold_in(skey, 4), 4099, "cuda", uniform=True).view(
+                torch.int32))
+
+
 def _state_tensors(trainer) -> list:
     out = []
     for ws in trainer.state.workers:
@@ -654,8 +821,10 @@ def test_lenet_bf16_state_runs_through_the_kernel(cuda, tmp_path, optimizer):
     torch.cuda.synchronize()
     assert res.steps == 3 and torch.isfinite(torch.tensor(res.final_loss))
     stores = 2 if optimizer == "adam" else 1
-    # Per step, leaf and worker: the optimizer's stores and one residual.
-    assert kernels.LAUNCHES["stochastic_round"] == 3 * 8 * 4 * (stores + 1)
+    # Per step: one store set a worker's optimizer update (its 8 leaves,
+    # both moments under Adam) and one set of every worker's residuals.
+    assert kernels.LAUNCHES["stochastic_round"] == 3 * (
+        4 * kernels.round_launches(8 * stores) + kernels.round_launches(8 * 4))
     ws = t.state.workers
     assert all(r.dtype == torch.bfloat16 for r in ws[0].residual)
     # The optimizer key is rank-shared: the replicas stay bit-identical.
@@ -726,6 +895,9 @@ def test_overlap_bf16_adam_window_replays_match_per_step(deterministic,
     (ref, rres, rl), (win, wres, wl) = runs
     assert (win.window_step.captures, win.window_step.replays) == (1, 2)
     assert torch.equal(torch.from_numpy(wres.rows), torch.from_numpy(rres.rows))
-    assert wl == rl and rl["stochastic_round"] == 12 * 8 * 4 * 3
+    # Per step: a store set a worker's Adam update (16 leaves), one set of
+    # residuals a bucket (at most 8 leaves x 4 workers, one launch each).
+    assert wl == rl and rl["stochastic_round"] == 12 * (
+        4 * kernels.round_launches(16) + 2)
     for x, y in zip(_state_tensors(ref), _state_tensors(win)):
         assert torch.equal(x, y)
