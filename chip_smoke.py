@@ -222,9 +222,40 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    down-link run is followed by the server's apply and delta step alone
    (no worker threads).
 
-Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a
-and 8 must be above 0. ``--phase8-only`` builds and runs phase 8 alone
-(no result line).
+9. The TCP tier (``ewdml_tpu_torch/parallel/ps_net.py``) on VGG11-BN at
+   the same shapes (``--fusion none``). (a) A ``PSNetServer`` serving in a
+   thread and four ``PSNetWorker`` threads over localhost sockets, 6 steps
+   a worker, on each wire plane (``threads``, ``evloop``): QSGD
+   ``--server-agg homomorphic`` at K = 4 and QSGD ``decode`` at K = 2.
+   Every launch count equals phase 4's reckoning for the pushes and
+   updates the ``stats`` reply reports, plus each endpoint's payload
+   template (and, homomorphic, its scale template's three draws); the
+   workers' socket bytes equal the server's, both ways, exactly;
+   ``bytes_up`` and ``bytes_down`` equal the wire plan's push frames and
+   the dense pulls; one decode a round homomorphic, K decode. Printed:
+   ``apply_ms_mean`` and the push and pull queue/handler p50 and p99 of
+   the reply's ``segments``. (b) A server with ``--server-state-dir`` and
+   ``--snapshot-every 4`` applies 10 K = 2 batches of two TCP workers'
+   frames; a second server recovers from the directory (the snapshot at 8
+   and two WAL records) to the same version, parameters, momentum and
+   shadow bit for bit, and acknowledges every recorded push again as a
+   duplicate. Printed: the snapshot's bytes, a write's seconds, the WAL
+   records, the recovery's seconds. (c) Across processes: ``python -m
+   ewdml_tpu_torch.parallel.ps_net --role server --server-state-dir D
+   --fault-spec serverkill@5 --server-agg homomorphic`` (K = 1; every
+   process derives the scale contract on its own and each worker checks
+   the server's scale CRC on its pulls), two worker processes of 8 steps
+   and a late joiner (``join@2=3``, 4 steps); the server dies by SIGKILL
+   at apply 5 and is started again on the same port and directory; every
+   worker exits 0 with ``PS_NET_WORKER_DONE`` after at least one
+   ``resync``, and the final ``stats`` shows version 20 (no push applied
+   twice, the killed apply's re-sent push acknowledged), ``recoveries`` 1,
+   ``joins`` 1, ``live_workers`` 3. Printed: the wall of each step of the
+   run, beside the card's name and power limit.
+
+Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
+8 and 9 must be above 0. ``--phase8-only`` and ``--phase9-only`` build and
+run phase 8 or phase 9 alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -3113,6 +3144,414 @@ def downlink_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+# Phase 9: the TCP tier (parallel/ps_net.py) on VGG11-BN at full width.
+TCP_WORKERS = 4
+TCP_STEPS = 6                # per worker in 9a
+TCP_RUNS = [                 # 9a: (name, K, flags), each on both planes
+    ("qsgd homomorphic", 4, ["--compress-grad", "qsgd",
+                             "--server-agg", "homomorphic"]),
+    ("qsgd decode", 2, ["--compress-grad", "qsgd", "--server-agg", "decode"]),
+]
+DURABLE_BATCHES = 10         # 9b: K = 2 batches of real worker frames
+KILL_AT = 5                  # 9c: serverkill@5
+KILL_STEPS = 8               # 9c: per worker process; the joiner takes 4
+
+
+def tcp_argv(k: int, flags, *extra) -> list:
+    """A ps_net config: VGG11-BN, CIFAR-10 shapes, synthetic data, batch
+    128, ``--fusion none`` (the wire plan prices one payload per leaf)."""
+    return ["--network", "VGG11", "--dataset", "Cifar10", "--synthetic-data",
+            "--batch-size", "128", "--num-aggregate", str(k), "--fusion",
+            "none", *flags, *extra]
+
+
+def tcp_expected_launches(cfg, specs, kernels, pushes, updates,
+                          endpoints) -> dict:
+    """Phase 4's count for ``pushes`` and ``updates``, plus what each of the
+    ``endpoints`` (the server and every worker) launches in
+    ``build_endpoint_setup``: one compress of the payload template (the
+    server's is the ``+ 1`` of ``expected_async_launches``), and under
+    homomorphic the scale template's normal draw and randint's two draws."""
+    want = expected_async_launches(cfg, specs, kernels,
+                                   pushes + endpoints - 1, updates)
+    if cfg.server_agg == "homomorphic":
+        want["random_bits"] += 3 * endpoints
+    return want
+
+
+def segment_ms(stats: dict) -> dict:
+    """The push and pull queue/handler p50 and p99 (ms) of a stats reply."""
+    out = {}
+    for op in ("push", "pull"):
+        seg = stats["segments"].get(op, {})
+        for field in ("queue_s", "handler_s"):
+            s = seg.get(field, {})
+            out[f"{op}_{field[:-2]}"] = (s.get("p50_ms"), s.get("p99_ms"))
+    return out
+
+
+def tcp_run(torch, kernels, counts, name, k, flags, plane) -> dict:
+    """9a: one server and TCP_WORKERS workers in threads of this process."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.train.metrics import wire_plan
+
+    cfg = from_args(tcp_argv(k, flags, "--wire-plane", plane))
+    kernels.reset_launches()   # this run of the main path starts here
+    t0 = time.perf_counter()
+    server = ps_net.PSNetServer(cfg, port=0)
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    workers = [ps_net.PSNetWorker(cfg, i, server.address)
+               for i in range(TCP_WORKERS)]
+    t_setup = time.perf_counter() - t0
+    results, errors = {}, []
+
+    def work(w):
+        try:
+            results[w.index] = w.run(TCP_STEPS)
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(w,)) for w in workers]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t1
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for key, v in launched.items():
+        counts[key] += v
+    if errors:
+        raise errors[0]
+    sent = sum(w.bytes.sent for w in workers)
+    received = sum(w.bytes.received for w in workers)
+    if (sent, received) != (server.bytes.received, server.bytes.sent):
+        raise AssertionError(f"tcp {name} {plane}: workers sent {sent} B and "
+                             f"received {received} B, the server received "
+                             f"{server.bytes.received} B and sent "
+                             f"{server.bytes.sent} B")
+    stats, _ = ps_net.client_call(server.address, {"op": "stats"})
+    ps_net.client_call(server.address, {"op": "shutdown"})
+    serve.join(60)
+    server.close()
+    pushes = TCP_WORKERS * TCP_STEPS
+    updates = pushes // k
+    if (stats["pushes"], stats["updates"], stats["version"]) != (
+            pushes, updates, updates):
+        raise AssertionError(f"tcp {name} {plane}: stats {stats['pushes']} "
+                             f"pushes, {stats['updates']} updates")
+    per_round = 1 if cfg.server_agg == "homomorphic" else k
+    if stats["decode_count"] != per_round * stats["apply_rounds"]:
+        raise AssertionError(f"tcp {name} {plane}: {stats['decode_count']} "
+                             f"decodes in {stats['apply_rounds']} rounds")
+    specs = workers[0].specs
+    want = tcp_expected_launches(cfg, specs, kernels, pushes, updates,
+                                 TCP_WORKERS + 1)
+    if launched != want:
+        raise AssertionError(f"tcp {name} {plane}: launches {launched}, want "
+                             f"{want}")
+    # Priced as phase 4's async run: the plan's async pricing keys on
+    # --mode async, which the TCP entry does not set (as in the JAX one).
+    plan = wire_plan(dataclasses.replace(cfg, mode="async"),
+                     [(s.name, s.jax_shape) for s in specs],
+                     world=TCP_WORKERS)
+    frame = native.encoded_arrays_size([np.empty(plan.up_bytes, np.uint8)])
+    dense = sum(math.prod(s.jax_shape) * 4 for s in specs)
+    if (stats["bytes_up"], stats["bytes_down"]) != (pushes * frame,
+                                                    pushes * dense):
+        raise AssertionError(f"tcp {name} {plane}: {stats['bytes_up']} B up "
+                             f"and {stats['bytes_down']} B down, the "
+                             f"in-process reckoning {pushes} x {frame} and "
+                             f"{pushes} x {dense}")
+    losses = [r["loss"] for r in results.values()]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"tcp {name} {plane}: losses {losses}")
+    seg = segment_ms(stats)
+    row = dict(plane=plane, k=k, pushes=pushes, updates=updates,
+               decode_count=stats["decode_count"],
+               apply_ms_mean=stats["apply_ms_mean"], setup_s=t_setup,
+               run_s=t_run, socket_sent=stats["socket_sent"],
+               socket_received=stats["socket_received"],
+               bytes_up=stats["bytes_up"], bytes_down=stats["bytes_down"],
+               segments_ms=seg, losses=losses, launches=launched)
+    print(f"tcp {name} plane={plane}: K={k} pushes={pushes} "
+          f"updates={updates} decodes={stats['decode_count']} "
+          f"apply_ms_mean={stats['apply_ms_mean']:.3f} setup={t_setup:.1f}s "
+          f"run={t_run:.1f}s ({t_run / TCP_STEPS * 1e3:.1f} ms a step) "
+          f"up={stats['bytes_up']} B down={stats['bytes_down']} B "
+          f"socket={sent}/{received} B segments_ms(p50,p99)={seg} "
+          f"launches={launched}", flush=True)
+    return row
+
+
+def same_server_state(torch, a, b, what: str) -> None:
+    """Bit-equality of two parameter servers' version, parameters,
+    optimizer state and shadow."""
+    def tensors(s):
+        return [*s.params, *(t for _, t in opt_tensors(s.opt_state)),
+                *s._shadow]
+
+    ta, tb = tensors(a), tensors(b)
+    same = a.version == b.version and len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
+                                           y.reshape(-1).view(torch.uint8))
+        for x, y in zip(ta, tb))
+    if not same:
+        raise AssertionError(f"{what}: the recovered server differs (version "
+                             f"{b.version} against {a.version})")
+
+
+def durable_run(torch, kernels, counts, root: str) -> dict:
+    """9b: a durable server (``--snapshot-every 4``) applies DURABLE_BATCHES
+    K = 2 batches of two TCP workers' frames; a second server recovers
+    from its directory, bit-equal, and acknowledges every recorded push
+    again as a duplicate."""
+    import threading
+
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.parallel.server_state import ServerStateStore
+
+    flags = ["--compress-grad", "qsgd", "--server-agg", "homomorphic"]
+    state = os.path.join(root, "state")
+    cfg = from_args(tcp_argv(2, flags, "--server-state-dir", state,
+                             "--snapshot-every", "4"))
+    kernels.reset_launches()   # this run of the main path
+    server = ps_net.PSNetServer(cfg, port=0)
+    recorded = []
+    push = server.server.push
+
+    def recording_push(record, retried=False):
+        recorded.append(record)
+        return push(record, retried)
+
+    server.server.push = recording_push
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    workers = [ps_net.PSNetWorker(cfg, i, server.address) for i in range(2)]
+    threads = [threading.Thread(target=w.run, args=(DURABLE_BATCHES,))
+               for w in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    ps_net.client_call(server.address, {"op": "shutdown"})
+    serve.join(60)
+    torch.cuda.synchronize()
+    for key, v in kernels.LAUNCHES.items():
+        counts[key] += v
+    live = server.server
+    if (live.version, live.stats.wal_records) != (DURABLE_BATCHES,
+                                                  DURABLE_BATCHES):
+        raise AssertionError(f"durable: version {live.version}, WAL records "
+                             f"{live.stats.wal_records}")
+    snapshots = live.stats.snapshots
+    snap_bytes = os.path.getsize(os.path.join(state, "snapshot.bin"))
+    wal_records = live.stats.wal_records
+    # One more snapshot write, timed alone: re-arming on a directory of its
+    # own writes one now. The recovery below reads the cadence's snapshot
+    # (version 8) and its two-record WAL tail, as a kill leaves them.
+    t0 = time.perf_counter()
+    live.arm_durability(ServerStateStore(os.path.join(root, "timed")),
+                        snapshot_every=0)
+    write_s = time.perf_counter() - t0
+    store = ServerStateStore(state)
+    server.close()
+    fresh_cfg = from_args(tcp_argv(2, flags))
+    kernels.reset_launches()
+    fresh = ps_net.PSNetServer(fresh_cfg, port=0)
+    t0 = time.perf_counter()
+    summary = fresh.server.recover(store)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    for key, v in kernels.LAUNCHES.items():
+        counts[key] += v
+    same_server_state(torch, live, fresh.server, "durable")
+    acks = [fresh.server.push(r) for r in recorded]
+    if not all(acks) or fresh.server.stats.dup_pushes != len(recorded) or \
+            fresh.server.version != DURABLE_BATCHES:
+        raise AssertionError(f"durable: replayed pushes {acks}, "
+                             f"{fresh.server.stats.dup_pushes} duplicates")
+    same_server_state(torch, live, fresh.server, "durable after the re-sends")
+    fresh.close()
+    if summary["replayed"] != DURABLE_BATCHES % 4:
+        raise AssertionError(f"durable: recovered {summary}")
+    out = dict(version=DURABLE_BATCHES, snapshot_bytes=snap_bytes,
+               snapshot_write_s=write_s, wal_records=wal_records,
+               snapshots=snapshots, recover_s=recover_s,
+               recovered=summary, resent=len(recorded))
+    print(f"durable: VGG11 qsgd homomorphic K=2 {DURABLE_BATCHES} batches, "
+          f"snapshot {snap_bytes} B written in {write_s:.3f}s, "
+          f"{wal_records} WAL records, {snapshots} "
+          f"snapshots, recovered {summary} in {recover_s:.3f}s, bit-equal; "
+          f"{len(recorded)} re-sent pushes acknowledged as duplicates",
+          flush=True)
+    return out
+
+
+def ps_net_proc(args: list, log: str):
+    """``python -m ewdml_tpu_torch.parallel.ps_net`` as a child process on
+    the card, its output into ``log``."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    f = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "ewdml_tpu_torch.parallel.ps_net", *args],
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.log = f
+    return proc
+
+
+def wait_for_line(proc, log: str, marker: str, timeout_s: float) -> str:
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        with open(log) as f:
+            for line in f:
+                if marker in line:
+                    return line
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    with open(log) as f:
+        tail = f.read()[-3000:]
+    raise AssertionError(f"{marker} never came (rc {proc.poll()}):\n{tail}")
+
+
+def kill_recover_run(root: str) -> dict:
+    """9c: across processes. A server process with ``serverkill@5`` and a
+    state directory, two worker processes of KILL_STEPS and a late joiner
+    (``join@2=3``, 4 steps), K = 1, under ``--server-agg homomorphic``: the
+    scale contract derived in separate processes must agree (the workers
+    check its CRC, the restarted server's ``recover`` checks the
+    snapshot's). The server dies at apply 5; this script
+    starts it again on the same port and directory; the workers retry
+    through the outage, resync and finish."""
+    import socket
+
+    from ewdml_tpu_torch.parallel import ps_net
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    state = os.path.join(root, "kill_state")
+    common = tcp_argv(1, ["--compress-grad", "qsgd", "--server-agg",
+                          "homomorphic"], "--port", str(port),
+                      "--net-retries", "14", "--net-backoff", "0.5")
+    server_args = ["--role", "server", *common, "--server-state-dir", state,
+                   "--snapshot-every", "2", "--fault-spec",
+                   f"serverkill@{KILL_AT}"]
+    walls = {}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        first = ps_net_proc(server_args, os.path.join(root, "server1.log"))
+        procs.append(first)
+        wait_for_line(first, os.path.join(root, "server1.log"),
+                      "PS_NET_READY", 180)
+        walls["server_ready_s"] = time.perf_counter() - t0
+        logs = [os.path.join(root, f"worker{i}.log") for i in range(3)]
+        workers = [ps_net_proc(["--role", "worker", *common,
+                                "--worker-index", str(i), "--steps",
+                                str(KILL_STEPS)], logs[i]) for i in (0, 1)]
+        workers.append(ps_net_proc(["--role", "worker", *common,
+                                    "--worker-index", "2", "--steps", "4",
+                                    "--fault-spec", "join@2=3"], logs[2]))
+        procs += workers
+        rc = first.wait(timeout=300)
+        walls["killed_at_s"] = time.perf_counter() - t0
+        if rc != -9:
+            raise AssertionError(f"kill: the first server exited {rc}, not "
+                                 f"by SIGKILL")
+        second = ps_net_proc(server_args, os.path.join(root, "server2.log"))
+        procs.append(second)
+        wait_for_line(second, os.path.join(root, "server2.log"),
+                      "PS_NET_READY", 180)
+        walls["restarted_s"] = time.perf_counter() - t0
+        done = []
+        for i, w in enumerate(workers):
+            rc = w.wait(timeout=300)
+            line = wait_for_line(w, logs[i], "PS_NET_WORKER_DONE", 1)
+            if rc != 0:
+                raise AssertionError(f"kill: worker {i} exited {rc}")
+            done.append(json.loads(line.split(" ", 1)[1]))
+        walls["workers_done_s"] = time.perf_counter() - t0
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        if second.wait(timeout=60) != 0:
+            raise AssertionError("kill: the restarted server did not exit 0")
+        walls["shutdown_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    total = 2 * KILL_STEPS + 4
+    resyncs = [d["resyncs"] for d in done]
+    if min(resyncs[:2]) < 1 or stats["recoveries"] != 1 or \
+            stats["version"] != total or stats["joins"] != 1 or \
+            stats["live_workers"] != 3 or stats["dup_pushes"] < 1:
+        raise AssertionError(f"kill: resyncs {resyncs}, stats "
+                             + json.dumps({k: stats[k] for k in (
+                                 "version", "recoveries", "joins",
+                                 "live_workers", "dup_pushes")}))
+    out = dict(walls, version=stats["version"], recoveries=1,
+               dup_pushes=stats["dup_pushes"], joins=stats["joins"],
+               live_workers=stats["live_workers"], resyncs=resyncs,
+               retries=[d["retries"] for d in done])
+    print(f"kill-recover: homomorphic, serverkill@{KILL_AT}, {total} "
+          f"pushes at K=1 -> "
+          f"version {stats['version']} with {stats['dup_pushes']} re-sent "
+          f"push(es) acknowledged, recoveries 1, joins 1, live 3, resyncs "
+          f"{resyncs}; walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
+          flush=True)
+    return out
+
+
+def tcp_phase(torch, kernels) -> tuple:
+    """Phase 9 (see the module docstring)."""
+    torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {"tcp": {}}
+    walls = {}
+    t = time.perf_counter()
+    for plane in ("threads", "evloop"):
+        for name, k, flags in TCP_RUNS:
+            out["tcp"][f"{name} {plane}"] = tcp_run(
+                torch, kernels, counts, name, k, flags, plane)
+            torch.cuda.empty_cache()
+    walls["9a_s"] = time.perf_counter() - t
+    root = tempfile.mkdtemp(prefix="ewdml_tcp_")
+    try:
+        t = time.perf_counter()
+        out["durable"] = durable_run(torch, kernels, counts, root)
+        walls["9b_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["kill_recover"] = kill_recover_run(root)
+        walls["9c_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["walls"] = walls
+    print("phase 9 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for k in ("qsgd_quantize", "int_accumulate", "acc_decode", "random_bits"):
+        if counts[k] <= 0:
+            raise AssertionError(f"phase 9: {k} never launched")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3124,6 +3563,9 @@ def main(argv=None) -> int:
                              "no result line)")
     parser.add_argument("--phase8-only", action="store_true",
                         help="build, then run phase 8 alone (no result "
+                             "line)")
+    parser.add_argument("--phase9-only", action="store_true",
+                        help="build, then run phase 9 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -3169,6 +3611,13 @@ def main(argv=None) -> int:
         _, downlink = downlink_phase(torch, kernels)
         print(f"phase 8: {time.perf_counter() - t8:.1f}s", flush=True)
         print("downlink: " + json.dumps(downlink), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase9_only:
+        t9 = time.perf_counter()
+        _, tcp = tcp_phase(torch, kernels)
+        print(f"phase 9: {time.perf_counter() - t9:.1f}s", flush=True)
+        print("tcp: " + json.dumps(tcp), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -3249,6 +3698,12 @@ def main(argv=None) -> int:
     print(f"phase 8: {time.perf_counter() - t8:.1f}s", flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 9: the TCP tier, durability and kill-recover.
+    t9 = time.perf_counter()
+    net_counts, tcp = tcp_phase(torch, kernels)
+    print(f"phase 9: {time.perf_counter() - t9:.1f}s", flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -3268,6 +3723,7 @@ def main(argv=None) -> int:
     print("policy: " + json.dumps(policy), flush=True)
     print("repro: " + json.dumps(repro), flush=True)
     print("downlink: " + json.dumps(downlink), flush=True)
+    print("tcp: " + json.dumps(tcp), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -297,6 +297,14 @@ def validate_lossy_weights(cfg: TrainConfig) -> None:
             "down-link to compress in grads mode)")
 
 
+def validate_wire_plane(cfg: TrainConfig) -> None:
+    """``--wire-plane`` names the TCP server's transport
+    (``parallel/ps_net.py``): ``threads`` or ``evloop``."""
+    if cfg.wire_plane not in ("threads", "evloop"):
+        raise ValueError(f"--wire-plane must be 'threads' or 'evloop', got "
+                         f"{cfg.wire_plane!r}")
+
+
 def validate_server_agg(cfg: TrainConfig) -> None:
     """The ``--server-agg`` matrix (``config.py:777``, copied): fail at
     config altitude, before a server is built."""

@@ -76,6 +76,9 @@ def get_lib():
         lib.wire_encode.restype = u64
         lib.wire_encode.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(u64),
                                     u32, vp]
+        lib.wire_encode_into.restype = ctypes.c_int64
+        lib.wire_encode_into.argtypes = [ctypes.POINTER(vp),
+                                         ctypes.POINTER(u64), u32, vp, u64]
         lib.wire_decode_header.restype = ctypes.c_int64
         lib.wire_decode_header.argtypes = [vp, u64, ctypes.POINTER(u64),
                                            ctypes.POINTER(u64), u32]
@@ -107,6 +110,29 @@ def wire_encode(sections: list) -> bytes:
 def wire_encoded_size(lens: list) -> int:
     """Exact encoded size for sections of the given lengths."""
     return 12 + sum(8 + (ln + 3) // 4 * 4 for ln in lens)
+
+
+def wire_encode_into(sections: list, out) -> int:
+    """Encode ``sections`` into the writable buffer ``out`` (a bytearray or
+    writable memoryview): the bytes written, or -1 when ``out`` is too
+    small. The bytes are :func:`wire_encode`'s."""
+    lib = get_lib()
+    if lib is None:
+        msg = _py_wire_encode(sections)
+        view = memoryview(out)
+        if len(msg) > len(view):
+            return -1
+        view[:len(msg)] = msg
+        return len(msg)
+    n = len(sections)
+    bufs = [np.frombuffer(s, np.uint8) for s in sections]
+    lens = (ctypes.c_uint64 * n)(*[b.size for b in bufs])
+    ptrs = (ctypes.c_void_p * n)(
+        *[b.ctypes.data_as(ctypes.c_void_p).value for b in bufs])
+    dst = np.frombuffer(out, np.uint8)
+    return int(lib.wire_encode_into(ptrs, lens, n,
+                                    dst.ctypes.data_as(ctypes.c_void_p),
+                                    dst.size))
 
 
 def wire_decode(msg: bytes, max_sections: int = 4096) -> list:

@@ -89,7 +89,7 @@ class HealthWatchdog:
                  *, spike_z: float = 8.0, ema_alpha: float = 0.1,
                  warmup: int = 5, grad_factor: float = 100.0,
                  stall_deadline_s: Optional[float] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None, on_abort=None):
         if mode not in MODES:
             raise ValueError(f"--health must be one of {MODES}, got {mode!r}")
         self.mode = mode
@@ -99,6 +99,10 @@ class HealthWatchdog:
         self.ema_alpha = float(ema_alpha)
         self.warmup = int(warmup)
         self.grad_factor = float(grad_factor)
+        #: Called with the abort event in place of the raise: the TCP
+        #: server's verdict stops its accept loop rather than unwinding a
+        #: handler thread mid-reply (``parallel/ps_net.py``).
+        self.on_abort = on_abort
         #: The counters' registry (a private one when none is passed in).
         self.registry = registry if registry is not None else MetricsRegistry()
         # The first abort verdict (written once, by the thread that trips
@@ -278,6 +282,9 @@ class HealthWatchdog:
             if self.aborted is None:
                 self.aborted = event
         otrace.flush()
+        if self.on_abort is not None:
+            self.on_abort(event)
+            return
         if from_stall_thread:
             # The stuck thread cannot be unwound from here: exit with the
             # contract's status (the trace and health.jsonl are flushed).
@@ -294,7 +301,7 @@ class HealthWatchdog:
 
 
 def make_watchdog(cfg, role: str, stall_deadline_s: Optional[float] = None,
-                  registry: Optional[MetricsRegistry] = None
+                  registry: Optional[MetricsRegistry] = None, on_abort=None
                   ) -> Optional[HealthWatchdog]:
     """The watchdog of a config, writing ``<train_dir>/health.jsonl``;
     None under ``--health off``."""
@@ -305,4 +312,4 @@ def make_watchdog(cfg, role: str, stall_deadline_s: Optional[float] = None,
         path = os.path.join(cfg.train_dir, "health.jsonl")
     return HealthWatchdog(cfg.health, role=role, path=path,
                           stall_deadline_s=stall_deadline_s,
-                          registry=registry)
+                          registry=registry, on_abort=on_abort)

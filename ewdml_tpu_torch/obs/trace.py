@@ -23,11 +23,13 @@ process arms tracing for its children.
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
 import re
 import socket
 import threading
+import zlib
 
 from ewdml_tpu_torch.obs import clock
 
@@ -36,6 +38,7 @@ DEFAULT_CAPACITY = 65536
 
 _tracer = None            # the process's Tracer; None = tracing disabled
 _tls = threading.local()  # per-thread role
+_req_counter = itertools.count(1)
 
 
 class _NullSpan:
@@ -93,8 +96,12 @@ class Tracer:
         self._lock = threading.Lock()
         self.pid = os.getpid()
         self.host = socket.gethostname()
-        #: The offset into another process's timebase from a wire
-        #: handshake; the port has no wire handshake yet, so it stays None.
+        #: Request-id prefix (:func:`next_request_id`): a crc16 of the host
+        #: and the pid, so two hosts handing out one pid never collide.
+        self.req_prefix = (f"{zlib.crc32(self.host.encode()) & 0xFFFF:x}"
+                           f"-{self.pid:x}")
+        #: The offset (ns) into the parameter server's timebase from the
+        #: pull handshake (``parallel/ps_net.py``); None = not handshaken.
         self.offset_ns = None
         # A wall and a monotonic reading taken together: the cross-host
         # alignment anchor.
@@ -195,6 +202,23 @@ def _atexit_flush() -> None:
 def set_role(role: str) -> None:
     """The calling thread's role for the events it records."""
     _tls.role = role
+
+
+def next_request_id() -> str | None:
+    """A run-unique request id (``<host crc16 hex>-<pid hex>.<seq hex>``)
+    that the wire header carries, or None when tracing is off: an untraced
+    run allocates no ids and its headers carry none."""
+    t = _tracer
+    if t is None:
+        return None
+    return f"{t.req_prefix}.{next(_req_counter):x}"
+
+
+def set_clock_offset(offset_ns: int) -> None:
+    """Record this process's handshaken offset into the trace timebase."""
+    t = _tracer
+    if t is not None:
+        t.offset_ns = int(offset_ns)
 
 
 def span(name: str, **args):

@@ -5,9 +5,11 @@ JAX package).
 The faults are config (``--fault-spec``), parsed once and applied
 deterministically per (worker, step). The in-process thread PS
 (``parallel/ps.py``) consumes the ``delay``, ``crash`` and ``nan`` clauses;
-the wire clauses (``reset``, ``drop``, ``partition``, ``join``,
-``serverkill``, ``aggkill``) parse as in the JAX package and do nothing in
-process, where there is no socket or server process to break.
+the TCP tier (``parallel/ps_net.py``) also the wire clauses: ``reset``,
+``drop`` and ``partition`` at a worker's step, ``join`` (a late joiner's
+wait in seconds) and ``serverkill`` (SIGKILL the server after apply N).
+``aggkill`` parses as in the JAX package and belongs to the aggregation
+tree, a later slice.
 
 Spec grammar: comma-separated clauses, ``kind@worker=value`` (``delay``
 seconds, or a step for the others), ``serverkill@N`` (an apply count) or
@@ -69,9 +71,24 @@ class WorkerFaults:
             time.sleep(self.delay_s)
         return self.delay_s
 
+    def crash_due(self, step: int) -> None:
+        """Raise :class:`FaultCrash` when the crash clause fires at ``step``."""
+        if self.crash_at is not None and step == self.crash_at:
+            raise FaultCrash(self.worker, step)
+
+    def reset_due(self, step: int) -> bool:
+        return step in self.reset_at
+
+    def drop_due(self, step: int) -> bool:
+        return step in self.drop_at
+
     def nan_due(self, step: int) -> bool:
         """Whether a ``nan`` clause poisons the loss observed at ``step``."""
         return step in self.nan_at
+
+    def partition_due(self, step: int) -> int:
+        """Attempts to black-hole at ``step`` (0 = no partition clause)."""
+        return self.partition_at.get(step, 0)
 
 
 class FaultSpec:

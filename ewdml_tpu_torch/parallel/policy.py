@@ -1,6 +1,6 @@
 """The straggler/staleness policy of the parameter server
-(``ewdml_tpu/parallel/policy.py:1-284``, the part the in-process server
-uses, copied: the port imports nothing of the JAX package).
+(``ewdml_tpu/parallel/policy.py:1-284``, ``StragglerPolicy`` copied: the
+port imports nothing of the JAX package).
 
 :class:`StragglerPolicy` keeps per-worker last-contact timestamps and makes
 the three decisions of the reference's section 5.3: *exclude* (a contact
@@ -9,7 +9,10 @@ gap above ``kill_threshold`` seconds; the excluded worker gets
 more than ``max_staleness`` versions behind) and *K-of-N accept* (apply
 once ``num_aggregate`` pushes pend). The first ``grace_steps`` gaps per
 worker are not judged: they hold one-time costs such as the first batch.
-The cohort policies of the federated path are a later slice.
+The TCP server (``parallel/ps_net.py``) adds a retried contact (refreshes
+liveness, not judged), elastic membership (``note_join``) and the restore
+of a recovered server. The cohort policies of the federated path are a
+later slice; their hooks are no-ops here.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import threading
 from typing import Callable, Optional
 
 from ewdml_tpu_torch.obs import clock as _clock
+
+#: Exit status of a kill-signalled TCP worker: the reference's MPI kill tag.
+KILL_EXIT_CODE = 77
+
 
 class StragglerKilled(RuntimeError):
     """The kill signal: this worker has been excluded by the server.
@@ -79,14 +86,16 @@ class StragglerPolicy:
         self.contacts = 0
 
     # -- exclusion (the kill protocol) -----------------------------------
-    def observe(self, worker) -> Optional[str]:
+    def observe(self, worker, retried: bool = False) -> Optional[str]:
         """Record a contact from ``worker``.
 
         Returns ``None`` for a healthy worker, or the exclusion reason when
         the worker is (or just became) a straggler — every non-None return
-        corresponds to one kill signal the caller must deliver. (The JAX
-        policy's ``retried`` flag belongs to the wire retry path of
-        ``ps_net``, a later slice.)
+        corresponds to one kill signal the caller must deliver.
+
+        ``retried=True`` marks a contact the wire layer re-sent after a
+        fault: it refreshes liveness and still kills an excluded worker,
+        but its gap (the client's timeout and backoff) is not judged.
         """
         if worker is None:
             return None
@@ -99,7 +108,7 @@ class StragglerPolicy:
                 return self._excluded[worker]
             prev = self._last_seen.get(worker)
             self._last_seen[worker] = now
-            if prev is None or self.kill_threshold is None:
+            if prev is None or self.kill_threshold is None or retried:
                 return None
             n = self._gaps_seen.get(worker, 0)
             self._gaps_seen[worker] = n + 1
@@ -114,9 +123,53 @@ class StragglerPolicy:
             self.kills_sent += 1
             return reason
 
+    def exclude(self, worker, reason: str) -> None:
+        """Exclude a worker by hand (operator or tooling path)."""
+        with self._lock:
+            self._excluded[int(worker)] = reason
+
+    def is_excluded(self, worker) -> bool:
+        with self._lock:
+            return int(worker) in self._excluded
+
     def excluded(self) -> dict:
         with self._lock:
             return dict(self._excluded)
+
+    # -- elastic membership and recovery ----------------------------------
+    def note_join(self, worker) -> None:
+        """Seed liveness for a worker admitted mid-run (the ``join`` op);
+        its first real gap still gets the warm-up grace."""
+        now = self._clock()
+        with self._lock:
+            self._last_seen.setdefault(int(worker), now)
+
+    def live_workers(self) -> int:
+        """K-of-N's N, observed: workers ever seen (contact or join) less
+        the excluded."""
+        with self._lock:
+            return len([w for w in self._last_seen
+                        if w not in self._excluded])
+
+    def is_member(self, worker) -> bool:
+        """Whether ``worker`` has ever been seen (contact or join)."""
+        with self._lock:
+            return int(worker) in self._last_seen
+
+    def restore(self, excluded: dict, kills_sent: int = 0,
+                contacts: int = 0, members=()) -> None:
+        """Re-install a :class:`PolicySnapshot`'s durable half after a
+        server restart: exclusions and counters survive; members are
+        re-stamped now (the dead process's clock means nothing here), so a
+        restored member's first gap gets the grace of a join."""
+        now = self._clock()
+        with self._lock:
+            for worker, reason in (excluded or {}).items():
+                self._excluded[int(worker)] = str(reason)
+            self.kills_sent = max(self.kills_sent, int(kills_sent))
+            self.contacts = max(self.contacts, int(contacts))
+            for worker in members or ():
+                self._last_seen.setdefault(int(worker), now)
 
     # -- staleness + K-of-N ----------------------------------------------
     def stale(self, staleness: int) -> bool:
@@ -127,6 +180,19 @@ class StragglerPolicy:
     def ready_to_apply(self, n_pending: int) -> bool:
         """K-of-N acceptance: apply once ``num_aggregate`` pushes pend."""
         return n_pending >= self.num_aggregate
+
+    # -- cohort hooks (no-ops on the base policy) ------------------------
+    def admit_push(self, worker, round_id: int = -1) -> Optional[str]:
+        """Pre-acceptance gate: None admits (every worker, here)."""
+        return None
+
+    def note_applied(self, version: int, workers: list,
+                     round_id: Optional[int] = None) -> None:
+        """Apply-commit hook (a no-op here)."""
+
+    def retract_push(self, worker, round_id: int = -1) -> None:
+        """Undo an :meth:`admit_push` whose push was dropped (a no-op
+        here: admission is unlimited)."""
 
     def snapshot(self) -> PolicySnapshot:
         with self._lock:

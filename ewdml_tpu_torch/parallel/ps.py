@@ -47,10 +47,25 @@ decompress on the server, and the bytes counted are the compressor's.
 ``health`` (``obs/health.py``) observes the loss of every push the server
 keeps; after an abort verdict the workers stop.
 
+What the TCP tier (``parallel/ps_net.py``) adds to the server
+(``ewdml_tpu/parallel/ps.py:713-833,1305-1593,1696-1757``): a retried
+contact is not judged by the policy; a push carries an idempotency id
+(``push_id``), and a push whose id was applied or is pending is
+acknowledged and not applied again; :meth:`ParameterServer.push_batch`
+admits an event-loop tick's pushes, bit-identical to sequential pushes;
+the durable state plane (``arm_durability``: a WAL record per apply and a
+snapshot every ``snapshot_every`` versions, ``parallel/server_state.py``)
+and :meth:`~ParameterServer.recover`, which replays the WAL through the
+same apply, so the recovered state is bit-equal; ``serverkill@N``; and the
+elastic ``join`` (``--num-aggregate 0`` recomputes K from the live
+workers). The snapshot blob is the JAX package's flax ``to_bytes`` of
+``{"params", "opt_state", "shadow"}`` in Flax paths (``utils/msgpack.py``),
+so a directory written by either package recovers in the other.
+
 Options of later slices raise ``NotImplementedError`` by name here or in
-``train/trainer.check_supported(async_path=True)``: durability and
-recovery, the publication stream, aggregation-tree pseudo-pushes, round
-pipelines and cohort policies, and ``--adapt``.
+``train/trainer.check_supported(async_path=True)``: the publication
+stream, aggregation-tree pseudo-pushes, round pipelines and cohort
+policies, and ``--adapt``.
 """
 
 from __future__ import annotations
@@ -60,6 +75,8 @@ import copy
 import dataclasses
 import functools
 import logging
+import os
+import signal
 import threading
 import time
 from typing import Optional
@@ -70,15 +87,15 @@ import torch
 from ewdml_tpu_torch import native
 from ewdml_tpu_torch.core.precision import resolve_policy, wire_cast
 from ewdml_tpu_torch.models.convert import from_jax, leaf_specs, to_jax
-from ewdml_tpu_torch.obs import clock
+from ewdml_tpu_torch.obs import clock, reqctx
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.health import HealthAbort
 from ewdml_tpu_torch.ops import kernels
-from ewdml_tpu_torch.optim import update_accepts_key
+from ewdml_tpu_torch.optim import AdamState, update_accepts_key
 from ewdml_tpu_torch.parallel.faults import FaultCrash, FaultSpec
 from ewdml_tpu_torch.parallel.policy import StragglerKilled, StragglerPolicy
-from ewdml_tpu_torch.train.state import leaf_params
-from ewdml_tpu_torch.utils import prng, transfer
+from ewdml_tpu_torch.train.state import _flat, _nested, leaf_params
+from ewdml_tpu_torch.utils import msgpack, prng, transfer
 
 logger = logging.getLogger("ewdml_tpu_torch.ps")
 
@@ -104,6 +121,12 @@ class PushRecord:
     version: int          # server version the worker pulled before computing
     message: bytes
     loss: float
+    # The idempotency key ("worker:step" from the TCP worker), stable
+    # across wire retries and server restarts; "" = no dedupe.
+    push_id: str = ""
+    # The federated round a push was computed for (-1: unstamped; the
+    # round pipeline that routes by it is a later slice).
+    round_id: int = -1
 
     @property
     def wire_bytes(self) -> int:
@@ -201,7 +224,11 @@ class ParameterServer:
                  bootstrap: str = "f32",
                  kill_threshold: Optional[float] = None,
                  precision: str = "f32", adapt=None,
-                 server_agg: str = "decode", health=None, seed: int = 0):
+                 server_agg: str = "decode", health=None, seed: int = 0,
+                 policy: Optional[StragglerPolicy] = None,
+                 leaf_names: Optional[list] = None,
+                 elastic_k: bool = False,
+                 kill_at_apply: Optional[int] = None):
         # The run-health watchdog (None: --health off).
         self.health = health
         if server_agg not in ("decode", "homomorphic"):
@@ -241,9 +268,13 @@ class ParameterServer:
         self.precision = resolve_policy(precision)
         self._opt_key = prng.key(seed ^ 0x0917)
         self.compressor = compressor
-        self.policy = StragglerPolicy(
+        # A caller's policy wins: the TCP server shares its one instance.
+        self.policy = policy if policy is not None else StragglerPolicy(
             kill_threshold=kill_threshold, max_staleness=max_staleness,
             num_aggregate=num_aggregate)
+        # The parameters' Flax paths (``LeafSpec.name``): the snapshot
+        # blob's keys. Needed only by the durable state plane.
+        self.leaf_names = list(leaf_names) if leaf_names is not None else None
         # The lossy weights-down relay (the paper's negative result,
         # Final Report p.5) and the wire of a first pull ("f32" | "bf16").
         self.relay_compress = relay_compress and compressor is not None
@@ -252,9 +283,26 @@ class ParameterServer:
         self.version = 0
         self.stats = PSStats()
         # Canonical order: _update_lock before _lock, never the reverse.
-        self._lock = threading.Lock()           # params/version/stats
-        self._update_lock = threading.Lock()    # serializes applies
+        # TimedLocks: a blocked acquire inside a ps_net request counts as
+        # that request's queue segment (obs/reqctx.py).
+        self._lock = reqctx.TimedLock()         # params/version/stats
+        self._update_lock = reqctx.TimedLock()  # serializes applies
         self._pending: list = []
+        # Per pending buffer: its pusher and its push id.
+        self._pending_workers: list = []
+        self._pending_ids: list = []
+        # Push ids applied (id -> version, insertion-ordered, bounded):
+        # with the pending ids they make a re-sent push an ack, not a
+        # second apply. Rebuilt from the snapshot and the WAL on recovery.
+        self._applied_ids: dict = {}
+        # The durable state plane (arm_durability; None: no journal I/O),
+        # the serverkill@N fault, and elastic K (--num-aggregate 0 on the
+        # TCP server; the payload template is kept for its rebuild).
+        self._state_store = None
+        self._snapshot_every = 0
+        self._kill_at_apply = kill_at_apply
+        self._elastic_k = elastic_k
+        self._payload_template = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._pack = transfer.make_device_packer()
@@ -297,6 +345,10 @@ class ParameterServer:
         self._delta_fn = None
         self.payload_unpack = None
 
+    @property
+    def num_aggregate(self) -> int:
+        return self.policy.num_aggregate
+
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
@@ -310,7 +362,9 @@ class ParameterServer:
         the apply over K stacked buffers: unpack, then the homomorphic mean
         or decode-then-mean, then the optimizer update. The apply is run
         once on zeroed buffers (its result discarded) before any worker is
-        timed, as the JAX server warms its compiled apply."""
+        timed, as the JAX server warms its compiled apply. Re-entrant: an
+        elastic K rebuilds the apply for the new K."""
+        self._payload_template = payload_template
         unpack = self.payload_unpack = transfer.make_device_unpacker(
             payload_template)
         comp = self.compressor
@@ -356,10 +410,11 @@ class ParameterServer:
                                prng.fold_in(self._relay_key, 0))
         self._sync()
 
-    def _check_worker(self, worker) -> None:
+    def _check_worker(self, worker, retried: bool = False) -> None:
         """Shared-policy liveness check on a worker contact; raises
-        :class:`StragglerKilled` for an excluded worker."""
-        reason = self.policy.observe(worker)
+        :class:`StragglerKilled` for an excluded worker. ``retried`` marks
+        a wire re-send, whose gap is not judged."""
+        reason = self.policy.observe(worker, retried=retried)
         if reason is not None:
             with self._lock:
                 self.stats.kills_sent = self.policy.kills_sent
@@ -369,20 +424,23 @@ class ParameterServer:
             raise StragglerKilled(worker, reason)
 
     # -- worker-facing API (the wire) ------------------------------------
-    def pull(self, worker_version: int = -1, worker: Optional[int] = None):
+    def pull(self, worker_version: int = -1, worker: Optional[int] = None,
+             retried: bool = False):
         """Down link: ``(mode, payload, version, nbytes)``. ``mode`` is
         ``"weights"`` (the packed parameters, a uint8 numpy buffer),
         ``"weights_bf16"`` (the same in bf16: only a delta-mode first pull,
         ``worker_version`` -1, under ``bootstrap='bf16'``; a worker that
         fell behind the window gets f32) or ``"delta"`` (the list of packed
         deltas after ``worker_version``). An excluded worker's pull raises
-        :class:`StragglerKilled`. Traced as ``ps/pull``."""
+        :class:`StragglerKilled`; ``retried`` flags a wire re-send. Traced
+        as ``ps/pull``."""
         with otrace.span("ps/pull", worker=worker):
-            return self._pull(worker_version, worker)
+            return self._pull(worker_version, worker, retried)
 
-    def _pull(self, worker_version: int = -1, worker: Optional[int] = None):
+    def _pull(self, worker_version: int = -1, worker: Optional[int] = None,
+              retried: bool = False):
         if worker is not None:
-            self._check_worker(worker)
+            self._check_worker(worker, retried=retried)
         with self._lock:
             # The shadow advances with the version, under this lock.
             params, shadow, version = self.params, self._shadow, self.version
@@ -432,30 +490,66 @@ class ParameterServer:
                    for i, p in enumerate(src)]
         return self._pack(_bf16_wire(src) if bf16 else src)
 
-    def push(self, record: PushRecord) -> bool:
+    def push(self, record: PushRecord, retried: bool = False) -> bool:
         """Gradients-up link. Returns False if the push was dropped as
-        stale; raises :class:`StragglerKilled` for an excluded pusher. The
-        push that completes a K-of-N batch runs the apply in its thread.
-        Traced as ``ps/push``, the apply within it as ``ps/apply``."""
+        stale; raises :class:`StragglerKilled` for an excluded pusher.
+        ``retried`` flags a wire re-send (its gap is not judged). A push
+        whose ``push_id`` was applied or is pending is acknowledged (True)
+        and not applied again. The push that completes a K-of-N batch runs
+        the apply in its thread. Traced as ``ps/push``, the apply within it
+        as ``ps/apply``."""
         with otrace.span("ps/push", worker=record.worker):
-            return self._push(record)
+            return self._push(record, retried)
 
-    def _push(self, record: PushRecord) -> bool:
+    def push_batch(self, records: list, retried: Optional[list] = None
+                   ) -> list:
+        """Admit one event-loop tick's pushes: the exact sequence of
+        :meth:`push` calls in arrival order, so the state, the versions and
+        the per-push verdicts equal sequential pushes bit for bit. One
+        outcome per record: True/False, or the exception the record raised
+        (a :class:`StragglerKilled`, a corrupt payload's ``ValueError``),
+        which never stops the rest of the tick."""
+        outcomes: list = []
+        for i, record in enumerate(records):
+            re = bool(retried[i]) if retried is not None else False
+            try:
+                outcomes.append(self.push(record, retried=re))
+            except Exception as err:  # noqa: BLE001 -- per-record isolation
+                outcomes.append(err)
+        return outcomes
+
+    def _push(self, record: PushRecord, retried: bool = False) -> bool:
         if self._apply_fn is None:
             raise RuntimeError("register_payload_schema first")
-        self._check_worker(record.worker)
+        self._check_worker(record.worker, retried=retried)
+        # Idempotent replay: checked before the decode (no CRC work for an
+        # ack) and before admission.
+        if record.push_id:
+            with self._lock:
+                if (record.push_id in self._applied_ids
+                        or record.push_id in self._pending_ids):
+                    self.stats.dup_pushes += 1
+                    return True
         # Decode (CRC verify + copy) outside the lock.
         buf = native.decode_arrays(record.message)[0]
+        if self.policy.admit_push(record.worker,
+                                  round_id=record.round_id) is not None:
+            return False
         health = self.health
         if health is not None:
             if health.aborted is not None:
+                self.policy.retract_push(record.worker, record.round_id)
                 return False  # unobserved: the run's verdict is the first
             if not self.policy.stale(self.version - record.version):
                 # Outside the lock (an event is an fsync'd write), and not
                 # for a push about to be dropped as stale: its loss was
                 # computed on long-gone weights. An abort raises here,
-                # before any state changes.
+                # before any state changes, or (the TCP server's
+                # on_abort) sets the verdict checked just after.
                 health.observe_loss(self.version, record.loss)
+                if health.aborted is not None:
+                    self.policy.retract_push(record.worker, record.round_id)
+                    return False
         with self._lock:
             self.stats.pushes += 1
             self.stats.bytes_up += record.wire_bytes
@@ -463,59 +557,335 @@ class ParameterServer:
             self.stats.staleness_sum += staleness
             if self.policy.stale(staleness):
                 self.stats.dropped_stale += 1
+                self.policy.retract_push(record.worker, record.round_id)
                 return False
             self.stats.staleness_hist[staleness] = (
                 self.stats.staleness_hist.get(staleness, 0) + 1)
             self.stats.record_loss(self.version, record.loss)
             self._pending.append(buf)
+            self._pending_workers.append(record.worker)
+            self._pending_ids.append(record.push_id)
             if not self.policy.ready_to_apply(len(self._pending)):
                 return True
             batch, self._pending = self._pending, []
-        return self._apply_batch(batch)
+            workers, self._pending_workers = self._pending_workers, []
+            ids, self._pending_ids = self._pending_ids, []
+        return self._apply_batch(batch, workers, ids)
 
-    def _apply_batch(self, batch) -> bool:
+    def _run_apply(self, batch):
+        """The apply of one released batch on the server's stream, under
+        ``_update_lock`` (held by the caller): ``(new_params, new_opt,
+        delta_buf, new_shadow, apply_s, delta_s)``. The live path and the
+        WAL replay both run it, so a replayed version is bit-equal."""
+        if len(batch) != self._schema_k:
+            raise RuntimeError(
+                f"a batch of {len(batch)} payloads; the registered apply "
+                f"takes K={self._schema_k}")
+        bufs = torch.from_numpy(np.stack(batch)).to(self.device)
+        # The bf16 state stores' key, one per applied update (the
+        # version advances only under _update_lock).
+        okey = prng.fold_in(self._opt_key, self.version)
+        self._sync()
+        t_apply = clock.monotonic()
+        new_params, new_opt = self._apply_fn(self.params, self.opt_state,
+                                             bufs, okey)
+        self._sync()
+        apply_s = clock.monotonic() - t_apply
+        delta_buf, new_shadow, delta_s = None, self._shadow, 0.0
+        if self._delta_fn is not None:
+            # The new version's delta on this stream, one D2H.
+            t_delta = clock.monotonic()
+            packed, new_shadow = self._delta_fn(
+                new_params, self._shadow,
+                prng.fold_in(self._relay_key, self.version + 1))
+            delta_buf = packed.cpu().numpy()
+            delta_s = clock.monotonic() - t_delta
+        return new_params, new_opt, delta_buf, new_shadow, apply_s, delta_s
+
+    def _commit(self, new_params, new_opt, delta_buf, new_shadow,
+                push_ids) -> int:
+        """Swap in an applied version (under ``_lock``, held by the
+        caller); returns it."""
+        self.params, self.opt_state = new_params, new_opt
+        self._shadow = new_shadow
+        self.version += 1
+        self.stats.updates += 1
+        self._note_applied_ids(push_ids, self.version)
+        if delta_buf is not None:
+            self._deltas[self.version] = delta_buf
+            for old in [v for v in self._deltas
+                        if v <= self.version - self.down_window]:
+                del self._deltas[old]
+        return self.version
+
+    def _apply_batch(self, batch, workers=(), push_ids=()) -> bool:
         """The released batch's apply and commit, outside the state lock
-        (``_update_lock`` keeps applies ordered)."""
+        (``_update_lock`` keeps applies ordered); then its WAL record, the
+        policy's commit hook and the serverkill fault, in that order."""
         with self._update_lock, self._on_stream(), torch.no_grad(), \
                 otrace.span("ps/apply", k=len(batch), version=self.version):
-            bufs = torch.from_numpy(np.stack(batch)).to(self.device)
-            # The bf16 state stores' key, one per applied update (the
-            # version advances only under _update_lock, held here).
-            okey = prng.fold_in(self._opt_key, self.version)
-            self._sync()
-            t_apply = clock.monotonic()
-            new_params, new_opt = self._apply_fn(self.params, self.opt_state,
-                                                 bufs, okey)
-            self._sync()
-            apply_s = clock.monotonic() - t_apply
+            (new_params, new_opt, delta_buf, new_shadow, apply_s,
+             delta_s) = self._run_apply(batch)
             decodes = (0 if self.compressor is None
                        else 1 if self.server_agg == "homomorphic"
                        else len(batch))
-            delta_buf, new_shadow = None, self._shadow
-            if self._delta_fn is not None:
-                # The new version's delta on this stream, one D2H; the
-                # version advances only under _update_lock, held here.
-                t_delta = clock.monotonic()
-                packed, new_shadow = self._delta_fn(
-                    new_params, self._shadow,
-                    prng.fold_in(self._relay_key, self.version + 1))
-                delta_buf = packed.cpu().numpy()
-                delta_s = clock.monotonic() - t_delta
             with self._lock:
                 self.stats.apply_rounds += 1
                 self.stats.apply_s_sum += apply_s
                 self.stats.decode_count += decodes
-                self.params, self.opt_state = new_params, new_opt
-                self._shadow = new_shadow
-                self.version += 1
-                self.stats.updates += 1
                 if delta_buf is not None:
                     self.stats.delta_s_sum += delta_s
-                    self._deltas[self.version] = delta_buf
-                    for old in [v for v in self._deltas
-                                if v <= self.version - self.down_window]:
-                        del self._deltas[old]
+                version_now = self._commit(new_params, new_opt, delta_buf,
+                                           new_shadow, push_ids)
+            self._journal_applied(version_now, batch, workers, push_ids)
+            self.policy.note_applied(version_now, list(workers))
+            self._maybe_trip_server_kill(version_now)
         return True
+
+    # -- the durable state plane and elastic membership --------------------
+
+    #: Applied push ids kept for dedupe, oldest evicted first: far beyond
+    #: any wire retry's horizon.
+    APPLIED_IDS_MAX = 8192
+
+    def _note_applied_ids(self, push_ids, version_now: int) -> None:
+        for pid in push_ids:
+            if pid:
+                self._applied_ids[pid] = version_now
+        while len(self._applied_ids) > self.APPLIED_IDS_MAX:
+            self._applied_ids.pop(next(iter(self._applied_ids)))
+
+    def _journal_applied(self, version_now: int, batch, workers,
+                         push_ids) -> None:
+        """The apply's WAL record, durable on return, and a snapshot at
+        every ``snapshot_every``-th version (under ``_update_lock``)."""
+        if self._state_store is None:
+            return
+        from ewdml_tpu_torch.parallel.server_state import encode_bufs
+
+        self._state_store.append_wal({
+            "version": int(version_now),
+            "workers": [int(w) for w in workers],
+            "push_ids": [str(i) for i in push_ids],
+            "plan_version": 0,
+            "bufs": encode_bufs(batch),
+        })
+        with self._lock:
+            self.stats.wal_records += 1
+        if self._snapshot_every and version_now % self._snapshot_every == 0:
+            self._write_snapshot()
+
+    def _tree(self, leaves: list) -> dict:
+        if self.leaf_names is None:
+            raise ValueError("the durable state plane needs the server's "
+                             "leaf_names (the parameters' Flax paths)")
+        return _nested(zip(self.leaf_names, leaves))
+
+    def _opt_tree(self, opt_state) -> dict:
+        """The JAX optimizer state's Flax state dict: ``AdamState``'s
+        ``count``, ``mu``, ``nu``; ``SGDState``'s ``momentum_buf`` and
+        ``initialized``."""
+        if isinstance(opt_state, AdamState):
+            return {"count": opt_state.count,
+                    "mu": self._tree(opt_state.mu),
+                    "nu": self._tree(opt_state.nu)}
+        return {"momentum_buf": self._tree(opt_state.momentum_buf),
+                "initialized": torch.tensor(bool(opt_state.initialized))}
+
+    def _from_blob(self, blob: bytes) -> tuple:
+        """``(params, opt_state, shadow)`` of a snapshot blob, on the
+        server's device."""
+        tree = msgpack.unpackb(blob)
+
+        def leaves(t: dict) -> list:
+            flat = _flat(t)
+            return [flat[n].to(self.device) for n in self.leaf_names]
+
+        opt = tree["opt_state"]
+        if isinstance(self.opt_state, AdamState):
+            opt_state = AdamState(opt["count"].to(self.device),
+                                  leaves(opt["mu"]), leaves(opt["nu"]))
+        else:
+            opt_state = type(self.opt_state)(leaves(opt["momentum_buf"]),
+                                             bool(opt["initialized"]))
+        return leaves(tree["params"]), opt_state, leaves(tree["shadow"])
+
+    def _write_snapshot(self) -> None:
+        """A point-in-time snapshot between applies (under
+        ``_update_lock``)."""
+        with self._lock:
+            version = self.version
+            applied_ids = dict(self._applied_ids)
+            joins = int(self.stats.joins)
+            params, opt_state = self.params, self.opt_state
+        # flax to_bytes({"params", "opt_state", "shadow"}), as the JAX
+        # server writes it.
+        blob = msgpack.packb({"params": self._tree(params),
+                              "opt_state": self._opt_tree(opt_state),
+                              "shadow": self._tree(self._shadow)})
+        pol = self.policy.snapshot()
+        meta = {
+            "version": int(version),
+            "plan_version": 0,
+            "applied_ids": applied_ids,
+            "policy": {"excluded": pol.excluded,
+                       "kills_sent": pol.kills_sent,
+                       "contacts": pol.contacts,
+                       "members": pol.members},
+            "joins": joins,
+            "num_aggregate": int(self.num_aggregate),
+            "scale_crc": (self.compressor.contract_checksum()
+                          if self.server_agg == "homomorphic" else None),
+        }
+        self._state_store.write_snapshot(meta, blob)
+        with self._lock:
+            self.stats.snapshots += 1
+
+    def arm_durability(self, store, snapshot_every: int = 20) -> None:
+        """Arm the durable state plane: a WAL record per apply, a snapshot
+        every ``snapshot_every``-th version, and one now (it bounds a later
+        replay and rotates a replayed WAL). Call after :meth:`recover`."""
+        with self._update_lock:
+            self._state_store = store
+            self._snapshot_every = max(0, int(snapshot_every))
+            self._write_snapshot()
+
+    def _maybe_trip_server_kill(self, version_now: int) -> None:
+        """``serverkill@N``: SIGKILL this process after apply N commits and
+        journals (under ``_update_lock``)."""
+        if (self._kill_at_apply is not None
+                and version_now == self._kill_at_apply):
+            logger.warning(
+                "ps: serverkill@%d fault tripped at version %d -- SIGKILL "
+                "(durable state plane %s)", self._kill_at_apply, version_now,
+                "armed" if self._state_store is not None else "NOT armed")
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def recover(self, store) -> Optional[dict]:
+        """Rebuild the server from ``store``: the snapshot's state, ids,
+        policy and K, then every later WAL record replayed through the same
+        apply as a live push (the keys fold per version), so the recovered
+        parameters, optimizer state and shadow are bit-equal. Refuses a
+        snapshot whose homomorphic scale CRC differs from this server's.
+        Call after ``register_payload_schema`` and before
+        :meth:`arm_durability`. Returns a summary, or None on a cold
+        start."""
+        snap = store.load_snapshot()
+        wal = store.read_wal()
+        if snap is None and not wal:
+            return None
+        meta = None
+        if snap is not None:
+            meta, blob = snap
+            if (self.server_agg == "homomorphic"
+                    and meta.get("scale_crc") is not None):
+                crc = self.compressor.contract_checksum()
+                if int(meta["scale_crc"]) != crc:
+                    raise RuntimeError(
+                        f"recovered scale-contract desync: snapshot CRC "
+                        f"{meta['scale_crc']} != live contract {crc} — the "
+                        f"homomorphic sum would be garbage; refusing to "
+                        f"serve")
+            params, opt_state, shadow = self._from_blob(blob)
+            with self._lock:
+                self.params, self.opt_state = params, opt_state
+                self._shadow = shadow
+                self.version = int(meta["version"])
+                self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}
+                self._applied_ids = {
+                    str(k): int(v)
+                    for k, v in (meta.get("applied_ids") or {}).items()}
+                self.stats.joins = int(meta.get("joins", 0))
+            pol = meta.get("policy") or {}
+            self.policy.restore(excluded=pol.get("excluded") or {},
+                                kills_sent=int(pol.get("kills_sent", 0)),
+                                contacts=int(pol.get("contacts", 0)),
+                                members=pol.get("members") or ())
+        replayed = 0
+        with self._update_lock, self._on_stream(), torch.no_grad():
+            if (self._elastic_k and meta is not None
+                    and self._payload_template is not None):
+                k = max(1, int(meta.get("num_aggregate",
+                                        self.num_aggregate)))
+                if k != self._schema_k:
+                    self.policy.num_aggregate = k
+                    self.register_payload_schema(self._payload_template)
+            for rec in wal:
+                if rec.get("kind") == "join":
+                    self._join_locked(int(rec["worker"]), replay=True)
+                    continue
+                v = int(rec["version"])
+                if v <= self.version:
+                    continue  # subsumed by the snapshot (un-rotated tail)
+                if v != self.version + 1:
+                    raise RuntimeError(
+                        f"WAL gap: at version {self.version}, next journaled "
+                        f"record is {v} — corrupt beyond the torn tail; "
+                        f"refusing to skip applies")
+                self._replay_record(rec)
+                replayed += 1
+        with self._lock:
+            version = int(self.version)
+        summary = {"version": version,
+                   "snapshot_version": int(meta["version"]) if meta else -1,
+                   "replayed": replayed}
+        logger.info("ps: recovered at version %d (snapshot %d + %d WAL "
+                    "records replayed)", version,
+                    summary["snapshot_version"], replayed)
+        return summary
+
+    def _replay_record(self, rec) -> None:
+        """One WAL record through the live apply and commit, without the
+        journal and the hooks (under ``_update_lock``)."""
+        from ewdml_tpu_torch.parallel.server_state import decode_bufs
+
+        (new_params, new_opt, delta_buf, new_shadow, _,
+         _) = self._run_apply(decode_bufs(rec["bufs"]))
+        with self._lock:
+            self._commit(new_params, new_opt, delta_buf, new_shadow,
+                         rec.get("push_ids", []))
+            self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}
+
+    def join_worker(self, worker: int) -> dict:
+        """Admit ``worker`` mid-run (the ``join`` op): the policy seeds its
+        liveness and, under elastic K, K becomes the live count (pending
+        old-K buffers are dropped and the apply is rebuilt before the
+        reply). Journals a ``join`` WAL record when durability is armed.
+        Returns the ``join_ok`` payload."""
+        with self._update_lock:
+            return self._join_locked(int(worker))
+
+    def _join_locked(self, worker: int, replay: bool = False) -> dict:
+        already = self.policy.is_member(worker)
+        self.policy.note_join(worker)
+        live = self.policy.live_workers()
+        if (self._elastic_k and self._payload_template is not None
+                and max(1, live) != self._schema_k):
+            with self._lock:
+                dropped = len(self._pending)
+                self.stats.dropped_stale += dropped
+                self._pending = []
+                self._pending_workers = []
+                self._pending_ids = []
+            self.policy.num_aggregate = max(1, live)
+            self.register_payload_schema(self._payload_template)
+            logger.info("ps: elastic K-of-N recomputed to K=%d (%d live) on "
+                        "join of worker %d; %d pending old-K buffers "
+                        "dropped", self.num_aggregate, live, worker, dropped)
+        with self._lock:
+            # A replayed join of a restored member is a WAL tail the
+            # snapshot subsumed: the counter must not double.
+            if not (replay and already):
+                self.stats.joins += 1
+            version = self.version
+        if not replay and self._state_store is not None:
+            self._state_store.append_wal({"kind": "join",
+                                          "worker": int(worker),
+                                          "version": int(version)})
+            with self._lock:
+                self.stats.wal_records += 1
+        return {"version": int(version), "live": int(live),
+                "num_aggregate": int(self.num_aggregate)}
 
 
 def make_grad_fn(specs):

@@ -277,3 +277,42 @@ def log_step(rank: int, step: int, loss: float, step_time: float,
         "Bytes sent: %.3f MB, Bytes received: %.3f MB, Prec@1: %.4f",
         rank, step, loss, step_time, cum_mb_sent, cum_mb_recv, top1,
     )
+
+
+@dataclass
+class RetryCounters:
+    """A TCP worker's wire robustness counters (``metrics.py:614-634``):
+    operations re-sent after a fault and sockets re-established, carried
+    per ``parallel/ps_net.RetryingConnection``. Each increment also lands in
+    ``registry`` (``net.retries``, ``net.reconnects``) when one is given:
+    the endpoint's own, never a process-global one."""
+
+    retries: int = 0
+    reconnects: int = 0
+    registry: object = None
+
+    def inc_retries(self) -> None:
+        self.retries += 1
+        if self.registry is not None:
+            self.registry.counter("net.retries").inc()
+
+    def inc_reconnects(self) -> None:
+        self.reconnects += 1
+        if self.registry is not None:
+            self.registry.counter("net.reconnects").inc()
+
+
+def log_robustness(rank: int, retries: int = 0, reconnects: int = 0,
+                   excluded=(), kills_sent: int = 0, registry=None):
+    """The fault-tolerance log line (``metrics.py:637-650``): a worker
+    reports its wire recovery counters, the server (rank -1) its
+    exclusions and kill signals, which also set ``registry``'s
+    ``ps.kills_sent`` and ``ps.excluded`` gauges when one is given."""
+    if registry is not None:
+        registry.gauge("ps.kills_sent").set(kills_sent)
+        registry.gauge("ps.excluded").set(len(excluded))
+    logger.info(
+        "Worker: %d, Retries: %d, Reconnects: %d, Excluded: %s, "
+        "Kills sent: %d",
+        rank, retries, reconnects, sorted(excluded), kills_sent,
+    )

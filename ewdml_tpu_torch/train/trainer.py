@@ -127,11 +127,15 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (cfg.pull_delta, "--pull-delta (the publication stream)"),
         (bool(cfg.replicas), "--replicas"),
         (bool(cfg.agg_tree), "--agg-tree (aggregation-tree pseudo-pushes)"),
+        # The in-process server has no process to restart; the TCP server
+        # (parallel/ps_net.py) takes the flag.
         (bool(cfg.server_state_dir),
-         "--server-state-dir (durability and recovery)"),
+         "--server-state-dir on the in-process async path (the TCP "
+         "server, python -m ewdml_tpu_torch.parallel.ps_net, takes it)"),
         (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
         # The JAX CLI accepts it here and never arms the relay (ROADMAP
-        # Queue 3); run_async_ps(relay_compress=True) is the relay.
+        # Queue 3 item 16); the TCP server arms it from the flag, and
+        # run_async_ps(relay_compress=True) is the in-process relay.
         (cfg.lossy_weights_down, "--lossy-weights-down on the async path"),
         *_serving_rows(cfg),
     ]

@@ -170,6 +170,47 @@ def uniform(k: tuple, shape, device=None) -> torch.Tensor:
                                  uniform=True).reshape(tuple(shape))
 
 
+#: XLA's f32 ``ErfInv`` polynomial (its ``lib/math.cc``,
+#: Giles' single-precision approximation): coefficients for ``w < 5`` and
+#: for ``w >= 5``, highest degree first.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` on float32 as XLA expands it: ``w = -log1p(-x*x)``,
+    then the degree-8 polynomial in ``w - 2.5`` or ``sqrt(w) - 3``, times
+    ``x``; ``x * f32 max`` at ``|x| == 1``."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    f32 = torch.float32
+    p = torch.where(lt, torch.tensor(_ERFINV_LT5[0], dtype=f32),
+                    torch.tensor(_ERFINV_GE5[0], dtype=f32))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = torch.where(lt, torch.tensor(a, dtype=f32),
+                        torch.tensor(b, dtype=f32))
+        p = c + p * w
+    big = x * float(np.finfo(np.float32).max)
+    return torch.where(x.abs() == 1.0, big, p * x)
+
+
+def normal(k: tuple, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``: a uniform on
+    ``[nextafter(-1, 0), 1)`` (jax's bounds: ``max(lo, u * (hi - lo) +
+    lo)`` over the [0, 1) draw), then ``sqrt(2) * erfinv`` with XLA's f32
+    polynomial (:func:`_erfinv32`), not ``torch.erfinv``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    span = np.float32(1.0) - lo
+    u = uniform(k, shape, device)
+    u = torch.clamp_min(u * float(span) + float(lo), float(lo))
+    return float(np.float32(np.sqrt(2))) * _erfinv32(u)
+
+
 def _numel(shape) -> int:
     n = 1
     for d in shape:
