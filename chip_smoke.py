@@ -253,9 +253,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``joins`` 1, ``live_workers`` 3. Printed: the wall of each step of the
    run, beside the card's name and power limit.
 
+10. The read replicas and the aggregation tree (``parallel/replica.py``,
+    ``parallel/aggtree.py``) on VGG11-BN at the same shapes, QSGD
+    ``--server-agg homomorphic``. (a) In process: the same k leaf payloads
+    through a flat root (k int8 pushes: ``int_accumulate``, then
+    ``acc_decode`` at k) and a tree root (two int16 pseudo-pushes through
+    ``push_subtree``, summed as an aggregator sums them: a torch sum, then
+    ``acc_decode`` at k) at leaf weights 2+2, 1+2 and 3+3: parameters and
+    momentum bit-equal, one decode each, no ``int_accumulate`` on the tree
+    arm. (b) A server with ``--pull-delta --keyframe-every 4`` takes 10
+    K = 1 applies: a ``subscribe`` after each replays through
+    ``pd_apply_delta`` onto the server's publication shadow bit for bit,
+    and onto the parameters at each keyframe; a keyframe is 4 n bytes and
+    a delta n + 4 ceil(n/4096); one ``random_bits`` launch a delta
+    publish; a replica then serves 40 pulls from four clients (its pull
+    handler's p50 and p99 printed). (c) Across processes: an apply server
+    on the card (K = 4, ``--pull-delta``), two replica processes, two
+    aggregator processes and four worker processes on the card
+    (``--replicas``, ``--agg-tree``), 6 steps a worker; replica 0 is
+    SIGKILLed at version 2 and the workers fail over to replica 1. The
+    apply server serves no pull; the leaf weight admitted equals the
+    leaf pushes; one decode a round; the root's in-link is its
+    pseudo-pushes' int16 frames exactly; replica 1's pull at the final
+    version equals a replay of the server's stream. (d) The same without
+    replicas and with ``aggkill@0=2`` on aggregator 0: it dies by SIGKILL
+    after its second forward, its leaves rehome to aggregator 1, and the
+    run completes. Printed: versions, pseudo-pushes, weights, the
+    duplicate members, the walls.
+
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8 and 9 must be above 0. ``--phase8-only`` and ``--phase9-only`` build and
-run phase 8 or phase 9 alone (no result line).
+8, 9 and 10 must be above 0. ``--phase8-only``, ``--phase9-only`` and
+``--phase10-only`` build and run that phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -3552,6 +3580,511 @@ def tcp_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+TREE_WEIGHTS = [(2, 2), (1, 2), (3, 3)]   # 10a: two pseudo-pushes a round
+STREAM_APPLIES = 10          # 10b: K = 1 applies under --pull-delta
+STREAM_EVERY = 4             # 10b and 10c: --keyframe-every
+TIER_STEPS = 6               # 10c and 10d: per worker process
+TIER_WORKERS = 4
+REPLICA_KILL_AT = 2          # 10c: replica 0 is SIGKILLed at this version
+AGGKILL = "aggkill@0=2"      # 10d
+
+
+def tier_cfg(k: int, *extra):
+    from ewdml_tpu_torch.core.config import from_args
+
+    return from_args(tcp_argv(k, ["--compress-grad", "qsgd", "--server-agg",
+                                  "homomorphic"], *extra))
+
+
+def leaf_frames(torch, setup, count: int) -> list:
+    """``count`` push frames of shared-scale QSGD payloads (the workers'
+    encode, its draws on ``random_bits``) of gradients near the scale
+    template: the template times a seeded uniform in [0.5, 1.5)."""
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.utils import prng, transfer
+
+    g = torch.Generator(device=setup.device)
+    g.manual_seed(10)
+    pack = transfer.make_device_packer()
+    frames = []
+    with torch.no_grad():
+        for i in range(count):
+            grads = [t * (0.5 + torch.rand(t.shape, generator=g,
+                                           device=t.device))
+                     for t in setup.grads_scale]
+            tree = setup.compress_tree(grads, prng.key(1000 + i))
+            frames.append(native.encode_arrays([pack(tree).cpu().numpy()]))
+    return frames
+
+
+def agg_frame(frames: list) -> bytes:
+    """What an aggregator forwards for ``frames``
+    (``parallel/aggtree.AggregatorServer._forward_chunk``): the int32 sum
+    of the leaves' int8 levels, sent as int16."""
+    import numpy as np
+
+    from ewdml_tpu_torch import native
+
+    acc = None
+    for f in frames:
+        lv = native.decode_arrays(f)[0].view(np.int8)
+        acc = lv.astype(np.int32) if acc is None else acc + lv
+    return native.encode_arrays([acc.astype(np.int16).view(np.uint8)])
+
+
+def tier_server(cfg, setup, k: int, tree: bool, **kw):
+    """A ``ParameterServer`` as ``PSNetServer`` builds it for ``cfg``: flat
+    at K = ``k``, or an aggregation tree's root of two slots whose round
+    weighs ``k`` leaves."""
+    from ewdml_tpu_torch.ops.homomorphic import widen_payload_tree
+    from ewdml_tpu_torch.optim import make_optimizer
+    from ewdml_tpu_torch.parallel import ps
+
+    opt = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                         cfg.weight_decay, cfg.nesterov)
+    server = ps.ParameterServer(setup.params, opt, setup.comp,
+                                num_aggregate=k, server_agg="homomorphic",
+                                device=setup.device, seed=cfg.seed, **kw)
+    if tree:
+        server.register_payload_schema(widen_payload_tree(setup.template),
+                                       schema_k=2, agg_weight=k)
+    else:
+        server.register_payload_schema(setup.template)
+    return server
+
+
+def tree_root_runs(torch, kernels, counts) -> dict:
+    """10a: the same k leaf payloads through a flat root (k int8 pushes:
+    int_accumulate, then acc_decode at k) and a tree root (two int16
+    pseudo-pushes through push_subtree: a torch sum, then acc_decode at k),
+    at leaf weights (2, 2), (1, 2) and (3, 3): the parameters and momentum
+    bit-equal, one decode each."""
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.parallel.ps import PushRecord
+
+    cfg = tier_cfg(4, "--momentum", "0.9")
+    setup = ps_net.build_endpoint_setup(cfg)
+    frames = leaf_frames(torch, setup, max(a + b for a, b in TREE_WEIGHTS))
+    out = {}
+    for w0, w1 in TREE_WEIGHTS:
+        k = w0 + w1
+        arms = {}
+        for arm in ("flat", "tree"):
+            kernels.reset_launches()   # this arm of the main path
+            t0 = time.perf_counter()
+            server = tier_server(cfg, setup, k, arm == "tree")
+            if arm == "flat":
+                for i in range(k):
+                    if not server.push(PushRecord(worker=i, version=0,
+                                                  message=frames[i],
+                                                  loss=0.0)):
+                        raise AssertionError(f"tree {k}: push {i} refused")
+            else:
+                for j, members in enumerate((range(w0), range(w0, k))):
+                    members = tuple(members)
+                    rec = PushRecord(
+                        worker=-(1 + j), version=0, loss=0.0,
+                        message=agg_frame([frames[m] for m in members]),
+                        push_id=f"agg{j}:0:0", weight=len(members),
+                        members=members)
+                    if server.push_subtree(rec) != (True, ()):
+                        raise AssertionError(f"tree {k}: pseudo-push {j}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = dict(kernels.LAUNCHES)  # read just after it
+            for key, v in launched.items():
+                counts[key] += v
+            s = server.stats
+            if (server.version, s.decode_count, s.apply_rounds) != (1, 1, 1):
+                raise AssertionError(f"tree {k} {arm}: version "
+                                     f"{server.version}, {s.decode_count} "
+                                     f"decodes in {s.apply_rounds} rounds")
+            arms[arm] = (server, launched, wall, s.bytes_up,
+                         s.apply_ms_mean)
+        (flat, fl, fw, fup, fms), (tree, tl, tw, tup, tms) = (arms["flat"],
+                                                              arms["tree"])
+        same_server_state(torch, flat, tree, f"tree k={k}")
+        if tree.stats.agg_pushes != 2 or tree.stats.agg_weight != k:
+            raise AssertionError(f"tree {k}: {tree.stats.agg_pushes} "
+                                 f"pseudo-pushes of {tree.stats.agg_weight}")
+        # Both arms decode the same leaves (at registration's warm apply
+        # and at the round); only the flat arm launches int_accumulate.
+        if tl["int_accumulate"] != 0 or \
+                fl["int_accumulate"] != fl["acc_decode"] or \
+                tl["acc_decode"] != fl["acc_decode"] or \
+                fl["acc_decode"] <= 0:
+            raise AssertionError(f"tree {k}: launches flat {fl}, tree {tl}")
+        out[f"k={k}"] = dict(
+            weights=[w0, w1], flat_launches=fl, tree_launches=tl,
+            flat_bytes_up=fup, tree_bytes_up=tup, flat_apply_ms=fms,
+            tree_apply_ms=tms, flat_wall_s=fw, tree_wall_s=tw)
+        print(f"tree root k={k} ({w0}+{w1}): parameters and momentum "
+              f"bit-equal to the flat root, one decode each; flat "
+              f"int_accumulate {fl['int_accumulate']} acc_decode "
+              f"{fl['acc_decode']}, tree int_accumulate "
+              f"{tl['int_accumulate']} acc_decode {tl['acc_decode']} "
+              f"(warm apply included); bytes up flat {fup} tree {tup}; "
+              f"apply ms flat {fms:.3f} tree {tms:.3f}", flush=True)
+        del flat, tree, arms
+        torch.cuda.empty_cache()
+    return out
+
+
+def stream_run(torch, kernels, counts) -> dict:
+    """10b: a ``PSNetServer`` with ``--pull-delta --keyframe-every 4``,
+    armed by a first ``subscribe``, takes STREAM_APPLIES K = 1 applies; a
+    poll after each replays through ``pd_apply_delta`` onto the shadow bit
+    for bit, onto the parameters at each keyframe; a replay from
+    ``since=-1`` at the end equals the final shadow. Then a
+    ``PullReplicaServer`` follows it and four clients pull 40 times: the
+    replica's pull handler p50/p99."""
+    import threading
+
+    import numpy as np
+
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.parallel.ps import PushRecord, pd_apply_delta
+    from ewdml_tpu_torch.parallel.replica import PullReplicaServer
+    from ewdml_tpu_torch.utils import transfer
+
+    cfg = tier_cfg(1, "--pull-delta", "--keyframe-every", str(STREAM_EVERY),
+                   "--momentum", "0.9")
+    kernels.reset_launches()   # this run of the main path
+    server = ps_net.PSNetServer(cfg, port=0)
+    srv = server.server
+    setup = ps_net.build_endpoint_setup(cfg)
+    frames = leaf_frames(torch, setup, 3)
+    n = sum(p.numel() for p in srv.params)
+    kf_bytes, delta_bytes = 4 * n, n + 4 * -(-n // 4096)
+    mode, version, _, bufs = srv.subscribe_stream(-1)
+    if (mode, version, len(bufs), bufs[0].nbytes) != ("keyframe", 0, 1,
+                                                      kf_bytes):
+        raise AssertionError(f"stream: bootstrap {mode} {version} "
+                             f"{[b.nbytes for b in bufs]}")
+    flat = np.frombuffer(bufs[0], np.float32).copy()
+    pack = transfer.make_device_packer()
+    before = dict(kernels.LAUNCHES)
+    apply_s = []
+    for v in range(1, STREAM_APPLIES + 1):
+        t0 = time.perf_counter()
+        srv.push(PushRecord(worker=0, version=v - 1, loss=0.0,
+                            message=frames[v % 3]))
+        apply_s.append(time.perf_counter() - t0)
+        mode, version, kf, bufs = srv.subscribe_stream(v - 1)
+        keyframe = v % STREAM_EVERY == 0
+        if version != v or mode != ("keyframe" if keyframe else "delta"):
+            raise AssertionError(f"stream v{v}: {mode} at {version}")
+        if keyframe:
+            flat = np.frombuffer(bufs[0], np.float32).copy()
+            params = pack(srv.params).cpu().numpy()
+            if bufs[0].nbytes != kf_bytes or \
+                    flat.tobytes() != params.tobytes():
+                raise AssertionError(f"stream v{v}: the keyframe is not "
+                                     "the parameters")
+        else:
+            if sum(b.nbytes for b in bufs) != delta_bytes:
+                raise AssertionError(f"stream v{v}: a delta of "
+                                     f"{[b.nbytes for b in bufs]} B")
+            flat = pd_apply_delta(flat, bufs[0], bufs[1])
+        if flat.tobytes() != srv._pd_shadow.tobytes():
+            raise AssertionError(f"stream v{v}: the replay is not the "
+                                 "shadow")
+    torch.cuda.synchronize()
+    publishes = STREAM_APPLIES - STREAM_APPLIES // STREAM_EVERY
+    draws = kernels.LAUNCHES["random_bits"] - before["random_bits"]
+    mode, version, kf, bufs = srv.subscribe_stream(-1)
+    replay = np.frombuffer(bufs[0], np.float32).copy()
+    for i in range(1, len(bufs), 2):
+        replay = pd_apply_delta(replay, bufs[i], bufs[i + 1])
+    if (mode, version, kf) != ("keyframe", STREAM_APPLIES,
+                               STREAM_APPLIES // STREAM_EVERY
+                               * STREAM_EVERY) or \
+            replay.tobytes() != srv._pd_shadow.tobytes():
+        raise AssertionError(f"stream: since=-1 gave {mode} {version} {kf}"
+                             ", not the shadow")
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for key, v in launched.items():
+        counts[key] += v
+    if draws != publishes:
+        raise AssertionError(f"stream: {draws} random_bits launches for "
+                             f"{publishes} delta publishes")
+    # The replica's pull handler, beside phase 9's apply server.
+    serve = threading.Thread(target=server.serve_forever, daemon=True)
+    serve.start()
+    replica = PullReplicaServer(cfg, server.address)
+    rserve = threading.Thread(target=replica.serve_forever, daemon=True)
+    rserve.start()
+    errors = []
+
+    def puller():
+        try:
+            for _ in range(10):
+                h, secs = ps_net.client_call(replica.address, {
+                    "op": "pull", "worker_version": -1})
+                if h["version"] != STREAM_APPLIES or \
+                        bytes(secs[0]) != srv._pd_shadow.tobytes():
+                    raise AssertionError(f"replica pull {h}")
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    pullers = [threading.Thread(target=puller) for _ in range(4)]
+    for t in pullers:
+        t.start()
+    for t in pullers:
+        t.join()
+    hist = replica.registry.snapshot()["histograms"]
+    for addr in (replica.address, server.address):
+        ps_net.client_call(addr, {"op": "shutdown"})
+    rserve.join(60)
+    serve.join(60)
+    replica.close()
+    server.close()
+    if errors:
+        raise errors[0]
+    pull = {f: (round(hist[f"ps_net.pull.{f}"]["p50"] * 1e3, 3),
+                round(hist[f"ps_net.pull.{f}"]["p99"] * 1e3, 3))
+            for f in ("handler_s", "latency_s")}
+    out = dict(applies=STREAM_APPLIES, keyframe_bytes=kf_bytes,
+               delta_bytes=delta_bytes, delta_publishes=publishes,
+               random_bits_per_publish=draws / publishes,
+               push_apply_publish_ms=[round(s * 1e3, 3) for s in apply_s],
+               replica_pull_ms_p50_p99=pull, launches=launched)
+    print(f"stream: {STREAM_APPLIES} applies, keyframe every "
+          f"{STREAM_EVERY}: every version's replay equal to the shadow "
+          f"(the parameters at each keyframe); keyframe {kf_bytes} B, delta "
+          f"{delta_bytes} B, random_bits {draws / publishes:g} a publish; "
+          f"push+apply+publish ms {out['push_apply_publish_ms']}; replica "
+          f"pull (p50, p99) ms {pull}", flush=True)
+    return out
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def tier_deployment(root: str, name: str, replicas: bool,
+                    agg_faults: str = "") -> dict:
+    """10c/10d across processes: an apply server on the card (K = 4,
+    ``--pull-delta``), two aggregators, two replicas (``replicas``), and
+    TIER_WORKERS worker processes on the card routed through them, each
+    TIER_STEPS steps. 10c SIGKILLs replica 0 once the server reaches
+    version REPLICA_KILL_AT; 10d gives aggregator 0 ``agg_faults``."""
+    import numpy as np
+
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.parallel.ps import pd_apply_delta
+
+    port, *ports = free_ports(5)
+    rports, aports = ports[:2], ports[2:4]
+    tree = ",".join(f"127.0.0.1:{p}" for p in aports)
+    reps = ",".join(f"127.0.0.1:{p}" for p in rports)
+    common = tcp_argv(4, ["--compress-grad", "qsgd", "--server-agg",
+                          "homomorphic"], "--port", str(port),
+                      "--net-retries", "14", "--net-backoff", "0.5",
+                      "--pull-delta", "--keyframe-every", str(STREAM_EVERY),
+                      "--agg-tree", tree)
+    walls, procs, logs = {}, [], {}
+
+    def start(label, args):
+        logs[label] = os.path.join(root, f"{name}_{label}.log")
+        proc = ps_net_proc(args, logs[label])
+        procs.append(proc)
+        return proc
+
+    t0 = time.perf_counter()
+    try:
+        server = start("server", ["--role", "server", *common])
+        wait_for_line(server, logs["server"], "PS_NET_READY", 180)
+        walls["server_ready_s"] = time.perf_counter() - t0
+        reps_p = [start(f"replica{i}", [
+            "--role", "replica", *common, "--replica-port", str(p)])
+            for i, p in enumerate(rports)] if replicas else []
+        aggs = [start(f"agg{i}", [
+            "--role", "aggregator", *common, "--agg-port", str(p),
+            "--agg-index", str(i),
+            *(["--fault-spec", agg_faults] if agg_faults and i == 0
+              else [])]) for i, p in enumerate(aports)]
+        wflags = ["--replicas", reps] if replicas else []
+        workers = [start(f"worker{i}", [
+            "--role", "worker", *common, *wflags, "--worker-index", str(i),
+            "--steps", str(TIER_STEPS)]) for i in range(TIER_WORKERS)]
+        for i, p in enumerate(reps_p):
+            wait_for_line(p, logs[f"replica{i}"], "PS_REPLICA_READY", 120)
+        walls["tier_ready_s"] = time.perf_counter() - t0
+        killed_at = None
+        if replicas:
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                h, _ = ps_net.client_call(("127.0.0.1", port),
+                                          {"op": "stats"})
+                if h["version"] >= REPLICA_KILL_AT:
+                    break
+                time.sleep(0.1)
+            reps_p[0].kill()
+            reps_p[0].wait()
+            killed_at = h["version"]
+            walls["replica_killed_s"] = time.perf_counter() - t0
+        done = []
+        for i, w in enumerate(workers):
+            rc = w.wait(timeout=400)
+            line = wait_for_line(w, logs[f"worker{i}"],
+                                 "PS_NET_WORKER_DONE", 1)
+            if rc != 0:
+                raise AssertionError(f"{name}: worker {i} exited {rc}")
+            done.append(json.loads(line.split(" ", 1)[1]))
+        walls["workers_done_s"] = time.perf_counter() - t0
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        agg_rc = aggs[0].poll()
+        agg_stats = [ps_net.client_call(("127.0.0.1", p), {
+            "op": "agg_stats"}, retries=0)[0] if a.poll() is None else None
+            for a, p in zip(aggs, aports)]
+        final = stats["version"]
+        served = None
+        if replicas:
+            raddr = ("127.0.0.1", rports[1])
+            deadline = time.perf_counter() + 60
+            while True:
+                h, secs = ps_net.client_call(raddr, {"op": "pull",
+                                                     "worker_version": -1})
+                if h["version"] == final or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.05)
+            # A replay of the server's stream from scratch.
+            h2, bufs = ps_net.client_call(("127.0.0.1", port), {
+                "op": "subscribe", "since": -1})
+            replay = np.frombuffer(bufs[0], np.float32).copy()
+            for i in range(1, len(bufs), 2):
+                replay = pd_apply_delta(replay, np.frombuffer(bufs[i],
+                                                              np.int8),
+                                        np.frombuffer(bufs[i + 1],
+                                                      np.float32))
+            if h["version"] != final or h2["version"] != final or \
+                    bytes(secs[0]) != replay.tobytes():
+                raise AssertionError(f"{name}: replica 1 at {h['version']}"
+                                     f", stream at {h2['version']}, final "
+                                     f"{final}: its bytes are not the "
+                                     "stream's replay")
+            rstats, _ = ps_net.client_call(raddr, {"op": "stats"})
+            served = dict(replica1_pulls=rstats["replica_pulls"],
+                          replica1_keyframes=rstats["replica_keyframes"],
+                          replica1_deltas=rstats["replica_deltas"])
+            ps_net.client_call(raddr, {"op": "shutdown"})
+        for a, p in zip(aggs, aports):
+            if a.poll() is None:
+                ps_net.client_call(("127.0.0.1", p), {"op": "shutdown"})
+        ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        for label, proc in (("server", server), *(
+                (f"agg{i}", a) for i, a in enumerate(aggs)), *(
+                (f"replica{i}", r) for i, r in enumerate(reps_p))):
+            rc = proc.wait(timeout=60)
+            if rc != 0 and not (label == "replica0" and replicas) and \
+                    not (label == "agg0" and agg_faults):
+                raise AssertionError(f"{name}: {label} exited {rc}")
+        walls["shutdown_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    n = VGG11_PARAMS
+    wide = native.encoded_arrays_size([np.empty(2 * n, np.uint8)])
+    leaf = native.encoded_arrays_size([np.empty(n, np.uint8)])
+    pushes = TIER_WORKERS * TIER_STEPS
+    segs = stats["segments"]
+    if replicas and "pull" in segs:
+        raise AssertionError(f"{name}: the apply server served "
+                             f"{segs['pull']} pulls")
+    if stats["decode_count"] != stats["apply_rounds"] or \
+            stats["updates"] != final or \
+            stats["bytes_up"] != stats["agg_pushes"] * wide:
+        raise AssertionError(f"{name}: stats " + json.dumps(
+            {k: stats[k] for k in ("version", "updates", "decode_count",
+                                   "apply_rounds", "agg_pushes",
+                                   "agg_weight", "bytes_up")}))
+    out = dict(walls, version=final, updates=stats["updates"],
+               agg_pushes=stats["agg_pushes"],
+               agg_weight=stats["agg_weight"],
+               agg_dup_members=stats["agg_dup_members"],
+               decode_count=stats["decode_count"],
+               apply_ms_mean=stats["apply_ms_mean"],
+               bytes_up=stats["bytes_up"], wide_frame=wide,
+               flat_reckoning=pushes * leaf, leaf_pushes=pushes,
+               agg_push_segments=segs.get("agg_push"),
+               subscribe_segments=segs.get("subscribe"),
+               agg_stats=agg_stats, agg0_rc=agg_rc,
+               replica_killed_at=killed_at if replicas else None,
+               served=served,
+               worker_retries=[d["retries"] for d in done],
+               worker_rejected=[d["rejected"] for d in done],
+               losses=[d["loss"] for d in done])
+    print(f"tier {name}: version {final}, {stats['agg_pushes']} "
+          f"pseudo-pushes of total weight {stats['agg_weight']} for "
+          f"{pushes} leaf pushes, {stats['decode_count']} decodes in "
+          f"{stats['apply_rounds']} rounds, apply_ms_mean "
+          f"{stats['apply_ms_mean']}, dup members "
+          f"{stats['agg_dup_members']}; root in-link {stats['bytes_up']} B "
+          f"({stats['agg_pushes']} x {wide}) against {pushes} x {leaf} "
+          f"flat; "
+          + (f"apply-server pulls 0, replica 0 killed at version "
+             f"{killed_at}, replica 1 served {served} and equals the "
+             f"stream's replay; " if replicas else "")
+          + f"aggregators {agg_stats} (agg0 rc {agg_rc}); walls "
+          f"{json.dumps({k: round(v, 1) for k, v in walls.items()})}",
+          flush=True)
+    return out
+
+
+def tier_phase(torch, kernels) -> tuple:
+    """Phase 10 (see the module docstring)."""
+    torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-9
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out, walls = {}, {}
+    t = time.perf_counter()
+    out["tree_root"] = tree_root_runs(torch, kernels, counts)
+    walls["10a_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["stream"] = stream_run(torch, kernels, counts)
+    walls["10b_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="ewdml_tier_")
+    try:
+        t = time.perf_counter()
+        out["deployment"] = tier_deployment(root, "10c", replicas=True)
+        walls["10c_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["aggkill"] = tier_deployment(root, "10d", replicas=False,
+                                         agg_faults=AGGKILL)
+        walls["10d_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    d, k = out["deployment"], out["aggkill"]
+    if d["agg_weight"] != d["leaf_pushes"]:
+        raise AssertionError(f"10c: weight {d['agg_weight']} for "
+                             f"{d['leaf_pushes']} leaf pushes")
+    if k["agg0_rc"] != -9:
+        raise AssertionError(f"10d: aggregator 0 exited {k['agg0_rc']}, "
+                             "not by its aggkill clause")
+    out["walls"] = walls
+    print("phase 10 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for key in ("int_accumulate", "acc_decode", "random_bits"):
+        if counts[key] <= 0:
+            raise AssertionError(f"phase 10: {key} never launched")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3566,6 +4099,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase9-only", action="store_true",
                         help="build, then run phase 9 alone (no result "
+                             "line)")
+    parser.add_argument("--phase10-only", action="store_true",
+                        help="build, then run phase 10 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -3618,6 +4154,14 @@ def main(argv=None) -> int:
         _, tcp = tcp_phase(torch, kernels)
         print(f"phase 9: {time.perf_counter() - t9:.1f}s", flush=True)
         print("tcp: " + json.dumps(tcp), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase10_only:
+        t10 = time.perf_counter()
+        net_counts, tier = tier_phase(torch, kernels)
+        print(f"phase 10: {time.perf_counter() - t10:.1f}s", flush=True)
+        print("tier: " + json.dumps(tier), flush=True)
+        print("phase 10 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -3704,6 +4248,13 @@ def main(argv=None) -> int:
     print(f"phase 9: {time.perf_counter() - t9:.1f}s", flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 10: the read replicas and the aggregation tree.
+    t10 = time.perf_counter()
+    net_counts, tier = tier_phase(torch, kernels)
+    print(f"phase 10: {time.perf_counter() - t10:.1f}s", flush=True)
+    print("phase 10 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -3724,6 +4275,7 @@ def main(argv=None) -> int:
     print("repro: " + json.dumps(repro), flush=True)
     print("downlink: " + json.dumps(downlink), flush=True)
     print("tcp: " + json.dumps(tcp), flush=True)
+    print("tier: " + json.dumps(tier), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

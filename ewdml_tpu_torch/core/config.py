@@ -338,6 +338,114 @@ def validate_server_agg(cfg: TrainConfig) -> None:
                          "the --lossy-weights-down negative-result mode")
 
 
+def federated_max_cohort(cfg: TrainConfig) -> Optional[int]:
+    """The largest cohort the homomorphic accumulator admits
+    (``config.py:811-842``), or None when decode mode leaves it unbounded.
+    Flat: the int32 root budget ``2^31 / s``; under ``--agg-tree`` the
+    lesser of that and the mid-tier's int16 hops
+    (``ops/homomorphic.tree_max_cohort``)."""
+    if cfg.server_agg != "homomorphic":
+        return None
+    from ewdml_tpu_torch.ops.qsgd import max_world_for
+
+    if cfg.agg_tree:
+        from ewdml_tpu_torch.ops.homomorphic import tree_max_cohort
+
+        return tree_max_cohort(cfg.quantum_num,
+                               len(parse_agg_tree(cfg.agg_tree)))
+    return max_world_for(cfg.quantum_num)
+
+
+def validate_replicas(cfg: TrainConfig) -> None:
+    """The read replicas' matrix (``--replicas``, ``--pull-delta``,
+    ``--keyframe-every``; ``config.py:915-945``, copied): fail at config
+    altitude, not mid-run."""
+    if cfg.keyframe_every < 1:
+        raise ValueError(
+            f"--keyframe-every must be >= 1, got {cfg.keyframe_every}")
+    if not cfg.replicas:
+        return
+    if cfg.subscribe_every_s <= 0:
+        raise ValueError(
+            f"--subscribe-every must be > 0 with --replicas, "
+            f"got {cfg.subscribe_every_s}")
+    if cfg.adapt != "off":
+        raise ValueError(
+            "--replicas is incompatible with --adapt: adaptive plan "
+            "switches propagate on the apply server's pull replies "
+            "(plan_version/plan), and a replica-served pull would leave "
+            "workers encoding under a superseded plan forever")
+    if cfg.ps_down != "weights":
+        raise ValueError(
+            "--replicas requires --ps-down weights: a replica serves its "
+            "reconstructed dense copy (mode 'weights'), so there is no "
+            "worker-side base for the r6 compressed delta down-link to "
+            "replay onto")
+    if cfg.lossy_weights_down:
+        raise ValueError("--replicas is incompatible with the "
+                         "--lossy-weights-down negative-result mode")
+
+
+def parse_agg_tree(spec: str) -> list:
+    """An ``--agg-tree`` address list ("host:port,host:port") as
+    ``[(host, port), ...]``; a malformed entry raises ``ValueError``."""
+    out = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, sep, port_s = part.rpartition(":")
+        if not sep or not host:
+            raise ValueError(
+                f"bad --agg-tree entry {part!r} (want host:port)")
+        try:
+            port = int(port_s)
+        except ValueError:
+            raise ValueError(
+                f"bad --agg-tree port in {part!r} (want host:port)"
+            ) from None
+        out.append((host, port))
+    if not out and (spec or "").strip():
+        raise ValueError(f"--agg-tree {spec!r} parsed to no addresses")
+    return out
+
+
+def validate_agg_tree(cfg: TrainConfig) -> None:
+    """The aggregation tree's matrix (``config.py:975-1023``, copied). The
+    mid-tier sums packed payload bytes without decoding them, which is
+    sound only for dense shared-scale QSGD: one flat vector of same-grid
+    int8 levels per leaf."""
+    if not cfg.agg_tree:
+        return
+    addrs = parse_agg_tree(cfg.agg_tree)
+    if len(set(addrs)) != len(addrs):
+        raise ValueError(f"--agg-tree {cfg.agg_tree!r} lists a duplicate "
+                         f"aggregator address")
+    if cfg.server_agg != "homomorphic":
+        raise ValueError(
+            "--agg-tree requires --server-agg homomorphic: the mid-tier "
+            "sums int8 level buffers in the compressed domain, and "
+            "decode-mode f32 payloads have no integer sum to forward")
+    name = (cfg.compress_grad or "none").lower()
+    if name not in ("compress", "qsgd"):
+        raise ValueError(
+            "--agg-tree needs a DENSE QSGD wire (--compress-grad qsgd): "
+            "sparse top-k payloads pack int32 indices next to their "
+            "levels, so positionwise buffer addition at the mid-tier "
+            f"would be garbage (got {cfg.compress_grad!r})")
+    if cfg.adapt != "off":
+        raise ValueError(
+            "--agg-tree is incompatible with --adapt: a plan switch "
+            "re-registers the push schema atomically on the apply server, "
+            "and the mid-tier accumulators hold no plan machinery — a "
+            "partial sum spanning a plan switch would mix two grids")
+    if cfg.federated:
+        from ewdml_tpu_torch.ops.homomorphic import check_tier_budget
+
+        # The widest subtree a round can route: ceil(cohort / n_aggs).
+        check_tier_budget(cfg.quantum_num, -(-cfg.cohort // len(addrs)))
+
+
 def apply_method_preset(cfg: TrainConfig, method: int) -> None:
     """Experiment matrix Methods 1-6 (Final Report pp.4-6)."""
     if method == 1:       # vanilla sync PS: dense grads up, weights down

@@ -1,5 +1,5 @@
 """Compressed-domain server aggregation: the shared-scale contract
-(``ewdml_tpu/ops/homomorphic.py:1-220``, the flat half).
+(``ewdml_tpu/ops/homomorphic.py``).
 
 With one scale contract shared by every worker, quantized gradients sum
 exactly in the integer domain (THC, PAPERS.md): the server adds K workers'
@@ -15,8 +15,13 @@ of decoding every payload to f32 first.
   accumulate over the K payloads and one dequantize
   (``ops/kernels.int_accumulate`` / ``acc_decode`` on the card).
 
-The aggregation-tree half of the JAX module (the int16 mid-tier wire) is a
-later slice.
+The aggregation tree's half (``--agg-tree``, ``parallel/aggtree.py``): a
+mid-tier aggregator sums its subtree's int8 levels exactly and forwards one
+int16 pseudo-push, so the hop's budget is ``weight x s <= INT16_WIRE_MAX``
+(:func:`max_subtree_weight`, :func:`check_tier_budget`) beside the root's
+int32 ``qsgd.check_sum_budget``; the root registers the int16 twin of the
+payload schema (:func:`widen_payload_tree`) and divides by the total leaf
+weight (``homomorphic_mean(..., k=)``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ewdml_tpu_torch.ops import chain, none, qsgd
+from ewdml_tpu_torch.ops import chain, kernels, none, qsgd
 
 #: Default headroom of the scale contract: gradients up to this multiple of
 #: the template's block norms encode without clipping.
@@ -136,19 +141,71 @@ def make_homomorphic(compressor, grads_template,
     return HomomorphicCompressor(compressor, grads_template, headroom)
 
 
-def homomorphic_mean(compressor: HomomorphicCompressor,
-                     payload_trees) -> list:
+def homomorphic_mean(compressor: HomomorphicCompressor, payload_trees,
+                     k: Optional[int] = None) -> list:
     """Mean gradients (a list in leaf order) of K same-contract payload
     lists with one dequantize per leaf and round; dense leaves average in
-    f32. (The JAX function's ``k`` divisor override serves the
-    aggregation tree, a later slice.)"""
+    f32. ``k`` overrides the divisor when the payloads are weighted partial
+    sums (an aggregation tree's pseudo-pushes: the mean divides by the
+    total leaf count, not by ``len(payload_trees)``)."""
     out = []
     for i in range(len(payload_trees[0])):
         sub = compressor.for_leaf(i)
         ps = [t[i] for t in payload_trees]
         if isinstance(sub, none.NoneCompressor):
             stack = torch.stack([p.values for p in ps]).to(torch.float32)
-            out.append(stack.mean(dim=0).reshape(ps[0].shape))
-        else:
+            if k is None:
+                out.append(stack.mean(dim=0).reshape(ps[0].shape))
+            else:
+                out.append((stack.sum(dim=0) / kernels.f32_scalar(float(k)))
+                           .reshape(ps[0].shape))
+        elif k is None:
             out.append(sub.homomorphic_mean(ps))
+        else:
+            out.append(sub.homomorphic_mean(ps, k=k))
     return out
+
+
+# -- the aggregation tree (``homomorphic.py:223-281``) --------------------------
+
+#: The mid-tier wire is int16: a subtree's exact partial sum of clipped
+#: int8 levels is bounded by weight x s.
+INT16_WIRE_MAX = 2**15 - 1
+
+
+def max_subtree_weight(s: int) -> int:
+    """The most leaves one mid-tier hop carries at level budget ``s``
+    without overflowing the int16 wire."""
+    return INT16_WIRE_MAX // max(1, int(s))
+
+
+def check_tier_budget(s: int, weight: int) -> None:
+    """Raise unless a ``weight``-leaf subtree sum of clipped levels fits the
+    int16 mid-tier wire."""
+    if weight > max_subtree_weight(s):
+        raise ValueError(
+            f"aggtree subtree of {weight} leaves at s={s} can reach "
+            f"{weight * s}, overflowing the int16 mid-tier wire; one hop "
+            f"admits at most {max_subtree_weight(s)} leaves")
+
+
+def tree_max_cohort(s: int, n_aggs: int) -> int:
+    """The cohort ceiling of an armed tree: the lesser of the root's int32
+    budget and ``n_aggs`` hops of :func:`max_subtree_weight` leaves."""
+    return min(qsgd.max_world_for(s), int(n_aggs) * max_subtree_weight(s))
+
+
+def widen_payload_tree(template: list) -> list:
+    """The int16 twin of a shared-scale payload list: the schema an
+    aggregation tree's root registers. Other payloads have no widened form
+    (``config.validate_agg_tree`` refuses their configs)."""
+    def widen(p):
+        if isinstance(p, qsgd.SharedScaleQSGDPayload):
+            return qsgd.SharedScaleQSGDPayload(
+                levels=p.levels.to(torch.int16), shape=p.shape, s=p.s,
+                block=p.block)
+        raise TypeError(
+            f"aggtree has no widened wire form for {type(p).__name__} "
+            "(dense shared-scale QSGD payloads only)")
+
+    return [widen(p) for p in template]

@@ -261,14 +261,24 @@ class SharedScaleQSGD:
     def decompress(self, payload: SharedScaleQSGDPayload) -> torch.Tensor:
         return decompress_shared(payload, self.scales)
 
-    def homomorphic_mean(self, payloads):
+    def homomorphic_mean(self, payloads, k: Optional[int] = None):
         """Integer-domain mean of K same-contract payloads: one widened
         accumulate and one dequantize (the kernel pair on CUDA above
-        ``MIN_ELEMS``, the plain versions elsewhere)."""
-        k = len(payloads)
-        check_sum_budget(self.quantum_num, k)
-        acc = kernels.accumulate(torch.stack([p.levels for p in payloads]))
-        return kernels.decode_sum(acc, self.scales.to(acc.device), k,
+        ``MIN_ELEMS``, the plain versions elsewhere). ``k`` overrides the
+        divisor when the payloads are weighted partial sums (an aggregation
+        tree's int16 pseudo-pushes, each worth ``weight`` leaves). A
+        non-int8 stack sums with ``torch.sum``, as the JAX package sums it
+        with ``jnp.sum`` outside its int8-only kernel (``qsgd.py:348-352``):
+        integer addition is exact, so the tree's accumulator equals the
+        flat one's."""
+        k_div = len(payloads) if k is None else int(k)
+        check_sum_budget(self.quantum_num, k_div)
+        stack = torch.stack([p.levels for p in payloads])
+        if stack.dtype == torch.int8:
+            acc = kernels.accumulate(stack)
+        else:
+            acc = torch.sum(stack, dim=0, dtype=torch.int32)
+        return kernels.decode_sum(acc, self.scales.to(acc.device), k_div,
                                   block=self.block).reshape(payloads[0].shape)
 
     def wire_bytes(self, shape) -> int:

@@ -8,8 +8,8 @@ deterministically per (worker, step). The in-process thread PS
 the TCP tier (``parallel/ps_net.py``) also the wire clauses: ``reset``,
 ``drop`` and ``partition`` at a worker's step, ``join`` (a late joiner's
 wait in seconds) and ``serverkill`` (SIGKILL the server after apply N).
-``aggkill`` parses as in the JAX package and belongs to the aggregation
-tree, a later slice.
+The aggregation tree's aggregators (``parallel/aggtree.py``) read
+``aggkill@A=N``: aggregator A SIGKILLs itself after its Nth forward.
 
 Spec grammar: comma-separated clauses, ``kind@worker=value`` (``delay``
 seconds, or a step for the others), ``serverkill@N`` (an apply count) or
@@ -170,6 +170,11 @@ class FaultSpec:
 
     def for_worker(self, worker: int) -> WorkerFaults:
         return self._by_worker.get(int(worker), WorkerFaults(worker=worker))
+
+    def agg_kill_after(self, agg_index: int) -> Optional[int]:
+        """The ``aggkill`` clause of aggregator ``agg_index``: the forward
+        after which it SIGKILLs itself (None: no clause)."""
+        return self._agg_kills.get(int(agg_index))
 
     def delays(self) -> dict:
         """``worker -> delay_s`` map (feeds ``run_async_ps``'s

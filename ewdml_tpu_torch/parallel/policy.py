@@ -194,6 +194,18 @@ class StragglerPolicy:
         """Undo an :meth:`admit_push` whose push was dropped (a no-op
         here: admission is unlimited)."""
 
+    def admit_subtree(self, members) -> tuple:
+        """Member-granularity admission of an aggregation tree's
+        pseudo-push: ``(reason, dup_members)``, where a reason rejects the
+        whole pseudo-push and ``dup_members`` names the members the round
+        already holds. The base policy admits every subtree ``(None, ())``
+        and so never reports a duplicate member."""
+        return None, ()
+
+    def retract_subtree(self, members) -> None:
+        """Undo an :meth:`admit_subtree` whose pseudo-push was dropped (a
+        no-op here)."""
+
     def snapshot(self) -> PolicySnapshot:
         with self._lock:
             return PolicySnapshot(excluded=dict(self._excluded),

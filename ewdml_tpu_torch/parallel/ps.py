@@ -62,10 +62,25 @@ workers). The snapshot blob is the JAX package's flax ``to_bytes`` of
 ``{"params", "opt_state", "shadow"}`` in Flax paths (``utils/msgpack.py``),
 so a directory written by either package recovers in the other.
 
+The read replicas' publication stream (``ewdml_tpu/parallel/ps.py:64-90,
+1594-1694``; the ``subscribe`` op, ``parallel/replica.py``): armed by the
+first subscriber, each committed apply then publishes its packed f32
+parameters as a keyframe, or under ``pull_delta`` as int8 levels on
+blockwise shared scales (:data:`PD_BLOCK`, :data:`PD_S`) of the difference
+to a publication shadow, keyed ``fold_in(key(seed ^ 0x9D17), version)``,
+with a keyframe every ``keyframe_every`` versions. Server and replica
+replay a delta through the same numpy expression (:func:`pd_apply_delta`).
+
+The aggregation tree's root (``ps.py:537-700,835-900``): an aggregator's
+pseudo-push (:meth:`ParameterServer.push_subtree`) carries the int16 sum
+of ``weight`` leaves' levels and their ``members``; readiness counts
+weight, not records, and the apply divides by the batch's total weight
+(one apply per distinct weight and stack height, cached). A short batch is
+padded with zero levels, a fragmented round stacks higher.
+
 Options of later slices raise ``NotImplementedError`` by name here or in
-``train/trainer.check_supported(async_path=True)``: the publication
-stream, aggregation-tree pseudo-pushes, round pipelines and cohort
-policies, and ``--adapt``.
+``train/trainer.check_supported(async_path=True)``: round pipelines and
+cohort policies, and ``--adapt``.
 """
 
 from __future__ import annotations
@@ -79,6 +94,7 @@ import os
 import signal
 import threading
 import time
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -112,6 +128,44 @@ def _unsupported(what: str):
         f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
 
 
+#: The publication stream's quantizer grid: int8 levels on per-block shared
+#: scales of the packed parameter difference. Fixed, and pinned by
+#: :func:`pd_contract_crc` on both endpoints.
+PD_BLOCK = 4096
+PD_S = 127
+
+
+def pd_apply_delta(flat: np.ndarray, levels: np.ndarray,
+                   scales: np.ndarray) -> np.ndarray:
+    """Replay one published delta onto the f32 publication state: the one
+    numpy expression the server's shadow and every replica's copy advance
+    through, so the two cannot drift. ``levels`` int8 [n], ``scales`` f32
+    [ceil(n / PD_BLOCK)]."""
+    step = np.repeat(scales, PD_BLOCK)[: flat.shape[0]]
+    return flat + step * levels.astype(np.float32)
+
+
+def pd_contract_crc(flat_bytes: int, block: int, s: int, every: int) -> int:
+    """The stream's structural pin (packed f32 bytes, quantizer grid,
+    keyframe cadence), which both endpoints derive from the ``subscribe_ok``
+    header."""
+    return zlib.crc32(
+        np.asarray([flat_bytes, block, s, every], np.int64).tobytes())
+
+
+def pd_quantize(diff: torch.Tensor, key) -> tuple:
+    """``(levels int8 [n], scales f32 [nb])`` of a packed parameter
+    difference on the :data:`PD_BLOCK` grid (``ps.py:1614-1619``): the
+    shared-scale encode, its draw ``jax.random.uniform``'s threefry stream
+    for ``key``."""
+    from ewdml_tpu_torch.ops import qsgd
+
+    scales = qsgd.shared_scales(diff, PD_S, block=PD_BLOCK)
+    levels = qsgd.shared_levels(
+        key, diff, qsgd.expand_scales(scales, PD_BLOCK, diff.numel()), PD_S)
+    return levels, scales
+
+
 @dataclasses.dataclass
 class PushRecord:
     """One gradient push. ``message`` is the wire frame holding the packed
@@ -127,10 +181,25 @@ class PushRecord:
     # The federated round a push was computed for (-1: unstamped; the
     # round pipeline that routes by it is a later slice).
     round_id: int = -1
+    # The leaf contributions this payload sums (1: an ordinary push; an
+    # aggregator's pseudo-push carries its subtree's), and their leaf ids.
+    weight: int = 1
+    members: tuple = ()
 
     @property
     def wire_bytes(self) -> int:
         return len(self.message)
+
+
+class SubtreeRejected(RuntimeError):
+    """A pseudo-push refused at member granularity: ``dup_members`` names
+    the members the round already holds, which the aggregator acknowledges,
+    subtracts and re-forwards without."""
+
+    def __init__(self, reason: str, dup_members: tuple = ()):
+        super().__init__(reason)
+        self.reason = reason
+        self.dup_members = tuple(int(m) for m in dup_members)
 
 
 @dataclasses.dataclass
@@ -228,7 +297,8 @@ class ParameterServer:
                  policy: Optional[StragglerPolicy] = None,
                  leaf_names: Optional[list] = None,
                  elastic_k: bool = False,
-                 kill_at_apply: Optional[int] = None):
+                 kill_at_apply: Optional[int] = None,
+                 pull_delta: bool = False, keyframe_every: int = 64):
         # The run-health watchdog (None: --health off).
         self.health = health
         if server_agg not in ("decode", "homomorphic"):
@@ -288,9 +358,12 @@ class ParameterServer:
         self._lock = reqctx.TimedLock()         # params/version/stats
         self._update_lock = reqctx.TimedLock()  # serializes applies
         self._pending: list = []
-        # Per pending buffer: its pusher and its push id.
+        # Per pending buffer: its pusher, its push id, its leaf weight and
+        # its members (an ordinary push: 1 and ()).
         self._pending_workers: list = []
         self._pending_ids: list = []
+        self._pending_weights: list = []
+        self._pending_members: list = []
         # Push ids applied (id -> version, insertion-ordered, bounded):
         # with the pending ids they make a re-sent push an ack, not a
         # second apply. Rebuilt from the snapshot and the WAL on recovery.
@@ -322,6 +395,7 @@ class ParameterServer:
                 for p in self.params)
         self._apply_fn = None
         self._schema_k = None
+        self._agg_mode = False
         self.down_mode = down_mode if compressor is not None else "weights"
         if self.bootstrap == "bf16" and self.down_mode != "delta":
             # In weights mode every pull is a first pull's wire, so the
@@ -344,6 +418,18 @@ class ParameterServer:
         self._shadow = self.params
         self._delta_fn = None
         self.payload_unpack = None
+        # The publication stream, armed by the first subscriber (zero cost
+        # before). Without pull_delta every version is a keyframe. The
+        # shadow (numpy f32) moves only under _update_lock.
+        self._pd_every = max(1, int(keyframe_every)) if pull_delta else 1
+        self._pd_on = False
+        self._pd_key = prng.key(seed ^ 0x9D17)
+        self._pd_shadow = None
+        self._pd_nbytes = 0
+        self._pd_crc = 0
+        self._pd_head = -1
+        self._pd_keyframe: tuple = (-1, None)
+        self._pd_deltas: dict = {}
 
     @property
     def num_aggregate(self) -> int:
@@ -357,45 +443,64 @@ class ParameterServer:
         if self._stream is not None:
             self._stream.synchronize()
 
-    def register_payload_schema(self, payload_template) -> None:
+    def register_payload_schema(self, payload_template, *,
+                                schema_k: Optional[int] = None,
+                                agg_weight: Optional[int] = None) -> None:
         """Fix the push schema (payload structure and leaf specs) and build
         the apply over K stacked buffers: unpack, then the homomorphic mean
         or decode-then-mean, then the optimizer update. The apply is run
         once on zeroed buffers (its result discarded) before any worker is
         timed, as the JAX server warms its compiled apply. Re-entrant: an
-        elastic K rebuilds the apply for the new K."""
+        elastic K rebuilds the apply for the new K.
+
+        An aggregation tree's root registers the widened int16 template
+        with ``schema_k`` = the aggregators (its stacked slots) and
+        ``agg_weight`` = the leaf weight a round expects, which arms the
+        weighted mode: the divisor is the batch's total weight
+        (:meth:`_apply_for`)."""
         self._payload_template = payload_template
         unpack = self.payload_unpack = transfer.make_device_unpacker(
             payload_template)
         comp = self.compressor
-        k = self._schema_k = self.policy.num_aggregate
+        k = self._schema_k = (self.policy.num_aggregate if schema_k is None
+                              else max(1, int(schema_k)))
+        self._agg_mode = agg_weight is not None
         optimizer = self.optimizer
         homomorphic = self.server_agg == "homomorphic"
         takes_key = update_accepts_key(optimizer)
 
-        def apply_bufs(params, opt_state, bufs, okey):  # uint8 [K, n]
-            trees = [unpack(bufs[i]) for i in range(k)]
-            if homomorphic:
-                from ewdml_tpu_torch.ops.homomorphic import homomorphic_mean
+        def make_apply(divisor: Optional[int], height: int):
+            # divisor None: the flat mean over the K stacked payloads; an
+            # int: the weighted divisor of a tree's batch of ``height``.
+            def apply_bufs(params, opt_state, bufs, okey):  # uint8 [K, n]
+                trees = [unpack(bufs[i]) for i in range(height)]
+                if homomorphic:
+                    from ewdml_tpu_torch.ops.homomorphic import \
+                        homomorphic_mean
 
-                grads = homomorphic_mean(comp, trees)
-            else:
-                if comp is not None:
-                    trees = [decompress_tree(comp, t) for t in trees]
-                # f32 accumulation whatever the wire dtype: bf16 push
-                # frames upcast before the mean.
-                kk = kernels.f32_scalar(float(k))
-                grads = [torch.stack(xs).to(torch.float32).sum(dim=0) / kk
-                         for xs in zip(*trees)]
-            new_params = [p.clone() for p in params]
-            new_opt = _clone_state(opt_state)
-            if takes_key:
-                optimizer.update(grads, new_opt, new_params, key=okey)
-            else:
-                optimizer.update(grads, new_opt, new_params)
-            return new_params, new_opt
+                    grads = homomorphic_mean(comp, trees, k=divisor)
+                else:
+                    if comp is not None:
+                        trees = [decompress_tree(comp, t) for t in trees]
+                    # f32 accumulation whatever the wire dtype: bf16 push
+                    # frames upcast before the mean.
+                    kk = kernels.f32_scalar(float(height))
+                    grads = [torch.stack(xs).to(torch.float32).sum(dim=0)
+                             / kk for xs in zip(*trees)]
+                new_params = [p.clone() for p in params]
+                new_opt = _clone_state(opt_state)
+                if takes_key:
+                    optimizer.update(grads, new_opt, new_params, key=okey)
+                else:
+                    optimizer.update(grads, new_opt, new_params)
+                return new_params, new_opt
 
-        self._apply_fn = apply_bufs
+            return apply_bufs
+
+        self._make_apply = make_apply
+        self._agg_apply_cache: dict = {}
+        self._apply_fn = (self._apply_for(int(agg_weight)) if self._agg_mode
+                          else make_apply(None, k))
         if self.down_mode == "delta":
             self._delta_fn = functools.partial(delta_step, comp,
                                                transfer.make_device_packer())
@@ -409,6 +514,21 @@ class ParameterServer:
                 self._delta_fn(self.params, self._shadow,
                                prng.fold_in(self._relay_key, 0))
         self._sync()
+
+    def _apply_for(self, wsum: int, height: Optional[int] = None):
+        """The apply whose divisor is ``wsum`` leaves over a stack of
+        ``height`` (default: the registered K). Flat mode has one apply;
+        the weighted mode keeps one per distinct (weight, height), as the
+        JAX server keeps a trace per pair."""
+        if not self._agg_mode:
+            return self._apply_fn
+        wsum = max(1, int(wsum))
+        kk = self._schema_k if height is None else max(1, int(height))
+        fn = self._agg_apply_cache.get((wsum, kk))
+        if fn is None:
+            fn = self._agg_apply_cache[(wsum, kk)] = self._make_apply(wsum,
+                                                                      kk)
+        return fn
 
     def _check_worker(self, worker, retried: bool = False) -> None:
         """Shared-policy liveness check on a worker contact; raises
@@ -518,6 +638,54 @@ class ParameterServer:
                 outcomes.append(err)
         return outcomes
 
+    def push_subtree(self, record: PushRecord,
+                     retried: bool = False) -> tuple:
+        """An aggregator's pseudo-push (``ps.py:835-856``): the :meth:`push`
+        sequence with member-granularity verdicts, ``(accepted,
+        dup_members)``; ``(False, dups)`` names the members the round
+        already holds. :class:`StragglerKilled` propagates."""
+        with otrace.span("ps/agg_push", worker=record.worker,
+                         weight=record.weight):
+            try:
+                ok = self._push(record, retried=retried)
+            except SubtreeRejected as rej:
+                with self._lock:
+                    self.stats.agg_dup_members += len(rej.dup_members)
+                return False, rej.dup_members
+            return ok, ()
+
+    def _retract(self, record: PushRecord) -> None:
+        """Release a dropped record's policy slot (its members' for a
+        pseudo-push)."""
+        if record.members:
+            self.policy.retract_subtree(record.members)
+        else:
+            self.policy.retract_push(record.worker, record.round_id)
+
+    def _take_pending(self) -> tuple:
+        """The pending batch, cleared (under ``_lock``, held by the
+        caller): ``(bufs, workers, ids, weights, members)``."""
+        taken = (self._pending, self._pending_workers, self._pending_ids,
+                 self._pending_weights, self._pending_members)
+        self._pending, self._pending_workers, self._pending_ids = [], [], []
+        self._pending_weights, self._pending_members = [], []
+        return taken
+
+    def flush_pending(self) -> bool:
+        """Apply the pending batch short of its quota (a final drain;
+        ``ps.py:880-900``). Needs the weighted mode: the flat apply takes
+        exactly K stacked payloads. False when nothing pends."""
+        with self._lock:
+            if not self._pending:
+                return False
+            if not self._agg_mode and len(self._pending) != self._schema_k:
+                raise RuntimeError(
+                    "flush_pending needs the weighted (agg-mode) apply "
+                    "for a partial batch; the flat apply is compiled for "
+                    f"K={self._schema_k} slots")
+            taken = self._take_pending()
+        return self._apply_batch(*taken)
+
     def _push(self, record: PushRecord, retried: bool = False) -> bool:
         if self._apply_fn is None:
             raise RuntimeError("register_payload_schema first")
@@ -532,13 +700,21 @@ class ParameterServer:
                     return True
         # Decode (CRC verify + copy) outside the lock.
         buf = native.decode_arrays(record.message)[0]
-        if self.policy.admit_push(record.worker,
-                                  round_id=record.round_id) is not None:
+        if record.members:
+            # A pseudo-push is admitted or refused whole: its levels are
+            # one pre-summed buffer.
+            reason, dups = self.policy.admit_subtree(record.members)
+            if reason is not None:
+                with self._lock:
+                    self.stats.fed_rejected += 1
+                raise SubtreeRejected(reason, dups)
+        elif self.policy.admit_push(record.worker,
+                                    round_id=record.round_id) is not None:
             return False
         health = self.health
         if health is not None:
             if health.aborted is not None:
-                self.policy.retract_push(record.worker, record.round_id)
+                self._retract(record)
                 return False  # unobserved: the run's verdict is the first
             if not self.policy.stale(self.version - record.version):
                 # Outside the lock (an event is an fsync'd write), and not
@@ -548,7 +724,7 @@ class ParameterServer:
                 # on_abort) sets the verdict checked just after.
                 health.observe_loss(self.version, record.loss)
                 if health.aborted is not None:
-                    self.policy.retract_push(record.worker, record.round_id)
+                    self._retract(record)
                     return False
         with self._lock:
             self.stats.pushes += 1
@@ -557,38 +733,48 @@ class ParameterServer:
             self.stats.staleness_sum += staleness
             if self.policy.stale(staleness):
                 self.stats.dropped_stale += 1
-                self.policy.retract_push(record.worker, record.round_id)
+                self._retract(record)
                 return False
             self.stats.staleness_hist[staleness] = (
                 self.stats.staleness_hist.get(staleness, 0) + 1)
             self.stats.record_loss(self.version, record.loss)
+            weight = max(1, int(record.weight))
             self._pending.append(buf)
             self._pending_workers.append(record.worker)
             self._pending_ids.append(record.push_id)
-            if not self.policy.ready_to_apply(len(self._pending)):
+            self._pending_weights.append(weight)
+            self._pending_members.append(tuple(record.members))
+            if record.members:
+                self.stats.agg_pushes += 1
+                self.stats.agg_weight += weight
+            # Readiness counts leaf weight, not records: a tree's round
+            # fragmented by partial flushes pends past its K slots and
+            # applies at its height, never early on a partial weight.
+            if not self.policy.ready_to_apply(sum(self._pending_weights)):
                 return True
-            batch, self._pending = self._pending, []
-            workers, self._pending_workers = self._pending_workers, []
-            ids, self._pending_ids = self._pending_ids, []
-        return self._apply_batch(batch, workers, ids)
+            taken = self._take_pending()
+        return self._apply_batch(*taken)
 
-    def _run_apply(self, batch):
+    def _run_apply(self, batch, wsum: Optional[int] = None):
         """The apply of one released batch on the server's stream, under
         ``_update_lock`` (held by the caller): ``(new_params, new_opt,
         delta_buf, new_shadow, apply_s, delta_s)``. The live path and the
-        WAL replay both run it, so a replayed version is bit-equal."""
-        if len(batch) != self._schema_k:
+        WAL replay both run it, so a replayed version is bit-equal.
+        ``wsum`` is the weighted mode's divisor (the batch's leaf
+        weight)."""
+        if not self._agg_mode and len(batch) != self._schema_k:
             raise RuntimeError(
                 f"a batch of {len(batch)} payloads; the registered apply "
                 f"takes K={self._schema_k}")
+        apply_fn = self._apply_for(wsum if wsum else len(batch), len(batch))
         bufs = torch.from_numpy(np.stack(batch)).to(self.device)
         # The bf16 state stores' key, one per applied update (the
         # version advances only under _update_lock).
         okey = prng.fold_in(self._opt_key, self.version)
         self._sync()
         t_apply = clock.monotonic()
-        new_params, new_opt = self._apply_fn(self.params, self.opt_state,
-                                             bufs, okey)
+        new_params, new_opt = apply_fn(self.params, self.opt_state, bufs,
+                                       okey)
         self._sync()
         apply_s = clock.monotonic() - t_apply
         delta_buf, new_shadow, delta_s = None, self._shadow, 0.0
@@ -618,14 +804,21 @@ class ParameterServer:
                 del self._deltas[old]
         return self.version
 
-    def _apply_batch(self, batch, workers=(), push_ids=()) -> bool:
+    def _apply_batch(self, batch, workers=(), push_ids=(), weights=(),
+                     members=()) -> bool:
         """The released batch's apply and commit, outside the state lock
-        (``_update_lock`` keeps applies ordered); then its WAL record, the
-        policy's commit hook and the serverkill fault, in that order."""
+        (``_update_lock`` keeps applies ordered); then its publication, its
+        WAL record, the policy's commit hook and the serverkill fault, in
+        that order. The weighted mode pads a short batch with zero levels
+        (an exact no-op of the integer sum) up to the K slots."""
+        if self._agg_mode and len(batch) < self._schema_k:
+            batch = batch + [np.zeros_like(batch[0])
+                             for _ in range(self._schema_k - len(batch))]
+        wsum = sum(weights) if weights else len(batch)
         with self._update_lock, self._on_stream(), torch.no_grad(), \
                 otrace.span("ps/apply", k=len(batch), version=self.version):
             (new_params, new_opt, delta_buf, new_shadow, apply_s,
-             delta_s) = self._run_apply(batch)
+             delta_s) = self._run_apply(batch, wsum)
             decodes = (0 if self.compressor is None
                        else 1 if self.server_agg == "homomorphic"
                        else len(batch))
@@ -637,8 +830,17 @@ class ParameterServer:
                     self.stats.delta_s_sum += delta_s
                 version_now = self._commit(new_params, new_opt, delta_buf,
                                            new_shadow, push_ids)
-            self._journal_applied(version_now, batch, workers, push_ids)
-            self.policy.note_applied(version_now, list(workers))
+            if self._pd_on:
+                # Published under _update_lock: a subscriber is handed a
+                # version only once it is committed.
+                self._pd_publish(new_params, version_now)
+            self._journal_applied(version_now, batch, workers, push_ids,
+                                  weights)
+            # A pseudo-push's contributors are its leaf members.
+            applied = []
+            for w, ms in zip(workers, members or [()] * len(workers)):
+                applied.extend(ms if ms else (w,))
+            self.policy.note_applied(version_now, applied)
             self._maybe_trip_server_kill(version_now)
         return True
 
@@ -656,20 +858,25 @@ class ParameterServer:
             self._applied_ids.pop(next(iter(self._applied_ids)))
 
     def _journal_applied(self, version_now: int, batch, workers,
-                         push_ids) -> None:
+                         push_ids, weights=()) -> None:
         """The apply's WAL record, durable on return, and a snapshot at
-        every ``snapshot_every``-th version (under ``_update_lock``)."""
+        every ``snapshot_every``-th version (under ``_update_lock``). A
+        weighted batch's record carries its weights, so its divisor
+        replays."""
         if self._state_store is None:
             return
         from ewdml_tpu_torch.parallel.server_state import encode_bufs
 
-        self._state_store.append_wal({
+        rec = {
             "version": int(version_now),
             "workers": [int(w) for w in workers],
             "push_ids": [str(i) for i in push_ids],
             "plan_version": 0,
             "bufs": encode_bufs(batch),
-        })
+        }
+        if any(w != 1 for w in weights):
+            rec["weights"] = [int(w) for w in weights]
+        self._state_store.append_wal(rec)
         with self._lock:
             self.stats.wal_records += 1
         if self._snapshot_every and version_now % self._snapshot_every == 0:
@@ -839,12 +1046,97 @@ class ParameterServer:
         journal and the hooks (under ``_update_lock``)."""
         from ewdml_tpu_torch.parallel.server_state import decode_bufs
 
+        batch = decode_bufs(rec["bufs"])
+        weights = rec.get("weights")
         (new_params, new_opt, delta_buf, new_shadow, _,
-         _) = self._run_apply(decode_bufs(rec["bufs"]))
+         _) = self._run_apply(batch, sum(int(w) for w in weights)
+                              if weights else len(batch))
         with self._lock:
-            self._commit(new_params, new_opt, delta_buf, new_shadow,
-                         rec.get("push_ids", []))
+            version_now = self._commit(new_params, new_opt, delta_buf,
+                                       new_shadow, rec.get("push_ids", []))
             self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}
+        if self._pd_on:
+            self._pd_publish(new_params, version_now)
+
+    # -- the publication stream (the ``subscribe`` op) ----------------------
+
+    def _pd_arm(self) -> None:
+        """Arm the stream on the first subscriber: publish a keyframe of the
+        current version. Under ``_update_lock``, so the stream starts at a
+        committed version and misses none after it."""
+        with self._update_lock, self._on_stream(), torch.no_grad():
+            if self._pd_on:
+                return
+            bad = [str(p.dtype) for p in self.params
+                   if p.dtype != torch.float32]
+            if bad:
+                raise ValueError(
+                    "the subscribe stream replays the packed buffer as "
+                    f"f32[n] and requires an all-f32 parameter tree; found "
+                    f"a {bad[0]} leaf")
+            with self._lock:
+                params, version = self.params, self.version
+            packed = self._pack(params).cpu().numpy()
+            self._pd_nbytes = packed.nbytes
+            self._pd_crc = pd_contract_crc(packed.nbytes, PD_BLOCK, PD_S,
+                                           self._pd_every)
+            self._pd_shadow = packed.view(np.float32).copy()
+            with self._lock:
+                self._pd_head = version
+                self._pd_keyframe = (version, packed)
+                self._pd_deltas = {}
+            self._pd_on = True
+
+    def _pd_publish(self, new_params, version_now: int) -> None:
+        """Publish ``version_now`` (under ``_update_lock``, on the server's
+        stream): a keyframe once ``keyframe_every`` versions have passed
+        since the last, else the quantized difference to the shadow, which
+        then advances by :func:`pd_apply_delta`. One packed D2H an apply,
+        and the delta's levels and scales."""
+        packed = self._pack(new_params).cpu().numpy()
+        flat = packed.view(np.float32)
+        with self._lock:
+            kf_version = self._pd_keyframe[0]
+        if version_now - kf_version >= self._pd_every:
+            self._pd_shadow = flat.copy()
+            with self._lock:
+                self._pd_head = version_now
+                self._pd_keyframe = (version_now, packed)
+                self._pd_deltas = {}
+            return
+        diff = torch.from_numpy(flat - self._pd_shadow).to(self.device)
+        levels, scales = pd_quantize(diff,
+                                     prng.fold_in(self._pd_key, version_now))
+        levels, scales = levels.cpu().numpy(), scales.cpu().numpy()
+        self._pd_shadow = pd_apply_delta(self._pd_shadow, levels, scales)
+        with self._lock:
+            self._pd_head = version_now
+            self._pd_deltas[version_now] = (levels, scales)
+
+    def pd_contract(self) -> dict:
+        """The stream geometry every ``subscribe_ok`` header carries."""
+        return {"flat": self._pd_nbytes, "block": PD_BLOCK, "s": PD_S,
+                "keyframe_every": self._pd_every, "crc": self._pd_crc}
+
+    def subscribe_stream(self, since: int = -1) -> tuple:
+        """One ``subscribe`` poll: ``(mode, version, kf_version, bufs)``.
+        Mode "delta" when ``since`` lies in the keyframe's window: the
+        [levels, scales] pairs of since+1..version (none when caught up);
+        "keyframe" otherwise: the keyframe, then the pairs after it. Serves
+        up to the published head; the first call arms the stream."""
+        if not self._pd_on:
+            self._pd_arm()
+        with self._lock:
+            version = self._pd_head
+            kf_version, kf_buf = self._pd_keyframe
+            if kf_version <= since <= version:
+                mode, start, bufs = "delta", since, []
+            else:
+                mode, start, bufs = "keyframe", kf_version, [kf_buf]
+            for v in range(start + 1, version + 1):
+                bufs.extend(self._pd_deltas[v])
+            self.stats.bytes_down += sum(b.nbytes for b in bufs)
+        return mode, version, kf_version, bufs
 
     def join_worker(self, worker: int) -> dict:
         """Admit ``worker`` mid-run (the ``join`` op): the policy seeds its
@@ -864,9 +1156,7 @@ class ParameterServer:
             with self._lock:
                 dropped = len(self._pending)
                 self.stats.dropped_stale += dropped
-                self._pending = []
-                self._pending_workers = []
-                self._pending_ids = []
+                self._take_pending()
             self.policy.num_aggregate = max(1, live)
             self.register_payload_schema(self._payload_template)
             logger.info("ps: elastic K-of-N recomputed to K=%d (%d live) on "

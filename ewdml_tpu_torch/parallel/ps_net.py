@@ -47,10 +47,24 @@ connection) and ``evloop`` (one ``selectors`` thread, a frame state machine
 per connection, one :meth:`ParameterServer.push_batch` per tick). The
 server and each worker keep their own ``MetricsRegistry``.
 
-The read replicas (``--replicas``, ``subscribe``), ``--pull-delta``, the
-aggregation tree (``--agg-tree``), ``--federated``, ``--round-pipeline``,
-``--adapt`` and ``--metrics-port`` are later slices: they are rejected by
-name at startup, and their ops answer ``error``.
+Two more roles scale the tier out (``--role replica``, ``--role
+aggregator``):
+
+- ``subscribe {since}`` -> ``{mode, version, keyframe, flat, block, s,
+  keyframe_every, crc}`` + a keyframe and/or [levels, scales] delta pairs:
+  the apply server's publication stream, which a pull replica
+  (``parallel/replica.py``) replays to serve ``pull`` from its own copy;
+  ``--replicas`` routes every worker pull there, ``--pull-delta`` ships
+  int8 deltas between keyframes;
+- ``agg_push {weight, members}`` + an int16 frame -> ``{accepted,
+  dup_members}``: an aggregator's (``parallel/aggtree.py``) exact sum of
+  its subtree's int8 pushes; ``--agg-tree`` routes every worker push to its
+  home aggregator (``index % A``, the others as failover), and the root
+  registers the widened schema.
+
+``--federated``, ``--round-pipeline``, ``--adapt`` and ``--metrics-port``
+are later slices: they are rejected by name at startup, and the federated
+ops answer ``error``.
 """
 
 from __future__ import annotations
@@ -97,8 +111,7 @@ _OPS = frozenset({"pull", "push", "stats", "save", "shutdown", "bn_stats",
 _SEGMENT_FIELDS = ("latency_s", "queue_s", "handler_s")
 
 #: The federated ops (a later slice): answered "server not federated",
-#: as the JAX server answers them with --federated off. ``subscribe`` and
-#: the ``agg_*`` ops (later slices too) get the unknown-op error.
+#: as the JAX server answers them with --federated off.
 _FED_OPS = frozenset({"fed_register", "fed_begin", "fed_end", "fed_drop",
                       "fed_flush"})
 
@@ -425,11 +438,7 @@ def check_supported(cfg, role: str = "server") -> None:
 
     validate_wire_plane(cfg)
     _reject([
-        (role in ("replica", "aggregator", "fed_driver"),
-         f"--role {role}"),
-        (bool(cfg.replicas), "--replicas (the read replicas)"),
-        (bool(cfg.agg_tree), "--agg-tree (the aggregation tree)"),
-        (cfg.pull_delta, "--pull-delta (the publication stream)"),
+        (role == "fed_driver", f"--role {role}"),
         (cfg.federated, "--federated"),
         (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
@@ -450,7 +459,9 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     ``fold_in(key(seed), 0x7C13)``): a zero batch leaves conv kernels'
     gradients at zero. Template gradients run on copies of the model, so
     its BatchNorm statistics stay the initial ones."""
-    from ewdml_tpu_torch.core.config import validate_server_agg
+    from ewdml_tpu_torch.core.config import (validate_agg_tree,
+                                             validate_replicas,
+                                             validate_server_agg)
     from ewdml_tpu_torch.core.precision import wire_cast
     from ewdml_tpu_torch.core.world import resolve_device
     from ewdml_tpu_torch.models import (build_model, input_shape_for,
@@ -463,6 +474,8 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     from ewdml_tpu_torch.utils import prng
 
     validate_server_agg(cfg)
+    validate_replicas(cfg)
+    validate_agg_tree(cfg)
     if cfg.overlap != "off":
         raise ValueError(
             "--overlap bucket applies to the sync trainer; the ps_net TCP "
@@ -543,83 +556,20 @@ def _bn_buffers(model: torch.nn.Module) -> list:
 
 # -- server ------------------------------------------------------------------
 
-class PSNetServer:
-    """The TCP front of :class:`~ewdml_tpu_torch.parallel.ps.
-    ParameterServer`: builds the model, optimizer and compressor from a
-    config, fixes the push schema, recovers from ``--server-state-dir``
-    when it holds state, and serves until ``shutdown``."""
+class _Endpoint:
+    """What every served endpoint (the apply server, a pull replica, an
+    aggregator) shares with the event-loop plane: its registry, socket byte
+    counts, occupancy gauges and stop event, the per-request envelope
+    (:meth:`_dispatch` around the subclass's ``_dispatch_inner``) and the
+    reply frames the plane sends for pushes."""
 
-    def __init__(self, cfg, host: str = "127.0.0.1", port: int = 0,
-                 registry: Optional[MetricsRegistry] = None):
-        from ewdml_tpu_torch.optim import make_optimizer
-        from ewdml_tpu_torch.parallel import ps
-        from ewdml_tpu_torch.utils import transfer
+    #: The trace role of the plane's thread.
+    role = "ps-server"
+    _tcp = None
+    _evloop = None
 
-        check_supported(cfg, "server")
-        self.cfg = cfg
+    def _init_endpoint(self, registry: Optional[MetricsRegistry]) -> None:
         self.registry = registry if registry is not None else MetricsRegistry()
-        otrace.configure(cfg.trace_dir, role="ps-server")
-        otrace.maybe_configure_from_env(role="ps-server")
-        # The abort verdict stops the accept loop (serve_forever returns,
-        # main exits 76) rather than unwinding a handler mid-reply.
-        self.health = ohealth.make_watchdog(cfg, role="ps-server",
-                                            registry=self.registry,
-                                            on_abort=self._health_abort)
-        self._host = socket.gethostname()
-        setup = build_endpoint_setup(cfg)
-        self.model = setup.model
-        self.device = setup.device
-        optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
-                                   cfg.weight_decay, cfg.nesterov,
-                                   state_dtype=cfg.precision.state_dtype)
-        # The workers upload their BatchNorm statistics for checkpoints
-        # (the reference's worker saved them); the server holds none.
-        bn = _bn_buffers(self.model)
-        self._bn_paths = [p for p, _ in bn]
-        self._bn0 = [b.detach().clone() for _, b in bn]
-        self._latest_bn = None
-        self._bn_unpack = (transfer.make_device_unpacker(self._bn0)
-                           if self._bn0 else None)
-        self._lock_bn = threading.Lock()
-        self.state_store = None
-        self._recoveries = 0
-        if cfg.server_state_dir:
-            from ewdml_tpu_torch.parallel.server_state import ServerStateStore
-
-            self.state_store = ServerStateStore(cfg.server_state_dir)
-        # One policy for the deployment; K is clamped to >= 1 (an async
-        # server has no world size to read 0 as "all").
-        policy = StragglerPolicy(
-            kill_threshold=cfg.kill_threshold,
-            max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
-                           else None),
-            num_aggregate=cfg.num_aggregate)
-        comp = setup.comp
-        spec = FaultSpec.parse(cfg.fault_spec)
-        self.server = ps.ParameterServer(
-            setup.params, optimizer, comp, policy=policy,
-            # The weights-down relay, the paper's negative result, only
-            # behind the explicit --lossy-weights-down (ps_net.py:683).
-            relay_compress=(cfg.lossy_weights_down and cfg.relay_compress
-                            and cfg.ps_mode == "weights"
-                            and comp is not None),
-            seed=cfg.seed,
-            down_mode=cfg.ps_down if comp is not None else "weights",
-            bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
-            server_agg=cfg.server_agg, health=self.health,
-            device=self.device, leaf_names=[s.name for s in setup.specs],
-            # Elastic K: with --num-aggregate 0 a join makes K the live
-            # count.
-            elastic_k=cfg.num_aggregate == 0,
-            kill_at_apply=spec.server_kill_at)
-        self.server.register_payload_schema(setup.template)
-        if self.state_store is not None:
-            if self.server.recover(self.state_store) is not None:
-                self._recoveries = 1
-            # After recover: replay must not journal, and the snapshot
-            # written now bounds a later restart's replay.
-            self.server.arm_durability(self.state_store, cfg.snapshot_every)
-
         self.bytes = ByteCounter(self.registry)
         self._shutdown = threading.Event()
         self._occ_lock = threading.Lock()
@@ -627,65 +577,6 @@ class PSNetServer:
         self._inflight = 0
         self._g_conns = self.registry.gauge("ps_net.connections")
         self._g_inflight = self.registry.gauge("ps_net.inflight")
-        outer = self
-
-        class Handler(socketserver.BaseRequestHandler):
-            def handle(self):
-                otrace.set_role("ps-server")
-                with outer._occ_lock:
-                    outer._connections += 1
-                    outer._g_conns.set(outer._connections)
-                try:
-                    while True:
-                        msg, recv_ns = recv_frame_timed(self.request,
-                                                        outer.bytes)
-                        t0 = clock.monotonic_ns()
-                        header, sections = parse_request(msg)
-                        parse_ns = clock.monotonic_ns() - t0
-                        reply = outer._dispatch(header, sections,
-                                                recv_ns=recv_ns,
-                                                parse_ns=parse_ns)
-                        if reply is not None:
-                            t0 = clock.monotonic_ns()
-                            send_frame(self.request, reply, outer.bytes)
-                            if otrace.enabled():
-                                otrace.complete(
-                                    "ps_net/send", t0,
-                                    clock.monotonic_ns() - t0,
-                                    op=header.get("op"),
-                                    req=header.get("req"))
-                        if header.get("op") == "shutdown":
-                            return
-                except (ConnectionError, OSError, ValueError):
-                    return  # the worker is done or gone, or sent garbage
-                finally:
-                    with outer._occ_lock:
-                        outer._connections -= 1
-                        outer._g_conns.set(outer._connections)
-
-        class Server(socketserver.ThreadingTCPServer):
-            allow_reuse_address = True
-            daemon_threads = True
-            request_queue_size = 128  # the evloop listener's backlog
-
-        self.wire_plane = cfg.wire_plane
-        self._evloop = None
-        self._tcp = None
-        if self.wire_plane == "threads":
-            self._tcp = Server((host, port), Handler)
-            self.address = self._tcp.server_address
-        else:
-            lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            lsock.bind((host, port))
-            lsock.listen(128)
-            lsock.setblocking(False)
-            self.address = lsock.getsockname()
-            self._evloop = _EvLoopPlane(self, lsock)
-
-    @property
-    def policy(self) -> StragglerPolicy:
-        return self.server.policy
 
     def _kill_frame(self, exc: StragglerKilled) -> bytes:
         """The tag-77 verdict as a reply frame."""
@@ -702,22 +593,6 @@ class PSNetServer:
         self._shutdown.set()
         if self._tcp is not None:
             threading.Thread(target=self._tcp.shutdown, daemon=True).start()
-
-    def close(self) -> None:
-        """Release the listening socket and any sessions (idempotent)."""
-        if self._tcp is not None:
-            self._tcp.server_close()
-        if self._evloop is not None:
-            self._evloop.close()
-        if self.state_store is not None:
-            self.state_store.close()
-
-    def _health_abort(self, event: dict) -> None:
-        """The watchdog's abort verdict: stop accepting (``main`` exits
-        :data:`~ewdml_tpu_torch.obs.health.HEALTH_EXIT_CODE`)."""
-        logger.error("ps_net: health abort (%s) — shutting down",
-                     event.get("kind"))
-        self._request_stop()
 
     def _dispatch(self, header: dict, sections: list, recv_ns: int = 0,
                   parse_ns: int = 0,
@@ -790,7 +665,185 @@ class PSNetServer:
                           message=bytes(sections[0]),
                           loss=float(header["loss"]),
                           push_id=str(header.get("push_id", "")),
-                          round_id=int(header.get("round", -1)))
+                          round_id=int(header.get("round", -1)),
+                          weight=int(header.get("weight", 1)),
+                          members=tuple(int(m) for m in
+                                        header.get("members", ())))
+
+
+class PSNetServer(_Endpoint):
+    """The TCP front of :class:`~ewdml_tpu_torch.parallel.ps.
+    ParameterServer`: builds the model, optimizer and compressor from a
+    config, fixes the push schema, recovers from ``--server-state-dir``
+    when it holds state, and serves until ``shutdown``."""
+
+    def __init__(self, cfg, host: str = "127.0.0.1", port: int = 0,
+                 registry: Optional[MetricsRegistry] = None):
+        from ewdml_tpu_torch.optim import make_optimizer
+        from ewdml_tpu_torch.parallel import ps
+        from ewdml_tpu_torch.utils import transfer
+
+        check_supported(cfg, "server")
+        self.cfg = cfg
+        self._init_endpoint(registry)
+        otrace.configure(cfg.trace_dir, role="ps-server")
+        otrace.maybe_configure_from_env(role="ps-server")
+        # The abort verdict stops the accept loop (serve_forever returns,
+        # main exits 76) rather than unwinding a handler mid-reply.
+        self.health = ohealth.make_watchdog(cfg, role="ps-server",
+                                            registry=self.registry,
+                                            on_abort=self._health_abort)
+        self._host = socket.gethostname()
+        setup = build_endpoint_setup(cfg)
+        self.model = setup.model
+        self.device = setup.device
+        optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
+                                   cfg.weight_decay, cfg.nesterov,
+                                   state_dtype=cfg.precision.state_dtype)
+        # The workers upload their BatchNorm statistics for checkpoints
+        # (the reference's worker saved them); the server holds none.
+        bn = _bn_buffers(self.model)
+        self._bn_paths = [p for p, _ in bn]
+        self._bn0 = [b.detach().clone() for _, b in bn]
+        self._latest_bn = None
+        self._bn_unpack = (transfer.make_device_unpacker(self._bn0)
+                           if self._bn0 else None)
+        self._lock_bn = threading.Lock()
+        self.state_store = None
+        self._recoveries = 0
+        if cfg.server_state_dir:
+            from ewdml_tpu_torch.parallel.server_state import ServerStateStore
+
+            self.state_store = ServerStateStore(cfg.server_state_dir)
+        # One policy for the deployment; K is clamped to >= 1 (an async
+        # server has no world size to read 0 as "all").
+        policy = StragglerPolicy(
+            kill_threshold=cfg.kill_threshold,
+            max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
+                           else None),
+            num_aggregate=cfg.num_aggregate)
+        comp = setup.comp
+        spec = FaultSpec.parse(cfg.fault_spec)
+        self.server = ps.ParameterServer(
+            setup.params, optimizer, comp, policy=policy,
+            # The weights-down relay, the paper's negative result, only
+            # behind the explicit --lossy-weights-down (ps_net.py:683).
+            relay_compress=(cfg.lossy_weights_down and cfg.relay_compress
+                            and cfg.ps_mode == "weights"
+                            and comp is not None),
+            seed=cfg.seed,
+            down_mode=cfg.ps_down if comp is not None else "weights",
+            bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
+            server_agg=cfg.server_agg, health=self.health,
+            device=self.device, leaf_names=[s.name for s in setup.specs],
+            # Elastic K: with --num-aggregate 0 a join makes K the live
+            # count; a tree pins the schema to its aggregators instead.
+            elastic_k=cfg.num_aggregate == 0 and not cfg.agg_tree,
+            kill_at_apply=spec.server_kill_at,
+            # The publication stream's knobs, inert until a subscriber.
+            pull_delta=cfg.pull_delta, keyframe_every=cfg.keyframe_every)
+        if cfg.agg_tree:
+            # The root of an aggregation tree takes int16 pseudo-pushes: the
+            # widened schema, a slot per aggregator, and the round's leaf
+            # weight (the K-of-N quota) as the divisor.
+            from ewdml_tpu_torch.core.config import parse_agg_tree
+            from ewdml_tpu_torch.ops.homomorphic import widen_payload_tree
+
+            self.server.register_payload_schema(
+                widen_payload_tree(setup.template),
+                schema_k=len(parse_agg_tree(cfg.agg_tree)),
+                agg_weight=self.server.num_aggregate)
+        else:
+            self.server.register_payload_schema(setup.template)
+        if self.state_store is not None:
+            if self.server.recover(self.state_store) is not None:
+                self._recoveries = 1
+            # After recover: replay must not journal, and the snapshot
+            # written now bounds a later restart's replay.
+            self.server.arm_durability(self.state_store, cfg.snapshot_every)
+
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self):
+                otrace.set_role("ps-server")
+                with outer._occ_lock:
+                    outer._connections += 1
+                    outer._g_conns.set(outer._connections)
+                try:
+                    while True:
+                        msg, recv_ns = recv_frame_timed(self.request,
+                                                        outer.bytes)
+                        t0 = clock.monotonic_ns()
+                        header, sections = parse_request(msg)
+                        parse_ns = clock.monotonic_ns() - t0
+                        reply = outer._dispatch(header, sections,
+                                                recv_ns=recv_ns,
+                                                parse_ns=parse_ns)
+                        if reply is not None:
+                            t0 = clock.monotonic_ns()
+                            send_frame(self.request, reply, outer.bytes)
+                            if otrace.enabled():
+                                otrace.complete(
+                                    "ps_net/send", t0,
+                                    clock.monotonic_ns() - t0,
+                                    op=header.get("op"),
+                                    req=header.get("req"))
+                        if header.get("op") == "shutdown":
+                            return
+                except (ConnectionError, OSError, ValueError):
+                    return  # the worker is done or gone, or sent garbage
+                finally:
+                    with outer._occ_lock:
+                        outer._connections -= 1
+                        outer._g_conns.set(outer._connections)
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+            request_queue_size = 128  # the evloop listener's backlog
+
+        self.wire_plane = cfg.wire_plane
+        self._evloop = None
+        self._tcp = None
+        if self.wire_plane == "threads":
+            self._tcp = Server((host, port), Handler)
+            self.address = self._tcp.server_address
+        else:
+            lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            lsock.bind((host, port))
+            lsock.listen(128)
+            lsock.setblocking(False)
+            self.address = lsock.getsockname()
+            self._evloop = _EvLoopPlane(self, lsock)
+
+    @property
+    def policy(self) -> StragglerPolicy:
+        return self.server.policy
+
+    def close(self) -> None:
+        """Release the listening socket and any sessions (idempotent)."""
+        if self._tcp is not None:
+            self._tcp.server_close()
+        if self._evloop is not None:
+            self._evloop.close()
+        if self.state_store is not None:
+            self.state_store.close()
+
+    def _health_abort(self, event: dict) -> None:
+        """The watchdog's abort verdict: stop accepting (``main`` exits
+        :data:`~ewdml_tpu_torch.obs.health.HEALTH_EXIT_CODE`)."""
+        logger.error("ps_net: health abort (%s) — shutting down",
+                     event.get("kind"))
+        self._request_stop()
+
+    def _agg_push_ok_frame(self, accepted, dup_members) -> bytes:
+        """The verdict on a pseudo-push; ``dup_members`` names the leaves
+        the round already counted."""
+        return make_request({"op": "agg_push_ok",
+                             "accepted": bool(accepted),
+                             "dup_members": [int(m) for m in dup_members]})
 
     def _dispatch_inner(self, op, header: dict, sections: list) -> bytes:
         retried = bool(header.get("retry"))
@@ -823,6 +876,25 @@ class PSNetServer:
             except StragglerKilled as e:
                 return self._kill_frame(e)
             return self._push_ok_frame(accepted)
+        if op == "agg_push":
+            # An aggregator's int16 sum standing in for ``weight`` leaf
+            # pushes, judged at member granularity.
+            try:
+                accepted, dups = self.server.push_subtree(
+                    self._push_record(header, sections), retried=retried)
+            except StragglerKilled as e:
+                return self._kill_frame(e)
+            return self._agg_push_ok_frame(accepted, dups)
+        if op == "subscribe":
+            # A pull replica's poll of the publication stream: everything
+            # published after ``since``, with the stream's contract.
+            mode, version, kf_version, bufs = self.server.subscribe_stream(
+                int(header.get("since", -1)))
+            return make_request(
+                {"op": "subscribe_ok", "mode": mode,
+                 "version": int(version), "keyframe": int(kf_version),
+                 **self.server.pd_contract()},
+                [np.asarray(b).tobytes() for b in bufs])
         if op == "resync":
             # After a reconnect: where the server is (a restarted server's
             # recovered version), so the worker keeps its params or pulls
@@ -1013,7 +1085,7 @@ class _EvLoopPlane:
     #: Bound on an announced length: a corrupt prefix is no allocation.
     MAX_FRAME = 1 << 31
 
-    def __init__(self, server: PSNetServer, lsock: socket.socket):
+    def __init__(self, server: _Endpoint, lsock: socket.socket):
         self.server = server
         self.lsock = lsock
         self.sel = selectors.DefaultSelector()
@@ -1024,17 +1096,22 @@ class _EvLoopPlane:
     def run(self) -> None:
         """Serve until the server's ``_shutdown``; then flush queued replies
         (``shutdown_ok`` among them) and close."""
-        otrace.set_role("ps-server")
+        otrace.set_role(self.server.role)
         _reply_scratch.cur = _ReplyScratch()
         try:
             while not self.server._shutdown.is_set():
                 frames = self._poll_once(self.TICK_S)
                 if frames:
                     self._dispatch_tick(frames)
+                self._service_parked()
             self._drain_for_close()
         finally:
             _reply_scratch.cur = None
             self.close()
+
+    def _service_parked(self) -> None:
+        """Per-tick hook for frames a subclass parks rather than answers in
+        their tick (the aggregator's pushes); nothing parks here."""
 
     def close(self) -> None:
         if self._closed:
@@ -1357,7 +1434,10 @@ class PSNetWorker:
         self.key = prng.fold_in(prng.key(cfg.seed), index)
         self._params = None
         self._version = -1
-        self.conn = None  # the RetryingConnection, set by run()
+        # The RetryingConnections, set by run(): to the apply server, and
+        # the pull and push routes (the server's unless --replicas or
+        # --agg-tree name other endpoints).
+        self.conn = self.pull_conn = self.push_conn = None
 
     def _to_device(self, raw) -> torch.Tensor:
         return torch.from_numpy(
@@ -1406,6 +1486,34 @@ class PSNetWorker:
             # to a restarted server decorrelates, and a run replays.
             jitter_seed=(cfg.seed << 16) ^ self.index,
             registry=self.registry)
+        # Reads and writes split (ps_net.py:2045-2078): every step's pull
+        # goes to the replica list, its push to this worker's home
+        # aggregator (index % A, the others as failover); resync, join and
+        # bn_stats stay on the apply server. Each route has its own jitter.
+        pull_conn = push_conn = conn
+        if cfg.replicas:
+            pull_conn = self.pull_conn = RetryingConnection(
+                parse_replicas(cfg.replicas), timeout_s=cfg.net_timeout_s,
+                retries=cfg.net_retries, backoff_s=cfg.net_backoff_s,
+                byte_counter=self.bytes,
+                jitter_seed=(cfg.seed << 16) ^ self.index ^ 0x5A5A,
+                registry=self.registry)
+        if cfg.agg_tree:
+            from ewdml_tpu_torch.core.config import parse_agg_tree
+
+            aggs = parse_agg_tree(cfg.agg_tree)
+            home = self.index % len(aggs)
+            push_conn = self.push_conn = RetryingConnection(
+                aggs[home:] + aggs[:home], timeout_s=cfg.net_timeout_s,
+                retries=cfg.net_retries, backoff_s=cfg.net_backoff_s,
+                byte_counter=self.bytes,
+                jitter_seed=(cfg.seed << 16) ^ self.index ^ 0xA660,
+                registry=self.registry)
+            header = _expect(push_conn.call({"op": "agg_register",
+                                             "worker": self.index})[0],
+                             "agg_register_ok")
+            if int(header["children"]) < 1:
+                raise RuntimeError(f"agg_register answered {header!r}")
         otrace.set_role(f"worker-{self.index}")
         try:
             last_loss = float("nan")
@@ -1455,7 +1563,7 @@ class PSNetWorker:
                 if otrace.enabled():
                     req["mono_ns"] = t_send
                 with otrace.span("worker/pull", step=step, req=rid):
-                    header, sections = conn.call(req, req_id=rid)
+                    header, sections = pull_conn.call(req, req_id=rid)
                 t_recv = clock.monotonic_ns()
                 _expect(header, "pull_ok")
                 self._check_scale(header)
@@ -1503,7 +1611,7 @@ class PSNetWorker:
                                  version=self._version, req=rid):
                     # push_id is the idempotency key: a re-sent push whose
                     # first copy landed is acknowledged, not applied twice.
-                    header, _ = conn.call(
+                    header, _ = push_conn.call(
                         {"op": "push", "worker": self.index,
                          "version": self._version, "loss": last_loss,
                          "plan_version": 0,
@@ -1532,7 +1640,8 @@ class PSNetWorker:
             log_robustness(self.index, retries=conn.counters.retries,
                            reconnects=conn.counters.reconnects)
             otrace.flush()
-            conn.close()
+            for c in {id(c): c for c in (conn, pull_conn, push_conn)}.values():
+                c.close()
 
 
 def parse_replicas(spec: str) -> list:
@@ -1564,9 +1673,12 @@ def client_call(addr: tuple, header: dict, sections=(), *,
 
 
 def main(argv=None) -> int:
-    """``python -m ewdml_tpu_torch.parallel.ps_net --role server|worker``
-    with the JAX entry point's flags (``ps_net.py:2317-2455``). The roles
-    ``replica``, ``aggregator`` and ``fed_driver`` are rejected by name."""
+    """``python -m ewdml_tpu_torch.parallel.ps_net --role
+    server|worker|replica|aggregator`` with the JAX entry point's flags
+    (``ps_net.py:2317-2455``). A replica and an aggregator listen on
+    ``--replica-host/--replica-port`` and ``--agg-host/--agg-port``, with
+    ``--host/--port`` naming the apply server upstream. The role
+    ``fed_driver`` is rejected by name."""
     import argparse
     import os
 
@@ -1583,6 +1695,11 @@ def main(argv=None) -> int:
     parser.add_argument("--port", type=int, default=29500)
     parser.add_argument("--worker-index", type=int, default=0)
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--replica-host", default="127.0.0.1")
+    parser.add_argument("--replica-port", type=int, default=0)
+    parser.add_argument("--agg-host", default="127.0.0.1")
+    parser.add_argument("--agg-port", type=int, default=0)
+    parser.add_argument("--agg-index", type=int, default=0)
     ns = parser.parse_args(argv)
     fields = {f.name: getattr(ns, f.name)
               for f in dataclasses.fields(TrainConfig) if hasattr(ns, f.name)}
@@ -1598,6 +1715,26 @@ def main(argv=None) -> int:
                   flush=True)
             # Exit hard: a handler thread may be mid-apply.
             os._exit(ohealth.HEALTH_EXIT_CODE)
+        return 0
+    if ns.role == "replica":
+        # Ready once the bootstrap keyframe has landed: the address serves
+        # a real version when a supervisor reads it.
+        from ewdml_tpu_torch.parallel.replica import PullReplicaServer
+
+        replica = PullReplicaServer(cfg, (ns.host, ns.port),
+                                    host=ns.replica_host,
+                                    port=ns.replica_port)
+        print(f"PS_REPLICA_READY {replica.address[0]}:{replica.address[1]}",
+              flush=True)
+        replica.serve_forever()
+        return 0
+    if ns.role == "aggregator":
+        from ewdml_tpu_torch.parallel.aggtree import AggregatorServer
+
+        agg = AggregatorServer(cfg, (ns.host, ns.port), host=ns.agg_host,
+                               port=ns.agg_port, index=ns.agg_index)
+        print(f"PS_AGG_READY {agg.address[0]}:{agg.address[1]}", flush=True)
+        agg.serve_forever()
         return 0
     worker = PSNetWorker(cfg, ns.worker_index, (ns.host, ns.port))
 

@@ -17,8 +17,9 @@ Oracles:
 - ``prng.normal``: the uniform on jax's bounds bit-equal, the normal
   within 4 ulp of ``jax.random.normal`` (XLA's ``log1p`` differs from
   torch's in the last bits).
-- the rejections: exact (``NotImplementedError`` naming the flag, or
-  argparse refusing an option only a later slice's roles read).
+- the rejections: exact (``NotImplementedError`` naming the flag).
+- the replica and aggregator roles' entry points: exact (the READY line,
+  the ``stats`` reply, ``shutdown``).
 - the homomorphic scale contract across processes: exact (the same CRC
   at one and two intra-op threads).
 - ``serverkill``: exact (the restarted server recovers past the kill with
@@ -38,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from ewdml_tpu.parallel import ps as jps
 from ewdml_tpu.parallel import ps_net as jps_net
 from ewdml_tpu_torch import native
 from ewdml_tpu_torch.core.config import from_args
@@ -232,7 +234,17 @@ def test_planes_reply_with_the_same_bytes(agg):
         "op": "resync_ok", "version": 1}
     assert headers[5] == {"op": "join_ok", "version": 1, "live": 3,
                           "num_aggregate": 2}
-    assert headers[7] == {"op": "error", "detail": "unknown op 'subscribe'"}
+    # The publication stream, armed by this first subscriber at version 1
+    # (no --pull-delta: a keyframe every version): the JAX server's frame
+    # of the same contract, its keyframe the pull's weights.
+    pull_weights = ps_net.parse_request(got["evloop"][3])[1][0]
+    flat = len(pull_weights)
+    assert bytes(got["evloop"][7]) == bytes(jps_net.make_request(
+        {"op": "subscribe_ok", "mode": "keyframe", "version": 1,
+         "keyframe": 1, "flat": flat, "block": 4096, "s": 127,
+         "keyframe_every": 1,
+         "crc": jps.pd_contract_crc(flat, 4096, 127, 1)},
+        [bytes(pull_weights)]))
     assert headers[8] == {"op": "error", "detail": "server not federated"}
     assert headers[9]["detail"] == "unknown op 'frobnicate'"
     assert ("scale_crc" in headers[0]) == (agg == "homomorphic")
@@ -377,12 +389,7 @@ def test_normal_within_4_ulp_of_jax():
 # -- rejections by name ---------------------------------------------------------
 
 @pytest.mark.parametrize("extra,name", [
-    (["--role", "replica"], "--role replica"),
-    (["--role", "aggregator"], "--role aggregator"),
     (["--role", "fed_driver"], "--role fed_driver"),
-    (["--role", "server", "--replicas", "127.0.0.1:1"], "--replicas"),
-    (["--role", "worker", "--agg-tree", "127.0.0.1:1"], "--agg-tree"),
-    (["--role", "server", "--pull-delta"], "--pull-delta"),
     (["--role", "server", "--federated"], "--federated"),
     (["--role", "server", "--round-pipeline", "overlap"],
      "--round-pipeline"),
@@ -394,15 +401,55 @@ def test_later_slices_rejected_by_name(extra, name):
         ps_net.main(BASE + extra)
 
 
-@pytest.mark.parametrize("flag", ["--replica-host", "--replica-port",
-                                  "--agg-host", "--agg-port", "--agg-index"])
-def test_replica_and_aggregator_options_refused(flag, capsys):
-    """Only the replica and aggregator roles read these; the entry point
-    does not define them, so argparse refuses them (exit code 2)."""
-    with pytest.raises(SystemExit) as exc:
-        ps_net.main(BASE + ["--role", "server", flag, "1"])
-    assert exc.value.code == 2
-    assert flag in capsys.readouterr().err
+def _free_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+@pytest.mark.parametrize("role,plane,index", [
+    ("replica", "threads", None), ("replica", "evloop", None),
+    ("aggregator", "threads", 0), ("aggregator", "evloop", 1)])
+def test_replica_and_aggregator_entry_points(role, plane, index, capsys):
+    """``ps_net.main --role replica|aggregator`` on the CPU: it prints its
+    READY line once it serves, answers ``stats`` and stops on
+    ``shutdown``."""
+    flags = ["--compress-grad", "qsgd", "--wire-plane", plane]
+    port = _free_port()
+    if role == "aggregator":
+        tree = [f"127.0.0.1:{_free_port()}"]
+        tree.insert(index, f"127.0.0.1:{port}")
+        flags += ["--server-agg", "homomorphic", "--agg-tree", ",".join(tree)]
+        listen = ["--agg-port", str(port), "--agg-index", str(index)]
+        marker, stats_op = "PS_AGG_READY", "agg_stats"
+    else:
+        flags += ["--pull-delta", "--keyframe-every", "2"]
+        listen = ["--replica-port", str(port)]
+        marker, stats_op = "PS_REPLICA_READY", "stats"
+    with _serving(_cfg(*flags)) as server:
+        argv = BASE + ["--role", role, "--host", server.address[0],
+                       "--port", str(server.address[1]), *flags, *listen]
+        rcs = []
+        thread = threading.Thread(target=lambda: rcs.append(
+            ps_net.main(argv)), daemon=True)
+        thread.start()
+        deadline = time.time() + 60
+        out = ""
+        while marker not in out and time.time() < deadline:
+            time.sleep(0.05)
+            out += capsys.readouterr().out
+        assert f"{marker} 127.0.0.1:{port}" in out
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": stats_op})
+        if role == "replica":
+            assert stats["op"] == "stats_ok" and stats["version"] == 0
+            assert stats["replica_keyframes"] == 1
+        else:
+            assert stats["op"] == "agg_stats_ok" and stats["index"] == index
+            assert (stats["children"], stats["forwards"]) == (0, 0)
+        h, _ = ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        assert h == {"op": "shutdown_ok"}
+        thread.join(30)
+    assert rcs == [0]
 
 
 def test_overlap_and_bad_wire_plane_rejected():
