@@ -281,9 +281,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     run completes. Printed: versions, pseudo-pushes, weights, the
     duplicate members, the walls.
 
+11. Federated rounds in one process (``ewdml_tpu_torch/federated``), each
+    run checked for one decode a round (homomorphic), its journal's
+    dropouts and replacements against the run's, ``bytes_up`` equal to the
+    admitted pushes times their encoded frame, and every kernel's launches
+    equal to the reckoning (``expected_fed_launches``: the endpoint's
+    templates, a compress per client round, an accumulate and a decode per
+    big leaf per apply and for the warm apply). (a) The federated table's
+    ``lenet_mnist/fed_c8_dir01_drop`` cell through ``cli.main``: LeNet on
+    the committed ``mnist10k``, M4, batch 64, lr 0.01, momentum 0,
+    homomorphic, pool 64, cohort 8, 5 local steps, Dirichlet 0.1,
+    ``crash@3=1,crash@11=1,crash@42=1``, 20 rounds; its round ledger
+    byte-equal to the same command's with ``--platform cpu``. (b) VGG11-BN
+    at full width on ``mnist10k32``, homomorphic, pool 16, cohort 8, 2
+    local steps, 3 rounds, then ``evaluate_params`` with the initial
+    BatchNorm statistics passed. (c) (b) under ``--server-agg decode``,
+    cohort 4, ``--num-aggregate 3``, 2 rounds: ``qsgd_quantize`` once per
+    big leaf per client round, ``quota_dropped == fed_rejected == 2``. (d)
+    (b) thread-batched four clients at a time, 2 rounds: each round's
+    accepted set a subset of its cohort, of the accept size. Printed per
+    run: the eval top-1 and loss, the round wall p50, ``federated.client_s``
+    p50 and ``apply_ms_mean``, beside the card's name and power limit.
+
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9 and 10 must be above 0. ``--phase8-only``, ``--phase9-only`` and
-``--phase10-only`` build and run that phase alone (no result line).
+8, 9, 10 and 11 must be above 0. ``--phase8-only``, ``--phase9-only``,
+``--phase10-only`` and ``--phase11-only`` build and run that phase alone
+(no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -4085,6 +4108,244 @@ def tier_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+FED_LENET = [  # 11a: lenet_mnist/fed_c8_dir01_drop of the federated table
+    "--federated", "--network", "LeNet", "--dataset", "mnist10k",
+    "--method", "4", "--batch-size", "64", "--lr", "0.01", "--momentum", "0",
+    "--quantum-num", "127", "--server-agg", "homomorphic",
+    "--pool-size", "64", "--cohort", "8", "--local-steps", "5",
+    "--partition", "dirichlet", "--partition-alpha", "0.1",
+    "--fault-spec", "crash@3=1,crash@11=1,crash@42=1", "--fed-rounds", "20"]
+FED_VGG = [  # 11b; 11c and 11d change it
+    "--federated", "--network", "VGG11", "--dataset", "mnist10k32",
+    "--method", "4", "--batch-size", "64", "--lr", "0.01", "--momentum", "0",
+    "--quantum-num", "127", "--server-agg", "homomorphic",
+    "--pool-size", "16", "--cohort", "8", "--local-steps", "2",
+    "--partition", "iid", "--fed-rounds", "3"]
+SCALE_DRAWS = 3  # the scale template's normal and randint draws (phase 9)
+
+
+def expected_fed_launches(cfg, kernels, client_rounds: int,
+                          applies: int) -> dict:
+    """Kernel launches of one federated run: the endpoint set-up's payload
+    template is one compress of the tree, and homomorphic its scale
+    template draws SCALE_DRAWS times; then one compress per client round
+    (homomorphic: a shared-scale draw per leaf; decode: a quantize per leaf
+    of at least MIN_ELEMS, a draw per smaller one); per apply, and once for
+    the server's warm apply, an accumulate and a decode per leaf of at
+    least MIN_ELEMS under homomorphic."""
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    specs = leaf_specs(build_model(cfg.network, num_classes_for(cfg.dataset),
+                                   dataset=cfg.dataset))
+    shapes = [s.jax_shape for s in specs]
+    big = sum(1 for s in shapes if math.prod(s) >= kernels.MIN_ELEMS)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    if cfg.server_agg == "homomorphic":
+        want["random_bits"] = len(shapes) * (client_rounds + 1) + SCALE_DRAWS
+        want["int_accumulate"] = want["acc_decode"] = big * (applies + 1)
+    else:
+        for k, v in compress_launches(cfg, shapes, kernels).items():
+            want[k] = v * (client_rounds + 1)
+    return want
+
+
+def fed_counted(torch, kernels, counts, name: str, cfg, via_cli=None,
+                **kw) -> tuple:
+    """Drive one federated run as a run of the main path (the counts
+    zeroed just before it and read just after): ``run_federated`` with a
+    registry, or ``cli.main(via_cli)`` (its result captured from the
+    ``run_federated`` it calls, its stdout echoed). Checks the launches
+    against :func:`expected_fed_launches`, one decode a round
+    (homomorphic), the ledger's dropouts and replacements against the
+    result, and ``bytes_up`` against the admitted pushes' frames."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    import ewdml_tpu_torch.federated as fed
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.obs.registry import MetricsRegistry
+    from ewdml_tpu_torch.train.metrics import federated_wire_plan
+
+    reg = MetricsRegistry()
+    real = fed.run_federated
+    got = {}
+
+    def captured(c, **k):
+        got["res"] = real(c, registry=reg, **k)
+        return got["res"]
+
+    out = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if via_cli is not None:
+        from ewdml_tpu_torch import cli
+
+        fed.run_federated = captured
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(via_cli)
+        finally:
+            fed.run_federated = real
+        if rc != 0:
+            raise AssertionError(f"{name}: cli.main exited {rc}")
+    else:
+        captured(cfg, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    for line in out.getvalue().splitlines():
+        print(f"federated {name} | {line}", flush=True)
+    res = got["res"]
+    s = res.stats
+    records = fed.read_ledger(res.ledger_path)
+    drops = [r for r in records if r["event"] == "dropout"]
+    done = [r for r in records if r["event"] == "round_done"]
+    accepted = sum(len(r["accepted"]) for r in done)
+    client_rounds = s.pushes + s.fed_rejected
+    if (len(done), s.apply_rounds) != (res.rounds, res.rounds):
+        raise AssertionError(f"{name}: {len(done)} rounds journaled, "
+                             f"{s.apply_rounds} applied of {res.rounds}")
+    hom = cfg.server_agg == "homomorphic"
+    if s.decode_count != (s.apply_rounds if hom else s.pushes):
+        raise AssertionError(f"{name}: {s.decode_count} decodes in "
+                             f"{s.apply_rounds} rounds")
+    if (res.dropouts, res.resampled) != (
+            len(drops), sum(1 for r in drops if r["replacement"] >= 0)):
+        raise AssertionError(f"{name}: dropouts {res.dropouts} resampled "
+                             f"{res.resampled}, ledger {drops}")
+    plan = federated_wire_plan(cfg, res.params)
+    frame = len(native.encode_arrays([np.zeros(plan.delta_bytes,
+                                               np.uint8)]))
+    if s.pushes != accepted or s.bytes_up != s.pushes * frame:
+        raise AssertionError(f"{name}: bytes_up {s.bytes_up} for "
+                             f"{s.pushes} pushes of {frame} B ({accepted} "
+                             "accepted)")
+    want = expected_fed_launches(cfg, kernels, client_rounds, s.apply_rounds)
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, reckoned {want}")
+    if not all(math.isfinite(x) for x in res.round_losses):
+        raise AssertionError(f"{name}: round losses {res.round_losses}")
+    hist = reg.snapshot()["histograms"]
+    row = dict(
+        rounds=res.rounds, client_rounds=client_rounds, pushes=s.pushes,
+        fed_rejected=s.fed_rejected, quota_dropped=res.coordinator[
+            "quota_dropped"], dropouts=res.dropouts, resampled=res.resampled,
+        decodes=s.decode_count, bytes_up=s.bytes_up,
+        bytes_down=s.bytes_down, frame_bytes=frame, launches=launched,
+        round_wall_p50_s=statistics.median(res.round_walls_s),
+        client_s_p50=hist["federated.client_s"]["p50"],
+        apply_ms_mean=s.apply_ms_mean, drive_wall_s=res.drive_wall_s,
+        wall_s=wall, final_loss=res.final_loss, skew=res.skew)
+    print(f"federated {name}: {json.dumps(row)}", flush=True)
+    return res, row
+
+
+def federated_phase(torch, kernels) -> tuple:
+    """Phase 11 (see the module docstring)."""
+    import contextlib
+    import io
+
+    from ewdml_tpu_torch import cli
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.federated import read_ledger
+    from ewdml_tpu_torch.federated.loop import evaluate_params
+    from ewdml_tpu_torch.models import build_model, num_classes_for
+    from ewdml_tpu_torch.train.state import _stat_buffers
+
+    torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-10
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out, walls = {}, {}
+    root = tempfile.mkdtemp(prefix="ewdml_fed_")
+    try:
+        # 11a: the table's hardest LeNet cell through cli.main, and the
+        # same config on the CPU for the ledger.
+        t = time.perf_counter()
+        argv = FED_LENET + ["--train-dir", os.path.join(root, "a") + "/"]
+        res, row = fed_counted(torch, kernels, counts, "11a",
+                               from_args(argv), via_cli=argv)
+        cpu_argv = FED_LENET + ["--platform", "cpu", "--train-dir",
+                                os.path.join(root, "a_cpu") + "/"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli.main(cpu_argv) != 0:
+                raise AssertionError("11a: the CPU run failed")
+        with open(res.ledger_path, "rb") as f, \
+                open(os.path.join(root, "a_cpu", "fed_rounds.jsonl"),
+                     "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("11a: the card's round ledger differs "
+                                     "from the CPU run's")
+        cfg = from_args(argv)
+        ev = evaluate_params(cfg, res.params)
+        row.update(eval_top1=ev["top1"], eval_loss=ev["loss"])
+        if res.dropouts != 3 or row["decodes"] != 20:
+            raise AssertionError(f"11a: {row}")
+        out["11a"] = row
+        walls["11a_s"] = time.perf_counter() - t
+        print(f"federated 11a: ledger byte-equal to the CPU run; eval top1 "
+              f"{ev['top1']:.4f} loss {ev['loss']:.4f}; round wall p50 "
+              f"{row['round_wall_p50_s'] * 1e3:.1f} ms, client p50 "
+              f"{row['client_s_p50'] * 1e3:.1f} ms, apply "
+              f"{row['apply_ms_mean']:.3f} ms on {smi_line()}", flush=True)
+        # 11b: VGG11-BN at full width, K = 8 over every big leaf.
+        t = time.perf_counter()
+        cfg = from_args(FED_VGG + ["--train-dir",
+                                   os.path.join(root, "b") + "/"])
+        res, row = fed_counted(torch, kernels, counts, "11b", cfg)
+        model = build_model(cfg.network, num_classes_for(cfg.dataset),
+                            dataset=cfg.dataset, seed=cfg.seed)
+        stats0 = {path: b.detach() for path, b in _stat_buffers(model)}
+        ev = evaluate_params(cfg, res.params, batch_stats=stats0)
+        if not (math.isfinite(ev["loss"]) and ev["examples"] > 0):
+            raise AssertionError(f"11b: eval {ev}")
+        row.update(eval_top1=ev["top1"], eval_loss=ev["loss"])
+        print(f"federated 11b: eval with the initial BatchNorm statistics "
+              f"top1 {ev['top1']:.4f} loss {ev['loss']:.4f}", flush=True)
+        out["11b"] = row
+        walls["11b_s"] = time.perf_counter() - t
+        # 11c: the decode arm, accept 3 of 4.
+        t = time.perf_counter()
+        cfg = from_args(FED_VGG + [
+            "--server-agg", "decode", "--cohort", "4", "--num-aggregate",
+            "3", "--fed-rounds", "2",
+            "--train-dir", os.path.join(root, "c") + "/"])
+        res, row = fed_counted(torch, kernels, counts, "11c", cfg)
+        if not (row["quota_dropped"] == row["fed_rejected"] == 2):
+            raise AssertionError(f"11c: {row}")
+        out["11c"] = row
+        walls["11c_s"] = time.perf_counter() - t
+        # 11d: thread-batched, four clients at a time.
+        t = time.perf_counter()
+        cfg = from_args(FED_VGG + ["--fed-rounds", "2", "--train-dir",
+                                   os.path.join(root, "d") + "/"])
+        res, row = fed_counted(torch, kernels, counts, "11d", cfg,
+                               thread_batch=4)
+        begun = {r["round"]: set(r["cohort"])
+                 for r in read_ledger(res.ledger_path)
+                 if r["event"] == "round_begin"}
+        for rec in res.round_records:
+            if (len(rec["accepted"]) != cfg.cohort
+                    or not set(rec["accepted"]) <= begun[rec["round"]]):
+                raise AssertionError(f"11d: round {rec} of {begun}")
+        out["11d"] = row
+        walls["11d_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["walls"] = walls
+    print("phase 11 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for key in ("int_accumulate", "acc_decode", "random_bits",
+                "qsgd_quantize"):
+        if counts[key] <= 0:
+            raise AssertionError(f"phase 11: {key} never launched")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4102,6 +4363,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase10-only", action="store_true",
                         help="build, then run phase 10 alone (no result "
+                             "line)")
+    parser.add_argument("--phase11-only", action="store_true",
+                        help="build, then run phase 11 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -4162,6 +4426,14 @@ def main(argv=None) -> int:
         print(f"phase 10: {time.perf_counter() - t10:.1f}s", flush=True)
         print("tier: " + json.dumps(tier), flush=True)
         print("phase 10 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase11_only:
+        t11 = time.perf_counter()
+        net_counts, federated = federated_phase(torch, kernels)
+        print(f"phase 11: {time.perf_counter() - t11:.1f}s", flush=True)
+        print("federated: " + json.dumps(federated), flush=True)
+        print("phase 11 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -4255,6 +4527,13 @@ def main(argv=None) -> int:
     print("phase 10 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 11: the federated rounds.
+    t11 = time.perf_counter()
+    net_counts, federated = federated_phase(torch, kernels)
+    print(f"phase 11: {time.perf_counter() - t11:.1f}s", flush=True)
+    print("phase 11 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -4276,6 +4555,7 @@ def main(argv=None) -> int:
     print("downlink: " + json.dumps(downlink), flush=True)
     print("tcp: " + json.dumps(tcp), flush=True)
     print("tier: " + json.dumps(tier), flush=True)
+    print("federated: " + json.dumps(federated), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

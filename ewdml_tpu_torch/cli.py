@@ -1,5 +1,5 @@
-"""CLI entry (``ewdml_tpu/cli.py``): the sync trainer and the async
-parameter server.
+"""CLI entry (``ewdml_tpu/cli.py``): the sync trainer, the async
+parameter server and the federated rounds.
 
     python -m ewdml_tpu_torch.cli --network VGG11 --dataset Cifar10 \\
         --synthetic-data --num-workers 4 --method 5 --topk-ratio 0.01 \\
@@ -9,7 +9,17 @@ parameter server.
         --num-workers 4 --num-aggregate 2 --max-steps 16
 
 run on the GPU (``--platform cpu`` runs on the CPU). The flags are the JAX
-package's; ``--federated`` is a later slice. ``--feed device`` keeps the
+package's. ``--federated`` runs sampled-cohort rounds of local SGD against
+the in-process parameter server (``federated/``):
+
+    python -m ewdml_tpu_torch.cli --federated --network LeNet \\
+        --dataset mnist10k --server-agg homomorphic --compress-grad qsgd \\
+        --pool-size 64 --cohort 8 --local-steps 5 --fed-rounds 20 \\
+        --partition dirichlet --partition-alpha 0.1
+
+and prints a ``federated done: ...`` line and an ``eval: ...`` line (on a
+model with BatchNorm the eval raises, as in the JAX package: ROADMAP Queue
+3 item 21). ``--feed device`` keeps the
 training split on the device, and ``--scan-window K`` (auto under
 ``--feed device``) then runs K steps per host launch, one CUDA graph a
 window on the GPU:
@@ -58,7 +68,9 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     cfg = from_args(argv)
-    if cfg.mode == "async" and not cfg.federated:
+    if cfg.federated:
+        return _main_federated(cfg)
+    if cfg.mode == "async":
         return _main_async(cfg)
     trainer = Trainer(cfg)
     trainer.maybe_restore()
@@ -160,6 +172,31 @@ def build_async(cfg, registry=None):
         # Every push's loss the server keeps is observed.
         health=make_watchdog(cfg, role="ps-server", registry=registry),
         debug_nans=cfg.debug_nans, registry=registry)
+
+
+def _main_federated(cfg) -> int:
+    """``--federated``: the sampled-cohort round loop in process
+    (``ewdml_tpu/cli.py:84-113``)."""
+    from ewdml_tpu_torch.federated import run_federated
+    from ewdml_tpu_torch.federated.loop import evaluate_params
+    from ewdml_tpu_torch.train.metrics import federated_wire_plan
+
+    res = run_federated(cfg)
+    stats = res.stats
+    plan = federated_wire_plan(cfg, res.params)
+    print(
+        f"federated done: rounds={res.rounds} pool={cfg.pool_size} "
+        f"cohort={cfg.cohort} partition={cfg.partition} "
+        f"skew={res.skew:.3f} final_loss={res.final_loss:.4f} "
+        f"decodes={stats.decode_count}/{stats.apply_rounds} rounds "
+        f"(flat server cost) dropouts={res.dropouts} "
+        f"resampled={res.resampled} rejected={res.rejected} "
+        f"up={stats.bytes_up / 1e6:.2f}MB down={stats.bytes_down / 1e6:.2f}MB "
+        f"planned_up/round={plan.up_bytes_round / 1e6:.2f}MB", flush=True
+    )
+    ev = evaluate_params(cfg, res.params)
+    print(f"eval: loss={ev['loss']:.4f} top1={ev['top1']:.4f}")
+    return 0
 
 
 def _main_async(cfg) -> int:

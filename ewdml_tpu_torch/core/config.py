@@ -16,6 +16,8 @@ import argparse
 import dataclasses
 from typing import Optional, Union
 
+from ewdml_tpu_torch.data.partition import PARTITION_SCHEMES
+
 # Every TrainConfig field is in exactly one of these: HASH_INCLUDED fields
 # change the math of a run, HASH_EXCLUDED fields are run-local plumbing.
 HASH_EXCLUDED = ("train_dir", "trace_dir", "adapt_ledger", "metrics_port",
@@ -45,10 +47,9 @@ HASH_INCLUDED = (
     "debug_nans",
 )
 
-#: Values of --precision-policy and --partition (the JAX package keeps them
-#: in core/precision.py and data/partition.py).
+#: Values of --precision-policy (the JAX package keeps them in
+#: core/precision.py).
 PRECISION_POLICIES = ("f32", "bf16_wire", "bf16_wire_state")
-PARTITION_SCHEMES = ("iid", "dirichlet", "shard")
 
 
 @dataclasses.dataclass
@@ -354,6 +355,83 @@ def federated_max_cohort(cfg: TrainConfig) -> Optional[int]:
         return tree_max_cohort(cfg.quantum_num,
                                len(parse_agg_tree(cfg.agg_tree)))
     return max_world_for(cfg.quantum_num)
+
+
+def validate_federated(cfg: TrainConfig) -> None:
+    """The ``--federated`` matrix (``config.py:845-912``, copied): fail at
+    config altitude, not mid-round. Shared by ``build_endpoint_setup``, the
+    in-process ``federated.run_federated`` and the CLI."""
+    if not cfg.federated:
+        return
+    if cfg.pool_size < 1:
+        raise ValueError(
+            f"--federated needs --pool-size >= 1 (the registered client "
+            f"pool), got {cfg.pool_size}")
+    if cfg.cohort < 1 or cfg.cohort > cfg.pool_size:
+        raise ValueError(
+            f"--cohort must be in [1, pool_size={cfg.pool_size}], "
+            f"got {cfg.cohort}")
+    if cfg.num_aggregate < 0 or cfg.num_aggregate > cfg.cohort:
+        raise ValueError(
+            f"--num-aggregate (the accept-K-of-cohort bound) must be in "
+            f"[0, cohort={cfg.cohort}] in federated mode "
+            f"(0 = accept the whole cohort), got {cfg.num_aggregate}")
+    if cfg.local_steps < 1:
+        raise ValueError(f"--local-steps must be >= 1, got {cfg.local_steps}")
+    if cfg.fed_rounds < 1:
+        raise ValueError(f"--fed-rounds must be >= 1, got {cfg.fed_rounds}")
+    if cfg.partition not in PARTITION_SCHEMES:
+        raise ValueError(f"--partition must be one of {PARTITION_SCHEMES}, "
+                         f"got {cfg.partition!r}")
+    if cfg.partition_alpha <= 0:
+        raise ValueError(
+            f"--partition-alpha must be > 0, got {cfg.partition_alpha}")
+    if cfg.adapt != "off":
+        raise ValueError(
+            "--federated is incompatible with --adapt: a plan switch "
+            "re-registers the push schema mid-run, and sampled clients "
+            "bootstrap fresh every round — there is no persistent worker "
+            "to follow plan_version (adaptive federated rounds are future "
+            "work)")
+    if cfg.ps_down != "weights":
+        raise ValueError(
+            "--federated requires --ps-down weights: sampled clients pull "
+            "a fresh full parameter set every round, so there is no "
+            "persistent worker-side base for the compressed delta stream "
+            "to replay onto")
+    if cfg.ps_bootstrap != "f32":
+        raise ValueError(
+            "--federated requires --ps-bootstrap f32: every cohort pull "
+            "is a fresh bootstrap pull, so the bf16 wire's one-time "
+            "rounding promise would become an every-round re-rounding of "
+            "the weights (exactly the lossy-weights negative result)")
+    if cfg.lossy_weights_down:
+        raise ValueError("--federated is incompatible with the "
+                         "--lossy-weights-down negative-result mode")
+    if cfg.overlap != "off":
+        raise ValueError(
+            "--overlap bucket names the sync SPMD trainer's device "
+            "schedule; federated rounds exchange over the host wire")
+    bound = federated_max_cohort(cfg)
+    if bound is not None and cfg.cohort > bound:
+        raise ValueError(
+            f"--cohort {cfg.cohort} exceeds the homomorphic accumulator's "
+            f"analytic max cohort {bound} at --quantum-num "
+            f"{cfg.quantum_num} (a K-way sum of clipped levels can reach "
+            f"K*s; int32 admits K <= 2^31/s — ops/qsgd.check_sum_budget)")
+
+
+def validate_round_pipeline(cfg: TrainConfig) -> None:
+    """``--round-pipeline`` (``config.py:1026``): ``off`` is the sequential
+    round loop; ``overlap`` and ``async`` are ROADMAP Queue 1 item 6b and
+    raise ``NotImplementedError`` by name."""
+    if cfg.round_pipeline not in ("off", "overlap", "async"):
+        raise ValueError(f"--round-pipeline must be off|overlap|async, "
+                         f"got {cfg.round_pipeline!r}")
+    if cfg.round_pipeline != "off":
+        raise NotImplementedError(
+            f"--round-pipeline {cfg.round_pipeline} is not ported to "
+            "ewdml_tpu_torch yet (ROADMAP.md Queue 1 item 6b)")
 
 
 def validate_replicas(cfg: TrainConfig) -> None:

@@ -230,7 +230,8 @@ TABLES = {
     "baseline_scan": lambda: _scan_matrix(),
     "baseline_adaptive": _unported("baseline_adaptive",
                                    "adapt/ (Queue 1 item 7)"),
-    "federated": _unported("federated", "federated/ (Queue 1 item 6)"),
+    "federated": _unported("federated",
+                           "its cells and collector (Queue 1 item 6c)"),
 }
 
 

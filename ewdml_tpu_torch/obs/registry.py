@@ -5,7 +5,8 @@ The JAX package keeps one registry per process; here a registry is an
 object its owner creates (a :class:`~ewdml_tpu_torch.train.loop.Trainer`'s
 ``metrics``, the evaluator's), so two runs in one process never share
 counts. The absorbers fold the legacy instruments in: a ``StepTimer``'s
-totals, the straggler policy's snapshot, a parameter server's stats.
+totals, the straggler policy's snapshot, a parameter server's stats, a
+federated coordinator's snapshot.
 Thread-safe; every update is O(1) dict work under one lock.
 """
 
@@ -121,6 +122,16 @@ class MetricsRegistry:
         self.gauge("ps.kills_sent").set(snap.kills_sent)
         self.gauge("ps.excluded").set(len(snap.excluded))
         self.gauge("ps.contacts").set(snap.contacts)
+
+    def absorb_federated(self, snap: dict) -> None:
+        """A federated coordinator's snapshot (``federated/coordinator.py``),
+        as gauges: a snapshot carries run totals, so a second absorb sets,
+        never adds. ``max_cohort`` is None (skipped) under decode mode."""
+        for key in ("pool", "round", "rounds_done", "cohort", "accept",
+                    "dropouts", "resampled", "quota_dropped", "max_cohort"):
+            v = snap.get(key)
+            if v is not None:
+                self.gauge(f"federated.{key}").set(v)
 
     def absorb_ps_stats(self, stats) -> None:
         """A parameter server's run totals (``parallel/ps.PSStats``), as

@@ -1,6 +1,6 @@
 """The straggler/staleness policy of the parameter server
-(``ewdml_tpu/parallel/policy.py:1-284``, ``StragglerPolicy`` copied: the
-port imports nothing of the JAX package).
+(``ewdml_tpu/parallel/policy.py:1-434``, ``StragglerPolicy`` and
+``CohortPolicy`` copied: the port imports nothing of the JAX package).
 
 :class:`StragglerPolicy` keeps per-worker last-contact timestamps and makes
 the three decisions of the reference's section 5.3: *exclude* (a contact
@@ -11,8 +11,10 @@ once ``num_aggregate`` pushes pend). The first ``grace_steps`` gaps per
 worker are not judged: they hold one-time costs such as the first batch.
 The TCP server (``parallel/ps_net.py``) adds a retried contact (refreshes
 liveness, not judged), elastic membership (``note_join``) and the restore
-of a recovered server. The cohort policies of the federated path are a
-later slice; their hooks are no-ops here.
+of a recovered server. The base policy's cohort hooks are no-ops;
+:class:`CohortPolicy` implements them for the federated rounds. The
+pipelined cohort policies (``--round-pipeline``) are ROADMAP Queue 1 item
+6b.
 """
 
 from __future__ import annotations
@@ -212,3 +214,142 @@ class StragglerPolicy:
                                   kills_sent=self.kills_sent,
                                   contacts=self.contacts,
                                   members=sorted(self._last_seen))
+
+
+class CohortPolicy(StragglerPolicy):
+    """The K-of-N accept over sampled cohorts (federated rounds,
+    ``ewdml_tpu_torch/federated``).
+
+    Each round the coordinator installs a sampled cohort
+    (:meth:`begin_round`), and :meth:`admit_push` admits a push only while
+    its round is open, from a cohort member that has not contributed yet,
+    and while the accept quota (``num_aggregate``, K of the cohort) is not
+    filled. A push past the quota is a dropped straggler: counted in
+    ``quota_dropped``, refused, never applied, so the server's pending
+    batch only ever holds the current round's K payloads.
+
+    The contact-gap timer is disarmed (``kill_threshold=None``): a pool
+    client is contacted only when sampled, so its gaps measure sampling
+    luck, not step time. Straggler handling is the quota plus the
+    driver-reported dropout (``FederatedCoordinator.report_drop`` ->
+    :meth:`exclude`).
+    """
+
+    def __init__(self, num_aggregate: int, max_staleness: Optional[int] = 0,
+                 on_round=None, clock: Callable[[], float] = _clock.monotonic):
+        # Strict staleness by default: a round's pushes are all computed at
+        # the round's pull version; an older one is a previous round's
+        # straggler.
+        super().__init__(kill_threshold=None, max_staleness=max_staleness,
+                         num_aggregate=num_aggregate, clock=clock)
+        self._round = -1
+        self._round_open = False
+        self._cohort: set = set()
+        self._contributed: set = set()
+        self.quota_dropped = 0    # pushes refused past the accept quota
+        self._on_round = on_round  # (round, accepted workers, version)
+
+    def begin_round(self, round_idx: int, cohort) -> None:
+        with self._lock:
+            if self._round_open:
+                raise RuntimeError(
+                    f"round {self._round} still open (begin_round "
+                    f"({round_idx}) before its apply committed)")
+            self._round = int(round_idx)
+            self._round_open = True
+            self._cohort = {int(c) for c in cohort}
+            self._contributed = set()
+
+    def extend_cohort(self, client: int,
+                      round_idx: Optional[int] = None) -> None:
+        """Admit a mid-round replacement (a dropout's resample) to the open
+        cohort; ``round_idx`` is unused while one round is open at a
+        time."""
+        with self._lock:
+            self._cohort.add(int(client))
+
+    def admit_push(self, worker, round_id: int = -1) -> Optional[str]:
+        worker = int(worker)
+        with self._lock:
+            if not self._round_open:
+                if (worker in self._cohort
+                        and worker not in self._contributed):
+                    # A cohort member arriving after its round's apply
+                    # committed: the sequential spelling of the quota drop.
+                    self.quota_dropped += 1
+                    return (f"round {self._round} complete: straggler "
+                            f"dropped past the accept quota")
+                return (f"no active federated round (round {self._round} "
+                        f"complete)")
+            if worker not in self._cohort:
+                return (f"client {worker} not in round {self._round}'s "
+                        f"sampled cohort")
+            if worker in self._contributed:
+                return (f"duplicate push from client {worker} in round "
+                        f"{self._round}")
+            if len(self._contributed) >= self.num_aggregate:
+                self.quota_dropped += 1
+                return (f"round {self._round} accept quota "
+                        f"{self.num_aggregate} filled (straggler dropped)")
+            self._contributed.add(worker)
+            return None
+
+    def retract_push(self, worker, round_id: int = -1) -> None:
+        with self._lock:
+            if self._round_open:
+                self._contributed.discard(int(worker))
+
+    def admit_subtree(self, members) -> tuple:
+        members = [int(m) for m in members]
+        with self._lock:
+            dups = tuple(m for m in members if m in self._contributed)
+            fresh = [m for m in members if m not in self._contributed]
+            if not self._round_open:
+                # Round already applied: an already-contributed member is
+                # an idempotent replay (named in dups); a fresh one is the
+                # quota-drop verdict.
+                if fresh:
+                    self.quota_dropped += len(fresh)
+                return (f"round {self._round} complete: {len(fresh)} "
+                        f"subtree member(s) past the accept quota"
+                        if fresh else
+                        f"round {self._round} complete: subtree replay",
+                        dups)
+            outsiders = [m for m in fresh if m not in self._cohort]
+            if outsiders:
+                return (f"client(s) {outsiders} not in round "
+                        f"{self._round}'s sampled cohort", dups)
+            if dups:
+                # A partial sum holding an already-counted contribution
+                # cannot be applied; the aggregator subtracts the named
+                # members and re-forwards.
+                return (f"{len(dups)} subtree member(s) already "
+                        f"contributed to round {self._round}", dups)
+            if (len(self._contributed) + len(fresh)
+                    > self.num_aggregate):
+                self.quota_dropped += len(fresh)
+                return (f"round {self._round} accept quota "
+                        f"{self.num_aggregate} cannot hold {len(fresh)} "
+                        f"more subtree member(s) (stragglers dropped)",
+                        dups)
+            self._contributed.update(fresh)
+            return None, ()
+
+    def retract_subtree(self, members) -> None:
+        with self._lock:
+            if self._round_open:
+                for m in members:
+                    self._contributed.discard(int(m))
+
+    def note_applied(self, version: int, workers: list,
+                     round_id: Optional[int] = None) -> None:
+        with self._lock:
+            if not self._round_open:
+                return
+            self._round_open = False
+            round_idx = self._round
+            cb = self._on_round
+        # Outside the policy lock: the callback journals (fsync) and wakes
+        # the round barrier.
+        if cb is not None:
+            cb(round_idx, sorted(int(w) for w in workers), int(version))

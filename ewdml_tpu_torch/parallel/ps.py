@@ -78,9 +78,12 @@ weight, not records, and the apply divides by the batch's total weight
 (one apply per distinct weight and stack height, cached). A short batch is
 padded with zero levels, a fragmented round stacks higher.
 
-Options of later slices raise ``NotImplementedError`` by name here or in
+The federated rounds (``federated/``) drive this server through a
+``parallel/policy.CohortPolicy``: its ``admit_push`` refusals count in
+``PSStats.fed_rejected`` and its ``note_applied`` closes a round. Options
+of later slices raise ``NotImplementedError`` by name here or in
 ``train/trainer.check_supported(async_path=True)``: round pipelines and
-cohort policies, and ``--adapt``.
+``--adapt``.
 """
 
 from __future__ import annotations
@@ -710,6 +713,10 @@ class ParameterServer:
                 raise SubtreeRejected(reason, dups)
         elif self.policy.admit_push(record.worker,
                                     round_id=record.round_id) is not None:
+            # The cohort policy's refusal (not a cohort member, a duplicate,
+            # past the accept quota); never under the base policy.
+            with self._lock:
+                self.stats.fed_rejected += 1
             return False
         health = self.health
         if health is not None:
@@ -805,7 +812,7 @@ class ParameterServer:
         return self.version
 
     def _apply_batch(self, batch, workers=(), push_ids=(), weights=(),
-                     members=()) -> bool:
+                     members=(), round_id: int = -1) -> bool:
         """The released batch's apply and commit, outside the state lock
         (``_update_lock`` keeps applies ordered); then its publication, its
         WAL record, the policy's commit hook and the serverkill fault, in
@@ -840,7 +847,9 @@ class ParameterServer:
             applied = []
             for w, ms in zip(workers, members or [()] * len(workers)):
                 applied.extend(ms if ms else (w,))
-            self.policy.note_applied(version_now, applied)
+            self.policy.note_applied(
+                version_now, applied,
+                round_id=(round_id if round_id >= 0 else None))
             self._maybe_trip_server_kill(version_now)
         return True
 

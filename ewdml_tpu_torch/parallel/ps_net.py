@@ -457,10 +457,14 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     homomorphic`` the scale contract is negotiated here too, from the
     gradient of a seeded normal batch (``normal`` and ``randint`` at
     ``fold_in(key(seed), 0x7C13)``): a zero batch leaves conv kernels'
-    gradients at zero. Template gradients run on copies of the model, so
-    its BatchNorm statistics stay the initial ones."""
+    gradients at zero; under ``--federated`` with ``--local-steps`` L > 1
+    that template is scaled by L in f32 (``ps_net.py:549-557``). Template
+    gradients run on copies of the model, so its BatchNorm statistics stay
+    the initial ones."""
     from ewdml_tpu_torch.core.config import (validate_agg_tree,
+                                             validate_federated,
                                              validate_replicas,
+                                             validate_round_pipeline,
                                              validate_server_agg)
     from ewdml_tpu_torch.core.precision import wire_cast
     from ewdml_tpu_torch.core.world import resolve_device
@@ -474,8 +478,10 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     from ewdml_tpu_torch.utils import prng
 
     validate_server_agg(cfg)
+    validate_federated(cfg)
     validate_replicas(cfg)
     validate_agg_tree(cfg)
+    validate_round_pipeline(cfg)
     if cfg.overlap != "off":
         raise ValueError(
             "--overlap bucket applies to the sync trainer; the ps_net TCP "
@@ -523,6 +529,13 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
             try:
                 _, grads_scale = grad_fn(copy.deepcopy(model), params, xs,
                                          ys, prng.key(0))
+                if cfg.federated and cfg.local_steps > 1:
+                    # A federated push is the pseudo-gradient (w0 - w)/lr:
+                    # the sum of local_steps gradients, so the contract is
+                    # sized for that unit, in f32, here where every
+                    # endpoint derives it.
+                    ls = kernels.f32_scalar(float(cfg.local_steps))
+                    grads_scale = [g * ls for g in grads_scale]
             finally:
                 cudnn.deterministic, cudnn.benchmark = saved[:2]
                 if device.type == "cpu":

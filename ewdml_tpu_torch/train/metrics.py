@@ -1,6 +1,7 @@
 """Analytic bytes-on-wire plan and the per-step log schema
 (``ewdml_tpu/train/metrics.py:26-304``: the single-slice sync trainer and
-the async parameter server's rows).
+the async parameter server's rows; ``:354-479``: one federated round's
+plan, :func:`federated_wire_plan`).
 
 The plan prices the payloads the exchange ships: per transport unit (a
 leaf, or a fused bucket under the resolved fusion), the up-link payload
@@ -232,6 +233,119 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
                     overlap="bucket" if overlap_on else "off",
                     per_bucket_up=pb_up, per_bucket_down=pb_down,
                     per_bucket_grad_bytes=pb_grad)
+
+
+@dataclass
+class FederatedRoundPlan:
+    """Analytic bytes and server cost of ONE federated round
+    (``ewdml_tpu/train/metrics.py:354-426``, copied).
+
+    The unit of exchange is a sampled client's round trip (dense weights
+    down, the compressed pseudo-gradient up); a round ships ``cohort`` of
+    them, and the server's decode work is one dequantize a round under
+    ``--server-agg homomorphic`` whatever the cohort, ``accept`` under
+    decode.
+    """
+
+    cohort: int
+    accept: int
+    local_steps: int
+    delta_bytes: int      # one client's compressed pseudo-gradient payload
+    down_bytes: int       # one client's dense full-weights pull
+    server_decodes: int   # dequantize passes per round
+    dense_delta_bytes: int  # what an uncompressed f32 delta would cost
+    # The steady-state per-version down-link under --pull-delta: one int8
+    # version delta (levels and blockwise f32 scales) amortized with a
+    # dense keyframe every keyframe_every versions; down_bytes without it.
+    pull_delta_down_bytes: int = 0
+    # Rounds in flight at once: 2 under --round-pipeline overlap, else 1.
+    round_pipeline: str = "off"
+    pipeline_depth: int = 1
+
+    @property
+    def pull_delta_down_bytes_round(self) -> int:
+        return self.cohort * (self.pull_delta_down_bytes
+                              or self.down_bytes)
+
+    @property
+    def down_compression(self) -> float:
+        """Dense f32 over delta-and-keyframe bytes (1.0 without
+        --pull-delta)."""
+        return self.down_bytes / max(1, self.pull_delta_down_bytes
+                                     or self.down_bytes)
+
+    @property
+    def up_bytes_round(self) -> int:
+        return self.cohort * self.delta_bytes
+
+    @property
+    def down_bytes_round(self) -> int:
+        return self.cohort * self.down_bytes
+
+    @property
+    def total_bytes_round(self) -> int:
+        return self.up_bytes_round + self.down_bytes_round
+
+    @property
+    def up_bytes_per_local_step(self) -> float:
+        """The up-link amortized over the round's local SGD steps."""
+        return self.up_bytes_round / max(1, self.cohort * self.local_steps)
+
+    @property
+    def in_flight_up_bytes(self) -> int:
+        """Peak up-link commitment (``pipeline_depth`` rounds)."""
+        return self.pipeline_depth * self.up_bytes_round
+
+    @property
+    def in_flight_down_bytes(self) -> int:
+        """Peak down-link commitment."""
+        return self.pipeline_depth * self.down_bytes_round
+
+
+def federated_wire_plan(cfg: TrainConfig, params,
+                        compressor=None) -> FederatedRoundPlan:
+    """Price one federated round of a config (``metrics.py:429-479``):
+    per leaf through the payload formulas the wire uses (``wire_bytes``,
+    the shared-scale ``priced_wire_bytes``), since a client compresses
+    each leaf. ``params`` is the parameter leaves (tensors, or their
+    shapes) in the JAX tree's leaf order; ``compressor`` overrides the
+    config's (an endpoint's wrapped compressor prices its contract)."""
+    comp = compressor if compressor is not None else make_compressor(
+        cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio,
+        cfg.topk_exact, cfg.qsgd_block)
+    shapes = [tuple(getattr(leaf, "shape", leaf)) for leaf in params]
+    hom = cfg.server_agg == "homomorphic"
+    per_unit = hasattr(comp, "for_leaf")
+    delta = 0
+    for i, shape in enumerate(shapes):
+        n = numel(shape)
+        cu = comp.for_leaf(i) if per_unit else comp
+        if not cfg.compression_enabled:
+            delta += n * 4
+        elif hom and not hasattr(cu, "scales"):
+            from ewdml_tpu_torch.ops.homomorphic import priced_wire_bytes
+
+            delta += priced_wire_bytes(cu, n)
+        else:
+            delta += int(cu.wire_bytes((n,)))
+    dense = sum(numel(shape) * 4 for shape in shapes)
+    accept = cfg.num_aggregate or cfg.cohort
+    pd_down = dense
+    if cfg.pull_delta:
+        from ewdml_tpu_torch.parallel.ps import PD_BLOCK
+
+        n = dense // 4
+        k = max(1, cfg.keyframe_every)
+        one_delta = n + 4 * ((n + PD_BLOCK - 1) // PD_BLOCK)
+        pd_down = -(-((k - 1) * one_delta + dense) // k)  # ceil-div
+    rp = cfg.round_pipeline
+    return FederatedRoundPlan(
+        cohort=cfg.cohort, accept=accept, local_steps=cfg.local_steps,
+        delta_bytes=delta, down_bytes=dense,
+        server_decodes=(1 if (hom and cfg.compression_enabled)
+                        else (accept if cfg.compression_enabled else 0)),
+        dense_delta_bytes=dense, pull_delta_down_bytes=pd_down,
+        round_pipeline=rp, pipeline_depth=(2 if rp == "overlap" else 1))
 
 
 @dataclass

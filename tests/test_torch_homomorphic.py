@@ -76,8 +76,10 @@ def test_shared_scales_within_f32_reduction(n, block):
 def test_dense_levels_bit_equal_given_jax_scales(n, block):
     g = _grad(n, 2)
     # A copy: jnp.asarray may share g's memory on the CPU, and the scales,
-    # dispatched asynchronously, could then read the entry set below.
-    sc = jqsgd.shared_scales(jnp.array(g), 127, block)
+    # dispatched asynchronously, could then read the entry set below. The
+    # copy from g is asynchronous too, so wait for the scales before g
+    # changes.
+    sc = jax.block_until_ready(jqsgd.shared_scales(jnp.array(g), 127, block))
     g[7] = 100.0  # far beyond headroom x template: clips at s
     for seed in (0, 11, 2**31 - 1):
         jp = jqsgd.compress_shared(jax.random.key(seed), jnp.asarray(g), sc,

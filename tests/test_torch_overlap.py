@@ -181,7 +181,13 @@ def test_bucketed_exchange_own_needs_a_compressor():
     dict(method=4, error_feedback=True), dict(method=4, overlap_buckets=4),
     dict(method=5, overlap_buckets=3), dict(method=2, overlap_buckets=2),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_wire_plan_under_overlap_is_the_jax_one(net, kw):
+def test_wire_plan_under_overlap_is_the_jax_one(net, kw, monkeypatch):
+    from ewdml_tpu.obs import registry as oreg
+
+    # The JAX plan falls back to the process-global gauge adapt.comm_frac
+    # when passed None, and another JAX test in this process may have set
+    # it: hold it unset so the None case compares the two packages.
+    monkeypatch.setattr(oreg.gauge("adapt.comm_frac"), "value", None)
     j, t = _plans(dict(kw, overlap="bucket"), net)
     for f in ("per_layer_up", "per_layer_down", "per_step_bytes",
               "per_step_bytes_total", "wire_dtype", "transport", "overlap",
