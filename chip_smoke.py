@@ -186,11 +186,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    full-table config for 3 epochs of 70 steps: epoch by epoch, windows of
    K = 20 with a 10-step per-step tail, so each window phase (0 and 10)
    is captured once for the cell and replayed in every later epoch.
-   (b) ``run_sweep("baseline", smoke=True)``: all 12 cells as child
-   processes on the card with ``--fault-spec crash@1=3``: the crashed cell
-   journals ``cell_retry`` with rc 13 and resumes from step 2, every cell
-   finishes, ``REPRO.md`` is written, and a second invocation journals 12
-   ``cell_skipped`` and launches no child. Each cell's wall is printed.
+   (b) ``run_sweep("baseline", smoke=True)`` over the six LeNet cells
+   (``SWEEP_CELLS``) as child processes on the card
+   with ``--fault-spec crash@1=3``: the crashed cell journals
+   ``cell_retry`` with rc 13 and resumes from step 2, every cell finishes,
+   ``REPRO.md`` is written with the six VGG11-BN cells pending, and a
+   second invocation journals 6 ``cell_skipped`` and launches no child.
+   Each cell's wall is printed.
 
 8. The async parameter server's down-link and the run-health watchdog,
    phase 4's shapes (W = K = 4, batch 128, 4 steps a worker, 2 on
@@ -303,10 +305,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     run: the eval top-1 and loss, the round wall p50, ``federated.client_s``
     p50 and ``apply_ms_mean``, beside the card's name and power limit.
 
+12. Federated rounds over TCP and the round pipeline
+    (``federated/loop.NetTransport``, ``federated/pipeline.py``, the
+    server's ``fed_*`` ops). (a) 11a's config for 10 rounds across
+    processes: a server on the event-loop plane and a ``--role
+    fed_driver``, both on the card; the server's round ledger byte-equal
+    to the same config's in-process ``--platform cpu`` run (run here
+    meanwhile). (b) 11b's config over TCP on the threads plane, the server
+    and the thread-batched driver (the whole cohort a push wave) in this
+    process, two aggregator processes (``--agg-tree``) and one replica
+    process (``--replicas``): one pseudo-push per aggregator holding
+    members per round, no pull at the apply server (its per-op segments),
+    the launches at their reckoning (two endpoint set-ups; the tree root's
+    int16 sum launches no ``int_accumulate``), the driver's per-op wire
+    latencies printed. (c) 11b under ``--round-pipeline overlap``, accept 7
+    of 8, a round-0 straggler sleeping 2 s before its push: round 1 begins
+    before round 0 commits, one decode a commit, at least one round-stale
+    drop. (d) 11b under ``--round-pipeline async``, accept 8 (a 32-tick
+    quota), a deferred straggler, run twice: the two journals byte-equal,
+    at least one down-weighted delta, no round-stale drop; then
+    ``int_accumulate`` at every (K, n) the runs summed (K = 32 among them,
+    and the commits' larger heights) bit-equal to its plain version. (e)
+    ``lenet_mnist/fed_c8_dir01_drop`` through the experiments runner's
+    cell entry (``runner.run_cell_child``) at smoke scale: one decode a
+    round. Each in-process run's launches are checked against the
+    reckoning.
+
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10 and 11 must be above 0. ``--phase8-only``, ``--phase9-only``,
-``--phase10-only`` and ``--phase11-only`` build and run that phase alone
-(no result line).
+8, 9, 10, 11 and 12 must be above 0. ``--phase8-only``, ``--phase9-only``,
+``--phase10-only``, ``--phase11-only`` and ``--phase12-only`` build and run
+that phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2625,6 +2653,11 @@ REPRO_SCAN = ("baseline_scan", "lenet_mnist/m6_scan", 3)
 # table's M5/M6 keep the default 0.5, so it must stay at 0 there.
 REPRO_KERNELS = ("qsgd_quantize", "dequant_mean", "stochastic_round")
 REPRO_CRASH = "crash@1=3"  # lenet_mnist/m2 dies at step 3
+# 7b's sweep: the LeNet half of the table (the sweep's machinery, not the
+# cells, is under test; 7a trains VGG11-BN cells in process). Cut from the
+# 12 cells once the whole script passed 1 000 s with phase 12: each child
+# costs ~18-32 s, mostly its start.
+SWEEP_CELLS = tuple(f"lenet_mnist/m{m}" for m in range(1, 7))
 
 
 def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
@@ -2710,19 +2743,21 @@ def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
 
 
 def repro_sweep(root: str) -> dict:
-    """7b: the smoke sweep of the ``baseline`` table, each cell a child
-    process on the card, one of them crashed and resumed; then its
-    re-invocation, which skips every cell."""
+    """7b: the smoke sweep of the ``baseline`` table's SWEEP_CELLS, each
+    cell a child process on the card, one of them crashed and resumed;
+    then its re-invocation, which skips every cell; the other cells are
+    reported pending."""
     from ewdml_tpu_torch.experiments import runner
     from ewdml_tpu_torch.parallel.faults import CRASH_EXIT_CODE
 
     out_dir = os.path.join(root, "sweep")
     t0 = time.perf_counter()
     summary = runner.run_sweep("baseline", out_dir=out_dir, smoke=True,
-                               platform="cuda", fault_spec=REPRO_CRASH)
+                               platform="cuda", fault_spec=REPRO_CRASH,
+                               cells=list(SWEEP_CELLS))
     first_s = time.perf_counter() - t0
     events = runner.Ledger(os.path.join(out_dir, "ledger.jsonl")).events()
-    if summary["failed"] or summary["done_total"] != 12:
+    if summary["failed"] or summary["done_total"] != len(SWEEP_CELLS):
         raise AssertionError(f"repro sweep: {summary}")
     retries = [e for e in events if e["event"] == "cell_retry"]
     if (len(retries) != 1 or retries[0]["cell"] != "lenet_mnist/m2"
@@ -2757,19 +2792,23 @@ def repro_sweep(root: str) -> dict:
                   flush=True)
     t1 = time.perf_counter()
     again = runner.run_sweep("baseline", out_dir=out_dir, smoke=True,
-                             platform="cuda", fault_spec=REPRO_CRASH)
+                             platform="cuda", fault_spec=REPRO_CRASH,
+                             cells=list(SWEEP_CELLS))
     second_s = time.perf_counter() - t1
     events2 = runner.Ledger(os.path.join(out_dir, "ledger.jsonl")).events()
     new = events2[len(events):]
     skips = [e for e in new if e["event"] == "cell_skipped"]
-    if (len(skips) != 12 or again["ran"] or again["failed"]
+    if (len(skips) != len(SWEEP_CELLS) or again["ran"] or again["failed"]
             or any(e["event"] == "cell_start" for e in new)):
         raise AssertionError(f"repro re-invocation: {again}")
     with open(summary["repro_md"]) as f:
         md = f.read()
-    if "Pending cells" in md or "NVIDIA" not in md:
-        raise AssertionError("repro sweep: REPRO.md is partial or names no "
-                             "card")
+    pending = [c.cell_id for c in runner.registry.table_cells("baseline")
+               if c.cell_id not in SWEEP_CELLS]
+    if (f"**Pending cells** ({len(pending)}): " + ", ".join(pending)
+            not in md or "NVIDIA" not in md):
+        raise AssertionError("repro sweep: REPRO.md does not list the "
+                             "cells left out as pending or names no card")
     return {"sweep_s": round(first_s, 1), "reinvocation_s": round(second_s, 1),
             "retry": retries[0]["reason"][:40], "cells": cells}
 
@@ -4346,6 +4385,405 @@ def federated_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+FED_ROUNDS_12A = 10   # 12a: FED_LENET over TCP, cut from 20 rounds
+PIPE_DELAY_S = 2.0    # 12c: the overlap straggler's sleep before its push
+
+
+def fed_net_launches(cfg, kernels, client_rounds: int, applies: int,
+                     tree: bool) -> dict:
+    """Kernel launches of a federated run whose server and driver are both
+    in this process (12b): :func:`expected_fed_launches` with a second
+    endpoint set-up (one more template compress and its SCALE_DRAWS). A
+    tree root sums the aggregators' int16 pseudo-pushes with a torch sum,
+    so no ``int_accumulate`` there."""
+    want = expected_fed_launches(cfg, kernels, client_rounds + 1, applies)
+    want["random_bits"] += SCALE_DRAWS
+    if tree:
+        want["int_accumulate"] = 0
+    return want
+
+
+def record_accumulates(kernels, seen: set):
+    """Wrap ``kernels.accumulate`` to record the (K, n) of every stack it
+    sums on the card at or above MIN_ELEMS; returns the restore."""
+    real = kernels.accumulate
+
+    def recorded(levels):
+        if levels.is_cuda and levels.shape[1] >= kernels.MIN_ELEMS:
+            seen.add((int(levels.shape[0]), int(levels.shape[1])))
+        return real(levels)
+
+    kernels.accumulate = recorded
+    return lambda: setattr(kernels, "accumulate", real)
+
+
+def pipe_counted(torch, kernels, counts, name: str, cfg, **kw) -> tuple:
+    """One federated run of the main path in this process (the counts
+    zeroed just before it and read just after), with ``run_federated``'s
+    keywords ``kw``; checks one decode a commit, ``bytes_up`` against the
+    admitted pushes' frames, finite losses and the launches against
+    :func:`expected_fed_launches` (a compress per client round, admitted,
+    refused or round-stale). Returns the result, the row and the (K, n)
+    the accumulate summed."""
+    import numpy as np
+
+    from ewdml_tpu_torch import native
+    from ewdml_tpu_torch.federated import run_federated
+    from ewdml_tpu_torch.obs.registry import MetricsRegistry
+    from ewdml_tpu_torch.train.metrics import federated_wire_plan
+
+    reg = MetricsRegistry()
+    seen: set = set()
+    restore = record_accumulates(kernels, seen)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run_federated(cfg, registry=reg, **kw)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    s = res.stats
+    client_rounds = s.pushes + s.fed_rejected + s.dropped_round_stale
+    plan = federated_wire_plan(cfg, res.params)
+    frame = len(native.encode_arrays([np.zeros(plan.delta_bytes,
+                                               np.uint8)]))
+    if s.decode_count != s.apply_rounds or s.bytes_up != s.pushes * frame:
+        raise AssertionError(f"{name}: {s.decode_count} decodes in "
+                             f"{s.apply_rounds} applies, bytes_up "
+                             f"{s.bytes_up} for {s.pushes} x {frame}")
+    want = expected_fed_launches(cfg, kernels, client_rounds, s.apply_rounds)
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, reckoned {want}")
+    if not all(math.isfinite(x) for x in res.round_losses):
+        raise AssertionError(f"{name}: round losses {res.round_losses}")
+    hist = reg.snapshot()["histograms"]
+    row = dict(
+        rounds=res.rounds, client_rounds=client_rounds, pushes=s.pushes,
+        fed_rejected=s.fed_rejected, round_stale=s.dropped_round_stale,
+        async_ticks=s.async_ticks, async_downweighted=s.async_downweighted,
+        applies=s.apply_rounds, decodes=s.decode_count,
+        accumulate_k=sorted({k for k, _ in seen}), launches=launched,
+        round_wall_p50_s=statistics.median(res.round_walls_s),
+        client_s_p50=hist["federated.client_s"]["p50"],
+        apply_ms_mean=s.apply_ms_mean, drive_wall_s=res.drive_wall_s,
+        wall_s=wall, final_loss=res.final_loss)
+    print(f"pipeline {name}: {json.dumps(row)}", flush=True)
+    return res, row, seen
+
+
+def straggler_for(cfg) -> int:
+    """A client of round 0's cohort that rounds 1 and 2 do not sample (so
+    its delay holds round 0 alone), else round 0's first."""
+    from ewdml_tpu_torch.federated import CohortSampler
+
+    sampler = CohortSampler(cfg.pool_size, cfg.cohort, cfg.seed)
+    pool = range(cfg.pool_size)
+    later = set(sampler.sample(1, pool)) | set(sampler.sample(2, pool))
+    first = sampler.sample(0, pool)
+    return next((c for c in first if c not in later), first[0])
+
+
+def fed_tcp_lenet(root: str) -> dict:
+    """12a: FED_LENET for FED_ROUNDS_12A rounds across processes, a server
+    on the event-loop plane and a ``--role fed_driver``, both on the card;
+    the server's journal against the same config's in-process CPU run."""
+    import contextlib
+    import io
+
+    from ewdml_tpu_torch import cli
+    from ewdml_tpu_torch.parallel import ps_net
+
+    port, = free_ports(1)
+    flags = FED_LENET + ["--fed-rounds", str(FED_ROUNDS_12A), "--port",
+                         str(port), "--net-timeout", "60"]
+    walls, procs, logs = {}, [], {}
+    t0 = time.perf_counter()
+    try:
+        logs["server"] = os.path.join(root, "a_server.log")
+        server = ps_net_proc(["--role", "server", "--wire-plane", "evloop",
+                              *flags, "--train-dir",
+                              os.path.join(root, "a_srv") + "/"],
+                             logs["server"])
+        procs.append(server)
+        wait_for_line(server, logs["server"], "PS_NET_READY", 120)
+        walls["server_ready_s"] = time.perf_counter() - t0
+        logs["driver"] = os.path.join(root, "a_driver.log")
+        driver = ps_net_proc(["--role", "fed_driver", *flags, "--train-dir",
+                              os.path.join(root, "a_drv") + "/"],
+                             logs["driver"])
+        procs.append(driver)
+        # The CPU reference runs in this process meanwhile.
+        cpu_argv = FED_LENET + ["--fed-rounds", str(FED_ROUNDS_12A),
+                                "--platform", "cpu", "--train-dir",
+                                os.path.join(root, "a_cpu") + "/"]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli.main(cpu_argv) != 0:
+                raise AssertionError("12a: the CPU run failed")
+        walls["cpu_run_s"] = time.perf_counter() - t
+        if driver.wait(timeout=300) != 0:
+            raise AssertionError(f"12a: fed_driver exited {driver.returncode}")
+        done = json.loads(wait_for_line(driver, logs["driver"],
+                                        "PS_NET_FED_DONE", 1).split(" ", 1)[1])
+        walls["driver_done_s"] = time.perf_counter() - t0
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        if server.wait(timeout=60) != 0:
+            raise AssertionError(f"12a: server exited {server.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    with open(os.path.join(root, "a_srv", "fed_rounds.jsonl"), "rb") as f, \
+            open(os.path.join(root, "a_cpu", "fed_rounds.jsonl"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("12a: the TCP server's round ledger differs "
+                                 "from the in-process CPU run's")
+    fed = stats["federated"]
+    if (done["rounds"], fed["rounds_done"], stats["decode_count"]) != (
+            FED_ROUNDS_12A,) * 3 or fed["dropouts"] != done["dropouts"]:
+        raise AssertionError(f"12a: {done} {fed} decodes "
+                             f"{stats['decode_count']}")
+    out = dict(walls, done=done, decodes=stats["decode_count"],
+               apply_ms_mean=stats["apply_ms_mean"],
+               segments=segment_ms(stats))
+    print(f"pipeline 12a: ledger byte-equal to the CPU run; {json.dumps(out)}"
+          f" on {smi_line()}", flush=True)
+    return out
+
+
+def fed_tcp_vgg(torch, kernels, counts, root: str) -> dict:
+    """12b: FED_VGG over TCP on the threads plane, its server and driver in
+    this process (thread-batched, the whole cohort a wave), two aggregator
+    processes and one replica process."""
+    import threading
+
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.federated import run_federated
+    from ewdml_tpu_torch.obs.registry import MetricsRegistry
+    from ewdml_tpu_torch.parallel import ps_net
+
+    port, rport, *aports = free_ports(4)
+    tree = ",".join(f"127.0.0.1:{p}" for p in aports)
+    common = FED_VGG + ["--agg-tree", tree, "--net-timeout", "60",
+                        "--net-retries", "8"]
+    walls, procs, logs = {}, [], {}
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    kernels.reset_launches()   # 12b's run of the main path starts here
+    # The server keeps its own registry: the driver's per-op client
+    # latencies go to reg under the same names.
+    server = ps_net.PSNetServer(from_args(common + [
+        "--train-dir", os.path.join(root, "b_srv") + "/"]), port=port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        up = [*common, "--port", str(port)]
+        for label, args in [("replica", ["--role", "replica", *up,
+                                         "--replica-port", str(rport)])] + [
+                (f"agg{i}", ["--role", "aggregator", *up, "--agg-port",
+                             str(p), "--agg-index", str(i)])
+                for i, p in enumerate(aports)]:
+            logs[label] = os.path.join(root, f"b_{label}.log")
+            procs.append(ps_net_proc(args + ["--platform", "cpu"],
+                                     logs[label]))
+        for proc, label, marker in zip(procs, ("replica", "agg0", "agg1"), (
+                "PS_REPLICA_READY", "PS_AGG_READY", "PS_AGG_READY")):
+            wait_for_line(proc, logs[label], marker, 120)
+        walls["tier_ready_s"] = time.perf_counter() - t0
+        cfg = from_args(common + ["--replicas", f"127.0.0.1:{rport}",
+                                  "--train-dir",
+                                  os.path.join(root, "b_drv") + "/"])
+        t = time.perf_counter()
+        res = run_federated(cfg, addr=("127.0.0.1", port),
+                            thread_batch=cfg.cohort, registry=reg)
+        torch.cuda.synchronize()
+        walls["drive_s"] = time.perf_counter() - t
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        for p in [rport] + aports:
+            ps_net.client_call(("127.0.0.1", p), {"op": "shutdown"})
+        ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        thread.join(60)
+        for label, proc in zip(("replica", "agg0", "agg1"), procs):
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"12b: {label} exited "
+                                     f"{proc.returncode}")
+    finally:
+        server.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    launched = dict(kernels.LAUNCHES)  # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    homes = [len({c % len(aports) for c in rec["accepted"]})
+             for rec in res.round_records]
+    segs = stats["segments"]
+    # Every sampled client pushes once (no dropout, accept = cohort); the
+    # root's "pushes" are the aggregators' pseudo-pushes.
+    client_rounds = cfg.cohort * res.rounds
+    want = fed_net_launches(cfg, kernels, client_rounds,
+                            stats["apply_rounds"], tree=True)
+    if stats["agg_pushes"] != sum(homes) or "pull" in segs or \
+            res.rejected or stats["agg_weight"] != client_rounds or \
+            not (stats["decode_count"] == stats["apply_rounds"]
+                 == cfg.fed_rounds):
+        raise AssertionError(f"12b: {stats['agg_pushes']} pseudo-pushes of "
+                             f"weight {stats['agg_weight']} for homes "
+                             f"{homes}; segments {sorted(segs)}; "
+                             f"{stats['decode_count']} decodes, "
+                             f"{res.rejected} refused")
+    if launched != want:
+        raise AssertionError(f"12b: launches {launched}, reckoned {want}")
+    hist = reg.snapshot()["histograms"]
+    op_ms = {}
+    for op in ("pull", "push", "fed_begin", "fed_end", "resync",
+               "agg_register", "fed_register"):
+        h = hist.get(f"ps_net.{op}.latency_s")
+        if h and h.get("count"):
+            op_ms[op] = dict(count=h["count"], p50_ms=h["p50"] * 1e3,
+                             p99_ms=h["p99"] * 1e3)
+    out = dict(walls, rounds=res.rounds, agg_pushes=stats["agg_pushes"],
+               agg_weight=stats["agg_weight"], homes=homes,
+               client_rounds=client_rounds, decodes=stats["decode_count"],
+               apply_ms_mean=stats["apply_ms_mean"], launches=launched,
+               round_walls_s=res.round_walls_s,
+               client_s_p50=hist["federated.client_s"]["p50"],
+               driver_op_ms=op_ms, server_segments={
+                   op: segs[op] for op in ("agg_push", "fed_begin",
+                                           "fed_end", "subscribe")
+                   if op in segs},
+               final_loss=res.final_loss)
+    print(f"pipeline 12b: {stats['agg_pushes']} pseudo-pushes for "
+          f"{res.rounds} rounds (homes {homes}), no pull at the apply "
+          f"server; {json.dumps(out)} on {smi_line()}", flush=True)
+    return out
+
+
+def pipeline_phase(torch, kernels) -> tuple:
+    """Phase 12 (see the module docstring)."""
+    import contextlib
+    import io
+
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.experiments import registry, runner
+    from ewdml_tpu_torch.federated import read_ledger
+
+    torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-11
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out, walls = {}, {}
+    root = tempfile.mkdtemp(prefix="ewdml_pipe_")
+    try:
+        t = time.perf_counter()
+        out["12a"] = fed_tcp_lenet(root)
+        walls["12a_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["12b"] = fed_tcp_vgg(torch, kernels, counts, root)
+        walls["12b_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        # 12c: overlap, accept 7 of 8, a straggler in round 0.
+        t = time.perf_counter()
+        cfg = from_args(FED_VGG + ["--round-pipeline", "overlap",
+                                   "--num-aggregate", "7",
+                                   "--train-dir",
+                                   os.path.join(root, "c") + "/"])
+        cfg.fault_spec = f"delay@{straggler_for(cfg)}={PIPE_DELAY_S}"
+        res, row, _ = pipe_counted(torch, kernels, counts, "12c", cfg)
+        ev = [(r["event"], r["round"]) for r in read_ledger(res.ledger_path)
+              if r["event"] in ("round_pipeline_begin", "round_commit")]
+        if (row["decodes"], row["applies"]) != (3, 3) or \
+                row["round_stale"] < 1 or \
+                ("round_pipeline_begin", 1) not in ev[
+                    :ev.index(("round_commit", 0))]:
+            raise AssertionError(f"12c: {row} {ev}")
+        row["events"] = ev
+        out["12c"] = row
+        walls["12c_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        # 12d: async, accept 8 (a 32-tick quota), a deferred straggler;
+        # twice, for the journal.
+        t = time.perf_counter()
+        ledgers, seen = [], set()
+        for i in range(2):
+            cfg = from_args(FED_VGG + ["--round-pipeline", "async",
+                                       "--num-aggregate", "8",
+                                       "--train-dir",
+                                       os.path.join(root, f"d{i}") + "/"])
+            cfg.fault_spec = f"delay@{straggler_for(cfg)}=1"
+            res, row, ks = pipe_counted(torch, kernels, counts, f"12d{i}",
+                                        cfg)
+            seen |= ks
+            with open(res.ledger_path, "rb") as f:
+                ledgers.append(f.read())
+            if row["async_downweighted"] < 1 or row["round_stale"] != 0:
+                raise AssertionError(f"12d: {row}")
+        if ledgers[0] != ledgers[1]:
+            raise AssertionError("12d: two async runs journaled different "
+                                 "ledgers")
+        # The accumulate at every (K, n) the runs summed, against its plain
+        # version (launches made for the comparison, not counted).
+        g = torch.Generator(device="cuda")
+        g.manual_seed(12)
+        for k, n in sorted(seen):
+            same_accumulate(torch, kernels, levels_on_card(torch, k, n, g),
+                            f"12d K={k} n={n}")
+        ks = sorted({k for k, _ in seen})
+        if 32 not in ks:
+            raise AssertionError(f"12d: the accumulate summed K {ks}")
+        row["accumulate_checked"] = sorted(seen)
+        out["12d"] = row
+        walls["12d_s"] = time.perf_counter() - t
+        print(f"pipeline 12d: ledgers of two runs byte-equal; int_accumulate "
+              f"bit-equal to its plain version at (K, n) {sorted(seen)}",
+              flush=True)
+        torch.cuda.empty_cache()
+        # 12e: one federated table cell through the experiments runner.
+        t = time.perf_counter()
+        cell = "lenet_mnist/fed_c8_dir01_drop"
+        kernels.reset_launches()   # 12e's run of the main path
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = runner.run_cell_child(
+                "federated", cell, out_dir=os.path.join(root, "e"),
+                data_dir="data/", smoke=True, platform="cuda")
+        torch.cuda.synchronize()
+        launched = dict(kernels.LAUNCHES)
+        for k, v in launched.items():
+            counts[k] += v
+        line = next(x for x in buf.getvalue().splitlines()
+                    if x.startswith(runner.RESULT_MARK))
+        erow = json.loads(line[len(runner.RESULT_MARK):])
+        if rc != 0 or not (erow["decode_count"] == erow["apply_rounds"]
+                           == 3) or launched["acc_decode"] <= 0:
+            raise AssertionError(f"12e: rc {rc} row {erow}")
+        spec = {c.cell_id: c for c in registry.table_cells("federated")}[cell]
+        out["12e"] = {k: erow[k] for k in (
+            "rounds", "decode_count", "apply_rounds", "dropouts",
+            "resampled", "final_loss", "top1", "round_wall_ms_mean",
+            "wall_s")}
+        out["12e"]["spec_hash"] = spec.spec_hash(smoke=True)
+        walls["12e_s"] = time.perf_counter() - t
+        print(f"pipeline 12e: {json.dumps(out['12e'])}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["walls"] = walls
+    print("phase 12 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for key in ("int_accumulate", "acc_decode", "random_bits"):
+        if counts[key] <= 0:
+            raise AssertionError(f"phase 12: {key} never launched")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4366,6 +4804,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase11-only", action="store_true",
                         help="build, then run phase 11 alone (no result "
+                             "line)")
+    parser.add_argument("--phase12-only", action="store_true",
+                        help="build, then run phase 12 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -4434,6 +4875,14 @@ def main(argv=None) -> int:
         print(f"phase 11: {time.perf_counter() - t11:.1f}s", flush=True)
         print("federated: " + json.dumps(federated), flush=True)
         print("phase 11 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase12_only:
+        t12 = time.perf_counter()
+        net_counts, pipeline = pipeline_phase(torch, kernels)
+        print(f"phase 12: {time.perf_counter() - t12:.1f}s", flush=True)
+        print("pipeline: " + json.dumps(pipeline), flush=True)
+        print("phase 12 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -4534,6 +4983,13 @@ def main(argv=None) -> int:
     print("phase 11 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 12: federated rounds over TCP and the round pipeline.
+    t12 = time.perf_counter()
+    net_counts, pipeline = pipeline_phase(torch, kernels)
+    print(f"phase 12: {time.perf_counter() - t12:.1f}s", flush=True)
+    print("phase 12 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -4556,6 +5012,7 @@ def main(argv=None) -> int:
     print("tcp: " + json.dumps(tcp), flush=True)
     print("tier: " + json.dumps(tier), flush=True)
     print("federated: " + json.dumps(federated), flush=True)
+    print("pipeline: " + json.dumps(pipeline), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -19,7 +19,9 @@ the in-process parameter server (``federated/``):
 
 and prints a ``federated done: ...`` line and an ``eval: ...`` line (on a
 model with BatchNorm the eval raises, as in the JAX package: ROADMAP Queue
-3 item 21). ``--feed device`` keeps the
+3 item 21). ``--round-pipeline overlap`` keeps two rounds open,
+``--round-pipeline async`` admits stale deltas down-weighted (both with
+``--server-agg homomorphic``). ``--feed device`` keeps the
 training split on the device, and ``--scan-window K`` (auto under
 ``--feed device``) then runs K steps per host launch, one CUDA graph a
 window on the GPU:
@@ -180,7 +182,9 @@ def _main_federated(cfg) -> int:
     from ewdml_tpu_torch.federated import run_federated
     from ewdml_tpu_torch.federated.loop import evaluate_params
     from ewdml_tpu_torch.train.metrics import federated_wire_plan
+    from ewdml_tpu_torch.train.trainer import _reject, _serving_rows
 
+    _reject(_serving_rows(cfg))
     res = run_federated(cfg)
     stats = res.stats
     plan = federated_wire_plan(cfg, res.params)

@@ -422,16 +422,71 @@ def validate_federated(cfg: TrainConfig) -> None:
 
 
 def validate_round_pipeline(cfg: TrainConfig) -> None:
-    """``--round-pipeline`` (``config.py:1026``): ``off`` is the sequential
-    round loop; ``overlap`` and ``async`` are ROADMAP Queue 1 item 6b and
-    raise ``NotImplementedError`` by name."""
+    """The ``--round-pipeline`` matrix (``config.py:1026-1103``, copied):
+    fail here, not as a wedged barrier or a mixed-round sum mid-run.
+
+    Both pipelined modes change which pushes average into which apply, so
+    a subsystem that assumes one round in flight is refused:
+
+    - only the homomorphic sum keeps per-round grids on one shared-scale
+      contract; decode mode's pending batch has no round tag;
+    - ``--agg-tree`` mid-tier sums hold no round id;
+    - a ``--replicas`` pull can lag the apply plane, so a cohort could
+      compute against a version from before its round began;
+    - a ``--server-state-dir`` snapshot is one grid cut and cannot hold two
+      open rounds;
+    - ``--adapt`` is refused for every federated run by
+      :func:`validate_federated`.
+
+    Async weights a stale delta by pending it fewer times on the int8 grid,
+    so the sum budget must admit the tick quota.
+    """
     if cfg.round_pipeline not in ("off", "overlap", "async"):
         raise ValueError(f"--round-pipeline must be off|overlap|async, "
                          f"got {cfg.round_pipeline!r}")
-    if cfg.round_pipeline != "off":
-        raise NotImplementedError(
-            f"--round-pipeline {cfg.round_pipeline} is not ported to "
-            "ewdml_tpu_torch yet (ROADMAP.md Queue 1 item 6b)")
+    if cfg.round_pipeline == "off":
+        return
+    if not cfg.federated:
+        raise ValueError(
+            "--round-pipeline overlap/async needs --federated: the round "
+            "pipeline schedules sampled cohorts, not a fixed worker pool")
+    if cfg.server_agg != "homomorphic":
+        raise ValueError(
+            "--round-pipeline overlap/async requires --server-agg "
+            "homomorphic: per-round accumulator grids route pushes by "
+            "round id in the compressed domain; decode-mode pending "
+            "batches carry no round tag")
+    if cfg.agg_tree:
+        raise ValueError(
+            "--round-pipeline is incompatible with --agg-tree: the "
+            "mid-tier accumulators hold no round machinery, so a subtree "
+            "partial sum spanning two in-flight rounds would mix grids")
+    if cfg.replicas:
+        raise ValueError(
+            "--round-pipeline is incompatible with --replicas: a replica-"
+            "served pull can lag the apply plane, so a pipelined cohort "
+            "could compute against a version from before its round began "
+            "and wedge the overlap window")
+    if cfg.server_state_dir:
+        raise ValueError(
+            "--round-pipeline is incompatible with --server-state-dir: a "
+            "snapshot is one point-in-time grid cut and cannot capture "
+            "two in-flight rounds; mid-pipeline durability is refused at "
+            "config altitude rather than recovered approximately")
+    if cfg.round_pipeline == "async":
+        if cfg.fed_staleness_decay < 0:
+            raise ValueError(f"--fed-staleness-decay must be >= 0, got "
+                             f"{cfg.fed_staleness_decay}")
+        if cfg.fed_staleness_bound < 1:
+            raise ValueError(f"--fed-staleness-bound must be >= 1, got "
+                             f"{cfg.fed_staleness_bound}")
+        from ewdml_tpu_torch.ops.qsgd import check_sum_budget
+
+        # A fresh delta pends WEIGHT_SCALE (4) ticks, the quota is
+        # accept * 4 ticks, and a batch overshoots it by at most one
+        # delta's ticks before the quota fires.
+        accept = cfg.num_aggregate or cfg.cohort
+        check_sum_budget(cfg.quantum_num, accept * 4 + 4)
 
 
 def validate_replicas(cfg: TrainConfig) -> None:

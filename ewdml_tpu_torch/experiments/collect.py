@@ -184,6 +184,69 @@ def _comm_split_est(trainer, cfg, step_total_s: float):
     return comm, step_total_s - comm, frac
 
 
+def _run_federated_cell(cfg, device=None, evaluate: bool = True) -> dict:
+    """One ``federated`` table cell (``collect.py:211-267``):
+    ``cfg.fed_rounds`` sampled-cohort rounds in process on ``device``, and
+    the row: convergence (the last pushed loss, held-out top-1), the flat
+    server cost (``decode_count`` against ``apply_rounds``), the analytic
+    round pricing (``train.metrics.federated_wire_plan``) beside the
+    measured bytes, and the churn (dropouts, resamples, quota drops). The
+    run's registry is the row's ``obs_metrics``."""
+    from ewdml_tpu_torch.federated import run_federated
+    from ewdml_tpu_torch.federated.loop import evaluate_params
+    from ewdml_tpu_torch.obs.registry import MetricsRegistry
+    from ewdml_tpu_torch.train.metrics import federated_wire_plan
+    from ewdml_tpu_torch.utils.provenance import hardware_provenance
+
+    t_wall = clock.monotonic()
+    registry = MetricsRegistry()
+    res = run_federated(cfg, device=device, registry=registry)
+    stats = res.stats
+    plan = federated_wire_plan(cfg, res.params)
+    row = {
+        "mode": "federated",
+        "rounds": res.rounds,
+        "pool_size": cfg.pool_size,
+        "cohort": cfg.cohort,
+        "accept": cfg.num_aggregate or cfg.cohort,
+        "local_steps": cfg.local_steps,
+        "partition": cfg.partition,
+        "partition_alpha": cfg.partition_alpha,
+        "skew": round(res.skew, 4),
+        "final_loss": round(res.final_loss, 4),
+        "round_losses": [round(l, 4) for l in res.round_losses],
+        "decode_count": stats.decode_count,
+        "apply_rounds": stats.apply_rounds,
+        "apply_ms_mean": round(stats.apply_ms_mean, 3),
+        "dropouts": res.dropouts,
+        "resampled": res.resampled,
+        "quota_dropped": res.coordinator["quota_dropped"],
+        "fed_rejected": stats.fed_rejected,
+        "bytes_up_mb": round(stats.bytes_up / 1e6, 4),
+        "bytes_down_mb": round(stats.bytes_down / 1e6, 4),
+        "planned_up_mb_round": round(plan.up_bytes_round / 1e6, 4),
+        "planned_down_mb_round": round(plan.down_bytes_round / 1e6, 4),
+        "planned_delta_down_mb_round": round(
+            plan.pull_delta_down_bytes_round / 1e6, 4),
+        "planned_down_compression": round(plan.down_compression, 3),
+        "planned_server_decodes": plan.server_decodes,
+        "round_wall_ms_mean": round(
+            1e3 * sum(res.round_walls_s) / max(1, len(res.round_walls_s)),
+            2),
+        "wall_s": round(clock.monotonic() - t_wall, 3),
+        "data_source": res.data_source,
+        "obs_metrics": registry.snapshot(),
+        # "hardware", as the port's other rows (the JAX row says
+        # "provenance"): the report's provenance block reads it.
+        "hardware": hardware_provenance(mesh_devices=1),
+    }
+    if evaluate:
+        ev = evaluate_params(cfg, res.params, device=device)
+        row["top1"] = round(ev["top1"], 4)
+        row["eval_loss"] = round(ev["loss"], 4)
+    return row
+
+
 def run_cell(cfg, *, device=None, evaluate: bool = True,
              target_top1: float | None = None,
              max_epochs: int | None = None, per_epoch_eval: bool = False,
@@ -206,6 +269,10 @@ def run_cell(cfg, *, device=None, evaluate: bool = True,
     from ewdml_tpu_torch.train.loop import Trainer
     from ewdml_tpu_torch.utils.provenance import hardware_provenance
 
+    if cfg.federated:
+        # The sampled-cohort round loop, not the sync trainer: its budget
+        # is rounds, and none of the epoch or target machinery applies.
+        return _run_federated_cell(cfg, device=device, evaluate=evaluate)
     t_wall = clock.monotonic()
     trainer = Trainer(cfg, device=device)
     if resume:

@@ -97,6 +97,18 @@ class CellSpec:
     precision_policy: str = "f32"
     feed: str = "u8"        # input feed; "device" enables the scan window
     scan_window: int = 0    # --scan-window (0 = auto; only with feed=device)
+    # A federated cell runs sampled-cohort rounds of local SGD over
+    # non-IID shards instead of the sync trainer (collect.run_cell
+    # branches on cfg.federated); fed_dropout is its --fault-spec, in the
+    # hash (churn changes the experiment).
+    federated: bool = False
+    pool_size: int = 0
+    cohort: int = 0
+    local_steps: int = 1
+    partition: str = "iid"
+    partition_alpha: float = 0.5
+    fed_dropout: str = ""   # --fault-spec clauses for the federated driver
+    fed_rounds: int = 0     # rounds (full runs; smoke runs 3)
 
     @property
     def epoch_cap(self) -> int:
@@ -143,6 +155,21 @@ class CellSpec:
             feed=self.feed, scan_window=self.scan_window,
             log_every=10**9, bf16_compute=not smoke,
         )
+        if self.federated:
+            cfg.federated = True
+            cfg.pool_size = self.pool_size
+            cfg.cohort = self.cohort
+            cfg.local_steps = self.local_steps
+            cfg.partition = self.partition
+            cfg.partition_alpha = self.partition_alpha
+            cfg.fault_spec = self.fed_dropout
+            cfg.fed_rounds = 3 if smoke else (self.fed_rounds or 20)
+            # Cohort sums on the homomorphic accumulator: one decode a
+            # round whatever the cohort.
+            cfg.server_agg = "homomorphic"
+            # Plain SGD on both sides is FedAvg (server momentum would be
+            # FedAvgM, another experiment).
+            cfg.momentum = 0.0
         spe = _steps_per_epoch(dataset, cfg.batch_size, self.num_workers)
         if smoke:
             # A few steps a cell, eval_freq 2 so a mid-cell kill always
@@ -175,7 +202,11 @@ class CellSpec:
 
     @property
     def published(self) -> dict:
-        """metric -> the published value for this cell's method."""
+        """metric -> the published value for this cell's method; a
+        federated cell has none (sampled cohorts at a round budget are
+        another experiment than the paper's grid)."""
+        if self.federated:
+            return {}
         fam = PUBLISHED.get(self.model_key, {})
         return {metric: by_method[self.method]
                 for metric, by_method in fam.items()
@@ -214,6 +245,30 @@ def _scan_matrix() -> list[CellSpec]:
             for c in _matrix() if c.method == 6]
 
 
+def _federated_cells() -> list[CellSpec]:
+    """The ``federated`` table: cohort size x heterogeneity x dropout over
+    LeNet at pool 64, each cell a server-sampled local-SGD round loop on
+    the homomorphic accumulator. The dropout cell kills three clients at
+    round 1; the coordinator resamples their slots and excludes them from
+    later draws."""
+    base = dict(model_key="lenet_mnist", network="LeNet",
+                ref_dataset="mnist", stand_in="mnist10k", method=4,
+                epochs=1, federated=True, pool_size=64, local_steps=5)
+    churn = "crash@3=1,crash@11=1,crash@42=1"
+    axes = [
+        ("fed_c4_iid", dict(cohort=4)),
+        ("fed_c8_iid", dict(cohort=8)),
+        ("fed_c16_iid", dict(cohort=16)),
+        ("fed_c8_dir01", dict(cohort=8, partition="dirichlet",
+                              partition_alpha=0.1)),
+        ("fed_c8_shard", dict(cohort=8, partition="shard")),
+        ("fed_c8_dir01_drop", dict(cohort=8, partition="dirichlet",
+                                   partition_alpha=0.1, fed_dropout=churn)),
+    ]
+    return [CellSpec(cell_id=f"lenet_mnist/{name}", **base, **kw)
+            for name, kw in axes]
+
+
 def _unported(table: str, waits_for: str):
     def cells():
         raise NotImplementedError(
@@ -222,16 +277,15 @@ def _unported(table: str, waits_for: str):
     return cells
 
 
-#: name -> () -> ordered cell list. The adaptive and federated tables keep
-#: their names and raise until their subsystems are ported.
+#: name -> () -> ordered cell list. The adaptive table keeps its name and
+#: raises until adapt/ is ported.
 TABLES = {
     "baseline": lambda: _matrix(),
     "baseline_bf16": lambda: _matrix(precision_policy="bf16_wire_state"),
     "baseline_scan": lambda: _scan_matrix(),
     "baseline_adaptive": _unported("baseline_adaptive",
                                    "adapt/ (Queue 1 item 7)"),
-    "federated": _unported("federated",
-                           "its cells and collector (Queue 1 item 6c)"),
+    "federated": lambda: _federated_cells(),
 }
 
 

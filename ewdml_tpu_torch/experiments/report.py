@@ -160,7 +160,11 @@ def write_report(table: str, specs: list, rows: dict, *, out_dir: str,
 
     any_est = False
     for model_key, mspecs in by_model.items():
-        col = {s.cell_id: f"M{s.method}" for s in mspecs}
+        # A federated cell (all share one method preset) is labelled by
+        # its sweep axis; its own table is the "Federated rounds" block.
+        col = {s.cell_id: (s.cell_id.rsplit("/", 1)[-1] if s.federated
+                           else f"M{s.method}")
+               for s in mspecs}
         lines += ["", f"## {MODEL_TITLES.get(model_key, model_key)}", ""]
         header = ("| Metric | row | "
                   + " | ".join(col[s.cell_id] for s in mspecs) + " |")
@@ -202,6 +206,33 @@ def write_report(table: str, specs: list, rows: dict, *, out_dir: str,
                     for s in mspecs]
             lines.append(f"| {label} | — | "
                          + " | ".join(_fmt(v) for v in vals) + " |")
+
+    # The federated sweep: cohort x heterogeneity x dropout, with the flat
+    # server cost per cell (one decode a round on the homomorphic sum).
+    federated = [(s, rows[s.cell_id]) for s in specs
+                 if s.federated and s.cell_id in rows
+                 and rows[s.cell_id].get("mode") == "federated"]
+    if federated:
+        lines += ["", "## Federated rounds (pool-scale client sampling)",
+                  "",
+                  "| cell | cohort | partition | skew | rounds | final "
+                  "loss | top1 | decode/round | dropouts→resampled | "
+                  "up MB/round | round ms |",
+                  "|---|---|---|---|---|---|---|---|---|---|---|"]
+        for s, r in federated:
+            dpr = r.get("decode_count", 0) / max(1, r.get("apply_rounds", 1))
+            up_round = (r.get("bytes_up_mb", 0)
+                        / max(1, r.get("rounds", 1)))
+            lines.append(
+                f"| `{s.cell_id.rsplit('/', 1)[-1]}` | {r.get('cohort')} "
+                f"| {r.get('partition')}(α={r.get('partition_alpha')}) "
+                f"| {_fmt(r.get('skew'))} | {r.get('rounds')} "
+                f"| {_fmt(r.get('final_loss'))} | {_fmt(r.get('top1'))} "
+                f"| {_fmt(dpr)} "
+                f"| {r.get('dropouts', 0)}→{r.get('resampled', 0)} "
+                f"| {_fmt(up_round)} "
+                f"| {_fmt(r.get('round_wall_ms_mean'))} |")
+        lines.append("")
 
     if any_est:
         lines += ["", "`~` = bytes-proportional ESTIMATE of the fused "

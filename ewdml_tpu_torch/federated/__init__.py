@@ -14,10 +14,10 @@ the cohort (``core.config.federated_max_cohort``).
 - :mod:`~ewdml_tpu_torch.federated.coordinator`: the server-side round
   state and the cohort policy;
 - :mod:`~ewdml_tpu_torch.federated.client`: the client pool;
-- :mod:`~ewdml_tpu_torch.federated.loop`: the in-process round driver.
-
-The TCP transport (``NetTransport``, ``--role fed_driver``) and
-``--round-pipeline`` are ROADMAP Queue 1 item 6b.
+- :mod:`~ewdml_tpu_torch.federated.loop`: the round driver, in process
+  or over TCP (``NetTransport``, ``ps_net --role fed_driver``);
+- :mod:`~ewdml_tpu_torch.federated.pipeline`: the pipelined drivers of
+  ``--round-pipeline overlap|async``.
 """
 
 from ewdml_tpu_torch.core.config import federated_max_cohort  # noqa: F401
@@ -26,5 +26,5 @@ from ewdml_tpu_torch.federated.ledger import (RoundLedger,  # noqa: F401
                                               read_ledger, round_sequence)
 from ewdml_tpu_torch.federated.loop import (FedRunResult,  # noqa: F401
                                             InProcessTransport,
-                                            run_federated)
+                                            NetTransport, run_federated)
 from ewdml_tpu_torch.federated.sampler import CohortSampler  # noqa: F401

@@ -1,5 +1,5 @@
 """Server-side federated round state: sampler, ledger and cohort policy
-(``ewdml_tpu/federated/coordinator.py``, the sequential lifecycle).
+(``ewdml_tpu/federated/coordinator.py``).
 
 One coordinator per server. It owns:
 
@@ -9,16 +9,16 @@ One coordinator per server. It owns:
 - the :class:`~ewdml_tpu_torch.federated.sampler.CohortSampler` and the
   :class:`~ewdml_tpu_torch.federated.ledger.RoundLedger`, the journal a
   replay is compared against;
-- the :class:`~ewdml_tpu_torch.parallel.policy.CohortPolicy` the
-  ``ParameterServer`` consults on every push; its apply-commit hook
-  completes a round here;
+- the cohort policy the ``ParameterServer`` consults on every push, chosen
+  by ``--round-pipeline``: :class:`~ewdml_tpu_torch.parallel.policy.CohortPolicy`
+  (``off``), ``PipelinedCohortPolicy`` (``overlap``) or
+  ``AsyncCohortPolicy`` (``async``); its apply-commit hook completes a
+  round here;
 - the round barrier (:meth:`wait_round`).
 
 Its gauges (``federated.round``, ``pool``, ``cohort``, ``max_cohort``) and
 counters (``federated.dropouts``, ``resampled``) go into the
 ``MetricsRegistry`` its caller passes, never into a process-global one.
-``--round-pipeline overlap|async`` (the pipelined lifecycle) is ROADMAP
-Queue 1 item 6b: the constructor refuses it by name.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from ewdml_tpu_torch.core.config import (federated_max_cohort,
 from ewdml_tpu_torch.federated.ledger import RoundLedger, read_ledger
 from ewdml_tpu_torch.federated.sampler import CohortSampler
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
-from ewdml_tpu_torch.parallel.policy import CohortPolicy
+from ewdml_tpu_torch.parallel.policy import (AsyncCohortPolicy, CohortPolicy,
+                                             PipelinedCohortPolicy)
 
 logger = logging.getLogger("ewdml_tpu_torch.federated")
 
@@ -67,8 +68,20 @@ class FederatedCoordinator:
             prior = read_ledger(ledger_path)
         self.ledger = (RoundLedger(ledger_path, resume=resume)
                        if ledger_path else None)
-        self.policy = CohortPolicy(num_aggregate=self.accept,
-                                   on_round=self._on_round_applied)
+        # The policy follows the mode; all three fire the same
+        # apply-commit callback, and only the journal's event name differs.
+        if self.mode == "overlap":
+            self.policy = PipelinedCohortPolicy(
+                num_aggregate=self.accept,
+                on_round=self._on_round_applied)
+        elif self.mode == "async":
+            self.policy = AsyncCohortPolicy(
+                self.accept, decay=cfg.fed_staleness_decay,
+                bound=cfg.fed_staleness_bound,
+                on_commit=self._on_round_applied)
+        else:
+            self.policy = CohortPolicy(num_aggregate=self.accept,
+                                       on_round=self._on_round_applied)
         # One condition guards the round state; the policy's lock is never
         # held while it is taken (note_applied calls back outside it).
         self._cond = threading.Condition()
@@ -81,6 +94,14 @@ class FederatedCoordinator:
         self._cohort: list = []
         self._resamples = 0
         self._done: dict = {}           # round -> its round_done record
+        # The pipelined modes' round state (empty under 'off'): every begun
+        # round's final cohort (a retried begin replays it, a drop's
+        # replacement extends it), the overlap window's open rounds (gated
+        # before sampling, so a too-deep begin changes nothing) and the
+        # per-round resample attempt counters.
+        self._begun: dict = {}
+        self._open_rounds: set = set()
+        self._rp_attempts: dict = {}
         self.dropouts = 0
         self.resampled = 0
         if self.max_cohort is not None:
@@ -177,6 +198,8 @@ class FederatedCoordinator:
         retry) returns its cohort again, without a second journal record
         or a second install in the policy."""
         round_idx = int(round_idx)
+        if self.mode != "off":
+            return self._begin_round_pipelined(round_idx, version)
         with self._cond:
             if round_idx == self._round:
                 return list(self._cohort)  # wire-retry replay
@@ -196,6 +219,39 @@ class FederatedCoordinator:
         self.metrics.gauge("federated.round").set(round_idx)
         return cohort
 
+    def _begin_round_pipelined(self, round_idx: int,
+                               version: int = -1) -> list[int]:
+        """The pipelined begin (``overlap``, ``async``): sampling stays
+        strictly sequential, but round R need not have committed before
+        R+1 begins. Overlap's depth-2 window is checked before any state
+        changes. Journals ``round_pipeline_begin`` (the fields of
+        ``round_begin``)."""
+        with self._cond:
+            if round_idx in self._begun:
+                return list(self._begun[round_idx])  # wire-retry replay
+            if round_idx != self._round + 1:
+                raise RuntimeError(
+                    f"fed_begin out of order: expected round "
+                    f"{self._round + 1}, got {round_idx}")
+            if self.mode == "overlap" and len(self._open_rounds) >= 2:
+                raise RuntimeError(
+                    f"pipeline depth 2 exceeded: rounds "
+                    f"{sorted(self._open_rounds)} still open at "
+                    f"fed_begin({round_idx})")
+            cohort = self.sampler.sample(round_idx, self._eligible())
+            self._round = round_idx
+            self._cohort = list(cohort)
+            self._begun[round_idx] = list(cohort)
+            self._open_rounds.add(round_idx)
+            self._rp_attempts[round_idx] = 0
+        self.policy.begin_round(round_idx, cohort)
+        if self.ledger is not None:
+            self.ledger.append(event="round_pipeline_begin",
+                               round=round_idx, cohort=cohort,
+                               version=int(version))
+        self.metrics.gauge("federated.round").set(round_idx)
+        return cohort
+
     def report_drop(self, client: int, round_idx: int) -> int:
         """A client's dropout: exclude it from all later draws, resample
         one replacement into the current cohort (so the accept quota stays
@@ -207,14 +263,32 @@ class FederatedCoordinator:
             if client in self._drop_replacement:
                 return self._drop_replacement[client]  # wire-retry replay
             self._dropped[client] = f"dropout at round {round_idx}"
-            self._resamples += 1
-            eligible = self._eligible() - set(self._cohort)
-            replacement = (self.sampler.resample_one(round_idx,
-                                                     self._resamples,
-                                                     eligible)
-                           if round_idx == self._round else -1)
-            if replacement >= 0:
-                self._cohort.append(replacement)
+            if self.mode != "off":
+                # Pipelined: the resample extends the drop's own round
+                # (its quota is the one that became unreachable), with a
+                # per-round attempt counter, so the draw is a function of
+                # (round, attempt, eligible) whatever the interleaving.
+                cohort_r = self._begun.get(round_idx)
+                replacement = -1
+                if cohort_r is not None:
+                    self._rp_attempts[round_idx] = (
+                        self._rp_attempts.get(round_idx, 0) + 1)
+                    replacement = self.sampler.resample_one(
+                        round_idx, self._rp_attempts[round_idx],
+                        self._eligible() - set(cohort_r))
+                if replacement >= 0:
+                    cohort_r.append(replacement)
+                    if round_idx == self._round:
+                        self._cohort.append(replacement)
+            else:
+                self._resamples += 1
+                eligible = self._eligible() - set(self._cohort)
+                replacement = (self.sampler.resample_one(round_idx,
+                                                         self._resamples,
+                                                         eligible)
+                               if round_idx == self._round else -1)
+                if replacement >= 0:
+                    self._cohort.append(replacement)
             self._drop_replacement[client] = replacement
             pool = len(self._registered) - len(self._dropped)
         # A dropped client that contacts the server again is refused.
@@ -236,13 +310,18 @@ class FederatedCoordinator:
     def _on_round_applied(self, round_idx: int, accepted: list,
                           version: int) -> None:
         """The policy's apply-commit callback: journal the round, record
-        it and release the barrier."""
-        record = {"event": "round_done", "round": round_idx,
+        it and release the barrier. The pipelined modes journal
+        ``round_commit`` (the same fields), so a replay sees the commit
+        order apart from the begin order; under ``async`` ``round_idx`` is
+        the commit index, since one commit can mix several rounds."""
+        event = "round_done" if self.mode == "off" else "round_commit"
+        record = {"event": event, "round": round_idx,
                   "accepted": accepted, "version": version}
         if self.ledger is not None:
             self.ledger.append(**record)
         with self._cond:
             self._done[round_idx] = record
+            self._open_rounds.discard(round_idx)
             self._cond.notify_all()
 
     def wait_round(self, round_idx: int, timeout: float) -> Optional[dict]:

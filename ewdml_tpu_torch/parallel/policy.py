@@ -12,9 +12,9 @@ worker are not judged: they hold one-time costs such as the first batch.
 The TCP server (``parallel/ps_net.py``) adds a retried contact (refreshes
 liveness, not judged), elastic membership (``note_join``) and the restore
 of a recovered server. The base policy's cohort hooks are no-ops;
-:class:`CohortPolicy` implements them for the federated rounds. The
-pipelined cohort policies (``--round-pipeline``) are ROADMAP Queue 1 item
-6b.
+:class:`CohortPolicy` implements them for the federated rounds,
+:class:`PipelinedCohortPolicy` and :class:`AsyncCohortPolicy` (``:436-659``)
+for ``--round-pipeline overlap`` and ``async``.
 """
 
 from __future__ import annotations
@@ -185,8 +185,22 @@ class StragglerPolicy:
 
     # -- cohort hooks (no-ops on the base policy) ------------------------
     def admit_push(self, worker, round_id: int = -1) -> Optional[str]:
-        """Pre-acceptance gate: None admits (every worker, here)."""
+        """Pre-acceptance gate: None admits (every worker, here).
+        ``round_id`` is the round the push was stamped with (-1 unstamped;
+        only the pipelined policies route by it)."""
         return None
+
+    def round_stale(self, round_id: int) -> bool:
+        """Whether a push stamped ``round_id`` targets a round that has
+        already committed or left the staleness window, judged before any
+        decode work. Always False here (no round routing)."""
+        return False
+
+    def push_weight(self, round_id: int) -> int:
+        """Integer tick weight of a push stamped ``round_id`` on the
+        homomorphic grid: 1 here; :class:`AsyncCohortPolicy` down-weights
+        by staleness."""
+        return 1
 
     def note_applied(self, version: int, workers: list,
                      round_id: Optional[int] = None) -> None:
@@ -353,3 +367,216 @@ class CohortPolicy(StragglerPolicy):
         # the round barrier.
         if cb is not None:
             cb(round_idx, sorted(int(w) for w in workers), int(version))
+
+
+class PipelinedCohortPolicy(CohortPolicy):
+    """``--round-pipeline overlap``: up to ``depth`` rounds open at once,
+    each with its own (cohort, contributed) scope; pushes are routed by
+    their stamped round id.
+
+    The coordinator begins round R+1 while round R's stragglers drain, so
+    a push is judged against its own round's cohort and quota. A push for
+    a round that has committed is round-stale (:meth:`round_stale`, judged
+    by the server before any decode); its client recovers by pulling.
+    ``max_staleness`` is ``depth - 1``.
+    """
+
+    def __init__(self, num_aggregate: int, depth: int = 2, on_round=None,
+                 clock: Callable[[], float] = _clock.monotonic):
+        super().__init__(num_aggregate=num_aggregate,
+                         max_staleness=depth - 1, on_round=on_round,
+                         clock=clock)
+        self.depth = max(2, int(depth))
+        # round -> (cohort set, contributed set); at most ``depth`` live.
+        self._open: dict[int, tuple] = {}
+        self._committed: set = set()
+
+    def begin_round(self, round_idx: int, cohort) -> None:
+        round_idx = int(round_idx)
+        with self._lock:
+            if round_idx in self._open or round_idx in self._committed:
+                return  # wire-retry replay: the round is installed
+            if len(self._open) >= self.depth:
+                raise RuntimeError(
+                    f"pipeline depth {self.depth} exceeded: rounds "
+                    f"{sorted(self._open)} still open at "
+                    f"begin_round({round_idx})")
+            self._open[round_idx] = ({int(c) for c in cohort}, set())
+            self._round = max(self._round, round_idx)
+            self._round_open = True
+
+    def extend_cohort(self, client: int,
+                      round_idx: Optional[int] = None) -> None:
+        with self._lock:
+            rid = (int(round_idx) if round_idx is not None
+                   else (max(self._open) if self._open else -1))
+            entry = self._open.get(rid)
+            if entry is not None:
+                entry[0].add(int(client))
+
+    def admit_push(self, worker, round_id: int = -1) -> Optional[str]:
+        worker, rid = int(worker), int(round_id)
+        with self._lock:
+            entry = self._open.get(rid)
+            if entry is None:
+                if rid in self._committed:
+                    # The post-commit straggler: its round's apply already
+                    # fired on another grid.
+                    self.quota_dropped += 1
+                    return (f"round {rid} committed: straggler dropped "
+                            f"past the accept quota")
+                return (f"round {rid} is not an open pipelined round "
+                        f"(open: {sorted(self._open)})")
+            cohort, contributed = entry
+            if worker not in cohort:
+                return (f"client {worker} not in round {rid}'s sampled "
+                        f"cohort")
+            if worker in contributed:
+                return f"duplicate push from client {worker} in round {rid}"
+            if len(contributed) >= self.num_aggregate:
+                self.quota_dropped += 1
+                return (f"round {rid} accept quota {self.num_aggregate} "
+                        f"filled (straggler dropped)")
+            contributed.add(worker)
+            return None
+
+    def retract_push(self, worker, round_id: int = -1) -> None:
+        with self._lock:
+            entry = self._open.get(int(round_id))
+            if entry is not None:
+                entry[1].discard(int(worker))
+
+    def round_stale(self, round_id: int) -> bool:
+        with self._lock:
+            return int(round_id) in self._committed
+
+    def admit_subtree(self, members) -> tuple:
+        # validate_round_pipeline refuses --agg-tree; this is the runtime
+        # guard for a deployment built by hand.
+        return ("aggtree pseudo-pushes cannot ride a pipelined round "
+                "(no round id on the subtree frame)", ())
+
+    def note_applied(self, version: int, workers: list,
+                     round_id: Optional[int] = None) -> None:
+        with self._lock:
+            if round_id is None or int(round_id) not in self._open:
+                return
+            rid = int(round_id)
+            del self._open[rid]
+            self._committed.add(rid)
+            self._round_open = bool(self._open)
+            cb = self._on_round
+        if cb is not None:
+            cb(rid, sorted(int(w) for w in workers), int(version))
+
+
+class AsyncCohortPolicy(CohortPolicy):
+    """``--round-pipeline async``: FedBuff-style bounded staleness with
+    homomorphic down-weighting.
+
+    A cohort member's delta at most ``bound`` rounds behind the newest
+    begun round is admitted. A delta ``s`` rounds old weighs
+    ``(1 + s) ** -decay``, realized on the int8 grid as integer ticks: a
+    fresh delta pends :data:`WEIGHT_SCALE` copies of its buffer, a stale
+    one fewer, and the apply divides by the tick total, the weighted mean
+    ``sum(w_i * g_i) / sum(w_i)`` in the compressed domain. The commit
+    quota is ``accept * WEIGHT_SCALE`` ticks, with no per-round barrier
+    and no per-round accept cap: a delta older than ``bound`` rounds is
+    round-stale.
+    """
+
+    #: Ticks a fresh (staleness-0) delta pends: three down-weight levels
+    #: below 1.0 before the floor at 1 tick.
+    WEIGHT_SCALE = 4
+
+    def __init__(self, accept: int, decay: float = 0.5, bound: int = 2,
+                 on_commit=None,
+                 clock: Callable[[], float] = _clock.monotonic):
+        super().__init__(num_aggregate=max(1, int(accept))
+                         * self.WEIGHT_SCALE,
+                         max_staleness=None, on_round=on_commit,
+                         clock=clock)
+        self.accept = max(1, int(accept))
+        self.decay = float(decay)
+        self.bound = max(1, int(bound))
+        # round -> (cohort set, contributed set); rounds more than
+        # ``bound`` behind the newest are evicted.
+        self._windows: dict[int, tuple] = {}
+        self._commits = 0
+
+    @property
+    def weight_scale(self) -> int:
+        return self.WEIGHT_SCALE
+
+    def begin_round(self, round_idx: int, cohort) -> None:
+        round_idx = int(round_idx)
+        with self._lock:
+            if round_idx in self._windows:
+                return  # wire-retry replay
+            self._windows[round_idx] = ({int(c) for c in cohort}, set())
+            self._round = max(self._round, round_idx)
+            self._round_open = True
+            for old in [r for r in self._windows
+                        if self._round - r > self.bound]:
+                del self._windows[old]
+
+    def extend_cohort(self, client: int,
+                      round_idx: Optional[int] = None) -> None:
+        with self._lock:
+            rid = (int(round_idx) if round_idx is not None
+                   else (max(self._windows) if self._windows else -1))
+            entry = self._windows.get(rid)
+            if entry is not None:
+                entry[0].add(int(client))
+
+    def push_weight(self, round_id: int) -> int:
+        """``(1 + staleness) ** -decay`` on :data:`WEIGHT_SCALE` ticks,
+        rounded half to even and floored at 1 (an admitted delta always
+        contributes)."""
+        with self._lock:
+            staleness = max(0, self._round - int(round_id))
+        w = self.WEIGHT_SCALE * (1.0 + staleness) ** -self.decay
+        return max(1, min(self.WEIGHT_SCALE, round(w)))
+
+    def admit_push(self, worker, round_id: int = -1) -> Optional[str]:
+        worker, rid = int(worker), int(round_id)
+        with self._lock:
+            entry = self._windows.get(rid)
+            if entry is None:
+                return (f"round {rid} outside the staleness window "
+                        f"(bound {self.bound}, newest {self._round})")
+            cohort, contributed = entry
+            if worker not in cohort:
+                return (f"client {worker} not in round {rid}'s sampled "
+                        f"cohort")
+            if worker in contributed:
+                return f"duplicate push from client {worker} in round {rid}"
+            # No per-round quota: the commit fires on the tick quota.
+            contributed.add(worker)
+            return None
+
+    def retract_push(self, worker, round_id: int = -1) -> None:
+        with self._lock:
+            entry = self._windows.get(int(round_id))
+            if entry is not None:
+                entry[1].discard(int(worker))
+
+    def round_stale(self, round_id: int) -> bool:
+        rid = int(round_id)
+        with self._lock:
+            return 0 <= rid <= self._round and rid not in self._windows
+
+    def admit_subtree(self, members) -> tuple:
+        return ("aggtree pseudo-pushes cannot ride async admission "
+                "(no round id on the subtree frame)", ())
+
+    def note_applied(self, version: int, workers: list,
+                     round_id: Optional[int] = None) -> None:
+        with self._lock:
+            commit_idx = self._commits
+            self._commits += 1
+            cb = self._on_round
+        # The commit index, not a round id: an async batch can mix deltas
+        # of several rounds, so the ledger records the commit sequence.
+        if cb is not None:
+            cb(commit_idx, sorted({int(w) for w in workers}), int(version))

@@ -182,7 +182,7 @@ class PushRecord:
     # across wire retries and server restarts; "" = no dedupe.
     push_id: str = ""
     # The federated round a push was computed for (-1: unstamped; the
-    # round pipeline that routes by it is a later slice).
+    # round pipeline routes by it).
     round_id: int = -1
     # The leaf contributions this payload sums (1: an ordinary push; an
     # aggregator's pseudo-push carries its subtree's), and their leaf ids.
@@ -367,6 +367,11 @@ class ParameterServer:
         self._pending_ids: list = []
         self._pending_weights: list = []
         self._pending_members: list = []
+        # The round pipeline (arm_round_pipeline): "off", "overlap" (one
+        # pending grid per open round: round -> (bufs, workers, ids,
+        # weights)) or "async" (tick copies in the shared batch).
+        self._rp_mode = "off"
+        self._rp_pending: dict = {}
         # Push ids applied (id -> version, insertion-ordered, bounded):
         # with the pending ids they make a re-sent push an ack, not a
         # second apply. Rebuilt from the snapshot and the WAL on recovery.
@@ -376,6 +381,9 @@ class ParameterServer:
         # TCP server; the payload template is kept for its rebuild).
         self._state_store = None
         self._snapshot_every = 0
+        # More snapshot metadata (the TCP server hangs the federated
+        # coordinator's state here), called on the apply path.
+        self._snapshot_extra = None
         self._kill_at_apply = kill_at_apply
         self._elastic_k = elastic_k
         self._payload_template = None
@@ -665,6 +673,19 @@ class ParameterServer:
         else:
             self.policy.retract_push(record.worker, record.round_id)
 
+    def arm_round_pipeline(self, mode: str) -> None:
+        """Arm round routing (``ps.py:865-878``): ``overlap`` keeps one
+        pending grid per open round, each paying one decode on its own
+        commit; ``async`` pends a staleness-weighted delta as tick copies
+        in the shared batch. Call before any stamped push; the caller
+        installs the matching policy."""
+        if mode not in ("off", "overlap", "async"):
+            raise ValueError(f"round pipeline mode must be "
+                             f"off|overlap|async, got {mode!r}")
+        with self._lock:
+            self._rp_mode = mode
+            self._rp_pending = {}
+
     def _take_pending(self) -> tuple:
         """The pending batch, cleared (under ``_lock``, held by the
         caller): ``(bufs, workers, ids, weights, members)``."""
@@ -701,6 +722,23 @@ class ParameterServer:
                         or record.push_id in self._pending_ids):
                     self.stats.dup_pushes += 1
                     return True
+        # The round-stale precheck: a push for a round that committed
+        # (overlap) or left the window (async) never applies. After the
+        # dedupe (a retried push whose first copy applied is an ack),
+        # before the decode and before admission (no cohort slot).
+        rid = int(record.round_id)
+        if (self._rp_mode != "off" and rid >= 0
+                and self.policy.round_stale(rid)):
+            with self._lock:
+                self.stats.dropped_round_stale += 1
+            logger.debug("push from worker %d rejected: round %d stale",
+                         record.worker, rid)
+            return False
+        # The async tick weight, read outside the server lock (the policy
+        # has its own).
+        ticks = (self.policy.push_weight(rid)
+                 if self._rp_mode == "async" and rid >= 0 else 1)
+        wscale = getattr(self.policy, "weight_scale", 1)
         # Decode (CRC verify + copy) outside the lock.
         buf = native.decode_arrays(record.message)[0]
         if record.members:
@@ -712,7 +750,7 @@ class ParameterServer:
                     self.stats.fed_rejected += 1
                 raise SubtreeRejected(reason, dups)
         elif self.policy.admit_push(record.worker,
-                                    round_id=record.round_id) is not None:
+                                    round_id=rid) is not None:
             # The cohort policy's refusal (not a cohort member, a duplicate,
             # past the accept quota); never under the base policy.
             with self._lock:
@@ -746,21 +784,63 @@ class ParameterServer:
                 self.stats.staleness_hist.get(staleness, 0) + 1)
             self.stats.record_loss(self.version, record.loss)
             weight = max(1, int(record.weight))
-            self._pending.append(buf)
-            self._pending_workers.append(record.worker)
-            self._pending_ids.append(record.push_id)
-            self._pending_weights.append(weight)
-            self._pending_members.append(tuple(record.members))
-            if record.members:
-                self.stats.agg_pushes += 1
-                self.stats.agg_weight += weight
-            # Readiness counts leaf weight, not records: a tree's round
-            # fragmented by partial flushes pends past its K slots and
-            # applies at its height, never early on a partial weight.
-            if not self.policy.ready_to_apply(sum(self._pending_weights)):
-                return True
-            taken = self._take_pending()
-        return self._apply_batch(*taken)
+            if self._rp_mode == "overlap" and rid >= 0:
+                # Each open round pends into its own grid and fires on its
+                # own quota: two rounds never mix in one batch.
+                pend = self._rp_pending.setdefault(rid, ([], [], [], []))
+                pend[0].append(buf)
+                pend[1].append(record.worker)
+                pend[2].append(record.push_id)
+                pend[3].append(weight)
+                if not self.policy.ready_to_apply(sum(pend[3])):
+                    return True
+                del self._rp_pending[rid]
+                taken = (*pend, [() for _ in pend[0]])
+                round_id = rid
+            elif self._rp_mode == "async":
+                # A delta of tick weight w pends w copies of its buffer,
+                # one tick each: the weighted apply's divisor is the tick
+                # total, the FedBuff mean sum(w_i g_i) / sum(w_i). Only
+                # the first copy carries the push id.
+                for i in range(ticks):
+                    self._pending.append(buf)
+                    self._pending_workers.append(record.worker)
+                    self._pending_ids.append(record.push_id if i == 0
+                                             else "")
+                    self._pending_weights.append(1)
+                    self._pending_members.append(())
+                self.stats.async_ticks += ticks
+                if ticks < wscale:
+                    self.stats.async_downweighted += 1
+                if not self.policy.ready_to_apply(
+                        sum(self._pending_weights)):
+                    return True
+                taken = self._take_pending()
+                round_id = -1
+            else:
+                taken = self._pend_flat(record, buf, weight)
+                if taken is None:
+                    return True
+                round_id = -1
+        return self._apply_batch(*taken, round_id=round_id)
+
+    def _pend_flat(self, record: PushRecord, buf, weight: int):
+        """Pend one push in the shared batch (under ``_lock``, held by the
+        caller); the batch to apply once the quota fills, else None."""
+        self._pending.append(buf)
+        self._pending_workers.append(record.worker)
+        self._pending_ids.append(record.push_id)
+        self._pending_weights.append(weight)
+        self._pending_members.append(tuple(record.members))
+        if record.members:
+            self.stats.agg_pushes += 1
+            self.stats.agg_weight += weight
+        # Readiness counts leaf weight, not records: a tree's round
+        # fragmented by partial flushes pends past its K slots and
+        # applies at its height, never early on a partial weight.
+        if not self.policy.ready_to_apply(sum(self._pending_weights)):
+            return None
+        return self._take_pending()
 
     def _run_apply(self, batch, wsum: Optional[int] = None):
         """The apply of one released batch on the server's stream, under
@@ -823,7 +903,9 @@ class ParameterServer:
                              for _ in range(self._schema_k - len(batch))]
         wsum = sum(weights) if weights else len(batch)
         with self._update_lock, self._on_stream(), torch.no_grad(), \
-                otrace.span("ps/apply", k=len(batch), version=self.version):
+                otrace.span("ps/apply", k=len(batch), version=self.version,
+                            **({"round": round_id} if round_id >= 0
+                               else {})):
             (new_params, new_opt, delta_buf, new_shadow, apply_s,
              delta_s) = self._run_apply(batch, wsum)
             decodes = (0 if self.compressor is None
@@ -953,6 +1035,8 @@ class ParameterServer:
             "scale_crc": (self.compressor.contract_checksum()
                           if self.server_agg == "homomorphic" else None),
         }
+        if self._snapshot_extra is not None:
+            meta.update(self._snapshot_extra())
         self._state_store.write_snapshot(meta, blob)
         with self._lock:
             self.stats.snapshots += 1

@@ -62,9 +62,22 @@ aggregator``):
   home aggregator (``index % A``, the others as failover), and the root
   registers the widened schema.
 
-``--federated``, ``--round-pipeline``, ``--adapt`` and ``--metrics-port``
-are later slices: they are rejected by name at startup, and the federated
-ops answer ``error``.
+``--federated`` makes the apply server a round coordinator
+(``federated/coordinator.py``): ``fed_register {client}``, ``fed_begin
+{round}`` (the server samples and journals the cohort), ``fed_drop {client,
+round}`` (a dropout and its resample), ``fed_end {round}`` (the round
+barrier; the event-loop plane parks it and never blocks) and ``fed_flush``
+(the async drain); ``push`` carries ``round`` for ``--round-pipeline
+overlap|async``. ``--role fed_driver`` owns the client pool and drives the
+rounds (``federated/loop.NetTransport``)::
+
+    python -m ewdml_tpu_torch.parallel.ps_net --role server --platform cpu \
+        --network LeNet --dataset mnist10k --federated --server-agg \
+        homomorphic --compress-grad qsgd --pool-size 12 --cohort 4 --port 29500
+    python -m ewdml_tpu_torch.parallel.ps_net --role fed_driver ... (same)
+
+``--adapt`` and ``--metrics-port`` are later slices, rejected by name at
+startup.
 """
 
 from __future__ import annotations
@@ -110,8 +123,8 @@ _OPS = frozenset({"pull", "push", "stats", "save", "shutdown", "bn_stats",
 #: the dispatch, reply encode excluded).
 _SEGMENT_FIELDS = ("latency_s", "queue_s", "handler_s")
 
-#: The federated ops (a later slice): answered "server not federated",
-#: as the JAX server answers them with --federated off.
+#: The federated round ops; a server built without --federated answers
+#: them "server not federated".
 _FED_OPS = frozenset({"fed_register", "fed_begin", "fed_end", "fed_drop",
                       "fed_flush"})
 
@@ -438,9 +451,6 @@ def check_supported(cfg, role: str = "server") -> None:
 
     validate_wire_plane(cfg)
     _reject([
-        (role == "fed_driver", f"--role {role}"),
-        (cfg.federated, "--federated"),
-        (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
         (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
         (cfg.metrics_port is not None, "--metrics-port (the live metrics "
                                        "endpoint, obs/serve)"),
@@ -580,6 +590,8 @@ class _Endpoint:
     role = "ps-server"
     _tcp = None
     _evloop = None
+    #: The federated coordinator (the apply server under --federated).
+    fed = None
 
     def _init_endpoint(self, registry: Optional[MetricsRegistry]) -> None:
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -609,10 +621,12 @@ class _Endpoint:
 
     def _dispatch(self, header: dict, sections: list, recv_ns: int = 0,
                   parse_ns: int = 0,
-                  buffered_since_ns: Optional[int] = None) -> bytes | None:
+                  buffered_since_ns: Optional[int] = None,
+                  inner=None) -> bytes | None:
         """One request, segmented: queue (timed-lock waits; under the
         evloop also the tick-buffer wait since ``buffered_since_ns``),
-        serialize (the reply's encode), and handler (the rest)."""
+        serialize (the reply's encode), and handler (the rest). ``inner``
+        replaces ``_dispatch_inner`` (a parked ``fed_end``'s answer)."""
         op = header.get("op")
         if self._evloop is None:
             with self._occ_lock:
@@ -625,7 +639,7 @@ class _Endpoint:
             seg.add_queue(buffered_since_ns, max(0, t0_ns - buffered_since_ns))
             t0_ns = buffered_since_ns
         try:
-            return self._dispatch_inner(op, header, sections)
+            return (inner or self._dispatch_inner)(op, header, sections)
         finally:
             reqctx.deactivate()
             dur_ns = clock.monotonic_ns() - t0_ns
@@ -723,18 +737,36 @@ class PSNetServer(_Endpoint):
                            if self._bn0 else None)
         self._lock_bn = threading.Lock()
         self.state_store = None
+        self._had_state = False
         self._recoveries = 0
         if cfg.server_state_dir:
             from ewdml_tpu_torch.parallel.server_state import ServerStateStore
 
             self.state_store = ServerStateStore(cfg.server_state_dir)
-        # One policy for the deployment; K is clamped to >= 1 (an async
-        # server has no world size to read 0 as "all").
-        policy = StragglerPolicy(
-            kill_threshold=cfg.kill_threshold,
-            max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
-                           else None),
-            num_aggregate=cfg.num_aggregate)
+            # Prior state decides the coordinator's resume: a restart
+            # reopens the round ledger to append and replays it; a cold
+            # start truncates it.
+            self._had_state = (self.state_store.load_snapshot() is not None
+                               or bool(self.state_store.read_wal()))
+        if cfg.federated:
+            # The coordinator owns the rounds (sampler, ledger, barrier)
+            # and supplies the cohort policy of the mode.
+            from ewdml_tpu_torch.federated.coordinator import \
+                FederatedCoordinator
+            from ewdml_tpu_torch.federated.loop import ledger_path_for
+
+            self.fed = FederatedCoordinator(cfg, ledger_path_for(cfg),
+                                            resume=self._had_state,
+                                            registry=self.registry)
+            policy = self.fed.policy
+        else:
+            # One policy for the deployment; K is clamped to >= 1 (an
+            # async server has no world size to read 0 as "all").
+            policy = StragglerPolicy(
+                kill_threshold=cfg.kill_threshold,
+                max_staleness=(cfg.max_staleness if cfg.max_staleness > 0
+                               else None),
+                num_aggregate=cfg.num_aggregate)
         comp = setup.comp
         spec = FaultSpec.parse(cfg.fault_spec)
         self.server = ps.ParameterServer(
@@ -750,8 +782,10 @@ class PSNetServer(_Endpoint):
             server_agg=cfg.server_agg, health=self.health,
             device=self.device, leaf_names=[s.name for s in setup.specs],
             # Elastic K: with --num-aggregate 0 a join makes K the live
-            # count; a tree pins the schema to its aggregators instead.
-            elastic_k=cfg.num_aggregate == 0 and not cfg.agg_tree,
+            # count; a tree pins the schema to its aggregators instead,
+            # and a federated server's K is the cohort's accept.
+            elastic_k=(cfg.num_aggregate == 0 and not cfg.agg_tree
+                       and not cfg.federated),
             kill_at_apply=spec.server_kill_at,
             # The publication stream's knobs, inert until a subscriber.
             pull_delta=cfg.pull_delta, keyframe_every=cfg.keyframe_every)
@@ -766,9 +800,22 @@ class PSNetServer(_Endpoint):
                 widen_payload_tree(setup.template),
                 schema_k=len(parse_agg_tree(cfg.agg_tree)),
                 agg_weight=self.server.num_aggregate)
+        elif cfg.federated and cfg.round_pipeline == "async":
+            # Async commits on a tick quota (accept x WEIGHT_SCALE unit
+            # copies); the weighted apply divides by the realized ticks.
+            quota_ticks = policy.num_aggregate
+            self.server.register_payload_schema(
+                setup.template, schema_k=quota_ticks, agg_weight=quota_ticks)
         else:
             self.server.register_payload_schema(setup.template)
+        if cfg.federated and cfg.round_pipeline != "off":
+            self.server.arm_round_pipeline(cfg.round_pipeline)
         if self.state_store is not None:
+            if self.fed is not None:
+                # The round ledger is the federated recovery's authority;
+                # the snapshot carries the coordinator's state to read.
+                self.server._snapshot_extra = \
+                    lambda: {"federated": self.fed.state()}
             if self.server.recover(self.state_store) is not None:
                 self._recoveries = 1
             # After recover: replay must not journal, and the snapshot
@@ -843,6 +890,8 @@ class PSNetServer(_Endpoint):
             self._evloop.close()
         if self.state_store is not None:
             self.state_store.close()
+        if self.fed is not None:
+            self.fed.close()
 
     def _health_abort(self, event: dict) -> None:
         """The watchdog's abort verdict: stop accepting (``main`` exits
@@ -857,6 +906,22 @@ class PSNetServer(_Endpoint):
         return make_request({"op": "agg_push_ok",
                              "accepted": bool(accepted),
                              "dup_members": [int(m) for m in dup_members]})
+
+    def _fed_end_ok_frame(self, round_idx: int, rec: dict) -> bytes:
+        return make_request({"op": "fed_end_ok", "round": round_idx,
+                             "accepted": rec["accepted"],
+                             "version": rec["version"]})
+
+    def _barrier_timeout_frame(self, round_idx) -> bytes:
+        return make_request({
+            "op": "error",
+            "detail": f"round {round_idx} barrier timed out (accept quota "
+                      f"unreachable?)"})
+
+    def _barrier_wait_s(self) -> float:
+        """The server's ``fed_end`` wait: shorter than the client's socket
+        timeout, so the error reply arrives before the client gives up."""
+        return max(0.5, self.cfg.net_timeout_s * 0.5)
 
     def _dispatch_inner(self, op, header: dict, sections: list) -> bytes:
         retried = bool(header.get("retry"))
@@ -922,7 +987,18 @@ class PSNetServer(_Endpoint):
                                  "version": int(self.server.version)})
         if op == "join":
             worker = int(header["worker"])
-            joined = self.server.join_worker(worker)
+            if self.fed is not None:
+                # Federated membership is the pool registration, open
+                # mid-run: the joiner is eligible from the next draw.
+                try:
+                    info = self.fed.register(worker)
+                except ValueError as e:
+                    return make_request({"op": "error", "detail": str(e)})
+                joined = {"version": int(self.server.version),
+                          "live": int(info["pool"]),
+                          "num_aggregate": int(self.server.num_aggregate)}
+            else:
+                joined = self.server.join_worker(worker)
             logger.info("ps_net: worker %d joined mid-run at version %d "
                         "(%d live, K=%d)", worker, joined["version"],
                         joined["live"], joined["num_aggregate"])
@@ -946,12 +1022,60 @@ class PSNetServer(_Endpoint):
         if op == "save":
             return self._save(header)
         if op in _FED_OPS:
-            return make_request({"op": "error",
-                                 "detail": "server not federated"})
+            # A coordinator's refusal (a round out of order, a client
+            # outside the pool) is an error frame, never an escaped raise:
+            # that would cost the connection and send the driver into a
+            # reconnect-and-retry loop.
+            if self.fed is None:
+                return make_request({"op": "error",
+                                     "detail": "server not federated"})
+            try:
+                return self._dispatch_fed(op, header)
+            except (ValueError, RuntimeError) as e:
+                return make_request({"op": "error", "detail": str(e)})
         if op == "shutdown":
             self._request_stop()
             return make_request({"op": "shutdown_ok"})
         return make_request({"op": "error", "detail": f"unknown op {op!r}"})
+
+    def _dispatch_fed(self, op, header: dict) -> bytes:
+        """The federated ops. Each is safe to re-send: a retried begin or
+        drop replays its recorded outcome, and register and end are
+        idempotent."""
+        if op == "fed_register":
+            info = self.fed.register(int(header["client"]))
+            return make_request({
+                "op": "fed_register_ok", "pool": info["pool"],
+                "round": info["round"], "cohort": self.fed.cohort_size,
+                "accept": self.fed.accept,
+                "max_cohort": self.fed.max_cohort})
+        if op == "fed_begin":
+            # The server samples and journals the cohort; the driver only
+            # learns whom to run.
+            r = int(header["round"])
+            cohort = self.fed.begin_round(r, version=self.server.version)
+            return make_request({"op": "fed_begin_ok", "round": r,
+                                 "cohort": cohort,
+                                 "version": self.server.version})
+        if op == "fed_end":
+            # The round barrier (threads plane; the event loop parks it).
+            r = int(header["round"])
+            rec = self.fed.wait_round(r, timeout=self._barrier_wait_s())
+            if rec is None:
+                return self._barrier_timeout_frame(r)
+            return self._fed_end_ok_frame(r, rec)
+        if op == "fed_drop":
+            replacement = self.fed.report_drop(int(header["client"]),
+                                               int(header["round"]))
+            return make_request({"op": "fed_drop_ok",
+                                 "replacement": replacement,
+                                 "dropped": self.fed.dropouts})
+        if op == "fed_flush":
+            # The async drain: commit the ticks pending below the quota
+            # (a retried flush of an empty batch answers False).
+            return make_request({"op": "fed_flush_ok",
+                                 "flushed": bool(self.server.flush_pending())})
+        raise ValueError(f"unknown federated op {op!r}")
 
     def _stats_frame(self) -> bytes:
         s = self.server.stats
@@ -959,6 +1083,10 @@ class PSNetServer(_Endpoint):
         reg = self.registry
         reg.absorb_ps_stats(s)
         reg.absorb_policy(pol)
+        fed_snap = None
+        if self.fed is not None:
+            fed_snap = self.fed.snapshot()
+            reg.absorb_federated(fed_snap)
         obs_snapshot = reg.snapshot()
         hists = obs_snapshot["histograms"]
         segments = {}
@@ -973,9 +1101,8 @@ class PSNetServer(_Endpoint):
                         "count": h["count"]}
             if entry:
                 segments[seg_op] = entry
-        # Every key of the JAX server's reply (ps_net.py:1204-1252); the
-        # counters of later slices' features keep the values the JAX
-        # server gives with those features off.
+        # Every key of the JAX server's reply (ps_net.py:1204-1252);
+        # plan_version stays 0 (no --adapt).
         return make_request({
             "op": "stats_ok", "version": self.server.version,
             "pushes": s.pushes, "updates": s.updates,
@@ -995,7 +1122,7 @@ class PSNetServer(_Endpoint):
             "wal_records": s.wal_records,
             "snapshots": s.snapshots,
             "recoveries": self._recoveries,
-            "federated": None,
+            "federated": fed_snap,
             "fed_rejected": s.fed_rejected,
             "dropped_round_stale": s.dropped_round_stale,
             "async_downweighted": s.async_downweighted,
@@ -1105,6 +1232,9 @@ class _EvLoopPlane:
         self.sel.register(lsock, selectors.EVENT_READ, data=None)
         self._rr = 0
         self._closed = False
+        # fed_end frames waiting on their round's commit: (frame,
+        # deadline), probed every tick.
+        self._parked: list = []
 
     def run(self) -> None:
         """Serve until the server's ``_shutdown``; then flush queued replies
@@ -1123,8 +1253,49 @@ class _EvLoopPlane:
             self.close()
 
     def _service_parked(self) -> None:
-        """Per-tick hook for frames a subclass parks rather than answers in
-        their tick (the aggregator's pushes); nothing parks here."""
+        """Per tick: answer each parked ``fed_end`` whose round committed,
+        or its barrier-timeout error once its deadline passed. A subclass
+        that parks frames of its own (the aggregator's pushes) extends
+        this and calls it."""
+        if not self._parked:
+            return
+        still: list = []
+        for f, deadline in self._parked:
+            if f.conn.sock.fileno() < 0:
+                continue  # the connection died while parked
+            try:
+                if self._try_finish_fed_end(f):
+                    continue
+            except Exception:
+                logger.exception("ps_net[evloop]: parked fed_end failed; "
+                                 "dropping connection")
+                self._close_conn(f.conn)
+                continue
+            if clock.monotonic() >= deadline:
+                self._send_reply(f.conn, self.server._barrier_timeout_frame(
+                    f.header.get("round")))
+                continue
+            still.append((f, deadline))
+        self._parked = still
+
+    def _try_finish_fed_end(self, f: _EvFrame) -> bool:
+        """A barrier probe that never blocks; once the round committed,
+        the reply goes out through the request envelope (the parked wait
+        counts as the frame's queue time)."""
+        server = self.server
+        r = int(f.header["round"])
+        rec = server.fed.wait_round(r, timeout=0)
+        if rec is None:
+            return False
+
+        def inner(_op, _header, _sections):
+            return server._fed_end_ok_frame(r, rec)
+
+        reply = server._dispatch(f.header, f.sections, recv_ns=f.recv_ns,
+                                 parse_ns=f.parse_ns,
+                                 buffered_since_ns=f.ready_ns, inner=inner)
+        self._send_reply(f.conn, reply)
+        return True
 
     def close(self) -> None:
         if self._closed:
@@ -1268,6 +1439,15 @@ class _EvLoopPlane:
                 server._g_inflight.set(0)
 
     def _dispatch_one(self, f: _EvFrame) -> None:
+        if (f.header.get("op") == "fed_end" and self.server.fed is not None
+                and f.header.get("round") is not None):
+            # The round barrier must not block the loop (the pushes that
+            # commit the round arrive on it): probe now, else park and
+            # probe every tick until the commit or the deadline.
+            if not self._try_finish_fed_end(f):
+                self._parked.append(
+                    (f, clock.monotonic() + self.server._barrier_wait_s()))
+            return
         try:
             reply = self.server._dispatch(f.header, f.sections,
                                           recv_ns=f.recv_ns,
@@ -1687,11 +1867,12 @@ def client_call(addr: tuple, header: dict, sections=(), *,
 
 def main(argv=None) -> int:
     """``python -m ewdml_tpu_torch.parallel.ps_net --role
-    server|worker|replica|aggregator`` with the JAX entry point's flags
-    (``ps_net.py:2317-2455``). A replica and an aggregator listen on
+    server|worker|fed_driver|replica|aggregator`` with the JAX entry point's
+    flags (``ps_net.py:2317-2455``). A replica and an aggregator listen on
     ``--replica-host/--replica-port`` and ``--agg-host/--agg-port``, with
-    ``--host/--port`` naming the apply server upstream. The role
-    ``fed_driver`` is rejected by name."""
+    ``--host/--port`` naming the apply server upstream; a ``fed_driver``
+    drives the rounds of the ``--federated`` server at ``--host/--port``
+    and prints ``PS_NET_FED_DONE {json}``."""
     import argparse
     import os
 
@@ -1748,6 +1929,17 @@ def main(argv=None) -> int:
                                port=ns.agg_port, index=ns.agg_index)
         print(f"PS_AGG_READY {agg.address[0]}:{agg.address[1]}", flush=True)
         agg.serve_forever()
+        return 0
+    if ns.role == "fed_driver":
+        # The client pool on this side; the server (--role server with the
+        # same --federated config) samples, journals and commits.
+        from ewdml_tpu_torch.federated import run_federated
+
+        result = run_federated(cfg, addr=(ns.host, ns.port))
+        print("PS_NET_FED_DONE " + json.dumps({
+            "rounds": result.rounds, "final_loss": result.final_loss,
+            "dropouts": result.dropouts, "rejected": result.rejected,
+            "skew": round(result.skew, 4)}), flush=True)
         return 0
     worker = PSNetWorker(cfg, ns.worker_index, (ns.host, ns.port))
 

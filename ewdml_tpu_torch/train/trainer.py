@@ -132,7 +132,10 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (bool(cfg.server_state_dir),
          "--server-state-dir on the in-process async path (the TCP "
          "server, python -m ewdml_tpu_torch.parallel.ps_net, takes it)"),
-        (cfg.round_pipeline != "off", f"--round-pipeline {cfg.round_pipeline}"),
+        # A federated flag: --federated runs the pipelined rounds.
+        (cfg.round_pipeline != "off",
+         f"--round-pipeline {cfg.round_pipeline} on the async path (a "
+         "federated flag; --federated runs it)"),
         # The JAX CLI accepts it here and never arms the relay (ROADMAP
         # Queue 3 item 16); the TCP server arms it from the flag, and
         # run_async_ps(relay_compress=True) is the in-process relay.

@@ -73,10 +73,9 @@ def test_published_numbers_and_labels_equal_jax():
     assert set(registry.TABLES) == set(jregistry.TABLES)
 
 
-@pytest.mark.parametrize("table,item", [("baseline_adaptive", "item 7"),
-                                        ("federated", "item 6")])
+@pytest.mark.parametrize("table,item", [("baseline_adaptive", "item 7")])
 def test_unported_tables_raise_by_name(table, item):
-    """Exact (behaviour): the two tables whose subsystems wait raise."""
+    """Exact (behaviour): the table whose subsystem waits raises."""
     with pytest.raises(NotImplementedError, match=f"{table}.*{item}"):
         registry.table_cells(table)
 
@@ -361,8 +360,9 @@ def test_health_and_nan_clauses_rejected_by_name(tmp_path, capsys, health,
 def test_cli_repro_route_reaches_the_sweep():
     from ewdml_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="federated"):
-        cli.main(["repro", "--table", "federated", "--platform", "cpu"])
+    with pytest.raises(NotImplementedError, match="baseline_adaptive"):
+        cli.main(["repro", "--table", "baseline_adaptive", "--platform",
+                  "cpu"])
 
 
 # -- the bytes estimate's counter ------------------------------------------

@@ -1,7 +1,8 @@
 """The federated round machinery of the port against the JAX package, on
 the CPU: the partition, the cohort sampler, the config matrix, the cohort
 policy, the coordinator and its journal, the round plan, the registry's
-absorber and the refusals of what waits for a later slice.
+absorber and the refusals of what waits for a later slice (``--adapt``,
+``--metrics-port``).
 
 Oracles, per test (each is exact: these are integer, set and string
 results, or sums of integer byte counts):
@@ -161,13 +162,11 @@ def test_validate_federated_is_the_jax_one(kw):
 
 @pytest.mark.parametrize("mode", ["off", "overlap", "async", "later"])
 def test_validate_round_pipeline(mode):
-    """``off`` passes in both; an unknown value is the same ValueError; the
-    pipelined modes raise by name (ROADMAP Queue 1 item 6b)."""
+    """``off``, ``overlap`` and ``async`` pass in both on the federated
+    homomorphic config; an unknown value is the same ValueError (the
+    whole matrix is in ``tests/test_torch_round_pipeline.py``)."""
     j, t = _cfgs(round_pipeline=mode)
-    if mode == "off":
-        jconfig.validate_round_pipeline(j)
-        config.validate_round_pipeline(t)
-    elif mode == "later":
+    if mode == "later":
         with pytest.raises(ValueError) as want:
             jconfig.validate_round_pipeline(j)
         with pytest.raises(ValueError) as got:
@@ -175,9 +174,7 @@ def test_validate_round_pipeline(mode):
         assert str(got.value) == str(want.value)
     else:
         jconfig.validate_round_pipeline(j)
-        with pytest.raises(NotImplementedError,
-                           match=f"--round-pipeline {mode}.*item 6b"):
-            config.validate_round_pipeline(t)
+        config.validate_round_pipeline(t)
 
 
 # -- the cohort policy ------------------------------------------------------------
@@ -323,9 +320,12 @@ def test_coordinator_metrics_go_to_the_callers_registry(tmp_path):
     assert set(g) == {f"federated.{k}" for k in (
         "pool", "round", "rounds_done", "cohort", "accept", "dropouts",
         "resampled", "quota_dropped")}
-    with pytest.raises(NotImplementedError, match="round-pipeline overlap"):
-        coordinator.FederatedCoordinator(
-            config.TrainConfig(**dict(FED, round_pipeline="overlap")), None)
+    for mode, cls in (("overlap", policy.PipelinedCohortPolicy),
+                      ("async", policy.AsyncCohortPolicy)):
+        fed = coordinator.FederatedCoordinator(
+            config.TrainConfig(**dict(FED, round_pipeline=mode)), None)
+        assert type(fed.policy) is cls and fed.snapshot()[
+            "round_pipeline"] == mode
 
 
 # -- the round plan -----------------------------------------------------------------
@@ -400,21 +400,23 @@ def test_evaluate_params_without_batch_stats_raises_in_both():
 
 
 def test_later_slices_are_refused_by_name(tmp_path):
+    """What still waits for a later slice is refused by name on the
+    federated entry points (the federated server, ``--role fed_driver``,
+    the CLI's pipelined rounds now run)."""
     from ewdml_tpu_torch.cli import main
-    from ewdml_tpu_torch.federated import run_federated
     from ewdml_tpu_torch.parallel import ps_net
 
-    _, t = _cfgs(platform="cpu", train_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="addr.*item 6b"):
-        run_federated(t, addr=("127.0.0.1", 1))
-    with pytest.raises(NotImplementedError, match="round-pipeline overlap"):
+    with pytest.raises(NotImplementedError, match="--metrics-port"):
         main(["--federated", "--platform", "cpu", "--round-pipeline",
               "overlap", "--server-agg", "homomorphic", "--compress-grad",
               "qsgd", "--pool-size", "8", "--cohort", "2",
-              "--train-dir", str(tmp_path) + "/"])
+              "--metrics-port", "0", "--train-dir", str(tmp_path) + "/"])
     base = ["--platform", "cpu", "--network", "LeNet", "--dataset",
-            "mnist10k", "--synthetic-data"]
-    for extra, name in ((["--role", "server", "--federated"], "--federated"),
-                        (["--role", "fed_driver"], "--role fed_driver")):
+            "mnist10k", "--synthetic-data", "--federated", "--server-agg",
+            "homomorphic", "--compress-grad", "qsgd"]
+    for extra, name in ((["--role", "server", "--adapt", "variance"],
+                         "--adapt"),
+                        (["--role", "fed_driver", "--metrics-port", "0"],
+                         "--metrics-port")):
         with pytest.raises(NotImplementedError, match=name):
             ps_net.main(base + extra)

@@ -389,10 +389,12 @@ def test_normal_within_4_ulp_of_jax():
 # -- rejections by name ---------------------------------------------------------
 
 @pytest.mark.parametrize("extra,name", [
-    (["--role", "fed_driver"], "--role fed_driver"),
-    (["--role", "server", "--federated"], "--federated"),
-    (["--role", "server", "--round-pipeline", "overlap"],
-     "--round-pipeline"),
+    (["--role", "fed_driver", "--federated", "--adapt", "variance"],
+     "--adapt"),
+    (["--role", "server", "--federated", "--metrics-port", "0"],
+     "--metrics-port"),
+    (["--role", "server", "--federated", "--round-pipeline", "overlap",
+      "--adapt", "variance"], "--adapt"),
     (["--role", "worker", "--adapt", "variance"], "--adapt"),
     (["--role", "server", "--metrics-port", "0"], "--metrics-port"),
 ])
