@@ -186,12 +186,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    full-table config for 3 epochs of 70 steps: epoch by epoch, windows of
    K = 20 with a 10-step per-step tail, so each window phase (0 and 10)
    is captured once for the cell and replayed in every later epoch.
-   (b) ``run_sweep("baseline", smoke=True)`` over the six LeNet cells
-   (``SWEEP_CELLS``) as child processes on the card
+   (b) ``run_sweep("baseline", smoke=True)`` over three LeNet cells
+   (``SWEEP_CELLS``: M1, M2, M4) as child processes on the card
    with ``--fault-spec crash@1=3``: the crashed cell journals
    ``cell_retry`` with rc 13 and resumes from step 2, every cell finishes,
-   ``REPRO.md`` is written with the six VGG11-BN cells pending, and a
-   second invocation journals 6 ``cell_skipped`` and launches no child.
+   ``REPRO.md`` is written with the other nine cells pending, and a
+   second invocation journals 3 ``cell_skipped`` and launches no child.
    Each cell's wall is printed.
 
 8. The async parameter server's down-link and the run-health watchdog,
@@ -331,10 +331,46 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     round. Each in-process run's launches are checked against the
     reckoning.
 
+13. Adaptive compression (``ewdml_tpu_torch/adapt``). First the operating
+    points the plans reach, each bit-equal to its plain version and timed
+    beside its bound and alone: ``qsgd_quantize`` at s = 7 (the 4-bit rung)
+    at every VGG11-BN leaf of at least ``MIN_ELEMS`` elements and
+    blockwise 4096 at the largest; ``block_top1`` at the 1% and 5% views
+    of every VGG11-BN leaf above 2^18 elements and of LeNet's fc1. (a)
+    The sync trainer: VGG11-BN, W = 4, batch 128, M5 at 1%, ``--adapt
+    variance --adapt-every 5``, 30 steps in 5-step windows under
+    deterministic algorithms: at least one switch, every journaled
+    ``bytes_per_sync`` within the budget, after each switch the wire
+    plan's up bytes and the payloads shipped equal to
+    ``plan_wire_bytes``, every step's ``qsgd_quantize``, ``dequant_mean``
+    and ``block_top1`` at its plan's reckoning (``plan_step_launches``;
+    the bytes estimate's step on a copy of the state counted the same);
+    then ``--adapt replay`` of the ledger: the same applied sequence and
+    every worker's state bit-equal; the mean step time per plan. Then M4
+    with ``--qsgd-block 4096`` for 15 steps, the same checks without the
+    replay: its plans start from blockwise 8-bit QSGD (``qsgd_quantize``
+    and ``dequant_mean`` on the path; M5's budget buys only Top-k and
+    dense leaves). (b) The
+    async server: VGG11-BN, K = 4, QSGD under ``--server-agg
+    homomorphic``, ``--adapt-every 3``: a switch, ``pushes == updates x K
+    + dropped_plan_stale + dropped_stale + pending``, every apply's and
+    every registration's warm apply's ``int_accumulate`` and
+    ``acc_decode`` at its plan's reckoning (``plan_apply_launches``),
+    ``apply_ms_mean`` per plan, then both kernels bit-equal to their
+    plain versions at every plan's contract. (c) The TCP tier: a server
+    process (threads plane, ``--server-state-dir``, ``serverkill@5``) and
+    two worker processes under ``--adapt variance --adapt-every 3``; the
+    server is restarted: its recovered ``plan_version`` is the ledger's
+    plan in force, and the WAL shows every plan version's pushes from both
+    workers. (d) The table's ``lenet_mnist/adaptive`` cell through
+    ``runner.run_cell_child`` at smoke scale: its row carries the
+    ``adapt`` block.
+
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11 and 12 must be above 0. ``--phase8-only``, ``--phase9-only``,
-``--phase10-only``, ``--phase11-only`` and ``--phase12-only`` build and run
-that phase alone (no result line).
+8, 9, 10, 11, 12 and 13 must be above 0. ``--phase8-only``,
+``--phase9-only``, ``--phase10-only``, ``--phase11-only``,
+``--phase12-only`` and ``--phase13-only`` build and run that phase alone
+(no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2657,7 +2693,7 @@ REPRO_CRASH = "crash@1=3"  # lenet_mnist/m2 dies at step 3
 # cells, is under test; 7a trains VGG11-BN cells in process). Cut from the
 # 12 cells once the whole script passed 1 000 s with phase 12: each child
 # costs ~18-32 s, mostly its start.
-SWEEP_CELLS = tuple(f"lenet_mnist/m{m}" for m in range(1, 7))
+SWEEP_CELLS = ("lenet_mnist/m1", "lenet_mnist/m2", "lenet_mnist/m4")
 
 
 def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
@@ -4784,6 +4820,560 @@ def pipeline_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+# -- phase 13: adaptive compression (adapt/) ------------------------------------
+
+ADAPT_STEPS = 30         # 13a: 30 steps, a decision every 5
+ADAPT_EVERY = 5
+# 13a's runs: (name, flags, steps, replayed). Under M5 at 1% the budget
+# (the static payload, 0.21 MB a sync) buys Top-k and dense leaves only;
+# the M4 run starts from 8-bit QSGD, blockwise, so the path also reaches
+# qsgd_quantize and dequant_mean. The 4-bit rung never wins a leaf of
+# MIN_ELEMS or more: its noise (sqrt(n)/7, sqrt(4096)/7 blockwise) is
+# above the sparse rungs'.
+ADAPT_SYNC_RUNS = [
+    ("M5", ["--method", "5", "--topk-ratio", "0.01"], 30, True),
+    ("M4 block 4096", ["--method", "4", "--qsgd-block", "4096"], 15, False),
+]
+ADAPT_ASYNC = (4, 6, 3)  # 13b: K = 4 workers, steps per worker, decide every
+ADAPT_TCP_STEPS = 8      # 13c: per worker process
+ADAPT_KILL_AT = 5        # 13c: serverkill@5, after the switch at version 3
+ADAPT_TRIO = ("qsgd_quantize", "dequant_mean", "block_top1")
+
+
+def adapt_argv(steps: int, every: int, flags, *extra) -> list:
+    """13a: VGG11-BN at full width, W = 4, batch 128, a method preset
+    (``flags``), ``--adapt``."""
+    return ["--network", "VGG11", "--dataset", "Cifar10", "--synthetic-data",
+            "--num-workers", str(WORLD), "--batch-size", "128",
+            "--max-steps", str(steps), "--epochs", "100", "--log-every",
+            "1000", "--no-bf16", "--eval-freq", "0", "--adapt-every",
+            str(every), *flags, *extra]
+
+
+def plan_step_launches(plan, sizes, kernels) -> dict:
+    """qsgd_quantize, dequant_mean and block_top1 launches of one sync step
+    under ``plan`` (W workers and the relay of M4/M5): per unit, each
+    worker's compress and the relay's (a Top-k leaf's relay quantizes the
+    winners of its candidate or block support: the same count) quantize on
+    the kernel from MIN_ELEMS elements up, a block_top1 per worker for a
+    leaf in the block mode, and one dequant_mean for an unpacked QSGD leaf
+    whose W x n levels reach MIN_ELEMS."""
+    from ewdml_tpu_torch.ops import blocktopk, packing, topk
+
+    want = {k: 0 for k in ADAPT_TRIO}
+    for d, n in zip(plan.decisions, sizes):
+        if d.method == "dense":
+            continue
+        m = n
+        if d.method == "topk_qsgd":
+            if topk.resolve_mode(None, n, d.ratio) == "block":
+                want["block_top1"] += WORLD
+                m = blocktopk.geometry(n, d.ratio)[0]
+            else:
+                m = topk.static_k(n, d.ratio)
+        elif packing.width_for(d.s) >= 8 and WORLD * n >= kernels.MIN_ELEMS:
+            want["dequant_mean"] += 1
+        if m >= kernels.MIN_ELEMS:
+            want["qsgd_quantize"] += WORLD + 1
+    return want
+
+
+def plan_apply_launches(plan, sizes, kernels) -> dict:
+    """int_accumulate and acc_decode launches of one homomorphic apply
+    under ``plan``: per QSGD leaf of at least MIN_ELEMS one accumulate and
+    one decode, per Top-k leaf one decode (its sum is a scatter-add)."""
+    want = {"int_accumulate": 0, "acc_decode": 0}
+    for d, n in zip(plan.decisions, sizes):
+        if d.method == "dense" or n < kernels.MIN_ELEMS:
+            continue
+        want["acc_decode"] += 1
+        if d.method == "qsgd":
+            want["int_accumulate"] += 1
+    return want
+
+
+def adapt_kernel_points(torch, kernels, g) -> dict:
+    """13's operating points against the plain versions on the card:
+    qsgd_quantize at s = 7 (the 4-bit rung) at every VGG11-BN leaf of at
+    least MIN_ELEMS elements, and blockwise 4096 at the largest;
+    block_top1 at the 1% and 5% views of every VGG11-BN leaf above 2^18
+    elements and of LeNet's fc1. Each bit-equal, timed beside its bound and
+    alone on the card."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+    from ewdml_tpu_torch.ops import blocktopk, topk
+
+    timer = Timer(torch)
+    rows = {"qsgd_quantize_s7": [], "block_top1": []}
+    vgg = sorted({math.prod(s.jax_shape) for s in
+                  leaf_specs(build_model("VGG11", 10, dataset="Cifar10"))},
+                 reverse=True)
+    lenet = [math.prod(s.jax_shape) for s in
+             leaf_specs(build_model("LeNet", 10, dataset="mnist"))]
+    for n in [n for n in vgg if n >= kernels.MIN_ELEMS]:
+        x = torch.randn(n, device="cuda", generator=g) * 1e-2
+        for block in [None] + ([4096] if n == vgg[0] else []):
+            if block is None:
+                norms = torch.linalg.vector_norm(x)
+            else:
+                pad = torch.zeros(-(-n // block) * block, device="cuda")
+                pad[:n] = x
+                norms = torch.linalg.vector_norm(pad.reshape(-1, block),
+                                                 dim=1)
+            seed = table_seed(torch, n % 977)
+            a = kernels.qsgd_quantize(x, norms, seed, 7, block=block)
+            b = kernels.qsgd_quantize_ref(x, norms, seed, 7, block=block)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"qsgd_quantize s=7 n={n} block={block}:"
+                                     f" {int((a != b).sum())} levels differ "
+                                     "from the plain version")
+            rows["qsgd_quantize_s7"].append(shape_row(
+                timer, lambda: kernels.qsgd_quantize(x, norms, seed, 7,
+                                                     block=block),
+                KERNEL_NAMES["qsgd_quantize"], 5 * n + 4 * norms.numel(),
+                OPS_PER_ELEM["qsgd_quantize"] * n, n=n, block=block, s=7))
+    for net, sizes in (("VGG11", vgg), ("LeNet", sorted(set(lenet)))):
+        for n in sizes:
+            for ratio in (0.01, 0.05):
+                if topk.resolve_mode(None, n, ratio) != "block":
+                    continue
+                nb, _, blk_pad = blocktopk.geometry(n, ratio)
+                x2 = torch.randn(blk_pad, nb, device="cuda", generator=g)
+                same_top1(torch, kernels, x2, f"{net} n={n} at {ratio}")
+                rows["block_top1"].append(shape_row(
+                    timer, lambda: kernels.block_top1(x2),
+                    KERNEL_NAMES["block_top1"], 4 * blk_pad * nb + 8 * nb,
+                    OPS_PER_ELEM["block_top1"] * blk_pad * nb, network=net,
+                    n=n, ratio=ratio, shape=[blk_pad, nb]))
+    del timer
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"adapt point {name}: " + json.dumps(r), flush=True)
+    return rows
+
+
+def adapt_contract_points(torch, kernels, rt, sizes, g) -> int:
+    """int_accumulate (K = 4) and acc_decode bit-equal to their plain
+    versions at every leaf of at least MIN_ELEMS elements of every plan's
+    scale contract the async run built (its shapes, its scales)."""
+    checked = 0
+    for comp in rt._compressors.values():
+        for i, n in enumerate(sizes):
+            sub = comp.for_leaf(i)
+            scales = getattr(sub, "scales", None)
+            if scales is None or n < kernels.MIN_ELEMS:
+                continue
+            lv = levels_on_card(torch, WORLD, n, g)
+            same_accumulate(torch, kernels, lv, f"plan leaf {i} n={n}")
+            acc = kernels.int_accumulate_ref(lv)
+            same_decode(torch, kernels, acc, scales.to("cuda").reshape(-1),
+                        f"plan leaf {i} n={n} block={sub.block}")
+            checked += 1
+    return checked
+
+
+def adapt_sync(torch, kernels, counts, root: str) -> dict:
+    """13a: each run of ``ADAPT_SYNC_RUNS``."""
+    out = {}
+    for name, flags, steps, replayed in ADAPT_SYNC_RUNS:
+        out[name] = adapt_sync_run(torch, kernels, counts, root, name, flags,
+                                   steps, replayed)
+    return out
+
+
+def adapt_sync_run(torch, kernels, counts, root: str, name: str, flags,
+                   steps: int, replayed: bool) -> dict:
+    """One 13a run: the sync trainer records (and replays) its ledger."""
+    from ewdml_tpu_torch.adapt.ledger import read_decisions
+    from ewdml_tpu_torch.adapt.plan import plan_wire_bytes
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.models.convert import to_jax
+    from ewdml_tpu_torch.train import loop
+    from ewdml_tpu_torch.train.state import leaf_params
+    from ewdml_tpu_torch.utils import prng
+
+    ledger = os.path.join(root, name.replace(" ", "_") + "_ledger.jsonl")
+    calls = []
+    build_step = loop.make_train_step
+
+    def counted(trainer_ref):
+        def make(*a, **k):
+            fn = build_step(*a, **k)
+            plan = k["compressor"].plan
+
+            def step(state, *rest):
+                before = dict(kernels.LAUNCHES)
+                out = fn(state, *rest)
+                calls.append((state is trainer_ref[0].state, plan,
+                              {n: kernels.LAUNCHES[n] - before[n]
+                               for n in before}))
+                return out
+            return step
+        return make
+
+    runs, out = {}, {}
+    deterministic(torch, True)
+    try:
+        for mode in ("variance", "replay")[:1 + int(replayed)]:
+            ref = [None]
+            # Every step the trainer builds (one per plan) is counted.
+            loop.make_train_step = counted(ref)
+            trainer = loop.Trainer(from_args(adapt_argv(
+                steps, ADAPT_EVERY, flags, "--adapt", mode,
+                "--adapt-ledger", ledger)))
+            ref[0] = trainer
+            rt = trainer._adapt
+            sizes = rt.sizes
+            del calls[:]
+            windows = []
+            kernels.reset_launches()   # this run of the main path
+            t0 = time.perf_counter()
+            for k in range(1, steps // ADAPT_EVERY + 1):
+                plan = rt.plan
+                res = trainer.train(max_steps=k * ADAPT_EVERY)
+                if not math.isfinite(res.final_loss):
+                    raise AssertionError(f"13a {mode}: non-finite loss")
+                windows.append(dict(version=plan.version,
+                                    mean_step_ms=res.mean_step_s * 1e3))
+                if rt.plan is not plan:
+                    # A switch: the wire plan and the shipped payloads are
+                    # the new plan's.
+                    comp = trainer._step_compressor
+                    want = plan_wire_bytes(rt.plan, sizes,
+                                           block=trainer.cfg.qsgd_block)
+                    ws = trainer.state.workers[0]
+                    with torch.no_grad():
+                        shipped = sum(
+                            comp.for_leaf(i).compress(
+                                prng.key(i), to_jax(p.grad, s.kind)).wire_bytes
+                            for i, (p, s) in enumerate(zip(
+                                leaf_params(ws.model, trainer.specs),
+                                trainer.specs)))
+                    if not (trainer.wire.up_bytes == want == shipped
+                            and trainer.wire.per_step_bytes == 2 * want):
+                        raise AssertionError(
+                            f"13a {mode}: plan v{rt.plan.version} prices "
+                            f"{want} B, the wire plan {trainer.wire.up_bytes}"
+                            f" B up, the payloads {shipped} B")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = dict(kernels.LAUNCHES)
+            for k, v in launched.items():
+                counts[k] += v
+            stepped = [c for c in calls if c[0]]
+            for _, plan, got in calls:
+                want = plan_step_launches(plan, sizes, kernels)
+                if {k: got[k] for k in ADAPT_TRIO} != want:
+                    raise AssertionError(f"13a {mode}: plan v{plan.version} "
+                                         f"step launched {got}, its "
+                                         f"reckoning {want}")
+            if len(stepped) != steps:
+                raise AssertionError(f"13a {mode}: {len(stepped)} steps")
+            per_plan = {}
+            for w in windows:  # each window's first step counts as compile
+                per_plan.setdefault(w["version"], []).append(w["mean_step_ms"])
+            runs[mode] = dict(
+                trainer=trainer, applied=[(s, p.key()) for s, p in rt.applied],
+                wall_s=wall, probes=len(calls) - len(stepped),
+                launches=launched,
+                per_plan_step_ms={v: statistics.mean(ms)
+                                  for v, ms in per_plan.items()},
+                per_plan_launches={p.version: plan_step_launches(
+                    p, sizes, kernels) for _, p in rt.applied})
+            print(f"adapt 13a {name} {mode}: {len(rt.applied)} plans "
+                  f"{[(s, p.version, p.method_counts()) for s, p in rt.applied]}"
+                  f" mean step per plan {runs[mode]['per_plan_step_ms']} ms, "
+                  f"probe steps {runs[mode]['probes']}, wall {wall:.1f}s, "
+                  f"launches {launched} on {smi_line()}", flush=True)
+    finally:
+        loop.make_train_step = build_step
+        deterministic(torch, False)
+    rec = runs["variance"]
+    rows = read_decisions(ledger)
+    budget = rec["trainer"]._adapt.budget_bytes
+    if len(rec["applied"]) < 2:
+        raise AssertionError("13a: no decision switched the plan")
+    if any(r["bytes_per_sync"] > budget for r in rows):
+        raise AssertionError(f"13a: a journaled plan exceeds the budget "
+                             f"{budget} B")
+    if replayed:
+        rep = runs["replay"]
+        if rep["applied"] != rec["applied"]:
+            raise AssertionError("13a: the replay applied another sequence")
+        for a, b in zip(rec["trainer"].state.workers,
+                        rep["trainer"].state.workers):
+            for p, q in zip(a.model.state_dict().values(),
+                            b.model.state_dict().values()):
+                if not torch.equal(p, q):
+                    raise AssertionError("13a: the replay's state is not "
+                                         "bit-equal to the recording's")
+        out["replay_bit_equal"] = True
+    for mode, r in runs.items():
+        out[mode] = {k: r[k] for k in ("wall_s", "probes", "launches",
+                                       "per_plan_step_ms",
+                                       "per_plan_launches")}
+    out["plans"] = [dict(step=r["step"], version=r["plan_version"],
+                         switched=r["switched"],
+                         bytes_per_sync=r["bytes_per_sync"],
+                         comm_frac=(r["signals"] or {}).get("comm_frac"))
+                    for r in rows]
+    out["budget_bytes"] = budget
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def adapt_async_argv(root: str) -> list:
+    """13b: VGG11-BN at CIFAR-10 shapes, K = 4 of 4 workers, QSGD under
+    homomorphic aggregation, ``--adapt variance --adapt-every 3``."""
+    k_n, steps, every = ADAPT_ASYNC
+    return ["--mode", "async", "--network", "VGG11", "--dataset", "Cifar10",
+            "--synthetic-data", "--batch-size", "128", "--num-workers",
+            str(k_n), "--num-aggregate", str(k_n), "--max-steps",
+            str(k_n * steps), "--compress-grad", "qsgd", "--server-agg",
+            "homomorphic", "--fusion", "none", "--adapt", "variance",
+            "--adapt-every", str(every), "--train-dir", root + "/"]
+
+
+def adapt_async(torch, kernels, counts, g) -> dict:
+    """13b: the in-process server under homomorphic aggregation."""
+    from ewdml_tpu_torch import cli
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.parallel import ps
+
+    k_n = ADAPT_ASYNC[0]
+    root = tempfile.mkdtemp(prefix="ewdml_adapt_ps_")
+    cfg = from_args(adapt_async_argv(root))
+    applies, warms = [], []
+    run_apply, register = (ps.ParameterServer._run_apply,
+                           ps.ParameterServer.register_payload_schema)
+
+    def counted_apply(self, batch, wsum=None):
+        before = dict(kernels.LAUNCHES)
+        res = run_apply(self, batch, wsum)
+        applies.append((self.compressor.plan, res[4],
+                        {n: kernels.LAUNCHES[n] - before[n]
+                         for n in ("int_accumulate", "acc_decode")}))
+        return res
+
+    def counted_register(self, template, **kw):
+        before = dict(kernels.LAUNCHES)
+        register(self, template, **kw)
+        warms.append((self.compressor.plan,
+                      {n: kernels.LAUNCHES[n] - before[n]
+                       for n in ("int_accumulate", "acc_decode")}))
+
+    ps.ParameterServer._run_apply = counted_apply
+    ps.ParameterServer.register_payload_schema = counted_register
+    try:
+        run = cli.build_async(cfg)
+        kernels.reset_launches()   # 13b's run of the main path
+        t0 = time.perf_counter()
+        _, stats = run.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)
+    finally:
+        ps.ParameterServer._run_apply = run_apply
+        ps.ParameterServer.register_payload_schema = register
+    for k, v in launched.items():
+        counts[k] += v
+    server, rt = run.server, run.server.adapt
+    sizes = rt.sizes
+    if len(rt.applied) < 2:
+        raise AssertionError("13b: no decision switched the plan")
+    pending = len(server._pending)
+    if stats.pushes != (stats.updates * k_n + stats.dropped_plan_stale
+                        + stats.dropped_stale + pending):
+        raise AssertionError(f"13b: pushes {stats.pushes} != updates "
+                             f"{stats.updates} x {k_n} + plan-stale "
+                             f"{stats.dropped_plan_stale} + stale "
+                             f"{stats.dropped_stale} + pending {pending}")
+    for plan, _, got in applies + [(p, 0, d) for p, d in warms]:
+        want = plan_apply_launches(plan, sizes, kernels)
+        if got != want:
+            raise AssertionError(f"13b: an apply under plan v{plan.version} "
+                                 f"launched {got}, its reckoning {want}")
+    per_plan = {}
+    for plan, apply_s, _ in applies:
+        per_plan.setdefault(plan.version, []).append(apply_s * 1e3)
+    checked = adapt_contract_points(torch, kernels, rt, sizes, g)
+    out = dict(pushes=stats.pushes, updates=stats.updates,
+               dropped_plan_stale=stats.dropped_plan_stale,
+               dropped_stale=stats.dropped_stale, pending=pending,
+               plans=[(s, p.version, p.method_counts())
+                      for s, p in rt.applied],
+               apply_ms_mean_per_plan={v: statistics.mean(ms)
+                                       for v, ms in per_plan.items()},
+               per_plan_launches={p.version: plan_apply_launches(
+                   p, sizes, kernels) for _, p in rt.applied},
+               contract_leaves_checked=checked, wall_s=wall,
+               launches=launched)
+    print(f"adapt 13b: {json.dumps(out)} on {smi_line()}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    del run, server
+    torch.cuda.empty_cache()
+    return out
+
+
+def adapt_tcp(root: str) -> dict:
+    """13c: a server process (threads plane, a state directory, serverkill
+    after the first switch) and two worker processes under ``--adapt
+    variance``; the server is restarted and recovers the plan in force."""
+    import socket
+
+    from ewdml_tpu_torch.adapt.ledger import ReplaySchedule, read_decisions
+    from ewdml_tpu_torch.parallel import ps_net
+    from ewdml_tpu_torch.parallel.server_state import ServerStateStore
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    state = os.path.join(root, "adapt_state")
+    ledger = os.path.join(root, "adapt_tcp_ledger.jsonl")
+    common = tcp_argv(2, ["--compress-grad", "qsgd"], "--port", str(port),
+                      "--net-retries", "14", "--net-backoff", "0.5",
+                      "--adapt", "variance", "--adapt-every", "3",
+                      "--adapt-ledger", ledger)
+    server_args = ["--role", "server", *common, "--server-state-dir", state,
+                   "--snapshot-every", "0", "--wire-plane", "threads",
+                   "--fault-spec", f"serverkill@{ADAPT_KILL_AT}"]
+    procs, walls = [], {}
+    t0 = time.perf_counter()
+    try:
+        first = ps_net_proc(server_args, os.path.join(root, "as1.log"))
+        procs.append(first)
+        wait_for_line(first, os.path.join(root, "as1.log"), "PS_NET_READY",
+                      180)
+        logs = [os.path.join(root, f"aw{i}.log") for i in (0, 1)]
+        workers = [ps_net_proc(["--role", "worker", *common, "--worker-index",
+                                str(i), "--steps", str(ADAPT_TCP_STEPS)],
+                               logs[i]) for i in (0, 1)]
+        procs += workers
+        if first.wait(timeout=300) != -9:
+            raise AssertionError("13c: the first server did not die by "
+                                 "SIGKILL")
+        walls["killed_at_s"] = time.perf_counter() - t0
+        wal = ServerStateStore(state).read_wal()
+        second = ps_net_proc(server_args[:-2],
+                             os.path.join(root, "as2.log"))
+        procs.append(second)
+        wait_for_line(second, os.path.join(root, "as2.log"), "PS_NET_READY",
+                      180)
+        stats0, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        for i, w in enumerate(workers):
+            if w.wait(timeout=300) != 0:
+                raise AssertionError(f"13c: worker {i} failed")
+            wait_for_line(w, logs[i], "PS_NET_WORKER_DONE", 1)
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+        if second.wait(timeout=60) != 0:
+            raise AssertionError("13c: the restarted server did not exit 0")
+        wal += [r for r in ServerStateStore(state).read_wal()
+                if "plan_version" in r]
+        walls["done_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    rows = read_decisions(ledger)
+    in_force = ReplaySchedule(rows).plan_at_or_before(stats0["version"])
+    if stats0["plan_version"] != in_force.version or stats0["version"] < \
+            ADAPT_KILL_AT:
+        raise AssertionError(f"13c: recovered plan v{stats0['plan_version']}"
+                             f" at version {stats0['version']}, the ledger's"
+                             f" plan in force v{in_force.version}")
+    if not any(r["switched"] for r in rows if r["step"] <= ADAPT_KILL_AT):
+        raise AssertionError("13c: no switch before the kill")
+    by_version = {}
+    for r in wal:
+        if "workers" in r:
+            by_version.setdefault(int(r["plan_version"]), []).append(
+                set(r["workers"]))
+    for v, batches in by_version.items():
+        if len(batches) >= 2 and set().union(*batches) != {0, 1}:
+            raise AssertionError(f"13c: plan v{v}'s pushes came from "
+                                 f"{set().union(*batches)} only")
+    out = dict(walls, recovered_version=stats0["version"],
+               recovered_plan_version=stats0["plan_version"],
+               plan_versions_pushed={v: len(b) for v, b in
+                                     sorted(by_version.items())},
+               final_version=stats["version"],
+               dropped_plan_stale=stats["dropped_plan_stale"],
+               decisions=len(rows))
+    print(f"adapt 13c: {json.dumps(out)}", flush=True)
+    return out
+
+
+def adapt_runner(torch, kernels, counts, root: str) -> dict:
+    """13d: the table's ``lenet_mnist/adaptive`` cell through the runner's
+    cell entry at smoke scale."""
+    import contextlib
+    import io
+
+    from ewdml_tpu_torch.experiments import registry, runner
+
+    cell = "lenet_mnist/adaptive"
+    kernels.reset_launches()   # 13d's run of the main path
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.run_cell_child("baseline_adaptive", cell,
+                                   out_dir=os.path.join(root, "d"),
+                                   data_dir="data/", smoke=True,
+                                   platform=DEVICE)
+    torch.cuda.synchronize()
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v
+    line = next(x for x in buf.getvalue().splitlines()
+                if x.startswith(runner.RESULT_MARK))
+    row = json.loads(line[len(runner.RESULT_MARK):])
+    ad = row.get("adapt") or {}
+    if rc != 0 or ad.get("mode") != "variance" or ad.get("decisions", 0) < 2:
+        raise AssertionError(f"13d: rc {rc} adapt {ad}")
+    spec = {c.cell_id: c for c in
+            registry.table_cells("baseline_adaptive")}[cell]
+    out = dict(decisions=ad["decisions"], switches=ad["switches"],
+               steps=row["steps"], final_loss=row["final_loss"],
+               wire_mb_per_step_worker=row["wire_mb_per_step_worker"],
+               spec_hash=spec.spec_hash(smoke=True))
+    print(f"adapt 13d: {json.dumps(out)}", flush=True)
+    return out
+
+
+def adapt_phase(torch, kernels) -> tuple:
+    """Phase 13 (see the module docstring)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out, walls = {}, {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    root = tempfile.mkdtemp(prefix="ewdml_adapt_")
+    try:
+        for name, fn in (
+                ("points", lambda: adapt_kernel_points(torch, kernels, g)),
+                ("13a", lambda: adapt_sync(torch, kernels, counts, root)),
+                ("13b", lambda: adapt_async(torch, kernels, counts, g)),
+                ("13c", lambda: adapt_tcp(root)),
+                ("13d", lambda: adapt_runner(torch, kernels, counts, root))):
+            t = time.perf_counter()
+            out[name] = fn()
+            walls[f"{name}_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["walls"] = walls
+    print("phase 13 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for key in ("qsgd_quantize", "dequant_mean", "block_top1",
+                "int_accumulate", "acc_decode"):
+        if counts[key] <= 0:
+            raise AssertionError(f"phase 13 launched no {key}")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4807,6 +5397,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase12-only", action="store_true",
                         help="build, then run phase 12 alone (no result "
+                             "line)")
+    parser.add_argument("--phase13-only", action="store_true",
+                        help="build, then run phase 13 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -4883,6 +5476,15 @@ def main(argv=None) -> int:
         print(f"phase 12: {time.perf_counter() - t12:.1f}s", flush=True)
         print("pipeline: " + json.dumps(pipeline), flush=True)
         print("phase 12 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+
+    if args.phase13_only:
+        t13 = time.perf_counter()
+        net_counts, adapt = adapt_phase(torch, kernels)
+        print(f"phase 13: {time.perf_counter() - t13:.1f}s", flush=True)
+        print("adapt: " + json.dumps(adapt), flush=True)
+        print("phase 13 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -4990,6 +5592,13 @@ def main(argv=None) -> int:
     print("phase 12 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 13: adaptive compression on the three surfaces.
+    t13 = time.perf_counter()
+    net_counts, adapt = adapt_phase(torch, kernels)
+    print(f"phase 13: {time.perf_counter() - t13:.1f}s", flush=True)
+    print("phase 13 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -5013,6 +5622,7 @@ def main(argv=None) -> int:
     print("tier: " + json.dumps(tier), flush=True)
     print("federated: " + json.dumps(federated), flush=True)
     print("pipeline: " + json.dumps(pipeline), flush=True)
+    print("adapt: " + json.dumps(adapt), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -171,6 +171,9 @@ def build_async(cfg, registry=None):
         relay_compress=False, down_mode=cfg.ps_down,
         bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
         server_agg=cfg.server_agg, seed=cfg.seed, device=device,
+        # The server-side controller (adapt/) decides at version
+        # boundaries and re-registers the push schema.
+        adapt_cfg=cfg if cfg.adapt != "off" else None,
         # Every push's loss the server keeps is observed.
         health=make_watchdog(cfg, role="ps-server", registry=registry),
         debug_nans=cfg.debug_nans, registry=registry)

@@ -111,9 +111,14 @@ def _comm_split_measured(trainer, cfg, step_total_s: float, windows: int = 3):
             cfg2 = dataclasses.replace(cfg, sync_every=10**9, method=None)
             augment = (trainer._train_split().augment
                        if cfg.feed == "device" else None)
-            noexc_step = make_train_step(trainer.model, trainer.optimizer,
-                                         cfg2, trainer.world,
-                                         device_augment=augment)
+            # An adaptive run's probe mirrors the live step: the current
+            # planned compressor and the moments output, so only the
+            # exchange differs between the two arms.
+            noexc_step = make_train_step(
+                trainer.model, trainer.optimizer, cfg2, trainer.world,
+                device_augment=augment,
+                compressor=trainer._step_compressor,
+                with_moments=trainer._adapt is not None)
             images, labels = _probe_args(trainer, cfg)
             key = trainer.base_key
             iters = cfg.sync_every if cfg.sync_every > 1 else 4
@@ -125,7 +130,8 @@ def _comm_split_measured(trainer, cfg, step_total_s: float, windows: int = 3):
                 return step
 
             def block():
-                last["m"].cpu()  # waits for the device
+                m = last["m"]  # (metrics, moments) when adaptive
+                (m[0] if isinstance(m, tuple) else m).cpu()  # waits
 
             full, noexc = stepper(trainer.train_step), stepper(noexc_step)
             full()
@@ -391,6 +397,10 @@ def run_cell(cfg, *, device=None, evaluate: bool = True,
         if measured is not None:
             comm_s, comp_s, comm_frac, probe_detail = measured
             split_source = "measured"
+            # Handed to the trainer: a later decision of this trainer
+            # (a continued epoch) reads the measured share instead of the
+            # bytes estimate (``collect.py:435-444`` sets a global gauge).
+            trainer.note_comm_frac(comm_frac, source="measured")
     if comm_s is None:
         comm_s, comp_s, comm_frac = _comm_split_est(trainer, cfg,
                                                     step_total_s)
@@ -418,6 +428,34 @@ def run_cell(cfg, *, device=None, evaluate: bool = True,
             metrics["comp_min_est"] = round(comp_s / 60.0, 4)
     if target_top1 is not None:
         metrics["epochs_to_converge"] = epochs_to_target
+
+    adapt_block = None
+    if cfg.adapt != "off":
+        # The decision provenance for the report: the journaled ledger is
+        # the source of truth, summarized (``collect.py:479-512``).
+        from ewdml_tpu_torch.adapt.ledger import read_decisions
+        from ewdml_tpu_torch.adapt.runtime import resolve_ledger_path
+
+        path = resolve_ledger_path(cfg)
+        decs = read_decisions(path)
+        adapt_block = {
+            "mode": cfg.adapt,
+            "ledger": path,
+            "decisions": len(decs),
+            "switches": sum(1 for d in decs if d.get("switched")),
+            "windows": [{
+                "step": d.get("step"),
+                "plan_version": d.get("plan_version"),
+                "switched": d.get("switched"),
+                "trigger": d.get("trigger"),
+                "bytes_per_sync": d.get("bytes_per_sync"),
+                "comm_frac": (d.get("signals") or {}).get("comm_frac"),
+                "methods": {m: sum(1 for u in (d.get("plan") or {})
+                                   .get("decisions", [])
+                                   if u.get("method") == m)
+                            for m in ("dense", "qsgd", "topk_qsgd")},
+            } for d in decs],
+        }
 
     ws = trainer.window_step
     row = {
@@ -456,6 +494,7 @@ def run_cell(cfg, *, device=None, evaluate: bool = True,
         "comm_frac_est": (round(comm_frac, 4)
                           if split_source == "bytes_est" else None),
         "comm_split_probe": probe_detail,
+        "adapt": adapt_block,
         # The scan window's graphs (--feed device): one capture per window
         # phase a cell, however many epochs call train().
         "window": None if ws is None else {

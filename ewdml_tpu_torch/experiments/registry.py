@@ -97,6 +97,11 @@ class CellSpec:
     precision_policy: str = "f32"
     feed: str = "u8"        # input feed; "device" enables the scan window
     scan_window: int = 0    # --scan-window (0 = auto; only with feed=device)
+    # --adapt: 'variance' arms the per-layer adaptive controller (adapt/)
+    # over this cell's method preset; its decision ledger lands in the
+    # cell's train_dir (the row's provenance).
+    adapt: str = "off"
+    adapt_every: int = 0    # decision window (0 = 50 full / 2 smoke)
     # A federated cell runs sampled-cohort rounds of local SGD over
     # non-IID shards instead of the sync trainer (collect.run_cell
     # branches on cfg.federated); fed_dropout is its --fault-spec, in the
@@ -155,6 +160,11 @@ class CellSpec:
             feed=self.feed, scan_window=self.scan_window,
             log_every=10**9, bf16_compute=not smoke,
         )
+        if self.adapt != "off":
+            cfg.adapt = self.adapt
+            # A 2-step window still crosses >= 2 decision boundaries in a
+            # smoke cell.
+            cfg.adapt_every = self.adapt_every or (2 if smoke else 50)
         if self.federated:
             cfg.federated = True
             cfg.pool_size = self.pool_size
@@ -202,10 +212,10 @@ class CellSpec:
 
     @property
     def published(self) -> dict:
-        """metric -> the published value for this cell's method; a
-        federated cell has none (sampled cohorts at a round budget are
-        another experiment than the paper's grid)."""
-        if self.federated:
+        """metric -> the published value for this cell's method; adaptive
+        and federated cells have none (the paper's table is the static grid
+        they are compared against)."""
+        if self.adapt != "off" or self.federated:
             return {}
         fam = PUBLISHED.get(self.model_key, {})
         return {metric: by_method[self.method]
@@ -245,6 +255,16 @@ def _scan_matrix() -> list[CellSpec]:
             for c in _matrix() if c.method == 6]
 
 
+def _adaptive_cells() -> list[CellSpec]:
+    """One adaptive config per model family (``registry.py:295-305``): the
+    Method-6 preset with the variance controller reallocating the per-layer
+    rates under the static method's own byte budget, so the adaptive
+    cell's wire bytes are at most the static cell's."""
+    return [dataclasses.replace(c, cell_id=f"{c.model_key}/adaptive",
+                                adapt="variance")
+            for c in _matrix() if c.method == 6]
+
+
 def _federated_cells() -> list[CellSpec]:
     """The ``federated`` table: cohort size x heterogeneity x dropout over
     LeNet at pool 64, each cell a server-sampled local-SGD round loop on
@@ -269,22 +289,13 @@ def _federated_cells() -> list[CellSpec]:
             for name, kw in axes]
 
 
-def _unported(table: str, waits_for: str):
-    def cells():
-        raise NotImplementedError(
-            f"table {table!r} is not ported to ewdml_tpu_torch yet: it waits "
-            f"for {waits_for} (ROADMAP.md)")
-    return cells
-
-
-#: name -> () -> ordered cell list. The adaptive table keeps its name and
-#: raises until adapt/ is ported.
+#: name -> () -> ordered cell list (baseline_adaptive: the static grid and
+#: one variance-driven adaptive cell per model family).
 TABLES = {
     "baseline": lambda: _matrix(),
     "baseline_bf16": lambda: _matrix(precision_policy="bf16_wire_state"),
     "baseline_scan": lambda: _scan_matrix(),
-    "baseline_adaptive": _unported("baseline_adaptive",
-                                   "adapt/ (Queue 1 item 7)"),
+    "baseline_adaptive": lambda: _matrix() + _adaptive_cells(),
     "federated": lambda: _federated_cells(),
 }
 

@@ -160,9 +160,12 @@ def write_report(table: str, specs: list, rows: dict, *, out_dir: str,
 
     any_est = False
     for model_key, mspecs in by_model.items():
-        # A federated cell (all share one method preset) is labelled by
-        # its sweep axis; its own table is the "Federated rounds" block.
-        col = {s.cell_id: (s.cell_id.rsplit("/", 1)[-1] if s.federated
+        # An adaptive cell (same preset, controller armed) is its own AD
+        # column; a federated cell (all share one method preset) is
+        # labelled by its sweep axis, its own table the "Federated rounds"
+        # block.
+        col = {s.cell_id: ("AD" if s.adapt != "off"
+                           else s.cell_id.rsplit("/", 1)[-1] if s.federated
                            else f"M{s.method}")
                for s in mspecs}
         lines += ["", f"## {MODEL_TITLES.get(model_key, model_key)}", ""]
@@ -206,6 +209,33 @@ def write_report(table: str, specs: list, rows: dict, *, out_dir: str,
                     for s in mspecs]
             lines.append(f"| {label} | — | "
                          + " | ".join(_fmt(v) for v in vals) + " |")
+
+    # Every adaptive cell's journaled decisions, so the AD column's bytes
+    # are auditable against when and why the controller switched.
+    adaptive = [(s, rows[s.cell_id]["adapt"]) for s in specs
+                if s.adapt != "off" and s.cell_id in rows
+                and rows[s.cell_id].get("adapt")]
+    if adaptive:
+        lines += ["", "## Adaptive decision provenance", ""]
+        for s, ad in adaptive:
+            lines += [f"### `{s.cell_id}` — mode `{ad.get('mode')}`, "
+                      f"{ad.get('decisions', 0)} decisions, "
+                      f"{ad.get('switches', 0)} switches "
+                      f"(ledger: `{ad.get('ledger')}`)", ""]
+            windows = ad.get("windows") or []
+            if windows:
+                lines += ["| step | plan | switched | bytes/sync | trigger "
+                          "| methods |", "|---|---|---|---|---|---|"]
+                for w in windows:
+                    methods = ", ".join(
+                        f"{k}:{v}" for k, v in sorted(
+                            (w.get("methods") or {}).items()))
+                    lines.append(
+                        f"| {w.get('step')} | v{w.get('plan_version')} | "
+                        f"{'yes' if w.get('switched') else ''} | "
+                        f"{_fmt(w.get('bytes_per_sync'))} | "
+                        f"{w.get('trigger', '')} | {methods} |")
+                lines.append("")
 
     # The federated sweep: cohort x heterogeneity x dropout, with the flat
     # server cost per cell (one decode a round on the homomorphic sum).
@@ -266,8 +296,7 @@ def write_report(table: str, specs: list, rows: dict, *, out_dir: str,
                     "epochs": s.epochs, "batch_size": s.batch_size,
                     "num_workers": s.num_workers,
                     "precision_policy": s.precision_policy,
-                    # No adaptive cell is ported (ROADMAP Queue 1 item 7).
-                    "adapt": "off",
+                    "adapt": s.adapt,
                 },
                 "published": s.published,
                 "status": "done" if s.cell_id in rows else "pending",

@@ -1,5 +1,6 @@
 """Stacked Top-k -> QSGD compression, the reference's Method 5
-(``ewdml_tpu/ops/chain.py:1-200``, ``:253-299``).
+(``ewdml_tpu/ops/chain.py:1-299``; :func:`reconfigure` is the adaptive
+controller's config-keyed cache).
 
 Sparsify, then quantize the k surviving values: the wire carries
 (indices int32, levels int8, norm f32). Big fused buckets at sparse ratios
@@ -162,6 +163,53 @@ class SharedScaleTopKQSGD:
 
     def wire_bytes(self, shape) -> int:
         return shared_wire_bytes(numel(shape), self.compress_ratio)
+
+
+# The reconfigure cache (``chain.py:202-251``): the adaptive controller
+# flips the same few (fraction, s) rungs on and off across a run; one
+# instance per config is returned, never a fresh one per decision. The
+# hit and miss counts are observable.
+_RECONFIG_CACHE: dict = {}
+_RECONFIG_STATS = {"hits": 0, "misses": 0}
+
+
+def reconfigure(base=None, *, bits: Optional[int] = None,
+                s: Optional[int] = None, fraction: Optional[float] = None,
+                exact=None, block: Optional[int] = None):
+    """Config-keyed :class:`TopKQSGDCompressor` factory: knobs not given
+    default from ``base`` (an instance, or the class for its defaults).
+    ``bits`` is sugar for ``s = 2^(bits-1) - 1`` (8 -> 127, the int8 wire;
+    4 -> 7, the packed 4-bit wire)."""
+    if bits is not None:
+        if s is not None:
+            raise ValueError("pass bits or s, not both")
+        s = (1 << (max(2, int(bits)) - 1)) - 1
+    inst = base if isinstance(base, TopKQSGDCompressor) else None
+    ratio = float(inst.compress_ratio if inst and fraction is None
+                  else (0.5 if fraction is None else fraction))
+    s = int(inst.quantum_num if inst and s is None
+            else (127 if s is None else s))
+    if inst is not None:
+        exact = inst.exact if exact is None else exact
+        block = inst.block if block is None else block
+    key = (round(ratio, 9), s, exact, block)
+    comp = _RECONFIG_CACHE.get(key)
+    if comp is not None:
+        _RECONFIG_STATS["hits"] += 1
+        return comp
+    _RECONFIG_STATS["misses"] += 1
+    comp = _RECONFIG_CACHE[key] = TopKQSGDCompressor(
+        ratio, s, exact=exact, block=block)
+    return comp
+
+
+def reconfigure_cache_stats() -> dict:
+    return dict(_RECONFIG_STATS)
+
+
+def reconfigure_cache_clear() -> None:
+    _RECONFIG_CACHE.clear()
+    _RECONFIG_STATS.update(hits=0, misses=0)
 
 
 class TopKQSGDCompressor:

@@ -87,6 +87,11 @@ class HomomorphicCompressor:
         self._subs = derive_contract(base, grads_template, headroom)
         self._crc = None
 
+    @property
+    def plan(self):
+        """The wrapped planned compressor's plan (adaptive runs only)."""
+        return self.base.plan
+
     def for_leaf(self, i: int):
         return self._subs[i]
 

@@ -405,6 +405,11 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
     also each worker's own decompressed payload (for error feedback)."""
     if fuse and bucket_bytes:
         raise ValueError("fuse and bucket_bytes are mutually exclusive")
+    if (fuse or bucket_bytes) and hasattr(compressor, "for_leaf"):
+        raise ValueError(
+            "per-unit compression plans (ewdml_tpu/adapt) require per-layer "
+            "transport units; fusion would merge leaves with different "
+            "decisions into one payload (--fusion none)")
     if fuse or bucket_bytes:
         parts = [fuse_tree(g) if fuse else bucket_tree(g, bucket_bytes)
                  for g in grads]
@@ -434,34 +439,38 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
             "all_gather transport")
     rkeys = [prng.rank_key(key, r) for r in world.ranks]
     out, own = [], [[] for _ in world.ranks]
+    per_unit = hasattr(compressor, "for_leaf")
     for i in range(len(grads[0])):
+        # A per-unit plan (adapt/) dispatches per leaf: ``for_leaf(i)`` is
+        # unit i's sub-compressor.
+        comp = compressor.for_leaf(i) if per_unit else compressor
         rk = (prng.layer_key(relay_key if relay_key is not None else key, i)
               if relay else None)
         if transport == "ring_rs":
             avg = _ring_rs_exchange(
-                world, [g[i] for g in grads], compressor,
+                world, [g[i] for g in grads], comp,
                 [prng.layer_key(rkeys[r], i) for r in world.ranks])
             if relay:
-                avg = compressor.decompress(compressor.compress(rk, avg))
+                avg = comp.decompress(comp.compress(rk, avg))
             out.append(avg)
             continue
-        payloads = [compressor.compress(prng.layer_key(rkeys[r], i), grads[r][i])
+        payloads = [comp.compress(prng.layer_key(rkeys[r], i), grads[r][i])
                     for r in world.ranks]
         if return_own_decompressed:
             for r in world.ranks:
-                own[r].append(compressor.decompress(payloads[r]))
+                own[r].append(comp.decompress(payloads[r]))
         if transport == "ppermute":
-            avg = _ring_exchange(world, payloads, compressor, num_aggregate,
+            avg = _ring_exchange(world, payloads, comp, num_aggregate,
                                  step)
             if relay:
-                avg = compressor.decompress(compressor.compress(rk, avg))
+                avg = comp.decompress(comp.compress(rk, avg))
             out.append(avg)
             continue
         gathered = world.all_gather(payloads)
         payload = payloads[0]
         if isinstance(payload, BlockTopKQSGDPayload):
             avg = _block_mean_relay(gathered, num_aggregate, w_n, step, relay,
-                                    compressor, rk)
+                                    comp, rk)
             out.append(avg.reshape(payload.shape))
             continue
         sparse = (isinstance(payload, (TopKPayload, TopKQSGDPayload))
@@ -470,14 +479,14 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
             avg_flat, cand_idx = _sparse_mean(gathered, num_aggregate, w_n, step)
             if relay:
                 avg_flat = _sparse_relay(avg_flat, cand_idx,
-                                         payload.indices.numel(), compressor,
+                                         payload.indices.numel(), comp,
                                          rk, world=w_n)
             out.append(avg_flat.reshape(payload.shape))
             continue
-        avg = _mean_of_decompressed(gathered, compressor, num_aggregate, w_n,
+        avg = _mean_of_decompressed(gathered, comp, num_aggregate, w_n,
                                     step)
         if relay:
-            avg = compressor.decompress(compressor.compress(rk, avg))
+            avg = comp.decompress(comp.compress(rk, avg))
         out.append(avg)
     if return_own_decompressed:
         return out, own

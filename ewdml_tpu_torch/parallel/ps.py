@@ -80,10 +80,16 @@ padded with zero levels, a fragmented round stacks higher.
 
 The federated rounds (``federated/``) drive this server through a
 ``parallel/policy.CohortPolicy``: its ``admit_push`` refusals count in
-``PSStats.fed_rejected`` and its ``note_applied`` closes a round. Options
-of later slices raise ``NotImplementedError`` by name here or in
-``train/trainer.check_supported(async_path=True)``: round pipelines and
-``--adapt``.
+``PSStats.fed_rejected`` and its ``note_applied`` closes a round.
+
+Adaptive compression (``ps.py:287-310,1149-1297,1892-1946,2035-2058``):
+with ``adapt`` (an ``adapt.AdaptRuntime``) the server owns the controller.
+The apply also returns the per-leaf moments of the applied mean gradient;
+at every decision boundary of the version counter a switched plan
+re-registers the push schema (:meth:`ParameterServer._apply_adapt_plan`)
+and bumps ``plan_version``. A push encoded under an older plan is dropped
+(``dropped_plan_stale``), as is a batch released just before a switch; a
+worker follows the plan version of the server (:class:`AsyncWorker`).
 """
 
 from __future__ import annotations
@@ -124,11 +130,6 @@ def _indexed(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
-
-
-def _unsupported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
 
 
 #: The publication stream's quantizer grid: int8 levels on per-block shared
@@ -181,6 +182,9 @@ class PushRecord:
     # The idempotency key ("worker:step" from the TCP worker), stable
     # across wire retries and server restarts; "" = no dedupe.
     push_id: str = ""
+    # The adaptive plan the payload was encoded under; one superseded by a
+    # switch is dropped (``dropped_plan_stale``).
+    plan_version: int = 0
     # The federated round a push was computed for (-1: unstamped; the
     # round pipeline routes by it).
     round_id: int = -1
@@ -326,8 +330,29 @@ class ParameterServer:
                     "contract: wrap the compressor with "
                     "ops.homomorphic.make_homomorphic(comp, grads_template)"
                     " (run_async_ps does)")
+        # Adaptive compression: the server owns the controller and the
+        # plan; workers follow plan_version.
+        self.adapt = adapt
+        self.plan_version = 0
         if adapt is not None:
-            _unsupported("--adapt")
+            if down_mode == "delta":
+                raise ValueError("--adapt requires --ps-down weights "
+                                 "(a plan switch would desynchronize the "
+                                 "compressed delta stream)")
+            if relay_compress:
+                raise ValueError("--adapt is incompatible with the lossy "
+                                 "weights-down relay")
+            compressor = adapt.compressor()
+            if server_agg == "homomorphic":
+                from ewdml_tpu_torch.ops.homomorphic import \
+                    HomomorphicCompressor
+
+                if not isinstance(compressor, HomomorphicCompressor):
+                    raise ValueError(
+                        "--server-agg homomorphic with --adapt needs the "
+                        "scale contract armed: call "
+                        "AdaptRuntime.set_scale_base(grads_template) "
+                        "before constructing the server")
         self.device = _indexed(device if device is not None
                                else params[0].device)
         self.params = [p.detach().to(self.device, torch.float32, copy=True)
@@ -479,6 +504,7 @@ class ParameterServer:
         optimizer = self.optimizer
         homomorphic = self.server_agg == "homomorphic"
         takes_key = update_accepts_key(optimizer)
+        want_moments = self.adapt is not None
 
         def make_apply(divisor: Optional[int], height: int):
             # divisor None: the flat mean over the K stacked payloads; an
@@ -504,7 +530,13 @@ class ParameterServer:
                     optimizer.update(grads, new_opt, new_params, key=okey)
                 else:
                     optimizer.update(grads, new_opt, new_params)
-                return new_params, new_opt
+                if not want_moments:
+                    return new_params, new_opt, None
+                # The controller's sample: per leaf (mean, mean of squares)
+                # of the applied mean gradient.
+                mom = torch.stack([torch.stack([g.mean(), g.square().mean()])
+                                   for g in grads])
+                return new_params, new_opt, mom
 
             return apply_bufs
 
@@ -688,9 +720,10 @@ class ParameterServer:
 
     def _take_pending(self) -> tuple:
         """The pending batch, cleared (under ``_lock``, held by the
-        caller): ``(bufs, workers, ids, weights, members)``."""
+        caller): ``(bufs, workers, ids, weights, members, plan_version)``."""
         taken = (self._pending, self._pending_workers, self._pending_ids,
-                 self._pending_weights, self._pending_members)
+                 self._pending_weights, self._pending_members,
+                 self.plan_version)
         self._pending, self._pending_workers, self._pending_ids = [], [], []
         self._pending_weights, self._pending_members = [], []
         return taken
@@ -761,7 +794,9 @@ class ParameterServer:
             if health.aborted is not None:
                 self._retract(record)
                 return False  # unobserved: the run's verdict is the first
-            if not self.policy.stale(self.version - record.version):
+            if not (self.policy.stale(self.version - record.version)
+                    or (self.adapt is not None
+                        and record.plan_version != self.plan_version)):
                 # Outside the lock (an event is an fsync'd write), and not
                 # for a push about to be dropped as stale: its loss was
                 # computed on long-gone weights. An abort raises here,
@@ -774,6 +809,14 @@ class ParameterServer:
         with self._lock:
             self.stats.pushes += 1
             self.stats.bytes_up += record.wire_bytes
+            if (self.adapt is not None
+                    and record.plan_version != self.plan_version):
+                # Encoded under a superseded plan: its layout is not the
+                # registered schema's. The worker learns the plan on its
+                # next pull.
+                self.stats.dropped_plan_stale += 1
+                self._retract(record)
+                return False
             staleness = self.version - record.version
             self.stats.staleness_sum += staleness
             if self.policy.stale(staleness):
@@ -795,7 +838,7 @@ class ParameterServer:
                 if not self.policy.ready_to_apply(sum(pend[3])):
                     return True
                 del self._rp_pending[rid]
-                taken = (*pend, [() for _ in pend[0]])
+                taken = (*pend, [() for _ in pend[0]], self.plan_version)
                 round_id = rid
             elif self._rp_mode == "async":
                 # A delta of tick weight w pends w copies of its buffer,
@@ -845,7 +888,8 @@ class ParameterServer:
     def _run_apply(self, batch, wsum: Optional[int] = None):
         """The apply of one released batch on the server's stream, under
         ``_update_lock`` (held by the caller): ``(new_params, new_opt,
-        delta_buf, new_shadow, apply_s, delta_s)``. The live path and the
+        delta_buf, new_shadow, apply_s, delta_s, moments)``, the moments
+        None unless adaptive. The live path and the
         WAL replay both run it, so a replayed version is bit-equal.
         ``wsum`` is the weighted mode's divisor (the batch's leaf
         weight)."""
@@ -860,8 +904,8 @@ class ParameterServer:
         okey = prng.fold_in(self._opt_key, self.version)
         self._sync()
         t_apply = clock.monotonic()
-        new_params, new_opt = apply_fn(self.params, self.opt_state, bufs,
-                                       okey)
+        new_params, new_opt, moments = apply_fn(self.params, self.opt_state,
+                                                bufs, okey)
         self._sync()
         apply_s = clock.monotonic() - t_apply
         delta_buf, new_shadow, delta_s = None, self._shadow, 0.0
@@ -873,7 +917,8 @@ class ParameterServer:
                 prng.fold_in(self._relay_key, self.version + 1))
             delta_buf = packed.cpu().numpy()
             delta_s = clock.monotonic() - t_delta
-        return new_params, new_opt, delta_buf, new_shadow, apply_s, delta_s
+        return (new_params, new_opt, delta_buf, new_shadow, apply_s, delta_s,
+                moments)
 
     def _commit(self, new_params, new_opt, delta_buf, new_shadow,
                 push_ids) -> int:
@@ -892,12 +937,16 @@ class ParameterServer:
         return self.version
 
     def _apply_batch(self, batch, workers=(), push_ids=(), weights=(),
-                     members=(), round_id: int = -1) -> bool:
+                     members=(), batch_pv: int = 0,
+                     round_id: int = -1) -> bool:
         """The released batch's apply and commit, outside the state lock
         (``_update_lock`` keeps applies ordered); then its publication, its
-        WAL record, the policy's commit hook and the serverkill fault, in
-        that order. The weighted mode pads a short batch with zero levels
-        (an exact no-op of the integer sum) up to the K slots."""
+        WAL record, the policy's commit hook, an adaptive decision and the
+        serverkill fault, in that order. ``batch_pv`` is the plan version
+        the batch was released under. The weighted mode pads a short batch
+        with zero levels (an exact no-op of the integer sum) up to the K
+        slots."""
+        n_bufs = len(batch)
         if self._agg_mode and len(batch) < self._schema_k:
             batch = batch + [np.zeros_like(batch[0])
                              for _ in range(self._schema_k - len(batch))]
@@ -906,8 +955,16 @@ class ParameterServer:
                 otrace.span("ps/apply", k=len(batch), version=self.version,
                             **({"round": round_id} if round_id >= 0
                                else {})):
+            if self.adapt is not None:
+                # Plan switches happen only under _update_lock: a batch
+                # released just before one would ride its old layout
+                # through the new unpack, so it is dropped.
+                with self._lock:
+                    if self.plan_version != batch_pv:
+                        self.stats.dropped_plan_stale += n_bufs
+                        return False
             (new_params, new_opt, delta_buf, new_shadow, apply_s,
-             delta_s) = self._run_apply(batch, wsum)
+             delta_s, moments) = self._run_apply(batch, wsum)
             decodes = (0 if self.compressor is None
                        else 1 if self.server_agg == "homomorphic"
                        else len(batch))
@@ -924,7 +981,7 @@ class ParameterServer:
                 # version only once it is committed.
                 self._pd_publish(new_params, version_now)
             self._journal_applied(version_now, batch, workers, push_ids,
-                                  weights)
+                                  weights, batch_pv)
             # A pseudo-push's contributors are its leaf members.
             applied = []
             for w, ms in zip(workers, members or [()] * len(workers)):
@@ -932,8 +989,48 @@ class ParameterServer:
             self.policy.note_applied(
                 version_now, applied,
                 round_id=(round_id if round_id >= 0 else None))
+            if self.adapt is not None and self.adapt.due(version_now):
+                # A decision boundary: the version counter is the step
+                # clock here. Under _update_lock, so the re-registration
+                # never races another apply.
+                new_plan = self.adapt.on_window(version_now,
+                                                moments.cpu().numpy())
+                if new_plan is not None:
+                    self._apply_adapt_plan(new_plan)
+            # Last: every journal this apply owes (the WAL, the round
+            # ledger, the decision ledger) is durable.
             self._maybe_trip_server_kill(version_now)
         return True
+
+    def _apply_adapt_plan(self, plan) -> None:
+        """Switch the push schema to ``plan`` (``ps.py:1259-1297``; under
+        ``_update_lock``): the planned compressor, the payload template (a
+        zero gradient list compressed: its shapes and dtypes are the
+        schema), the re-registered and warmed apply. The version, the
+        compressor and the pending clear commit in one ``_lock`` section
+        before the rebuild: from there an old-plan push is rejected, and a
+        pull's :meth:`current_plan` pairs the new version with the new
+        compressor."""
+        comp = self.adapt.compressor(plan)
+        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in self.params]
+        template = compress_tree_fn(comp, zeros, prng.key(0))
+        with self._lock:
+            self.plan_version = plan.version
+            self.compressor = comp
+            # Accepted but unapplied old-plan buffers go, counted as the
+            # batch recheck counts them.
+            self.stats.dropped_plan_stale += len(self._pending)
+            self._take_pending()
+        self.register_payload_schema(template)
+        logger.info("ps adapt: switched to plan v%d at version %d (%s)",
+                    plan.version, plan.step, plan.method_counts())
+
+    def current_plan(self) -> tuple:
+        """``(plan_version, compressor)``, read together under the lock,
+        for plan-following workers."""
+        with self._lock:
+            return self.plan_version, self.compressor
 
     # -- the durable state plane and elastic membership --------------------
 
@@ -949,7 +1046,7 @@ class ParameterServer:
             self._applied_ids.pop(next(iter(self._applied_ids)))
 
     def _journal_applied(self, version_now: int, batch, workers,
-                         push_ids, weights=()) -> None:
+                         push_ids, weights=(), batch_pv: int = 0) -> None:
         """The apply's WAL record, durable on return, and a snapshot at
         every ``snapshot_every``-th version (under ``_update_lock``). A
         weighted batch's record carries its weights, so its divisor
@@ -962,7 +1059,7 @@ class ParameterServer:
             "version": int(version_now),
             "workers": [int(w) for w in workers],
             "push_ids": [str(i) for i in push_ids],
-            "plan_version": 0,
+            "plan_version": int(batch_pv),
             "bufs": encode_bufs(batch),
         }
         if any(w != 1 for w in weights):
@@ -1013,6 +1110,7 @@ class ParameterServer:
         ``_update_lock``)."""
         with self._lock:
             version = self.version
+            plan_version = self.plan_version
             applied_ids = dict(self._applied_ids)
             joins = int(self.stats.joins)
             params, opt_state = self.params, self.opt_state
@@ -1024,7 +1122,7 @@ class ParameterServer:
         pol = self.policy.snapshot()
         meta = {
             "version": int(version),
-            "plan_version": 0,
+            "plan_version": int(plan_version),
             "applied_ids": applied_ids,
             "policy": {"excluded": pol.excluded,
                        "kills_sent": pol.kills_sent,
@@ -1077,15 +1175,8 @@ class ParameterServer:
         meta = None
         if snap is not None:
             meta, blob = snap
-            if (self.server_agg == "homomorphic"
-                    and meta.get("scale_crc") is not None):
-                crc = self.compressor.contract_checksum()
-                if int(meta["scale_crc"]) != crc:
-                    raise RuntimeError(
-                        f"recovered scale-contract desync: snapshot CRC "
-                        f"{meta['scale_crc']} != live contract {crc} — the "
-                        f"homomorphic sum would be garbage; refusing to "
-                        f"serve")
+            if self.adapt is None:
+                self._check_scale_crc(meta)
             params, opt_state, shadow = self._from_blob(blob)
             with self._lock:
                 self.params, self.opt_state = params, opt_state
@@ -1101,6 +1192,25 @@ class ParameterServer:
                                 kills_sent=int(pol.get("kills_sent", 0)),
                                 contacts=int(pol.get("contacts", 0)),
                                 members=pol.get("members") or ())
+        if self.adapt is not None:
+            # Adopt the plan in force at the snapshot's version (the
+            # decision ledger says which), then check it against the one
+            # the snapshot recorded, and its scale contract.
+            with self._update_lock, self._on_stream(), torch.no_grad():
+                plan = self.adapt.fast_forward(self.version)
+                if plan is not None:
+                    self._apply_adapt_plan(plan)
+                else:
+                    with self._lock:
+                        self.plan_version = self.adapt.plan.version
+            if (meta is not None and self.plan_version
+                    != int(meta.get("plan_version", 0))):
+                raise RuntimeError(
+                    f"recovered plan desync: decision ledger replays to "
+                    f"plan v{self.plan_version} at version {self.version}, "
+                    f"snapshot recorded v{meta.get('plan_version')}")
+            if meta is not None:
+                self._check_scale_crc(meta)
         replayed = 0
         with self._update_lock, self._on_stream(), torch.no_grad():
             if (self._elastic_k and meta is not None
@@ -1122,6 +1232,18 @@ class ParameterServer:
                         f"WAL gap: at version {self.version}, next journaled "
                         f"record is {v} — corrupt beyond the torn tail; "
                         f"refusing to skip applies")
+                rpv = int(rec.get("plan_version", 0))
+                if self.adapt is not None and rpv != self.plan_version:
+                    # The plan switched mid-WAL: adopt the plan this batch
+                    # was encoded under before replaying its bytes.
+                    plan = self.adapt.fast_forward(v - 1)
+                    if plan is not None:
+                        self._apply_adapt_plan(plan)
+                    if rpv != self.plan_version:
+                        raise RuntimeError(
+                            f"WAL record at version {v} encoded under plan "
+                            f"v{rpv}, but the decision ledger replays to "
+                            f"v{self.plan_version} there")
                 self._replay_record(rec)
                 replayed += 1
         with self._lock:
@@ -1134,6 +1256,19 @@ class ParameterServer:
                     summary["snapshot_version"], replayed)
         return summary
 
+    def _check_scale_crc(self, meta: dict) -> None:
+        """Refuse a snapshot whose homomorphic scale CRC is not the live
+        contract's."""
+        if (self.server_agg != "homomorphic"
+                or meta.get("scale_crc") is None):
+            return
+        crc = self.compressor.contract_checksum()
+        if int(meta["scale_crc"]) != crc:
+            raise RuntimeError(
+                f"recovered scale-contract desync: snapshot CRC "
+                f"{meta['scale_crc']} != live contract {crc} — the "
+                f"homomorphic sum would be garbage; refusing to serve")
+
     def _replay_record(self, rec) -> None:
         """One WAL record through the live apply and commit, without the
         journal and the hooks (under ``_update_lock``)."""
@@ -1141,7 +1276,7 @@ class ParameterServer:
 
         batch = decode_bufs(rec["bufs"])
         weights = rec.get("weights")
-        (new_params, new_opt, delta_buf, new_shadow, _,
+        (new_params, new_opt, delta_buf, new_shadow, _, _,
          _) = self._run_apply(batch, sum(int(w) for w in weights)
                               if weights else len(batch))
         with self._lock:
@@ -1399,6 +1534,24 @@ class AsyncWorker(threading.Thread):
         self.params: Optional[list] = None
         self.version = -1
         self.base_version = -1
+        # The adaptive plan this worker encodes under, and its compress
+        # per plan key (a controller returning to a plan reuses it).
+        self.plan_version = 0
+        self._ctree_cache: dict = {}
+
+    def _follow_plan(self) -> None:
+        """Adopt the server's plan when it switched: version and
+        compressor read together under the server's lock."""
+        server = self.server
+        if server.adapt is None or self.plan_version == server.plan_version:
+            return
+        pv, comp = server.current_plan()
+        ckey = comp.plan.key()
+        ctree = self._ctree_cache.get(ckey)
+        if ctree is None:
+            ctree = self._ctree_cache[ckey] = make_compress_tree(comp)
+        self._compress_tree = ctree
+        self.plan_version = pv
 
     def pull_params(self) -> None:
         """Pull, and update ``params`` and ``version`` by the mode the
@@ -1447,6 +1600,7 @@ class AsyncWorker(threading.Thread):
                 if health is not None and health.aborted is not None:
                     break  # every later push would be dropped
                 self.pull_params()
+                self._follow_plan()
                 version = self.version
                 images, labels = next(self.data_iter)
                 k = prng.step_key(self.key, step)
@@ -1470,7 +1624,8 @@ class AsyncWorker(threading.Thread):
                 self.server.push(PushRecord(
                     worker=self.index, version=version, message=message,
                     loss=(float("nan") if step in self.nan_at
-                          else float(loss))))
+                          else float(loss)),
+                    plan_version=self.plan_version))
         except StragglerKilled as e:
             self.killed = e.reason
         except BaseException as e:  # noqa: BLE001 -- surfaced by AsyncRun.run
@@ -1489,9 +1644,13 @@ class AsyncRun:
     ``workers`` (one thread each), open to inspection after :meth:`run`."""
 
     def __init__(self, server, workers, *, steps_per_worker: int,
-                 kill_threshold: Optional[float], health, registry):
+                 kill_threshold: Optional[float], health, registry,
+                 adapt=None):
         self.server = server
         self.workers = workers
+        #: The adaptive runtime (None unless ``adapt_cfg``); its ledger is
+        #: closed at the end of :meth:`run`.
+        self.adapt = adapt
         self._budget = (kill_threshold * steps_per_worker
                         if kill_threshold is not None else None)
         self._health = health
@@ -1538,6 +1697,8 @@ class AsyncRun:
         if registry is not None:
             registry.absorb_ps_stats(server.stats)
             registry.absorb_policy(server.policy.snapshot())
+        if self.adapt is not None:
+            self.adapt.close()  # appends are fsync'd; this frees the file
         otrace.flush()
         return server.params, server.stats
 
@@ -1571,11 +1732,13 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
     ``relay_compress`` choose the down-link (see :class:`ParameterServer`);
     ``health`` (``obs/health.HealthWatchdog``) observes the pushes' losses,
     and its abort verdict raises ``HealthAbort`` from :meth:`AsyncRun.run`.
+    ``adapt_cfg`` (a config with ``--adapt`` on) arms the server's adaptive
+    controller: decisions at version boundaries, its ledger and
+    instruments into ``registry``, every plan's scale contract under
+    ``server_agg='homomorphic'`` negotiated against the warm gradient.
     """
     from ewdml_tpu_torch.core.world import resolve_device
 
-    if adapt_cfg is not None:
-        _unsupported("--adapt")
     device = _indexed(resolve_device(None, device))
     devices = [_indexed(d) for d in (devices or [device])]
     if not isinstance(fault_spec, FaultSpec):
@@ -1592,7 +1755,25 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
                         torch.from_numpy(np.ascontiguousarray(wi)).to(device),
                         torch.from_numpy(np.ascontiguousarray(wl)).to(device),
                         prng.key(0))
-    if server_agg == "homomorphic":
+    adapt = None
+    if adapt_cfg is not None and adapt_cfg.adapt != "off":
+        from ewdml_tpu_torch.adapt import AdaptRuntime
+        from ewdml_tpu_torch.adapt.plan import unit_names_and_sizes
+
+        if adapt_cfg.server_agg != server_agg:
+            # The controller prices its budget from the config's wire.
+            raise ValueError(
+                f"run_async_ps(server_agg={server_agg!r}) disagrees with "
+                f"adapt_cfg.server_agg={adapt_cfg.server_agg!r}; pass one "
+                "value on both (the controller's wire pricing keys off the "
+                "config)")
+        names, sizes = unit_names_and_sizes(specs)
+        adapt = AdaptRuntime(adapt_cfg, names, sizes, surface="ps",
+                             registry=registry)
+        if server_agg == "homomorphic":
+            adapt.set_scale_base(grads0)
+        compressor = adapt.compressor()
+    elif server_agg == "homomorphic":
         from ewdml_tpu_torch.ops.homomorphic import make_homomorphic
 
         compressor = make_homomorphic(compressor, grads0)
@@ -1604,7 +1785,7 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
                              bootstrap=bootstrap,
                              kill_threshold=kill_threshold,
                              precision=precision, server_agg=server_agg,
-                             health=health, seed=seed)
+                             health=health, seed=seed, adapt=adapt)
     shared_compress = make_compress_tree(compressor)
     payload_template = (grads0 if shared_compress is None
                         else shared_compress(grads0, prng.key(0)))
@@ -1639,4 +1820,4 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
     ]
     return AsyncRun(server, workers, steps_per_worker=steps_per_worker,
                     kill_threshold=kill_threshold, health=health,
-                    registry=registry)
+                    registry=registry, adapt=adapt)

@@ -76,8 +76,14 @@ rounds (``federated/loop.NetTransport``)::
         homomorphic --compress-grad qsgd --pool-size 12 --cohort 4 --port 29500
     python -m ewdml_tpu_torch.parallel.ps_net --role fed_driver ... (same)
 
-``--adapt`` and ``--metrics-port`` are later slices, rejected by name at
-startup.
+``--adapt variance|replay`` (``ps_net.py:660-693,1050-1128,1984-2026``):
+the server owns the controller and its ledger; every ``pull`` and
+``resync`` reply carries the ``plan_version`` in force, and the plan's JSON
+when the worker's stated version is stale. The worker rebuilds the same
+planned compressor from it (homomorphic-wrapped from its own scale
+template under ``--server-agg homomorphic``, the contract checked by CRC
+per plan version) and stamps every push with its version.
+``--metrics-port`` is a later slice, rejected by name at startup.
 """
 
 from __future__ import annotations
@@ -451,7 +457,6 @@ def check_supported(cfg, role: str = "server") -> None:
 
     validate_wire_plane(cfg)
     _reject([
-        (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
         (cfg.metrics_port is not None, "--metrics-port (the live metrics "
                                        "endpoint, obs/serve)"),
     ])
@@ -692,6 +697,7 @@ class _Endpoint:
                           message=bytes(sections[0]),
                           loss=float(header["loss"]),
                           push_id=str(header.get("push_id", "")),
+                          plan_version=int(header.get("plan_version", 0)),
                           round_id=int(header.get("round", -1)),
                           weight=int(header.get("weight", 1)),
                           members=tuple(int(m) for m in
@@ -769,6 +775,18 @@ class PSNetServer(_Endpoint):
                 num_aggregate=cfg.num_aggregate)
         comp = setup.comp
         spec = FaultSpec.parse(cfg.fault_spec)
+        # Adaptive compression: the server owns the controller; every
+        # plan's scale contract derives from the template the workers hold.
+        adapt = None
+        if cfg.adapt != "off":
+            from ewdml_tpu_torch.adapt import AdaptRuntime
+            from ewdml_tpu_torch.adapt.plan import unit_names_and_sizes
+
+            names, sizes = unit_names_and_sizes(setup.specs)
+            adapt = AdaptRuntime(cfg, names, sizes, surface="ps",
+                                 registry=self.registry)
+            if cfg.server_agg == "homomorphic":
+                adapt.set_scale_base(setup.grads_scale)
         self.server = ps.ParameterServer(
             setup.params, optimizer, comp, policy=policy,
             # The weights-down relay, the paper's negative result, only
@@ -779,7 +797,7 @@ class PSNetServer(_Endpoint):
             seed=cfg.seed,
             down_mode=cfg.ps_down if comp is not None else "weights",
             bootstrap=cfg.ps_bootstrap, precision=cfg.precision_policy,
-            server_agg=cfg.server_agg, health=self.health,
+            server_agg=cfg.server_agg, health=self.health, adapt=adapt,
             device=self.device, leaf_names=[s.name for s in setup.specs],
             # Elastic K: with --num-aggregate 0 a join makes K the live
             # count; a tree pins the schema to its aggregators instead,
@@ -892,6 +910,8 @@ class PSNetServer(_Endpoint):
             self.state_store.close()
         if self.fed is not None:
             self.fed.close()
+        if self.server.adapt is not None:
+            self.server.adapt.close()
 
     def _health_abort(self, event: dict) -> None:
         """The watchdog's abort verdict: stop accepting (``main`` exits
@@ -923,6 +943,19 @@ class PSNetServer(_Endpoint):
         timeout, so the error reply arrives before the client gives up."""
         return max(0.5, self.cfg.net_timeout_s * 0.5)
 
+    def _plan_reply(self, header: dict, reply: dict) -> None:
+        """Plan negotiation on a ``pull`` or ``resync`` reply: always the
+        plan version in force, the plan's JSON only when the worker's
+        stated version is stale. The version comes from the plan object
+        itself, so a concurrent switch never pairs one plan's body with
+        another's version."""
+        if self.server.adapt is None:
+            return
+        plan = self.server.adapt.plan
+        reply["plan_version"] = plan.version
+        if int(header.get("plan_version", -1)) != plan.version:
+            reply["plan"] = plan.to_json()
+
     def _dispatch_inner(self, op, header: dict, sections: list) -> bytes:
         retried = bool(header.get("retry"))
         if op == "pull":
@@ -938,10 +971,13 @@ class PSNetServer(_Endpoint):
             reply = {"op": "pull_ok", "mode": mode, "version": int(version),
                      "nbytes": int(nbytes)}
             if self.server.server_agg == "homomorphic":
-                # The scale contract's CRC: the worker compares its own and
-                # fails loud on a desync.
-                reply["scale_crc"] = self.server.compressor.contract_checksum()
-                reply["scale_crc_pv"] = 0
+                # The scale contract's CRC, paired with the plan version it
+                # belongs to: the worker compares its own and fails loud on
+                # a desync.
+                pv, comp = self.server.current_plan()
+                reply["scale_crc"] = comp.contract_checksum()
+                reply["scale_crc_pv"] = pv
+            self._plan_reply(header, reply)
             if "mono_ns" in header:
                 # Clock handshake: our monotonic stamp and host.
                 reply["server_mono_ns"] = clock.monotonic_ns()
@@ -983,8 +1019,9 @@ class PSNetServer(_Endpoint):
                                               retried=retried)
             except StragglerKilled as e:
                 return self._kill_frame(e)
-            return make_request({"op": "resync_ok",
-                                 "version": int(self.server.version)})
+            reply = {"op": "resync_ok", "version": int(self.server.version)}
+            self._plan_reply(header, reply)
+            return make_request(reply)
         if op == "join":
             worker = int(header["worker"])
             if self.fed is not None:
@@ -1101,14 +1138,13 @@ class PSNetServer(_Endpoint):
                         "count": h["count"]}
             if entry:
                 segments[seg_op] = entry
-        # Every key of the JAX server's reply (ps_net.py:1204-1252);
-        # plan_version stays 0 (no --adapt).
+        # Every key of the JAX server's reply (ps_net.py:1204-1252).
         return make_request({
             "op": "stats_ok", "version": self.server.version,
             "pushes": s.pushes, "updates": s.updates,
             "dropped_stale": s.dropped_stale,
             "dropped_plan_stale": s.dropped_plan_stale,
-            "plan_version": 0,
+            "plan_version": self.server.plan_version,
             "server_agg": self.server.server_agg,
             "decode_count": s.decode_count,
             "apply_rounds": s.apply_rounds,
@@ -1606,6 +1642,9 @@ class PSNetWorker:
         # The homomorphic contract this worker encodes under: its CRC is
         # compared with the server's on every pull.
         self._hom_comp = setup.comp if setup.grads_scale is not None else None
+        # A plan switch renegotiates the scales from this template, as the
+        # server's AdaptRuntime.set_scale_base does from its own copy.
+        self._grads_scale = setup.grads_scale
         self.grad_fn = setup.grad_fn
         self._compress_tree = setup.compress_tree
         self._pack = transfer.make_device_packer()
@@ -1627,6 +1666,10 @@ class PSNetWorker:
         self.key = prng.fold_in(prng.key(cfg.seed), index)
         self._params = None
         self._version = -1
+        # The adaptive plan this worker encodes under, and per plan key its
+        # (compressor, compress tree).
+        self._plan_version = 0
+        self._ctree_cache: dict = {}
         # The RetryingConnections, set by run(): to the apply server, and
         # the pull and push routes (the server's unless --replicas or
         # --agg-tree name other endpoints).
@@ -1636,19 +1679,55 @@ class PSNetWorker:
         return torch.from_numpy(
             np.frombuffer(bytes(raw), np.uint8).copy()).to(self.device)
 
+    def _follow_plan(self, header: dict) -> None:
+        """Adopt the server's adaptive plan when the reply says ours is
+        stale: the compress tree is rebuilt from the shipped plan JSON with
+        the server's constructor (``build_planned_compressor``), wrapped
+        with the scale contract renegotiated from this worker's template
+        under ``--server-agg homomorphic``; one per plan key."""
+        if "plan" not in header:
+            if "plan_version" in header:
+                self._plan_version = int(header["plan_version"])
+            return
+        from ewdml_tpu_torch.adapt.plan import Plan, build_planned_compressor
+        from ewdml_tpu_torch.parallel import ps
+
+        plan = Plan.from_json(header["plan"])
+        ckey = plan.key()
+        cached = self._ctree_cache.get(ckey)
+        if cached is None:
+            comp = build_planned_compressor(plan, exact=self.cfg.topk_exact,
+                                            block=self.cfg.qsgd_block)
+            if self.cfg.server_agg == "homomorphic":
+                from ewdml_tpu_torch.ops.homomorphic import make_homomorphic
+
+                comp = make_homomorphic(comp, self._grads_scale)
+            cached = self._ctree_cache[ckey] = (comp,
+                                                ps.make_compress_tree(comp))
+        comp, self._compress_tree = cached
+        if self.cfg.server_agg == "homomorphic":
+            self._hom_comp = comp
+        self._plan_version = int(header["plan_version"])
+        logger.info("worker %d: adopted adaptive plan v%d (%s)",
+                    self.index, self._plan_version, plan.method_counts())
+
     def _check_scale(self, header: dict) -> None:
         """The contract-desync guard: the pull reply's scale CRC must be
-        this worker's own."""
-        if self._hom_comp is None or "scale_crc" not in header:
+        this worker's own, compared only when it belongs to the plan
+        version this worker encodes under (a racing switch re-checks at
+        the next pull)."""
+        if (self._hom_comp is None or "scale_crc" not in header
+                or int(header.get("scale_crc_pv", -1)) != self._plan_version):
             return
         mine = self._hom_comp.contract_checksum()
         theirs = int(header["scale_crc"])
         if mine != theirs:
             raise RuntimeError(
                 f"worker {self.index}: shared-scale contract desync at plan "
-                f"v0 (ours crc {mine:#010x}, server {theirs:#010x}) — the "
-                "endpoints derived different scale grids; pushes would be "
-                "decoded on scales they were not encoded with")
+                f"v{self._plan_version} (ours crc {mine:#010x}, server "
+                f"{theirs:#010x}) — the endpoints derived different scale "
+                "grids; pushes would be decoded on scales they were not "
+                "encoded with")
 
     def _load_pull(self, header: dict, sections: list) -> None:
         mode = header["mode"]
@@ -1740,16 +1819,20 @@ class PSNetWorker:
                     # The connection died since the last round trip: the
                     # server may be a restarted process. A version skew
                     # forces a full pull (old delta chains are gone).
-                    header = _expect(conn.call({"op": "resync",
-                                                "worker": self.index,
-                                                "plan_version": 0})[0],
-                                     "resync_ok")
+                    header = _expect(conn.call(
+                        {"op": "resync", "worker": self.index,
+                         "plan_version": self._plan_version})[0],
+                        "resync_ok")
+                    self._follow_plan(header)
                     if int(header["version"]) != self._version:
                         self._version = -1
                     resyncs += 1
                     last_reconnects = conn.counters.reconnects
+                # plan_version rides every pull and push: against an
+                # adaptive server an untagged push would read as plan 0.
                 req = {"op": "pull", "worker": self.index,
-                       "worker_version": self._version, "plan_version": 0}
+                       "worker_version": self._version,
+                       "plan_version": self._plan_version}
                 retries_before = conn.counters.retries
                 t_send = clock.monotonic_ns()
                 rid = otrace.next_request_id()
@@ -1759,6 +1842,7 @@ class PSNetWorker:
                     header, sections = pull_conn.call(req, req_id=rid)
                 t_recv = clock.monotonic_ns()
                 _expect(header, "pull_ok")
+                self._follow_plan(header)
                 self._check_scale(header)
                 if step == 0 and otrace.enabled() \
                         and "server_mono_ns" in header:
@@ -1807,7 +1891,7 @@ class PSNetWorker:
                     header, _ = push_conn.call(
                         {"op": "push", "worker": self.index,
                          "version": self._version, "loss": last_loss,
-                         "plan_version": 0,
+                         "plan_version": self._plan_version,
                          "push_id": f"{self.index}:{step}"},
                         [native.encode_arrays([buf])], req_id=rid)
                 if not _expect(header, "push_ok").get("accepted", True):

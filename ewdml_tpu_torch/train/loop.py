@@ -19,6 +19,11 @@ logs per-worker loss / top-1 with the analytic wire bytes.
   Chrome trace, and ``--debug-nans`` raises ``FloatingPointError`` at the
   first step (or window) whose loss, gradients or parameters are not
   finite.
+- Adaptive compression: under ``--adapt variance|replay`` the step returns
+  its per-leaf moments, every ``--adapt-every`` steps (replay: at the
+  journaled steps) the loop fences and ``adapt/`` decides, and a switched
+  plan takes the step of its key (built once per plan) from step + 1 on
+  (``loop.py:147-204,310-358,623-717``).
 - Run health: ``--health warn|abort`` observes the mean loss at every read
   point (a window fence) with the watchdog of ``obs/health.py``; under
   ``abort`` a non-finite or spiking loss raises ``HealthAbort`` there. A
@@ -31,6 +36,7 @@ logs per-worker loss / top-1 with the analytic wire bytes.
 from __future__ import annotations
 
 import contextlib
+import copy
 import itertools
 import logging
 import os
@@ -53,7 +59,7 @@ from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import make_optimizer
 from ewdml_tpu_torch.parallel.faults import FaultSpec
-from ewdml_tpu_torch.train import checkpoint
+from ewdml_tpu_torch.train import checkpoint, flops
 from ewdml_tpu_torch.train import metrics as M
 from ewdml_tpu_torch.train.state import (leaf_params, load_state_tree,
                                          make_train_state, state_template,
@@ -130,6 +136,16 @@ class Trainer:
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr, cfg.momentum,
                                         cfg.weight_decay, cfg.nesterov,
                                         state_dtype=policy.state_dtype)
+        # Adaptive compression (adapt/): per-layer transport units only (a
+        # fused bucket cannot carry per-unit decisions), so 'auto' fusion
+        # resolves to 'none' before the unit sizes are derived.
+        self._adapt = None
+        self._step_compressor = None   # the PlannedCompressor when adaptive
+        self._comm_frac = None
+        self._comm_frac_source = None
+        self._comm_frac_stale = True
+        if cfg.adapt != "off":
+            self._init_adapt()
         self._stabilize_ef_quantizer()
         self.state = make_train_state(
             self.model, self.optimizer, self.world.size, self.device,
@@ -146,9 +162,17 @@ class Trainer:
         # split never does), as the streaming feeds do.
         device_augment = (self._train_split().augment
                           if cfg.feed == "device" else None)
+        self._device_augment = device_augment
         self.train_step = make_train_step(self.model, self.optimizer, cfg,
                                           self.world,
-                                          device_augment=device_augment)
+                                          device_augment=device_augment,
+                                          compressor=self._step_compressor,
+                                          with_moments=self._adapt
+                                          is not None)
+        # The plan-keyed step cache: a controller revisiting an earlier
+        # decision set reuses its step.
+        self._adapt_steps = ({self._adapt.plan.key(): self.train_step}
+                             if self._adapt is not None else {})
         # K steps per host launch (--scan-window; 1 for the streaming feeds).
         self.scan_window = resolve_scan_window(cfg)
         self.window_step = None
@@ -162,13 +186,88 @@ class Trainer:
                         else "a loop on the CPU")
         self._device_arrays = None
         self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape) for s in self.specs],
-                                world=self.world.size)
+                                world=self.world.size,
+                                compressor=self._step_compressor)
         self.base_key = prng.key(cfg.seed)
         if cfg.compression_enabled:
             logger.info("compressor=%s s=%d block=%s topk_ratio=%s "
                         "wire=%.4f MB/step/worker", cfg.compress_grad,
                         cfg.quantum_num, cfg.qsgd_block, cfg.topk_ratio,
                         self.wire.per_step_bytes / 1e6)
+
+    def _init_adapt(self) -> None:
+        """The adaptive runtime (``loop.py:147-178``): per-layer units, the
+        ledger beside the checkpoints, the initial plan's compressor."""
+        from ewdml_tpu_torch.adapt import AdaptRuntime, validate_config
+        from ewdml_tpu_torch.adapt.plan import unit_names_and_sizes
+        from ewdml_tpu_torch.core.config import resolve_fusion
+
+        cfg = self.cfg
+        validate_config(cfg, surface="trainer")
+        if resolve_fusion(cfg, len(self.specs)) != "none":
+            if cfg.fusion not in ("auto", "none"):
+                raise ValueError("--adapt needs per-layer transport units; "
+                                 f"drop --fusion {cfg.fusion}")
+            logger.info("adapt: forcing --fusion none (per-layer transport "
+                        "units carry the per-unit decisions)")
+            cfg.fusion = "none"
+        names, sizes = unit_names_and_sizes(self.specs)
+        self._adapt = AdaptRuntime(cfg, names, sizes, surface="trainer",
+                                   registry=self.metrics)
+        self._step_compressor = self._adapt.compressor()
+        logger.info("adapt mode=%s: %d units, budget %.4f MB/sync, ledger %s",
+                    cfg.adapt, len(sizes), self._adapt.budget_bytes / 1e6,
+                    self._adapt.ledger_path)
+
+    def _apply_plan(self, plan) -> None:
+        """Switch the step to ``plan`` (``loop.py:310-331``): the planned
+        compressor changes, the step is built (or taken from the plan-keyed
+        cache), and the wire plan is derived again, so the bytes always
+        describe the transport in use."""
+        cfg = self.cfg
+        self._step_compressor = self._adapt.compressor(plan)
+        fn = self._adapt_steps.get(plan.key())
+        if fn is None:
+            fn = make_train_step(self.model, self.optimizer, cfg, self.world,
+                                 device_augment=self._device_augment,
+                                 compressor=self._step_compressor,
+                                 with_moments=True)
+            self._adapt_steps[plan.key()] = fn
+        self.train_step = fn
+        self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape)
+                                      for s in self.specs],
+                                world=self.world.size,
+                                compressor=self._step_compressor)
+        self._comm_frac_stale = True  # a new step, a new bytes split
+        logger.info("adapt: switched to plan v%d at step %d (%s; wire %.4f "
+                    "MB/step/worker)", plan.version, plan.step,
+                    plan.method_counts(), self.wire.per_step_bytes / 1e6)
+
+    def note_comm_frac(self, frac: Optional[float],
+                       source: str = "measured") -> None:
+        """Hand the trainer a comm/comp ratio (a measured probe's,
+        ``experiments/collect``): later decisions read it instead of the
+        bytes-proportional estimate."""
+        self._comm_frac = None if frac is None else round(float(frac), 6)
+        self._comm_frac_source = source
+
+    def _adapt_comm_frac(self, images, labels) -> Optional[float]:
+        """The comm/comp ratio a decision reads (``loop.py:333-358``): a
+        measured one handed in by :meth:`note_comm_frac`, else the
+        bytes-proportional estimate (wire bytes of all workers over the
+        bytes one step moves, ``flops.count_bytes``), counted once per
+        plan on a copy of the state, so training is untouched (the copy's
+        kernel launches count like any other)."""
+        if self._comm_frac_source == "measured" or not self._comm_frac_stale:
+            return self._comm_frac
+        self._comm_frac_stale = False
+        cost = flops.count_bytes(self.train_step, copy.deepcopy(self.state),
+                                 images, labels, self.base_key)
+        if cost > 0:
+            self.note_comm_frac(min(1.0, self.wire.per_step_bytes
+                                    * self.world.size / cost),
+                                source="bytes_est")
+        return self._comm_frac
 
     def _stabilize_ef_quantizer(self) -> None:
         """Blockwise QSGD norms when error feedback would otherwise diverge
@@ -419,8 +518,16 @@ class Trainer:
         steps, the steps between with them."""
         cfg = self.cfg
         tracing = self._tracing
+        adapt = self._adapt
+        if adapt is not None and start_step > 0:
+            # A resumed run adopts the plan in force at the restored step
+            # before anything is dispatched.
+            plan = adapt.fast_forward(start_step)
+            if plan is not None:
+                self._apply_plan(plan)
         last = (float("nan"), float("nan"))
         window_t0, window_n, pending = None, 0, []
+        moments = None
         for step in range(start_step, steps_target):
             timer.tic()
             x, y = next(batches)
@@ -432,6 +539,8 @@ class Trainer:
                 otrace.instant("train/dispatch", step=step)
             with self._ranged("train/dispatch"):
                 metrics = self.train_step(self.state, x, y, self.base_key)
+            if adapt is not None:
+                metrics, moments = metrics
             if cfg.debug_nans:
                 self._check_finite(step, step, metrics)
             pending.append(metrics)
@@ -439,7 +548,12 @@ class Trainer:
             first = step == start_step
             due_log = step % cfg.log_every == 0
             due_ckpt = cfg.eval_freq and (step + 1) % cfg.eval_freq == 0
-            if not (first or due_log or due_ckpt or step == steps_target - 1):
+            # A decision boundary fences the loop: the controller sees the
+            # boundary step's moments before the next step is dispatched,
+            # and a switched plan takes effect exactly at step + 1.
+            due_adapt = adapt is not None and adapt.due(step + 1)
+            if not (first or due_log or due_ckpt or due_adapt
+                    or step == steps_target - 1):
                 continue
             rows.append(torch.stack(pending).cpu().numpy())  # waits
             pending = []
@@ -463,6 +577,14 @@ class Trainer:
                 history.append((step, last[0], last[1]))
             if due_ckpt:
                 self._save_ckpt(step + 1)
+            if due_adapt:
+                # Replay reads no ratio: its decisions are the ledger's.
+                new_plan = adapt.on_window(
+                    step + 1, moments.cpu().numpy(),
+                    comm_frac=(self._adapt_comm_frac(x, y)
+                               if adapt.mode == "variance" else None))
+                if new_plan is not None:
+                    self._apply_plan(new_plan)
         return last
 
     def _run_windows(self, start_step, steps_target, split, timer, history,

@@ -36,6 +36,17 @@ from ewdml_tpu_torch.ops.bytes import numel
 logger = logging.getLogger("ewdml_tpu_torch")
 
 
+def leaf_path_name(path) -> str:
+    """Canonical per-leaf row name (``conv1/kernel``) of a path of keys,
+    as the JAX ``leaf_path_name`` joins a Flax path (``metrics.py:26``):
+    the wire plan's per-layer rows and the adaptive units
+    (``adapt.plan.unit_names_and_sizes``) share it."""
+    if isinstance(path, str):
+        return path
+    return "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                    for p in path)
+
+
 @dataclass
 class WirePlan:
     """Analytic bytes on the wire per worker per sync step, per direction."""
@@ -135,16 +146,22 @@ def ring_hop_bytes(n: int, world: int) -> int:
     return (world - 1) * (m + (m // BLOCK_ELEMS) * 4)
 
 
-def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
+def wire_plan(cfg: TrainConfig, leaves, world: int | None = None,
+              compressor=None) -> WirePlan:
     """Per-unit byte plan for a config. ``leaves`` is a list of
     ``(name, jax_shape)`` in the JAX tree's leaf order
-    (``models/convert.leaf_specs``); ``world`` is the number of workers."""
+    (``models/convert.leaf_specs``); ``world`` is the number of workers.
+    ``compressor`` overrides the config's: the adaptive controller passes
+    its per-unit ``PlannedCompressor``, so the per-layer rows describe the
+    decisions in force (``for_leaf`` dispatch; adaptive runs are
+    per-layer, so unit index == row)."""
     if cfg.num_slices > 1:
         raise NotImplementedError("wire_plan covers the single-slice "
                                   "exchange")
-    comp = make_compressor(cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio,
-                           cfg.topk_exact, cfg.qsgd_block)
-    leaves = [(name, tuple(shape)) for name, shape in leaves]
+    comp = compressor if compressor is not None else make_compressor(
+        cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio, cfg.topk_exact,
+        cfg.qsgd_block)
+    leaves = [(leaf_path_name(name), tuple(shape)) for name, shape in leaves]
     sizes = [numel(shape) for _, shape in leaves]
     overlap_on = cfg.overlap == "bucket" and cfg.mode != "async"
     oplan = None
@@ -187,14 +204,16 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
     # levels, no per-push norms), priced by ops/homomorphic.
     hom_up = (cfg.compression_enabled and cfg.mode == "async"
               and cfg.server_agg == "homomorphic")
-    for name, elems in units:
+    per_unit = hasattr(comp, "for_leaf")
+    for j, (name, elems) in enumerate(units):
+        cu = comp.for_leaf(j) if per_unit else comp
         dense_wire = elems * policy.wire_itemsize
-        if hom_up:
+        if hom_up and not hasattr(cu, "scales"):
             from ewdml_tpu_torch.ops.homomorphic import priced_wire_bytes
 
-            up[name] = priced_wire_bytes(comp, elems)
+            up[name] = priced_wire_bytes(cu, elems)
         else:
-            up[name] = (comp.wire_bytes((elems,)) if cfg.compression_enabled
+            up[name] = (cu.wire_bytes((elems,)) if cfg.compression_enabled
                         else dense_wire)
         if cfg.ps_mode == "weights":
             down[name] = elems * 4          # weights broadcast (M1), f32
@@ -202,9 +221,9 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None) -> WirePlan:
             # Ring phase 2 circulates one compressed payload per unit,
             # relay or not (priced as one full-unit payload, as the JAX
             # plan does).
-            down[name] = comp.wire_bytes((elems,))
+            down[name] = cu.wire_bytes((elems,))
         elif cfg.relay_compress and cfg.compression_enabled:
-            down[name] = comp.wire_bytes((elems,))  # compressed relay (M4/M5)
+            down[name] = cu.wire_bytes((elems,))  # compressed relay (M4/M5)
         elif cfg.compression_enabled:
             down[name] = elems * 4          # dense relay of M2, f32
         else:

@@ -32,7 +32,9 @@ updates the state in place. Keys and the per-rank dropout stream derive
 from the same chain as in the JAX package (``utils/prng.py``). Under
 ``--feed device`` the step gathers its batches from the device-resident
 split (``data/device_feed.py``), and ``make_window_step`` runs K steps per
-host launch (``train/window.py``; one CUDA graph on the GPU).
+host launch (``train/window.py``; one CUDA graph on the GPU). Under
+``--adapt`` (``adapt/``) the step takes the plan's per-unit compressor and
+also returns the per-leaf gradient moments the controller folds.
 """
 
 from __future__ import annotations
@@ -110,7 +112,6 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
                                "--mode async runs the parameter server)"),
         (cfg.federated, "--federated"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
-        (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
         *_serving_rows(cfg),
     ]
     _reject(unsupported)
@@ -123,7 +124,6 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (cfg.mode != "async", f"--mode {cfg.mode} (not the parameter "
                               "server)"),
         (cfg.federated, "--federated"),
-        (cfg.adapt != "off", f"--adapt {cfg.adapt}"),
         (cfg.pull_delta, "--pull-delta (the publication stream)"),
         (bool(cfg.replicas), "--replicas"),
         (bool(cfg.agg_tree), "--agg-tree (aggregation-tree pseudo-pushes)"),
@@ -167,9 +167,17 @@ def _reject(unsupported) -> None:
 
 
 def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
-                    world: LocalWorld, compressor=None, device_augment=None):
+                    world: LocalWorld, compressor=None, device_augment=None,
+                    with_moments: bool = False):
     """Build ``body(state, images, labels, keys) -> metrics [W, 3]``, the
     one step that the per-step dispatch and the window both run.
+
+    ``compressor`` overrides the config's (the adaptive controller passes
+    its per-unit ``PlannedCompressor``); ``with_moments`` makes the body
+    return ``(metrics, moments [U, 2])``: per leaf the mean and the mean of
+    squares of the raw f32 gradient, before the exchange and the error
+    feedback touch it, averaged over the workers, so every replica sees
+    the same sample (``trainer.py:269-279``).
 
     ``keys`` is the step's key source (``utils/keytable``): host values, or
     a window's key table. Under ``--feed device`` ``images``/``labels`` are
@@ -180,6 +188,11 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
     graph of the step finds its state where it left it) and its step
     advanced."""
     check_supported(cfg)
+    if cfg.overlap == "bucket" and hasattr(compressor, "for_leaf"):
+        # Behind validate_overlap's refusal: a per-unit plan is indexed on
+        # the whole tree, which a bucket's leaf order would scramble.
+        raise ValueError("--overlap bucket does not support per-unit "
+                         "compression plans (ewdml_tpu/adapt)")
     if compressor is None:
         compressor = make_compressor(cfg.compress_grad, cfg.quantum_num,
                                      cfg.topk_ratio, cfg.topk_exact,
@@ -359,6 +372,14 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             rows.append(torch.stack([loss.detach(), top1, top5]))
 
         metrics = torch.stack(rows)  # [W, 3]: loss, top-1, top-5
+        mom = None
+        if with_moments:
+            with torch.no_grad():
+                mom = torch.stack([
+                    torch.stack([torch.stack([g.float().mean(),
+                                              g.float().square().mean()])
+                                 for g in gw])
+                    for gw in grads]).mean(dim=0)
         if not is_sync:
             grads_used = grads  # Method 6 local step; residuals kept
         elif plan is not None:
@@ -413,7 +434,7 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                             compressor.compress(prng.layer_key(wkey, i), pj))
                         p.copy_(from_jax(dec.reshape(s.jax_shape), s.kind))
         state.step = step + 1
-        return metrics
+        return metrics if mom is None else (metrics, mom)
 
     return body
 
@@ -428,14 +449,16 @@ def _leaf_hook(sched, grads: list, i: int, kind: str):
 
 
 def make_train_step(model: torch.nn.Module, optimizer, cfg: TrainConfig,
-                    world: LocalWorld, compressor=None, device_augment=None):
+                    world: LocalWorld, compressor=None, device_augment=None,
+                    with_moments: bool = False):
     """Build ``step(state, images, labels, key) -> metrics [W, 3]``: one
     step dispatched from the host, its keys host values derived from the
     base ``key``. ``images``/``labels`` as for the step body (under
     ``--feed device`` the whole split). The state is updated in place and
-    its step advanced."""
+    its step advanced. With ``with_moments`` (the adaptive trainer) the
+    step returns ``(metrics, moments [U, 2])``."""
     body = _make_step_body(model, optimizer, cfg, world, compressor,
-                           device_augment)
+                           device_augment, with_moments)
 
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                 key) -> torch.Tensor:

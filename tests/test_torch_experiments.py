@@ -32,7 +32,7 @@ from ewdml_tpu_torch.experiments import collect, registry, report, runner
 
 torch.set_num_threads(2)
 
-TABLES = ("baseline", "baseline_bf16", "baseline_scan")
+TABLES = ("baseline", "baseline_bf16", "baseline_scan", "baseline_adaptive")
 CELLS = [(t, c.cell_id) for t in TABLES for c in registry.table_cells(t)]
 
 
@@ -75,9 +75,21 @@ def test_published_numbers_and_labels_equal_jax():
 
 @pytest.mark.parametrize("table,item", [("baseline_adaptive", "item 7")])
 def test_unported_tables_raise_by_name(table, item):
-    """Exact (behaviour): the table whose subsystem waits raises."""
-    with pytest.raises(NotImplementedError, match=f"{table}.*{item}"):
-        registry.table_cells(table)
+    """Exact: the table that waited for ROADMAP Queue 1 ``item`` (adapt/)
+    now resolves to the JAX package's cells, its adaptive cells the M6
+    presets with ``--adapt variance``; no table raises."""
+    del item
+    ours, theirs = registry.table_cells(table), jregistry.table_cells(table)
+    assert [c.cell_id for c in ours] == [c.cell_id for c in theirs]
+    adaptive = [c for c in ours if c.adapt != "off"]
+    assert [c.cell_id for c in adaptive] == ["lenet_mnist/adaptive",
+                                             "vgg11_cifar10/adaptive"]
+    for c in adaptive:
+        assert (c.method, c.adapt, c.published) == (6, "variance", {})
+        assert c.to_config(smoke=True).adapt_every == 2
+        assert c.to_config().adapt_every == 50
+    for name in registry.TABLES:
+        registry.table_cells(name)
 
 
 def test_baseline_table_is_the_published_matrix():
@@ -360,9 +372,10 @@ def test_health_and_nan_clauses_rejected_by_name(tmp_path, capsys, health,
 def test_cli_repro_route_reaches_the_sweep():
     from ewdml_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="baseline_adaptive"):
-        cli.main(["repro", "--table", "baseline_adaptive", "--platform",
-                  "cpu"])
+    # The sweep resolves the table first: an unknown name fails there.
+    with pytest.raises(ValueError, match="unknown table 'nope'.*"
+                                         "baseline_adaptive"):
+        cli.main(["repro", "--table", "nope", "--platform", "cpu"])
 
 
 # -- the bytes estimate's counter ------------------------------------------

@@ -402,7 +402,9 @@ def test_evaluate_params_without_batch_stats_raises_in_both():
 def test_later_slices_are_refused_by_name(tmp_path):
     """What still waits for a later slice is refused by name on the
     federated entry points (the federated server, ``--role fed_driver``,
-    the CLI's pipelined rounds now run)."""
+    the CLI's pipelined rounds now run); ``--adapt``, ported, is refused
+    with federated rounds as the JAX package refuses it
+    (``validate_federated``)."""
     from ewdml_tpu_torch.cli import main
     from ewdml_tpu_torch.parallel import ps_net
 
@@ -414,9 +416,11 @@ def test_later_slices_are_refused_by_name(tmp_path):
     base = ["--platform", "cpu", "--network", "LeNet", "--dataset",
             "mnist10k", "--synthetic-data", "--federated", "--server-agg",
             "homomorphic", "--compress-grad", "qsgd"]
-    for extra, name in ((["--role", "server", "--adapt", "variance"],
-                         "--adapt"),
-                        (["--role", "fed_driver", "--metrics-port", "0"],
-                         "--metrics-port")):
-        with pytest.raises(NotImplementedError, match=name):
+    for extra, name, exc in (
+            (["--role", "server", "--pool-size", "8", "--cohort", "2",
+              "--adapt", "variance"],
+             "--federated is incompatible with --adapt", ValueError),
+            (["--role", "fed_driver", "--metrics-port", "0"],
+             "--metrics-port", NotImplementedError)):
+        with pytest.raises(exc, match=name):
             ps_net.main(base + extra)

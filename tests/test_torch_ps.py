@@ -208,7 +208,7 @@ def test_stale_push_dropped_by_both():
     assert ts.stats.dropped_stale == 1 and ts.stats.updates == 1
 
 
-def test_constructor_validation_matches():
+def test_constructor_validation_matches(tmp_path):
     params = {"w": jnp.ones((64,), jnp.float32)}
     tparams = [torch.ones(64)]
     comp = jhom.make_homomorphic(JQSGD(127), {"w": jnp.ones((64,))})
@@ -233,7 +233,8 @@ def test_constructor_validation_matches():
         assert str(te.value)[:120] == str(je.value)[:120]
     # The down-link modes, the relay and the watchdog are ported (their
     # behaviour: tests/test_torch_ps_downlink.py, test_torch_health.py);
-    # --adapt still raises by name.
+    # so is --adapt (tests/test_torch_adapt_ps.py), refused with the delta
+    # down-link and the relay as in JAX.
     for kw, attr, want in (
             (dict(down_mode="delta"), "down_mode", "delta"),
             (dict(down_mode="delta", bootstrap="bf16"), "bootstrap", "bf16"),
@@ -242,9 +243,23 @@ def test_constructor_validation_matches():
         server = ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
                                     device="cpu", **kw)
         assert getattr(server, attr) == want
-    with pytest.raises(NotImplementedError, match="--adapt"):
-        ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
-                           device="cpu", adapt=object())
+    from ewdml_tpu.adapt import AdaptRuntime as JAdapt
+    from ewdml_tpu_torch.adapt import AdaptRuntime
+
+    akw = dict(compress_grad="qsgd", adapt="variance", adapt_every=2)
+    jrt = JAdapt(JConfig(train_dir=str(tmp_path / "j") + "/", **akw),
+                 ["w"], [64], surface="ps")
+    trt = AdaptRuntime(TrainConfig(train_dir=str(tmp_path / "t") + "/",
+                                   **akw), ["w"], [64], surface="ps")
+    for kw in (dict(down_mode="delta"), dict(relay_compress=True)):
+        with pytest.raises(ValueError) as je:
+            jps.ParameterServer(params, JSGD(0.1), adapt=jrt, **kw)
+        with pytest.raises(ValueError) as te:
+            ps.ParameterServer(tparams, SGD(0.1), device="cpu", adapt=trt,
+                               **kw)
+        assert str(te.value) == str(je.value)
+    assert ps.ParameterServer(tparams, SGD(0.1), device="cpu",
+                              adapt=trt).compressor is trt.compressor()
     # The precision policies are ported; an unknown one fails as in JAX.
     for name in ("bf16_wire", "bf16_wire_state"):
         assert ps.ParameterServer(tparams, SGD(0.1), QSGDCompressor(127),
