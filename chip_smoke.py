@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. Build the CUDA kernels from ``ewdml_tpu_torch/kernels/compress.cu``,
-   ``precision.cu`` and ``random.cu`` (one ``nvcc`` per source, started
-   together; the last two include ``threefry.cuh``).
+   ``decode.cu``, ``precision.cu`` and ``random.cu`` (one ``nvcc`` per
+   source, started together; the last two include ``threefry.cuh``).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the training paths give it (VGG11-BN's largest 8 MB gradient
    bucket, 2 359 296 elements): quantize per tensor and blockwise (bit),
@@ -22,8 +22,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    dequant_mean at W = 1, 8 and 9 (blockwise 4096) over the bucket, at
    [4, 530 442] (rows 1 and 3 2-byte aligned) per tensor and blockwise, on a
    base 1 byte into its storage and at [3, 12 290] 3 bytes in. acc_decode
-   per tensor at k = 4 and 3 and blockwise 4096 and 8192 over the bucket and
-   over a tail (bit). Each is timed with CUDA events (median of repeats, L2
+   (a decode set of one) per tensor at k = 4 and 3 and blockwise 4096 and
+   8192 over the bucket and over a tail (bit). Each is timed with CUDA events (median of repeats, L2
    flushed before each launch) beside its bound, its plain version, one
    PyTorch call for the same function where there is one, and its own time
    on the card from a ``torch.profiler`` trace. A bound is the larger of the
@@ -52,10 +52,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (above the hop's 264-block switch), qsgd_quantize and dequant_mean at
    every unit, among them 1 069 066 (2 mod 4, so rows 1 and 3 of
    dequant_mean's [4, n] start on 2-byte boundaries), and int_accumulate
-   at every ResNet50 leaf of at least ``MIN_ELEMS`` elements; and
-   acc_decode per tensor at every leaf the homomorphic apply decodes (the
-   34 of ResNet50, the 8 of VGG11-BN), each bit-equal there. Then 6a (the
-   store kernel) and:
+   at every ResNet50 leaf of at least ``MIN_ELEMS`` elements. Then the
+   decode set (``acc_decode_set``, ``kernels/decode.cu``): bit-equal to
+   ``decode_sum_set_ref`` in ``decode_set_launches`` launches at the
+   homomorphic apply set of VGG11-BN (38 leaves), ResNet50 (161),
+   ResNet152 (467, two launches) and LeNet (8) per tensor at k = 4,
+   VGG11-BN's set blockwise 4096, a mixed adaptive plan's mean on
+   VGG11-BN (Top-k, QSGD and dense leaves: one decode launch, every leaf
+   bit-equal to the mean under ``--pallas off``) and an edge set (1, 3,
+   4 095, 4 097 and 530 442 elements at k = 3, 4 and 6, per tensor and
+   blockwise 4096); each model set timed by events and alone beside its
+   bound (8 bytes an element), the per-leaf route on the same inputs (a
+   launch per leaf of at least ``MIN_ELEMS``, the plain version below; its
+   device ops counted), one ``torch.mul`` a leaf and the plain version (``decode
+   set`` lines). Then 6a (the store kernel) and:
 2b. The threefry draw kernel (``random_bits``, ``kernels/random.cu``)
    against its plain version at the path's sizes (every VGG11-BN and
    ResNet50 leaf size, whole for QSGD's threefry stream below
@@ -106,7 +116,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    prices): QSGD under ``--server-agg decode`` and ``homomorphic``, QSGD
    with ``--qsgd-block 4096`` and Top-k QSGD at 1% under ``homomorphic`` on
    VGG11-BN; QSGD under ``homomorphic`` on ResNet50 (161 leaves, 34 of
-   them summed by int_accumulate and decoded by acc_decode each round).
+   them summed by int_accumulate, all decoded in one acc_decode_set launch
+   each round).
    Each must make 16 pushes and 4 updates (8 and 2 on ResNet50), pay one
    decode per round
    (homomorphic) or K (decode), launch the kernels exactly as often as its
@@ -259,11 +270,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``parallel/aggtree.py``) on VGG11-BN at the same shapes, QSGD
     ``--server-agg homomorphic``. (a) In process: the same k leaf payloads
     through a flat root (k int8 pushes: ``int_accumulate``, then
-    ``acc_decode`` at k) and a tree root (two int16 pseudo-pushes through
+    the decode set at k) and a tree root (two int16 pseudo-pushes through
     ``push_subtree``, summed as an aggregator sums them: a torch sum, then
-    ``acc_decode`` at k) at leaf weights 2+2, 1+2 and 3+3: parameters and
+    the decode set at k) at leaf weights 2+2, 1+2 and 3+3: parameters and
     momentum bit-equal, one decode each, no ``int_accumulate`` on the tree
-    arm. (b) A server with ``--pull-delta --keyframe-every 4`` takes 10
+    arm and every launch at its count. (b) A server with ``--pull-delta --keyframe-every 4`` takes 10
     K = 1 applies: a ``subscribe`` after each replays through
     ``pd_apply_delta`` onto the server's publication shadow bit for bit,
     and onto the parameters at each keyframe; a keyframe is 4 n bytes and
@@ -367,7 +378,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``adapt`` block.
 
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11, 12 and 13 must be above 0. ``--phase8-only``,
+8, 9, 10, 11, 12 and 13 must be above 0, and the in-process runs of
+phases 4 and 9 to 13 must decode no leaf on the card with the plain
+version (every homomorphic apply decodes every quantized leaf in
+``decode_set_launches`` launches: one up to 448 leaves). ``--phase8-only``,
 ``--phase9-only``, ``--phase10-only``, ``--phase11-only``,
 ``--phase12-only`` and ``--phase13-only`` build and run that phase alone
 (no result line).
@@ -379,6 +393,7 @@ without the package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -416,8 +431,12 @@ REPLACES = {
     "stochastic_round": "ewdml_tpu/core/precision.py:87",
     "random_bits": "ewdml_tpu/ops/qsgd.py:122,230",
 }
-SOURCES = {"stochastic_round": "ewdml_tpu_torch/kernels/precision.cu",
+SOURCES = {"acc_decode": "ewdml_tpu_torch/kernels/decode.cu",
+           "stochastic_round": "ewdml_tpu_torch/kernels/precision.cu",
            "random_bits": "ewdml_tpu_torch/kernels/random.cu"}
+# The kernels line's name where it is not the wrapper's launch count's: the
+# decode is one launch for a set of leaves.
+LINE_NAMES = {"acc_decode": "acc_decode_set"}
 # The names of each wrapper's kernels in a torch.profiler trace.
 KERNEL_NAMES = {
     "qsgd_quantize": ("qsgd_quantize_kernel",),
@@ -426,7 +445,7 @@ KERNEL_NAMES = {
     "chunk_encode": ("ring_hop_kernel", "ring_encode_kernel"),
     "dequant_acc_requant": ("ring_hop_kernel", "ring_encode_kernel"),
     "int_accumulate": ("int_accumulate_kernel",),
-    "acc_decode": ("acc_decode_kernel",),
+    "acc_decode": ("acc_decode_set_kernel",),
     "stochastic_round": ("stochastic_round_kernel",),
     "random_bits": ("random_bits_kernel",),
 }
@@ -467,6 +486,43 @@ def bound_ms(nbytes: int, ops: int) -> tuple:
     t_bytes = nbytes / hbm_bytes_per_s * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The plain decode's calls on CUDA tensors (``kernels.acc_decode_ref``,
+# three device ops a leaf), counted while ``counting``: the main path
+# decodes every quantized leaf in the set kernel, so a phase that drives it
+# must end with none. The checks that hold the kernel against the plain
+# version call it inside ``plain_reference()``, which is not counted.
+PLAIN_DECODES = {"calls": 0, "counting": True}
+
+
+def count_plain_decodes(kernels) -> None:
+    real = kernels.acc_decode_ref
+
+    def counted(acc, *a, **kw):
+        if acc.is_cuda and PLAIN_DECODES["counting"]:
+            PLAIN_DECODES["calls"] += 1
+        return real(acc, *a, **kw)
+
+    kernels.acc_decode_ref = counted
+
+
+@contextlib.contextmanager
+def plain_reference():
+    PLAIN_DECODES["counting"] = False
+    try:
+        yield
+    finally:
+        PLAIN_DECODES["counting"] = True
+
+
+def no_plain_decodes(phase: str) -> None:
+    """Fail ``phase`` if its runs decoded a leaf on the card with the plain
+    version (then zero the count for the next phase)."""
+    calls, PLAIN_DECODES["calls"] = PLAIN_DECODES["calls"], 0
+    if calls:
+        raise AssertionError(f"{phase}: {calls} leaves decoded on the card "
+                             "by the plain version, not the set kernel")
 
 
 def table_seed(torch, value: int):
@@ -752,7 +808,8 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
                     sc = torch.rand(nb, device="cuda", generator=g) * 1e-3
                     before = kernels.LAUNCHES["acc_decode"]
                     a = kernels.decode_sum(acc, sc, k, block=block)
-                    b = kernels.acc_decode_ref(acc, sc, k, block=block)
+                    with plain_reference():
+                        b = kernels.acc_decode_ref(acc, sc, k, block=block)
                     torch.cuda.synchronize()
                     if kernels.LAUNCHES["acc_decode"] != before + 1:
                         raise AssertionError("acc_decode did not launch the "
@@ -777,20 +834,6 @@ def check_apply_kernels(torch, kernels, timer, g) -> dict:
                                  shape=[WORLD, BUCKET],
                                  device_ms=timer.device(
                                      fn, KERNEL_NAMES["int_accumulate"]))
-    acc = kernels.int_accumulate(lv)
-    sc = torch.rand(1, device="cuda", generator=g) * 1e-3
-    factor = sc * torch.tensor(1.0 / WORLD, dtype=torch.float32, device="cuda")
-    fn = lambda: kernels.acc_decode(acc, sc, WORLD)
-    ms = timer(fn)
-    plain = timer(lambda: kernels.acc_decode_ref(acc, sc, WORLD), reps=10)
-    lib = timer(lambda: torch.mul(acc, factor))
-    bnd, by = bound_ms(4 * BUCKET + 4 + 4 * BUCKET,
-                       OPS_PER_ELEM["acc_decode"] * BUCKET)
-    out["acc_decode"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
-                             bound_ms=bnd, bound_by=by, library_ms=lib,
-                             shape=[BUCKET],
-                             device_ms=timer.device(
-                                 fn, KERNEL_NAMES["acc_decode"]))
     return out
 
 
@@ -966,10 +1009,10 @@ def apply_leaves(network: str) -> dict:
 
 def reduce_rows(torch, kernels, timer, quant, network, g) -> tuple:
     """dequant_mean at every unit M2/M4 decodes (per tensor, and blockwise
-    4096 at the largest), and int_accumulate and acc_decode (per tensor) at
-    every leaf the homomorphic apply sums and decodes, W = K = 4: each
-    bit-equal to its plain version there, then timed."""
-    dequant, accumulate, decode = [], [], []
+    4096 at the largest), and int_accumulate at every leaf the homomorphic
+    apply sums, W = K = 4: each bit-equal to its plain version there, then
+    timed (the apply's decode is one set: ``check_decode_sets``)."""
+    dequant, accumulate = [], []
     for n, units in quant.items():
         lv = levels_on_card(torch, WORLD, n, g)
         for block in [None] + ([4096] if n == max(quant) else []):
@@ -994,25 +1037,17 @@ def reduce_rows(torch, kernels, timer, quant, network, g) -> tuple:
                 KERNEL_NAMES["int_accumulate"], (WORLD + 4) * n,
                 OPS_PER_ELEM["int_accumulate"] * n, n=n,
                 per_step=f"x{leaves} per round"))
-            acc = kernels.int_accumulate(lv)
-            sc = torch.rand(1, device="cuda", generator=g) * 1e-3
-            same_decode(torch, kernels, acc, sc, f"k={WORLD} n={n}")
-            decode.append(shape_row(
-                timer, lambda acc=acc, sc=sc: kernels.acc_decode(acc, sc,
-                                                                 WORLD),
-                KERNEL_NAMES["acc_decode"], 8 * n + 4,
-                OPS_PER_ELEM["acc_decode"] * n, n=n,
-                per_step=f"x{leaves} per round"))
     finally:
         kernels.configure("auto")
-    return dequant, accumulate, decode
+    return dequant, accumulate
 
 
 def same_decode(torch, kernels, acc, sc, what) -> None:
     """acc_decode bit-equal to its plain version, through the kernel."""
     before = kernels.LAUNCHES["acc_decode"]
     a = kernels.decode_sum(acc, sc, WORLD)
-    b = kernels.acc_decode_ref(acc, sc, WORLD)
+    with plain_reference():
+        b = kernels.acc_decode_ref(acc, sc, WORLD)
     torch.cuda.synchronize()
     if kernels.LAUNCHES["acc_decode"] != before + 1:
         raise AssertionError(f"acc_decode {what} did not launch the kernel")
@@ -1080,9 +1115,237 @@ def check_path_shapes(torch, kernels, timer, network: str) -> dict:
             5 * n + 4 * blocks, OPS_PER_ELEM["chunk_encode"] * n,
             blocks=blocks, n=n, path=path, per_step=units * WORLD))
     out["qsgd_quantize"] = quantize_rows(torch, kernels, timer, quant, g)
-    out["dequant_mean"], out["int_accumulate"], out["acc_decode"] = \
-        reduce_rows(torch, kernels, timer, quant, network, g)
+    out["dequant_mean"], out["int_accumulate"] = reduce_rows(
+        torch, kernels, timer, quant, network, g)
     return out
+
+
+# The apply sets the decode kernel is held and timed at (tentpole of the
+# decode set): every leaf of each network is quantized under --server-agg
+# homomorphic (qsgd / topk_qsgd), so one apply decodes all of them.
+DECODE_NETWORKS = ("VGG11", "ResNet50", "ResNet152", "LeNet")
+DECODE_EDGE = (1, 3, 4095, 4097, TAIL_CHUNK)
+
+
+def apply_sizes(network: str) -> list:
+    """The element count of every leaf of ``network`` (CIFAR-10 heads;
+    LeNet on MNIST), in the JAX tree's leaf order."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    dataset = "mnist" if network == "LeNet" else "Cifar10"
+    return [math.prod(s.jax_shape)
+            for s in leaf_specs(build_model(network, 10, dataset=dataset))]
+
+
+def decode_items(torch, sizes, k: int, block, g, offset: int = 0) -> list:
+    """A decode set on the card: per leaf a random K-way int32 sum and its
+    scales (one, or one per ``block``); with ``offset``, each sum a view
+    that many elements into its storage (the wrapper realigns it)."""
+    items = []
+    for n in sizes:
+        acc = torch.randint(-127 * k, 127 * k + 1, (n + offset,),
+                            device="cuda", generator=g).to(torch.int32)
+        nb = 1 if block is None else -(-n // block)
+        sc = torch.rand(nb, device="cuda", generator=g) * 1e-3 + 1e-6
+        items.append((acc[offset:], sc, k, block))
+    return items
+
+
+def same_decode_set(torch, kernels, items, what, decode=None) -> int:
+    """The set kernel bit-equal to ``decode_sum_set_ref`` leaf for leaf, in
+    ``decode_set_launches`` launches, each mean on a 16-byte boundary;
+    ``decode`` the call under test (``acc_decode_set`` of ``items`` if
+    None). Returns the launches."""
+    before = kernels.LAUNCHES["acc_decode"]
+    got = (decode or (lambda: kernels.acc_decode_set(items)))()
+    with plain_reference():
+        want = kernels.decode_sum_set_ref(items)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["acc_decode"] - before
+    live = sum(1 for it in items if it[0].numel())
+    if launches != kernels.decode_set_launches(live):
+        raise AssertionError(f"acc_decode_set {what}: {launches} launches "
+                             f"for {live} leaves")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.data_ptr() % 16 or not torch.equal(a.view(torch.int32),
+                                                b.view(torch.int32)):
+            raise AssertionError(
+                f"acc_decode_set {what}: leaf {i} of {a.numel()} elements: "
+                f"{int((a != b).sum())} values differ from the plain "
+                "version (or it is off a 16-byte boundary)")
+    return launches
+
+
+def decode_layout(torch, kernels, sizes, k: int, block, g) -> tuple:
+    """A ``kernels.DecodeSet`` of ``sizes`` as the homomorphic apply keeps
+    one, its sums arena filled with random K-way sums, and the same set as
+    ``(acc, scales, k, block)`` items on the arena's views."""
+    scales = [torch.rand(1 if block is None else -(-n // block),
+                         device="cuda", generator=g) * 1e-3 + 1e-6
+              for n in sizes]
+    dset = kernels.DecodeSet([(n, sc, k, block)
+                              for n, sc in zip(sizes, scales)], "cuda")
+    acc = dset.acc_arena()
+    acc.copy_(torch.randint(-127 * k, 127 * k + 1, (dset.total,),
+                            device="cuda", generator=g))
+    items = [(a, sc, k, block) for a, sc in zip(dset.views(acc), scales)]
+    return dset, acc, items
+
+
+def per_leaf_decode(kernels, items) -> list:
+    """The per-leaf route the apply took before its decode set, on the same
+    inputs: per leaf of at least MIN_ELEMS one launch (a set of one), below
+    it the plain version (three device ops)."""
+    with plain_reference():
+        return [kernels.acc_decode(acc, sc, k, block=block)
+                if acc.numel() >= kernels.MIN_ELEMS
+                else kernels.acc_decode_ref(acc, sc, k, block=block)
+                for acc, sc, k, block in items]
+
+
+def decode_set_row(torch, kernels, timer, network: str, g) -> dict:
+    """One network's apply set (per tensor, K = 4) bit-equal and timed:
+    the decode the apply runs (``DecodeSet.launch``, packed once) by
+    events and alone, beside its bound (8 bytes an element and a scale a
+    leaf); the same set packed on the call (``acc_decode_set``); the
+    per-leaf route with its device ops; one ``torch.mul`` a leaf (the
+    library route); and the plain version."""
+    sizes = apply_sizes(network)
+    dset, acc, items = decode_layout(torch, kernels, sizes, WORLD, None, g)
+    launches = same_decode_set(torch, kernels, items, network,
+                               lambda: dset.decode(acc))
+    same_decode_set(torch, kernels, items, f"{network} packed per call")
+    elements = sum(sizes)
+    bnd, by = bound_ms(8 * elements + 4 * len(sizes),
+                       OPS_PER_ELEM["acc_decode"] * elements)
+    fn = lambda: dset.launch(acc)
+    ms = timer(fn)
+    alone = timer.device(fn, KERNEL_NAMES["acc_decode"])  # per launch
+    packed = lambda: kernels.acc_decode_set(items)
+    per_leaf = lambda: per_leaf_decode(kernels, items)
+    big = sum(1 for n in sizes if n >= kernels.MIN_ELEMS)
+    factors = [sc * torch.tensor(1.0 / k, dtype=torch.float32, device="cuda")
+               for _, sc, k, _ in items]
+    library = lambda: [torch.mul(a, f)
+                       for (a, _, _, _), f in zip(items, factors)]
+
+    def plain():
+        with plain_reference():
+            return kernels.decode_sum_set_ref(items)
+    return dict(
+        network=network, leaves=len(sizes), big=big, elements=elements,
+        shape=[len(sizes), elements], launches=launches, ms=ms,
+        device_ms=None if alone is None else alone * launches,
+        bound_ms=bnd, bound_by=by, share=bnd / ms,
+        set_device_ops=device_kernels(torch, fn),
+        packed_ms=timer(packed),
+        per_leaf_ms=timer(per_leaf), per_leaf_launches=big,
+        per_leaf_device_ops=device_kernels(torch, per_leaf),
+        library_ms=timer(library), plain_ms=timer(plain, reps=10),
+        max_abs_err=0.0)
+
+
+def mixed_plan_decode(torch, kernels, g) -> dict:
+    """A mixed adaptive plan's homomorphic mean on VGG11-BN (Top-k QSGD at
+    1%, 8-bit QSGD blockwise 4096 and dense leaves in turn, as the adaptive
+    plans mix them): K = 4 payloads through ``homomorphic_mean`` on the
+    card, one decode launch for every quantized leaf, every leaf bit-equal
+    to the same mean under ``kernels.configure("off")``."""
+    from ewdml_tpu_torch.adapt import plan as aplan
+    from ewdml_tpu_torch.ops import homomorphic
+    from ewdml_tpu_torch.parallel import ps
+    from ewdml_tpu_torch.utils import prng
+
+    sizes = apply_sizes("VGG11")
+    kinds = (("topk_qsgd", 127, 0.01), ("qsgd", 127, 0.0), ("dense", 0, 0.0))
+    mix = aplan.Plan(1, 5, tuple(
+        aplan.UnitDecision(u, f"l{u}", *kinds[u % 3])
+        for u in range(len(sizes))))
+    grads = [torch.randn(n, device="cuda", generator=g) * 1e-2 for n in sizes]
+    comp = homomorphic.make_homomorphic(
+        aplan.build_planned_compressor(mix, block=4096), grads)
+    compress = ps.make_compress_tree(comp)
+    trees = [compress([x * (1 + w / 4) for x in grads], prng.key(w))
+             for w in range(WORLD)]
+    quantized = sum(1 for u in range(len(sizes)) if u % 3 != 2)
+    before = kernels.LAUNCHES["acc_decode"]
+    got = homomorphic.homomorphic_mean(comp, trees)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["acc_decode"] - before
+    kernels.configure("off")
+    try:
+        with plain_reference():
+            want = homomorphic.homomorphic_mean(comp, trees)
+    finally:
+        kernels.configure("auto")
+    if launches != kernels.decode_set_launches(quantized):
+        raise AssertionError(f"mixed plan: {launches} decode launches for "
+                             f"{quantized} quantized leaves")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"mixed plan leaf {i}: {int((a != b).sum())}"
+                                 " values differ from the plain mean")
+    return dict(leaves=len(sizes), quantized=quantized, launches=launches)
+
+
+def check_decode_sets(torch, kernels, timer) -> tuple:
+    """The decode set (``kernels/decode.cu``) bit-equal to its plain
+    version on the card: the homomorphic apply set of VGG11-BN (38 leaves),
+    ResNet50 (161), ResNet152 (467: two launches) and LeNet (8) per
+    tensor, VGG11-BN's blockwise 4096, a mixed adaptive plan's mean, and an
+    edge set (1, 3, 4 095, 4 097 and 530 442 elements at k = 3, 4 and 6,
+    per tensor and blockwise 4096, the sums off a 16-byte boundary once);
+    each model set timed (``decode_set_row``). Returns the kernels line's
+    entry (VGG11-BN's set) and every row."""
+    g = torch.Generator(device="cuda").manual_seed(70)
+    rows = {net: decode_set_row(torch, kernels, timer, net, g)
+            for net in DECODE_NETWORKS}
+    dset, acc, items = decode_layout(torch, kernels, apply_sizes("VGG11"),
+                                     WORLD, 4096, g)
+    same_decode_set(torch, kernels, items, "VGG11 block 4096",
+                    lambda: dset.decode(acc))
+    edge = 0
+    for k in (3, 4, 6):
+        for block in (None, 4096):
+            edge += same_decode_set(
+                torch, kernels,
+                decode_items(torch, DECODE_EDGE, k, block, g,
+                             offset=int(k == 6)),
+                f"edge k={k} block={block}")
+    rows["mixed_plan"] = mixed_plan_decode(torch, kernels, g)
+    rows["edge_launches"] = edge
+    vgg = rows["VGG11"]
+    entry = {key: vgg[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape", "device_ms")}
+    return entry, rows
+
+
+def print_decode_sets(rows: dict) -> None:
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    for net in DECODE_NETWORKS:
+        r = rows[net]
+        print(f"decode set {net}: {r['leaves']} leaves ({r['big']} of 2^17 "
+              f"or more), {r['elements']} elements, k={WORLD}: "
+              f"{r['launches']} launch(es) {r['ms']:.4f} ms, alone "
+              f"{ms(r['device_ms'])}, bound {r['bound_ms']:.4f} ms "
+              f"({100 * r['share']:.1f}% by events), device ops "
+              f"{r['set_device_ops']}; packed on the call "
+              f"{r['packed_ms']:.4f} ms; the per-leaf route "
+              f"{r['per_leaf_launches']} "
+              f"launches + plain below 2^17: {r['per_leaf_ms']:.4f} ms, "
+              f"{r['per_leaf_device_ops']} device ops; library (torch.mul a "
+              f"leaf) {r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} "
+              "ms", flush=True)
+    m = rows["mixed_plan"]
+    print(f"decode set mixed plan VGG11: {m['quantized']} of {m['leaves']} "
+          f"leaves quantized, {m['launches']} launch, bit-equal to the "
+          f"plain mean; edge sets {rows['edge_launches']} launches, "
+          "bit-equal", flush=True)
+    print("decode sets: " + json.dumps(rows), flush=True)
 
 
 def on_card(row: dict) -> str:
@@ -1132,9 +1395,6 @@ def print_path_shapes(shapes: dict, network: str) -> None:
               f"{row['per_step']} step: {timed(row)}", flush=True)
     for row in shapes["int_accumulate"]:
         print(f"shape {network} int_accumulate [{WORLD}, {row['n']}] "
-              f"{row['per_step']}: {timed(row)}", flush=True)
-    for row in shapes["acc_decode"]:
-        print(f"shape {network} acc_decode {row['n']} per tensor k={WORLD} "
               f"{row['per_step']}: {timed(row)}", flush=True)
     print(f"shapes {network}: " + json.dumps(shapes), flush=True)
 
@@ -1447,9 +1707,10 @@ def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
     schema's template) a quantize per leaf of at least MIN_ELEMS and a
     threefry draw per smaller leaf under decode, a draw per leaf (the
     shared-scale encode) under homomorphic; per round (and once for the
-    warm apply) an accumulate and a decode per leaf of at least MIN_ELEMS
-    under homomorphic (the decode only for Top-k), and a stochastic-round
-    launch per ``round_launches`` of the optimizer's stored leaves."""
+    warm apply) under homomorphic an accumulate per leaf of at least
+    MIN_ELEMS (QSGD only: Top-k's sum is a scatter-add) and one decode set
+    of every leaf (``decode_set_launches``), and a stochastic-round launch
+    per ``round_launches`` of the optimizer's stored leaves."""
     want = {k: 0 for k in kernels.LAUNCHES}
     shapes = [s.jax_shape for s in specs]
     big = sum(1 for s in shapes if math.prod(s) >= kernels.MIN_ELEMS)
@@ -1458,7 +1719,8 @@ def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
             for k, v in compress_launches(cfg, shapes, kernels).items():
                 want[k] = v * (pushes + 1)
     else:
-        want["acc_decode"] = big * (updates + 1)
+        want["acc_decode"] = (kernels.decode_set_launches(len(shapes))
+                              * (updates + 1))
         if cfg.compress_grad == "qsgd":
             want["int_accumulate"] = big * (updates + 1)
         want["random_bits"] = len(shapes) * (pushes + 1)
@@ -1474,6 +1736,7 @@ def expected_async_launches(cfg, specs, kernels, pushes, updates) -> dict:
 
 def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
     """Phase 4: the async parameter server on the network at full width."""
+    PLAIN_DECODES["calls"] = 0
     import numpy as np
 
     from ewdml_tpu_torch import native
@@ -1563,6 +1826,7 @@ def async_phase(torch, kernels, network: str, runs_flags) -> tuple:
               f"loss_tail={stats.loss_tail_mean(4):.4f} launches={launched}",
               flush=True)
         torch.cuda.empty_cache()
+    no_plain_decodes("phase 4")
     return counts, runs
 
 
@@ -2245,8 +2509,9 @@ def draw_sizes() -> dict:
 def device_kernels(torch, fn):
     """The operations the card ran for one call of ``fn`` (kernels, copies
     and fills), from a ``torch.profiler`` trace of the card alone: every
-    event but the CUDA runtime's own (``cuda*``, ``cu*``); None where the
-    trace holds none."""
+    event but the CUDA runtime's own (``cuda*``, ``cu*``) and the
+    profiler's ``Activity Buffer Request``; None where the trace holds
+    none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2254,7 +2519,9 @@ def device_kernels(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    count = sum(1 for e in prof.events() if not e.name.startswith("cu"))
+    # The runtime's own events, and the profiler's buffer requests.
+    count = sum(1 for e in prof.events()
+                if not e.name.startswith(("cu", "Activity Buffer")))
     return count or None
 
 
@@ -3646,6 +3913,7 @@ def kill_recover_run(root: str) -> dict:
 
 def tcp_phase(torch, kernels) -> tuple:
     """Phase 9 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
     torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-8
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = {k: 0 for k in kernels.LAUNCHES}
@@ -3675,6 +3943,7 @@ def tcp_phase(torch, kernels) -> tuple:
     for k in ("qsgd_quantize", "int_accumulate", "acc_decode", "random_bits"):
         if counts[k] <= 0:
             raise AssertionError(f"phase 9: {k} never launched")
+    no_plain_decodes("phase 9")
     return counts, out
 
 
@@ -3753,16 +4022,18 @@ def tier_server(cfg, setup, k: int, tree: bool, **kw):
 
 def tree_root_runs(torch, kernels, counts) -> dict:
     """10a: the same k leaf payloads through a flat root (k int8 pushes:
-    int_accumulate, then acc_decode at k) and a tree root (two int16
-    pseudo-pushes through push_subtree: a torch sum, then acc_decode at k),
-    at leaf weights (2, 2), (1, 2) and (3, 3): the parameters and momentum
-    bit-equal, one decode each."""
+    int_accumulate, then the decode set at k) and a tree root (two int16
+    pseudo-pushes through push_subtree: a torch sum, then the decode set at
+    k), at leaf weights (2, 2), (1, 2) and (3, 3): the parameters and
+    momentum bit-equal, one decode each, every launch at its count."""
     from ewdml_tpu_torch.parallel import ps_net
     from ewdml_tpu_torch.parallel.ps import PushRecord
 
     cfg = tier_cfg(4, "--momentum", "0.9")
     setup = ps_net.build_endpoint_setup(cfg)
     frames = leaf_frames(torch, setup, max(a + b for a, b in TREE_WEIGHTS))
+    sizes = apply_sizes(cfg.network)
+    big = sum(1 for n in sizes if n >= kernels.MIN_ELEMS)
     out = {}
     for w0, w1 in TREE_WEIGHTS:
         k = w0 + w1
@@ -3805,12 +4076,13 @@ def tree_root_runs(torch, kernels, counts) -> dict:
         if tree.stats.agg_pushes != 2 or tree.stats.agg_weight != k:
             raise AssertionError(f"tree {k}: {tree.stats.agg_pushes} "
                                  f"pseudo-pushes of {tree.stats.agg_weight}")
-        # Both arms decode the same leaves (at registration's warm apply
-        # and at the round); only the flat arm launches int_accumulate.
-        if tl["int_accumulate"] != 0 or \
-                fl["int_accumulate"] != fl["acc_decode"] or \
+        # Both arms decode every leaf in one set at registration's warm
+        # apply and at the round; only the flat arm launches
+        # int_accumulate, on each leaf of at least MIN_ELEMS.
+        if (tl["int_accumulate"], fl["int_accumulate"]) != (0, 2 * big) or \
                 tl["acc_decode"] != fl["acc_decode"] or \
-                fl["acc_decode"] <= 0:
+                fl["acc_decode"] != 2 * kernels.decode_set_launches(
+                    len(sizes)):
             raise AssertionError(f"tree {k}: launches flat {fl}, tree {tl}")
         out[f"k={k}"] = dict(
             weights=[w0, w1], flat_launches=fl, tree_launches=tl,
@@ -4144,6 +4416,7 @@ def tier_deployment(root: str, name: str, replicas: bool,
 
 def tier_phase(torch, kernels) -> tuple:
     """Phase 10 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
     torch.backends.cudnn.allow_tf32 = False  # f32, as phases 3-9
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = {k: 0 for k in kernels.LAUNCHES}
@@ -4180,6 +4453,7 @@ def tier_phase(torch, kernels) -> tuple:
     for key in ("int_accumulate", "acc_decode", "random_bits"):
         if counts[key] <= 0:
             raise AssertionError(f"phase 10: {key} never launched")
+    no_plain_decodes("phase 10")
     return counts, out
 
 
@@ -4206,8 +4480,8 @@ def expected_fed_launches(cfg, kernels, client_rounds: int,
     template draws SCALE_DRAWS times; then one compress per client round
     (homomorphic: a shared-scale draw per leaf; decode: a quantize per leaf
     of at least MIN_ELEMS, a draw per smaller one); per apply, and once for
-    the server's warm apply, an accumulate and a decode per leaf of at
-    least MIN_ELEMS under homomorphic."""
+    the server's warm apply, under homomorphic an accumulate per leaf of at
+    least MIN_ELEMS and one decode set of every leaf."""
     from ewdml_tpu_torch.models import build_model, num_classes_for
     from ewdml_tpu_torch.models.convert import leaf_specs
 
@@ -4218,7 +4492,9 @@ def expected_fed_launches(cfg, kernels, client_rounds: int,
     want = {k: 0 for k in kernels.LAUNCHES}
     if cfg.server_agg == "homomorphic":
         want["random_bits"] = len(shapes) * (client_rounds + 1) + SCALE_DRAWS
-        want["int_accumulate"] = want["acc_decode"] = big * (applies + 1)
+        want["int_accumulate"] = big * (applies + 1)
+        want["acc_decode"] = (kernels.decode_set_launches(len(shapes))
+                              * (applies + 1))
     else:
         for k, v in compress_launches(cfg, shapes, kernels).items():
             want[k] = v * (client_rounds + 1)
@@ -4322,6 +4598,7 @@ def fed_counted(torch, kernels, counts, name: str, cfg, via_cli=None,
 
 def federated_phase(torch, kernels) -> tuple:
     """Phase 11 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
     import contextlib
     import io
 
@@ -4418,6 +4695,7 @@ def federated_phase(torch, kernels) -> tuple:
                 "qsgd_quantize"):
         if counts[key] <= 0:
             raise AssertionError(f"phase 11: {key} never launched")
+    no_plain_decodes("phase 11")
     return counts, out
 
 
@@ -4444,10 +4722,10 @@ def record_accumulates(kernels, seen: set):
     sums on the card at or above MIN_ELEMS; returns the restore."""
     real = kernels.accumulate
 
-    def recorded(levels):
+    def recorded(levels, out=None):
         if levels.is_cuda and levels.shape[1] >= kernels.MIN_ELEMS:
             seen.add((int(levels.shape[0]), int(levels.shape[1])))
-        return real(levels)
+        return real(levels, out)
 
     kernels.accumulate = recorded
     return lambda: setattr(kernels, "accumulate", real)
@@ -4706,6 +4984,7 @@ def fed_tcp_vgg(torch, kernels, counts, root: str) -> dict:
 
 def pipeline_phase(torch, kernels) -> tuple:
     """Phase 12 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
     import contextlib
     import io
 
@@ -4817,6 +5096,7 @@ def pipeline_phase(torch, kernels) -> tuple:
     for key in ("int_accumulate", "acc_decode", "random_bits"):
         if counts[key] <= 0:
             raise AssertionError(f"phase 12: {key} never launched")
+    no_plain_decodes("phase 12")
     return counts, out
 
 
@@ -4880,16 +5160,15 @@ def plan_step_launches(plan, sizes, kernels) -> dict:
 
 def plan_apply_launches(plan, sizes, kernels) -> dict:
     """int_accumulate and acc_decode launches of one homomorphic apply
-    under ``plan``: per QSGD leaf of at least MIN_ELEMS one accumulate and
-    one decode, per Top-k leaf one decode (its sum is a scatter-add)."""
-    want = {"int_accumulate": 0, "acc_decode": 0}
-    for d, n in zip(plan.decisions, sizes):
-        if d.method == "dense" or n < kernels.MIN_ELEMS:
-            continue
-        want["acc_decode"] += 1
-        if d.method == "qsgd":
-            want["int_accumulate"] += 1
-    return want
+    under ``plan``: per QSGD leaf of at least MIN_ELEMS one accumulate
+    (Top-k's sum is a scatter-add), and one decode set of every QSGD and
+    Top-k leaf whatever its size (none where the plan is all dense)."""
+    quantized = [n for d, n in zip(plan.decisions, sizes)
+                 if d.method != "dense"]
+    return {"int_accumulate": sum(
+                1 for d, n in zip(plan.decisions, sizes)
+                if d.method == "qsgd" and n >= kernels.MIN_ELEMS),
+            "acc_decode": kernels.decode_set_launches(len(quantized))}
 
 
 def adapt_kernel_points(torch, kernels, g) -> dict:
@@ -5345,6 +5624,7 @@ def adapt_runner(torch, kernels, counts, root: str) -> dict:
 
 def adapt_phase(torch, kernels) -> tuple:
     """Phase 13 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = {k: 0 for k in kernels.LAUNCHES}
@@ -5371,6 +5651,7 @@ def adapt_phase(torch, kernels) -> tuple:
                 "int_accumulate", "acc_decode"):
         if counts[key] <= 0:
             raise AssertionError(f"phase 13 launched no {key}")
+    no_plain_decodes("phase 13")
     return counts, out
 
 
@@ -5438,6 +5719,7 @@ def main(argv=None) -> int:
     # Phase 1: build.
     t0 = time.perf_counter()
     build.library()
+    count_plain_decodes(kernels)
     print(f"build: {time.perf_counter() - t0:.1f}s (nvcc {build.build_seconds:.1f}s)",
           flush=True)
     if args.phase8_only:
@@ -5493,6 +5775,9 @@ def main(argv=None) -> int:
     checks = check_kernels(torch, kernels, timer)
     shapes = {net: check_path_shapes(torch, kernels, timer, net)
               for net in NETWORKS}
+    # The decode set at the apply sets of four networks.
+    checks["acc_decode"], decode_sets = check_decode_sets(torch, kernels,
+                                                          timer)
     # Phase 6a: the stochastic-round kernel, with the other seven.
     checks["stochastic_round"], sround_rows = check_sround(torch, kernels,
                                                            timer, build)
@@ -5508,6 +5793,7 @@ def main(argv=None) -> int:
               flush=True)
     for net in NETWORKS:
         print_path_shapes(shapes[net], net)
+    print_decode_sets(decode_sets)
     r = kernels.round_launches
     print_sround_rows(sround_rows, {
         f"launches a step, {net} bf16_wire_state":
@@ -5606,7 +5892,8 @@ def main(argv=None) -> int:
                                  "main path")
 
     line = {"kernels": [dict(
-        name=name, route="cuda", source=SOURCES.get(name, SOURCE),
+        name=LINE_NAMES.get(name, name), route="cuda",
+        source=SOURCES.get(name, SOURCE),
         replaces=REPLACES[name],
         launches=counts[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],

@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels (``compress.cu``,
-``precision.cu``, ``random.cu``; the last two include ``threefry.cuh``).
+``decode.cu``, ``precision.cu``, ``random.cu``; the last two include
+``threefry.cuh``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once (one ``nvcc`` process per source), on first use, into
@@ -24,6 +25,7 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_HERE, "compress.cu"),
+           os.path.join(_HERE, "decode.cu"),
            os.path.join(_HERE, "precision.cu"),
            os.path.join(_HERE, "random.cu"))
 #: Headers the sources include: hashed with them, not compiled alone.
@@ -112,17 +114,18 @@ def _declare(lib) -> None:
     lib.ewdml_dequant_acc_requant.argtypes = [p, p, p, i64, i64, p, i32,
                                               f32, f32, p, p, p]
     lib.ewdml_int_accumulate.argtypes = [p, i32, i64, p, p]
-    lib.ewdml_acc_decode.argtypes = [p, p, f32, i64, i64, p, p]
-    # The threefry kernels' key: a pointer to one uint64 in device memory,
-    # or null and the packed key by value. A store set's leaves are a host
-    # array of packed descriptors.
+    # A decode set's and a store set's leaves are host arrays of packed
+    # descriptors. The threefry kernels' key: a pointer to one uint64 in
+    # device memory, or null and the packed key by value.
+    lib.ewdml_acc_decode_set.argtypes = [p, i32, ctypes.c_uint64,
+                                         ctypes.c_uint64, p]
     u64 = ctypes.c_uint64
     lib.ewdml_stochastic_round_set.argtypes = [p, u64, p, i32, p]
     lib.ewdml_random_bits.argtypes = [p, u64, i64, i32, p, p]
     for fn in (lib.ewdml_qsgd_quantize, lib.ewdml_dequant_mean,
                lib.ewdml_block_top1, lib.ewdml_chunk_encode,
                lib.ewdml_dequant_acc_requant, lib.ewdml_int_accumulate,
-               lib.ewdml_acc_decode, lib.ewdml_stochastic_round_set,
+               lib.ewdml_acc_decode_set, lib.ewdml_stochastic_round_set,
                lib.ewdml_random_bits):
         fn.restype = ctypes.c_int
 

@@ -506,8 +506,9 @@ __global__ void __cluster_dims__(kHopCluster, 1, 1)
 }
 
 // The compressed-domain server apply (--server-agg homomorphic):
-// int_accumulate (pallas_kernels.py:587) and acc_decode
-// (pallas_kernels.py:629). Neither draws random bits, and the accumulate is
+// int_accumulate (pallas_kernels.py:587) here, and its decode
+// (pallas_kernels.py:629) in decode.cu, one launch for every quantized
+// leaf of an apply. Neither draws random bits, and the accumulate is
 // exact integer arithmetic, so both are bit-equal to their plain versions
 // by construction.
 //
@@ -800,39 +801,6 @@ __global__ void __launch_bounds__(kReduceThreads)
   worker_reduce<false, K, kAligned>(a);
 }
 
-// acc_decode: out = f32(acc) * (scale[b] * inv_k), the factor formed once per
-// element's block in that order and every product rounded on its own (no
-// FMA), as the TPU kernel and the plain version do. `inv_k` is 1/k rounded
-// to f32 on the host. Four elements per thread with one 16-byte load and
-// store; a blockwise scale needs block % 4 == 0 (the wrapper passes
-// multiples of 4096), so the four share one scale. Bound: 8n bytes.
-__device__ __forceinline__ float decode_one(int32_t a, float factor) {
-  return __fmul_rn(__int2float_rn(a), factor);
-}
-
-__global__ void acc_decode_kernel(const int32_t* __restrict__ acc,
-                                  const float* __restrict__ scales,
-                                  float inv_k, int64_t n, int64_t block,
-                                  float* __restrict__ out) {
-  const int64_t nvec = n / 4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int4* a4 = reinterpret_cast<const int4*>(acc);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
-       v += stride) {
-    const int64_t i = v * 4;
-    const float factor = __fmul_rn(scales[block ? i / block : 0], inv_k);
-    const int4 a = a4[v];
-    o4[v] = make_float4(decode_one(a.x, factor), decode_one(a.y, factor),
-                        decode_one(a.z, factor), decode_one(a.w, factor));
-  }
-  const int64_t t = nvec * 4 + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < n) {
-    out[t] = decode_one(acc[t],
-                        __fmul_rn(scales[block ? t / block : 0], inv_k));
-  }
-}
-
 int grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond ~16 per SM
@@ -977,17 +945,6 @@ int ewdml_int_accumulate(const int8_t* levels, int world, int64_t n,
   const ReduceArgs a{levels, nullptr, world, n, 0, 0, 1.0f,
                      reinterpret_cast<uint32_t*>(out)};
   return worker_reduce_launch<false>(a, stream);
-}
-
-// `block` is 0 (one scale) or a multiple of 4096; `acc` is 16-byte aligned.
-int ewdml_acc_decode(const int32_t* acc, const float* scales, float inv_k,
-                     int64_t n, int64_t block, float* out,
-                     cudaStream_t stream) {
-  if (n > 0) {
-    acc_decode_kernel<<<grid_for(n / 4 + 1), kThreads, 0, stream>>>(
-        acc, scales, inv_k, n, block, out);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -147,19 +147,29 @@ class SharedScaleTopKQSGD:
     def decompress(self, payload: SharedScaleTopKQSGDPayload) -> torch.Tensor:
         return decompress_shared(payload, self.scales)
 
-    def homomorphic_mean(self, payloads) -> torch.Tensor:
-        """K sparse payloads -> one dense mean: integer scatter-add
-        (``index_add_``), then the round's one dequantize
-        (``kernels.decode_sum``)."""
+    def homomorphic_sum(self, payloads, out=None) -> tuple:
+        """The integer half of :meth:`homomorphic_mean`: ``(acc, k)``, the
+        K sparse payloads' levels scatter-added (``index_add_``) into a
+        dense int32 [n] (``out``, zeroed first, where given), and the
+        divisor K."""
         k = len(payloads)
         qsgd.check_sum_budget(self.quantum_num, k)
-        shape = payloads[0].shape
-        device = payloads[0].levels.device
-        acc = torch.zeros(numel(shape), dtype=torch.int32, device=device)
+        if out is None:
+            acc = torch.zeros(numel(payloads[0].shape), dtype=torch.int32,
+                              device=payloads[0].levels.device)
+        else:
+            acc = out.zero_()
         for p in payloads:
             acc.index_add_(0, p.indices.long(), p.levels.to(torch.int32))
-        return kernels.decode_sum(acc, self.scales.to(device), k,
-                                  block=self.block).reshape(shape)
+        return acc, k
+
+    def homomorphic_mean(self, payloads) -> torch.Tensor:
+        """K sparse payloads -> one dense mean: the scatter-add of
+        :meth:`homomorphic_sum`, then the round's one dequantize
+        (``kernels.decode_sum``)."""
+        acc, k = self.homomorphic_sum(payloads)
+        return kernels.decode_sum(acc, self.scales.to(acc.device), k,
+                                  block=self.block).reshape(payloads[0].shape)
 
     def wire_bytes(self, shape) -> int:
         return shared_wire_bytes(numel(shape), self.compress_ratio)

@@ -12,8 +12,9 @@ of decoding every payload to f32 first.
 - :class:`HomomorphicCompressor`: per-leaf shared-scale twins of the
   config's QSGD-family compressor, dispatched through ``for_leaf(i)``.
 - :func:`homomorphic_mean`: the server apply's core; per leaf one integer
-  accumulate over the K payloads and one dequantize
-  (``ops/kernels.int_accumulate`` / ``acc_decode`` on the card).
+  accumulate over the K payloads (``ops/kernels.int_accumulate`` on the
+  card) into one arena, then every leaf's dequantize in one decode set
+  (``ops/kernels.DecodeSet``, packed once a contract and divisor).
 
 The aggregation tree's half (``--agg-tree``, ``parallel/aggtree.py``): a
 mid-tier aggregator sums its subtree's int8 levels exactly and forwards one
@@ -26,6 +27,7 @@ weight (``homomorphic_mean(..., k=)``).
 
 from __future__ import annotations
 
+import weakref
 import zlib
 from typing import Optional
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ewdml_tpu_torch.ops import chain, kernels, none, qsgd
+from ewdml_tpu_torch.ops.bytes import numel
 
 #: Default headroom of the scale contract: gradients up to this multiple of
 #: the template's block norms encode without clipping.
@@ -146,28 +149,71 @@ def make_homomorphic(compressor, grads_template,
     return HomomorphicCompressor(compressor, grads_template, headroom)
 
 
+#: Each compressor's decode sets, by (divisor, device): the layout of its
+#: quantized leaves' sums and means, packed once (``kernels.DecodeSet``).
+_DECODE_SETS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def decode_set_for(compressor, leaves: list, k: int, device):
+    """The :class:`kernels.DecodeSet` of ``compressor``'s quantized
+    ``leaves`` (``[(index, n)]``) at divisor ``k`` on ``device``, built at
+    its first apply and kept while every leaf's scales are the ones it
+    packed."""
+    subs = [compressor.for_leaf(i) for i, _ in leaves]
+    sets = _DECODE_SETS.setdefault(compressor, {})
+    key = (k, str(device), tuple(leaves))
+    hit = sets.get(key)
+    if hit is not None and all(a is b.scales for a, b in zip(hit[0], subs)):
+        return hit[1]
+    dset = kernels.DecodeSet([(n, sub.scales, k, sub.block)
+                              for (_, n), sub in zip(leaves, subs)], device)
+    sets[key] = ([sub.scales for sub in subs], dset)
+    return dset
+
+
 def homomorphic_mean(compressor: HomomorphicCompressor, payload_trees,
                      k: Optional[int] = None) -> list:
     """Mean gradients (a list in leaf order) of K same-contract payload
-    lists with one dequantize per leaf and round; dense leaves average in
-    f32. ``k`` overrides the divisor when the payloads are weighted partial
-    sums (an aggregation tree's pseudo-pushes: the mean divides by the
-    total leaf count, not by ``len(payload_trees)``)."""
-    out = []
+    lists: every quantized leaf's exact integer sum into one int32 arena,
+    then all their dequantizes in one decode set (``kernels.DecodeSet``:
+    one launch of the decode kernel for up to 448 leaves on the card);
+    dense leaves average in f32. ``k`` overrides the divisor when the
+    payloads are weighted partial sums (an aggregation tree's
+    pseudo-pushes: the mean divides by the total leaf count, not by
+    ``len(payload_trees)``)."""
+    k_div = len(payload_trees) if k is None else int(k)
+    out, quantized = [], []
     for i in range(len(payload_trees[0])):
         sub = compressor.for_leaf(i)
         ps = [t[i] for t in payload_trees]
         if isinstance(sub, none.NoneCompressor):
             stack = torch.stack([p.values for p in ps]).to(torch.float32)
             if k is None:
-                out.append(stack.mean(dim=0).reshape(ps[0].shape))
+                # jnp.mean as XLA lowers it: the sum times f32(1/K) (bit
+                # for bit at K <= 4; wider sums add in another order).
+                out.append((stack.sum(dim=0)
+                            * kernels.f32_scalar(1.0 / len(ps)))
+                           .reshape(ps[0].shape))
             else:
                 out.append((stack.sum(dim=0) / kernels.f32_scalar(float(k)))
                            .reshape(ps[0].shape))
-        elif k is None:
-            out.append(sub.homomorphic_mean(ps))
         else:
-            out.append(sub.homomorphic_mean(ps, k=k))
+            quantized.append((i, sub, ps))
+            out.append(None)
+    if not quantized:
+        return out
+    device = quantized[0][2][0].levels.device
+    dset = decode_set_for(
+        compressor, [(i, numel(ps[0].shape)) for i, _, ps in quantized],
+        k_div, device)
+    acc = dset.acc_arena()
+    for (_, sub, ps), view in zip(quantized, dset.views(acc)):
+        if k is None:
+            sub.homomorphic_sum(ps, out=view)
+        else:
+            sub.homomorphic_sum(ps, k=k, out=view)
+    for (i, _, ps), mean in zip(quantized, dset.decode(acc)):
+        out[i] = mean.reshape(ps[0].shape)
     return out
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``ewdml_tpu/ops/pallas_kernels.py``. All seven of its
 Pallas kernels are ported here as CUDA kernels for Hopper
-(``ewdml_tpu_torch/kernels/compress.cu``): five on the sync trainer's
-paths, two in the parameter server's compressed-domain apply. Two more
+(``ewdml_tpu_torch/kernels/compress.cu``, and ``decode.cu`` for the
+decode): five on the sync trainer's paths, two in the parameter server's
+compressed-domain apply. Two more
 have no Pallas counterpart and draw the JAX package's threefry bits (XLA
 code there), so their bound is their operations (20 threefry rounds an
 element), not their bytes: ``stochastic_round_set`` (``kernels/
@@ -22,7 +23,7 @@ wrapper                    replaces                   bound on the H100
 ``chunk_encode``           ``pallas_kernels.py:431``  5n + 4nb bytes
 ``dequant_acc_requant``    ``pallas_kernels.py:479``  6n + 8nb bytes
 ``int_accumulate``         ``pallas_kernels.py:587``  (K + 4)n bytes
-``acc_decode``             ``pallas_kernels.py:629``  8n bytes
+``acc_decode_set``         ``pallas_kernels.py:629``  8n bytes a leaf
 ``stochastic_round_set``   ``precision.py:87``        77n operations
 ``random_bits``            ``qsgd.py:122,230``        75n operations
 =========================  =========================  ======================
@@ -48,8 +49,12 @@ parameter up to 8) and stores whole-warp ``uint4``; rows that start off a
 wave. ``chunk_encode`` and
 ``dequant_acc_requant`` are the per-hop passes of the ring transports
 (``--collective fused_q``, ``--gather-type ring_rs``); ``int_accumulate``
-and ``acc_decode`` sum K same-contract int8 payloads and decode the sum
-once per round (``--mode async --server-agg homomorphic``).
+and ``acc_decode_set`` sum K same-contract int8 payloads and decode the
+sum once per round (``--mode async --server-agg homomorphic``): the decode
+takes every quantized leaf of an apply in one launch (up to 448 leaves,
+their descriptors in the kernel's parameters), so an apply pays one
+decode launch where it paid one per large leaf and three plain ops per
+small one; ``acc_decode`` is a set of one.
 
 Each wrapper has a plain PyTorch version beside it (``*_ref``) that repeats
 the kernel's arithmetic in the same rounding order. A wrapper given a CPU
@@ -78,8 +83,12 @@ plain version on the CPU or under ``off``/``interpret``.
 The server-apply pair draws no random bits; :func:`accumulate` and
 :func:`decode_sum` dispatch it as ``pallas_kernels`` does when no
 ``interpret`` flag is given: the kernel where :func:`active_for` picks it
-(and, for ``acc_decode``, the scale is per tensor or its block a multiple
-of 4096), the plain version elsewhere.
+(and, for the decode, the scale is per tensor or its block a multiple of
+4096), the plain version elsewhere. The apply's decode,
+:meth:`DecodeSet.decode`, takes the kernel on CUDA under 'auto' and 'on'
+at every size (one launch costs the same whatever the leaf count, and the
+kernel is bit-equal to the plain version, so ``MIN_ELEMS`` gates nothing
+there) and raises for a block the kernel does not take.
 """
 
 from __future__ import annotations
@@ -167,6 +176,14 @@ def _count(name: str, *tensors: torch.Tensor) -> None:
             nbytes = sum(map(tensor_nbytes, tensors))
             for tally in _byte_tallies:
                 tally.nbytes += nbytes
+
+
+def _count_nbytes(name: str, nbytes: int) -> None:
+    """Count one launch of ``name`` that reads and writes ``nbytes``."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
+        for tally in _byte_tallies:
+            tally.nbytes += nbytes
 
 
 def configure(mode: str) -> None:
@@ -682,24 +699,42 @@ def _check_accumulate_args(levels: torch.Tensor) -> None:
                          f"{tuple(levels.shape)}")
 
 
-def int_accumulate_ref(levels: torch.Tensor) -> torch.Tensor:
+def _check_accumulate_out(out, n: int, device) -> None:
+    if out.dtype != torch.int32 or out.shape != (n,) or out.device != device:
+        raise ValueError(f"int_accumulate: out must be int32 [{n}] on "
+                         f"{device}, got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+
+
+def int_accumulate_ref(levels: torch.Tensor, out=None) -> torch.Tensor:
     """Plain version of :func:`int_accumulate`: the widened int32 sum over
     the K rows (exact, so its order does not matter)."""
     _check_accumulate_args(levels)
-    return levels.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    if out is None:
+        return levels.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    _check_accumulate_out(out, levels.shape[1], levels.device)
+    return torch.sum(levels.to(torch.int32), dim=0, dtype=torch.int32,
+                     out=out)
 
 
-def int_accumulate(levels: torch.Tensor) -> torch.Tensor:
-    """Sum K int8 level planes ``[K, n]`` into one int32 plane ``[n]``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+def int_accumulate(levels: torch.Tensor, out=None) -> torch.Tensor:
+    """Sum K int8 level planes ``[K, n]`` into one int32 plane ``[n]``,
+    written into ``out`` (int32 [n], contiguous, 16-byte aligned) where
+    given. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if levels.device.type == "cpu":
-        return int_accumulate_ref(levels)
+        return int_accumulate_ref(levels, out)
     from ewdml_tpu_torch.kernels import library
 
     _check_accumulate_args(levels)
     _require_cuda(levels, "int_accumulate", torch.int8)
     world, n = levels.shape
-    out = torch.empty(n, dtype=torch.int32, device=levels.device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.int32, device=levels.device)
+    _check_accumulate_out(out, n, levels.device)
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("int_accumulate: out must be contiguous and "
+                         "16-byte aligned")
     rc = library().ewdml_int_accumulate(levels.data_ptr(), world, n,
                                         out.data_ptr(), _stream_ptr(levels))
     _launch_check(rc, "int_accumulate")
@@ -733,45 +768,249 @@ def acc_decode_ref(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
     return (a * factor[:, None]).reshape(-1)[:n]
 
 
+#: Elements a decode-set tile takes, and the leaves one launch takes
+#: (``kernels/decode.cu``: kTile, kMaxLeaves; 448 descriptors of 40 bytes
+#: hold a launch's parameters well under CUDA's 32 KB).
+DECODE_TILE = 4096
+DECODE_MAX_LEAVES = 448
+
+#: One packed leaf of a decode set (``DecodeLeaf`` in ``decode.cu``).
+DECODE_LEAF = np.dtype([
+    ("acc", "<u8"), ("out", "<u8"), ("scales", "<u8"), ("n", "<u4"),
+    ("first_tile", "<u4"), ("tiles_per_block", "<u4"), ("inv_k", "<f4")])
+
+
+def decode_descriptors(leaves, max_leaves: int = DECODE_MAX_LEAVES,
+                       tile: int = DECODE_TILE) -> list:
+    """The decode kernel's launches for a set: ``leaves`` is a list of
+    ``(acc, out, scales_ptr, n, block, inv_k)`` (``acc`` and ``out``
+    pointers, or byte offsets from the launch's two bases; ``block`` None
+    for one scale, else a multiple of ``tile``); returns one array of
+    packed descriptors per launch, at most ``max_leaves`` each, the leaves
+    in order, each leaf's first tile counted from 0 in its launch. Empty
+    leaves take no descriptor."""
+    rows, out = [], []
+    first = 0
+    for ap, op, sp, n, block, inv_k in leaves:
+        if n == 0:
+            continue
+        if len(rows) == max_leaves:
+            out.append(np.array(rows, DECODE_LEAF))
+            rows, first = [], 0
+        rows.append((ap, op, sp, n, first, (block or 0) // tile, inv_k))
+        first += -(-n // tile)
+    if rows:
+        out.append(np.array(rows, DECODE_LEAF))
+    return out
+
+
+def decode_set_launches(leaves: int) -> int:
+    """Launches of one decode set of ``leaves`` non-empty leaves."""
+    return -(-leaves // DECODE_MAX_LEAVES)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_inverse(k: int) -> float:
+    """1/k rounded once to f32, as ``jnp.float32(1.0 / float(k))``."""
+    return float(f32_scalar(1.0 / float(k)))
+
+
+def _arena_split(sizes) -> tuple:
+    """The 16-byte layout of an arena holding ``sizes`` elements of 4
+    bytes: ``(offsets, total, split)``, every leaf but the last padded to
+    4 elements, ``split`` the sizes ``Tensor.split`` cuts leaves and pads
+    by (even entries the leaves)."""
+    offsets, split, total = [], [], 0
+    for i, n in enumerate(sizes):
+        offsets.append(total)
+        pad = 0 if i == len(sizes) - 1 else -n % 4
+        split += [n, pad]
+        total += n + pad
+    return offsets, total, split[:-1]
+
+
+def _set_bytes(descs, scales_numel: list) -> list:
+    """The bytes each launch of a set reads and writes: 8 an element (an
+    int32 in, an f32 out) and its leaves' scales."""
+    out, i = [], 0
+    for desc in descs:
+        out.append(8 * int(desc["n"].sum())
+                   + 4 * sum(scales_numel[i:i + len(desc)]))
+        i += len(desc)
+    return out
+
+
+def _launch_set(descs, acc_base: int, out_base: int, stream,
+                nbytes: list) -> None:
+    """One ``acc_decode_set`` launch a descriptor array, counted with the
+    bytes it moves."""
+    from ewdml_tpu_torch.kernels import library
+
+    lib = library()
+    for desc, b in zip(descs, nbytes):
+        rc = lib.ewdml_acc_decode_set(desc.ctypes.data, len(desc), acc_base,
+                                      out_base, stream)
+        _launch_check(rc, "acc_decode")
+        _count_nbytes("acc_decode", b)
+
+
+def _check_set_leaf(scales, n: int, block, device, kernel: bool):
+    """A set leaf's scales as the kernel reads them (f32, flat, on
+    ``device``) and its block (None for one scale); raises where the
+    kernel takes no such block."""
+    scales = torch.as_tensor(scales, dtype=torch.float32,
+                             device=device).reshape(-1).contiguous()
+    per_tensor = block is None or scales.numel() == 1
+    if not per_tensor:
+        _check_norms(scales.numel(), n, block)
+        if kernel and not blockwise_supported(block):
+            raise ValueError(f"the acc_decode kernel needs block % {_BLOCK} "
+                             f"== 0, got {block}")
+    return scales, None if per_tensor else block
+
+
+class DecodeSet:
+    """The layout of a decode set whose leaves' int32 sums lie in one
+    arena and whose means are cut from another: ``leaves`` a list of
+    ``(n, scales, k, block)``, as :func:`acc_decode` takes them. Packed
+    once (descriptors with offsets into the two arenas, the scales made
+    f32 on ``device``), so a decode costs one allocation and one launch
+    for up to ``DECODE_MAX_LEAVES`` leaves whatever their count: the
+    homomorphic apply keeps one a contract and divisor. On CUDA the
+    kernel takes every leaf (a block that is not a multiple of 4096
+    raises here); elsewhere :meth:`decode` runs the plain version."""
+
+    def __init__(self, leaves: list, device):
+        self.device = torch.device(device)
+        self.kernel = self.device.type == "cuda"
+        if self.kernel and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.sizes = [int(n) for n, _, _, _ in leaves]
+        self.offsets, self.total, self._split = _arena_split(self.sizes)
+        self.leaves = []
+        for (n, scales, k, block), off in zip(leaves, self.offsets):
+            scales, block = _check_set_leaf(scales, n, block, self.device,
+                                            self.kernel)
+            self.leaves.append((scales, int(k), block))
+        if self.kernel:
+            self._descs = decode_descriptors(
+                [(4 * off, 4 * off, scales.data_ptr(), n, block,
+                  f32_inverse(k))
+                 for (scales, k, block), n, off in zip(
+                     self.leaves, self.sizes, self.offsets)])
+            self._nbytes = _set_bytes(self._descs, [
+                sc.numel() for (sc, _, _), n in zip(self.leaves, self.sizes)
+                if n])
+
+    def acc_arena(self) -> torch.Tensor:
+        """An int32 arena for the set's sums (uninitialised)."""
+        return torch.empty(self.total, dtype=torch.int32, device=self.device)
+
+    def views(self, arena: torch.Tensor) -> list:
+        """Each leaf's flat view of ``arena`` (an acc or a means arena)."""
+        if not self.sizes:
+            return []
+        return list(arena.split(self._split)[::2])
+
+    def launch(self, acc: torch.Tensor) -> torch.Tensor:
+        """The kernel on the sums in ``acc`` (an :meth:`acc_arena`): the
+        f32 means arena, in ``decode_set_launches`` counted launches."""
+        if not self.kernel:
+            raise ValueError("DecodeSet.launch needs a set on CUDA")
+        if (acc.dtype != torch.int32 or acc.shape != (self.total,)
+                or acc.device != self.device or not acc.is_contiguous()
+                or acc.data_ptr() % 16):
+            raise ValueError(f"acc_decode: the sums arena must be int32 "
+                             f"[{self.total}], contiguous and 16-byte "
+                             f"aligned on {self.device}")
+        out = torch.empty(self.total, dtype=torch.float32, device=self.device)
+        _launch_set(self._descs, acc.data_ptr(), out.data_ptr(),
+                    _stream_ptr(out), self._nbytes)
+        return out
+
+    def decode(self, acc: torch.Tensor) -> list:
+        """Each leaf's flat mean from the sums arena ``acc``: the kernel on
+        CUDA under 'auto' or 'on', the plain version leaf by leaf
+        elsewhere (the CPU, 'off', 'interpret')."""
+        if active(self.device) == "kernel":
+            return self.views(self.launch(acc))
+        return [acc_decode_ref(a, scales, k, block=block)
+                for a, (scales, k, block) in zip(self.views(acc),
+                                                 self.leaves)]
+
+
+def decode_sum_set_ref(items: list) -> list:
+    """Plain version of :func:`acc_decode_set`: leaf by leaf,
+    :func:`acc_decode_ref`. ``items`` as for :func:`acc_decode_set`."""
+    return [acc_decode_ref(acc, scales, k, block=block)
+            for acc, scales, k, block in items]
+
+
+def acc_decode_set(items: list) -> list:
+    """The decode of a set of leaves whose sums lie anywhere: for each
+    ``(acc, scales, k, block)`` (as :func:`acc_decode` takes them) its
+    ``f32(acc) * (scale[b] * f32(1/k))``, flat, as views of one arena,
+    each on a 16-byte boundary. CPU tensors take the plain version; CUDA
+    tensors go to the kernel in launches of up to ``DECODE_MAX_LEAVES``
+    leaves, one counted launch each, which raises for a blockwise scale
+    whose block is not a multiple of 4096. The set is packed on every
+    call (a :class:`DecodeSet` packs once). No host synchronisation and
+    no allocation outside the caching allocator."""
+    if not items:
+        return []
+    device = items[0][0].device
+    if device.type == "cpu":
+        return decode_sum_set_ref(items)
+    accs, leaves = [], []
+    for acc, scales, k, block in items:
+        if acc.dtype != torch.int32:
+            raise ValueError(f"acc_decode is int32-only, got {acc.dtype}")
+        _require_cuda(acc, "acc_decode", torch.int32)
+        if acc.device != device:
+            raise ValueError("acc_decode: a set lies on one device; got "
+                             f"{device} and {acc.device}")
+        if acc.numel() >= 1 << 31:
+            raise ValueError("acc_decode: a leaf takes fewer than 2^31 "
+                             "elements")
+        accs.append(_aligned(acc, 16))
+        scales, block = _check_set_leaf(scales, acc.numel(), block, device,
+                                        True)
+        leaves.append((scales, int(k), block))
+    sizes = [a.numel() for a in accs]
+    offsets, total, split = _arena_split(sizes)
+    arena = torch.empty(total, dtype=torch.float32, device=device)
+    base = arena.data_ptr()
+    descs = decode_descriptors(
+        [(a.data_ptr(), base + 4 * off, scales.data_ptr(), n, block,
+          f32_inverse(k))
+         for a, (scales, k, block), n, off in zip(accs, leaves, sizes,
+                                                   offsets)])
+    _launch_set(descs, 0, 0, _stream_ptr(arena), _set_bytes(
+        descs, [sc.numel() for (sc, _, _), n in zip(leaves, sizes) if n]))
+    return list(arena.split(split)[::2])
+
+
 def acc_decode(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
                block=None) -> torch.Tensor:
     """The round's one dequantize: ``f32(acc) * (scale[b] * f32(1/k))``.
 
     ``acc``: [n] int32 (the sum over k payloads); ``scales``: f32 [1] (per
     tensor) or [ceil(n/block)] with ``block`` a multiple of 4096. CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    raises for any other block."""
+    tensors take the plain version; CUDA tensors launch the set kernel on
+    a set of one, which raises for any other block."""
     if acc.device.type == "cpu":
         return acc_decode_ref(acc, scales, k, block=block)
-    from ewdml_tpu_torch.kernels import library
-
-    scales, per_tensor = _check_decode_args(acc, scales, block)
-    if not (per_tensor or blockwise_supported(block)):
-        raise ValueError(f"the acc_decode kernel needs block % {_BLOCK} == 0, "
-                         f"got {block}")
-    acc = acc.reshape(-1)
-    _require_cuda(acc, "acc_decode", torch.int32)
-    acc = _aligned(acc, 16)
-    scales = scales.contiguous()
-    n = acc.numel()
-    out = torch.empty(n, dtype=torch.float32, device=acc.device)
-    inv_k = float(f32_scalar(1.0 / float(k)))
-    rc = library().ewdml_acc_decode(
-        acc.data_ptr(), scales.data_ptr(), inv_k, n,
-        0 if per_tensor else block, out.data_ptr(), _stream_ptr(acc))
-    _launch_check(rc, "acc_decode")
-    _count("acc_decode", acc, scales, out)
-    return out
+    return acc_decode_set([(acc, scales, k, block)])[0]
 
 
-def accumulate(levels: torch.Tensor) -> torch.Tensor:
+def accumulate(levels: torch.Tensor, out=None) -> torch.Tensor:
     """``pallas_kernels.int_accumulate`` with no ``interpret`` flag: the
     kernel where :func:`active_for` picks it, the plain version
-    elsewhere."""
+    elsewhere; written into ``out`` where given."""
     _check_accumulate_args(levels)
     if active_for(levels.shape[1], levels.device) == "kernel":
-        return int_accumulate(levels)
-    return int_accumulate_ref(levels)
+        return int_accumulate(levels, out)
+    return int_accumulate_ref(levels, out)
 
 
 def decode_sum(acc: torch.Tensor, scales: torch.Tensor, k: int, *,

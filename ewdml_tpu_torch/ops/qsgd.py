@@ -261,23 +261,31 @@ class SharedScaleQSGD:
     def decompress(self, payload: SharedScaleQSGDPayload) -> torch.Tensor:
         return decompress_shared(payload, self.scales)
 
-    def homomorphic_mean(self, payloads, k: Optional[int] = None):
-        """Integer-domain mean of K same-contract payloads: one widened
-        accumulate and one dequantize (the kernel pair on CUDA above
-        ``MIN_ELEMS``, the plain versions elsewhere). ``k`` overrides the
-        divisor when the payloads are weighted partial sums (an aggregation
-        tree's int16 pseudo-pushes, each worth ``weight`` leaves). A
-        non-int8 stack sums with ``torch.sum``, as the JAX package sums it
-        with ``jnp.sum`` outside its int8-only kernel (``qsgd.py:348-352``):
-        integer addition is exact, so the tree's accumulator equals the
-        flat one's."""
+    def homomorphic_sum(self, payloads, k: Optional[int] = None,
+                        out=None) -> tuple:
+        """The integer half of :meth:`homomorphic_mean`: ``(acc, k)``, the
+        exact int32 sum [n] of K same-contract payloads' levels (one
+        widened accumulate, the kernel on CUDA above ``MIN_ELEMS``; into
+        ``out`` where given) and the divisor of its decode. ``k``
+        overrides the divisor when the payloads are weighted partial sums
+        (an aggregation tree's int16 pseudo-pushes, each worth ``weight``
+        leaves). A non-int8 stack sums with ``torch.sum``, as the JAX
+        package sums it with ``jnp.sum`` outside its int8-only kernel
+        (``qsgd.py:348-352``): integer addition is exact, so the tree's
+        accumulator equals the flat one's."""
         k_div = len(payloads) if k is None else int(k)
         check_sum_budget(self.quantum_num, k_div)
         stack = torch.stack([p.levels for p in payloads])
         if stack.dtype == torch.int8:
-            acc = kernels.accumulate(stack)
-        else:
-            acc = torch.sum(stack, dim=0, dtype=torch.int32)
+            return kernels.accumulate(stack, out), k_div
+        return torch.sum(stack, dim=0, dtype=torch.int32, out=out), k_div
+
+    def homomorphic_mean(self, payloads, k: Optional[int] = None):
+        """Integer-domain mean of K same-contract payloads: the sum of
+        :meth:`homomorphic_sum` and one dequantize (``kernels.decode_sum``;
+        ``ops/homomorphic.homomorphic_mean`` decodes every leaf of an
+        apply in one set instead)."""
+        acc, k_div = self.homomorphic_sum(payloads, k)
         return kernels.decode_sum(acc, self.scales.to(acc.device), k_div,
                                   block=self.block).reshape(payloads[0].shape)
 

@@ -16,7 +16,8 @@ frame (``native.encode_arrays``), so byte accounting is the real bytes.
 ``server_agg='homomorphic'`` negotiates a shared scale contract against the
 warm gradient (``ops/homomorphic.py``); the server then sums the K pushes'
 int8 levels in an int32 accumulator and dequantizes once per round
-(``ops/kernels.int_accumulate`` / ``acc_decode`` on the card), where
+(``ops/kernels.int_accumulate`` per leaf, then one ``acc_decode_set``
+launch for every leaf, on the card), where
 ``'decode'`` decodes every payload to f32 first.
 
 Parameters and gradients are lists in the JAX tree's leaf order and Flax
@@ -807,6 +808,12 @@ class ParameterServer:
                     self._retract(record)
                     return False
         with self._lock:
+            if health is not None and health.aborted is not None:
+                # The verdict came from another thread after the checks
+                # above: checked again under the lock that counts, so no
+                # push is counted once the verdict is set.
+                self._retract(record)
+                return False
             self.stats.pushes += 1
             self.stats.bytes_up += record.wire_bytes
             if (self.adapt is not None

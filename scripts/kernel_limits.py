@@ -16,8 +16,12 @@ buffer (clean lines).
 - int_accumulate and dequant_mean (per tensor) at K = W = 4 over the
   2 359 296 bucket beside a pass on their shared schedule that XORs the K
   words (K int8 rows read, one 4-byte plane written);
-- acc_decode (per tensor) over the bucket beside a copy on its own schedule
-  (4n bytes in, 4n out).
+- acc_decode (per tensor, a decode set of one) over the bucket beside a
+  copy on the old per-element schedule (4n bytes in, 4n out);
+- the decode set at VGG11-BN's and ResNet50's homomorphic apply sets (38
+  and 161 leaves, per tensor, k = 4) beside a copy on the set's own
+  schedule (a resident wave of 4096-element tiles, each brought into
+  shared memory by a 1-D TMA bulk copy).
 
 ``variant`` lines: the same shapes through other schedules of the same
 arithmetic, each bit-checked against the plain version and timed after
@@ -36,7 +40,14 @@ chip_smoke.py's flush, beside the tree's kernel:
 - dequant_mean at [4, 530 442], whose rows 1 and 3 start 2-byte aligned:
   the interior tiles realigned with a branch on the alignment per word or
   per row, with the upper word taken from the next lane by shuffle, or
-  without the L2 prefetch hint.
+  without the L2 prefetch hint;
+- the decode set: the schedule the bulk copies replaced (four 16-byte
+  loads in flight a thread, then the decode) and its copy, beside the
+  kept one (each tile by a 1-D TMA bulk copy, ``cp.async.bulk``
+  completing on an ``mbarrier``, two 16 KB stages a CTA, the next tile's
+  copy in flight while a tile is decoded).
+
+    python3 scripts/kernel_limits.py --decode-only   # the decode set alone
 
 Times are medians of 25 CUDA-event timings, and the kernel's own time on
 the card from a ``torch.profiler`` trace. The source below is built here
@@ -741,6 +752,279 @@ int decode_bytes(const int32_t* acc, int64_t n, int32_t* out,
 """
 
 
+DECODE_SOURCE = r"""
+// The decode set's schedules (kernels/decode.cu), on its descriptors.
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVecs = 4;
+constexpr uint32_t kTile = kThreads * kVecs * 4;
+constexpr int kMaxLeaves = 448;
+
+struct DecodeLeaf {
+  unsigned long long acc, out, scales;
+  uint32_t n, first_tile, tiles_per_block;
+  float inv_k;
+};
+struct DecodeSet {
+  uint32_t count, tiles;
+  DecodeLeaf leaf[kMaxLeaves];
+};
+
+__device__ __forceinline__ const DecodeLeaf& leaf_of(const DecodeSet& set,
+                                                     uint32_t t) {
+  uint32_t lo = 0, hi = set.count;
+  while (hi - lo > 1) {
+    const uint32_t mid = (lo + hi) >> 1;
+    if (set.leaf[mid].first_tile <= t) lo = mid; else hi = mid;
+  }
+  return set.leaf[lo];
+}
+
+__device__ __forceinline__ float decode_one(int32_t a, float f) {
+  return __fmul_rn(__int2float_rn(a), f);
+}
+
+__device__ __forceinline__ float tile_factor(const DecodeLeaf& L,
+                                             uint32_t tile) {
+  const float* sc = reinterpret_cast<const float*>(L.scales);
+  return __fmul_rn(
+      __ldg(sc + (L.tiles_per_block ? tile / L.tiles_per_block : 0u)),
+      L.inv_k);
+}
+
+// The schedule decode.cu replaced: four 16-byte loads in flight a thread,
+// then the decode (kDecode) or a copy of the sums (its bytes alone).
+template <bool kDecode>
+__global__ void __launch_bounds__(kThreads)
+    set_loads_kernel(const __grid_constant__ DecodeSet set) {
+  for (uint32_t t = blockIdx.x; t < set.tiles; t += gridDim.x) {
+    const DecodeLeaf& L = leaf_of(set, t);
+    const uint32_t tile = t - L.first_tile;
+    const float f = kDecode ? tile_factor(L, tile) : 0.0f;
+    const int64_t begin = (int64_t)tile * kTile;
+    const int64_t rest = (int64_t)L.n - begin;
+    const uint32_t m = rest < kTile ? (uint32_t)rest : kTile;
+    const int4* a4 = reinterpret_cast<const int4*>(L.acc) + begin / 4;
+    int4* o4 = reinterpret_cast<int4*>(L.out) + begin / 4;
+    const uint32_t nvec = m / 4;
+    int4 v[kVecs];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const uint32_t i = threadIdx.x + j * kThreads;
+      if (i < nvec) v[j] = __ldcs(a4 + i);
+    }
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const uint32_t i = threadIdx.x + j * kThreads;
+      if (i < nvec) {
+        o4[i] = kDecode ? make_int4(__float_as_int(decode_one(v[j].x, f)),
+                                    __float_as_int(decode_one(v[j].y, f)),
+                                    __float_as_int(decode_one(v[j].z, f)),
+                                    __float_as_int(decode_one(v[j].w, f)))
+                        : v[j];
+      }
+    }
+    const uint32_t e = nvec * 4 + threadIdx.x;
+    if (e < m) {
+      const int32_t a = reinterpret_cast<const int32_t*>(L.acc)[begin + e];
+      reinterpret_cast<int32_t*>(L.out)[begin + e] =
+          kDecode ? __float_as_int(decode_one(a, f)) : a;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Thread 0: the whole vectors of tile t into `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(const DecodeSet& set, uint32_t t,
+                                          int4* dst, uint64_t* bar) {
+  const DecodeLeaf& L = leaf_of(set, t);
+  const int64_t begin = (int64_t)(t - L.first_tile) * kTile;
+  const int64_t rest = (int64_t)L.n - begin;
+  const uint32_t m = rest < kTile ? (uint32_t)rest : kTile;
+  const uint32_t bytes = (m / 4) * 16;
+  const int32_t* src = reinterpret_cast<const int32_t*>(L.acc) + begin;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}"
+      :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  if (bytes) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t phase) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE;\n\t"
+      "bra LAB_WAIT;\n"
+      "DONE:\n\t}"
+      :: "r"(smem_addr(bar)), "r"(phase) : "memory");
+}
+
+// decode.cu's schedule (1-D TMA bulk copies, two 16 KB stages a CTA)
+// copying the staged sums out with no arithmetic: its bytes alone.
+__global__ void __launch_bounds__(kThreads)
+    set_bulk_kernel(const __grid_constant__ DecodeSet set) {
+  __shared__ alignas(128) int4 buf[2][kTile / 4];
+  __shared__ alignas(8) uint64_t bar[2];
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&bar[b])) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t t = blockIdx.x;
+  if (threadIdx.x == 0 && t < set.tiles) bulk_load(set, t, buf[0], &bar[0]);
+  for (uint32_t i = 0; t < set.tiles; t += gridDim.x, ++i) {
+    const uint32_t b = i & 1;
+    const uint32_t next = t + gridDim.x;
+    if (threadIdx.x == 0 && next < set.tiles) {
+      bulk_load(set, next, buf[b ^ 1], &bar[b ^ 1]);
+    }
+    const DecodeLeaf& L = leaf_of(set, t);
+    const int64_t begin = (int64_t)(t - L.first_tile) * kTile;
+    const int64_t rest = (int64_t)L.n - begin;
+    const uint32_t m = rest < kTile ? (uint32_t)rest : kTile;
+    const uint32_t nvec = m / 4;
+    int4* o4 = reinterpret_cast<int4*>(L.out) + begin / 4;
+    wait_phase(&bar[b], (i >> 1) & 1);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const uint32_t k = threadIdx.x + j * kThreads;
+      if (k < nvec) o4[k] = buf[b][k];
+    }
+    const uint32_t e = nvec * 4 + threadIdx.x;
+    if (e < m) {
+      reinterpret_cast<int32_t*>(L.out)[begin + e] =
+          reinterpret_cast<const int32_t*>(L.acc)[begin + e];
+    }
+    __syncthreads();
+  }
+}
+
+template <typename Kernel>
+int launch_set(Kernel kernel, const void* leaves, int count,
+               unsigned long long acc_base, unsigned long long out_base,
+               cudaStream_t stream) {
+  if (count <= 0 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  DecodeSet set;
+  set.count = (uint32_t)count;
+  memcpy(set.leaf, leaves, sizeof(DecodeLeaf) * count);
+  for (int i = 0; i < count; ++i) {
+    set.leaf[i].acc += acc_base;
+    set.leaf[i].out += out_base;
+  }
+  const DecodeLeaf& last = set.leaf[count - 1];
+  set.tiles = last.first_tile + (last.n + kTile - 1) / kTile;
+  const uint32_t resident = (uint32_t)(sms * (per_sm > 0 ? per_sm : 1));
+  kernel<<<set.tiles < resident ? set.tiles : resident, kThreads, 0,
+           stream>>>(set);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// mode 1: a copy on the replaced schedule; 2: the replaced schedule's
+// decode; 3: a copy on decode.cu's bulk-copy schedule.
+int decode_set_variant(int mode, const void* leaves, int count,
+                       unsigned long long acc_base,
+                       unsigned long long out_base, cudaStream_t stream) {
+  if (mode == 1) {
+    return launch_set(set_loads_kernel<false>, leaves, count, acc_base,
+                      out_base, stream);
+  }
+  if (mode == 2) {
+    return launch_set(set_loads_kernel<true>, leaves, count, acc_base,
+                      out_base, stream);
+  }
+  return launch_set(set_bulk_kernel, leaves, count, acc_base, out_base,
+                    stream);
+}
+
+}  // extern "C"
+"""
+
+# The decode set's schedules: mode, what it does, its kernel's name, and
+# whether it copies the sums (else it decodes them).
+DECODE_VARIANTS = {
+    1: ("a copy on the replaced schedule (four 16-byte loads in flight a "
+        "thread)", "set_loads_kernel", True),
+    2: ("the replaced schedule's decode", "set_loads_kernel", False),
+    3: ("a copy on the kept schedule (1-D TMA bulk copies, two 16 KB "
+        "stages)", "set_bulk_kernel", True),
+}
+
+
+def decode_limits(torch, lib, kernels, events, alone, stream) -> None:
+    """The decode set (``DecodeSet.launch``: decode.cu's bulk-copy
+    schedule) at VGG11-BN's and ResNet50's apply sets beside a copy on
+    the same schedule, and the schedule it replaced with its copy, each
+    bit-checked (a copy against the sums' bits)."""
+    import chip_smoke
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    for network in ("VGG11", "ResNet50"):
+        sizes = chip_smoke.apply_sizes(network)
+        dset, acc, items = chip_smoke.decode_layout(torch, kernels, sizes, 4,
+                                                    None, g)
+        want = kernels.decode_sum_set_ref(items)
+        out = torch.empty(dset.total, dtype=torch.float32, device="cuda")
+        what = f"decode set {network} ({len(sizes)} leaves, {sum(sizes)})"
+
+        def run(mode):
+            def go():
+                rc = 0
+                for desc in dset._descs:
+                    rc |= lib.decode_set_variant(
+                        mode, desc.ctypes.data, len(desc), acc.data_ptr(),
+                        out.data_ptr(), stream)
+                return rc
+            return go
+
+        def same(views, bits=False):
+            ref = dset.views(acc) if bits else want
+            return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(views, ref))
+        variants = [(f"{what} (the tree)", lambda: dset.launch(acc),
+                     "acc_decode_set_kernel",
+                     lambda: same(dset.views(dset.launch(acc))))]
+        for mode, (how, kname, copy) in DECODE_VARIANTS.items():
+            def check(mode=mode, copy=copy):
+                out.zero_()
+                return run(mode)() == 0 and same(dset.views(out), copy)
+            variants.append((f"{what} {how}", run(mode), kname, check))
+        for _ in range(2):
+            for name, fn, kname, check in variants:
+                if not check():
+                    raise AssertionError(f"{name}: differs from the plain "
+                                         "version")
+                print(f"variant {name}: dirty flush {events(fn, False):.4f} "
+                      f"ms, clean flush {events(fn, True):.4f} ms, alone "
+                      f"{alone(fn, (kname,))}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -755,7 +1039,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp()
     src, lib_path = os.path.join(tmp, "limits.cu"), os.path.join(tmp, "limits.so")
     with open(src, "w") as f:
-        f.write(SOURCE + REDUCE_SOURCE)
+        f.write(SOURCE + REDUCE_SOURCE + DECODE_SOURCE)
     subprocess.run([nvcc_path(), "-gencode=arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                     "-o", lib_path, src], check=True)
@@ -770,6 +1054,8 @@ def main() -> int:
         getattr(lib, name).argtypes = [ctypes.c_int, p, p, i64,
                                        ctypes.c_float, p, p]
     lib.decode_bytes.argtypes = [p, i64, p, p]
+    lib.decode_set_variant.argtypes = [ctypes.c_int, p, ctypes.c_int,
+                                       ctypes.c_uint64, ctypes.c_uint64, p]
     for name in REALIGN_VARIANTS:
         getattr(lib, name).argtypes = [p, p, i64, ctypes.c_float, p, p]
     timer = chip_smoke.Timer(torch)
@@ -796,6 +1082,10 @@ def main() -> int:
     def alone(fn, names) -> str:
         ms = timer.device(fn, names)
         return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    decode_limits(torch, lib, kernels, events, alone, stream)
+    if "--decode-only" in sys.argv[1:]:
+        return 0
 
     g = torch.Generator(device="cuda").manual_seed(50)
     n_q, n_e = chip_smoke.BUCKET, 596 * 4096
@@ -957,8 +1247,8 @@ def reduce_limits(torch, lib, kernels, events, alone, stream) -> None:
         (f"bytes pass {n} on acc_decode's schedule",
          lambda: lib.decode_bytes(acc.data_ptr(), n, out.data_ptr(), stream),
          "decode_bytes_kernel"),
-        (f"acc_decode {n} per tensor", lambda: kernels.acc_decode(acc, sc, 4),
-         "acc_decode_kernel"),
+        (f"acc_decode {n} per tensor (a decode set of one)",
+         lambda: kernels.acc_decode(acc, sc, 4), "acc_decode_set_kernel"),
     ]
     for _ in range(2):
         for name, fn, kname in limits:

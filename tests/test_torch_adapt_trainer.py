@@ -57,6 +57,17 @@ BASE = dict(network="LeNet", dataset="mnist10k", batch_size=8, lr=0.01,
             method=5, topk_ratio=0.01, adapt_every=EVERY)
 
 
+@pytest.fixture(autouse=True)
+def _restore_modes():
+    # The port's Trainer under BASE sets the process-wide kernel mode to
+    # 'interpret'; later tests on this worker expect 'auto'.
+    kernels.configure("auto")
+    pk.configure("auto")
+    yield
+    kernels.configure("auto")
+    pk.configure("auto")
+
+
 def _strip(line: str) -> dict:
     rec = json.loads(line)
     rec.pop("latency_ms", None)

@@ -58,6 +58,8 @@ W = 4
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

@@ -41,6 +41,8 @@ SHAPES = [(20,), (5, 5, 3, 8), (3000,), (70, 90)]
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

@@ -19,6 +19,8 @@ torch.set_num_threads(2)
 @pytest.fixture(autouse=True)
 def _restore_modes():
     # The trainers under test set the process-wide kernel modes.
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

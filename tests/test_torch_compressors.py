@@ -44,6 +44,8 @@ COMPRESSORS = [
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

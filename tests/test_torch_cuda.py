@@ -27,6 +27,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    kernels.configure("auto")
     yield torch.Generator(device="cuda").manual_seed(0)
     kernels.configure("auto")
 
@@ -244,6 +245,66 @@ def test_acc_decode_kernel_refuses_an_odd_block(cuda):
     assert kernels.LAUNCHES["acc_decode"] == 0
 
 
+def _decode_set(gen, sizes, ks, block):
+    items = []
+    for i, n in enumerate(sizes):
+        k = ks[i % len(ks)]
+        # Every other leaf a view 4 bytes into its storage: the wrapper
+        # realigns it.
+        off = i % 2
+        acc = torch.randint(-127 * k, 127 * k + 1, (n + off,), device="cuda",
+                            generator=gen).to(torch.int32)[off:]
+        nb = 1 if block is None else -(-n // block)
+        sc = torch.rand(nb, device="cuda", generator=gen) * 1e-3
+        items.append((acc, sc, k, block))
+    return items
+
+
+@pytest.mark.parametrize("block", [None, 4096, 8192])
+def test_decode_set_kernel_is_the_plain_version(cuda, block):
+    items = _decode_set(cuda, [1, 3, 4095, 4097, 530_442, 0, 2_359_296],
+                        [3, 4, 6], block)
+    kernels.reset_launches()
+    got = kernels.acc_decode_set(items)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["acc_decode"] == 1
+    for a, b in zip(got, kernels.decode_sum_set_ref(items)):
+        assert a.data_ptr() % 16 == 0 and _bits_equal(a, b)
+    # The apply's packed set takes the kernel at every size too.
+    dset = kernels.DecodeSet([(a.numel(), sc, k, b) for a, sc, k, b in items],
+                             "cuda")
+    acc = dset.acc_arena()
+    for view, (a, _, _, _) in zip(dset.views(acc), items):
+        view.copy_(a)
+    kernels.reset_launches()
+    got = dset.decode(acc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["acc_decode"] == 1
+    for a, b in zip(got, kernels.decode_sum_set_ref(items)):
+        assert a.data_ptr() % 16 == 0 and _bits_equal(a, b)
+
+
+def test_decode_set_of_449_leaves_takes_two_launches(cuda):
+    sizes = [1 + (i * 977) % 9000 for i in range(449)]
+    items = _decode_set(cuda, sizes, [1, 3, 26], 4096)
+    kernels.reset_launches()
+    got = kernels.acc_decode_set(items)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["acc_decode"] == kernels.decode_set_launches(
+        449) == 2
+    for a, b in zip(got, kernels.decode_sum_set_ref(items)):
+        assert _bits_equal(a, b)
+
+
+def test_decode_set_refuses_an_odd_block(cuda):
+    acc = torch.zeros(5000, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="4096"):
+        kernels.acc_decode_set([(acc, torch.ones(5, device="cuda"), 2, 1000)])
+    with pytest.raises(ValueError, match="4096"):
+        kernels.DecodeSet([(5000, torch.ones(5, device="cuda"), 2, 1000)],
+                          "cuda")
+
+
 @pytest.mark.parametrize("compress", ["qsgd", "topk_qsgd"])
 def test_lenet_async_runs_through_the_kernels(cuda, compress):
     from ewdml_tpu_torch.models import build_model
@@ -263,8 +324,9 @@ def test_lenet_async_runs_through_the_kernels(cuda, compress):
     torch.cuda.synchronize()
     assert stats.pushes == 12 and stats.updates == 6
     assert stats.decode_count == stats.apply_rounds == 6
-    # LeNet's one leaf of at least 2^17 elements (fc1), per round and once
-    # for the warm apply.
+    # One decode set of LeNet's eight leaves, and an accumulate of its one
+    # leaf of at least 2^17 elements (fc1), per round and once for the
+    # warm apply.
     assert kernels.LAUNCHES["acc_decode"] == 6 + 1
     assert kernels.LAUNCHES["int_accumulate"] == (
         6 + 1 if compress == "qsgd" else 0)

@@ -315,15 +315,40 @@ def test_async_abort_stops_the_other_workers(tmp_path):
                              str(tmp_path)])
     reg = MetricsRegistry()
     run = cli.build_async(cfg, registry=reg)
+    server, workers = run.server, run.workers
+    watchdog = server.health
+    # What the program guarantees in any thread order (the workers are
+    # threads, so how many pushes land before the verdict is timing):
+    # every push call per worker, and the pushes counted when the verdict
+    # is set, read under the lock that counts them.
+    calls = {w.index: 0 for w in workers}
+    at_verdict = []
+    push, emit = server.push, watchdog._emit
+
+    def counted_push(record, retried=False):
+        calls[record.worker] += 1
+        return push(record, retried)
+
+    def noted_emit(*a, **kw):
+        try:
+            emit(*a, **kw)
+        finally:
+            if watchdog.aborted is not None and not at_verdict:
+                with server._lock:
+                    at_verdict.append(server.stats.pushes)
+
+    server.push, watchdog._emit = counted_push, noted_emit
     with pytest.raises(health.HealthAbort) as ei:
         run.run()
     assert ei.value.kind == "nan"
-    server, workers = run.server, run.workers
-    assert server.health.aborted["kind"] == "nan"
-    # Every worker stopped long before its 100 steps: the pushes of the
-    # rounds that could complete before the abort, plus those in flight.
-    assert server.stats.pushes <= 3 * 4
+    assert watchdog.aborted["kind"] == "nan"
     assert all(not w.is_alive() for w in workers)
+    # No push is counted after the verdict.
+    assert at_verdict == [server.stats.pushes]
+    # Worker 1 pushed steps 0, 1 and its NaN step 2, which raised; every
+    # worker stopped before its budget of 300 / 3 steps.
+    assert calls[1] == 3 and isinstance(workers[1].exc, health.HealthAbort)
+    assert all(c < 100 for c in calls.values())
     assert reg.snapshot()["counters"]["health.nan"] >= 1
     kinds = [e["kind"] for e in
              health.read_events(str(tmp_path / "health.jsonl"))]

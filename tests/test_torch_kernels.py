@@ -26,6 +26,8 @@ EPS = 2.0 ** -23
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

@@ -55,6 +55,8 @@ BIG = {"a": (5000,), "z": (140000,)}   # 140 000 >= MIN_ELEMS = 2^17
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

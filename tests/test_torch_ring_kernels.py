@@ -32,6 +32,8 @@ N = 3 * 4096 + 100   # three whole blocks and a tail
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

@@ -48,6 +48,7 @@ BASE = dict(network="LeNet", dataset="MNIST", batch_size=4, lr=0.01,
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    kernels.configure("auto")
     yield
     kernels.configure("auto")
 

@@ -61,6 +61,8 @@ BASE = dict(network="LeNet", dataset="mnist10k", batch_size=8, lr=0.01,
 @pytest.fixture(autouse=True)
 def _restore_modes():
     # The trainers under test set the process-wide kernel modes.
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

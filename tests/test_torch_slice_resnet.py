@@ -78,6 +78,8 @@ PLAN_RUNS = {
 @pytest.fixture(autouse=True)
 def _restore_modes():
     # The trainers under test set the process-wide kernel modes.
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")

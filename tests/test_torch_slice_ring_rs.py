@@ -34,6 +34,8 @@ STEPS = 3
 @pytest.fixture(autouse=True)
 def _restore_modes():
     # The trainers under test set the process-wide kernel modes.
+    kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
     pk.configure("auto")
