@@ -197,12 +197,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    full-table config for 3 epochs of 70 steps: epoch by epoch, windows of
    K = 20 with a 10-step per-step tail, so each window phase (0 and 10)
    is captured once for the cell and replayed in every later epoch.
-   (b) ``run_sweep("baseline", smoke=True)`` over three LeNet cells
-   (``SWEEP_CELLS``: M1, M2, M4) as child processes on the card
+   (b) ``run_sweep("baseline", smoke=True)`` over two LeNet cells
+   (``SWEEP_CELLS``: M1, M2) as child processes on the card
    with ``--fault-spec crash@1=3``: the crashed cell journals
    ``cell_retry`` with rc 13 and resumes from step 2, every cell finishes,
-   ``REPRO.md`` is written with the other nine cells pending, and a
-   second invocation journals 3 ``cell_skipped`` and launches no child.
+   ``REPRO.md`` is written with the other ten cells pending, and a
+   second invocation journals 2 ``cell_skipped`` and launches no child.
    Each cell's wall is printed.
 
 8. The async parameter server's down-link and the run-health watchdog,
@@ -237,7 +237,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 9. The TCP tier (``ewdml_tpu_torch/parallel/ps_net.py``) on VGG11-BN at
    the same shapes (``--fusion none``). (a) A ``PSNetServer`` serving in a
-   thread and four ``PSNetWorker`` threads over localhost sockets, 6 steps
+   thread and four ``PSNetWorker`` threads over localhost sockets, 4 steps
    a worker, on each wire plane (``threads``, ``evloop``): QSGD
    ``--server-agg homomorphic`` at K = 4 and QSGD ``decode`` at K = 2.
    Every launch count equals phase 4's reckoning for the pushes and
@@ -283,7 +283,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     handler's p50 and p99 printed). (c) Across processes: an apply server
     on the card (K = 4, ``--pull-delta``), two replica processes, two
     aggregator processes and four worker processes on the card
-    (``--replicas``, ``--agg-tree``), 6 steps a worker; replica 0 is
+    (``--replicas``, ``--agg-tree``), 4 steps a worker; replica 0 is
     SIGKILLed at version 2 and the workers fail over to replica 1. The
     apply server serves no pull; the leaf weight admitted equals the
     leaf pushes; one decode a round; the root's in-link is its
@@ -377,14 +377,43 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``runner.run_cell_child`` at smoke scale: its row carries the
     ``adapt`` block.
 
+14. The horovod-style substrate (``ewdml_tpu_torch/hvd``) and the live
+    metrics plane (``obs/serve.py``, ``obs/{merge,export,rounds,report}``).
+    (a) ``hvd.keras.Model.fit`` of VGG11-BN (seed 0) at CIFAR-10 shapes,
+    W = 4 (``hvd.init(4)``), batch 128 a worker, f32, for HVD_STEPS steps
+    under ``Compression.qsgd()``, ``Compression.topk_qsgd(0.01)`` and
+    ``op="Adasum"`` with QSGD, then ``DistributedOptimizer(
+    quirk_average_levels=True)`` called directly on the W gradients:
+    every run's ``qsgd_quantize``, ``dequant_mean``, ``block_top1`` and
+    ``random_bits`` launches equal the reckoning from VGG11-BN's leaf
+    sizes and the 2^17 gate (``hvd_launches``); under deterministic
+    algorithms the QSGD run's final state with the kernels is bit-equal
+    to the same run with their plain versions; the quirk's ranks differ.
+    Then ``python -m ewdml_tpu_torch.examples.horovod_style`` on LeNet with
+    the committed ``mnist10k`` (W = 4, 2 epochs). (b) The sync CLI
+    (VGG11-BN M4, LIVE_STEPS steps, deterministic) in two child processes
+    at once, one with ``--metrics-port 0 --trace-dir``: its
+    ``TRAINER_METRICS`` endpoint scraped in both formats while it runs,
+    its checkpoint byte-equal to the other's. Then a server, a replica
+    and two workers as processes (QSGD ``--server-agg homomorphic``, K =
+    2, ``--pull-delta``, pulls from the replica), each with
+    ``--metrics-port 0`` and one ``--trace-dir``: every role's endpoint
+    scraped while it runs; ``cli obs rounds``, ``export`` and ``report``
+    on the directory: a row a round, every complete round's segments
+    summing to its wall, a cross-process flow for every round's gating
+    push, one decode a round; the server process's own int_accumulate and
+    acc_decode launches (its ``stats`` reply) at their reckoning
+    (``tcp_apply_launches``) and none of its leaves decoded on the card
+    with the plain version; the scrape latency and the rounds' split
+    printed.
+
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11, 12 and 13 must be above 0, and the in-process runs of
-phases 4 and 9 to 13 must decode no leaf on the card with the plain
-version (every homomorphic apply decodes every quantized leaf in
-``decode_set_launches`` launches: one up to 448 leaves). ``--phase8-only``,
-``--phase9-only``, ``--phase10-only``, ``--phase11-only``,
-``--phase12-only`` and ``--phase13-only`` build and run that phase alone
-(no result line).
+8, 9, 10, 11, 12, 13 and 14 must be above 0, and the in-process runs of
+phases 4 and 9 to 14, and 14b's server process, must decode no leaf on
+the card with the plain version (every homomorphic apply decodes every
+quantized leaf in ``decode_set_launches`` launches: one up to 448
+leaves). ``--phase8-only`` to ``--phase14-only`` build and run that
+phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2956,11 +2985,12 @@ REPRO_SCAN = ("baseline_scan", "lenet_mnist/m6_scan", 3)
 # table's M5/M6 keep the default 0.5, so it must stay at 0 there.
 REPRO_KERNELS = ("qsgd_quantize", "dequant_mean", "stochastic_round")
 REPRO_CRASH = "crash@1=3"  # lenet_mnist/m2 dies at step 3
-# 7b's sweep: the LeNet half of the table (the sweep's machinery, not the
-# cells, is under test; 7a trains VGG11-BN cells in process). Cut from the
-# 12 cells once the whole script passed 1 000 s with phase 12: each child
+# 7b's sweep: two LeNet cells of the table (the sweep's machinery, not the
+# cells, is under test; 7a trains VGG11-BN cells in process), the second
+# crashed and resumed. Cut from the 12 cells once the whole script passed
+# 1 000 s with phase 12, and from three when phase 14 came: each child
 # costs ~18-32 s, mostly its start.
-SWEEP_CELLS = ("lenet_mnist/m1", "lenet_mnist/m2", "lenet_mnist/m4")
+SWEEP_CELLS = ("lenet_mnist/m1", "lenet_mnist/m2")
 
 
 def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
@@ -3539,7 +3569,7 @@ def downlink_phase(torch, kernels) -> tuple:
 
 # Phase 9: the TCP tier (parallel/ps_net.py) on VGG11-BN at full width.
 TCP_WORKERS = 4
-TCP_STEPS = 6                # per worker in 9a
+TCP_STEPS = 4                # per worker in 9a (6 until phase 14)
 TCP_RUNS = [                 # 9a: (name, K, flags), each on both planes
     ("qsgd homomorphic", 4, ["--compress-grad", "qsgd",
                              "--server-agg", "homomorphic"]),
@@ -3950,7 +3980,8 @@ def tcp_phase(torch, kernels) -> tuple:
 TREE_WEIGHTS = [(2, 2), (1, 2), (3, 3)]   # 10a: two pseudo-pushes a round
 STREAM_APPLIES = 10          # 10b: K = 1 applies under --pull-delta
 STREAM_EVERY = 4             # 10b and 10c: --keyframe-every
-TIER_STEPS = 6               # 10c and 10d: per worker process
+TIER_STEPS = 4               # 10c and 10d: per worker process (6 until
+                             # phase 14)
 TIER_WORKERS = 4
 REPLICA_KILL_AT = 2          # 10c: replica 0 is SIGKILLed at this version
 AGGKILL = "aggkill@0=2"      # 10d
@@ -5655,6 +5686,535 @@ def adapt_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+# -- phase 14: the horovod-style substrate and the live plane ----------------
+
+HVD_STEPS = 2            # 14a: fit steps a run (one epoch of 2 global batches)
+HVD_BATCH = 128          # 14a: a worker's batch
+HVD_RUNS = [             # 14a: (name, compression, op)
+    ("qsgd", "qsgd", "Average"),
+    ("topk_qsgd 1%", "topk_qsgd", "Average"),
+    ("adasum qsgd", "qsgd", "Adasum"),
+]
+LIVE_STEPS = 16          # 14b: the sync CLI run (M4, windows of 8)
+LIVE_TCP_STEPS = 4       # 14b: per worker process, K = 2 of 2
+_CLI_CHILD = """
+import sys
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from ewdml_tpu_torch.cli import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+@contextlib.contextmanager
+def plain_kernels(kernels):
+    """The kernel wrappers of the hvd path replaced by their plain
+    versions (the same arithmetic in PyTorch ops on the card)."""
+    names = ("qsgd_quantize", "dequant_mean", "block_top1", "random_bits")
+    saved = {n: getattr(kernels, n) for n in names}
+    for n in names:
+        setattr(kernels, n, getattr(kernels, n + "_ref"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def hvd_launches(kernels, shapes, compression: str, op: str,
+                 steps: int) -> dict:
+    """14a's reckoning: every step each of the W ranks compresses every
+    leaf (``compress_launches``: a quantize per vector of at least
+    ``MIN_ELEMS``, else a threefry draw; a block_top1 where Top-k picks
+    block mode); the Average of QSGD payloads decodes each leaf's gather
+    in one dequant_mean where ``W x n >= MIN_ELEMS`` (the gate is on the
+    gathered levels). Adasum and the quirk decode rank by rank, in plain
+    ops; Top-k gathers decode in plain ops."""
+    import types
+
+    cfg = types.SimpleNamespace(compress_grad=compression, topk_exact=None,
+                                topk_ratio=0.01)
+    one = compress_launches(cfg, shapes, kernels)
+    want = {k: v * WORLD * steps for k, v in one.items()}
+    if compression == "qsgd" and op == "Average":
+        want["dequant_mean"] += steps * sum(
+            1 for s in shapes if WORLD * math.prod(s) >= kernels.MIN_ELEMS)
+    return want
+
+
+def same_launches(kernels, want: dict, what: str) -> dict:
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{what}: launches {got}, reckoned {want}")
+    return got
+
+
+def module_state(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def hvd_fit(torch, kernels, counts, data, compression, op, name,
+            plain=False, count=True) -> tuple:
+    """One ``hvd.keras.Model.fit`` of VGG11-BN (seed 0) for HVD_STEPS steps
+    on the card; its final state, its mean ms a step and its launches
+    (added to ``counts`` unless ``plain`` or not ``count``)."""
+    from ewdml_tpu_torch import hvd
+    from ewdml_tpu_torch.hvd import keras as K
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.optim import SGD
+
+    images, labels = data
+    model = K.Model(build_model("VGG11", 10, dataset="cifar10", seed=0),
+                    input_shape=(32, 32, 3))
+    model.compile(SGD(0.01, momentum=0.9), compression=getattr(
+        hvd.Compression, compression)(), op=op)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_kernels(kernels) if plain else contextlib.nullcontext():
+        hist = model.fit(images, labels, batch_size=HVD_BATCH, epochs=1,
+                         verbose=0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / HVD_STEPS
+    launches = dict(kernels.LAUNCHES)
+    if count and not plain:
+        for k, v in launches.items():
+            counts[k] += v
+    loss = hist.history["loss"][0]
+    if not math.isfinite(loss):
+        raise AssertionError(f"14a {name}: loss {loss}")
+    return model, module_state(model.module), ms, launches, loss
+
+
+def hvd_quirk(torch, kernels, counts, data, shapes) -> dict:
+    """14a: ``DistributedOptimizer(quirk_average_levels=True)`` called
+    directly on VGG11-BN's W per-worker gradients (one forward and backward
+    a worker of batch 128): W replicas stepped, their results differ, each
+    finite; the launches at their reckoning."""
+    from ewdml_tpu_torch import hvd
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs, to_jax
+    from ewdml_tpu_torch.optim import SGD
+    from ewdml_tpu_torch.train.state import leaf_params
+    from ewdml_tpu_torch.train.trainer import cross_entropy
+    from ewdml_tpu_torch.utils import prng
+
+    images, labels = data
+    base = build_model("VGG11", 10, dataset="cifar10", seed=0)
+    base = base.to(DEVICE)
+    specs = leaf_specs(base)
+    grads = []
+    b = HVD_BATCH
+    for r in range(WORLD):
+        x = torch.from_numpy(images[r * b:(r + 1) * b]).to(DEVICE)
+        y = torch.from_numpy(labels[r * b:(r + 1) * b].astype(
+            "int64")).to(DEVICE)
+        base.zero_grad(set_to_none=True)
+        gen = prng.generator(prng.fold_in(prng.key(0), r), DEVICE)
+        cross_entropy(base(x, train=True, generator=gen).float(),
+                      y).backward()
+        grads.append([to_jax(p.grad, s.kind).contiguous()
+                      for p, s in zip(leaf_params(base, specs), specs)])
+    params = [[p.detach().clone() for p in leaf_params(base, specs)]
+              for _ in range(WORLD)]
+    dopt = hvd.DistributedOptimizer(SGD(0.01), compressor=hvd.Compression
+                                    .qsgd(), quirk_average_levels=True)
+    states = [dopt.init(p) for p in params]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    reduced = dopt.update(grads, states, params, key=prng.key(7),
+                          kinds=[s.kind for s in specs])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v
+    got = same_launches(kernels, hvd_launches(kernels, shapes, "qsgd",
+                                              "quirk", 1), "14a quirk")
+    if len({id(r) for r in reduced}) != WORLD:
+        raise AssertionError("14a quirk: the ranks share a result")
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+    if torch.equal(params[0][big], params[WORLD - 1][big]):
+        raise AssertionError("14a quirk: ranks 0 and W-1 agree")
+    if not all(torch.isfinite(p).all() for ps in params for p in ps):
+        raise AssertionError("14a quirk: a non-finite parameter")
+    return dict(update_ms=ms, launches=got)
+
+
+def hvd_phase(torch, kernels, counts, root: str) -> dict:
+    """14a (see the module docstring)."""
+    import io
+
+    from ewdml_tpu_torch import hvd
+    from ewdml_tpu_torch.data import datasets
+    from ewdml_tpu_torch.examples import horovod_style
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    hvd.init(WORLD, platform=DEVICE)
+    shapes = [s.jax_shape for s in leaf_specs(build_model(
+        "VGG11", 10, dataset="cifar10"))]
+    ds = datasets.load("Cifar10", train=True, synthetic=True,
+                       synthetic_size=HVD_STEPS * WORLD * HVD_BATCH)
+    data = (ds.images, ds.labels)
+    out = {}
+    # An uncounted dense fit first: the runs below time warm steps.
+    hvd_fit(torch, kernels, counts, data, "none", "Average", "warm-up",
+            count=False)
+    for name, compression, op in HVD_RUNS:
+        plain = name == "qsgd"
+        if plain:
+            deterministic(torch, True)
+        try:
+            _, state, ms, launches, loss = hvd_fit(
+                torch, kernels, counts, data, compression, op, name)
+            want = hvd_launches(kernels, shapes, compression, op, HVD_STEPS)
+            got = same_launches(kernels, want, f"14a {name}")
+            row = dict(step_ms=ms, loss=loss, launches=got)
+            if plain:
+                # The same run with the plain versions on the card.
+                _, ref, ref_ms, ref_launches, _ = hvd_fit(
+                    torch, kernels, counts, data, compression, op, name,
+                    plain=True)
+                if any(ref_launches.values()):
+                    raise AssertionError(f"14a plain run launched "
+                                         f"{ref_launches}")
+                for k in state:
+                    if not torch.equal(state[k], ref[k]):
+                        raise AssertionError(f"14a {name}: {k} differs "
+                                             "from the plain versions' run")
+                row.update(plain_step_ms=ref_ms, bit_equal_plain=True)
+        finally:
+            if plain:
+                deterministic(torch, False)
+        out[name] = row
+        print(f"hvd {name}: {ms:.1f} ms a step (W = {WORLD}, batch "
+              f"{HVD_BATCH}), "
+              f"loss {loss:.4f}, launches {got}"
+              + (f"; bit-equal to the plain versions' run "
+                 f"({row['plain_step_ms']:.1f} ms a step)" if plain else ""),
+              flush=True)
+        torch.cuda.empty_cache()
+    out["quirk"] = hvd_quirk(torch, kernels, counts, data, shapes)
+    print(f"hvd quirk: update {out['quirk']['update_ms']:.1f} ms, launches "
+          f"{out['quirk']['launches']}, ranks differ", flush=True)
+    # The example on LeNet with the committed mnist10k (counted, not
+    # reckoned).
+    ex_dir = os.path.join(root, "example")
+    os.makedirs(ex_dir)
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(ex_dir), contextlib.redirect_stdout(buf):
+        rc = horovod_style.main([
+            "--dataset", "mnist10k", "--no-synthetic", "--data-dir",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)), "data"),
+            "--num-workers", str(WORLD), "--epochs", "2", "--batch-size",
+            "64", "--platform", DEVICE])
+    for k, v in kernels.LAUNCHES.items():
+        counts[k] += v
+    text = buf.getvalue()
+    hist = [ln for ln in text.splitlines() if ln.startswith("loss history")]
+    ev = [ln for ln in text.splitlines() if ln.startswith("eval:")]
+    if rc != 0 or not hist or not ev or not os.path.exists(
+            os.path.join(ex_dir, "checkpoint-1.npz")):
+        raise AssertionError(f"14a example: rc {rc}\n{text[-2000:]}")
+    out["example"] = dict(wall_s=time.perf_counter() - t0,
+                          loss_history=hist[0].split(":", 1)[1].strip(),
+                          eval=ev[0].split(":", 1)[1].strip(),
+                          launches={k: v for k, v in kernels.LAUNCHES.items()
+                                    if v})
+    print(f"hvd example (LeNet, mnist10k, W = {WORLD}): "
+          + json.dumps(out["example"]), flush=True)
+    return out
+
+
+def scrape(port: int, path: str) -> tuple:
+    """One GET of the live plane: (body, ms)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=10).read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def scrape_role(port: int, role: str) -> dict:
+    """Both formats of one role's endpoint; the JSON names the role."""
+    prom, prom_ms = scrape(port, "/metrics")
+    doc, json_ms = scrape(port, "/metrics.json")
+    doc = json.loads(doc)
+    if doc["role"] != role or doc["port"] != port:
+        raise AssertionError(f"scrape of {role}: {doc['role']}@{doc['port']}")
+    samples = [ln for ln in prom.decode().splitlines()
+               if ln and not ln.startswith("#")]
+    if any(f'role="{role}"' not in ln for ln in samples):
+        raise AssertionError(f"scrape of {role}: a sample of another role")
+    return dict(prom_ms=prom_ms, json_ms=json_ms, samples=len(samples),
+                metrics=sum(len(v) for v in doc["metrics"].values()))
+
+
+def cli_child(argv: list, log: str):
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    f = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-c", _CLI_CHILD, *argv],
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.log = f
+    return proc
+
+
+def live_sync(root: str) -> dict:
+    """14b: the sync CLI (VGG11-BN M4, LIVE_STEPS steps, deterministic) in
+    two child processes at once, one with ``--metrics-port 0
+    --trace-dir``: its endpoint scraped in both formats while it runs, and
+    its checkpoint byte-equal to the other's."""
+    runs = {}
+    for name, extra in (("served", ["--metrics-port", "0", "--trace-dir",
+                                    os.path.join(root, "sync_trace")]),
+                        ("plain", [])):
+        tdir = os.path.join(root, f"sync_{name}") + "/"
+        argv = vgg_argv(LIVE_STEPS, ["--method", "4", "--eval-freq",
+                                     str(LIVE_STEPS), *extra], tdir)
+        log = os.path.join(root, f"sync_{name}.log")
+        runs[name] = (cli_child(argv, log), log, tdir)
+    scrapes = []
+    try:
+        proc, log, _ = runs["served"]
+        line = wait_for_line(proc, log, "TRAINER_METRICS", 300)
+        port = int(line.split()[1])
+        while proc.poll() is None:
+            try:
+                scrapes.append(scrape_role(port, "trainer"))
+            except OSError:
+                if not scrapes:
+                    raise
+                break  # the run closed its endpoint on its way out
+            time.sleep(0.2)
+        for name, (p, log, _) in runs.items():
+            if p.wait(timeout=300) != 0:
+                with open(log) as f:
+                    raise AssertionError(f"14b sync {name}: rc {p.returncode}"
+                                         f"\n{f.read()[-2000:]}")
+    finally:
+        for p, _, _ in runs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    if not scrapes:
+        raise AssertionError("14b sync: no scrape while the run lived")
+    blobs = []
+    for _, _, tdir in runs.values():
+        with open(os.path.join(tdir, "model_step_"), "rb") as f:
+            blobs.append(f.read())
+    if blobs[0] != blobs[1]:
+        raise AssertionError("14b sync: the served run's checkpoint differs "
+                             "from the plain run's")
+    return dict(scrapes=len(scrapes),
+                prom_ms=statistics.median(s["prom_ms"] for s in scrapes),
+                json_ms=statistics.median(s["json_ms"] for s in scrapes),
+                samples=max(s["samples"] for s in scrapes),
+                checkpoint_bytes=len(blobs[0]), bit_equal=True)
+
+
+def gating_reqs(merged: list) -> dict:
+    """(version, fed round) -> the request id of the server push whose
+    dispatch holds the apply of that round."""
+    pushes = [e for e in merged if e.get("name") == "ps_net/push"]
+    out = {}
+    for ap in (e for e in merged if e.get("name") == "ps/apply"):
+        a = ap.get("args") or {}
+        hold = [p for p in pushes if p["ts"] <= ap["ts"]
+                and p["ts"] + p["dur"] >= ap["ts"] + ap["dur"]
+                and p.get("role") == ap.get("role")]
+        if hold:
+            out[(a.get("version"), a.get("round"))] = str(
+                hold[-1]["args"]["req"])
+    return out
+
+
+def tcp_apply_launches(kernels, applies: int) -> dict:
+    """14b's reckoning of the server's int_accumulate and acc_decode
+    launches over ``applies`` homomorphic applies of VGG11-BN under QSGD:
+    each apply sums every leaf of at least MIN_ELEMS in one accumulate and
+    decodes all 38 leaves in one decode set."""
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    sizes = [math.prod(s.jax_shape) for s in leaf_specs(build_model(
+        "VGG11", 10, dataset="cifar10"))]
+    return {"int_accumulate": applies * sum(
+                1 for n in sizes if n >= kernels.MIN_ELEMS),
+            "acc_decode": applies * kernels.decode_set_launches(len(sizes))}
+
+
+def live_tcp(kernels, counts, root: str) -> dict:
+    """14b: a server, a replica and two workers as processes on the card
+    (VGG11-BN, QSGD ``--server-agg homomorphic``, K = 2, ``--pull-delta``,
+    the workers' pulls from the replica), each with ``--metrics-port 0``
+    and one ``--trace-dir``: every role scraped while it runs; the server's
+    own kernel launches (its ``stats`` reply) at ``tcp_apply_launches``,
+    counting the apply that registration warms, and no leaf decoded on the
+    card with the plain version there, its launches added to ``counts``;
+    then ``cli obs rounds|export|report`` on the directory."""
+    import io
+
+    from ewdml_tpu_torch.cli import main as cli_main
+    from ewdml_tpu_torch.obs import export as oexport
+    from ewdml_tpu_torch.obs import merge as omerge
+    from ewdml_tpu_torch.obs import rounds as orounds
+    from ewdml_tpu_torch.parallel import ps_net
+
+    tdir = os.path.join(root, "tcp_trace")
+    port, rport = free_ports(2)
+    common = tcp_argv(2, ["--compress-grad", "qsgd", "--server-agg",
+                          "homomorphic"], "--port", str(port),
+                      "--net-retries", "14", "--net-backoff", "0.5",
+                      "--pull-delta", "--keyframe-every", "4",
+                      "--metrics-port", "0", "--trace-dir", tdir)
+    procs, logs, scraped = [], {}, {}
+
+    def start(label, args):
+        logs[label] = os.path.join(root, f"tcp_{label}.log")
+        proc = ps_net_proc(args, logs[label])
+        procs.append(proc)
+        return proc
+
+    def scrape_marker(label, proc):
+        line = wait_for_line(proc, logs[label], "PS_NET_METRICS", 300)
+        role, mport = line.split()[1:]
+        scraped[role] = scrape_role(int(mport), role)
+
+    t0 = time.perf_counter()
+    try:
+        server = start("server", ["--role", "server", *common])
+        wait_for_line(server, logs["server"], "PS_NET_READY", 180)
+        scrape_marker("server", server)
+        # The workers start with the replica; their first pull retries
+        # until it serves.
+        replica = start("replica", ["--role", "replica", *common,
+                                    "--replica-port", str(rport)])
+        workers = [start(f"worker{i}", [
+            "--role", "worker", *common, "--replicas",
+            f"127.0.0.1:{rport}", "--worker-index", str(i), "--steps",
+            str(LIVE_TCP_STEPS)]) for i in range(2)]
+        wait_for_line(replica, logs["replica"], "PS_REPLICA_READY", 120)
+        scrape_marker("replica", replica)
+        for i, w in enumerate(workers):
+            scrape_marker(f"worker{i}", w)
+        for i, w in enumerate(workers):
+            rc = w.wait(timeout=400)
+            wait_for_line(w, logs[f"worker{i}"], "PS_NET_WORKER_DONE", 1)
+            if rc != 0:
+                raise AssertionError(f"14b tcp: worker {i} exited {rc}")
+        stats, _ = ps_net.client_call(("127.0.0.1", port), {"op": "stats"})
+        for p in (rport, port):
+            ps_net.client_call(("127.0.0.1", p), {"op": "shutdown"})
+        for label, proc in (("server", server), ("replica", replica)):
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"14b tcp: {label} exited "
+                                     f"{proc.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.log.close()
+    wall = time.perf_counter() - t0
+    if sorted(scraped) != ["ps-replica", "ps-server", "worker-0",
+                           "worker-1"]:
+        raise AssertionError(f"14b tcp: scraped {sorted(scraped)}")
+    if stats["decode_count"] != stats["apply_rounds"]:
+        raise AssertionError(f"14b tcp: {stats['decode_count']} decodes in "
+                             f"{stats['apply_rounds']} rounds")
+    server_launches = {k: v for k, v in stats["kernel_launches"].items()
+                       if v}
+    want = tcp_apply_launches(kernels, stats["apply_rounds"] + 1)
+    if {k: server_launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"14b tcp: server launches {server_launches}, "
+                             f"reckoned {want}")
+    if stats["plain_decodes_on_card"]:
+        raise AssertionError(f"14b tcp: the server decoded "
+                             f"{stats['plain_decodes_on_card']} leaves on "
+                             "the card with the plain version")
+    for k, v in server_launches.items():
+        counts[k] += v
+    merged = omerge.merge_dir(tdir)
+    analysis = orounds.analyze(merged)
+    complete = [r for r in analysis["rounds"] if r.get("complete")]
+    if not complete or len(analysis["rounds"]) != stats["updates"]:
+        raise AssertionError(f"14b rounds: {analysis['completed']} complete "
+                             f"of {len(analysis['rounds'])}, "
+                             f"{stats['updates']} updates")
+    for r in complete:
+        total = sum(r["segments_ms"][k] for k in orounds.SEGMENT_KEYS)
+        if abs(total - r["wall_ms"]) > 0.004:
+            raise AssertionError(f"14b rounds: round {r['round']} segments "
+                                 f"sum to {total}, wall {r['wall_ms']}")
+    doc = oexport.chrome_trace(merged)
+    flows = {e["args"]["req"] for e in doc["traceEvents"]
+             if e.get("cat") == "flow" and e["ph"] == "s"}
+    gating = gating_reqs(merged)
+    missing = [r["round"] for r in analysis["rounds"]
+               if gating.get((r["round"], r.get("fed_round"))) not in flows]
+    if missing:
+        raise AssertionError(f"14b export: no flow for rounds {missing}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for sub in (["rounds", tdir], ["export", tdir], ["report", tdir]):
+            if cli_main(["obs", *sub]) != 0:
+                raise AssertionError(f"14b: cli obs {sub[0]} failed")
+    text = buf.getvalue()
+    print(text[:text.index("\n[") if "\n[" in text else len(text)],
+          flush=True)
+    segs = {k: statistics.median(r["segments_ms"][k] for r in complete)
+            for k in orounds.SEGMENT_KEYS}
+    return dict(wall_s=wall, scrapes=scraped, rounds=len(analysis["rounds"]),
+                complete=len(complete), flow_pairs=analysis["flow_pairs"],
+                flows=len(flows), wall_ms_median=statistics.median(
+                    r["wall_ms"] for r in complete),
+                segments_ms_median=segs,
+                gating_counts=analysis["gating_counts"],
+                apply_ms_mean=stats["apply_ms_mean"],
+                server_launches=server_launches)
+
+
+def live_phase(torch, kernels) -> tuple:
+    """Phase 14 (see the module docstring)."""
+    PLAIN_DECODES["calls"] = 0
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out, walls = {}, {}
+    root = tempfile.mkdtemp(prefix="ewdml_live_")
+    try:
+        for name, fn in (
+                ("14a", lambda: hvd_phase(torch, kernels, counts, root)),
+                ("14b sync", lambda: live_sync(root)),
+                ("14b tcp", lambda: live_tcp(kernels, counts, root))):
+            t = time.perf_counter()
+            out[name] = fn()
+            walls[f"{name}_s"] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["walls"] = walls
+    print("phase 14 walls: " + json.dumps(walls) + " on " + smi_line(),
+          flush=True)
+    for key in ("qsgd_quantize", "dequant_mean", "block_top1",
+                "int_accumulate", "acc_decode"):
+        if counts[key] <= 0:
+            raise AssertionError(f"phase 14 launched no {key}")
+    no_plain_decodes("phase 14")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5681,6 +6241,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase13-only", action="store_true",
                         help="build, then run phase 13 alone (no result "
+                             "line)")
+    parser.add_argument("--phase14-only", action="store_true",
+                        help="build, then run phase 14 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -5767,6 +6330,14 @@ def main(argv=None) -> int:
         print(f"phase 13: {time.perf_counter() - t13:.1f}s", flush=True)
         print("adapt: " + json.dumps(adapt), flush=True)
         print("phase 13 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase14_only:
+        t14 = time.perf_counter()
+        net_counts, live = live_phase(torch, kernels)
+        print(f"phase 14: {time.perf_counter() - t14:.1f}s", flush=True)
+        print("live: " + json.dumps(live), flush=True)
+        print("phase 14 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -5885,6 +6456,13 @@ def main(argv=None) -> int:
     print("phase 13 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 14: the horovod-style substrate and the live metrics plane.
+    t14 = time.perf_counter()
+    net_counts, live = live_phase(torch, kernels)
+    print(f"phase 14: {time.perf_counter() - t14:.1f}s", flush=True)
+    print("phase 14 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -5910,6 +6488,7 @@ def main(argv=None) -> int:
     print("federated: " + json.dumps(federated), flush=True)
     print("pipeline: " + json.dumps(pipeline), flush=True)
     print("adapt: " + json.dumps(adapt), flush=True)
+    print("live: " + json.dumps(live), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -42,7 +42,13 @@ paths.
 
 ``python -m ewdml_tpu_torch.cli repro --table baseline`` runs the paper's
 published table (``experiments/``), as ``python -m
-ewdml_tpu_torch.experiments`` does.
+ewdml_tpu_torch.experiments`` does. ``python -m ewdml_tpu_torch.cli obs
+{report,export,rounds} <trace-dir>`` reads a trace directory back: the
+merged report, the Perfetto JSON, the rounds' critical paths
+(``obs/report.py``). ``--metrics-port`` (0 = ephemeral) serves a sync run's
+registry live and prints ``TRAINER_METRICS <port>``; the async and
+federated paths refuse it (the JAX CLI accepts it there and serves
+nothing).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import os
 import sys
 
 from ewdml_tpu_torch.core.config import from_args
+from ewdml_tpu_torch.obs import serve as oserve
 from ewdml_tpu_torch.obs.health import (HEALTH_EXIT_CODE, HealthAbort,
                                         make_watchdog)
 from ewdml_tpu_torch.train.loop import Trainer
@@ -65,6 +72,12 @@ def main(argv=None) -> int:
         from ewdml_tpu_torch.experiments.__main__ import main as repro_main
 
         return repro_main(argv[1:])
+    if argv[:1] == ["obs"]:
+        # The trace tools over a --trace-dir (obs/report.py): the merged
+        # report, the Perfetto export and the round critical paths.
+        from ewdml_tpu_torch.obs.report import main as obs_main
+
+        return obs_main(argv[1:])
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
@@ -74,19 +87,28 @@ def main(argv=None) -> int:
         return _main_federated(cfg)
     if cfg.mode == "async":
         return _main_async(cfg)
+    cfg.metrics_port = oserve.env_port(cfg.metrics_port)
     trainer = Trainer(cfg)
-    trainer.maybe_restore()
+    if trainer.live.port:
+        # Scrape-port discovery: an ephemeral port is known only here.
+        print(f"TRAINER_METRICS {trainer.live.port}", flush=True)
     try:
-        result = trainer.train()
-    except HealthAbort as e:
-        return _health_abort(e)
-    print(
-        f"done: steps={result.steps} loss={result.final_loss:.4f} "
-        f"top1={result.final_top1:.4f} step_time={result.mean_step_s * 1e3:.2f}ms "
-        f"wire_per_step={result.wire.per_step_bytes / 1e6:.4f}MB"
-    )
-    ev = trainer.evaluate()
-    print(f"eval: loss={ev['loss']:.4f} top1={ev['top1']:.4f} top5={ev['top5']:.4f}")
+        trainer.maybe_restore()
+        try:
+            result = trainer.train()
+        except HealthAbort as e:
+            return _health_abort(e)
+        print(
+            f"done: steps={result.steps} loss={result.final_loss:.4f} "
+            f"top1={result.final_top1:.4f} "
+            f"step_time={result.mean_step_s * 1e3:.2f}ms "
+            f"wire_per_step={result.wire.per_step_bytes / 1e6:.4f}MB"
+        )
+        ev = trainer.evaluate()
+        print(f"eval: loss={ev['loss']:.4f} top1={ev['top1']:.4f} "
+              f"top5={ev['top5']:.4f}")
+    finally:
+        trainer.close()
     return 0
 
 
@@ -185,9 +207,9 @@ def _main_federated(cfg) -> int:
     from ewdml_tpu_torch.federated import run_federated
     from ewdml_tpu_torch.federated.loop import evaluate_params
     from ewdml_tpu_torch.train.metrics import federated_wire_plan
-    from ewdml_tpu_torch.train.trainer import _reject, _serving_rows
+    from ewdml_tpu_torch.train.trainer import _reject, unserved_metrics_row
 
-    _reject(_serving_rows(cfg))
+    _reject([unserved_metrics_row(cfg, "the federated CLI")])
     res = run_federated(cfg)
     stats = res.stats
     plan = federated_wire_plan(cfg, res.params)

@@ -121,6 +121,10 @@ _MODE = "auto"  # auto | on | interpret | off
 LAUNCHES = {"qsgd_quantize": 0, "dequant_mean": 0, "block_top1": 0,
             "chunk_encode": 0, "dequant_acc_requant": 0, "int_accumulate": 0,
             "acc_decode": 0, "stochastic_round": 0, "random_bits": 0}
+#: Leaves decoded on a CUDA tensor by the plain version
+#: (:func:`acc_decode_ref`): none on the main path, which decodes every leaf
+#: in the set kernel; a ``ps_net`` server's ``stats`` reply reports both.
+PLAIN_DECODES_ON_CARD = {"acc_decode": 0}
 # The parameter server's worker threads launch kernels concurrently.
 _launch_lock = threading.Lock()
 
@@ -129,6 +133,7 @@ def reset_launches() -> None:
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        PLAIN_DECODES_ON_CARD["acc_decode"] = 0
 
 
 def add_launches(counts: dict) -> None:
@@ -757,6 +762,9 @@ def acc_decode_ref(acc: torch.Tensor, scales: torch.Tensor, k: int, *,
     """Plain version of :func:`acc_decode`, in the kernel's order: the
     factor ``scale[b] * f32(1/k)`` first, then ``f32(acc) * factor``."""
     scales, per_tensor = _check_decode_args(acc, scales, block)
+    if acc.is_cuda:
+        with _launch_lock:
+            PLAIN_DECODES_ON_CARD["acc_decode"] += 1
     acc = acc.reshape(-1)
     # 1/k rounded once to f32, as jnp.float32(1.0 / float(k)).
     factor = scales * f32_scalar(1.0 / float(k))

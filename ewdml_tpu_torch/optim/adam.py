@@ -57,10 +57,12 @@ class Adam:
 
     @torch.no_grad()
     def update(self, grads: list, state: AdamState, params: list, key=None,
-               kinds=None) -> None:
-        """Apply one step to ``params`` (in place) from ``grads``."""
+               kinds=None, lr=None) -> None:
+        """Apply one step to ``params`` (in place) from ``grads``; ``lr``
+        overrides ``self.lr`` for this step."""
         from ewdml_tpu_torch.core.precision import tree_store_round
 
+        lr = self.lr if lr is None else lr
         state.count.add_(1)
         t = state.count.to(torch.float32)
         bc1 = 1.0 - torch.pow(self.b1, t)
@@ -79,5 +81,5 @@ class Adam:
                          paths=[(i, 0) for i in range(n)]
                          + [(i, 1) for i in range(n)])
         for p, m, v in zip(params, state.mu, state.nu):
-            p.add_(-self.lr * (m.float() / bc1)
+            p.add_(-lr * (m.float() / bc1)
                    / (torch.sqrt(v.float() / bc2) + self.eps))

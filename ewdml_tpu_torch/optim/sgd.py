@@ -56,11 +56,13 @@ class SGD:
 
     @torch.no_grad()
     def update(self, grads: list, state: SGDState, params: list, key=None,
-               kinds=None) -> None:
+               kinds=None, lr=None) -> None:
         """Apply one step to ``params`` (in place) from ``grads``. ``key``
-        seeds the bf16 stores (leaf i under ``layer_key(key, i)``)."""
+        seeds the bf16 stores (leaf i under ``layer_key(key, i)``); ``lr``
+        overrides ``self.lr`` for this step (the horovod-style warmup)."""
         from ewdml_tpu_torch.core.precision import tree_store_round
 
+        lr = self.lr if lr is None else lr
         mu, damp = self.momentum, self.dampening
         bufs = state.momentum_buf
         d_ps = [g.to(torch.float32) + self.weight_decay * p
@@ -77,5 +79,5 @@ class SGD:
                 step_dir = d_p + mu * used if self.nesterov else used
             else:
                 step_dir = d_p
-            p.add_(-self.lr * step_dir)
+            p.add_(-lr * step_dir)
         state.initialized = True

@@ -29,7 +29,8 @@ members the root already counted; a policy that reports them
 payloads and forward the rest. The base policy reports none.
 
 An aggregator is a host process (numpy sums, no CUDA); its counters and
-gauges (``agg.*``) live in its own ``MetricsRegistry``.
+gauges (``agg.*``) live in its own ``MetricsRegistry``, served under
+``--metrics-port`` (``PS_NET_METRICS ps-agg-<index> <port>``).
 
     python -m ewdml_tpu_torch.parallel.ps_net --role aggregator \\
         --host 127.0.0.1 --port 29500 --agg-port 29700 --agg-index 0 \\
@@ -188,6 +189,7 @@ class AggregatorServer(ps_net._Endpoint):
         lsock.setblocking(False)
         self.address = lsock.getsockname()
         self._evloop = _AggEvPlane(self, lsock)
+        self._arm_metrics()
 
     # -- admission (loop thread) -----------------------------------------------
 
@@ -409,7 +411,8 @@ class AggregatorServer(ps_net._Endpoint):
             otrace.flush()
 
     def close(self) -> None:
-        """Release the listener (idempotent)."""
+        """Release the listener and the metrics endpoint (idempotent)."""
+        self.live.close()
         self._request_stop()
         self._evloop.close()
         self._up.close()

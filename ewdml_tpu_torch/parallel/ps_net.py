@@ -45,7 +45,10 @@ started again on the same directory resumes at the last journaled version.
 Two wire planes answer with the same bytes: ``threads`` (a thread per
 connection) and ``evloop`` (one ``selectors`` thread, a frame state machine
 per connection, one :meth:`ParameterServer.push_batch` per tick). The
-server and each worker keep their own ``MetricsRegistry``.
+server and each worker keep their own ``MetricsRegistry``; under
+``--metrics-port`` (0 = ephemeral) each serves it at ``/metrics`` and
+``/metrics.json`` (``obs/serve.py``) and ``main`` prints
+``PS_NET_METRICS <role> <port>``.
 
 Two more roles scale the tier out (``--role replica``, ``--role
 aggregator``):
@@ -106,8 +109,10 @@ import torch
 
 from ewdml_tpu_torch.obs import clock, reqctx
 from ewdml_tpu_torch.obs import health as ohealth
+from ewdml_tpu_torch.obs import serve as oserve
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
+from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.parallel.faults import (CRASH_EXIT_CODE, FaultCrash,
                                              FaultSpec)
 from ewdml_tpu_torch.parallel.policy import (KILL_EXIT_CODE, StragglerKilled,
@@ -453,13 +458,12 @@ def check_supported(cfg, role: str = "server") -> None:
     """Reject, by name, every role and option of the TCP tier this slice
     does not port."""
     from ewdml_tpu_torch.core.config import validate_wire_plane
-    from ewdml_tpu_torch.train.trainer import _reject
+    from ewdml_tpu_torch.train.trainer import _reject, unserved_metrics_row
 
     validate_wire_plane(cfg)
-    _reject([
-        (cfg.metrics_port is not None, "--metrics-port (the live metrics "
-                                       "endpoint, obs/serve)"),
-    ])
+    # Every other role serves its registry under --metrics-port.
+    if role == "fed_driver":
+        _reject([unserved_metrics_row(cfg, "--role fed_driver")])
 
 
 def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
@@ -486,7 +490,7 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     from ewdml_tpu_torch.models import (build_model, input_shape_for,
                                         num_classes_for)
     from ewdml_tpu_torch.models.convert import leaf_specs, to_jax
-    from ewdml_tpu_torch.ops import kernels, make_compressor
+    from ewdml_tpu_torch.ops import make_compressor
     from ewdml_tpu_torch.ops.none import NoneCompressor
     from ewdml_tpu_torch.parallel import ps
     from ewdml_tpu_torch.train.state import leaf_params
@@ -597,6 +601,15 @@ class _Endpoint:
     _evloop = None
     #: The federated coordinator (the apply server under --federated).
     fed = None
+    #: The live metrics endpoint of ``--metrics-port`` (``obs/serve``).
+    live = oserve.Live(None, None, "")
+
+    def _arm_metrics(self) -> None:
+        """Serve this endpoint's registry under ``--metrics-port``; the
+        last step of a constructor, so a constructor that raises leaves no
+        thread behind."""
+        self.live = oserve.Live(self.cfg.metrics_port, self.registry,
+                                self.role)
 
     def _init_endpoint(self, registry: Optional[MetricsRegistry]) -> None:
         self.registry = registry if registry is not None else MetricsRegistry()
@@ -895,13 +908,16 @@ class PSNetServer(_Endpoint):
             lsock.setblocking(False)
             self.address = lsock.getsockname()
             self._evloop = _EvLoopPlane(self, lsock)
+        self._arm_metrics()
 
     @property
     def policy(self) -> StragglerPolicy:
         return self.server.policy
 
     def close(self) -> None:
-        """Release the listening socket and any sessions (idempotent)."""
+        """Release the listening socket, any sessions and the metrics
+        endpoint (idempotent)."""
+        self.live.close()
         if self._tcp is not None:
             self._tcp.server_close()
         if self._evloop is not None:
@@ -1171,6 +1187,11 @@ class PSNetServer(_Endpoint):
             "socket_received": self.bytes.received,
             "segments": segments,
             "obs": obs_snapshot,
+            # The port's own: this process's kernel launches per wrapper,
+            # and the leaves it decoded on the card with the plain version.
+            "kernel_launches": dict(kernels.LAUNCHES),
+            "plain_decodes_on_card": kernels.PLAIN_DECODES_ON_CARD[
+                "acc_decode"],
         })
 
     def _save(self, header: dict) -> bytes:
@@ -1674,6 +1695,9 @@ class PSNetWorker:
         # the pull and push routes (the server's unless --replicas or
         # --agg-tree name other endpoints).
         self.conn = self.pull_conn = self.push_conn = None
+        # The live metrics endpoint (obs/serve) of --metrics-port.
+        self.live = oserve.Live(cfg.metrics_port, self.registry,
+                                f"worker-{index}")
 
     def _to_device(self, raw) -> torch.Tensor:
         return torch.from_numpy(
@@ -1949,6 +1973,19 @@ def client_call(addr: tuple, header: dict, sections=(), *,
         conn.close()
 
 
+def _serve(endpoint: _Endpoint) -> None:
+    """Serve until ``shutdown``: first the ``PS_NET_METRICS <role> <port>``
+    line under ``--metrics-port`` (an ephemeral port is known only here),
+    and the metrics endpoint closed at the end."""
+    if endpoint.live.port:
+        print(f"PS_NET_METRICS {endpoint.role} {endpoint.live.port}",
+              flush=True)
+    try:
+        endpoint.serve_forever()
+    finally:
+        endpoint.live.close()
+
+
 def main(argv=None) -> int:
     """``python -m ewdml_tpu_torch.parallel.ps_net --role
     server|worker|fed_driver|replica|aggregator`` with the JAX entry point's
@@ -1983,11 +2020,13 @@ def main(argv=None) -> int:
               for f in dataclasses.fields(TrainConfig) if hasattr(ns, f.name)}
     cfg = TrainConfig(**fields)
     check_supported(cfg, ns.role)
+    if ns.role != "fed_driver":  # which arms no exporter
+        cfg.metrics_port = oserve.env_port(cfg.metrics_port)
     if ns.role == "server":
         server = PSNetServer(cfg, ns.host, ns.port)
         print(f"PS_NET_READY {server.address[0]}:{server.address[1]}",
               flush=True)
-        server.serve_forever()
+        _serve(server)
         if server.health is not None and server.health.aborted:
             print("PS_NET_HEALTH_ABORT " + json.dumps(server.health.aborted),
                   flush=True)
@@ -2004,7 +2043,7 @@ def main(argv=None) -> int:
                                     port=ns.replica_port)
         print(f"PS_REPLICA_READY {replica.address[0]}:{replica.address[1]}",
               flush=True)
-        replica.serve_forever()
+        _serve(replica)
         return 0
     if ns.role == "aggregator":
         from ewdml_tpu_torch.parallel.aggtree import AggregatorServer
@@ -2012,7 +2051,7 @@ def main(argv=None) -> int:
         agg = AggregatorServer(cfg, (ns.host, ns.port), host=ns.agg_host,
                                port=ns.agg_port, index=ns.agg_index)
         print(f"PS_AGG_READY {agg.address[0]}:{agg.address[1]}", flush=True)
-        agg.serve_forever()
+        _serve(agg)
         return 0
     if ns.role == "fed_driver":
         # The client pool on this side; the server (--role server with the
@@ -2026,6 +2065,9 @@ def main(argv=None) -> int:
             "skew": round(result.skew, 4)}), flush=True)
         return 0
     worker = PSNetWorker(cfg, ns.worker_index, (ns.host, ns.port))
+    if worker.live.port:
+        print(f"PS_NET_METRICS worker-{ns.worker_index} "
+              f"{worker.live.port}", flush=True)
 
     def wire_counters():
         conn = worker.conn
@@ -2049,6 +2091,8 @@ def main(argv=None) -> int:
             {"worker": ns.worker_index, "step": e.step,
              **wire_counters()}), flush=True)
         return CRASH_EXIT_CODE
+    finally:
+        worker.live.close()
     print("PS_NET_WORKER_DONE " + json.dumps(result), flush=True)
     return 0
 

@@ -25,7 +25,8 @@ exactly at a keyframe. The stream's geometry is pinned by a CRC on every
 reply, and a replica refuses a stream whose contract changed under it.
 
 A replica is a host process: numpy only, it never initialises CUDA. Its
-counters and gauges (``replica.*``) live in its own ``MetricsRegistry``.
+counters and gauges (``replica.*``) live in its own ``MetricsRegistry``,
+served under ``--metrics-port`` (``PS_NET_METRICS ps-replica <port>``).
 
     python -m ewdml_tpu_torch.parallel.ps_net --role replica \\
         --host 127.0.0.1 --port 29500 --replica-port 29600 ...
@@ -130,6 +131,7 @@ class PullReplicaServer(ps_net._Endpoint):
         self.address = lsock.getsockname()
         self._evloop = ps_net._EvLoopPlane(self, lsock)
         self._poller = threading.Thread(target=self._poll_loop, daemon=True)
+        self._arm_metrics()
 
     # -- the stream (poll thread) ----------------------------------------------
 
@@ -257,7 +259,8 @@ class PullReplicaServer(ps_net._Endpoint):
             otrace.flush()
 
     def close(self) -> None:
-        """Release the listener (idempotent)."""
+        """Release the listener and the metrics endpoint (idempotent)."""
+        self.live.close()
         self._request_stop()
         self._evloop.close()
         self._up.close()

@@ -11,7 +11,9 @@ template and no trainer.
         --dataset mnist10k --train-dir output/models/ --max-polls 1
 
 runs on the GPU unless ``--platform cpu`` is given; every evaluation prints
-one ``validation {json}`` line.
+one ``validation {json}`` line. Under ``--metrics-port`` (0 = ephemeral) it
+serves its registry (``obs/serve.py``) and prints
+``EVALUATOR_METRICS <port>`` first.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ewdml_tpu_torch.core.config import TrainConfig
 from ewdml_tpu_torch.core.world import resolve_device
 from ewdml_tpu_torch.models import build_model, num_classes_for
 from ewdml_tpu_torch.models.convert import leaf_specs
+from ewdml_tpu_torch.obs import serve as oserve
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.optim import make_optimizer
@@ -35,7 +38,6 @@ from ewdml_tpu_torch.train import checkpoint
 from ewdml_tpu_torch.train.loop import run_eval
 from ewdml_tpu_torch.train.state import (WorkerState, leaf_params,
                                          load_state_tree, state_tree)
-from ewdml_tpu_torch.train.trainer import check_evaluator_supported
 
 logger = logging.getLogger("ewdml_tpu_torch.evaluator")
 
@@ -46,7 +48,6 @@ class DistributedEvaluator:
     evaluator without a GPU raises)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
-        check_evaluator_supported(cfg)
         self.cfg = cfg
         otrace.configure(cfg.trace_dir, role="evaluator")
         otrace.maybe_configure_from_env(role="evaluator")
@@ -70,6 +71,13 @@ class DistributedEvaluator:
             self.model, optimizer.init(leaf_params(self.model, self.specs)),
             residual)
         self._template = state_tree([self._worker], self.specs)
+        # The live metrics endpoint of --metrics-port; armed last, so a
+        # constructor that raises leaves no thread behind.
+        self.live = oserve.Live(cfg.metrics_port, self.metrics, "evaluator")
+
+    def close(self) -> None:
+        """Stop the live metrics endpoint (idempotent)."""
+        self.live.close()
 
     def evaluate_once(self, path: str) -> dict:
         """Restore the checkpoint at ``path`` into the model and evaluate
@@ -126,10 +134,17 @@ def main(argv=None) -> int:
     ns = parser.parse_args(argv)
     fields = {f.name: getattr(ns, f.name)
               for f in dataclasses.fields(TrainConfig) if hasattr(ns, f.name)}
+    fields["metrics_port"] = oserve.env_port(fields.get("metrics_port"))
     ev = DistributedEvaluator(TrainConfig(**fields))
-    for result in ev.evaluate(interval_s=ns.eval_interval,
-                              max_polls=ns.max_polls):
-        print("validation " + json.dumps(result), flush=True)
+    if ev.live.port:
+        # Scrape-port discovery: an ephemeral port is known only here.
+        print(f"EVALUATOR_METRICS {ev.live.port}", flush=True)
+    try:
+        for result in ev.evaluate(interval_s=ns.eval_interval,
+                                  max_polls=ns.max_polls):
+            print("validation " + json.dumps(result), flush=True)
+    finally:
+        ev.close()
     return 0
 
 

@@ -15,6 +15,8 @@ logs per-worker loss / top-1 with the analytic wire bytes.
 - Observability: ``--trace-dir`` records the JAX package's spans
   (``train/dispatch``, ``train/compile``, ``train/window``,
   ``train/checkpoint``, ``eval/full_test``; ``obs/trace.py``),
+  ``--metrics-port`` serves the trainer's registry live (``obs/serve.py``;
+  :meth:`Trainer.close` stops it),
   ``--profile-dir`` runs ``torch.profiler`` around the steps and writes a
   Chrome trace, and ``--debug-nans`` raises ``FloatingPointError`` at the
   first step (or window) whose loss, gradients or parameters are not
@@ -54,6 +56,7 @@ from ewdml_tpu_torch.data import datasets, loader
 from ewdml_tpu_torch.models import build_model, convert, num_classes_for
 from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.obs import health as ohealth
+from ewdml_tpu_torch.obs import serve as oserve
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.ops import kernels
@@ -194,6 +197,17 @@ class Trainer:
                         "wire=%.4f MB/step/worker", cfg.compress_grad,
                         cfg.quantum_num, cfg.qsgd_block, cfg.topk_ratio,
                         self.wire.per_step_bytes / 1e6)
+        # The live metrics endpoint of --metrics-port (obs/serve; unset:
+        # no thread, no socket), on this trainer's registry. Armed last,
+        # so a constructor that raises leaves no thread behind.
+        self.live = oserve.Live(cfg.metrics_port, self.metrics, role)
+        if self.live.port:
+            logger.info("live metrics on http://127.0.0.1:%d/metrics "
+                        "(role %s)", self.live.port, role)
+
+    def close(self) -> None:
+        """Stop the live metrics endpoint (idempotent)."""
+        self.live.close()
 
     def _init_adapt(self) -> None:
         """The adaptive runtime (``loop.py:147-178``): per-layer units, the

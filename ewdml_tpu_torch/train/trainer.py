@@ -112,7 +112,6 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
                                "--mode async runs the parameter server)"),
         (cfg.federated, "--federated"),
         (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
-        *_serving_rows(cfg),
     ]
     _reject(unsupported)
 
@@ -140,23 +139,20 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         # Queue 3 item 16); the TCP server arms it from the flag, and
         # run_async_ps(relay_compress=True) is the in-process relay.
         (cfg.lossy_weights_down, "--lossy-weights-down on the async path"),
-        *_serving_rows(cfg),
+        unserved_metrics_row(cfg, "the in-process async path"),
     ]
     _reject(unsupported)
 
 
-def check_evaluator_supported(cfg: TrainConfig) -> None:
-    """Reject, by name, the evaluator's flags the port does not implement:
-    it takes every trainer flag and honours only what it reads (it never
-    reads ``--health``, as in the JAX package)."""
-    _reject(_serving_rows(cfg))
-
-
-def _serving_rows(cfg: TrainConfig) -> list:
-    return [
-        (cfg.metrics_port is not None, "--metrics-port (the live metrics "
-                                       "endpoint, obs/serve)"),
-    ]
+def unserved_metrics_row(cfg: TrainConfig, path: str) -> tuple:
+    """``--metrics-port`` on a path where the JAX package accepts the flag
+    and arms no exporter (the in-process async CLI, the federated CLI and
+    ``--role fed_driver``; ROADMAP Queue 3 item 28): refused by name, with
+    that reason. The sync trainer, the evaluator and the ``ps_net``
+    server, worker, replica and aggregator serve it."""
+    return (cfg.metrics_port is not None,
+            f"--metrics-port on {path} (the JAX package accepts it there "
+            "and arms no exporter)")
 
 
 def _reject(unsupported) -> None:

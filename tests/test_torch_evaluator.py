@@ -95,14 +95,15 @@ def test_evaluator_and_single_trainer_refuse_a_missing_gpu():
 
 
 @pytest.mark.parametrize("kw,flag", [
-    (dict(metrics_port=9100), "--metrics-port"),
+    (dict(metrics_port=0), "--metrics-port"),
     (dict(health="warn"), "--health warn"),
 ])
-def test_evaluator_rejects_the_serving_flags(tmp_path, kw, flag):
-    """Exact: the evaluator takes every trainer flag. ``--metrics-port``,
-    which it does not honour, raises by name, as ``check_supported`` does;
-    ``--health``, which it never reads, is accepted and ignored, as in the
-    JAX package."""
+def test_evaluator_rejects_the_serving_flags(tmp_path, kw, flag, capsys):
+    """Exact: the evaluator takes every trainer flag. ``--metrics-port``
+    is served: ``main`` prints ``EVALUATOR_METRICS <port>`` before its
+    polls, the endpoint answers with the evaluator's registry while it
+    runs, and the evaluator closes it at the end; ``--health``, which it
+    never reads, is accepted and ignored, as in the JAX package."""
     cfg = TrainConfig(platform="cpu", train_dir=str(tmp_path) + "/",
                       **dict(CFG, **kw))
     if flag == "--health warn":
@@ -111,8 +112,29 @@ def test_evaluator_rejects_the_serving_flags(tmp_path, kw, flag):
         assert list(ev.evaluate(interval_s=0, max_polls=1)) == []
         assert not os.path.exists(tmp_path / "health.jsonl")
         return
-    with pytest.raises(NotImplementedError, match=flag):
-        DistributedEvaluator(cfg)
+    import json
+    import urllib.request
+
+    ev = DistributedEvaluator(cfg)
+    try:
+        assert list(ev.evaluate(interval_s=0, max_polls=2)) == []
+        doc = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{ev.live.port}/metrics.json",
+            timeout=10).read())
+        assert doc["role"] == "evaluator"
+        assert doc["metrics"]["counters"]["eval.polls"] == 2
+    finally:
+        ev.close()
+    from ewdml_tpu_torch.train import evaluator
+
+    argv = ["--platform", "cpu", "--train-dir", str(tmp_path) + "/",
+            "--metrics-port", "0", "--max-polls", "1",
+            "--eval-interval", "0"] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in CFG.items()
+        if k in ("network", "dataset", "num_workers", "method", "seed")]
+    assert evaluator.main(argv) == 0
+    first = capsys.readouterr().out.splitlines()[0].split()
+    assert first[0] == "EVALUATOR_METRICS" and int(first[1]) > 0
 
 
 def test_single_trainer_matches_jax():

@@ -1,8 +1,8 @@
 """The federated round machinery of the port against the JAX package, on
 the CPU: the partition, the cohort sampler, the config matrix, the cohort
 policy, the coordinator and its journal, the round plan, the registry's
-absorber and the refusals of what waits for a later slice (``--adapt``,
-``--metrics-port``).
+absorber and the refusals by name (``--adapt`` with federated rounds,
+``--metrics-port`` where the JAX package accepts it and serves nothing).
 
 Oracles, per test (each is exact: these are integer, set and string
 results, or sums of integer byte counts):
@@ -400,15 +400,18 @@ def test_evaluate_params_without_batch_stats_raises_in_both():
 
 
 def test_later_slices_are_refused_by_name(tmp_path):
-    """What still waits for a later slice is refused by name on the
-    federated entry points (the federated server, ``--role fed_driver``,
-    the CLI's pipelined rounds now run); ``--adapt``, ported, is refused
+    """``--metrics-port`` is refused by name, with the reason, on the
+    federated CLI and on ``--role fed_driver``, where the JAX package
+    accepts the flag and arms no exporter (the federated server serves
+    it: ``tests/test_torch_ps_net.py``); ``--adapt``, ported, is refused
     with federated rounds as the JAX package refuses it
     (``validate_federated``)."""
     from ewdml_tpu_torch.cli import main
     from ewdml_tpu_torch.parallel import ps_net
 
-    with pytest.raises(NotImplementedError, match="--metrics-port"):
+    with pytest.raises(NotImplementedError,
+                       match="--metrics-port on the federated CLI .*arms no "
+                             "exporter"):
         main(["--federated", "--platform", "cpu", "--round-pipeline",
               "overlap", "--server-agg", "homomorphic", "--compress-grad",
               "qsgd", "--pool-size", "8", "--cohort", "2",
@@ -421,6 +424,7 @@ def test_later_slices_are_refused_by_name(tmp_path):
               "--adapt", "variance"],
              "--federated is incompatible with --adapt", ValueError),
             (["--role", "fed_driver", "--metrics-port", "0"],
-             "--metrics-port", NotImplementedError)):
+             "--metrics-port on --role fed_driver .*arms no exporter",
+             NotImplementedError)):
         with pytest.raises(exc, match=name):
             ps_net.main(base + extra)

@@ -20,8 +20,9 @@ Oracles:
   worker and the leaf of an injected NaN or infinity: in a loss, in a
   parameter after an update (per step and at the end of a window), in an
   async worker's loss.
-- ``check_supported`` accepts the three flags and ``--health``, and still
-  rejects ``--metrics-port`` by name.
+- ``check_supported`` accepts the three flags and ``--health``; it accepts
+  ``--metrics-port`` on the sync path and rejects it by name on the
+  in-process async path.
 """
 
 import json
@@ -340,9 +341,16 @@ def test_check_supported_accepts_the_three_flags(tmp_path):
                                 "--debug-nans"])
         check_supported(cfg, async_path=async_path)
         # --health is ported (tests/test_torch_health.py); --metrics-port
-        # still raises by name.
+        # is served by the sync trainer (tests/test_torch_obs_serve.py)
+        # and refused by name, with the reason, on the in-process async
+        # path, where the JAX CLI accepts it and arms no exporter.
         check_supported(from_args(mode + ["--health", "warn"]),
                         async_path=async_path)
-        with pytest.raises(NotImplementedError, match="--metrics-port"):
-            check_supported(from_args(mode + ["--metrics-port", "0"]),
-                            async_path=async_path)
+        metrics = from_args(mode + ["--metrics-port", "0"])
+        if async_path:
+            with pytest.raises(NotImplementedError,
+                               match="--metrics-port on the in-process "
+                                     "async path .*arms no exporter"):
+                check_supported(metrics, async_path=True)
+        else:
+            check_supported(metrics)

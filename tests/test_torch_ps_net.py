@@ -17,7 +17,8 @@ Oracles:
 - ``prng.normal``: the uniform on jax's bounds bit-equal, the normal
   within 4 ulp of ``jax.random.normal`` (XLA's ``log1p`` differs from
   torch's in the last bits).
-- the rejections: exact (``NotImplementedError`` naming the flag).
+- the rejections: exact (``ValueError`` naming the flag); the server
+  under ``--metrics-port``: exact (its marker line and a scrape).
 - the replica and aggregator roles' entry points: exact (the READY line,
   the ``stats`` reply, ``shutdown``).
 - the homomorphic scale contract across processes: exact (the same CRC
@@ -392,8 +393,9 @@ def test_normal_within_4_ulp_of_jax():
     (["--role", "fed_driver", "--federated", "--adapt", "variance",
       "--pool-size", "8", "--cohort", "2", "--compress-grad", "qsgd",
       "--server-agg", "homomorphic"], "--adapt"),
-    (["--role", "server", "--federated", "--metrics-port", "0"],
-     "--metrics-port"),
+    (["--role", "server", "--federated", "--metrics-port", "0",
+      "--pool-size", "8", "--cohort", "2", "--compress-grad", "qsgd",
+      "--server-agg", "homomorphic"], "--metrics-port"),
     (["--role", "server", "--federated", "--round-pipeline", "overlap",
       "--adapt", "variance", "--pool-size", "8", "--cohort", "2",
       "--compress-grad", "qsgd", "--server-agg", "homomorphic"], "--adapt"),
@@ -401,14 +403,46 @@ def test_normal_within_4_ulp_of_jax():
       "--replicas", "127.0.0.1:7001"], "--adapt"),
     (["--role", "server", "--metrics-port", "0"], "--metrics-port"),
 ])
-def test_later_slices_rejected_by_name(extra, name):
-    """``--metrics-port`` waits for a later slice and is refused by name;
-    ``--adapt`` is ported and refused only where the JAX package refuses
-    it (with ``--federated`` and ``--replicas``), by its validators'
-    ``ValueError``."""
-    exc = ValueError if name == "--adapt" else NotImplementedError
-    with pytest.raises(exc, match=name.replace("-", r"\-")):
-        ps_net.main(BASE + extra)
+def test_later_slices_rejected_by_name(extra, name, capsys):
+    """``--adapt`` is ported and refused only where the JAX package
+    refuses it (with ``--federated`` and ``--replicas``), by its
+    validators' ``ValueError``. ``--metrics-port`` is served now: the
+    server (federated or not) runs, prints ``PS_NET_METRICS ps-server
+    <port>`` after its READY line, answers a scrape of its registry and
+    stops on ``shutdown`` (``tests/test_torch_obs_serve.py`` holds the
+    other roles; ``--role fed_driver`` still refuses it by name)."""
+    if name == "--adapt":
+        with pytest.raises(ValueError, match=r"\-\-adapt"):
+            ps_net.main(BASE + extra)
+        return
+    import json
+    import urllib.request
+
+    port = _free_port()
+    rcs = []
+    thread = threading.Thread(target=lambda: rcs.append(ps_net.main(
+        BASE + extra + ["--port", str(port)])), daemon=True)
+    thread.start()
+    deadline = time.time() + 60
+    out = ""
+    while "PS_NET_METRICS" not in out and time.time() < deadline:
+        time.sleep(0.05)
+        out += capsys.readouterr().out
+    lines = out.splitlines()
+    assert lines[0] == f"PS_NET_READY 127.0.0.1:{port}", out
+    role, mport = lines[1].split()[1:]
+    assert role == "ps-server" and int(mport) > 0
+    doc = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{mport}/metrics.json", timeout=10).read())
+    assert doc["role"] == "ps-server" and doc["port"] == int(mport)
+    assert "ps_net.connections" in doc["metrics"]["gauges"]
+    h, _ = ps_net.client_call(("127.0.0.1", port), {"op": "shutdown"})
+    assert h == {"op": "shutdown_ok"}
+    thread.join(30)
+    assert rcs == [0]
+    with pytest.raises(OSError):  # main closed the exporter on its way out
+        urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                               timeout=5)
 
 
 def _free_port() -> int:
