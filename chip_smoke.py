@@ -406,13 +406,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (``tcp_apply_launches``) and none of its leaves decoded on the card
     with the plain version; the scrape latency and the rounds' split
     printed.
+15. The static-analysis pass (``ewdml_tpu_torch/analysis``): ``python -m
+    ewdml_tpu_torch.cli lint --json`` in a child process on this host
+    must exit 0 with no finding against the committed (empty) baseline;
+    it prints a ``lint files N new 0 suppressed S seconds T`` line. It
+    launches no kernel.
 
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
 8, 9, 10, 11, 12, 13 and 14 must be above 0, and the in-process runs of
 phases 4 and 9 to 14, and 14b's server process, must decode no leaf on
 the card with the plain version (every homomorphic apply decodes every
 quantized leaf in ``decode_set_launches`` launches: one up to 448
-leaves). ``--phase8-only`` to ``--phase14-only`` build and run that
+leaves). ``--phase8-only`` to ``--phase15-only`` build and run that
 phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
@@ -6215,6 +6220,31 @@ def live_phase(torch, kernels) -> tuple:
     return counts, out
 
 
+# -- phase 15: the static-analysis pass (analysis/) ----------------------------
+
+def lint_phase() -> dict:
+    """Phase 15: the port's lint, as a user runs it, in a child process:
+    exit 0 and a report with no finding and no stale baseline entry."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ewdml_tpu_torch.cli", "lint", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15: lint exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    if (not report["ok"] or report["violations"] or report["baselined"]
+            or report["stale_baseline"]):
+        raise AssertionError(f"phase 15: lint not clean: {proc.stdout}")
+    print(f"lint files {report['files']} new {len(report['violations'])} "
+          f"suppressed {report['suppressed']} seconds {seconds:.1f}",
+          flush=True)
+    return {"files": report["files"], "new": len(report["violations"]),
+            "suppressed": report["suppressed"], "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6244,6 +6274,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase14-only", action="store_true",
                         help="build, then run phase 14 alone (no result "
+                             "line)")
+    parser.add_argument("--phase15-only", action="store_true",
+                        help="build, then run phase 15 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -6338,6 +6371,13 @@ def main(argv=None) -> int:
         print(f"phase 14: {time.perf_counter() - t14:.1f}s", flush=True)
         print("live: " + json.dumps(live), flush=True)
         print("phase 14 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase15_only:
+        t15 = time.perf_counter()
+        lint = lint_phase()
+        print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
+        print("lint: " + json.dumps(lint), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -6463,6 +6503,10 @@ def main(argv=None) -> int:
     print("phase 14 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 15: the static-analysis pass (no kernel).
+    t15 = time.perf_counter()
+    lint = lint_phase()
+    print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -6489,6 +6533,7 @@ def main(argv=None) -> int:
     print("pipeline: " + json.dumps(pipeline), flush=True)
     print("adapt: " + json.dumps(adapt), flush=True)
     print("live: " + json.dumps(live), flush=True)
+    print("lint: " + json.dumps(lint), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

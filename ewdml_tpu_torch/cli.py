@@ -45,7 +45,9 @@ published table (``experiments/``), as ``python -m
 ewdml_tpu_torch.experiments`` does. ``python -m ewdml_tpu_torch.cli obs
 {report,export,rounds} <trace-dir>`` reads a trace directory back: the
 merged report, the Perfetto JSON, the rounds' critical paths
-(``obs/report.py``). ``--metrics-port`` (0 = ephemeral) serves a sync run's
+(``obs/report.py``). ``python -m ewdml_tpu_torch.cli lint`` runs the
+static analysis pass over the package (``analysis/``; exit 0 clean, 1
+findings). ``--metrics-port`` (0 = ephemeral) serves a sync run's
 registry live and prints ``TRAINER_METRICS <port>``; the async and
 federated paths refuse it (the JAX CLI accepts it there and serves
 nothing).
@@ -72,6 +74,13 @@ def main(argv=None) -> int:
         from ewdml_tpu_torch.experiments.__main__ import main as repro_main
 
         return repro_main(argv[1:])
+    if argv[:1] == ["lint"]:
+        # The repo-invariant static analysis pass (analysis/): the ten
+        # rules against the committed shrink-only baseline; exit 0 clean,
+        # 1 findings, 2 usage error.
+        from ewdml_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     if argv[:1] == ["obs"]:
         # The trace tools over a --trace-dir (obs/report.py): the merged
         # report, the Perfetto export and the round critical paths.

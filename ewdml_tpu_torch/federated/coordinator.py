@@ -85,23 +85,23 @@ class FederatedCoordinator:
         # One condition guards the round state; the policy's lock is never
         # held while it is taken (note_applied calls back outside it).
         self._cond = threading.Condition()
-        self._registered: set = set()
-        self._dropped: dict = {}
+        self._registered: set = set()   # ewdml: guarded-by[_cond]
+        self._dropped: dict = {}        # ewdml: guarded-by[_cond]
         # client -> its recorded replacement: a retried report_drop
         # replays it instead of counting the dropout twice.
-        self._drop_replacement: dict = {}
-        self._round = -1
-        self._cohort: list = []
-        self._resamples = 0
+        self._drop_replacement: dict = {}  # ewdml: guarded-by[_cond]
+        self._round = -1                # ewdml: guarded-by[_cond]
+        self._cohort: list = []         # ewdml: guarded-by[_cond]
+        self._resamples = 0             # ewdml: guarded-by[_cond]
         self._done: dict = {}           # round -> its round_done record
         # The pipelined modes' round state (empty under 'off'): every begun
         # round's final cohort (a retried begin replays it, a drop's
         # replacement extends it), the overlap window's open rounds (gated
         # before sampling, so a too-deep begin changes nothing) and the
         # per-round resample attempt counters.
-        self._begun: dict = {}
-        self._open_rounds: set = set()
-        self._rp_attempts: dict = {}
+        self._begun: dict = {}          # ewdml: guarded-by[_cond]
+        self._open_rounds: set = set()  # ewdml: guarded-by[_cond]
+        self._rp_attempts: dict = {}    # ewdml: guarded-by[_cond]
         self.dropouts = 0
         self.resampled = 0
         if self.max_cohort is not None:
@@ -187,8 +187,10 @@ class FederatedCoordinator:
         self.metrics.gauge("federated.pool").set(pool)
         return {"pool": pool, "round": rnd}
 
+    # ewdml: requires[_cond] -- membership reads must pair with the round
+    # state they gate; guarded-by-flow verifies every caller holds it.
     def _eligible(self) -> set:
-        """Registered and not dropped (the caller holds ``_cond``)."""
+        """Registered and not dropped."""
         return self._registered - set(self._dropped)
 
     # -- round lifecycle --------------------------------------------------

@@ -133,7 +133,7 @@ class NetTransport:
         self._retries = cfg.net_retries
         self._backoff_s = cfg.net_backoff_s
         self._agg_addrs = parse_agg_tree(cfg.agg_tree) if cfg.agg_tree else []
-        self._agg_conns: dict = {}
+        self._agg_conns: dict = {}   # ewdml: guarded-by[_agg_guard]
         self._agg_guard = threading.Lock()
         # Per aggregator, the members of the driver's current push wave,
         # stamped on every tree-routed push (subtree_expect) so a group
@@ -269,6 +269,7 @@ class NetTransport:
     def drop(self, client: int, round_idx: int) -> int:
         header = self._call({"op": "fed_drop", "client": client,
                              "round": round_idx}, "fed_drop_ok")
+        _ = int(header["dropped"])  # the run's dropout total, validated
         return int(header["replacement"])
 
     def end_round(self, round_idx: int) -> dict:

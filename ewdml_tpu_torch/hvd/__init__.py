@@ -181,7 +181,11 @@ class DistributedOptimizer:
         package's; the inner optimizer's bf16 stores draw from
         ``fold_in(key, 0x0917)`` (none without a key). Returns the reduced
         gradients, one list per rank."""
-        reduced = self.exchange(grads, prng.key(0) if key is None else key)
+        reduced = self.exchange(
+            # ewdml: allow[prng] -- documented fallback for the keyless
+            # optax-style update() protocol; determinism-minded callers
+            # pass their own key
+            grads, prng.key(0) if key is None else key)
         okey = None if key is None else prng.fold_in(key, OPT_TAG)
         done = []
         for r, red in enumerate(reduced):

@@ -107,22 +107,24 @@ class HealthWatchdog:
         self.registry = registry if registry is not None else MetricsRegistry()
         # The first abort verdict (written once, by the thread that trips
         # it; read without the lock, one observation late at worst).
-        self.aborted: Optional[dict] = None
-        self.events_emitted = 0
+        self.aborted: Optional[dict] = None  # ewdml: atomic
+        self.events_emitted = 0  # ewdml: guarded-by[_lock]
         self._lock = threading.Lock()
-        self._loss_mean = None
-        self._loss_var = 0.0
-        self._loss_n = 0
-        self._grad_mean = None
-        self._grad_n = 0
-        self._last_beat = clock.monotonic()
-        self._stalled = False
-        self._idle = False
-        self._latched = set()
+        self._loss_mean = None   # ewdml: guarded-by[_lock]
+        self._loss_var = 0.0     # ewdml: guarded-by[_lock]
+        self._loss_n = 0         # ewdml: guarded-by[_lock]
+        self._grad_mean = None   # ewdml: guarded-by[_lock]
+        self._grad_n = 0         # ewdml: guarded-by[_lock]
+        self._last_beat = clock.monotonic()  # ewdml: guarded-by[_lock]
+        self._stalled = False    # ewdml: guarded-by[_lock]
+        self._idle = False       # ewdml: guarded-by[_lock]
+        # Episode latches: one event per episode of a signal, re-armed by
+        # a healthy observation of it.
+        self._latched = set()    # ewdml: guarded-by[_lock]
         self._counters = {k: self.registry.counter(f"health.{k}")
                           for k in KINDS}
         self._stop = threading.Event()
-        self._stall_thread = None
+        self._stall_thread = None  # ewdml: guarded-by[_lock]
         self.stall_deadline_s = (float(stall_deadline_s)
                                  if mode != "off" and stall_deadline_s
                                  else None)
@@ -264,6 +266,9 @@ class HealthWatchdog:
         with self._lock:
             self.events_emitted += 1
         self._counters[kind].inc()
+        # ewdml: allow[trace-name] -- bounded: `kind` is always one of the
+        # closed KINDS tuple above (every _emit caller passes a literal
+        # from it), so the instant-name set is finite by construction.
         otrace.instant(f"health/{kind}", step=step, value=value,
                        role=self.role)
         logger.warning("health[%s] %s: %s", self.role, kind, detail)

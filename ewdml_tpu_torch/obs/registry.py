@@ -115,6 +115,8 @@ class MetricsRegistry:
         for key in ("compile_s", "data_s", "step_s", "steps"):
             v = timing.get(key)
             if v:
+                # ewdml: allow[metric-name] -- bounded: key iterates the
+                # literal 4-tuple above, so the name set is closed
                 self.counter(f"train.{key}").inc(v)
 
     def absorb_policy(self, snap) -> None:
@@ -131,6 +133,8 @@ class MetricsRegistry:
                     "dropouts", "resampled", "quota_dropped", "max_cohort"):
             v = snap.get(key)
             if v is not None:
+                # ewdml: allow[metric-name] -- bounded: key iterates the
+                # literal tuple above, so the name set is closed
                 self.gauge(f"federated.{key}").set(v)
 
     def absorb_ps_stats(self, stats) -> None:
@@ -139,4 +143,6 @@ class MetricsRegistry:
         for key in ("pushes", "updates", "dropped_stale", "dropped_plan_stale",
                     "dropped_straggler", "worker_crashes", "kills_sent",
                     "bytes_up", "bytes_down"):
+            # ewdml: allow[metric-name] -- bounded: key iterates the
+            # literal PSStats field tuple above, so the name set is closed
             self.gauge(f"ps.{key}").set(getattr(stats, key))

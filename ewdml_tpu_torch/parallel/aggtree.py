@@ -102,7 +102,7 @@ class _AggEvPlane(ps_net._EvLoopPlane):
         server = self.server
         for f in frames:
             try:
-                server._admit_push(f)
+                server._admit_push(f, f.header)
             except Exception:
                 # A malformed push costs its connection, never the loop.
                 logger.exception("aggtree: bad push frame; dropping "
@@ -144,7 +144,7 @@ class AggregatorServer(ps_net._Endpoint):
         self.index = int(index)
         self.role = f"ps-agg-{self.index}"
         self.server = _PushSink()
-        self._init_endpoint(registry)
+        super().__init__(registry)
         otrace.configure(cfg.trace_dir, role=self.role)
         otrace.maybe_configure_from_env(role=self.role)
         # The subtree's state, all on the loop thread.
@@ -196,10 +196,10 @@ class AggregatorServer(ps_net._Endpoint):
     def _set_parked(self) -> None:
         self._g_parked.set(sum(len(g.members) for g in self._groups.values()))
 
-    def _admit_push(self, f) -> None:
-        """Park one leaf push frame in its (version, plan) group; a
-        malformed frame raises (the plane closes its connection)."""
-        header = f.header
+    def _admit_push(self, f, header: dict) -> None:
+        """Park one leaf push frame (``header`` is its request header) in
+        its (version, plan) group; a malformed frame raises (the plane
+        closes its connection)."""
         worker = int(header["worker"])
         version = int(header["version"])
         pv = int(header.get("plan_version", 0))

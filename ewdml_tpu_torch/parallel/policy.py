@@ -256,10 +256,10 @@ class CohortPolicy(StragglerPolicy):
         # straggler.
         super().__init__(kill_threshold=None, max_staleness=max_staleness,
                          num_aggregate=num_aggregate, clock=clock)
-        self._round = -1
-        self._round_open = False
-        self._cohort: set = set()
-        self._contributed: set = set()
+        self._round = -1          # ewdml: guarded-by[_lock]
+        self._round_open = False  # ewdml: guarded-by[_lock]
+        self._cohort: set = set()       # ewdml: guarded-by[_lock]
+        self._contributed: set = set()  # ewdml: guarded-by[_lock]
         self.quota_dropped = 0    # pushes refused past the accept quota
         self._on_round = on_round  # (round, accepted workers, version)
 
@@ -388,8 +388,8 @@ class PipelinedCohortPolicy(CohortPolicy):
                          clock=clock)
         self.depth = max(2, int(depth))
         # round -> (cohort set, contributed set); at most ``depth`` live.
-        self._open: dict[int, tuple] = {}
-        self._committed: set = set()
+        self._open: dict[int, tuple] = {}  # ewdml: guarded-by[_lock]
+        self._committed: set = set()       # ewdml: guarded-by[_lock]
 
     def begin_round(self, round_idx: int, cohort) -> None:
         round_idx = int(round_idx)
@@ -501,8 +501,8 @@ class AsyncCohortPolicy(CohortPolicy):
         self.bound = max(1, int(bound))
         # round -> (cohort set, contributed set); rounds more than
         # ``bound`` behind the newest are evicted.
-        self._windows: dict[int, tuple] = {}
-        self._commits = 0
+        self._windows: dict[int, tuple] = {}  # ewdml: guarded-by[_lock]
+        self._commits = 0                     # ewdml: guarded-by[_lock]
 
     @property
     def weight_scale(self) -> int:

@@ -386,22 +386,22 @@ class ParameterServer:
         # that request's queue segment (obs/reqctx.py).
         self._lock = reqctx.TimedLock()         # params/version/stats
         self._update_lock = reqctx.TimedLock()  # serializes applies
-        self._pending: list = []
+        self._pending: list = []  # ewdml: guarded-by[_lock]
         # Per pending buffer: its pusher, its push id, its leaf weight and
         # its members (an ordinary push: 1 and ()).
-        self._pending_workers: list = []
-        self._pending_ids: list = []
-        self._pending_weights: list = []
-        self._pending_members: list = []
+        self._pending_workers: list = []  # ewdml: guarded-by[_lock]
+        self._pending_ids: list = []  # ewdml: guarded-by[_lock]
+        self._pending_weights: list = []  # ewdml: guarded-by[_lock]
+        self._pending_members: list = []  # ewdml: guarded-by[_lock]
         # The round pipeline (arm_round_pipeline): "off", "overlap" (one
         # pending grid per open round: round -> (bufs, workers, ids,
         # weights)) or "async" (tick copies in the shared batch).
         self._rp_mode = "off"
-        self._rp_pending: dict = {}
+        self._rp_pending: dict = {}  # ewdml: guarded-by[_lock]
         # Push ids applied (id -> version, insertion-ordered, bounded):
         # with the pending ids they make a re-sent push an ack, not a
         # second apply. Rebuilt from the snapshot and the WAL on recovery.
-        self._applied_ids: dict = {}
+        self._applied_ids: dict = {}  # ewdml: guarded-by[_lock]
         # The durable state plane (arm_durability; None: no journal I/O),
         # the serverkill@N fault, and elastic K (--num-aggregate 0 on the
         # TCP server; the payload template is kept for its rebuild).
@@ -417,7 +417,7 @@ class ParameterServer:
                         if self.device.type == "cuda" else None)
         self._pack = transfer.make_device_packer()
         # One packed pull per wire and version (one D2H each).
-        self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}
+        self._packed_cache = {"f32": (None, -1), "bf16": (None, -1)}  # ewdml: guarded-by[_lock]
         if self.relay_compress:
             self._down_bytes = sum(compressor.wire_bytes(tuple(p.shape))
                                    for p in self.params)
@@ -464,9 +464,9 @@ class ParameterServer:
         self._pd_shadow = None
         self._pd_nbytes = 0
         self._pd_crc = 0
-        self._pd_head = -1
-        self._pd_keyframe: tuple = (-1, None)
-        self._pd_deltas: dict = {}
+        self._pd_head = -1                      # ewdml: guarded-by[_lock]
+        self._pd_keyframe: tuple = (-1, None)   # ewdml: guarded-by[_lock]
+        self._pd_deltas: dict = {}              # ewdml: guarded-by[_lock]
 
     @property
     def num_aggregate(self) -> int:
@@ -719,6 +719,8 @@ class ParameterServer:
             self._rp_mode = mode
             self._rp_pending = {}
 
+    # ewdml: requires[_lock] -- the batch is taken and cleared in the
+    # same critical section that released it; guarded-by-flow verifies it.
     def _take_pending(self) -> tuple:
         """The pending batch, cleared (under ``_lock``, held by the
         caller): ``(bufs, workers, ids, weights, members, plan_version)``."""
@@ -874,6 +876,8 @@ class ParameterServer:
                 round_id = -1
         return self._apply_batch(*taken, round_id=round_id)
 
+    # ewdml: requires[_lock] -- pending and the quota check that releases
+    # the batch commit together; guarded-by-flow verifies every caller.
     def _pend_flat(self, record: PushRecord, buf, weight: int):
         """Pend one push in the shared batch (under ``_lock``, held by the
         caller); the batch to apply once the quota fills, else None."""
@@ -892,6 +896,8 @@ class ParameterServer:
             return None
         return self._take_pending()
 
+    # ewdml: requires[_update_lock] -- applies are serial: the version the
+    # keys fold in moves only under this lock (the live path and replay).
     def _run_apply(self, batch, wsum: Optional[int] = None):
         """The apply of one released batch on the server's stream, under
         ``_update_lock`` (held by the caller): ``(new_params, new_opt,
@@ -927,6 +933,8 @@ class ParameterServer:
         return (new_params, new_opt, delta_buf, new_shadow, apply_s, delta_s,
                 moments)
 
+    # ewdml: requires[_lock] -- params, version and the applied ids swap
+    # together for every reader; guarded-by-flow verifies every caller.
     def _commit(self, new_params, new_opt, delta_buf, new_shadow,
                 push_ids) -> int:
         """Swap in an applied version (under ``_lock``, held by the
@@ -1009,6 +1017,8 @@ class ParameterServer:
             self._maybe_trip_server_kill(version_now)
         return True
 
+    # ewdml: requires[_update_lock] -- schema re-registration must never
+    # race another apply; guarded-by-flow verifies every caller holds it.
     def _apply_adapt_plan(self, plan) -> None:
         """Switch the push schema to ``plan`` (``ps.py:1259-1297``; under
         ``_update_lock``): the planned compressor, the payload template (a
@@ -1021,7 +1031,10 @@ class ParameterServer:
         comp = self.adapt.compressor(plan)
         zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in self.params]
-        template = compress_tree_fn(comp, zeros, prng.key(0))
+        template = compress_tree_fn(
+            # ewdml: allow[prng] -- payload-schema template over a zero
+            # tree; bytes discarded, only shapes/dtypes register
+            comp, zeros, prng.key(0))
         with self._lock:
             self.plan_version = plan.version
             self.compressor = comp
@@ -1045,6 +1058,8 @@ class ParameterServer:
     #: any wire retry's horizon.
     APPLIED_IDS_MAX = 8192
 
+    # ewdml: requires[_lock] -- id bookkeeping must commit atomically with
+    # the version bump it tags; guarded-by-flow verifies callers hold it.
     def _note_applied_ids(self, push_ids, version_now: int) -> None:
         for pid in push_ids:
             if pid:
@@ -1052,6 +1067,8 @@ class ParameterServer:
         while len(self._applied_ids) > self.APPLIED_IDS_MAX:
             self._applied_ids.pop(next(iter(self._applied_ids)))
 
+    # ewdml: requires[_update_lock] -- journal/snapshot ordering must stay
+    # serial with applies; guarded-by-flow verifies every caller holds it.
     def _journal_applied(self, version_now: int, batch, workers,
                          push_ids, weights=(), batch_pv: int = 0) -> None:
         """The apply's WAL record, durable on return, and a snapshot at
@@ -1112,6 +1129,8 @@ class ParameterServer:
                                              bool(opt["initialized"]))
         return leaves(tree["params"]), opt_state, leaves(tree["shadow"])
 
+    # ewdml: requires[_update_lock] -- the snapshot must be a point-in-time
+    # cut between applies (params/version/ids only move under this lock).
     def _write_snapshot(self) -> None:
         """A point-in-time snapshot between applies (under
         ``_update_lock``)."""
@@ -1155,6 +1174,8 @@ class ParameterServer:
             self._snapshot_every = max(0, int(snapshot_every))
             self._write_snapshot()
 
+    # ewdml: requires[_update_lock] -- trips only at the apply boundary,
+    # after every journal this apply owes is durable.
     def _maybe_trip_server_kill(self, version_now: int) -> None:
         """``serverkill@N``: SIGKILL this process after apply N commits and
         journals (under ``_update_lock``)."""
@@ -1276,6 +1297,9 @@ class ParameterServer:
                 f"{meta['scale_crc']} != live contract {crc} — the "
                 f"homomorphic sum would be garbage; refusing to serve")
 
+    # ewdml: requires[_update_lock] -- replay IS the apply path: the exact
+    # commit sequence of _push, minus journaling and policy hooks (the
+    # round completion this apply funded was journaled before the kill).
     def _replay_record(self, rec) -> None:
         """One WAL record through the live apply and commit, without the
         journal and the hooks (under ``_update_lock``)."""
@@ -1322,6 +1346,9 @@ class ParameterServer:
                 self._pd_deltas = {}
             self._pd_on = True
 
+    # ewdml: requires[_update_lock] -- publication rides the apply commit:
+    # the shadow replay and the version it claims must be serialized with
+    # the params bump (guarded-by-flow verifies every caller holds it).
     def _pd_publish(self, new_params, version_now: int) -> None:
         """Publish ``version_now`` (under ``_update_lock``, on the server's
         stream): a keyframe once ``keyframe_every`` versions have passed
@@ -1382,6 +1409,9 @@ class ParameterServer:
         with self._update_lock:
             return self._join_locked(int(worker))
 
+    # ewdml: requires[_update_lock] -- membership, K, and the journal must
+    # move atomically with respect to applies (the WAL's join records sit
+    # between the batch records they re-order K for).
     def _join_locked(self, worker: int, replay: bool = False) -> dict:
         already = self.policy.is_member(worker)
         self.policy.note_join(worker)
@@ -1538,8 +1568,13 @@ class AsyncWorker(threading.Thread):
         self.specs = specs
         self.debug_nans = debug_nans
         self.wire_dtype = wire_dtype
+        # ewdml: allow[guarded-by-flow] -- thread-owned: written on this
+        # worker's thread (run -> pull_params); callers read it, or call
+        # pull_params, only after join()
         self.params: Optional[list] = None
+        # ewdml: allow[guarded-by-flow] -- thread-owned, as params
         self.version = -1
+        # ewdml: allow[guarded-by-flow] -- thread-owned, as params
         self.base_version = -1
         # The adaptive plan this worker encodes under, and its compress
         # per plan key (a controller returning to a plan reuses it).
@@ -1761,6 +1796,8 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
     _, grads0 = grad_fn(copy.deepcopy(model), params,
                         torch.from_numpy(np.ascontiguousarray(wi)).to(device),
                         torch.from_numpy(np.ascontiguousarray(wl)).to(device),
+                        # ewdml: allow[prng] -- one-shot warm/template
+                        # gradient (wire schema + scale contract)
                         prng.key(0))
     adapt = None
     if adapt_cfg is not None and adapt_cfg.adapt != "off":
@@ -1794,8 +1831,8 @@ def build_async_ps(model, optimizer, data_iter_factory, *,
                              precision=precision, server_agg=server_agg,
                              health=health, seed=seed, adapt=adapt)
     shared_compress = make_compress_tree(compressor)
-    payload_template = (grads0 if shared_compress is None
-                        else shared_compress(grads0, prng.key(0)))
+    payload_template = grads0 if shared_compress is None \
+        else shared_compress(grads0, prng.key(0))  # ewdml: allow[prng] -- payload-schema template; bytes discarded, only shapes/dtypes register
     # Dense push frames honour the policy: the template and the workers'
     # per-step cast share one definition (core/precision.wire_cast).
     wire_dtype = (server.precision.wire_dtype

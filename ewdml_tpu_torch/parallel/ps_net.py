@@ -149,6 +149,10 @@ def _op_hist(registry, op, field="latency_s"):
     :data:`_OPS`."""
     label = op if op in _OPS else "other"
     assert field in _SEGMENT_FIELDS, field
+    # ewdml: allow[metric-name] -- bounded: `label` is clamped to the
+    # closed _OPS vocabulary above and `field` to _SEGMENT_FIELDS, so the
+    # name set is finite by construction (the rule exists to stop
+    # UNbounded f-string names).
     return registry.histogram(f"ps_net.{label}.{field}")
 
 
@@ -455,8 +459,10 @@ class EndpointSetup:
 
 
 def check_supported(cfg, role: str = "server") -> None:
-    """Reject, by name, every role and option of the TCP tier this slice
-    does not port."""
+    """Validate the wire plane's flags, and refuse by name ``--metrics-port``
+    on ``--role fed_driver``, where the JAX package accepts it and arms no
+    exporter (ROADMAP Queue 3 item 28). Every role of the TCP tier is
+    ported."""
     from ewdml_tpu_torch.core.config import validate_wire_plane
     from ewdml_tpu_torch.train.trainer import _reject, unserved_metrics_row
 
@@ -524,7 +530,12 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
     x = torch.zeros((cfg.batch_size, h, w, c), dtype=torch.float32,
                     device=device)
     y = torch.zeros((cfg.batch_size,), dtype=torch.int32, device=device)
-    _, grads0 = grad_fn(copy.deepcopy(model), params, x, y, prng.key(0))
+    _, grads0 = grad_fn(copy.deepcopy(model), params, x, y,
+                        # ewdml: allow[prng] -- warm/template gradient;
+                        # BOTH endpoints must derive the identical
+                        # schema, so the fixed key is part of the
+                        # cross-process contract
+                        prng.key(0))
     grads_scale = None
     if cfg.server_agg == "homomorphic" and comp is not None:
         from ewdml_tpu_torch.ops.homomorphic import make_homomorphic
@@ -546,8 +557,12 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
             if device.type == "cpu":
                 torch.set_num_threads(1)
             try:
-                _, grads_scale = grad_fn(copy.deepcopy(model), params, xs,
-                                         ys, prng.key(0))
+                _, grads_scale = grad_fn(
+                    copy.deepcopy(model), params, xs, ys,
+                    # ewdml: allow[prng] -- scale-contract template:
+                    # server and worker must derive identical grids
+                    # (fixed key IS the cross-process contract)
+                    prng.key(0))
                 if cfg.federated and cfg.local_steps > 1:
                     # A federated push is the pseudo-gradient (w0 - w)/lr:
                     # the sum of local_steps gradients, so the contract is
@@ -561,8 +576,10 @@ def build_endpoint_setup(cfg, device=None) -> EndpointSetup:
                     torch.set_num_threads(saved[2])
         comp = make_homomorphic(comp, grads_scale)
     compress_tree = ps.make_compress_tree(comp)
-    template = (grads0 if compress_tree is None
-                else compress_tree(grads0, prng.key(0)))
+    template = grads0 if compress_tree is None else compress_tree(
+        # ewdml: allow[prng] -- payload-schema template; bytes discarded,
+        # only shapes/dtypes register (and must match on both endpoints)
+        grads0, prng.key(0))
     if compress_tree is None and cfg.precision.bf16_wire:
         template = wire_cast(template, cfg.precision.wire_dtype)
     return EndpointSetup(model, comp, params, specs, grad_fn, compress_tree,
@@ -611,13 +628,13 @@ class _Endpoint:
         self.live = oserve.Live(self.cfg.metrics_port, self.registry,
                                 self.role)
 
-    def _init_endpoint(self, registry: Optional[MetricsRegistry]) -> None:
+    def __init__(self, registry: Optional[MetricsRegistry]) -> None:
         self.registry = registry if registry is not None else MetricsRegistry()
         self.bytes = ByteCounter(self.registry)
         self._shutdown = threading.Event()
         self._occ_lock = threading.Lock()
-        self._connections = 0
-        self._inflight = 0
+        self._connections = 0   # ewdml: guarded-by[_occ_lock]
+        self._inflight = 0      # ewdml: guarded-by[_occ_lock]
         self._g_conns = self.registry.gauge("ps_net.connections")
         self._g_inflight = self.registry.gauge("ps_net.inflight")
 
@@ -680,6 +697,9 @@ class _Endpoint:
         _op_hist(reg, op, "handler_s").observe(handler_ns / 1e9)
         if otrace.enabled():
             label = op if op in _OPS else "other"
+            # ewdml: allow[trace-name] -- bounded: `label` is clamped
+            # to the closed _OPS vocabulary, so the span-name set is
+            # finite (the rule stops UNbounded f-string names).
             otrace.complete(f"ps_net/{label}", t0_ns, dur_ns,
                             worker=header.get("worker"),
                             req=header.get("req"),
@@ -702,7 +722,12 @@ class _Endpoint:
                                 seg.serialize_ns, op=op,
                                 req=header.get("req"))
 
-    def _push_record(self, header: dict, sections: list):
+    def _push_record(self, header: dict, sections: list, **extra):
+        """The fields every push frame carries, as a
+        :class:`~ewdml_tpu_torch.parallel.ps.PushRecord`; ``extra`` holds
+        what only its op reads (a leaf push's ``round_id``, an
+        ``agg_push``'s ``weight`` and ``members``), as in the JAX
+        package's branches."""
         from ewdml_tpu_torch.parallel.ps import PushRecord
 
         return PushRecord(worker=int(header["worker"]),
@@ -711,10 +736,7 @@ class _Endpoint:
                           loss=float(header["loss"]),
                           push_id=str(header.get("push_id", "")),
                           plan_version=int(header.get("plan_version", 0)),
-                          round_id=int(header.get("round", -1)),
-                          weight=int(header.get("weight", 1)),
-                          members=tuple(int(m) for m in
-                                        header.get("members", ())))
+                          **extra)
 
 
 class PSNetServer(_Endpoint):
@@ -731,7 +753,7 @@ class PSNetServer(_Endpoint):
 
         check_supported(cfg, "server")
         self.cfg = cfg
-        self._init_endpoint(registry)
+        super().__init__(registry)
         otrace.configure(cfg.trace_dir, role="ps-server")
         otrace.maybe_configure_from_env(role="ps-server")
         # The abort verdict stops the accept loop (serve_forever returns,
@@ -751,7 +773,7 @@ class PSNetServer(_Endpoint):
         bn = _bn_buffers(self.model)
         self._bn_paths = [p for p, _ in bn]
         self._bn0 = [b.detach().clone() for _, b in bn]
-        self._latest_bn = None
+        self._latest_bn = None  # ewdml: guarded-by[_lock_bn]
         self._bn_unpack = (transfer.make_device_unpacker(self._bn0)
                            if self._bn0 else None)
         self._lock_bn = threading.Lock()
@@ -985,6 +1007,10 @@ class PSNetServer(_Endpoint):
                     if mode.startswith("weights")
                     else [np.asarray(b).tobytes() for b in payload])
             reply = {"op": "pull_ok", "mode": mode, "version": int(version),
+                     # ewdml: allow[wire-protocol] -- accounting echo: the
+                     # byte-oracle tests compare this app-level count
+                     # against the socket counters; the worker itself
+                     # deliberately ignores it (its oracle is the socket).
                      "nbytes": int(nbytes)}
             if self.server.server_agg == "homomorphic":
                 # The scale contract's CRC, paired with the plan version it
@@ -1002,7 +1028,10 @@ class PSNetServer(_Endpoint):
         if op == "push":
             try:
                 accepted = self.server.push(
-                    self._push_record(header, sections), retried=retried)
+                    self._push_record(
+                        header, sections,
+                        round_id=int(header.get("round", -1))),
+                    retried=retried)
             except StragglerKilled as e:
                 return self._kill_frame(e)
             return self._push_ok_frame(accepted)
@@ -1011,7 +1040,11 @@ class PSNetServer(_Endpoint):
             # pushes, judged at member granularity.
             try:
                 accepted, dups = self.server.push_subtree(
-                    self._push_record(header, sections), retried=retried)
+                    self._push_record(
+                        header, sections, weight=int(header.get("weight", 1)),
+                        members=tuple(int(m) for m in
+                                      header.get("members", ()))),
+                    retried=retried)
             except StragglerKilled as e:
                 return self._kill_frame(e)
             return self._agg_push_ok_frame(accepted, dups)
@@ -1528,7 +1561,9 @@ class _EvLoopPlane:
         records, retried, admitted = [], [], []
         for f in frames:
             try:
-                records.append(server._push_record(f.header, f.sections))
+                records.append(server._push_record(
+                    f.header, f.sections,
+                    round_id=int(f.header.get("round", -1))))
             except (KeyError, ValueError, TypeError, IndexError):
                 self._close_conn(f.conn)  # a malformed push: one session
                 continue

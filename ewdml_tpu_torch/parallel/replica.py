@@ -94,23 +94,26 @@ class PullReplicaServer(ps_net._Endpoint):
         validate_replicas(cfg)
         self.cfg = cfg
         self.server = _ReadOnlyPS()
-        self._init_endpoint(registry)
+        super().__init__(registry)
         otrace.configure(cfg.trace_dir, role=self.role)
         otrace.maybe_configure_from_env(role=self.role)
         # The served copy: the poll thread builds (flat, wire, version) off
         # the lock and swaps the references under it. _flat and _contract
         # belong to the poll thread (the bootstrap writes them first).
         self._lock = threading.Lock()
-        self._flat: Optional[np.ndarray] = None
-        self._contract = None
-        self._wire = b""
-        self._version = -1
-        self._kf_version = -1
-        # One writer each: pulls the loop thread, the rest the poll thread.
+        # _flat/_contract: rebound by whole-reference stores, never
+        # mutated in place.
+        self._flat: Optional[np.ndarray] = None  # ewdml: atomic
+        self._contract = None                    # ewdml: atomic
+        self._wire = b""         # ewdml: guarded-by[_lock]
+        self._version = -1       # ewdml: guarded-by[_lock]
+        self._kf_version = -1    # ewdml: guarded-by[_lock]
+        # One writer each: pulls the loop thread, the rest the poll thread
+        # (read racily, as advisory counts, by the stats op).
         self._pulls = 0
-        self._keyframes = 0
-        self._deltas = 0
-        self._polls = 0
+        self._keyframes = 0      # ewdml: atomic
+        self._deltas = 0         # ewdml: atomic
+        self._polls = 0          # ewdml: atomic
         reg = self.registry
         self._g_version = reg.gauge("replica.version")
         self._g_upstream = reg.gauge("replica.upstream_version")

@@ -42,7 +42,6 @@ import copy
 import itertools
 import logging
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -708,7 +707,7 @@ def profiled(profile_dir: Optional[str], device):
             torch.cuda.synchronize(device)
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir,
-                        f"torch_trace_{os.getpid()}_{time.time_ns()}.json")
+                        f"torch_trace_{os.getpid()}_{clock.wall_ns()}.json")
     prof.export_chrome_trace(path)
     logger.info("profile: %s", path)
 

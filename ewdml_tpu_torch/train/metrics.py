@@ -25,11 +25,11 @@ parameter server ships one payload per leaf: the two agree under
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass, field
 
 from ewdml_tpu_torch.core.config import (TrainConfig, resolve_fusion,
                                          resolved_unit_sizes)
+from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.ops import make_compressor
 from ewdml_tpu_torch.ops.bytes import numel
 
@@ -379,10 +379,10 @@ class StepTimer:
     _t0: float = field(default=0.0, repr=False)
 
     def tic(self):
-        self._t0 = time.perf_counter()
+        self._t0 = clock.monotonic()
 
     def toc_data(self):
-        self.data_s += time.perf_counter() - self._t0
+        self.data_s += clock.monotonic() - self._t0
 
     def add_window(self, elapsed_s: float, n_steps: int):
         self.step_s += max(0.0, elapsed_s)

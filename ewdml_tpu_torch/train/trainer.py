@@ -96,7 +96,8 @@ def has_dropout(model: torch.nn.Module) -> bool:
 
 
 def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
-    """Reject every option the port does not implement yet, by name.
+    """Refuse, by name, every option the port does not implement yet, and
+    those the JAX package accepts and ignores on this path.
 
     ``async_path`` checks a run of the in-process parameter server
     (``--mode async``, ``parallel/ps.py``) instead of the sync trainer."""
@@ -135,10 +136,12 @@ def _check_async_supported(cfg: TrainConfig) -> None:
         (cfg.round_pipeline != "off",
          f"--round-pipeline {cfg.round_pipeline} on the async path (a "
          "federated flag; --federated runs it)"),
-        # The JAX CLI accepts it here and never arms the relay (ROADMAP
-        # Queue 3 item 16); the TCP server arms it from the flag, and
-        # run_async_ps(relay_compress=True) is the in-process relay.
-        (cfg.lossy_weights_down, "--lossy-weights-down on the async path"),
+        # The TCP server arms it from the flag, and
+        # run_async_ps(relay_compress=True) is the in-process relay
+        # (ROADMAP Queue 3 item 16).
+        ignored_row(cfg.lossy_weights_down,
+                    "--lossy-weights-down on the async path",
+                    "it never arms the relay"),
         unserved_metrics_row(cfg, "the in-process async path"),
     ]
     _reject(unsupported)
@@ -147,19 +150,31 @@ def _check_async_supported(cfg: TrainConfig) -> None:
 def unserved_metrics_row(cfg: TrainConfig, path: str) -> tuple:
     """``--metrics-port`` on a path where the JAX package accepts the flag
     and arms no exporter (the in-process async CLI, the federated CLI and
-    ``--role fed_driver``; ROADMAP Queue 3 item 28): refused by name, with
-    that reason. The sync trainer, the evaluator and the ``ps_net``
-    server, worker, replica and aggregator serve it."""
-    return (cfg.metrics_port is not None,
-            f"--metrics-port on {path} (the JAX package accepts it there "
-            "and arms no exporter)")
+    ``--role fed_driver``; ROADMAP Queue 3 item 28): refused for good, by
+    name. The sync trainer, the evaluator and the ``ps_net`` server,
+    worker, replica and aggregator serve it."""
+    return ignored_row(cfg.metrics_port is not None,
+                       f"--metrics-port on {path}", "it arms no exporter")
+
+
+def ignored_row(bad: bool, what: str, effect: str) -> tuple:
+    """A refusal row for good: the JAX package accepts ``what`` on this
+    path and ignores it (``effect`` says how), so no later slice ports
+    it. A plain ``(bad, what)`` row waits on a later slice."""
+    return (bad, what, effect)
 
 
 def _reject(unsupported) -> None:
-    for bad, what in unsupported:
-        if bad:
+    """Raise ``NotImplementedError`` for the first row that applies."""
+    for bad, what, *ignored in unsupported:
+        if not bad:
+            continue
+        if ignored:
             raise NotImplementedError(
-                f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
+                f"{what} is refused: the JAX package accepts it here and "
+                f"ignores it ({ignored[0]})")
+        raise NotImplementedError(
+            f"{what} is not ported to ewdml_tpu_torch yet (ROADMAP.md)")
 
 
 def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,

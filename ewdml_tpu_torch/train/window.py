@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import torch
 
+from ewdml_tpu_torch.obs import clock
 from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.utils.keytable import HostKeys, KeyTable
@@ -117,7 +117,7 @@ class WindowStep:
         return cap.out.clone()
 
     def _capture(self, state, data, labels, key) -> _Captured:
-        t0 = time.perf_counter()
+        t0 = clock.monotonic()
         start = state.step
         gens = []
         if self.dropout:
@@ -146,5 +146,5 @@ class WindowStep:
         if self._pool is None:
             self._pool = graph.pool()
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += clock.monotonic() - t0
         return _Captured(graph, table, out, launches, ring_bytes)

@@ -22,7 +22,9 @@ Oracles:
   async worker's loss.
 - ``check_supported`` accepts the three flags and ``--health``; it accepts
   ``--metrics-port`` on the sync path and rejects it by name on the
-  in-process async path.
+  in-process async path. A refusal for good (a flag the JAX package
+  accepts and ignores there) never says "not ported"; one a later slice
+  lifts does.
 """
 
 import json
@@ -354,3 +356,35 @@ def test_check_supported_accepts_the_three_flags(tmp_path):
                 check_supported(metrics, async_path=True)
         else:
             check_supported(metrics)
+
+
+def test_permanent_refusals_do_not_say_not_ported():
+    """Exact: ``--lossy-weights-down`` and ``--metrics-port`` on the
+    in-process async path and ``--metrics-port`` on ``--role fed_driver``
+    (ROADMAP Queue 3 items 16 and 28), which the JAX package accepts and
+    ignores, are refused for good and say so; ``--num-slices > 1``, which
+    a later slice ports, still says it is not ported yet."""
+    from ewdml_tpu_torch.parallel import ps_net
+
+    refusals = [
+        (lambda: check_supported(from_args(
+            ["--mode", "async", "--lossy-weights-down"]), async_path=True),
+         "--lossy-weights-down"),
+        (lambda: check_supported(from_args(
+            ["--mode", "async", "--metrics-port", "0"]), async_path=True),
+         "--metrics-port"),
+        (lambda: ps_net.check_supported(
+            from_args(["--metrics-port", "0"]), "fed_driver"),
+         "--metrics-port on --role fed_driver"),
+    ]
+    for refuse, flag in refusals:
+        with pytest.raises(NotImplementedError) as e:
+            refuse()
+        msg = str(e.value)
+        assert msg.startswith(flag), msg
+        assert "the JAX package accepts it here and ignores it" in msg
+        assert "not ported" not in msg
+    with pytest.raises(NotImplementedError,
+                       match=r"^--num-slices > 1 .*not ported to "
+                             r"ewdml_tpu_torch yet"):
+        check_supported(from_args(["--num-slices", "2"]))
