@@ -92,13 +92,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the plan's); the ring kernels must launch as often as the rings hop;
    and the counts of each run are zeroed just before it and read just
    after it, so the checks around a run do not count.
-3b. The same runs, steps and checks on ResNet50 at full width (same data,
-   batch, W and precision; its 14 transport units, the 1 436-block
+3b. The same runs and checks on ResNet50 at full width, the 5-step runs
+   for 3 steps (same data, batch, W and precision; its 14 transport units,
+   the 1 436-block
    ``fused_q`` chunk). Every run of phases 3 and 3b prints a ``train`` line
    with its ``network=`` and its launches per step.
 3c. The device-resident feed and the scan window (``--feed device
-   --scan-window K``): VGG11-BN at the same shapes under M1, M4, M5 and M4
-   ``ring_rs --qsgd-block 4096`` with K = 8 for 24 steps, M6 with the auto
+   --scan-window K``): VGG11-BN at the same shapes under M4 with K = 8 for
+   24 steps (two replays), M1, M5 and M4 ``ring_rs --qsgd-block 4096``
+   with K = 8 for 16 steps (one replay), M6 with the auto
    K = 20 (its sync period) for 60 steps, and ResNet50 M4 with K = 8 for
    16 steps (capture at 161 leaves, one replay). Each runs twice from the same state,
    per-step (``--scan-window 1``) and windowed (a warm-up window of K
@@ -197,12 +199,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    full-table config for 3 epochs of 70 steps: epoch by epoch, windows of
    K = 20 with a 10-step per-step tail, so each window phase (0 and 10)
    is captured once for the cell and replayed in every later epoch.
-   (b) ``run_sweep("baseline", smoke=True)`` over two LeNet cells
-   (``SWEEP_CELLS``: M1, M2) as child processes on the card
-   with ``--fault-spec crash@1=3``: the crashed cell journals
-   ``cell_retry`` with rc 13 and resumes from step 2, every cell finishes,
-   ``REPRO.md`` is written with the other ten cells pending, and a
-   second invocation journals 2 ``cell_skipped`` and launches no child.
+   (b) ``run_sweep("baseline", smoke=True)`` over one LeNet cell
+   (``SWEEP_CELLS``: M2) as a child process on the card
+   with ``--fault-spec crash@0=3``: the crashed cell journals
+   ``cell_retry`` with rc 13 and resumes from step 2, the cell finishes,
+   ``REPRO.md`` is written with the other eleven cells pending, and a
+   second invocation journals 1 ``cell_skipped`` and launches no child.
    Each cell's wall is printed.
 
 8. The async parameter server's down-link and the run-health watchdog,
@@ -221,7 +223,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    block_top1 per leaf the Top-k stack selects in block mode, the same
    count of compresses. (c) ResNet50 with (a)'s flags. (d) The lossy
    weights-down relay, ``run_async_ps(relay_compress=True)``, beside the
-   same run without it: VGG11-BN QSGD decode, W = 4 at K = 1, 40 updates;
+   same run without it: VGG11-BN QSGD decode, W = 4 at K = 1, 20 updates;
    every pull ships the compressor's wire bytes; both loss curves
    printed (the paper's negative result on this path). (e) ``--health``
    through ``cli.main`` in process: VGG11-BN M4 ``--feed device
@@ -411,13 +413,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     must exit 0 with no finding against the committed (empty) baseline;
     it prints a ``lint files N new 0 suppressed S seconds T`` line. It
     launches no kernel.
+16. Multi-slice training on one card and the four examples. (a)
+    VGG11-BN at CIFAR-10 shapes, W = 8 in two slices of four
+    (``--num-workers 8 --num-slices 2``), batch 128 a worker, f32, TF32
+    off, under M1, M4, M5 (``--topk-ratio 0.01 --error-feedback``) and
+    M6 (21 steps: one sync, one adoption), each beside the same run at
+    one slice: the qsgd_quantize, dequant_mean and block_top1 launches
+    equal the reckoning from the two levels' units
+    (``slice_step_launches``), and the up-link bytes each level's
+    gathers ship equal ``wire_plan``'s rows (the ``dcn/`` ones per
+    worker); the step-time difference is the second level's cost. (b)
+    M5 with error feedback at 2 x 4 per-step against ``--feed device
+    --scan-window 8`` (one CUDA graph a window phase; deterministic
+    algorithms): rows, state and launches bit-equal, launches at the
+    reckoning. (c) The three kernels against their plain versions at the
+    ICI and DCN shapes of VGG11-BN's units (dequant_mean at K = 4 and
+    K = 2), dequant_mean at both K timed. (d) The four examples of
+    ``ewdml_tpu_torch/examples/`` on the card: the negative result at its
+    docstring's setting must end on its own verdict (the lossy weight
+    broadcast diverges: its final loss not finite or above 5x Method
+    2's), the experiment matrix (LeNet, six methods), the compressor
+    round trip (levels and indices equal to the CPU's), VGG11 and
+    ResNet18 on the real ``mnist10k32``.
 
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11, 12, 13 and 14 must be above 0, and the in-process runs of
+8, 9, 10, 11, 12, 13, 14 and 16 must be above 0, and the in-process runs of
 phases 4 and 9 to 14, and 14b's server process, must decode no leaf on
 the card with the plain version (every homomorphic apply decodes every
 quantized leaf in ``decode_set_launches`` launches: one up to 448
-leaves). ``--phase8-only`` to ``--phase15-only`` build and run that
+leaves). ``--phase8-only`` to ``--phase16-only`` build and run that
 phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
@@ -1484,6 +1508,7 @@ def check_ring_run(name, res, trainer, launched, steps) -> dict:
     return dict(ring_bytes_per_step=moved, planned_per_rank_bytes=planned)
 
 
+RESNET50_STEPS = 3  # 3b: the runs of 5 VGG11-BN steps (5 until phase 16)
 RUNS = [  # (name, steps, flags)
     ("M1", 5, ["--method", "1"]),
     ("M2", 5, ["--method", "2"]),
@@ -1510,6 +1535,8 @@ def train_phase(torch, kernels, network: str) -> tuple:
     per_method = {}
     counts = {k: 0 for k in kernels.LAUNCHES}
     for name, steps, flags in RUNS:
+        if network == "ResNet50" and steps == 5:
+            steps = RESNET50_STEPS
         argv = ["--network", network, "--dataset", "Cifar10",
                 "--synthetic-data", "--num-workers", str(WORLD),
                 "--batch-size", "128", "--topk-ratio", "0.01",
@@ -1565,12 +1592,13 @@ def train_phase(torch, kernels, network: str) -> tuple:
 # Phase 3c: the device-resident feed and the scan window. (name, network,
 # steps, K, flags); K = 0 is the auto window (Method 6: its sync period, 20).
 # Three windows a run: the warm-up (K per-step dispatches), the capture and
-# its first replay, a replay.
+# its first replay, a replay of the graph already captured; two (no second
+# replay) for the runs of 16 steps, cut from 24 when phase 16 came.
 WINDOW_RUNS = [
-    ("M1", "VGG11", 24, 8, ["--method", "1"]),
+    ("M1", "VGG11", 16, 8, ["--method", "1"]),
     ("M4", "VGG11", 24, 8, ["--method", "4"]),
-    ("M5", "VGG11", 24, 8, ["--method", "5"]),
-    ("M4 ring_rs", "VGG11", 24, 8, ["--method", "4", "--gather-type",
+    ("M5", "VGG11", 16, 8, ["--method", "5"]),
+    ("M4 ring_rs", "VGG11", 16, 8, ["--method", "4", "--gather-type",
                                      "ring_rs", "--qsgd-block", "4096"]),
     ("M6", "VGG11", 60, 0, ["--method", "6"]),
     # ResNet50's window is replayed once (16 steps), VGG11-BN's twice.
@@ -1661,7 +1689,7 @@ def window_phase(torch, kernels, runs_list=None) -> tuple:
                     f"{what}: {ws.eager_windows} eager windows, "
                     f"{ws.captures} captures, {ws.replays} replays; want "
                     f"1, 1, {windows - 1} (one replay per window)")
-            if rres.rows.shape != (steps, WORLD, 3) or not torch.equal(
+            if rres.rows.shape != (steps, ref.world.size, 3) or not torch.equal(
                     torch.from_numpy(wres.rows), torch.from_numpy(rres.rows)):
                 raise AssertionError(f"{what}: metrics rows differ")
             same_state(ref, win, what)
@@ -2857,7 +2885,7 @@ OVERLAP_RUNS = [  # 6e
     ("M3 fused_q", ["--method", "3", "--collective", "fused_q"]),
     ("M4 EF", ["--method", "4", "--error-feedback"]),
 ]
-OVERLAP_STEPS = 5
+OVERLAP_STEPS = 3       # 5 until phase 16
 
 
 def overlap_phase(torch, kernels, counts) -> dict:
@@ -2989,13 +3017,14 @@ REPRO_SCAN = ("baseline_scan", "lenet_mnist/m6_scan", 3)
 # 7a's cells launch these; block_top1 needs a top-k ratio <= 1/8 and the
 # table's M5/M6 keep the default 0.5, so it must stay at 0 there.
 REPRO_KERNELS = ("qsgd_quantize", "dequant_mean", "stochastic_round")
-REPRO_CRASH = "crash@1=3"  # lenet_mnist/m2 dies at step 3
-# 7b's sweep: two LeNet cells of the table (the sweep's machinery, not the
-# cells, is under test; 7a trains VGG11-BN cells in process), the second
-# crashed and resumed. Cut from the 12 cells once the whole script passed
-# 1 000 s with phase 12, and from three when phase 14 came: each child
-# costs ~18-32 s, mostly its start.
-SWEEP_CELLS = ("lenet_mnist/m1", "lenet_mnist/m2")
+REPRO_CRASH = "crash@0=3"  # lenet_mnist/m2 dies at step 3
+# 7b's sweep: one LeNet cell of the table (the sweep's machinery, not the
+# cells, is under test; 7a trains VGG11-BN cells in process), crashed and
+# resumed. Cut from the 12 cells once the whole script passed 1 000 s with
+# phase 12, to three when phase 14 came and to one when the script reached
+# 1 200 s on a slow host with phase 16: each child costs ~18-32 s, mostly
+# its start.
+SWEEP_CELLS = ("lenet_mnist/m2",)
 
 
 def repro_cell(torch, kernels, counts, table: str, cell_id: str, root: str,
@@ -3194,7 +3223,8 @@ DOWNLINK_RUNS = [  # 8a (with its --ps-down weights twin), 8b, 8c
     ("qsgd delta", "ResNet50", DELTA_FLAGS),
 ]
 DEVICE = "cuda"       # where phase 8 builds what it compares
-RELAY_STEPS = 10      # 8d: per worker at K = 1, so 40 updates
+RELAY_STEPS = 5       # 8d: per worker at K = 1, so 20 updates (40 until
+                      # phase 16)
 HEALTH_STEPS = 24     # 8e: three windows of K = 8
 HEALTH_ASYNC_STEPS = 50  # 8e: the async step budget per worker
 
@@ -3366,7 +3396,7 @@ def relay_runs(torch, kernels, counts) -> dict:
     """8d: the lossy weights-down relay (``run_async_ps(relay_compress=
     True)``, every pulled version through compress then decompress on the
     server) beside the same run without it, VGG11-BN QSGD decode, W = 4 at
-    K = 1, 40 updates each: the paper's negative result on the PS path."""
+    K = 1, 20 updates each: the paper's negative result on the PS path."""
     from ewdml_tpu_torch.core.config import from_args
     from ewdml_tpu_torch.data import datasets, loader
     from ewdml_tpu_torch.models import build_model, num_classes_for
@@ -6245,6 +6275,347 @@ def lint_phase() -> dict:
             "suppressed": report["suppressed"], "seconds": seconds}
 
 
+# Phase 16: multi-slice training (--num-slices 2 over W = 8: two slices of
+# four workers), then the four examples.
+SLICES = 2
+SLICE_WORKERS = 8
+SLICE_TRIO = ("qsgd_quantize", "dequant_mean", "block_top1")
+SLICE_RUNS = [  # 16a: (name, steps, flags), at two slices and at one
+    ("M1", 5, ["--method", "1"]),
+    ("M4", 5, ["--method", "4"]),
+    ("M5 EF", 5, ["--method", "5", "--error-feedback"]),
+    ("M6", 21, ["--method", "6"]),   # one sync (step 19): one adoption
+]
+SLICE_WINDOW = [  # 16b: window_phase's (name, network, steps, K, flags)
+    ("M5 EF 2x4", "VGG11", 24, 8,
+     ["--method", "5", "--error-feedback", "--num-workers",
+      str(SLICE_WORKERS), "--num-slices", str(SLICES)]),
+]
+
+
+def slice_argv(steps: int, flags, slices: int) -> list:
+    """16a: VGG11-BN at full width, CIFAR-10 shapes, W = 8 in ``slices``
+    slices, batch 128 a worker, Top-k at 1%."""
+    return ["--network", "VGG11", "--dataset", "Cifar10", "--synthetic-data",
+            "--num-workers", str(SLICE_WORKERS), "--num-slices", str(slices),
+            "--batch-size", "128", "--topk-ratio", "0.01",
+            "--max-steps", str(steps), "--epochs", "100", "--log-every",
+            "1000", "--no-bf16", "--eval-freq", "0", *flags]
+
+
+def slice_units(cfg) -> list:
+    """Element counts of VGG11-BN's transport units under ``cfg``."""
+    from ewdml_tpu_torch.core.config import resolved_unit_sizes
+    from ewdml_tpu_torch.models import build_model
+    from ewdml_tpu_torch.models.convert import leaf_specs
+
+    specs = leaf_specs(build_model(cfg.network, 10, dataset=cfg.dataset))
+    return resolved_unit_sizes(cfg, [math.prod(s.jax_shape) for s in specs])
+
+
+def slice_step_launches(cfg, units, kernels) -> dict:
+    """qsgd_quantize, dequant_mean and block_top1 launches of one sync step
+    of the hierarchical exchange: per unit, W payloads in the slices and S
+    over DCN (the DCN stage runs once for all W/S columns, every column's
+    inputs and keys being the same), a block_top1 for each where the unit
+    selects in blocks, a quantize for each and for the relay where the
+    quantized vector (the unit, its Top-k or its block winners) has at
+    least MIN_ELEMS elements; QSGD decodes once a slice (K = W/S rows)
+    and once over DCN (K = S) where the K x n levels reach MIN_ELEMS."""
+    from ewdml_tpu_torch.ops import blocktopk, topk
+
+    want = {k: 0 for k in SLICE_TRIO}
+    if not cfg.compression_enabled:
+        return want
+    per = SLICE_WORKERS // SLICES
+    relay = int(cfg.relay_compress and cfg.ps_mode == "grads")
+    encodes = SLICE_WORKERS + SLICES
+    for n in units:
+        m = n
+        if cfg.compress_grad == "topk_qsgd":
+            if topk.resolve_mode(cfg.topk_exact, n, cfg.topk_ratio) == "block":
+                want["block_top1"] += encodes
+                m = blocktopk.geometry(n, cfg.topk_ratio)[0]
+            else:
+                m = topk.static_k(n, cfg.topk_ratio)
+        else:
+            want["dequant_mean"] += (SLICES * (per * n >= kernels.MIN_ELEMS)
+                                     + (SLICES * n >= kernels.MIN_ELEMS))
+        if m >= kernels.MIN_ELEMS:
+            want["qsgd_quantize"] += encodes + relay
+    return want
+
+
+@contextlib.contextmanager
+def level_bytes():
+    """Count the payload bytes the gathers of each level ship (one
+    worker's payload a gather, its ``wire_bytes``): ``{"ici": .., "dcn":
+    ..}`` summed over the calls while the context is open. A gather over
+    W/S workers is a slice's, one over S a DCN column's."""
+    from ewdml_tpu_torch.core.world import LocalWorld, value_nbytes
+
+    seen = {"ici": 0, "dcn": 0}
+    gather = LocalWorld.all_gather
+
+    def counted(self, values):
+        level = {SLICE_WORKERS // SLICES: "ici", SLICES: "dcn"}.get(self.size)
+        if level is not None:
+            seen[level] += getattr(values[0], "wire_bytes", None) \
+                or value_nbytes(values[0])
+        return gather(self, values)
+
+    LocalWorld.all_gather = counted
+    try:
+        yield seen
+    finally:
+        LocalWorld.all_gather = gather
+
+
+def slice_run(torch, kernels, counts, name, steps, flags, slices) -> dict:
+    """One 16a run through the CLI's config and the Trainer: the launches
+    of the three kernels against the reckoning, and at two slices the
+    up-link bytes each level's gathers ship against ``wire_plan``'s rows
+    (the ``dcn/`` ones amortized over W/S)."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.train.loop import Trainer
+
+    cfg = from_args(slice_argv(steps, flags, slices))
+    trainer = Trainer(cfg)
+    what = f"slices {name} S={slices}"
+    if (trainer.world.size, trainer.world.num_slices) != (SLICE_WORKERS,
+                                                          slices):
+        raise AssertionError(f"{what}: world {trainer.world.size} in "
+                             f"{trainer.world.num_slices} slices")
+    with level_bytes() as shipped:
+        kernels.reset_launches()   # this run of the main path starts here
+        t0 = time.perf_counter()
+        res = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)  # read just after it
+    for k, v in launched.items():
+        counts[k] += v
+    if not math.isfinite(res.final_loss) or res.steps != steps:
+        raise AssertionError(f"{what}: {res.steps} of {steps} steps, loss "
+                             f"{res.final_loss}")
+    syncs = sum(1 for s in range(steps) if cfg.sync_every <= 1
+                or s % cfg.sync_every == cfg.sync_every - 1)
+    row = dict(slices=slices, steps=steps, syncs=syncs,
+               final_loss=res.final_loss, mean_step_ms=res.mean_step_s * 1e3,
+               wall_s=wall, wire_per_step=res.wire.per_step_bytes,
+               launches={k: launched[k] for k in SLICE_TRIO})
+    if slices > 1:
+        per_step = slice_step_launches(cfg, slice_units(cfg), kernels)
+        want = {k: v * syncs for k, v in per_step.items()}
+        if row["launches"] != want:
+            raise AssertionError(f"{what}: launches {row['launches']}, the "
+                                 f"two levels' units reckon {want}")
+        row["per_step_launches"] = per_step
+    if slices > 1 and cfg.compression_enabled:
+        # (M1's dense mean is one pmean over the W workers: no gather.)
+        up = res.wire.per_layer_up
+        dcn_up = sum(v for k, v in up.items() if k.startswith("dcn/"))
+        ici = shipped["ici"] / SLICES / syncs
+        dcn = shipped["dcn"] / (SLICE_WORKERS // SLICES) / syncs
+        if not (math.isclose(ici, res.wire.up_bytes - dcn_up, rel_tol=1e-12)
+                and math.isclose(dcn, dcn_up, rel_tol=1e-12)):
+            raise AssertionError(
+                f"{what}: the gathers ship {ici} B (ICI) and {dcn} B (DCN, "
+                f"per worker) up a sync step, the plan says "
+                f"{res.wire.up_bytes - dcn_up} and {dcn_up}")
+        if not any(k.startswith("dcn/") for k in up):
+            raise AssertionError(f"{what}: the plan has no dcn/ rows")
+        row.update(ici_up_bytes=ici, dcn_up_bytes=dcn)
+    ev = trainer.evaluate()
+    if not math.isfinite(ev["loss"]):
+        raise AssertionError(f"{what}: non-finite eval loss")
+    print(f"slices {name}: S={slices} W={SLICE_WORKERS} steps={steps} "
+          f"loss={res.final_loss:.4f} "
+          f"mean_step={res.mean_step_s * 1e3:.2f}ms wall={wall:.1f}s "
+          f"wire_per_step={res.wire.per_step_bytes} B "
+          f"launches={row['launches']} eval_loss={ev['loss']:.4f}"
+          + (f" ici_up={row['ici_up_bytes']} B dcn_up={row['dcn_up_bytes']}"
+             " B (= plan)" if "ici_up_bytes" in row else ""), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice_kernel_points(torch, kernels, timer) -> dict:
+    """16c: each kernel the hierarchical exchange launches against its
+    plain version at the ICI and DCN shapes of VGG11-BN's units (bit):
+    qsgd_quantize at each unit of MIN_ELEMS or more, dequant_mean at K =
+    W/S and K = S rows of each unit where they reach MIN_ELEMS, block_top1
+    at each unit's 1% block view; dequant_mean at both K timed at the
+    largest unit beside its bound."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.ops import blocktopk, topk
+
+    g = torch.Generator(device="cuda").manual_seed(160)
+    units = sorted(set(slice_units(from_args(slice_argv(1, ["--method", "4"],
+                                                        SLICES)))),
+                   reverse=True)
+    per = SLICE_WORKERS // SLICES
+    checked = {k: 0 for k in SLICE_TRIO}
+    for n in units:
+        x = torch.randn(n, device="cuda", generator=g) * 1e-2
+        if n >= kernels.MIN_ELEMS:
+            norms = torch.linalg.vector_norm(x)
+            seed = table_seed(torch, n % 1000 - 500)
+            a = kernels.qsgd_quantize(x, norms, seed, 127)
+            b = kernels.qsgd_quantize_ref(x, norms, seed, 127)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"qsgd_quantize n={n}: "
+                                     f"{int((a != b).sum())} levels differ")
+            checked["qsgd_quantize"] += 1
+        for k in (per, SLICES):
+            if k * n >= kernels.MIN_ELEMS:
+                same_dequant(torch, kernels, levels_on_card(torch, k, n, g),
+                             dequant_norms(torch, k, n, None, g), None,
+                             f"K={k} n={n}")
+                checked["dequant_mean"] += 1
+        if topk.resolve_mode(None, n, 0.01) == "block":
+            nb, _, blk_pad = blocktopk.geometry(n, 0.01)
+            x2 = torch.zeros(blk_pad * nb, device="cuda")
+            x2[:n] = x
+            same_top1(torch, kernels, x2.reshape(blk_pad, nb),
+                      f"({blk_pad}, {nb})")
+            checked["block_top1"] += 1
+    n = units[0]
+    rows = []
+    for k in (per, SLICES):
+        lv = levels_on_card(torch, k, n, g)
+        nm = dequant_norms(torch, k, n, None, g)
+        rows.append(shape_row(
+            timer, lambda lv=lv, nm=nm: kernels.dequant_mean(lv, nm, 127),
+            KERNEL_NAMES["dequant_mean"], (k + 4) * n + 4 * k,
+            (2 * k + 1) * n, n=n, k=k,
+            level="ICI" if k == per else "DCN"))
+    for r in rows:
+        print(f"shape slices dequant_mean K={r['k']} ({r['level']}) "
+              f"n={r['n']}: {r['ms']:.4f} ms, {on_card(r)} (bound "
+              f"{r['bound_ms']:.4f} ms)", flush=True)
+    print(f"slices kernels: {checked} bit-equal to their plain versions",
+          flush=True)
+    return dict(checked=checked, dequant_mean=rows)
+
+
+def example_run(module, argv) -> tuple:
+    """Run an example's ``main`` in this process; its exit code and its
+    output (also printed)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv}: exit {rc}")
+    return out, seconds
+
+
+def examples_run(torch) -> dict:
+    """16d: the four examples on the card. The negative result at its
+    docstring's setting (VGG11, W = 2, batch 8, lr 0.01, 40 steps, s = 127)
+    must be its own verdict (exit 0: the lossy weight broadcast diverges,
+    the last finite loss on its curve above 5x Method 2's final loss) with
+    Method 2 below 3; the round trip's levels and indices on the card
+    equal the CPU's (the threefry draw kernel against its plain version)."""
+    import re
+
+    from ewdml_tpu_torch.examples import (compressor_roundtrip,
+                                          deep_real_pixels, experiment_matrix,
+                                          weight_compression_negative)
+
+    out, secs = {}, {}
+    text, secs["weight_compression_negative"] = example_run(
+        weight_compression_negative, [])
+    lossy = float(re.search(r"lossy-weights-down: final=(\S+)", text)[1])
+    finite = float(re.search(r"lossy-weights-down: .* last_finite=(\S+)",
+                             text)[1])
+    m2 = float(re.search(r"method2-grads: final=(\S+)", text)[1])
+    if not weight_compression_negative.diverged(finite, m2) or not m2 < 3:
+        raise AssertionError(f"negative result: lossy {lossy} (last finite "
+                             f"{finite}), M2 {m2}")
+    curve = re.search(r"lossy-weights-down: .* curve: (.*)", text)[1]
+    out["negative"] = dict(lossy_final_loss=str(lossy),
+                           lossy_last_finite=finite, m2_final_loss=m2,
+                           lossy_curve=curve)
+    text, secs["experiment_matrix"] = example_run(
+        experiment_matrix, ["--network", "LeNet", "--dataset", "MNIST",
+                            "--max-steps", "5", "--num-workers", "4"])
+    out["matrix_methods"] = len([ln for ln in text.splitlines()
+                                 if ln.startswith("method ")])
+    if out["matrix_methods"] != 6:
+        raise AssertionError(f"experiment matrix: {out['matrix_methods']} "
+                             "methods of 6")
+    _, secs["compressor_roundtrip"] = example_run(compressor_roundtrip, [])
+    for (name, _, _, p, dec), (_, _, _, q, ref) in zip(
+            compressor_roundtrip.roundtrips("cuda"),
+            compressor_roundtrip.roundtrips("cpu")):
+        for field in ("levels", "indices"):
+            if hasattr(p, field) and not torch.equal(
+                    getattr(p, field).cpu(), getattr(q, field)):
+                raise AssertionError(f"round trip {name}: {field} differ "
+                                     "between the card and the CPU")
+        # The norms may round an ulp apart between the two devices.
+        if not torch.allclose(dec.cpu(), ref, rtol=1e-6, atol=0):
+            raise AssertionError(f"round trip {name}: decompressed values "
+                                 "differ between the card and the CPU")
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    text, secs["deep_real_pixels"] = example_run(
+        deep_real_pixels, ["--num-workers", "2", "--max-steps", "5",
+                           "--data-dir", data + "/",
+                           "--only", "VGG11/M1", "ResNet18/M5+EF@1%"])
+    out["deep_rows"] = text.count("(1000 real)")
+    if out["deep_rows"] != 2:
+        raise AssertionError("deep_real_pixels: 2 configs expected")
+    out["seconds"] = secs
+    print(f"examples: {json.dumps(out)}", flush=True)
+    return out
+
+
+def slices_phase(torch, kernels) -> tuple:
+    """Phase 16: multi-slice training on one card (16a-c), then the four
+    examples (16d)."""
+    from ewdml_tpu_torch.core.config import from_args
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    runs = {}
+    for name, steps, flags in SLICE_RUNS:
+        two = slice_run(torch, kernels, counts, name, steps, flags, SLICES)
+        one = slice_run(torch, kernels, counts, name, steps, flags, 1)
+        runs[name] = dict(two, one_slice_ms=one["mean_step_ms"],
+                          second_level_ms=two["mean_step_ms"]
+                          - one["mean_step_ms"])
+    win_counts, windows = window_phase(torch, kernels, SLICE_WINDOW)
+    for k, v in win_counts.items():
+        counts[k] += v
+    for (name, _, steps, _, flags), row in zip(SLICE_WINDOW,
+                                               windows.values()):
+        cfg = from_args(slice_argv(steps, flags, SLICES))
+        want = {k: v * steps for k, v in slice_step_launches(
+            cfg, slice_units(cfg), kernels).items()}
+        got = {k: row["launches"][k] for k in SLICE_TRIO}
+        if got != want:
+            raise AssertionError(f"window {name}: launches {got}, the two "
+                                 f"levels reckon {want}")
+    timer = Timer(torch)
+    points = slice_kernel_points(torch, kernels, timer)
+    del timer
+    torch.cuda.empty_cache()
+    examples = examples_run(torch)
+    torch.cuda.empty_cache()
+    return counts, dict(runs=runs, window=windows, kernels=points,
+                        examples=examples)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6277,6 +6648,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase15-only", action="store_true",
                         help="build, then run phase 15 alone (no result "
+                             "line)")
+    parser.add_argument("--phase16-only", action="store_true",
+                        help="build, then run phase 16 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -6378,6 +6752,14 @@ def main(argv=None) -> int:
         lint = lint_phase()
         print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
         print("lint: " + json.dumps(lint), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase16_only:
+        t16 = time.perf_counter()
+        net_counts, slices = slices_phase(torch, kernels)
+        print(f"phase 16: {time.perf_counter() - t16:.1f}s", flush=True)
+        print("slices: " + json.dumps(slices), flush=True)
+        print("phase 16 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -6507,6 +6889,13 @@ def main(argv=None) -> int:
     t15 = time.perf_counter()
     lint = lint_phase()
     print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
+    # Phase 16: multi-slice training and the four examples.
+    t16 = time.perf_counter()
+    net_counts, slices = slices_phase(torch, kernels)
+    print(f"phase 16: {time.perf_counter() - t16:.1f}s", flush=True)
+    print("phase 16 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     print("kernels: " + json.dumps(counts), flush=True)
     for name, n in counts.items():
         if n <= 0:
@@ -6534,6 +6923,7 @@ def main(argv=None) -> int:
     print("adapt: " + json.dumps(adapt), flush=True)
     print("live: " + json.dumps(live), flush=True)
     print("lint: " + json.dumps(lint), flush=True)
+    print("slices: " + json.dumps(slices), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -275,7 +275,10 @@ def validate_overlap(cfg: TrainConfig) -> None:
     if cfg.mode == "async":
         raise ValueError("--overlap bucket applies to the sync trainer")
     if cfg.num_slices > 1:
-        raise ValueError("--overlap bucket supports single-slice meshes only")
+        raise ValueError(
+            "--overlap bucket supports single-slice meshes only (the "
+            "hierarchical ICI+DCN exchange has its own two-level schedule; "
+            "bucketing it is the elastic multi-hop item, ROADMAP)")
     if cfg.adapt != "off":
         raise ValueError("--overlap bucket is incompatible with --adapt")
     if cfg.compression_enabled and cfg.gather_type in ("ring", "ring_rs"):

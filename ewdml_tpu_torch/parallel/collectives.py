@@ -27,7 +27,9 @@ every worker; the phase-2 hops still run, as they move (and
 ``LocalWorld.ppermute_bytes`` counts) the bytes a real ring ships. Only
 the per-rank "own payload" of error feedback differs between ranks.
 
-The multi-slice exchange is a later slice.
+On a two-level world (``--num-slices S``),
+:func:`hierarchical_compressed_allreduce` runs the compressed exchange
+within each slice (ICI), then once more over the slices' averages (DCN).
 """
 
 from __future__ import annotations
@@ -273,6 +275,28 @@ def bucket_tree(leaves: list, bucket_bytes: int):
     return buckets, unsplit
 
 
+def _fusion_units(grads: list, fuse: bool, bucket_bytes):
+    """Each worker's leaves as its transport units (one flat bucket under
+    ``fuse``, ~``bucket_bytes`` buckets otherwise), and ``unfuse(result,
+    with_own)``, which splits an exchange's result over those units (and
+    each worker's own view, ``with_own``) back into leaves."""
+    parts = [fuse_tree(g) if fuse else bucket_tree(g, bucket_bytes)
+             for g in grads]
+    units = [[p[0]] if fuse else p[0] for p in parts]
+    unsplit = parts[0][1]  # the same leaf shapes on every worker
+
+    def split(vals):
+        return unsplit(vals[0]) if fuse else unsplit(vals)
+
+    def unfuse(result, with_own: bool):
+        if with_own:
+            avg, own = result
+            return split(avg), [split(o) for o in own]
+        return split(result)
+
+    return units, unfuse
+
+
 def _accept_rotating(gathered, num_aggregate: int, world: int, step: int):
     """K-of-N acceptance: keep origins ``{(step + j) % W : j < K}``, in that
     order. Returns ``(gathered', k_accepted)``."""
@@ -411,21 +435,12 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
             "transport units; fusion would merge leaves with different "
             "decisions into one payload (--fusion none)")
     if fuse or bucket_bytes:
-        parts = [fuse_tree(g) if fuse else bucket_tree(g, bucket_bytes)
-                 for g in grads]
-        units = [[p[0]] if fuse else p[0] for p in parts]
-        unsplit = parts[0][1]  # the same leaf shapes on every worker
-
-        def split(vals):
-            return unsplit(vals[0]) if fuse else unsplit(vals)
-        result = compressed_allreduce(
+        units, unfuse = _fusion_units(grads, fuse, bucket_bytes)
+        return unfuse(compressed_allreduce(
             world, units, compressor, key, num_aggregate=num_aggregate,
             relay=relay, relay_key=relay_key, transport=transport,
-            return_own_decompressed=return_own_decompressed, step=step)
-        if return_own_decompressed:
-            avg, own = result
-            return split(avg), [split(o) for o in own]
-        return split(result)
+            return_own_decompressed=return_own_decompressed, step=step),
+            return_own_decompressed)
 
     if transport == "ring_rs" and return_own_decompressed:
         raise ValueError(
@@ -491,6 +506,62 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
     if return_own_decompressed:
         return out, own
     return out
+
+
+#: The DCN stage's fold of the step key (``collectives.py:767``).
+DCN_TAG = 0xDC4
+
+
+def hierarchical_compressed_allreduce(world: LocalWorld, grads: list,
+                                      compressor, key, relay: bool = False,
+                                      relay_key=None, fuse: bool = False,
+                                      bucket_bytes: int | None = None,
+                                      return_own_decompressed: bool = False):
+    """The two-level exchange of a multi-slice world (``collectives.py:720``):
+    :func:`compressed_allreduce` within each slice under the step ``key``
+    (the ICI stage, no relay), then over the S slice averages under
+    ``fold_in(key, 0xDC4)`` (the DCN stage, with the relay).
+
+    ``grads[r]`` is worker r's list of leaves, r linear over the slices.
+    ``fuse`` and ``bucket_bytes`` split the tree once, around both levels.
+    A slice's average is the same on each of its workers, so every DCN
+    column exchanges the same S values under the same keys: the stage is
+    computed once, over column 0's world (``world.dcn(0)``, the only DCN
+    sub-world the path builds), and its result handed to all W/S columns.
+
+    With ``return_own_decompressed`` also returns each worker's effective
+    transmitted view across both stages, ``own_ici + own_dcn - within``,
+    so the residual ``g - own_eff`` is its ICI error plus its slice's DCN
+    error (the same DCN term on every worker of a slice)."""
+    if fuse or bucket_bytes:
+        units, unfuse = _fusion_units(grads, fuse, bucket_bytes)
+        return unfuse(hierarchical_compressed_allreduce(
+            world, units, compressor, key, relay=relay, relay_key=relay_key,
+            return_own_decompressed=return_own_decompressed),
+            return_own_decompressed)
+    within, own_ici = [], []
+    for s in range(world.num_slices):
+        ici = world.ici(s)
+        res = compressed_allreduce(
+            ici, [grads[r] for r in ici.members], compressor, key,
+            return_own_decompressed=return_own_decompressed)
+        if return_own_decompressed:
+            res, own = res
+            own_ici.extend(own)
+        within.append(res)
+    res = compressed_allreduce(
+        world.dcn(0), within, compressor, prng.fold_in(key, DCN_TAG),
+        relay=relay, relay_key=relay_key,
+        return_own_decompressed=return_own_decompressed)
+    if not return_own_decompressed:
+        return res
+    across, own_dcn = res
+    own_eff = []
+    for r in world.ranks:
+        s = world.coords(r)[0]
+        own_eff.append([a + b - w for a, b, w in
+                        zip(own_ici[r], own_dcn[s], within[s])])
+    return across, own_eff
 
 
 def adopt_best_worker(params: list, losses: torch.Tensor) -> list:

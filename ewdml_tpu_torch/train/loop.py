@@ -49,8 +49,7 @@ import numpy as np
 import torch
 
 from ewdml_tpu_torch.core.config import TrainConfig, resolve_scan_window
-from ewdml_tpu_torch.core.world import (LocalWorld, default_num_workers,
-                                        resolve_device)
+from ewdml_tpu_torch.core.world import build_world, resolve_device
 from ewdml_tpu_torch.data import datasets, loader
 from ewdml_tpu_torch.models import build_model, convert, num_classes_for
 from ewdml_tpu_torch.obs import clock
@@ -126,8 +125,8 @@ class Trainer:
         self.device = resolve_device(cfg.platform, device)
         if cfg.pallas != "auto":
             kernels.configure(cfg.pallas)
-        self.world = LocalWorld(cfg.num_workers or default_num_workers(self.device),
-                                self.device)
+        # --num-slices S: the two-level (dcn, data) world (loop.py:114-116).
+        self.world = build_world(cfg.num_workers, cfg.num_slices, self.device)
         self.model = build_model(cfg.network, num_classes_for(cfg.dataset),
                                  dataset=cfg.dataset, seed=cfg.seed)
         self.specs = convert.leaf_specs(self.model)

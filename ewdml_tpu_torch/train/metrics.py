@@ -1,7 +1,7 @@
 """Analytic bytes-on-wire plan and the per-step log schema
-(``ewdml_tpu/train/metrics.py:26-304``: the single-slice sync trainer and
-the async parameter server's rows; ``:354-479``: one federated round's
-plan, :func:`federated_wire_plan`).
+(``ewdml_tpu/train/metrics.py:26-352``: the sync trainer, one slice or
+more, and the async parameter server's rows; ``:354-479``: one federated
+round's plan, :func:`federated_wire_plan`).
 
 The plan prices the payloads the exchange ships: per transport unit (a
 leaf, or a fused bucket under the resolved fusion), the up-link payload
@@ -154,16 +154,20 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None,
     ``compressor`` overrides the config's: the adaptive controller passes
     its per-unit ``PlannedCompressor``, so the per-layer rows describe the
     decisions in force (``for_leaf`` dispatch; adaptive runs are
-    per-layer, so unit index == row)."""
-    if cfg.num_slices > 1:
-        raise NotImplementedError("wire_plan covers the single-slice "
-                                  "exchange")
+    per-layer, so unit index == row).
+
+    Multi-slice (``num_slices > 1``): the hierarchical exchange adds a DCN
+    level, one payload each way per slice, amortized over the slice's
+    ``world / num_slices`` workers (rows ``dcn/<unit>``; unamortized
+    without ``world``), and the exchange is priced as one ``<monolithic>``
+    bucket (``--overlap bucket`` is single-slice)."""
     comp = compressor if compressor is not None else make_compressor(
         cfg.compress_grad, cfg.quantum_num, cfg.topk_ratio, cfg.topk_exact,
         cfg.qsgd_block)
     leaves = [(leaf_path_name(name), tuple(shape)) for name, shape in leaves]
     sizes = [numel(shape) for _, shape in leaves]
-    overlap_on = cfg.overlap == "bucket" and cfg.mode != "async"
+    overlap_on = (cfg.overlap == "bucket" and cfg.mode != "async"
+                  and cfg.num_slices == 1)
     oplan = None
     if overlap_on:
         from ewdml_tpu_torch.parallel.overlap import plan_buckets
@@ -228,6 +232,15 @@ def wire_plan(cfg: TrainConfig, leaves, world: int | None = None,
             down[name] = elems * 4          # dense relay of M2, f32
         else:
             down[name] = dense_wire         # dense down leg (M3)
+    if cfg.num_slices > 1 and cfg.compression_enabled:
+        # The DCN level (metrics.py:305-313): per slice one compressed
+        # payload up, and down the relay's payload or the dense average.
+        wps = max(1, (world // cfg.num_slices) if world else 1)
+        for name in list(up):
+            up[f"dcn/{name}"] = up[name] / wps
+            down_bytes = (up[name] if cfg.relay_compress
+                          else down.get(name, up[name]))
+            down[f"dcn/{name}"] = down_bytes / wps
     n_params = sum(sizes)
     adopt = n_params * 4 + 4 if cfg.sync_every > 1 else 0
     if overlap_on:

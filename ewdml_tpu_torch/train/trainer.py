@@ -5,7 +5,10 @@ batch; the gradients go through the exchange (dense pmean or the int8-wire
 ``fused_q`` ring; or the compressed collective over the gather, ``ring`` or
 ``ring_rs`` transport, with optional error feedback and K-of-N
 acceptance); every worker applies SGD; under Method 6 the exchange runs only
-at sync steps, which also adopt the lowest-loss worker's weights.
+at sync steps, which also adopt the lowest-loss worker's weights. On a
+multi-slice world (``--num-slices > 1``) the compressed exchange is the
+two-level ICI+DCN one, error feedback included; the dense mean and Method
+6's adoption stay flat over all W workers.
 
 The precision policy (``core/precision.py``) narrows the dense wire and the
 error-feedback residuals to bf16 under ``bf16_wire`` and the optimizer
@@ -112,7 +115,6 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
         (cfg.mode != "normal", f"--mode {cfg.mode} (the sync trainer; "
                                "--mode async runs the parameter server)"),
         (cfg.federated, "--federated"),
-        (cfg.num_slices > 1, "--num-slices > 1 (multislice)"),
     ]
     _reject(unsupported)
 
@@ -226,6 +228,13 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             "--gather-type ring_rs is incompatible with --error-feedback "
             "and with K-of-N --num-aggregate (per-hop requantization has "
             "no per-rank own-payload); use the default gather transport")
+    multislice = world.num_slices > 1
+    if multislice and not dense and (
+            cfg.num_aggregate or cfg.gather_type in ("ring", "ring_rs")):
+        raise ValueError(
+            "--num-slices > 1 uses the hierarchical ICI+DCN exchange, which "
+            "does not support --num-aggregate or ring transports; drop "
+            "those flags or train single-slice")
     ef = cfg.error_feedback and not dense
     specs = leaf_specs(model)
     kinds = [s.kind for s in specs]
@@ -277,8 +286,15 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                 # The int8-wire ring; its hops draw from the step key,
                 # folded per rank inside the collective.
                 return collectives.fused_q_allreduce_mean(world, grads, skey)
+            # Multi-slice too: one mean over all W workers in linear
+            # order (the pmean over the (dcn, data) axes).
             return collectives.dense_allreduce_mean(world, grads,
                                                     wire_dtype=wire_dtype)
+        if multislice:
+            return collectives.hierarchical_compressed_allreduce(
+                world, grads, compressor, skey, relay=relay,
+                relay_key=prng.fold_in(skey, RELAY_TAG), fuse=fuse,
+                bucket_bytes=bucket_bytes, return_own_decompressed=return_own)
         return collectives.compressed_allreduce(
             world, grads, compressor, skey, num_aggregate=cfg.num_aggregate,
             relay=relay, relay_key=prng.fold_in(skey, RELAY_TAG),

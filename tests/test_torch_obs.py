@@ -362,8 +362,10 @@ def test_permanent_refusals_do_not_say_not_ported():
     """Exact: ``--lossy-weights-down`` and ``--metrics-port`` on the
     in-process async path and ``--metrics-port`` on ``--role fed_driver``
     (ROADMAP Queue 3 items 16 and 28), which the JAX package accepts and
-    ignores, are refused for good and say so; ``--num-slices > 1``, which
-    a later slice ports, still says it is not ported yet."""
+    ignores, are refused for good and say so; a row that waits on a later
+    slice (``--pull-delta`` on the in-process async path) still says it is
+    not ported yet, and ``--num-slices > 1``, ported since, is no longer
+    refused."""
     from ewdml_tpu_torch.parallel import ps_net
 
     refusals = [
@@ -385,6 +387,8 @@ def test_permanent_refusals_do_not_say_not_ported():
         assert "the JAX package accepts it here and ignores it" in msg
         assert "not ported" not in msg
     with pytest.raises(NotImplementedError,
-                       match=r"^--num-slices > 1 .*not ported to "
+                       match=r"^--pull-delta .*not ported to "
                              r"ewdml_tpu_torch yet"):
-        check_supported(from_args(["--num-slices", "2"]))
+        check_supported(from_args(["--mode", "async", "--pull-delta"]),
+                        async_path=True)
+    check_supported(from_args(["--num-slices", "2"]))
