@@ -98,10 +98,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``fused_q`` chunk). Every run of phases 3 and 3b prints a ``train`` line
    with its ``network=`` and its launches per step.
 3c. The device-resident feed and the scan window (``--feed device
-   --scan-window K``): VGG11-BN at the same shapes under M4 with K = 8 for
-   24 steps (two replays), M1, M5 and M4 ``ring_rs --qsgd-block 4096``
-   with K = 8 for 16 steps (one replay), M6 with the auto
-   K = 20 (its sync period) for 60 steps, and ResNet50 M4 with K = 8 for
+   --scan-window K``): VGG11-BN at the same shapes under M4, M1, M5 and
+   M4 ``ring_rs --qsgd-block 4096`` with K = 8 for 16 steps (one replay;
+   M4 24 steps, two replays, until phase 17), M6 with the auto
+   K = 20 (its sync period) for 40 steps, and ResNet50 M4 with K = 8 for
    16 steps (capture at 161 leaves, one replay). Each runs twice from the same state,
    per-step (``--scan-window 1``) and windowed (a warm-up window of K
    per-step dispatches, then one CUDA graph captured and replayed once per
@@ -169,7 +169,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    replicas bit-identical), 5 steps each;
    (c) M2 ``--optimizer adam`` under f32 and ``bf16_wire_state``; (d)
    ``--compress-grad qsgd --ps-mode weights --lossy-weights-down`` beside
-   ``--method 2``, 40 steps each (``--feed device``, deterministic
+   ``--method 2``, 16 steps each (``--feed device``, deterministic
    kernels): after every step every weight leaf equals ``dec(compress(W))``
    of the plain compressor under the step's key (W from a twin Trainer
    without the lossy broadcast, from the same state), and the example's
@@ -180,7 +180,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    launches), the per-bucket bytes summing to ``per_step_bytes``, the step
    time with overlap on and off printed; (f) phase 3c's check on VGG11-BN
    M4 EF Adam ``bf16_wire_state`` and ResNet50 M4 ``bf16_wire_state`` (K =
-   8, 24 and 16 steps) and phase 5's resume on the VGG11-BN one (8 + 8); (g) the
+   8, 16 steps each) and phase 5's resume on the VGG11-BN one (8 + 8); (g) the
    async PS (phase 4's checks) with dense ``bf16_wire`` frames (half the
    f32 bytes, the plan's) and QSGD decode under Adam ``bf16_wire_state``.
 
@@ -239,7 +239,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 9. The TCP tier (``ewdml_tpu_torch/parallel/ps_net.py``) on VGG11-BN at
    the same shapes (``--fusion none``). (a) A ``PSNetServer`` serving in a
-   thread and four ``PSNetWorker`` threads over localhost sockets, 4 steps
+   thread and four ``PSNetWorker`` threads over localhost sockets, 3 steps
    a worker, on each wire plane (``threads``, ``evloop``): QSGD
    ``--server-agg homomorphic`` at K = 4 and QSGD ``decode`` at K = 2.
    Every launch count equals phase 4's reckoning for the pushes and
@@ -250,8 +250,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the dense pulls; one decode a round homomorphic, K decode. Printed:
    ``apply_ms_mean`` and the push and pull queue/handler p50 and p99 of
    the reply's ``segments``. (b) A server with ``--server-state-dir`` and
-   ``--snapshot-every 4`` applies 10 K = 2 batches of two TCP workers'
-   frames; a second server recovers from the directory (the snapshot at 8
+   ``--snapshot-every 4`` applies 6 K = 2 batches of two TCP workers'
+   frames; a second server recovers from the directory (the snapshot at 4
    and two WAL records) to the same version, parameters, momentum and
    shadow bit for bit, and acknowledges every recorded push again as a
    duplicate. Printed: the snapshot's bytes, a write's seconds, the WAL
@@ -259,7 +259,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ewdml_tpu_torch.parallel.ps_net --role server --server-state-dir D
    --fault-spec serverkill@5 --server-agg homomorphic`` (K = 1; every
    process derives the scale contract on its own and each worker checks
-   the server's scale CRC on its pulls), two worker processes of 8 steps
+   the server's scale CRC on its pulls), two worker processes of 5 steps
    and a late joiner (``join@2=3``, 4 steps); the server dies by SIGKILL
    at apply 5 and is started again on the same port and directory; every
    worker exits 0 with ``PS_NET_WORKER_DONE`` after at least one
@@ -276,7 +276,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``push_subtree``, summed as an aggregator sums them: a torch sum, then
     the decode set at k) at leaf weights 2+2, 1+2 and 3+3: parameters and
     momentum bit-equal, one decode each, no ``int_accumulate`` on the tree
-    arm and every launch at its count. (b) A server with ``--pull-delta --keyframe-every 4`` takes 10
+    arm and every launch at its count. (b) A server with ``--pull-delta --keyframe-every 4`` takes 6
     K = 1 applies: a ``subscribe`` after each replays through
     ``pd_apply_delta`` onto the server's publication shadow bit for bit,
     and onto the parameters at each keyframe; a keyframe is 4 n bytes and
@@ -285,7 +285,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     handler's p50 and p99 printed). (c) Across processes: an apply server
     on the card (K = 4, ``--pull-delta``), two replica processes, two
     aggregator processes and four worker processes on the card
-    (``--replicas``, ``--agg-tree``), 4 steps a worker; replica 0 is
+    (``--replicas``, ``--agg-tree``), 3 steps a worker; replica 0 is
     SIGKILLed at version 2 and the workers fail over to replica 1. The
     apply server serves no pull; the leaf weight admitted equals the
     leaf pushes; one decode a round; the root's in-link is its
@@ -306,7 +306,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``lenet_mnist/fed_c8_dir01_drop`` cell through ``cli.main``: LeNet on
     the committed ``mnist10k``, M4, batch 64, lr 0.01, momentum 0,
     homomorphic, pool 64, cohort 8, 5 local steps, Dirichlet 0.1,
-    ``crash@3=1,crash@11=1,crash@42=1``, 20 rounds; its round ledger
+    ``crash@3=1,crash@11=1,crash@42=1``, 10 rounds; its round ledger
     byte-equal to the same command's with ``--platform cpu``. (b) VGG11-BN
     at full width on ``mnist10k32``, homomorphic, pool 16, cohort 8, 2
     local steps, 3 rounds, then ``evaluate_params`` with the initial
@@ -320,7 +320,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 12. Federated rounds over TCP and the round pipeline
     (``federated/loop.NetTransport``, ``federated/pipeline.py``, the
-    server's ``fed_*`` ops). (a) 11a's config for 10 rounds across
+    server's ``fed_*`` ops). (a) 11a's config for 3 rounds across
     processes: a server on the event-loop plane and a ``--role
     fed_driver``, both on the card; the server's round ledger byte-equal
     to the same config's in-process ``--platform cpu`` run (run here
@@ -351,7 +351,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     blockwise 4096 at the largest; ``block_top1`` at the 1% and 5% views
     of every VGG11-BN leaf above 2^18 elements and of LeNet's fc1. (a)
     The sync trainer: VGG11-BN, W = 4, batch 128, M5 at 1%, ``--adapt
-    variance --adapt-every 5``, 30 steps in 5-step windows under
+    variance --adapt-every 5``, 20 steps in 5-step windows under
     deterministic algorithms: at least one switch, every journaled
     ``bytes_per_sync`` within the budget, after each switch the wire
     plan's up bytes and the payloads shipped equal to
@@ -423,8 +423,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (``slice_step_launches``), and the up-link bytes each level's
     gathers ship equal ``wire_plan``'s rows (the ``dcn/`` ones per
     worker); the step-time difference is the second level's cost. (b)
-    M5 with error feedback at 2 x 4 per-step against ``--feed device
-    --scan-window 8`` (one CUDA graph a window phase; deterministic
+    M5 with error feedback at 2 x 4, 16 steps, per-step against ``--feed
+    device --scan-window 8`` (one CUDA graph a window phase; deterministic
     algorithms): rows, state and launches bit-equal, launches at the
     reckoning. (c) The three kernels against their plain versions at the
     ICI and DCN shapes of VGG11-BN's units (dequant_mean at K = 4 and
@@ -435,13 +435,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     2's), the experiment matrix (LeNet, six methods), the compressor
     round trip (levels and indices equal to the CPU's), VGG11 and
     ResNet18 on the real ``mnist10k32``.
+17. The sync trainer across OS processes (``parallel/launcher.py``,
+    ``core/world.ProcessWorld``): child processes of ``cli.main`` with
+    the variables torchrun sets, under phase 16's determinism settings.
+    (a) One NCCL rank on cuda:0 (W = L = 4, VGG11-BN on ``mnist10k32``,
+    batch 128 a worker, M4, 3 steps) and (c) three gloo ranks of LeNet
+    M6 (21 steps, one adoption) beside its emulated twin train at once;
+    then (b) VGG11-BN M4 and M5 (1%, error feedback, two slices: slice s
+    = process s) as two gloo ranks of L = 2 on the one card, then the
+    emulated W = 4 run (17a's twin too, for M4), one after the other;
+    every child is started at once and waits for its turn to train, so
+    the startups overlap and the step times do not. Every checkpoint equals
+    its twin's byte for byte; each process's qsgd_quantize, dequant_mean
+    and block_top1 launches equal ``world_step_launches`` (it encodes its
+    own workers' payloads and decodes every mean itself), its staged
+    bytes a step equal ``wire_plan``'s rows (L x the up-link, or L x the
+    ``dcn/`` rows), no leaf is decoded on the card by the plain version,
+    and each 17b process's step ms is printed beside the emulated run's.
+    A child that fails or outlives its wall timeout fails the phase. The
+    phase runs after phase 15, its children started with it, and before
+    phase 16.
 
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11, 12, 13, 14 and 16 must be above 0, and the in-process runs of
-phases 4 and 9 to 14, and 14b's server process, must decode no leaf on
-the card with the plain version (every homomorphic apply decodes every
-quantized leaf in ``decode_set_launches`` launches: one up to 448
-leaves). ``--phase8-only`` to ``--phase16-only`` build and run that
+8, 9, 10, 11, 12, 13, 14, 16 and 17 must be above 0, and the in-process
+runs of phases 4 and 9 to 14, and 14b's server process, must decode no
+leaf on the card with the plain version (every homomorphic apply decodes
+every quantized leaf in ``decode_set_launches`` launches: one up to 448
+leaves). ``--phase8-only`` to ``--phase17-only`` build and run that
 phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
@@ -1596,12 +1616,12 @@ def train_phase(torch, kernels, network: str) -> tuple:
 # replay) for the runs of 16 steps, cut from 24 when phase 16 came.
 WINDOW_RUNS = [
     ("M1", "VGG11", 16, 8, ["--method", "1"]),
-    ("M4", "VGG11", 24, 8, ["--method", "4"]),
+    ("M4", "VGG11", 16, 8, ["--method", "4"]),   # 24 until phase 17
     ("M5", "VGG11", 16, 8, ["--method", "5"]),
     ("M4 ring_rs", "VGG11", 16, 8, ["--method", "4", "--gather-type",
                                      "ring_rs", "--qsgd-block", "4096"]),
-    ("M6", "VGG11", 60, 0, ["--method", "6"]),
-    # ResNet50's window is replayed once (16 steps), VGG11-BN's twice.
+    ("M6", "VGG11", 40, 0, ["--method", "6"]),   # 60 until phase 17
+    # Each window is replayed once (VGG11-BN's M4 twice until phase 17).
     ("M4", "ResNet50", 16, 8, ["--method", "4"]),
 ]
 
@@ -2785,7 +2805,7 @@ def policy_runs(torch, kernels, counts) -> dict:
     return out
 
 
-NEGATIVE_STEPS = 40
+NEGATIVE_STEPS = 16   # 40 until phase 17
 
 
 def deterministic(torch, on: bool) -> None:
@@ -2797,7 +2817,7 @@ def deterministic(torch, on: bool) -> None:
 def negative_phase(torch, kernels, counts) -> dict:
     """6d: ``--lossy-weights-down`` (the settings of
     ``examples/weight_compression_negative.py`` at this phase's shapes)
-    beside ``--method 2``, 40 steps each, ``--feed device`` and
+    beside ``--method 2``, 16 steps each, ``--feed device`` and
     deterministic kernels. After each lossy step every weight leaf must
     equal ``dec(compress(W))`` of the plain compressor (the kernel wrapper
     swapped for its plain version) under the step's key, W the weights a
@@ -2950,7 +2970,7 @@ def overlap_phase(torch, kernels, counts) -> dict:
 
 
 POLICY_WINDOW_RUNS = [  # 6f
-    ("M4 EF adam bf16_wire_state", "VGG11", 24, 8,
+    ("M4 EF adam bf16_wire_state", "VGG11", 16, 8,   # 24 until phase 17
      ["--method", "4", "--error-feedback", "--optimizer", "adam", "--lr",
       "0.001", "--precision-policy", "bf16_wire_state"]),
     ("M4 bf16_wire_state", "ResNet50", 16, 8,
@@ -3604,15 +3624,18 @@ def downlink_phase(torch, kernels) -> tuple:
 
 # Phase 9: the TCP tier (parallel/ps_net.py) on VGG11-BN at full width.
 TCP_WORKERS = 4
-TCP_STEPS = 4                # per worker in 9a (6 until phase 14)
+TCP_STEPS = 3                # per worker in 9a (6 until phase 14, 4
+                             # until phase 17)
 TCP_RUNS = [                 # 9a: (name, K, flags), each on both planes
     ("qsgd homomorphic", 4, ["--compress-grad", "qsgd",
                              "--server-agg", "homomorphic"]),
     ("qsgd decode", 2, ["--compress-grad", "qsgd", "--server-agg", "decode"]),
 ]
-DURABLE_BATCHES = 10         # 9b: K = 2 batches of real worker frames
+DURABLE_BATCHES = 6          # 9b: K = 2 batches of real worker frames
+                             # (10 until phase 17)
 KILL_AT = 5                  # 9c: serverkill@5
-KILL_STEPS = 8               # 9c: per worker process; the joiner takes 4
+KILL_STEPS = 5               # 9c: per worker process (8 until phase
+                             # 17); the joiner takes 4
 
 
 def tcp_argv(k: int, flags, *extra) -> list:
@@ -4013,10 +4036,11 @@ def tcp_phase(torch, kernels) -> tuple:
 
 
 TREE_WEIGHTS = [(2, 2), (1, 2), (3, 3)]   # 10a: two pseudo-pushes a round
-STREAM_APPLIES = 10          # 10b: K = 1 applies under --pull-delta
+STREAM_APPLIES = 6           # 10b: K = 1 applies under --pull-delta
+                             # (10 until phase 17)
 STREAM_EVERY = 4             # 10b and 10c: --keyframe-every
-TIER_STEPS = 4               # 10c and 10d: per worker process (6 until
-                             # phase 14)
+TIER_STEPS = 3               # 10c and 10d: per worker process (6 until
+                             # phase 14, 4 until phase 17)
 TIER_WORKERS = 4
 REPLICA_KILL_AT = 2          # 10c: replica 0 is SIGKILLed at this version
 AGGKILL = "aggkill@0=2"      # 10d
@@ -4529,7 +4553,9 @@ FED_LENET = [  # 11a: lenet_mnist/fed_c8_dir01_drop of the federated table
     "--quantum-num", "127", "--server-agg", "homomorphic",
     "--pool-size", "64", "--cohort", "8", "--local-steps", "5",
     "--partition", "dirichlet", "--partition-alpha", "0.1",
-    "--fault-spec", "crash@3=1,crash@11=1,crash@42=1", "--fed-rounds", "20"]
+    "--fault-spec", "crash@3=1,crash@11=1,crash@42=1", "--fed-rounds",
+    "10"]   # the cell runs 20 rounds; 10 since phase 17 (all three
+            # crashing clients are sampled by round 10, not by round 5)
 FED_VGG = [  # 11b; 11c and 11d change it
     "--federated", "--network", "VGG11", "--dataset", "mnist10k32",
     "--method", "4", "--batch-size", "64", "--lr", "0.01", "--momentum", "0",
@@ -4701,7 +4727,7 @@ def federated_phase(torch, kernels) -> tuple:
         cfg = from_args(argv)
         ev = evaluate_params(cfg, res.params)
         row.update(eval_top1=ev["top1"], eval_loss=ev["loss"])
-        if res.dropouts != 3 or row["decodes"] != 20:
+        if res.dropouts != 3 or row["decodes"] != 10:
             raise AssertionError(f"11a: {row}")
         out["11a"] = row
         walls["11a_s"] = time.perf_counter() - t
@@ -4765,7 +4791,8 @@ def federated_phase(torch, kernels) -> tuple:
     return counts, out
 
 
-FED_ROUNDS_12A = 10   # 12a: FED_LENET over TCP, cut from 20 rounds
+FED_ROUNDS_12A = 3    # 12a: FED_LENET over TCP (20 rounds, then 10,
+                      # then 3 since phase 17)
 PIPE_DELAY_S = 2.0    # 12c: the overlap straggler's sleep before its push
 
 
@@ -5168,7 +5195,6 @@ def pipeline_phase(torch, kernels) -> tuple:
 
 # -- phase 13: adaptive compression (adapt/) ------------------------------------
 
-ADAPT_STEPS = 30         # 13a: 30 steps, a decision every 5
 ADAPT_EVERY = 5
 # 13a's runs: (name, flags, steps, replayed). Under M5 at 1% the budget
 # (the static payload, 0.21 MB a sync) buys Top-k and dense leaves only;
@@ -5177,7 +5203,8 @@ ADAPT_EVERY = 5
 # MIN_ELEMS or more: its noise (sqrt(n)/7, sqrt(4096)/7 blockwise) is
 # above the sparse rungs'.
 ADAPT_SYNC_RUNS = [
-    ("M5", ["--method", "5", "--topk-ratio", "0.01"], 30, True),
+    ("M5", ["--method", "5", "--topk-ratio", "0.01"], 20, True),  # 30
+    # steps until phase 17
     ("M4 block 4096", ["--method", "4", "--qsgd-block", "4096"], 15, False),
 ]
 ADAPT_ASYNC = (4, 6, 3)  # 13b: K = 4 workers, steps per worker, decide every
@@ -5731,7 +5758,8 @@ HVD_RUNS = [             # 14a: (name, compression, op)
     ("adasum qsgd", "qsgd", "Adasum"),
 ]
 LIVE_STEPS = 16          # 14b: the sync CLI run (M4, windows of 8)
-LIVE_TCP_STEPS = 4       # 14b: per worker process, K = 2 of 2
+LIVE_TCP_STEPS = 3       # 14b: per worker process, K = 2 of 2 (4 until
+                         # phase 17)
 _CLI_CHILD = """
 import sys
 import torch
@@ -6287,7 +6315,7 @@ SLICE_RUNS = [  # 16a: (name, steps, flags), at two slices and at one
     ("M6", 21, ["--method", "6"]),   # one sync (step 19): one adoption
 ]
 SLICE_WINDOW = [  # 16b: window_phase's (name, network, steps, K, flags)
-    ("M5 EF 2x4", "VGG11", 24, 8,
+    ("M5 EF 2x4", "VGG11", 16, 8,   # 24 steps until phase 17
      ["--method", "5", "--error-feedback", "--num-workers",
       str(SLICE_WORKERS), "--num-slices", str(SLICES)]),
 ]
@@ -6322,14 +6350,27 @@ def slice_step_launches(cfg, units, kernels) -> dict:
     quantized vector (the unit, its Top-k or its block winners) has at
     least MIN_ELEMS elements; QSGD decodes once a slice (K = W/S rows)
     and once over DCN (K = S) where the K x n levels reach MIN_ELEMS."""
+    return world_step_launches(cfg, units, kernels, SLICE_WORKERS, SLICES,
+                               SLICE_WORKERS)
+
+
+def world_step_launches(cfg, units, kernels, size: int, slices: int,
+                        local: int) -> dict:
+    """The same launches in a process holding ``local`` of the ``size``
+    workers (``local = size``: one process holds them all). Each process
+    encodes its own workers' payloads and, at S > 1, the averages of the
+    h = local / (W/S) slices it holds (whole slices: the layout phase 17
+    runs), and the relay; it decodes every mean itself: one of K = W rows
+    flat, or one a held slice (K = W/S) and the DCN one (K = S)."""
     from ewdml_tpu_torch.ops import blocktopk, topk
 
     want = {k: 0 for k in SLICE_TRIO}
     if not cfg.compression_enabled:
         return want
-    per = SLICE_WORKERS // SLICES
+    per = size // slices
+    held = local // per if slices > 1 else 0
     relay = int(cfg.relay_compress and cfg.ps_mode == "grads")
-    encodes = SLICE_WORKERS + SLICES
+    encodes = local + held
     for n in units:
         m = n
         if cfg.compress_grad == "topk_qsgd":
@@ -6338,9 +6379,11 @@ def slice_step_launches(cfg, units, kernels) -> dict:
                 m = blocktopk.geometry(n, cfg.topk_ratio)[0]
             else:
                 m = topk.static_k(n, cfg.topk_ratio)
+        elif slices > 1:
+            want["dequant_mean"] += (held * (per * n >= kernels.MIN_ELEMS)
+                                     + (slices * n >= kernels.MIN_ELEMS))
         else:
-            want["dequant_mean"] += (SLICES * (per * n >= kernels.MIN_ELEMS)
-                                     + (SLICES * n >= kernels.MIN_ELEMS))
+            want["dequant_mean"] += size * n >= kernels.MIN_ELEMS
         if m >= kernels.MIN_ELEMS:
             want["qsgd_quantize"] += encodes + relay
     return want
@@ -6616,6 +6659,315 @@ def slices_phase(torch, kernels) -> tuple:
                         examples=examples)
 
 
+# Phase 17: the multi-process world (parallel/launcher.py, ProcessWorld):
+# CLI child processes joined as torchrun joins them, each checkpoint held
+# byte for byte against the emulated (LocalWorld) run of the same config.
+P17_TIMEOUT_S = 150
+P17_VGG = ["--network", "VGG11", "--dataset", "mnist10k32", "--batch-size",
+           "128", "--num-workers", "4", "--max-steps", "3", "--eval-freq",
+           "3", "--epochs", "100", "--log-every", "1000", "--no-bf16",
+           "--test-batch-size", "1000"]
+P17_RUNS = {  # 17b: name -> flags, on VGG11-BN at P = 2 x L = 2 over gloo
+    "M4": ["--method", "4"],
+    "M5 EF 2 slices": ["--method", "5", "--topk-ratio", "0.01",
+                       "--error-feedback", "--num-slices", "2"],
+}
+P17_LENET = ["--network", "LeNet", "--dataset", "mnist10k", "--batch-size",
+             "32", "--num-workers", "3", "--method", "6", "--max-steps",
+             "21", "--eval-freq", "21", "--log-every", "1000", "--no-bf16"]
+
+# A phase-17 child: cli.main under phase 16's determinism settings, its
+# Trainer recorded. It starts (imports, joins its cluster, builds its
+# model and data) at once with every other child, then waits for its go
+# file before it trains, so that the runs train one group at a time. The
+# launches of its training run (counts zeroed just before train(), read
+# just after), its world's staged bytes and its timings are printed as one
+# PHASE17 line.
+_P17_CHILD = """
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from ewdml_tpu_torch import cli
+from ewdml_tpu_torch.ops import kernels
+from ewdml_tpu_torch.parallel import launcher
+seen = {}
+
+class Recorded(cli.Trainer):
+    def train(self, max_steps=None):
+        ready = time.perf_counter()
+        while not os.path.exists(os.environ["P17_GO"]):
+            if time.perf_counter() - ready > 900:
+                sys.exit("phase 17: no go file after 900 s")
+            time.sleep(0.02)
+        go = time.perf_counter()
+        kernels.reset_launches()
+        res = super().train(max_steps)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        up = self.wire.per_layer_up
+        seen.update(
+            process=launcher.process_index(), backend=launcher.backend(),
+            world=type(self.world).__name__, size=self.world.size,
+            ranks=list(self.world.ranks), device=str(self.device),
+            launches=launches, steps=res.steps,
+            mean_step_ms=res.mean_step_s * 1e3, final_loss=res.final_loss,
+            gather_bytes=getattr(self.world, "gather_bytes", 0),
+            up_bytes=self.wire.up_bytes,
+            dcn_up_bytes=sum(v for k, v in up.items()
+                             if k.startswith("dcn/")),
+            plain_decodes=dict(kernels.PLAIN_DECODES_ON_CARD),
+            start_s=ready - t0, train_s=time.perf_counter() - go)
+        return res
+
+cli.Trainer = Recorded
+rc = cli.main(sys.argv[1:])
+print("PHASE17 " + json.dumps(seen), flush=True)
+sys.exit(rc)
+"""
+
+
+def p17_spawn(argv: list, log: str, dist_env: dict, go: str):
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               P17_GO=go, **dist_env)
+    f = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-c", _P17_CHILD, *argv],
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.log, proc.log_path = f, log
+    return proc
+
+
+def p17_cluster(argv: list, root: str, name: str, nprocs: int,
+                backend: str, port: int, go: str) -> list:
+    """``nprocs`` CLI children of one cluster, with the variables torchrun
+    sets (``port`` on the loopback), on ``backend``."""
+    return [p17_spawn(argv, os.path.join(root, f"{name}_{r}.log"), dict(
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+        WORLD_SIZE=str(nprocs), LOCAL_RANK=str(r),
+        LOCAL_WORLD_SIZE=str(nprocs), EWDML_DIST_BACKEND=backend,
+        GLOO_SOCKET_IFNAME="lo"), go) for r in range(nprocs)]
+
+
+def p17_wait(procs: list, what: str) -> list:
+    """Every child's PHASE17 record; a child that fails or outlives its
+    wall timeout fails the phase."""
+    deadline = time.perf_counter() + P17_TIMEOUT_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 17 {what}: a child outlived "
+                                 f"{P17_TIMEOUT_S} s")
+    records = []
+    for p in procs:
+        p.log.close()
+        with open(p.log_path) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"phase 17 {what}: rc {p.returncode}\n"
+                                 f"{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("PHASE17 ")]
+        records.append(json.loads(line[-1][len("PHASE17 "):]))
+    return records
+
+
+def p17_blob(train_dir: str) -> bytes:
+    with open(os.path.join(train_dir, "model_step_"), "rb") as f:
+        return f.read()
+
+
+def p17_same(pdir: str, ldir: str, what: str) -> int:
+    a, b = p17_blob(pdir), p17_blob(ldir)
+    if a != b:
+        raise AssertionError(f"phase 17 {what}: the coordinator's "
+                             "checkpoint differs from the emulated run's")
+    return len(a)
+
+
+def p17_check(rec: dict, what: str, world: str, backend, ranks) -> None:
+    if (rec["world"], rec["backend"], rec["ranks"]) != (world, backend,
+                                                        ranks):
+        raise AssertionError(f"phase 17 {what}: a {rec['world']} on "
+                             f"{rec['backend']} holding {rec['ranks']}")
+    if rec["plain_decodes"]["acc_decode"]:
+        raise AssertionError(f"phase 17 {what}: leaves decoded on the card "
+                             "by the plain version")
+
+
+def p17_runs(root: str) -> list:
+    """Phase 17's groups in the order they train: ``(name, {run: procs})``,
+    every child started now, each group gated by its go file."""
+    def tdir(name):
+        return os.path.join(root, name) + "/"
+
+    def local(name, argv, go):
+        return [p17_spawn(argv + ["--train-dir", tdir(name)],
+                          os.path.join(root, name + ".log"), {}, go)]
+
+    ports = free_ports(2 + len(P17_RUNS))
+    groups = []
+    go = os.path.join(root, "go_ac")
+    groups.append(("17a+17c", go, {
+        # 17a's emulated twin is 17b M4's (the same configuration).
+        "a_procs": p17_cluster(P17_VGG + P17_RUNS["M4"] + [
+            "--train-dir", tdir("a_procs")], root, "a_procs", 1, "nccl",
+            ports[0], go),
+        "c_procs": p17_cluster(P17_LENET + ["--train-dir", tdir("c_procs")],
+                               root, "c_procs", 3, "gloo", ports[1], go),
+        "c_local": local("c_local", P17_LENET, go)}))
+    for i, (name, flags) in enumerate(P17_RUNS.items()):
+        tag = "b_" + "".join(c for c in name if c.isalnum())
+        go_p, go_l = (os.path.join(root, f"go_{tag}_{k}")
+                      for k in ("procs", "local"))
+        groups.append((f"17b {name}", go_p, {tag + "_procs": p17_cluster(
+            P17_VGG + flags + ["--train-dir", tdir(tag + "_procs")], root,
+            tag + "_procs", 2, "gloo", ports[2 + i], go_p)}))
+        groups.append((f"17b {name} emulated", go_l, {
+            tag + "_local": local(tag + "_local", P17_VGG + flags, go_l)}))
+    return groups
+
+
+def p17_start() -> tuple:
+    """Start every phase-17 child (they wait for their go files)."""
+    root = tempfile.mkdtemp(prefix="phase17_")
+    return root, p17_runs(root)
+
+
+def p17_stop(started: tuple) -> None:
+    """Stop every phase-17 child still running and remove its files."""
+    root, groups = started
+    for _, _, runs in groups:
+        for procs in runs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                p.log.close()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def process_phase(torch, kernels, started=None) -> tuple:
+    """Phase 17: the sync trainer across OS processes. (a) One NCCL rank
+    on cuda:0 (W = L = 4, VGG11-BN M4) and (c) three gloo ranks of LeNet
+    M6 through its first adoption (21 steps) with its emulated twin, train
+    at once; then (b) each VGG11-BN run of P17_RUNS as two gloo ranks of
+    L = 2 on the one card, then its emulated W = 4 twin (17a's too, for
+    M4), one after the other, so that their step times are their own.
+    Every child starts at once (``started``: already, by
+    :func:`p17_start`) and waits for its group's turn to train."""
+    from ewdml_tpu_torch.core.config import from_args
+
+    started = started or p17_start()
+    root, groups = started
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {"group_s": {}}
+
+    def tdir(name):
+        return os.path.join(root, name) + "/"
+
+    recs = {}
+    try:
+        for name, go, runs in groups:
+            t0 = time.perf_counter()
+            open(go, "w").close()
+            for run, procs in runs.items():
+                recs[run] = p17_wait(procs, run)
+            out["group_s"][name] = time.perf_counter() - t0
+        p17_check(recs["a_procs"][0], "17a", "ProcessWorld", "nccl",
+                  [0, 1, 2, 3])
+        for r, rec in enumerate(recs["c_procs"]):
+            p17_check(rec, "17c", "ProcessWorld", "gloo", [r])
+        cfg = from_args(P17_VGG + P17_RUNS["M4"])
+        want = {k: v * 3 for k, v in world_step_launches(
+            cfg, slice_units(cfg), kernels, 4, 1, 4).items()}
+        a = recs["a_procs"][0]
+        got = {k: a["launches"][k] for k in SLICE_TRIO}
+        if got != want:
+            raise AssertionError(f"17a: launches {got}, reckoned {want}")
+        if a["gather_bytes"] != 3 * 4 * a["up_bytes"]:
+            raise AssertionError(f"17a: {a['gather_bytes']} B gathered, the "
+                                 f"plan {3 * 4 * a['up_bytes']}")
+        out["17a"] = dict(
+            checkpoint_bytes=p17_same(tdir("a_procs"), tdir("b_M4_local"),
+                                      "17a"),
+            launches=got, gather_bytes=a["gather_bytes"],
+            mean_step_ms=a["mean_step_ms"],
+            local_mean_step_ms=recs["b_M4_local"][0]["mean_step_ms"])
+        out["17c"] = dict(
+            checkpoint_bytes=p17_same(tdir("c_procs"), tdir("c_local"),
+                                      "17c"),
+            steps=recs["c_procs"][0]["steps"],
+            gather_bytes=[r["gather_bytes"] for r in recs["c_procs"]],
+            mean_step_ms=[r["mean_step_ms"] for r in recs["c_procs"]],
+            local_mean_step_ms=recs["c_local"][0]["mean_step_ms"])
+        for rec in recs["a_procs"] + recs["c_procs"]:
+            for k, v in rec["launches"].items():
+                counts[k] += v
+        print(f"17a nccl P=1 x L=4 VGG11-BN M4: checkpoint byte-equal "
+              f"({out['17a']['checkpoint_bytes']} B), launches {got}, "
+              f"gathered {a['gather_bytes']} B, {a['mean_step_ms']:.2f} ms "
+              f"a step with 17c training beside it (emulated "
+              f"{out['17a']['local_mean_step_ms']:.2f}, alone)", flush=True)
+        print(f"17c gloo P=3 x L=1 LeNet M6, 21 steps: checkpoint "
+              f"byte-equal ({out['17c']['checkpoint_bytes']} B)", flush=True)
+        smi = smi_line()
+        for name, flags in P17_RUNS.items():
+            tag = "b_" + "".join(c for c in name if c.isalnum())
+            procs, local = recs[tag + "_procs"], recs[tag + "_local"][0]
+            cfg = from_args(P17_VGG + flags)
+            per_step = world_step_launches(cfg, slice_units(cfg), kernels,
+                                           4, cfg.num_slices, 2)
+            want = {k: v * 3 for k, v in per_step.items()}
+            row = dict(checkpoint_bytes=p17_same(
+                tdir(tag + "_procs"), tdir(tag + "_local"), f"17b {name}"),
+                per_step_launches=per_step, smi=smi,
+                local_mean_step_ms=local["mean_step_ms"],
+                local_train_s=local["train_s"], processes=[])
+            for r, rec in enumerate(procs):
+                p17_check(rec, f"17b {name}", "ProcessWorld", "gloo",
+                          [2 * r, 2 * r + 1])
+                got = {k: rec["launches"][k] for k in SLICE_TRIO}
+                if got != want:
+                    raise AssertionError(f"17b {name} process {r}: "
+                                         f"launches {got}, reckoned {want}")
+                rows = (rec["up_bytes"] if cfg.num_slices == 1
+                        else rec["dcn_up_bytes"])
+                staged = rec["gather_bytes"] / rec["steps"]
+                if staged != 2 * rows:
+                    raise AssertionError(
+                        f"17b {name} process {r}: {staged} B staged a "
+                        f"step, wire_plan's rows {2 * rows} (L = 2 x "
+                        f"{rows})")
+                for k, v in rec["launches"].items():
+                    counts[k] += v
+                row["processes"].append(dict(
+                    launches=got, staged_bytes_per_step=staged,
+                    mean_step_ms=rec["mean_step_ms"],
+                    start_s=rec["start_s"], train_s=rec["train_s"]))
+            out[f"17b {name}"] = row
+            print(f"17b gloo P=2 x L=2 VGG11-BN {name}: checkpoint "
+                  f"byte-equal ({row['checkpoint_bytes']} B), launches a "
+                  f"process {want} (= reckoning), staged "
+                  f"{row['processes'][0]['staged_bytes_per_step'] / 1e6:.6f}"
+                  f" MB a step a process (= wire_plan), step ms "
+                  f"{[round(p['mean_step_ms'], 2) for p in row['processes']]}"
+                  f" against {local['mean_step_ms']:.2f} emulated; {smi}",
+                  flush=True)
+        print("phase 17 groups (s): " + json.dumps(out["group_s"]),
+              flush=True)
+        no_plain_decodes("phase 17")
+    finally:
+        p17_stop(started)
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6651,6 +7003,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase16-only", action="store_true",
                         help="build, then run phase 16 alone (no result "
+                             "line)")
+    parser.add_argument("--phase17-only", action="store_true",
+                        help="build, then run phase 17 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -6760,6 +7115,14 @@ def main(argv=None) -> int:
         print(f"phase 16: {time.perf_counter() - t16:.1f}s", flush=True)
         print("slices: " + json.dumps(slices), flush=True)
         print("phase 16 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase17_only:
+        t17 = time.perf_counter()
+        net_counts, processes = process_phase(torch, kernels)
+        print(f"phase 17: {time.perf_counter() - t17:.1f}s", flush=True)
+        print("processes: " + json.dumps(processes), flush=True)
+        print("phase 17 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -6885,10 +7248,27 @@ def main(argv=None) -> int:
     print("phase 14 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
+    # Phase 17's children start up while phase 15 runs (on the host only).
+    t17 = time.perf_counter()
+    started = p17_start()
     # Phase 15: the static-analysis pass (no kernel).
-    t15 = time.perf_counter()
-    lint = lint_phase()
-    print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
+    try:
+        t15 = time.perf_counter()
+        lint = lint_phase()
+        print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
+    except BaseException:
+        p17_stop(started)
+        raise
+    # Phase 17: the sync trainer across OS processes (before phase 16, so
+    # that nothing else runs beside phase 16's timed steps).
+    t17b = time.perf_counter()
+    net_counts, processes = process_phase(torch, kernels, started)
+    print(f"phase 17: {time.perf_counter() - t17b:.1f}s after phase 15 "
+          f"({time.perf_counter() - t17:.1f}s with it: its children "
+          "started with phase 15)", flush=True)
+    print("phase 17 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
     # Phase 16: multi-slice training and the four examples.
     t16 = time.perf_counter()
     net_counts, slices = slices_phase(torch, kernels)
@@ -6924,6 +7304,7 @@ def main(argv=None) -> int:
     print("live: " + json.dumps(live), flush=True)
     print("lint: " + json.dumps(lint), flush=True)
     print("slices: " + json.dumps(slices), flush=True)
+    print("processes: " + json.dumps(processes), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -51,6 +51,13 @@ findings). ``--metrics-port`` (0 = ephemeral) serves a sync run's
 registry live and prints ``TRAINER_METRICS <port>``; the async and
 federated paths refuse it (the JAX CLI accepts it there and serves
 nothing).
+
+The sync trainer runs across OS processes (``parallel/launcher.py``),
+``--num-workers`` being the global count; the coordinator prints the
+summary and evaluates:
+
+    torchrun --nproc-per-node 2 -m ewdml_tpu_torch.cli --platform cpu \\
+        --network LeNet --dataset mnist10k --num-workers 4 --method 4
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from ewdml_tpu_torch.core.config import from_args
 from ewdml_tpu_torch.obs import serve as oserve
 from ewdml_tpu_torch.obs.health import (HEALTH_EXIT_CODE, HealthAbort,
                                         make_watchdog)
+from ewdml_tpu_torch.parallel import launcher
 from ewdml_tpu_torch.train.loop import Trainer
 
 
@@ -97,6 +105,18 @@ def main(argv=None) -> int:
     if cfg.mode == "async":
         return _main_async(cfg)
     cfg.metrics_port = oserve.env_port(cfg.metrics_port)
+    # A process of a torchrun (or RANK/WORLD_SIZE) cluster joins it here;
+    # with no such environment this is a no-op.
+    launcher.initialize(platform=cfg.platform)
+    try:
+        return _main_sync(cfg)
+    finally:
+        launcher.shutdown()
+
+
+def _main_sync(cfg) -> int:
+    """The sync trainer: train, then print the summary and evaluate worker
+    0's model (on the coordinator of a multi-process world)."""
     trainer = Trainer(cfg)
     if trainer.live.port:
         # Scrape-port discovery: an ephemeral port is known only here.
@@ -107,6 +127,8 @@ def main(argv=None) -> int:
             result = trainer.train()
         except HealthAbort as e:
             return _health_abort(e)
+        if not launcher.is_coordinator():
+            return 0
         print(
             f"done: steps={result.steps} loss={result.final_loss:.4f} "
             f"top1={result.final_top1:.4f} "

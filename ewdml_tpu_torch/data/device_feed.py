@@ -119,19 +119,22 @@ def fetch(data: torch.Tensor, labels: torch.Tensor, dkey: tuple, step: int,
 
 
 class DeviceFeed:
-    """The batches of every worker for one step, from a key source
-    (``utils/keytable``): :func:`fetch` for all ranks, with the epoch key,
-    each rank's start and the augmentation key taken from the source, and
-    the permutation computed once for all ranks."""
+    """The batches of the workers ``ranks`` (default: all ``world``) for
+    one step, from a key source (``utils/keytable``): :func:`fetch` for
+    each rank, with the epoch key, each rank's start and the augmentation
+    key taken from the source, and the permutation computed once for all
+    of them. A process of a ``torch.distributed`` world passes its own
+    global ranks and holds the whole split."""
 
     def __init__(self, base: tuple, n: int, per_worker_batch: int,
-                 world: int, augment: bool):
+                 world: int, augment: bool, ranks=None):
         self.dkey = data_key(base)
         self.n, self.batch, self.world = n, per_worker_batch, world
+        self.ranks = tuple(range(world) if ranks is None else ranks)
         self.spe = steps_per_epoch(n, per_worker_batch, world)
         self.augment = augment
         self._aug_key = prng.fold_in(self.dkey, AUG_TAG)
-        self._starts = [functools.partial(self._start, r) for r in range(world)]
+        self._starts = [functools.partial(self._start, r) for r in self.ranks]
 
     def _epoch_key(self, step: int) -> tuple:
         return prng.fold_in(self.dkey, step // self.spe)
@@ -145,13 +148,12 @@ class DeviceFeed:
 
     def batches(self, data: torch.Tensor, labels: torch.Tensor, step: int,
                 keys) -> list:
-        """``[(images, labels)]`` per rank for ``step``."""
+        """``[(images, labels)]`` per rank of ``ranks`` for ``step``."""
         perm = prng.permutation(keys.key(self._epoch_key, step), self.n,
                                 data.device)
         out = []
-        for r in range(self.world):
-            idx = take_batch(perm, keys.scalar(self._starts[r], step),
-                             self.batch)
+        for r, start in zip(self.ranks, self._starts):
+            idx = take_batch(perm, keys.scalar(start, step), self.batch)
             images = data.index_select(0, idx)
             if self.augment:
                 akey = prng.fold_in(keys.key(self._aug_step_key, step), r)

@@ -29,7 +29,7 @@ from ewdml_tpu_torch.core.world import (LocalWorld, default_num_workers,
 from ewdml_tpu_torch.models.convert import from_jax
 from ewdml_tpu_torch.ops import qsgd as qsgd_ops
 from ewdml_tpu_torch.optim import update_accepts_key
-from ewdml_tpu_torch.parallel import collectives
+from ewdml_tpu_torch.parallel import collectives, launcher
 from ewdml_tpu_torch.utils import prng
 
 #: The inner optimizer's key tag (``hvd/__init__.py:175``): its bf16 stores
@@ -62,12 +62,15 @@ def size() -> int:
 
 
 def rank() -> int:
-    """The controller's rank: one process drives every worker."""
-    return 0
+    """The controller's rank: this process's index in a
+    ``torch.distributed`` cluster (``parallel/launcher.py``), else 0 (one
+    process drives every worker)."""
+    return launcher.process_index()
 
 
 def local_rank() -> int:
-    return 0
+    """This process's index on its host (0 outside a cluster)."""
+    return launcher.local_rank() if launcher.is_initialized() else 0
 
 
 def broadcast_parameters(params, root_rank: int = 0):

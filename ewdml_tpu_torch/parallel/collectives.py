@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ewdml_tpu_torch.core.world import LocalWorld
+from ewdml_tpu_torch.core.world import LocalWorld, ProcessWorld
 from ewdml_tpu_torch.ops import kernels, packing
 from ewdml_tpu_torch.ops import qsgd as qsgd_mod
 from ewdml_tpu_torch.ops.blocktopk import BlockTopKQSGDPayload
@@ -48,8 +48,9 @@ from ewdml_tpu_torch.utils import prng
 
 def dense_allreduce_mean(world: LocalWorld, grads: list,
                          wire_dtype=None) -> list:
-    """Method 1/3 dense path: one pmean per leaf. ``grads[w]`` is worker
-    w's list of leaves; returns the averaged leaves.
+    """Method 1/3 dense path: one pmean per leaf. ``grads[j]`` is the
+    list of leaves of the world's j-th local worker (``world.ranks[j]``);
+    returns the averaged leaves.
 
     ``wire_dtype=torch.bfloat16`` (``--precision-policy bf16_wire``,
     ``collectives.py:46-84``) halves the payload: each f32 leaf is gathered
@@ -422,8 +423,9 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
                          bucket_bytes: int | None = None):
     """Compress -> exchange -> decompress-average each leaf (``collectives.py:433``).
 
-    ``grads[w]`` is worker w's list of leaves. ``key`` is the step key; it
-    is folded per (rank, leaf) as in the JAX package. ``transport`` is
+    ``grads[j]`` is the list of leaves of the world's j-th local worker,
+    global rank ``world.ranks[j]``. ``key`` is the step key; it is folded
+    per (global rank, leaf) as in the JAX package. ``transport`` is
     ``all_gather``, ``ppermute`` or ``ring_rs``. Returns the averaged
     leaves (shared by all workers), and with ``return_own_decompressed``
     also each worker's own decompressed payload (for error feedback)."""
@@ -453,7 +455,8 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
             "ring_rs transport does not support K-of-N acceptance; use the "
             "all_gather transport")
     rkeys = [prng.rank_key(key, r) for r in world.ranks]
-    out, own = [], [[] for _ in world.ranks]
+    local = range(len(rkeys))
+    out, own = [], [[] for _ in local]
     per_unit = hasattr(compressor, "for_leaf")
     for i in range(len(grads[0])):
         # A per-unit plan (adapt/) dispatches per leaf: ``for_leaf(i)`` is
@@ -464,16 +467,16 @@ def compressed_allreduce(world: LocalWorld, grads: list, compressor, key,
         if transport == "ring_rs":
             avg = _ring_rs_exchange(
                 world, [g[i] for g in grads], comp,
-                [prng.layer_key(rkeys[r], i) for r in world.ranks])
+                [prng.layer_key(rkeys[j], i) for j in local])
             if relay:
                 avg = comp.decompress(comp.compress(rk, avg))
             out.append(avg)
             continue
-        payloads = [comp.compress(prng.layer_key(rkeys[r], i), grads[r][i])
-                    for r in world.ranks]
+        payloads = [comp.compress(prng.layer_key(rkeys[j], i), grads[j][i])
+                    for j in local]
         if return_own_decompressed:
-            for r in world.ranks:
-                own[r].append(comp.decompress(payloads[r]))
+            for j in local:
+                own[j].append(comp.decompress(payloads[j]))
         if transport == "ppermute":
             avg = _ring_exchange(world, payloads, comp, num_aggregate,
                                  step)
@@ -522,12 +525,18 @@ def hierarchical_compressed_allreduce(world: LocalWorld, grads: list,
     (the ICI stage, no relay), then over the S slice averages under
     ``fold_in(key, 0xDC4)`` (the DCN stage, with the relay).
 
-    ``grads[r]`` is worker r's list of leaves, r linear over the slices.
-    ``fuse`` and ``bucket_bytes`` split the tree once, around both levels.
-    A slice's average is the same on each of its workers, so every DCN
+    ``grads[j]`` is the leaves of the world's j-th local worker, ranks
+    linear over the slices. ``fuse`` and ``bucket_bytes`` split the tree
+    once, around both levels. The ICI stage runs over the slices this
+    process holds workers of (all of them on a :class:`LocalWorld`). A
+    slice's average is the same on each of its workers, so every DCN
     column exchanges the same S values under the same keys: the stage is
-    computed once, over column 0's world (``world.dcn(0)``, the only DCN
-    sub-world the path builds), and its result handed to all W/S columns.
+    computed once, over the column of this process's first worker (column
+    0 on a :class:`LocalWorld`, the only DCN sub-world the path builds),
+    and its result handed to all of its columns. In a
+    :class:`~ewdml_tpu_torch.core.world.ProcessWorld` each process
+    contributes the averages of the slices it holds, at their slice
+    index's key.
 
     With ``return_own_decompressed`` also returns each worker's effective
     transmitted view across both stages, ``own_ici + own_dcn - within``,
@@ -539,39 +548,51 @@ def hierarchical_compressed_allreduce(world: LocalWorld, grads: list,
             world, units, compressor, key, relay=relay, relay_key=relay_key,
             return_own_decompressed=return_own_decompressed),
             return_own_decompressed)
+    base = world.ranks[0]
+    slices = list(world.slices)
     within, own_ici = [], []
-    for s in range(world.num_slices):
+    for s in slices:
         ici = world.ici(s)
         res = compressed_allreduce(
-            ici, [grads[r] for r in ici.members], compressor, key,
-            return_own_decompressed=return_own_decompressed)
+            ici, [grads[r - base] for r in ici.local_members], compressor,
+            key, return_own_decompressed=return_own_decompressed)
         if return_own_decompressed:
             res, own = res
             own_ici.extend(own)
         within.append(res)
     res = compressed_allreduce(
-        world.dcn(0), within, compressor, prng.fold_in(key, DCN_TAG),
-        relay=relay, relay_key=relay_key,
+        world.dcn(world.coords(base)[1]), within, compressor,
+        prng.fold_in(key, DCN_TAG), relay=relay, relay_key=relay_key,
         return_own_decompressed=return_own_decompressed)
     if not return_own_decompressed:
         return res
     across, own_dcn = res
     own_eff = []
-    for r in world.ranks:
-        s = world.coords(r)[0]
+    for j, r in enumerate(world.ranks):
+        s = slices.index(world.coords(r)[0])
         own_eff.append([a + b - w for a, b, w in
-                        zip(own_ici[r], own_dcn[s], within[s])])
+                        zip(own_ici[j], own_dcn[s], within[s])])
     return across, own_eff
 
 
-def adopt_best_worker(params: list, losses: torch.Tensor) -> list:
+def adopt_best_worker(params: list, losses: torch.Tensor,
+                      world=None) -> list:
     """Method 6 adoption (``collectives.py:786``): every worker takes the
     params of the worker with the lowest local loss (the first on ties).
-    ``params[w]`` is worker w's list of tensors; ``losses`` is ``[W]``.
+    ``params[j]`` is the j-th local worker's list of tensors; ``losses``
+    is ``[W]``, every worker's.
 
-    The choice stays on the device (no read of the losses by the host,
-    which a CUDA graph could not hold): each leaf is stacked over the
-    workers and the best row selected. Returns new tensors."""
+    On a :class:`LocalWorld` the choice stays on the device (no read of the
+    losses by the host, which a CUDA graph could not hold): each leaf is
+    stacked over the workers and the best row selected. In a
+    :class:`~ewdml_tpu_torch.core.world.ProcessWorld` the host reads the
+    choice and the best worker's process broadcasts its leaves. Returns
+    new tensors."""
+    if isinstance(world, ProcessWorld):
+        best = int(torch.argmin(losses))
+        j = best - world.ranks[0]
+        return world.broadcast(params[j] if 0 <= j < len(params)
+                               else params[0], best)
     best = torch.argmin(losses).reshape(1)
     return [torch.stack(list(leaf)).index_select(0, best)[0]
             for leaf in zip(*params)]

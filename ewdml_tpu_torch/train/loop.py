@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from ewdml_tpu_torch.core.config import TrainConfig, resolve_scan_window
-from ewdml_tpu_torch.core.world import build_world, resolve_device
+from ewdml_tpu_torch.core.world import (build_world, place_global,
+                                        resolve_device)
 from ewdml_tpu_torch.data import datasets, loader
 from ewdml_tpu_torch.models import build_model, convert, num_classes_for
 from ewdml_tpu_torch.obs import clock
@@ -59,6 +60,7 @@ from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.obs.registry import MetricsRegistry
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.optim import make_optimizer
+from ewdml_tpu_torch.parallel import launcher
 from ewdml_tpu_torch.parallel.faults import FaultSpec
 from ewdml_tpu_torch.train import checkpoint, flops
 from ewdml_tpu_torch.train import metrics as M
@@ -125,7 +127,8 @@ class Trainer:
         self.device = resolve_device(cfg.platform, device)
         if cfg.pallas != "auto":
             kernels.configure(cfg.pallas)
-        # --num-slices S: the two-level (dcn, data) world (loop.py:114-116).
+        # --num-slices S: the two-level (dcn, data) world (loop.py:114-116);
+        # in a torch.distributed cluster this process's part of it.
         self.world = build_world(cfg.num_workers, cfg.num_slices, self.device)
         self.model = build_model(cfg.network, num_classes_for(cfg.dataset),
                                  dataset=cfg.dataset, seed=cfg.seed)
@@ -149,7 +152,7 @@ class Trainer:
             self._init_adapt()
         self._stabilize_ef_quantizer()
         self.state = make_train_state(
-            self.model, self.optimizer, self.world.size, self.device,
+            self.model, self.optimizer, len(self.world.ranks), self.device,
             error_feedback=cfg.error_feedback and cfg.compression_enabled,
             residual_dtype=policy.wire_dtype)
         if policy.name != "f32":
@@ -350,13 +353,25 @@ class Trainer:
                 or any(True for _ in self.model.buffers()))
 
     def _save_ckpt(self, step: int) -> None:
+        """Write the checkpoint of ``step``. In a multi-process world a full
+        one gathers every process's workers first (a collective: every
+        process reaches this line, the step budget and ``--eval-freq``
+        being the same on all), and only the coordinator writes, the bytes
+        of the emulated run's (``loop.py:443-466``)."""
         with otrace.span("train/checkpoint", step=step), \
                 self._ranged("train/checkpoint"):
             full = self._divergent_state
-            checkpoint.save(self.cfg.train_dir,
-                            state_tree(self.state.workers, self.specs,
-                                       stacked=full),
-                            step, world=self.world.size if full else 0)
+            coordinator = launcher.is_coordinator()
+            if full:
+                gather = self.world.gather_rows
+                tree = state_tree(self.state.workers, self.specs,
+                                  leaf=lambda ts: gather(torch.stack(ts)))
+            elif coordinator:
+                # Worker 0's view, which the coordinator holds.
+                tree = state_tree(self.state.workers, self.specs)
+            if coordinator:
+                checkpoint.save(self.cfg.train_dir, tree, step,
+                                world=self.world.size if full else 0)
 
     def maybe_restore(self) -> bool:
         """Resume from the latest checkpoint in ``--train-dir`` if there is
@@ -373,9 +388,12 @@ class Trainer:
         if path is None:
             return False
         workers = self.state.workers
+        # Every process reads the blob and takes its own workers' rows.
         tree, step, blob_world = checkpoint.restore(
-            path, state_template(workers, self.specs, stacked=True))
-        load_state_tree(workers, tree, self.specs, stacked=True)
+            path, state_template(workers, self.specs, stacked=True,
+                                 size=self.world.size))
+        load_state_tree(workers, tree, self.specs, stacked=True,
+                        rows=self.world.ranks)
         if blob_world <= 1 < self.world.size:
             with torch.no_grad():
                 for ws in workers:
@@ -405,7 +423,7 @@ class Trainer:
         params = [leaf_params(ws.model, self.specs)
                   for ws in self.state.workers]
         for kind in ("gradient", "parameter"):
-            for r, ps in enumerate(params):
+            for r, ps in zip(self.world.ranks, params):
                 for p, s in zip(ps, self.specs):
                     t = p.grad if kind == "gradient" else p
                     if t is not None:
@@ -473,8 +491,10 @@ class Trainer:
                 else:
                     # Re-seeded by the start step on a resume: a fresh
                     # shuffle, not a replay of the interrupted epoch.
-                    batches = (self._to_device(*b)
-                               for b in loader.global_batches(
+                    # Each process takes its rows of the global batch.
+                    batches = ((place_global(self.world, x),
+                                place_global(self.world, y))
+                               for x, y in loader.global_batches(
                                    ds, cfg.batch_size, self.world.size,
                                    seed=cfg.seed + start_step, feed=cfg.feed))
                 last = self._run_steps(start_step, steps_target, batches,
@@ -514,7 +534,10 @@ class Trainer:
         self._health.observe_loss(fence_step, loss)
 
     def _log_row(self, step: int, m: np.ndarray, timer) -> None:
-        """The per-worker log lines of one due step (``m`` is ``[W, 3]``)."""
+        """The per-worker log lines of one due step (``m`` is ``[W, 3]``),
+        from the coordinator of a multi-process world."""
+        if not launcher.is_coordinator():
+            return
         cum_mb = self.wire.per_step_bytes * (step + 1) / 1e6
         total = max(1, self.wire.total_bytes)
         for rank in range(m.shape[0]):

@@ -43,8 +43,10 @@ def leaf_params(model: torch.nn.Module, specs=None) -> list:
 def make_train_state(model: torch.nn.Module, optimizer, num_workers: int,
                      device, error_feedback: bool = False,
                      residual_dtype=None) -> TrainState:
-    """W identical replicas of ``model`` on ``device`` (the JAX package
-    tiles one init over the worker axis). ``residual_dtype`` stores the
+    """``num_workers`` identical replicas of ``model`` on ``device`` (the
+    JAX package tiles one init over the worker axis): all W, or a
+    process's L local workers, ``model`` being the same seed-deterministic
+    init on every process. ``residual_dtype`` stores the
     error-feedback residuals at the precision policy's wire dtype
     (``state.py:53-82``; default f32)."""
     specs = leaf_specs(model)
@@ -135,12 +137,15 @@ def state_tree(workers: list, specs=None, stacked: bool = False,
             "batch_stats": batch_stats, "residual": residual}
 
 
-def state_template(workers: list, specs=None, stacked: bool = False) -> dict:
+def state_template(workers: list, specs=None, stacked: bool = False,
+                   size: int | None = None) -> dict:
     """:func:`state_tree`'s shapes and dtypes as ``meta`` tensors (no
-    memory): the template ``train/checkpoint.restore`` reconciles against."""
+    memory): the template ``train/checkpoint.restore`` reconciles against.
+    ``size`` is the stacked axis's length (default: one row a worker; the
+    world's W where ``workers`` are a process's L)."""
     def meta(ts):
         t = ts[0]
-        shape = ((len(ts),) if stacked else ()) + tuple(t.shape)
+        shape = ((size or len(ts),) if stacked else ()) + tuple(t.shape)
         return torch.empty(shape, dtype=t.dtype, device="meta")
 
     return state_tree(workers, specs, leaf=meta)
@@ -148,19 +153,21 @@ def state_template(workers: list, specs=None, stacked: bool = False) -> dict:
 
 @torch.no_grad()
 def load_state_tree(workers: list, tree: dict, specs=None,
-                    stacked: bool = False) -> None:
+                    stacked: bool = False, rows=None) -> None:
     """Copy a worker tree into ``workers``' own tensors, in place: the
     parameters, momentum buffers, BatchNorm statistics and residuals keep
     their storage (a CUDA graph captured before reads the loaded values).
-    ``stacked``: the tree's leaves are ``[W, ...]``, worker w takes row w;
-    otherwise every worker takes the same leaf. ``meta`` leaves (fields the
-    blob did not hold) leave the worker's value as it is."""
+    ``stacked``: the tree's leaves are ``[W, ...]``, the j-th worker takes
+    row ``rows[j]`` (default j: a process's workers pass their global
+    ranks); otherwise every worker takes the same leaf. ``meta`` leaves
+    (fields the blob did not hold) leave the worker's value as it is."""
     from ewdml_tpu_torch.models.convert import from_jax
 
     specs = specs or leaf_specs(workers[0].model)
+    rows = list(range(len(workers)) if rows is None else rows)
 
     def row(t, w):
-        return t[w] if stacked else t
+        return t[rows[w]] if stacked else t
 
     def put(dst, src, w, kind="vector"):
         if src.device.type != "meta":

@@ -30,14 +30,16 @@ Method dispatch (Final Report pp.4-6):
 - M6: local SGD between syncs, compressed exchange + adoption at syncs.
 
 The JAX package compiles this as one ``shard_map``-ed program; here it is
-a plain Python step over the W workers of a :class:`LocalWorld`, and it
-updates the state in place. Keys and the per-rank dropout stream derive
-from the same chain as in the JAX package (``utils/prng.py``). Under
-``--feed device`` the step gathers its batches from the device-resident
-split (``data/device_feed.py``), and ``make_window_step`` runs K steps per
-host launch (``train/window.py``; one CUDA graph on the GPU). Under
-``--adapt`` (``adapt/``) the step takes the plan's per-unit compressor and
-also returns the per-leaf gradient moments the controller folds.
+a plain Python step over the W workers of a :class:`LocalWorld` (or this
+process's L of them in a ``core/world.ProcessWorld``, the metrics rows
+gathered to all W), and it updates the state in place. Keys and the
+per-rank dropout stream derive from the same chain as in the JAX package
+(``utils/prng.py``). Under ``--feed device`` the step gathers its batches
+from the device-resident split (``data/device_feed.py``), and
+``make_window_step`` runs K steps per host launch (``train/window.py``;
+one CUDA graph on the GPU). Under ``--adapt`` (``adapt/``) the step takes
+the plan's per-unit compressor and also returns the per-leaf gradient
+moments the controller folds.
 """
 
 from __future__ import annotations
@@ -117,6 +119,38 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
         (cfg.federated, "--federated"),
     ]
     _reject(unsupported)
+    _check_process_world(cfg)
+
+
+def _check_process_world(cfg: TrainConfig) -> None:
+    """The options a ``torch.distributed`` world refuses. ``--adapt`` on
+    more than one process, as the JAX package (``loop.py:158-161``); the
+    ring transports, bucketed overlap and scan windows in any cluster:
+    their ring shift across processes (and the collectives a CUDA graph
+    would capture) are ROADMAP Queue 1 item 3b."""
+    from ewdml_tpu_torch.parallel import launcher
+
+    if not launcher.is_initialized():
+        return
+    if cfg.adapt != "off" and launcher.process_count() > 1:
+        raise ValueError("--adapt supports single-process meshes "
+                         "(the decision loop reads rank-shared "
+                         "moments on the coordinator)")
+    compressed = cfg.compression_enabled
+    _reject([
+        (compressed and cfg.gather_type in ("ring", "ring_rs"),
+         f"--gather-type {cfg.gather_type} in a multi-process world (a "
+         "ring shift across processes, ROADMAP Queue 1 item 3b)"),
+        (cfg.collective == "fused_q",
+         "--collective fused_q in a multi-process world (a ring shift "
+         "across processes, ROADMAP Queue 1 item 3b)"),
+        (cfg.overlap == "bucket",
+         "--overlap bucket in a multi-process world (ROADMAP Queue 1 item "
+         "3b)"),
+        (cfg.feed == "device" and cfg.scan_window > 1,
+         f"--scan-window {cfg.scan_window} in a multi-process world "
+         "(collectives inside a captured window, ROADMAP Queue 1 item 3b)"),
+    ])
 
 
 def _check_async_supported(cfg: TrainConfig) -> None:
@@ -306,18 +340,18 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
     def store_residuals(state, step, skey, g_eff, own, idxs):
         """The residuals of leaves ``idxs``: what the wire dropped, all of
         ``g_eff`` for a rank whose payload K-of-N did not accept; stored at
-        the wire dtype, bf16 through the seeded rounding, every rank's as
-        one set, leaf i of rank r under the path (RESIDUAL_TAG, r, i) from
-        the step key."""
+        the wire dtype, bf16 through the seeded rounding, every local
+        rank's as one set, leaf i of global rank r under the path
+        (RESIDUAL_TAG, r, i) from the step key."""
         w_n = world.size
         k = cfg.num_aggregate if 0 < cfg.num_aggregate < w_n else w_n
         with torch.no_grad():
             xs, stored, paths = [], [], []
-            for r, ws in enumerate(state.workers):
+            for lj, (r, ws) in enumerate(zip(world.ranks, state.workers)):
                 accepted = ((r - step) % w_n) < k
                 for j, i in enumerate(idxs):
-                    ge = g_eff[r][j]
-                    xs.append(ge - own[r][j] if accepted else ge)
+                    ge = g_eff[lj][j]
+                    xs.append(ge - own[lj][j] if accepted else ge)
                     stored.append(ws.residual[i])
                     paths.append((RESIDUAL_TAG, r, i))
             tree_store_round(skey if policy.bf16_wire else None, xs, stored,
@@ -343,17 +377,19 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             avg[i] = g
 
     def worker_batches(images, labels, step, keys):
-        w_n = world.size
+        """The local workers' batches: from the device-resident split, or
+        their rows of the (process's part of the) global batch."""
         if cfg.feed == "device":
             feed = feeds.get(keys.base)
             if feed is None:
                 feed = feeds[keys.base] = device_feed.DeviceFeed(
-                    keys.base, images.shape[0], cfg.batch_size, w_n,
-                    device_augment)
+                    keys.base, images.shape[0], cfg.batch_size, world.size,
+                    device_augment, ranks=world.ranks)
             return feed.batches(images, labels, step, keys)
-        per = images.shape[0] // w_n
-        return [(images[r * per:(r + 1) * per], labels[r * per:(r + 1) * per])
-                for r in range(w_n)]
+        n_local = len(world.ranks)
+        per = images.shape[0] // n_local
+        return [(images[j * per:(j + 1) * per], labels[j * per:(j + 1) * per])
+                for j in range(n_local)]
 
     def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              keys) -> torch.Tensor:
@@ -366,9 +402,9 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
         avg = [None] * len(specs)
         sched, hooks = None, []
         batches = worker_batches(images, labels, step, keys)
-        for r, ws in enumerate(state.workers):
-            x = normalize(batches[r][0])
-            y = batches[r][1].long()
+        for j, (r, ws) in enumerate(zip(world.ranks, state.workers)):
+            x = normalize(batches[j][0])
+            y = batches[j][1].long()
             # The per-rank dropout stream (a model without dropout takes none).
             gen = (prng.generator(prng.fold_in(skey, r), device)
                    if dropout else None)
@@ -398,15 +434,18 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             top1, top5 = topk_accuracy(logits.detach().float(), y)
             rows.append(torch.stack([loss.detach(), top1, top5]))
 
-        metrics = torch.stack(rows)  # [W, 3]: loss, top-1, top-5
+        # [W, 3]: loss, top-1, top-5 of every worker, this process's rows
+        # gathered with the others'.
+        metrics = world.gather_rows(torch.stack(rows))
+        n_local = len(state.workers)
         mom = None
         if with_moments:
             with torch.no_grad():
-                mom = torch.stack([
+                mom = world.gather_rows(torch.stack([
                     torch.stack([torch.stack([g.float().mean(),
                                               g.float().square().mean()])
                                  for g in gw])
-                    for gw in grads]).mean(dim=0)
+                    for gw in grads])).mean(dim=0)
         if not is_sync:
             grads_used = grads  # Method 6 local step; residuals kept
         elif plan is not None:
@@ -415,22 +454,23 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             else:
                 for b in range(plan.n_buckets):
                     run_bucket(state, grads, avg, step, skey, b)
-            grads_used = [avg] * w_n
+            grads_used = [avg] * n_local
         elif ef:
-            g_eff = [[g + res for g, res in zip(grads[r], ws.residual)]
-                     for r, ws in enumerate(state.workers)]
+            g_eff = [[g + res for g, res in zip(grads[j], ws.residual)]
+                     for j, ws in enumerate(state.workers)]
             avg, own = exchange(g_eff, step, skey, return_own=True)
             store_residuals(state, step, skey, g_eff, own, range(len(specs)))
-            grads_used = [avg] * w_n
+            grads_used = [avg] * n_local
         else:
-            grads_used = [exchange(grads, step, skey)] * w_n
+            grads_used = [exchange(grads, step, skey)] * n_local
 
         # The optimizer's bf16 stores round under a rank-shared key, so the
         # synchronous replicas stay bit-identical.
         okey = prng.fold_in(skey, OPT_TAG)
-        for r, ws in enumerate(state.workers):
+        for j, ws in enumerate(state.workers):
             params = leaf_params(ws.model, specs)
-            g_torch = [from_jax(g, s.kind) for g, s in zip(grads_used[r], specs)]
+            g_torch = [from_jax(g, s.kind)
+                       for g, s in zip(grads_used[j], specs)]
             # Resolved each step: a caller may swap the optimizer's update
             # for one of the plain protocol after the step is built.
             if update_accepts_key(optimizer):
@@ -443,7 +483,7 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             with torch.no_grad():
                 best = collectives.adopt_best_worker(
                     [leaf_params(ws.model, specs) for ws in state.workers],
-                    metrics[:, 0])
+                    metrics[:, 0], world)
                 for ws in state.workers:
                     for p, b in zip(leaf_params(ws.model, specs), best):
                         p.copy_(b)

@@ -14,6 +14,8 @@ import subprocess
 
 import torch
 
+from ewdml_tpu_torch.parallel import launcher
+
 
 def smi_name_power() -> str | None:
     """``nvidia-smi --query-gpu=name,power.limit`` of card 0, as printed."""
@@ -37,6 +39,7 @@ def hardware_provenance(mesh_devices: int | None = None) -> dict:
         "platform": "gpu" if cuda else "cpu",
         "device_kind": torch.cuda.get_device_name(0) if cuda else "cpu",
         "device_count": torch.cuda.device_count() if cuda else 0,
+        "process_count": launcher.process_count(),
         "hostname": socket.gethostname(),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,

@@ -27,6 +27,7 @@ import torch
 from ewdml_tpu_torch.examples import (compressor_roundtrip, deep_real_pixels,
                                       experiment_matrix,
                                       weight_compression_negative)
+from ewdml_tpu.ops import pallas_kernels as pk
 from ewdml_tpu_torch.ops import kernels
 
 torch.set_num_threads(2)
@@ -34,9 +35,13 @@ torch.set_num_threads(2)
 
 @pytest.fixture(autouse=True)
 def _restore_modes():
+    # Both packages' kernel modes: a test that ran earlier in this process
+    # may have left either in 'interpret', whose draws differ.
     kernels.configure("auto")
+    pk.configure("auto")
     yield
     kernels.configure("auto")
+    pk.configure("auto")
 
 
 def test_weight_compression_negative_orders_the_losses(capsys):
