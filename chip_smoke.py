@@ -455,13 +455,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     A child that fails or outlives its wall timeout fails the phase. The
     phase runs after phase 15, its children started with it, and before
     phase 16.
+18. The ring transports, bucketed overlap and scan windows across OS
+    processes, on phase 17's child and machinery, its children started
+    with phase 17's. (b) LeNet M5 ``--gather-type ring --num-aggregate 3``
+    over four gloo ranks of one worker (every hop crosses a process), (c)
+    LeNet M3 ``--collective fused_q`` and (f) LeNet M6 ``--feed device``
+    (the auto window, the sync period 20: a loop of dispatches over gloo,
+    one adoption, 21 steps) over two gloo ranks, and (e) VGG11-BN M4
+    ``--feed device --scan-window 4`` on one NCCL rank of W = L = 4 (8
+    steps: the second window one graph replay with the NCCL gathers
+    inside, its launches the twin's, its gathered bytes the plan's), each
+    beside its emulated twin, train at once; then (a) VGG11-BN M4 ``ring_rs
+    --qsgd-block 4096`` (the fused hops: ``chunk_encode`` and
+    ``dequant_acc_requant`` launches a process at the reckoning) and (d)
+    M4 with error feedback and ``--overlap bucket --overlap-buckets 4``
+    (the inline schedule, gloo) over two gloo ranks of L = 2, then their
+    twins, one after the other, 3 steps each. Every checkpoint equals its
+    twin's byte for byte; under the rings each process sends one value
+    across a boundary a hop (its sent bytes the ring's received bytes and
+    the twin's), at the reckoning from the units (a, b) or the wire plan
+    (c); no plain version runs on the card in any child.
 
 Every kernel's launch count over the runs of phases 3, 3b, 3c, 4, 5, 6, 7a,
-8, 9, 10, 11, 12, 13, 14, 16 and 17 must be above 0, and the in-process
+8, 9, 10, 11, 12, 13, 14, 16, 17 and 18 must be above 0, and the in-process
 runs of phases 4 and 9 to 14, and 14b's server process, must decode no
 leaf on the card with the plain version (every homomorphic apply decodes
 every quantized leaf in ``decode_set_launches`` launches: one up to 448
-leaves). ``--phase8-only`` to ``--phase17-only`` build and run that
+leaves). ``--phase8-only`` to ``--phase18-only`` build and run that
 phase alone (no result line).
 
 Then it prints the kernels' JSON line, the card's name and power limit
@@ -6676,13 +6696,14 @@ P17_LENET = ["--network", "LeNet", "--dataset", "mnist10k", "--batch-size",
              "32", "--num-workers", "3", "--method", "6", "--max-steps",
              "21", "--eval-freq", "21", "--log-every", "1000", "--no-bf16"]
 
-# A phase-17 child: cli.main under phase 16's determinism settings, its
-# Trainer recorded. It starts (imports, joins its cluster, builds its
-# model and data) at once with every other child, then waits for its go
-# file before it trains, so that the runs train one group at a time. The
-# launches of its training run (counts zeroed just before train(), read
-# just after), its world's staged bytes and its timings are printed as one
-# PHASE17 line.
+# A phase-17 (and phase-18) child: cli.main under phase 16's determinism
+# settings, its Trainer recorded. It starts (imports, joins its cluster,
+# builds its model and data) at once with every other child, then waits
+# for its go file before it trains, so that the runs train one group at a
+# time. The launches of its training run (counts zeroed just before
+# train(), read just after), the calls of a plain version on the card in
+# it, its world's byte counters, its window's and overlap's schedule and
+# its timings are printed as one PHASE17 line.
 _P17_CHILD = """
 import json, os, sys, time
 t0 = time.perf_counter()
@@ -6694,7 +6715,31 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from ewdml_tpu_torch import cli
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.parallel import launcher
+from ewdml_tpu_torch.parallel import overlap
 seen = {}
+plain = {}
+
+def on_card(v):
+    if isinstance(v, torch.Tensor):
+        return v.is_cuda
+    if isinstance(v, torch.device):
+        return v.type == "cuda"
+    if isinstance(v, (list, tuple)):
+        return any(on_card(x) for x in v)
+    return False
+
+def counted(name, fn):
+    def plain_version(*a, **k):
+        if on_card(list(a) + list(k.values())):
+            plain[name] = plain.get(name, 0) + 1
+        return fn(*a, **k)
+    return plain_version
+
+for name in list(kernels.LAUNCHES) + ["stochastic_round_set",
+                                      "decode_sum_set"]:
+    if hasattr(kernels, name + "_ref"):
+        setattr(kernels, name + "_ref",
+                counted(name, getattr(kernels, name + "_ref")))
 
 class Recorded(cli.Trainer):
     def train(self, max_steps=None):
@@ -6705,11 +6750,22 @@ class Recorded(cli.Trainer):
             time.sleep(0.02)
         go = time.perf_counter()
         kernels.reset_launches()
+        plain.clear()
         res = super().train(max_steps)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         up = self.wire.per_layer_up
+        ws = self.window_step
+        seen.update(
+            sent_bytes=getattr(self.world, "sent_bytes", 0),
+            ppermute_bytes=self.world.ppermute_bytes,
+            per_rank_exchange_bytes=self.wire.per_rank_exchange_bytes,
+            plain_on_card=dict(plain),
+            overlap_stream=overlap.use_stream(self.device, self.world),
+            window=ws and dict(k=ws.window, mode=ws.mode,
+                               eager=ws.eager_windows, captures=ws.captures,
+                               replays=ws.replays))
         seen.update(
             process=launcher.process_index(), backend=launcher.backend(),
             world=type(self.world).__name__, size=self.world.size,
@@ -6755,7 +6811,7 @@ def p17_cluster(argv: list, root: str, name: str, nprocs: int,
         GLOO_SOCKET_IFNAME="lo"), go) for r in range(nprocs)]
 
 
-def p17_wait(procs: list, what: str) -> list:
+def p17_wait(procs: list, what: str, phase: int = 17) -> list:
     """Every child's PHASE17 record; a child that fails or outlives its
     wall timeout fails the phase."""
     deadline = time.perf_counter() + P17_TIMEOUT_S
@@ -6763,7 +6819,7 @@ def p17_wait(procs: list, what: str) -> list:
         try:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
         except subprocess.TimeoutExpired:
-            raise AssertionError(f"phase 17 {what}: a child outlived "
+            raise AssertionError(f"phase {phase} {what}: a child outlived "
                                  f"{P17_TIMEOUT_S} s")
     records = []
     for p in procs:
@@ -6771,8 +6827,8 @@ def p17_wait(procs: list, what: str) -> list:
         with open(p.log_path) as f:
             text = f.read()
         if p.returncode != 0:
-            raise AssertionError(f"phase 17 {what}: rc {p.returncode}\n"
-                                 f"{text[-3000:]}")
+            raise AssertionError(f"phase {phase} {what}: rc {p.returncode}"
+                                 f"\n{text[-3000:]}")
         line = [ln for ln in text.splitlines() if ln.startswith("PHASE17 ")]
         records.append(json.loads(line[-1][len("PHASE17 "):]))
     return records
@@ -6783,22 +6839,24 @@ def p17_blob(train_dir: str) -> bytes:
         return f.read()
 
 
-def p17_same(pdir: str, ldir: str, what: str) -> int:
+def p17_same(pdir: str, ldir: str, what: str, phase: int = 17) -> int:
     a, b = p17_blob(pdir), p17_blob(ldir)
     if a != b:
-        raise AssertionError(f"phase 17 {what}: the coordinator's "
+        raise AssertionError(f"phase {phase} {what}: the coordinator's "
                              "checkpoint differs from the emulated run's")
     return len(a)
 
 
-def p17_check(rec: dict, what: str, world: str, backend, ranks) -> None:
+def p17_check(rec: dict, what: str, world: str, backend, ranks,
+              phase: int = 17) -> None:
     if (rec["world"], rec["backend"], rec["ranks"]) != (world, backend,
                                                         ranks):
-        raise AssertionError(f"phase 17 {what}: a {rec['world']} on "
+        raise AssertionError(f"phase {phase} {what}: a {rec['world']} on "
                              f"{rec['backend']} holding {rec['ranks']}")
-    if rec["plain_decodes"]["acc_decode"]:
-        raise AssertionError(f"phase 17 {what}: leaves decoded on the card "
-                             "by the plain version")
+    if rec["plain_decodes"]["acc_decode"] or rec["plain_on_card"]:
+        raise AssertionError(f"phase {phase} {what}: plain versions ran on "
+                             f"the card: {rec['plain_on_card']}, leaves "
+                             f"decoded {rec['plain_decodes']}")
 
 
 def p17_runs(root: str) -> list:
@@ -6968,6 +7026,246 @@ def process_phase(torch, kernels, started=None) -> tuple:
     return counts, out
 
 
+# Phase 18: the ring transports, bucketed overlap and scan windows across
+# OS processes, on phase 17's machinery (its child, clusters and go
+# files); its children start with phase 17's, during phase 15. Each run is
+# a cluster beside its emulated twin (the same flags in one process).
+P18_VGG = ["--network", "VGG11", "--dataset", "mnist10k32", "--batch-size",
+           "128", "--num-workers", "4", "--epochs", "100", "--log-every",
+           "1000", "--no-bf16", "--test-batch-size", "1000"]
+P18_LENET = ["--network", "LeNet", "--dataset", "mnist10k", "--batch-size",
+             "32", "--num-workers", "4", "--epochs", "100", "--log-every",
+             "1000", "--no-bf16"]
+P18_RUNS = {  # name -> (model argv, flags, processes, backend, steps)
+    "18a": (P18_VGG, ["--method", "4", "--qsgd-block", "4096",
+                      "--gather-type", "ring_rs"], 2, "gloo", 3),
+    "18b": (P18_LENET, ["--method", "5", "--gather-type", "ring",
+                        "--num-aggregate", "3"], 4, "gloo", 3),
+    "18c": (P18_LENET, ["--method", "3", "--collective", "fused_q"], 2,
+            "gloo", 3),
+    "18d": (P18_VGG, ["--method", "4", "--error-feedback", "--overlap",
+                      "bucket", "--overlap-buckets", "4"], 2, "gloo", 3),
+    "18e": (P18_VGG, ["--feed", "device", "--scan-window", "4", "--method",
+                      "4"], 1, "nccl", 8),
+    # The auto window is the sync period, 20: one window and a tail step,
+    # one adoption (step 19).
+    "18f": (P18_LENET, ["--feed", "device", "--method", "6"], 2, "gloo",
+            21),
+}
+#: The runs that train alone, then their twins alone (their step ms are
+#: compared); the others and their twins train at once, first.
+P18_TIMED = ("18a", "18d")
+
+
+def p18_argv(name: str) -> list:
+    base, flags, _, _, steps = P18_RUNS[name]
+    return base + flags + ["--max-steps", str(steps), "--eval-freq",
+                           str(steps)]
+
+
+def p18_runs(root: str) -> list:
+    """Phase 18's groups in the order they train, as :func:`p17_runs`."""
+    def tdir(name):
+        return os.path.join(root, name) + "/"
+
+    def local(name, argv, go):
+        return [p17_spawn(argv + ["--train-dir", tdir(name)],
+                          os.path.join(root, name + ".log"), {}, go)]
+
+    def cluster(name, go, port):
+        _, _, nprocs, backend, _ = P18_RUNS[name]
+        return p17_cluster(p18_argv(name) + ["--train-dir",
+                                             tdir(name + "_procs")],
+                           root, name + "_procs", nprocs, backend, port, go)
+
+    ports = iter(free_ports(len(P18_RUNS)))
+    go = os.path.join(root, "go_together")
+    together = {}
+    for name in P18_RUNS:
+        if name not in P18_TIMED:
+            together[name + "_procs"] = cluster(name, go, next(ports))
+            together[name + "_local"] = local(name + "_local",
+                                              p18_argv(name), go)
+    groups = [("18b+18c+18e+18f", go, together)]
+    for name in P18_TIMED:
+        go_p, go_l = (os.path.join(root, f"go_{name}_{k}")
+                      for k in ("procs", "local"))
+        groups.append((name, go_p, {name + "_procs": cluster(
+            name, go_p, next(ports))}))
+        groups.append((name + " emulated", go_l, {
+            name + "_local": local(name + "_local", p18_argv(name), go_l)}))
+    return groups
+
+
+def p18_start() -> tuple:
+    """Start every phase-18 child (they wait for their go files)."""
+    root = tempfile.mkdtemp(prefix="phase18_")
+    return root, p18_runs(root)
+
+
+#: 18e's window at 8 steps of K = 4: a warm-up window, one capture, one
+#: replay.
+P18_GRAPHED = ("one CUDA graph", 1, 1, 1)
+
+
+def p18_ring_rs_launches(units, kernels, steps: int, local: int,
+                         size: int) -> dict:
+    """18a's launches in a process: it encodes its L chunks of each unit
+    and hops them W - 1 times (``ring_hop_kernel<true>``, or
+    ``ring_encode_kernel`` above 264 blocks: both count as
+    ``dequant_acc_requant``); the relay quantizes each unit's mean once
+    where the unit has ``MIN_ELEMS`` elements; nothing is gathered."""
+    relay = sum(n >= kernels.MIN_ELEMS for n in units)
+    return {"chunk_encode": steps * len(units) * local,
+            "dequant_acc_requant": steps * len(units) * local * (size - 1),
+            "qsgd_quantize": steps * relay, "dequant_mean": 0,
+            "block_top1": 0}
+
+
+def p18_ring_bytes(cfg, units, fused: bool) -> int:
+    """Bytes one rank receives over the ring a step (``ppermute_bytes``):
+    per unit W - 1 payloads of the whole unit (``ring``), or 2(W - 1) of
+    one chunk of whole blocks (the fused ``ring_rs``)."""
+    from ewdml_tpu_torch.ops import make_compressor
+    from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
+
+    w = cfg.num_workers
+    comp = make_compressor(cfg.compress_grad, cfg.quantum_num,
+                           cfg.topk_ratio, cfg.topk_exact, cfg.qsgd_block)
+    if fused:
+        return sum(2 * (w - 1) * comp.wire_bytes(
+            (fused_chunk_elems(n, w, cfg.qsgd_block),)) for n in units)
+    return sum((w - 1) * comp.wire_bytes((n,)) for n in units)
+
+
+def ring_phase(torch, kernels, started=None) -> tuple:
+    """Phase 18: the ring transports, overlap and windows across OS
+    processes. (b) LeNet M5 ``ring`` K-of-N 3 over four gloo ranks of one
+    worker (every hop crosses), (c) LeNet M3 ``fused_q`` and (f) LeNet M6
+    with the device feed (the auto window: its sync period) over two gloo
+    ranks, (e) VGG11-BN M4 windowed (K = 4, 8 steps) on one NCCL rank of
+    W = L = 4, each beside its emulated twin, train at once; then (a)
+    VGG11-BN M4 fused ``ring_rs`` and (d) M4 with error feedback and
+    ``--overlap bucket`` as two gloo ranks of L = 2, then their twins,
+    one after the other. Every checkpoint equals its twin's byte for
+    byte, and no plain version runs on the card in any child."""
+    from ewdml_tpu_torch.core.config import from_args
+    from ewdml_tpu_torch.parallel.collectives import fused_chunk_elems
+
+    started = started or p18_start()
+    root, groups = started
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    out = {"group_s": {}}
+    recs = {}
+
+    def tdir(name):
+        return os.path.join(root, name) + "/"
+
+    try:
+        for name, go, runs in groups:
+            t0 = time.perf_counter()
+            open(go, "w").close()
+            for run, procs in runs.items():
+                recs[run] = p17_wait(procs, run, phase=18)
+            out["group_s"][name] = time.perf_counter() - t0
+        smi = smi_line()
+        for name, (_, flags, nprocs, backend, steps) in P18_RUNS.items():
+            procs, local = recs[name + "_procs"], recs[name + "_local"][0]
+            cfg = from_args(p18_argv(name))
+            w = cfg.num_workers
+            per = w // nprocs
+            p17_check(local, name + " emulated", "LocalWorld", None,
+                      list(range(w)), phase=18)
+            for r, rec in enumerate(procs):
+                p17_check(rec, name, "ProcessWorld", backend,
+                          list(range(r * per, (r + 1) * per)), phase=18)
+                if rec["steps"] != steps:
+                    raise AssertionError(f"18 {name}: {rec['steps']} steps")
+                for k, v in rec["launches"].items():
+                    counts[k] += v
+            row = dict(checkpoint_bytes=p17_same(
+                tdir(name + "_procs"), tdir(name + "_local"), name,
+                phase=18), smi=smi, local_mean_step_ms=local["mean_step_ms"],
+                processes=[dict(
+                    mean_step_ms=rec["mean_step_ms"], start_s=rec["start_s"],
+                    train_s=rec["train_s"],
+                    sent_bytes_per_step=rec["sent_bytes"] / steps,
+                    ring_bytes_per_step=rec["ppermute_bytes"] / steps,
+                    launches={k: v for k, v in rec["launches"].items() if v})
+                    for rec in procs])
+            ring = cfg.gather_type in ("ring", "ring_rs") or \
+                cfg.collective == "fused_q"
+            for r, rec in enumerate(procs):
+                # One value crosses a process boundary a hop.
+                if ring and (rec["sent_bytes"] != rec["ppermute_bytes"]
+                             or rec["ppermute_bytes"]
+                             != local["ppermute_bytes"]):
+                    raise AssertionError(
+                        f"18 {name} process {r}: sent {rec['sent_bytes']} "
+                        f"B, ring {rec['ppermute_bytes']} B, emulated ring "
+                        f"{local['ppermute_bytes']} B")
+            units = slice_units(cfg)
+            if name in ("18a", "18b"):
+                want = steps * p18_ring_bytes(cfg, units, name == "18a")
+            elif name == "18c":
+                want = steps * local["per_rank_exchange_bytes"]
+            if name in ("18a", "18b", "18c"):
+                for r, rec in enumerate(procs):
+                    if rec["sent_bytes"] != want:
+                        raise AssertionError(
+                            f"18 {name} process {r}: {rec['sent_bytes']} B "
+                            f"sent across processes, reckoned {want}")
+                row["reckoned_sent_bytes_per_step"] = want / steps
+            if name == "18a":
+                want_l = p18_ring_rs_launches(units, kernels, steps, per, w)
+                big = sum(fused_chunk_elems(n, w, cfg.qsgd_block)
+                          > 264 * 4096 for n in units)
+                for r, rec in enumerate(procs):
+                    got = {k: rec["launches"][k] for k in want_l}
+                    if got != want_l:
+                        raise AssertionError(f"18a process {r}: launches "
+                                             f"{got}, reckoned {want_l}")
+                row["reckoned_launches"] = want_l
+                row["encode_kernel_hops"] = steps * big * per * (w - 1)
+            if name == "18d" and any(rec["overlap_stream"] for rec in procs):
+                raise AssertionError("18d: gloo buckets on a side stream")
+            if name == "18e":
+                win = procs[0]["window"]
+                if (win["mode"], win["eager"], win["captures"],
+                        win["replays"]) != P18_GRAPHED:
+                    raise AssertionError(f"18e: window {win}")
+                if procs[0]["launches"] != local["launches"]:
+                    raise AssertionError(
+                        f"18e: launches {procs[0]['launches']}, emulated "
+                        f"{local['launches']}")
+                if procs[0]["gather_bytes"] != steps * w * local["up_bytes"]:
+                    raise AssertionError(
+                        f"18e: {procs[0]['gather_bytes']} B gathered, the "
+                        f"plan {steps * w * local['up_bytes']}")
+                row["window"] = win
+            if name == "18f":
+                for r, rec in enumerate(procs):
+                    if rec["window"]["k"] != 20 or "loop" not in \
+                            rec["window"]["mode"]:
+                        raise AssertionError(f"18f process {r}: window "
+                                             f"{rec['window']}")
+                row["window"] = procs[0]["window"]
+            out[name] = row
+            print(f"{name} {backend} P={nprocs} x L={per} "
+                  f"{cfg.network} {' '.join(flags)}, {steps} steps: "
+                  f"checkpoint byte-equal ({row['checkpoint_bytes']} B), "
+                  f"step ms {[round(p['mean_step_ms'], 2) for p in row['processes']]}"
+                  f" against {local['mean_step_ms']:.2f} emulated, sent "
+                  f"{[p['sent_bytes_per_step'] for p in row['processes']]}"
+                  f" B a step a process; {smi}", flush=True)
+        print("phase 18 groups (s): " + json.dumps(out["group_s"]),
+              flush=True)
+        no_plain_decodes("phase 18")
+    finally:
+        p17_stop(started)
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7006,6 +7304,9 @@ def main(argv=None) -> int:
                              "line)")
     parser.add_argument("--phase17-only", action="store_true",
                         help="build, then run phase 17 alone (no result "
+                             "line)")
+    parser.add_argument("--phase18-only", action="store_true",
+                        help="build, then run phase 18 alone (no result "
                              "line)")
     args = parser.parse_args(argv)
     kernels_only = args.kernels_only
@@ -7123,6 +7424,14 @@ def main(argv=None) -> int:
         print(f"phase 17: {time.perf_counter() - t17:.1f}s", flush=True)
         print("processes: " + json.dumps(processes), flush=True)
         print("phase 17 launches: " + json.dumps(net_counts), flush=True)
+        print(smi_line(), flush=True)
+        return 0
+    if args.phase18_only:
+        t18 = time.perf_counter()
+        net_counts, rings = ring_phase(torch, kernels)
+        print(f"phase 18: {time.perf_counter() - t18:.1f}s", flush=True)
+        print("rings: " + json.dumps(rings), flush=True)
+        print("phase 18 launches: " + json.dumps(net_counts), flush=True)
         print(smi_line(), flush=True)
         return 0
 
@@ -7248,9 +7557,15 @@ def main(argv=None) -> int:
     print("phase 14 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
-    # Phase 17's children start up while phase 15 runs (on the host only).
+    # Phase 17's and 18's children start up while phase 15 runs (on the
+    # host only).
     t17 = time.perf_counter()
     started = p17_start()
+    try:
+        started18 = p18_start()
+    except BaseException:
+        p17_stop(started)
+        raise
     # Phase 15: the static-analysis pass (no kernel).
     try:
         t15 = time.perf_counter()
@@ -7258,15 +7573,28 @@ def main(argv=None) -> int:
         print(f"phase 15: {time.perf_counter() - t15:.1f}s", flush=True)
     except BaseException:
         p17_stop(started)
+        p17_stop(started18)
         raise
-    # Phase 17: the sync trainer across OS processes (before phase 16, so
-    # that nothing else runs beside phase 16's timed steps).
+    # Phase 17: the sync trainer across OS processes, then phase 18 (before
+    # phase 16, so that nothing else runs beside phase 16's timed steps).
     t17b = time.perf_counter()
-    net_counts, processes = process_phase(torch, kernels, started)
+    try:
+        net_counts, processes = process_phase(torch, kernels, started)
+    except BaseException:
+        p17_stop(started18)
+        raise
     print(f"phase 17: {time.perf_counter() - t17b:.1f}s after phase 15 "
           f"({time.perf_counter() - t17:.1f}s with it: its children "
           "started with phase 15)", flush=True)
     print("phase 17 launches: " + json.dumps(net_counts), flush=True)
+    for k, v in net_counts.items():
+        counts[k] += v
+    # Phase 18: the ring transports, overlap and windows across processes.
+    t18 = time.perf_counter()
+    net_counts, rings = ring_phase(torch, kernels, started18)
+    print(f"phase 18: {time.perf_counter() - t18:.1f}s after phase 17 "
+          "(its children started with phase 15)", flush=True)
+    print("phase 18 launches: " + json.dumps(net_counts), flush=True)
     for k, v in net_counts.items():
         counts[k] += v
     # Phase 16: multi-slice training and the four examples.
@@ -7305,6 +7633,7 @@ def main(argv=None) -> int:
     print("lint: " + json.dumps(lint), flush=True)
     print("slices: " + json.dumps(slices), flush=True)
     print("processes: " + json.dumps(processes), flush=True)
+    print("rings: " + json.dumps(rings), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps(line), flush=True)
     print(smi_line(), flush=True)

@@ -211,22 +211,18 @@ def resolve_scan_window(cfg: TrainConfig) -> int:
     - ``--adapt``: 1 (its decisions are host work between steps);
     - a streaming feed (u8/f32): 1 (a host batch crosses every step);
     - an explicit K: K (at least 1);
-    - auto in a ``torch.distributed`` world (``parallel/launcher.py``):
-      1, the gathers across processes running between steps (an
-      explicit K > 1 is refused there);
     - auto under Method 6 (``sync_every > 1``): the sync period;
     - auto otherwise: ``min(log_every, 8)``.
-    """
-    from ewdml_tpu_torch.parallel import launcher
 
+    The same inside a ``torch.distributed`` world (``parallel/launcher.py``)
+    as outside it, as in the JAX package.
+    """
     if cfg.adapt != "off":
         return 1
     if cfg.feed != "device":
         return 1
     if cfg.scan_window:
         return max(1, cfg.scan_window)
-    if launcher.is_initialized():
-        return 1
     if cfg.sync_every > 1:
         return cfg.sync_every
     return max(1, min(cfg.log_every, 8))

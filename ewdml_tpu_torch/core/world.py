@@ -26,8 +26,13 @@ major to minor as above), its collectives take the local ranks' values,
 and ``all_gather`` returns the global ``[W, ...]`` stack in rank order.
 Every process then reduces the same bytes in the same order, so a
 P-process run is bit-identical to the emulated W-worker run on the same
-device type. :func:`place_global` gives a process its rows of a global
-batch (``mesh.py:72-96``).
+device type. ``ppermute`` is the same ring shift over the global ranks:
+values stay in place within a process, and each process boundary is one
+point-to-point exchange of raw bytes, so the ring transports (``--gather-type
+ring|ring_rs``, ``--collective fused_q``) run across processes as the JAX
+package's ``shard_map`` runs them over the global mesh.
+:func:`place_global` gives a process its rows of a global batch
+(``mesh.py:72-96``).
 """
 
 from __future__ import annotations
@@ -37,20 +42,65 @@ import dataclasses
 import torch
 
 
+def _tensor_leaves(value) -> list:
+    """The tensors of a value in a fixed order: a tensor, a tuple or list
+    of values, or a payload dataclass (its tensor fields)."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _tensor_leaves(v)]
+    if dataclasses.is_dataclass(value):
+        return [getattr(value, f.name) for f in dataclasses.fields(value)
+                if isinstance(getattr(value, f.name), torch.Tensor)]
+    raise TypeError(f"no tensors in {type(value).__name__}")
+
+
 def value_nbytes(value) -> int:
     """Bytes of the tensors in a value: a tensor, a tuple or list of them,
     or a payload dataclass (its tensor fields)."""
     from ewdml_tpu_torch.ops.bytes import tensor_nbytes
 
-    if isinstance(value, torch.Tensor):
-        return tensor_nbytes(value)
-    if isinstance(value, (tuple, list)):
-        return sum(value_nbytes(v) for v in value)
-    if dataclasses.is_dataclass(value):
-        return sum(value_nbytes(getattr(value, f.name))
-                   for f in dataclasses.fields(value)
-                   if isinstance(getattr(value, f.name), torch.Tensor))
-    raise TypeError(f"no byte count for {type(value).__name__}")
+    return sum(tensor_nbytes(t) for t in _tensor_leaves(value))
+
+
+def _with_leaves(template, leaves):
+    """``template`` with its tensors (in :func:`_tensor_leaves`' order)
+    taken from the iterator ``leaves``; its static fields kept."""
+    if isinstance(template, torch.Tensor):
+        return next(leaves)
+    if isinstance(template, (tuple, list)):
+        return type(template)(_with_leaves(v, leaves) for v in template)
+    return dataclasses.replace(template, **{
+        f.name: next(leaves) for f in dataclasses.fields(template)
+        if isinstance(getattr(template, f.name), torch.Tensor)})
+
+
+def _raw_bytes(values: list) -> torch.Tensor:
+    """Every tensor of ``values`` as raw bytes, packed into one uint8
+    buffer in order."""
+    views = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+             for v in values for t in _tensor_leaves(v)]
+    return torch.cat(views) if len(views) > 1 else views[0]
+
+
+def _from_raw_bytes(flat: torch.Tensor, template, count: int,
+                    device) -> list:
+    """``count`` values shaped as ``template`` from the bytes of
+    :func:`_raw_bytes`, on ``device``."""
+    flat = flat.to(device)
+    specs = [(t.dtype, tuple(t.shape), t.element_size(), t.numel())
+             for t in _tensor_leaves(template)]
+    out, off = [], 0
+    for _ in range(count):
+        leaves = []
+        for dtype, shape, size, numel in specs:
+            part = flat[off:off + size * numel]
+            if off % size:
+                part = part.clone()   # a view of another dtype needs alignment
+            leaves.append(part.view(dtype).reshape(shape))
+            off += size * numel
+        out.append(_with_leaves(template, iter(leaves)))
+    return out
 
 
 def resolve_device(platform: str | None = None, device=None) -> torch.device:
@@ -138,6 +188,11 @@ def place_global(world, host_array) -> torch.Tensor:
 class LocalWorld:
     """W workers emulated in one process on one device, in ``num_slices``
     slices of W/S workers (one slice: the flat world)."""
+
+    #: Whether the exchange stages through host memory (a gloo
+    #: :class:`ProcessWorld`): then no CUDA graph can capture a step, and
+    #: no collective may be issued from autograd's hooks.
+    host_staged = False
 
     def __init__(self, size: int, device, num_slices: int = 1,
                  members=None):
@@ -308,9 +363,11 @@ class ProcessWorld:
     as raw bytes, packed into one buffer: NCCL gathers device tensors with
     ``all_gather_into_tensor``; gloo's is staged through host memory, one
     copy to the host and one back a gather. ``gather_bytes`` counts the
-    bytes this process has put into the gathers of its exchange. Use
+    bytes this process has put into the gathers of its exchange,
+    ``sent_bytes`` those its ring shifts (:meth:`ppermute`) sent to other
+    processes. Use
     :func:`build_world`, which builds the top-level world; its sub-worlds
-    (:meth:`ici`, :meth:`dcn`) share its counter. The process groups of
+    (:meth:`ici`, :meth:`dcn`) share its counters. The process groups of
     both levels are made once, here, every one on every process in one
     order (``new_group`` is collective over the whole cluster)."""
 
@@ -322,6 +379,7 @@ class ProcessWorld:
         self.device = torch.device(device)
         self.ppermute_bytes = 0
         self.gather_bytes = 0
+        self.sent_bytes = 0
         self.layout = process_layout(int(size), int(num_slices),
                                      launcher.process_index(),
                                      launcher.process_count())
@@ -331,26 +389,32 @@ class ProcessWorld:
         self._ranks = self.layout.ranks
         self.group = None
         self.group_size = self.layout.process_count
+        self._procs = tuple(range(self.group_size))
         self.members = tuple(range(self.size))
         self._local_members = tuple(self._ranks)
-        self.backend = dist.get_backend()
+        #: gloo takes CPU tensors only: every collective stages through
+        #: host memory (:attr:`LocalWorld.host_staged`); NCCL's do not.
+        self.host_staged = dist.get_backend() != "nccl"
         self._ici_groups = [dist.new_group(list(g))
                             for g in self.layout.ici_groups]
         self._dcn_groups = [dist.new_group(list(g))
                             for g in self.layout.dcn_groups]
 
-    def _sub(self, size: int, ranks, group, group_size: int, members,
+    def _sub(self, size: int, ranks, group, procs, members,
              local_members) -> "ProcessWorld":
         """A one-level sub-world of ``size`` workers over ``group`` (None:
-        every process), this process holding ``ranks`` of them (the
-        parent's ``local_members``); it counts into this world's
-        ``gather_bytes``."""
+        every process), whose processes are ``procs`` (global process
+        ranks, in the group's order), this process holding ``ranks`` of
+        them (the parent's ``local_members``); it counts into this world's
+        ``gather_bytes`` and ``sent_bytes``."""
         sub = ProcessWorld.__new__(ProcessWorld)
-        sub.device, sub.ppermute_bytes, sub.gather_bytes = self.device, 0, 0
+        sub.device, sub.ppermute_bytes = self.device, 0
+        sub.gather_bytes = sub.sent_bytes = 0
         sub._root, sub.size, sub.num_slices = self, size, 1
-        sub._ranks, sub.group, sub.group_size = ranks, group, group_size
+        sub._ranks, sub.group, sub.group_size = ranks, group, len(procs)
+        sub._procs = tuple(procs)
         sub.members, sub._local_members = tuple(members), tuple(local_members)
-        sub.backend = self.backend
+        sub.host_staged = self.host_staged
         return sub
 
     @property
@@ -392,7 +456,7 @@ class ProcessWorld:
         q = lay.process_index % lay.per_slice
         return self._sub(lay.slice_size,
                          range(q * lay.local, (q + 1) * lay.local),
-                         self._ici_groups[s], lay.per_slice, members,
+                         self._ici_groups[s], lay.ici_groups[s], members,
                          self.ranks)
 
     def dcn(self, d: int):
@@ -404,15 +468,16 @@ class ProcessWorld:
         members = range(d, self.size, lay.slice_size)
         if lay.per_slice == 1:
             ranks = lay.slices
-            return self._sub(self.num_slices, ranks, None, lay.process_count,
-                             members, [s * lay.slice_size + d for s in ranks])
+            return self._sub(self.num_slices, ranks, None,
+                             range(lay.process_count), members,
+                             [s * lay.slice_size + d for s in ranks])
         q = lay.process_index % lay.per_slice
         if d // lay.local != q:
             raise ValueError(f"ICI rank {d} is not held by process "
                              f"{lay.process_index}")
         s = lay.slices[0]
         return self._sub(self.num_slices, range(s, s + 1),
-                         self._dcn_groups[q], self.num_slices, members,
+                         self._dcn_groups[q], lay.dcn_groups[q], members,
                          [s * lay.slice_size + d])
 
     # -- the exchange ------------------------------------------------------
@@ -421,7 +486,7 @@ class ProcessWorld:
         import torch.distributed as dist
 
         n = flat.numel()
-        if self.backend == "nccl":
+        if not self.host_staged:
             flat = flat.to(self.device)
             out = torch.empty(self.group_size * n, dtype=torch.uint8,
                               device=self.device)
@@ -436,17 +501,16 @@ class ProcessWorld:
     def _gather_tensors(self, tensors: list, count: bool) -> list:
         """Each ``[L, ...]`` tensor as the ``[W, ...]`` stack of every
         process's, in one gather of their raw bytes."""
-        views = [t.detach().contiguous().reshape(-1).view(torch.uint8)
-                 for t in tensors]
-        flat = torch.cat(views) if len(views) > 1 else views[0]
+        flat = _raw_bytes(tensors)
         if count:
             self._root.gather_bytes += flat.numel()
         out = self._gather_flat(flat)
         res, off = [], 0
-        for t, v in zip(tensors, views):
-            part = out[:, off:off + v.numel()].contiguous().view(t.dtype)
+        for t in tensors:
+            nb = t.numel() * t.element_size()
+            part = out[:, off:off + nb].contiguous().view(t.dtype)
             res.append(part.reshape((-1,) + tuple(t.shape[1:])))
-            off += v.numel()
+            off += nb
         return res
 
     def all_gather(self, values: list):
@@ -457,16 +521,18 @@ class ProcessWorld:
         from ewdml_tpu_torch.ops.bytes import stack_payloads
 
         local = stack_payloads(values)
-        names = [f.name for f in dataclasses.fields(local)
-                 if isinstance(getattr(local, f.name), torch.Tensor)]
-        gathered = self._gather_tensors([getattr(local, n) for n in names],
-                                        True)
-        return dataclasses.replace(local, **dict(zip(names, gathered)))
+        gathered = self._gather_tensors(_tensor_leaves(local), True)
+        return _with_leaves(local, iter(gathered))
 
     def gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """The ``[W, ...]`` rows of every worker from this process's
         ``[L, ...]`` (metrics, checkpoint leaves: not counted)."""
         return self._gather_tensors([rows], False)[0]
+
+    def gather_rows_of(self, tensors: list) -> list:
+        """:meth:`gather_rows` of several ``[L, ...]`` tensors in one
+        gather (not counted)."""
+        return self._gather_tensors(tensors, False)
 
     def pmean(self, values: list) -> torch.Tensor:
         """The gathered ``[W, ...]`` stack's ``sum(dim=0) / W``, as
@@ -475,31 +541,56 @@ class ProcessWorld:
         return self.all_gather(values).sum(dim=0) / self.size
 
     def ppermute(self, values: list, shift: int = 1) -> list:
-        raise NotImplementedError(
-            "a ring shift across processes (--gather-type ring|ring_rs, "
-            "--collective fused_q) is not ported yet (ROADMAP Queue 1 item "
-            "3b)")
+        """The ring shift ``perm = [(r, (r + shift) % W)]`` over the
+        world's global ranks, as :meth:`LocalWorld.ppermute`: receiver r
+        gets sender ``(r - shift) % W``'s value, a payload whole.
 
-    def broadcast(self, tensors: list, src_rank: int) -> list:
-        """Worker ``src_rank``'s ``tensors`` on every process, bit for bit:
-        its process sends them (packed as raw bytes), every other process
-        passes tensors of the same shapes and dtypes to receive into."""
+        ``values`` are this process's ranks' values, all of one structure.
+        A value whose sender and receiver are both here moves in place.
+        The others cross in one batch of point-to-point operations: one
+        buffer to each peer process and one from each, every tensor packed
+        as raw bytes as the gathers pack them, every send and receive of
+        the batch posted together, so that no order of posts deadlocks.
+        NCCL moves the device buffers; gloo's (which takes CPU tensors
+        only) are staged through host memory. ``ppermute_bytes`` counts
+        what one rank received, as on a :class:`LocalWorld`;
+        ``sent_bytes`` the bytes this process sent to other processes."""
         import torch.distributed as dist
 
-        views = [t.detach().contiguous().reshape(-1).view(torch.uint8)
-                 for t in tensors]
-        flat = torch.cat(views)
-        src = src_rank // len(self.ranks)
-        if self.backend == "nccl":
-            flat = flat.to(self.device)
-            dist.broadcast(flat, src, group=self.group)
-        else:
-            host = flat.cpu()
-            dist.broadcast(host, src, group=self.group)
-            flat = host.to(self.device)
-        out, off = [], 0
-        for t, v in zip(tensors, views):
-            out.append(flat[off:off + v.numel()].view(t.dtype)
-                       .reshape(t.shape))
-            off += v.numel()
+        w, ranks = self.size, self.ranks
+        n, lo = len(ranks), self.ranks[0]
+        per_value = value_nbytes(values[0])
+        self.ppermute_bytes += per_value
+        out = [None] * n
+        sends, recvs = {}, {}   # peer position -> local indices, in order
+        for j, r in enumerate(ranks):
+            src, dst = (r - shift) % w, (r + shift) % w
+            if lo <= src < lo + n:
+                out[j] = values[src - lo]
+            else:
+                recvs.setdefault(src // n, []).append(j)
+            if not lo <= dst < lo + n:
+                sends.setdefault(dst // n, []).append(j)
+        if not sends and not recvs:
+            return out
+        stage = (torch.device("cpu") if self.host_staged
+                 else self.device)
+        ops, incoming = [], []
+        for pos, js in sends.items():
+            flat = _raw_bytes([values[j] for j in js]).to(stage)
+            self._root.sent_bytes += flat.numel()
+            ops.append(dist.P2POp(dist.isend, flat, self._procs[pos],
+                                  group=self.group))
+        for pos, js in recvs.items():
+            buf = torch.empty(per_value * len(js), dtype=torch.uint8,
+                              device=stage)
+            incoming.append((js, buf))
+            ops.append(dist.P2POp(dist.irecv, buf, self._procs[pos],
+                                  group=self.group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        for js, buf in incoming:
+            for j, v in zip(js, _from_raw_bytes(buf, values[0], len(js),
+                                                self.device)):
+                out[j] = v
         return out

@@ -3,9 +3,11 @@
 ``threefry.cuh``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
-them at once (one ``nvcc`` process per source), on first use, into
-``kernels/_build/`` beside the sources; the objects are linked into one
-shared library with a plain C interface, loaded with ``ctypes``. The
+them at once (one ``nvcc`` process per source), on first use, into the
+build directory of ``core/cache.py`` (``kernels/_build/`` beside the
+sources unless ``EWDML_COMPILE_CACHE`` names another); the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The
 library name carries a hash of the sources and the headers they include,
 so an edited source or header is rebuilt and a stale build is never
 loaded.
@@ -31,7 +33,6 @@ SOURCES = (os.path.join(_HERE, "compress.cu"),
            os.path.join(_HERE, "random.cu"))
 #: Headers the sources include: hashed with them, not compiled alone.
 HEADERS = (os.path.join(_HERE, "threefry.cuh"),)
-BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -64,12 +65,22 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> str:
+    """Where the library of these sources is (or will be) built."""
+    from ewdml_tpu_torch.core import cache
+
+    build_dir = cache.enable_compilation_cache()
+    if build_dir is None:
+        raise RuntimeError("no CUDA device visible: the kernels build and "
+                           "run on the card only")
+    return os.path.join(build_dir, f"libewdml_compress_{_source_hash()}.so")
+
+
 def build() -> str:
     """Compile the kernels (if this source has no build yet); return the
     library path. Raises with the compiler's output when nvcc fails."""
     global build_seconds
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libewdml_compress_{_source_hash()}.so")
+    lib_path = library_path()
     if os.path.exists(lib_path):
         build_seconds = 0.0
         return lib_path

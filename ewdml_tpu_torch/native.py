@@ -1,8 +1,9 @@
 """ctypes loader for the native host runtime (``ewdml_tpu/native.py``).
 
 Compiles ``native/ewdml_native.cpp`` (the repository's shared source) with
-``g++`` on first use into ``ewdml_tpu_torch/kernels/_build/``; it never
-writes under ``native/``. Everything here has a pure-Python fallback with
+``g++`` on first use into the build directory of ``core/cache.py``
+(``ewdml_tpu_torch/kernels/_build/`` unless ``EWDML_COMPILE_CACHE`` names
+another); it never writes under ``native/``. Everything here has a pure-Python fallback with
 the same bytes: the library gates the fast path, never functionality.
 
 The wire frame: ``[u32 magic][u32 n_sections][u32 total_len]`` then per
@@ -24,7 +25,6 @@ logger = logging.getLogger("ewdml_tpu_torch.native")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_HERE), "native", "ewdml_native.cpp")
-_BUILD_DIR = os.path.join(_HERE, "kernels", "_build")
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lib = None
@@ -33,17 +33,19 @@ _build_failed = False
 
 
 def _so_path() -> str:
+    from ewdml_tpu_torch.core import cache
+
     h = hashlib.sha1()
     with open(_SRC, "rb") as f:
         h.update(f.read())
     h.update(" ".join(_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"libewdml_native_{h.hexdigest()[:16]}.so")
+    return os.path.join(cache.build_dir(),
+                        f"libewdml_native_{h.hexdigest()[:16]}.so")
 
 
 def _build(so: str) -> bool:
     # Compile to a process-private temp path then rename, so a concurrent
     # process never loads a half-written library.
-    os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True,

@@ -22,10 +22,17 @@ Transports, with the JAX package's math:
 
 The ring hops of phase 1 differ per rank and all run. Where every rank
 would decode the same bytes (the average of the gather and ring
-transports, a ring's phase 2), the result is computed once and handed to
-every worker; the phase-2 hops still run, as they move (and
-``LocalWorld.ppermute_bytes`` counts) the bytes a real ring ships. Only
-the per-rank "own payload" of error feedback differs between ranks.
+transports, a ring's phase 2), the result is computed once per process
+and handed to each of its workers: every origin's payload is decoded once,
+from this process's own values where it holds the origin, else from what
+arrived over the ring (on a :class:`LocalWorld` every origin is local, so
+nothing that arrives is decoded; on a
+:class:`~ewdml_tpu_torch.core.world.ProcessWorld` the hops carry the other
+processes' payloads here). The hops always run, as they move (and
+``ppermute_bytes`` counts) the bytes a real ring ships. Only the per-rank
+"own payload" of error feedback differs between ranks. The per-worker
+lists hold this process's workers, indexed by the local j; keys and chunk
+ids fold the global rank ``world.ranks[j]``.
 
 On a two-level world (``--num-slices S``),
 :func:`hierarchical_compressed_allreduce` runs the compressed exchange
@@ -102,32 +109,45 @@ def _fused_reduce_scatter(world: LocalWorld, chunks: list, keys: list,
     mean of chunk ``(r + 1) % W`` as ``(levels, norms)``."""
     w = world.size
     encode, hop = kernels.ring_hops(world.device)
-    pay = [encode(chunks[r][r], _ring_seed(keys[r], 0, world.device), s,
+    pay = [encode(chunks[j][r], _ring_seed(keys[j], 0, world.device), s,
                   block=block)
-           for r in world.ranks]
+           for j, r in enumerate(world.ranks)]
     for h in range(w - 1):
         pay = world.ppermute(pay)
         scale = 1.0 / w if h == w - 2 else 1.0
-        pay = [hop(lv, nm, chunks[r][(r - h - 1) % w],
-                   _ring_seed(keys[r], h + 1, world.device), s, block=block,
+        pay = [hop(lv, nm, chunks[j][(r - h - 1) % w],
+                   _ring_seed(keys[j], h + 1, world.device), s, block=block,
                    scale=scale)
-               for r, (lv, nm) in enumerate(pay)]
+               for j, (r, (lv, nm)) in enumerate(zip(world.ranks, pay))]
     return pay
+
+
+def _ring_slots(world: LocalWorld, values: list) -> dict:
+    """The W - 1 hops of a ring all-gather of ``values`` (this process's
+    ranks'): at hop h rank r receives origin ``(r - h - 1) % W``'s value.
+    Returns every origin's value, each taken once: this process's own,
+    and for the other origins the first arrival."""
+    w = world.size
+    slots = {r: v for r, v in zip(world.ranks, values)}
+    current = values
+    for h in range(w - 1):
+        current = world.ppermute(current)
+        if len(slots) < w:
+            for r, v in zip(world.ranks, current):
+                slots.setdefault((r - h - 1) % w, v)
+    return slots
 
 
 def _ring_all_gather(world: LocalWorld, owned: list, decode, m: int):
     """Phase 2 of the rings: rank r owns chunk ``(r + 1) % W``, and every
-    rank decodes every owner's payload from the same bytes. Each owner's
-    chunk is decoded once; the W - 1 hops then move the payloads (at hop
-    h rank r receives the chunk of origin ``(r - h - 1) % W``). Returns
-    the flat ``[W * m]`` result, the same on every rank."""
+    rank decodes every owner's payload from the same bytes, each owner's
+    once (:func:`_ring_slots`). Returns the flat ``[W * m]`` result, the
+    same on every rank."""
     w = world.size
+    slots = _ring_slots(world, owned)
     out = torch.empty((w, m), dtype=torch.float32, device=world.device)
-    for r in world.ranks:
-        out[(r + 1) % w] = decode(owned[r]).reshape(-1)
-    current = owned
-    for _ in range(w - 1):
-        current = world.ppermute(current)
+    for r in range(w):
+        out[(r + 1) % w] = decode(slots[r]).reshape(-1)
     return out.reshape(-1)
 
 
@@ -169,8 +189,8 @@ def _ring_rs_exchange(world: LocalWorld, gs: list, compressor,
                       keys: list) -> torch.Tensor:
     """Compressed ring allreduce of one unit (``collectives.py:595``): ring
     reduce-scatter with a requantization per hop, then a ring all-gather
-    of the compressed mean chunks. ``gs[r]``/``keys[r]`` are rank r's
-    tensor and key.
+    of the compressed mean chunks. ``gs[j]``/``keys[j]`` are rank r's
+    tensor and key, j the local index of global rank ``world.ranks[j]``.
 
     On an eligible wire (:func:`fused_ring_eligible`) phase 1 is the fused
     ring of :func:`fused_q_allreduce_mean`, in chunks of whole blocks, and
@@ -189,15 +209,16 @@ def _ring_rs_exchange(world: LocalWorld, gs: list, compressor,
                  for lv, nm in _fused_reduce_scatter(world, chunks, keys, qs,
                                                      blk)]
     else:
-        send = [chunks[r][r] for r in world.ranks]
+        send = [chunks[j][r] for j, r in enumerate(world.ranks)]
         for h in range(w - 1):
             received = world.ppermute(
-                [compressor.compress(prng.fold_in(keys[r], h), send[r])
-                 for r in world.ranks])
-            send = [chunks[r][(r - h - 1) % w] + compressor.decompress(received[r])
-                    for r in world.ranks]
-        owned = [compressor.compress(prng.fold_in(keys[r], 0x46), send[r] / w)
-                 for r in world.ranks]
+                [compressor.compress(prng.fold_in(keys[j], h), send[j])
+                 for j in range(len(send))])
+            send = [chunks[j][(r - h - 1) % w]
+                    + compressor.decompress(received[j])
+                    for j, r in enumerate(world.ranks)]
+        owned = [compressor.compress(prng.fold_in(keys[j], 0x46), send[j] / w)
+                 for j in range(len(send))]
     out = _ring_all_gather(world, owned, compressor.decompress, m)
     return out[:n].reshape(shape)
 
@@ -205,19 +226,18 @@ def _ring_rs_exchange(world: LocalWorld, gs: list, compressor,
 def _ring_exchange(world: LocalWorld, payloads: list, compressor,
                    num_aggregate: int, step: int) -> torch.Tensor:
     """The ``ppermute`` transport (``collectives.py:686``): the payloads go
-    W - 1 times round the ring, each arrival decompressed into the slot
-    of its origin, and the slots are summed in origin order (so every rank
-    sums the same values in the same order). K-of-N acceptance weighs
-    origins ``{(step + j) % W : j < K}`` by 1, the others by 0."""
+    W - 1 times round the ring, each origin's decompressed once into its
+    slot (:func:`_ring_slots`), and the slots are summed in origin order
+    (so every rank sums the same values in the same order). K-of-N
+    acceptance weighs origins ``{(step + j) % W : j < K}`` by 1, the
+    others by 0."""
     w = world.size
     k = num_aggregate if 0 < num_aggregate < w else w
-    current = payloads
-    for _ in range(w - 1):
-        current = world.ppermute(current)
+    slots = _ring_slots(world, payloads)
     acc, total = None, 0.0
-    for origin in world.ranks:
+    for origin in range(w):
         weight = 1.0 if k >= w or (origin - step) % w < k else 0.0
-        slot = weight * compressor.decompress(payloads[origin])
+        slot = weight * compressor.decompress(slots[origin])
         acc = slot if acc is None else acc + slot
         total += weight
     return acc / total
@@ -582,17 +602,15 @@ def adopt_best_worker(params: list, losses: torch.Tensor,
     ``params[j]`` is the j-th local worker's list of tensors; ``losses``
     is ``[W]``, every worker's.
 
-    On a :class:`LocalWorld` the choice stays on the device (no read of the
-    losses by the host, which a CUDA graph could not hold): each leaf is
-    stacked over the workers and the best row selected. In a
-    :class:`~ewdml_tpu_torch.core.world.ProcessWorld` the host reads the
-    choice and the best worker's process broadcasts its leaves. Returns
-    new tensors."""
-    if isinstance(world, ProcessWorld):
-        best = int(torch.argmin(losses))
-        j = best - world.ranks[0]
-        return world.broadcast(params[j] if 0 <= j < len(params)
-                               else params[0], best)
+    The choice stays on the device (no read of the losses by the host,
+    which a CUDA graph could not hold): each leaf is stacked over the
+    workers and the best row selected. In a
+    :class:`~ewdml_tpu_torch.core.world.ProcessWorld` the stacks are every
+    worker's leaves, gathered as raw bytes (not counted as exchange
+    bytes), so the selected bytes are those a :class:`LocalWorld` gives.
+    Returns new tensors."""
     best = torch.argmin(losses).reshape(1)
-    return [torch.stack(list(leaf)).index_select(0, best)[0]
-            for leaf in zip(*params)]
+    stacks = [torch.stack(list(leaf)) for leaf in zip(*params)]
+    if isinstance(world, ProcessWorld):
+        stacks = world.gather_rows_of(stacks)
+    return [g.index_select(0, best)[0] for g in stacks]

@@ -9,17 +9,28 @@ compressed gather transport with the bucket as one fused payload), keyed by
 bit-identical and bucket streams never collide. The JAX package leaves the
 overlap to XLA's scheduler; here it is an explicit schedule:
 
-- **On the card** (:class:`StreamSchedule`): the W workers run one after
-  another in one process (``core/world.LocalWorld``). While the last
-  worker's backward runs, a post-accumulate-grad hook on each of its
-  parameters counts the bucket's leaves down, and the moment a bucket has
-  all of them its exchange is issued on a side CUDA stream (forked from the
-  backward's stream by an event), so it runs under the rest of the
-  backward. Before the optimizer the backward's stream joins the side
-  stream. Under a window's CUDA graph the fork and the join are captured
-  with the step.
-- **On the CPU**, or with :func:`configure` ``("inline")``: the same
-  buckets run one after another after the backward.
+- **On the card** (:class:`StreamSchedule`): a process's workers run one
+  after another (all W of them in a ``core/world.LocalWorld``, its L in a
+  ``ProcessWorld``). While the last local worker's backward runs, a
+  post-accumulate-grad hook on each of its parameters counts the bucket's
+  leaves down, and once a bucket and every bucket before it in the plan
+  have all of theirs, its exchange is issued on a side CUDA stream (forked
+  from the backward's stream by an event), so it runs under the rest of
+  the backward. Buckets are issued in the plan's order, last-produced
+  first, whatever order their leaves complete in: in a ``ProcessWorld``
+  every process must issue the same collectives in the same order, or
+  the processes would pair different buckets. Before the optimizer the
+  backward's stream joins the side stream. Under a window's CUDA graph the
+  fork and the join are captured with the step. Across processes over
+  NCCL the bucket's collective runs on the side stream too.
+- **On the CPU**, with :func:`configure` ``("inline")``, or in a
+  ``ProcessWorld`` over gloo: the same buckets run one after another after
+  the backward. Gloo stages every collective through host memory, whose
+  copy blocks the issuing thread; from a hook that thread is autograd's
+  device thread, so a gloo bucket would hold up the rest of the backward
+  instead of running under it. The schedule is chosen from the world's
+  ``host_staged`` when the step is built (:func:`use_stream`), before the
+  run.
 
 The two schedules launch the same kernels on the same inputs and keys, so
 they give bit-equal results; only the order of launches differs.
@@ -270,18 +281,22 @@ def configure(schedule: str) -> None:
     _SCHEDULE = schedule
 
 
-def use_stream(device) -> bool:
-    """Whether buckets are issued on a side stream during the backward."""
-    return torch.device(device).type == "cuda" and _SCHEDULE == "stream"
+def use_stream(device, world=None) -> bool:
+    """Whether buckets are issued on a side stream during the backward:
+    on the card, unless :func:`configure` chose ``inline`` or ``world``
+    stages its collectives through host memory (module docstring)."""
+    return (torch.device(device).type == "cuda" and _SCHEDULE == "stream"
+            and not getattr(world, "host_staged", False))
 
 
 class StreamSchedule:
     """Issue bucket ``b`` (``run(b)``) on ``stream`` once every leaf of it
-    has been produced (:meth:`leaf_ready`, called from the backward's
-    post-accumulate-grad hooks); :meth:`join` issues any bucket not yet
-    issued and makes the current stream wait for the side stream. Each
-    issue forks the side stream from the stream the hook runs on, so the
-    bucket sees every gradient produced before it."""
+    and of every bucket before it has been produced (:meth:`leaf_ready`,
+    called from the backward's post-accumulate-grad hooks), so that the
+    buckets are issued in the plan's order; :meth:`join` issues any bucket
+    not yet issued and makes the current stream wait for the side stream.
+    Each issue forks the side stream from the stream the hook runs on, so
+    the bucket sees every gradient produced before it."""
 
     def __init__(self, plan: BucketPlan, run, stream):
         self.plan = plan
@@ -289,22 +304,20 @@ class StreamSchedule:
         self.stream = stream
         self.left = [len(idxs) for idxs in plan.buckets]
         self.l2b = plan.leaf_to_bucket()
-        self.issued = [False] * plan.n_buckets
+        self.next = 0   # the first bucket not issued yet
 
     def leaf_ready(self, i: int) -> None:
-        b = self.l2b[i]
-        self.left[b] -= 1
-        if self.left[b] == 0:
-            self._issue(b)
+        self.left[self.l2b[i]] -= 1
+        while self.next < self.plan.n_buckets and not self.left[self.next]:
+            self._issue()
 
-    def _issue(self, b: int) -> None:
-        self.issued[b] = True
+    def _issue(self) -> None:
+        b, self.next = self.next, self.next + 1
         self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
         with torch.cuda.stream(self.stream):
             self.run(b)
 
     def join(self) -> None:
-        for b, done in enumerate(self.issued):
-            if not done:
-                self._issue(b)
+        while self.next < self.plan.n_buckets:
+            self._issue()
         torch.cuda.current_stream(self.stream.device).wait_stream(self.stream)

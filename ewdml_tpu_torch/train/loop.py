@@ -185,9 +185,7 @@ class Trainer:
                 self.model, self.optimizer, cfg, self.world, self.scan_window,
                 device_augment=device_augment)
             logger.info("scan window: %d steps per host launch (%s)",
-                        self.scan_window,
-                        "one CUDA graph" if self.device.type == "cuda"
-                        else "a loop on the CPU")
+                        self.scan_window, self.window_step.mode)
         self._device_arrays = None
         self.wire = M.wire_plan(cfg, [(s.name, s.jax_shape) for s in self.specs],
                                 world=self.world.size,

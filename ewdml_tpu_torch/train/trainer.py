@@ -123,11 +123,10 @@ def check_supported(cfg: TrainConfig, async_path: bool = False) -> None:
 
 
 def _check_process_world(cfg: TrainConfig) -> None:
-    """The options a ``torch.distributed`` world refuses. ``--adapt`` on
-    more than one process, as the JAX package (``loop.py:158-161``); the
-    ring transports, bucketed overlap and scan windows in any cluster:
-    their ring shift across processes (and the collectives a CUDA graph
-    would capture) are ROADMAP Queue 1 item 3b."""
+    """The one option a ``torch.distributed`` world refuses: ``--adapt``
+    on more than one process, as the JAX package does
+    (``loop.py:158-161``), with its message. The ring transports, bucketed
+    overlap and scan windows run across processes as in one."""
     from ewdml_tpu_torch.parallel import launcher
 
     if not launcher.is_initialized():
@@ -136,21 +135,6 @@ def _check_process_world(cfg: TrainConfig) -> None:
         raise ValueError("--adapt supports single-process meshes "
                          "(the decision loop reads rank-shared "
                          "moments on the coordinator)")
-    compressed = cfg.compression_enabled
-    _reject([
-        (compressed and cfg.gather_type in ("ring", "ring_rs"),
-         f"--gather-type {cfg.gather_type} in a multi-process world (a "
-         "ring shift across processes, ROADMAP Queue 1 item 3b)"),
-        (cfg.collective == "fused_q",
-         "--collective fused_q in a multi-process world (a ring shift "
-         "across processes, ROADMAP Queue 1 item 3b)"),
-        (cfg.overlap == "bucket",
-         "--overlap bucket in a multi-process world (ROADMAP Queue 1 item "
-         "3b)"),
-        (cfg.feed == "device" and cfg.scan_window > 1,
-         f"--scan-window {cfg.scan_window} in a multi-process world "
-         "(collectives inside a captured window, ROADMAP Queue 1 item 3b)"),
-    ])
 
 
 def _check_async_supported(cfg: TrainConfig) -> None:
@@ -394,7 +378,6 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
     def body(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              keys) -> torch.Tensor:
         step = state.step
-        w_n = world.size
         skey = keys.step_key(step)
         is_sync = (cfg.sync_every <= 1
                    or step % cfg.sync_every == cfg.sync_every - 1)
@@ -402,6 +385,7 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
         avg = [None] * len(specs)
         sched, hooks = None, []
         batches = worker_batches(images, labels, step, keys)
+        last_j = len(world.ranks) - 1
         for j, (r, ws) in enumerate(zip(world.ranks, state.workers)):
             x = normalize(batches[j][0])
             y = batches[j][1].long()
@@ -410,10 +394,11 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
                    if dropout else None)
             ws.model.zero_grad(set_to_none=True)
             params = leaf_params(ws.model, specs)
-            if (plan is not None and is_sync and r == w_n - 1
-                    and ovl.use_stream(device)):
-                # Each bucket is issued once the last worker's backward
-                # has produced all of its leaves.
+            if (plan is not None and is_sync and j == last_j
+                    and ovl.use_stream(device, world)):
+                # Each bucket is issued once the last local worker's
+                # backward has produced all of its leaves (and those of
+                # every bucket before it).
                 last = [None] * len(specs)
                 grads.append(last)
                 sched = ovl.StreamSchedule(
@@ -428,7 +413,7 @@ def _make_step_body(model: torch.nn.Module, optimizer, cfg: TrainConfig,
             loss.backward()
             for h in hooks:
                 h.remove()
-            if sched is None or r < w_n - 1:
+            if sched is None or j < last_j:
                 grads.append([to_jax(p.grad, s.kind)
                               for p, s in zip(params, specs)])
             top1, top5 = topk_accuracy(logits.detach().float(), y)

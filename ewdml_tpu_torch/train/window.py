@@ -16,13 +16,26 @@ momentum, residuals), so a replay finds it where the last one left it.
   (:meth:`WindowStep.phase`) and cached.
 - The kernel wrappers count their launches while a window is captured,
   when nothing launches; the capture takes those counts back out and every
-  replay adds them (``ops/kernels.add_launches``). The ring's moved bytes
-  (``LocalWorld.ppermute_bytes``) are kept the same way.
+  replay adds them (``ops/kernels.add_launches``). The world's byte
+  counters (:data:`COUNTERS`: the ring's moved bytes, and in a
+  ``ProcessWorld`` the gathers' and the ring's cross-process bytes) are
+  kept the same way.
+- In a ``core/world.ProcessWorld`` over NCCL the graph holds the step's
+  collectives too: the gathers' ``all_gather_into_tensor``, the ring's
+  point-to-point batch and Method 6's adoption (a gather of every worker's
+  leaves and a select on the device, ``parallel/collectives.
+  adopt_best_worker``). Only one NCCL rank (P = 1)
+  has run so far, on one card; P > 1 is ROADMAP Queue 1 item 3c.
 - A capture or replay that fails raises: nothing falls back to eager steps.
 - Under ``--trace-dir`` each capture is a ``train/compile`` span.
 
 On the CPU a window is the same K steps run in a loop, with their keys
-from a key table (the caller asked for the CPU; there is no graph).
+from a key table (the caller asked for the CPU; there is no graph). In a
+``ProcessWorld`` over gloo the window is that loop on the card too: a gloo
+collective stages through host memory (the world's ``host_staged``), which
+no graph can capture. Which
+of the two a run takes is fixed when the window is built
+(:attr:`WindowStep.graphed`), before the first step.
 """
 
 from __future__ import annotations
@@ -37,6 +50,13 @@ from ewdml_tpu_torch.obs import trace as otrace
 from ewdml_tpu_torch.ops import kernels
 from ewdml_tpu_torch.utils.keytable import HostKeys, KeyTable
 
+#: The world's byte counters a replay adds (those the world has).
+COUNTERS = ("ppermute_bytes", "gather_bytes", "sent_bytes")
+
+
+def _counts(world) -> dict:
+    return {k: getattr(world, k) for k in COUNTERS if hasattr(world, k)}
+
 
 @dataclasses.dataclass
 class _Captured:
@@ -47,7 +67,7 @@ class _Captured:
     table: KeyTable
     out: torch.Tensor
     launches: dict
-    ring_bytes: int
+    moved: dict
 
 
 class WindowStep:
@@ -63,8 +83,11 @@ class WindowStep:
         self._graphs = {}
         self._pool = None
         self._warm = False
+        #: One CUDA graph a window phase; else a loop of K dispatches.
+        self.graphed = (self.device.type == "cuda"
+                        and not world.host_staged)
         self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+                       if self.graphed else None)
         #: Windows run eagerly (the warm-up), graphs captured, replays, and
         #: the seconds the captures took.
         self.eager_windows = 0
@@ -91,11 +114,21 @@ class WindowStep:
         return torch.stack([self.body(state, data, labels, keys)
                             for _ in range(self.window)])
 
+    @property
+    def mode(self) -> str:
+        """How a window runs, for the trainer's start line."""
+        if self.graphed:
+            return "one CUDA graph"
+        if self.device.type == "cuda":
+            return "a loop of K dispatches on the card (gloo: no capture)"
+        return "a loop on the CPU"
+
     def __call__(self, state, data, labels, key) -> torch.Tensor:
         start = state.step
-        if self.device.type != "cuda":
+        if not self.graphed:
             return self._steps(state, data, labels,
-                               KeyTable(key, self.device, start))
+                               KeyTable(key, self.device, start,
+                                        immediate=True))
         if torch.cuda.current_stream(self.device) != self.stream:
             raise RuntimeError("a window runs on WindowStep.stream; enter "
                                "stream_context() first")
@@ -111,7 +144,8 @@ class WindowStep:
         cap.table.load(start)
         cap.graph.replay()
         kernels.add_launches(cap.launches)
-        self.world.ppermute_bytes += cap.ring_bytes
+        for k, v in cap.moved.items():
+            setattr(self.world, k, getattr(self.world, k) + v)
         state.step = start + self.window
         self.replays += 1
         return cap.out.clone()
@@ -130,21 +164,24 @@ class WindowStep:
         out = torch.empty((self.window, self.world.size, 3),
                           dtype=torch.float32, device=self.device)
         launches = dict(kernels.LAUNCHES)
-        ring_bytes = self.world.ppermute_bytes
+        before = _counts(self.world)
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
                 for j in range(self.window):
                     out[j].copy_(self.body(state, data, labels, table))
         finally:
             # Nothing ran: the host's step counter, the launch counts and
-            # the ring's bytes go back to where the capture found them.
+            # the world's byte counters go back to where the capture found
+            # them.
             state.step = start
             launches = {k: v - launches[k] for k, v in kernels.LAUNCHES.items()}
             kernels.add_launches({k: -v for k, v in launches.items()})
-            ring_bytes, self.world.ppermute_bytes = (
-                self.world.ppermute_bytes - ring_bytes, ring_bytes)
+            moved = {k: v - before[k]
+                     for k, v in _counts(self.world).items()}
+            for k, v in before.items():
+                setattr(self.world, k, v)
         if self._pool is None:
             self._pool = graph.pool()
         self.captures += 1
         self.capture_s += clock.monotonic() - t0
-        return _Captured(graph, table, out, launches, ring_bytes)
+        return _Captured(graph, table, out, launches, moved)

@@ -54,17 +54,19 @@ class KeyTable:
     its path: ``(fn, j)`` is ``fn(start + j)``, and each further element a
     ``fold_in``. On the CPU (no graph) the device buffer is written as each
     slot is recorded; on CUDA it is written by :meth:`load`, which the
-    capture of the window precedes. ``generators`` are the
+    capture of the window precedes, unless ``immediate`` asks for the
+    CPU's way (a window run as a loop on the card). ``generators`` are the
     ``torch.Generator`` objects a graph registered for the dropout streams,
     handed out in request order and seeded in :meth:`load`.
     """
 
     def __init__(self, base: tuple, device, start: int, capacity: int = 1 << 16,
-                 generators=()):
+                 generators=(), immediate: bool | None = None):
         self.base = tuple(base)
         self.device = torch.device(device)
         self.start = int(start)
-        self._immediate = self.device.type != "cuda"
+        self._immediate = (self.device.type != "cuda" if immediate is None
+                           else bool(immediate))
         self._seed_host = np.zeros(capacity, np.int32)
         self._int_host = np.zeros(capacity, np.int64)
         self._seeds = torch.zeros(capacity, dtype=torch.int32, device=self.device)

@@ -11,13 +11,20 @@ multi-threaded CPU conv backward sums in a varying order.
 Oracles:
 - bit: the coordinator's checkpoint against the emulated run's, byte for
   byte (every process gathers the same bytes and reduces them in the same
-  order); a resume continues byte-equal; the world's gathers, broadcast
-  and staged bytes (``gather_bytes`` against ``wire_plan``'s rows) in a
-  two-process child; the rank layout and the refusals, the ``--adapt``
-  one word for word against the JAX package's.
+  order; the ring transports shift the same bytes between processes that
+  the emulated ring moves between workers), under the gather and ring
+  transports, ``fused_q``, bucketed overlap and scan windows; a resume
+  continues byte-equal; the world's gathers and staged bytes
+  (``gather_bytes`` against ``wire_plan``'s rows) in a two-process child;
+  its ring shift against ``LocalWorld.ppermute`` and its two byte
+  counters, and Method 6's adoption against the emulated world's, in a
+  three-process child; the rank layout, the ``--adapt`` refusal word for
+  word against the JAX package's, and the auto scan window against the
+  JAX package's.
 - tolerance plus bounded flips (``test_torch_slice.py``): the two-process
-  M4 run against the JAX ``Trainer`` on 4 CPU devices from the same
-  initial state, its final loss within 1e-3 relative.
+  M4 runs (gather and fused ``ring_rs``) against the JAX ``Trainer`` on 4
+  CPU devices from the same initial state, the final loss within 1e-3
+  relative.
 """
 
 import os
@@ -30,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from ewdml_tpu.core import config as jconfig
 from ewdml_tpu.core.config import TrainConfig as JConfig
 from ewdml_tpu.ops import pallas_kernels as pk
 from ewdml_tpu.train import checkpoint as jckpt
@@ -154,6 +162,38 @@ CASES = {
                         "--max-steps", "21", "--eval-freq", "21"]),
     "feed_device": (2, ["--num-workers", "4", "--method", "4", "--feed",
                         "device"]),
+    # The ring transports: every hop of a process's boundary ranks crosses
+    # to the next process. The fused ring (blockwise int8 wire), then the
+    # generic one (per-tensor M2).
+    "ring_rs_fused": (2, ["--num-workers", "4", "--method", "4",
+                          "--qsgd-block", "4096", "--gather-type",
+                          "ring_rs"]),
+    "ring_rs_m2": (2, ["--num-workers", "4", "--method", "2",
+                       "--gather-type", "ring_rs"]),
+    # One worker a process: every hop crosses, K-of-N 3 of the 4 origins.
+    "ring_k3_every_hop_crosses": (4, ["--num-workers", "4", "--method", "5",
+                                      "--gather-type", "ring",
+                                      "--num-aggregate", "3"]),
+    "fused_q": (2, ["--num-workers", "4", "--method", "3", "--collective",
+                    "fused_q"]),
+    "overlap_bucket_ef": (2, ["--num-workers", "4", "--method", "4",
+                              "--error-feedback", "--overlap", "bucket",
+                              "--overlap-buckets", "4"]),
+    "scan_window": (2, ["--num-workers", "4", "--method", "4", "--feed",
+                        "device", "--scan-window", "4", "--max-steps", "8",
+                        "--eval-freq", "8"]),
+    # The auto window is the sync period (20), as in the JAX package; the
+    # 21 steps are one window and a tail step.
+    "m6_auto_window": (3, ["--num-workers", "3", "--method", "6", "--feed",
+                           "device", "--max-steps", "21", "--eval-freq",
+                           "21"]),
+}
+#: What a case's coordinator prints on its start line.
+STARTS = {
+    "scan_window": "scan window: 4 steps per host launch (a loop on the "
+                   "CPU)",
+    "m6_auto_window": "scan window: 20 steps per host launch (a loop on "
+                      "the CPU)",
 }
 
 
@@ -168,6 +208,8 @@ def test_cluster_checkpoint_equals_the_emulated_run(tmp_path, case):
     assert _blob(pdir) == _blob(ldir)
     assert _summary(outs[0]) == _summary(local)
     assert not any("done:" in out for out in outs[1:])
+    if case in STARTS:
+        assert STARTS[case] in outs[0] and STARTS[case] in local
 
 
 def test_cluster_resume_continues_byte_equal(tmp_path):
@@ -188,12 +230,11 @@ def test_cluster_resume_continues_byte_equal(tmp_path):
     assert _blob(pdir) == _blob(ldir)
 
 
-def test_two_processes_match_the_jax_trainer(tmp_path, jax_twins):
-    """tolerance plus bounded flips: the port's P = 2 x L = 2 M4 LeNet run
-    against the JAX Trainer on 4 CPU devices (which the JAX two-process
-    cluster of ``tests/test_launcher.py`` equals), both from the JAX
-    Trainer's initial state (the port's step-0 checkpoint)."""
-    cfg = dict(SLICE_BASE, method=4, eval_freq=3)
+def _against_jax(tmp_path, cfg: dict, flags: list) -> None:
+    """The port's P = 2 x L = 2 LeNet run of ``cfg`` (``flags`` on the
+    command line) against the JAX Trainer on 4 CPU devices, both from the
+    JAX Trainer's initial state (the port's step-0 checkpoint): bounded
+    flips, and the final loss within 1e-3 relative."""
     jt = JTrainer(JConfig(train_dir=_train_dir(tmp_path, "jax"), **cfg))
     w0 = worker_slice(jt.state)
     init = jax.tree.map(np.asarray, w0.params)
@@ -203,9 +244,8 @@ def test_two_processes_match_the_jax_trainer(tmp_path, jax_twins):
     argv = ["--platform", "cpu", "--network", "LeNet", "--dataset",
             "mnist10k", "--batch-size", "8", "--lr", "0.01", "--max-steps",
             "3", "--epochs", "100", "--eval-freq", "3", "--log-every",
-            "1000", "--no-bf16", "--num-workers", "4", "--pallas",
-            "interpret", "--seed", "42", "--method", "4",
-            "--train-dir", pdir]
+            "1000", "--no-bf16", "--num-workers", "4", "--seed", "42",
+            *flags, "--train-dir", pdir]
     outs = _finish(_cluster(tmp_path, 2, argv), "jax pair")
     loss = float(_summary(outs[0]).split("loss=")[1].split()[0])
     tt = Trainer(TrainConfig(platform="cpu", train_dir=pdir, **cfg))
@@ -215,6 +255,26 @@ def test_two_processes_match_the_jax_trainer(tmp_path, jax_twins):
     tparams = [torch_to_flax(ws.model)[0] for ws in tt.state.workers]
     check_with_flips(Pair(jt, tt, jres, None, jparams, tparams, init))
     assert abs(loss - jres.final_loss) <= 1e-3 * abs(jres.final_loss)
+
+
+def test_two_processes_match_the_jax_trainer(tmp_path, jax_twins):
+    """tolerance plus bounded flips: M4 on the gather transport (the JAX
+    two-process cluster of ``tests/test_launcher.py`` equals the JAX
+    Trainer on 4 devices)."""
+    _against_jax(tmp_path, dict(SLICE_BASE, method=4, eval_freq=3),
+                 ["--pallas", "interpret", "--method", "4"])
+
+
+def test_two_processes_ring_rs_match_the_jax_trainer(tmp_path):
+    """tolerance plus bounded flips: M4 on the fused ``ring_rs`` ring
+    (``--qsgd-block 4096``), its hops crossing between the two processes,
+    against the JAX ring over the 4-device mesh, both under ``--pallas
+    auto`` as ``test_torch_slice_ring_rs.py`` runs them."""
+    _against_jax(tmp_path, dict(SLICE_BASE, method=4, eval_freq=3,
+                                gather_type="ring_rs", qsgd_block=4096,
+                                pallas="auto"),
+                 ["--method", "4", "--gather-type", "ring_rs",
+                  "--qsgd-block", "4096"])
 
 
 # -- the world's collectives in a two-process child ---------------------------
@@ -239,13 +299,12 @@ assert list(world.ranks) == [2 * p, 2 * p + 1] and list(world.slices) == [p]
 assert isinstance(world.ici(p), LocalWorld)
 dcn = world.dcn(0)
 assert list(dcn.ranks) == [p] and dcn.local_members == (2 * p,)
-for bad in (lambda: world.ici(1 - p), lambda: world.ppermute([0, 1])):
-    try:
-        bad()
-    except (ValueError, NotImplementedError):
-        pass
-    else:
-        raise AssertionError("no refusal")
+try:
+    world.ici(1 - p)
+except ValueError:
+    pass
+else:
+    raise AssertionError("no refusal")
 
 def value(r, dtype):
     return (torch.arange(6, dtype=torch.float32) * (r + 1) - 7).to(dtype)
@@ -268,8 +327,6 @@ assert staged == 2 * (24 + 12 + 6 + 6) + 2 * (6 + 4) + 2 * 24, staged
 assert torch.equal(world.gather_rows(torch.full((2, 3), float(p))),
                    torch.tensor([0.0, 1.0]).repeat_interleave(6).reshape(4, 3))
 assert world.gather_bytes == staged
-got = world.broadcast([value(3 * p, torch.float32), torch.tensor(p == 1)], 3)
-assert torch.equal(got[0], value(3, torch.float32)) and bool(got[1])
 
 # The trainer's staged bytes a step: L payloads a unit (flat M4), the one
 # slice average a unit over DCN (2 x 2, slice = process).
@@ -301,6 +358,83 @@ def test_process_world_gathers_in_rank_order(tmp_path):
     outs = _finish(_cluster(tmp_path, 2, [], script=_WORLD_CHILD), "world")
     for p, out in enumerate(outs):
         assert f"WORLD_OK {p}" in out, out[-2000:]
+
+
+# -- the ring shift and the adoption in a three-process child -----------------
+
+_RING_CHILD = r"""
+import torch
+from ewdml_tpu_torch.core.world import (LocalWorld, ProcessWorld,
+                                        build_world, value_nbytes)
+from ewdml_tpu_torch.ops.qsgd import QSGDPayload
+from ewdml_tpu_torch.parallel import collectives, launcher
+
+info = launcher.initialize(platform="cpu")
+p = info["process_index"]
+world = build_world(6, 1, "cpu")
+assert isinstance(world, ProcessWorld) and list(world.ranks) == [2 * p,
+                                                                 2 * p + 1]
+
+def pay(r):
+    # An odd number of int8 levels before f32 norms: a field of the packed
+    # buffer off its alignment.
+    return QSGDPayload(levels=(torch.arange(5) * (r + 1) - 3).to(torch.int8),
+                       norm=torch.tensor([r + 0.25, -r - 0.5]), shape=(5,),
+                       s=127, block=None)
+
+def pair(r):
+    # The fused ring's (levels, norms) tuple, bf16 norms.
+    return ((torch.arange(3) - r).to(torch.int8),
+            torch.tensor([r * 1.5], dtype=torch.bfloat16))
+
+emulated = LocalWorld(6, "cpu")
+sent = 0
+for make in (pay, pair):
+    every = [make(r) for r in range(6)]
+    per_value = value_nbytes(every[0])
+    for shift in (1, 5):
+        before = world.ppermute_bytes
+        got = world.ppermute([make(r) for r in world.ranks], shift)
+        want = emulated.ppermute(every, shift)[2 * p:2 * p + 2]
+        for g, w in zip(got, want):
+            if make is pay:
+                assert torch.equal(g.levels, w.levels)
+                assert torch.equal(g.norm, w.norm)
+                assert (g.shape, g.s, g.block) == (w.shape, w.s, w.block)
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(g, w))
+        # What one rank received; one value crosses to a neighbour.
+        assert world.ppermute_bytes - before == per_value
+        sent += per_value
+        assert world.sent_bytes == sent, (world.sent_bytes, sent)
+assert world.gather_bytes == 0
+
+# Method 6's adoption: the gathered candidates' best row, as the emulated
+# world's stack-and-select of all six workers' leaves, ties to the first.
+losses = torch.tensor([3.0, 2.0, 5.0, 1.0, 1.0, 4.0])
+def leaves(r):
+    return [torch.full((2, 3), float(r)), torch.arange(4.0) * r]
+a = collectives.adopt_best_worker([leaves(r) for r in world.ranks], losses,
+                                  world)
+b = collectives.adopt_best_worker([leaves(r) for r in range(6)], losses,
+                                  emulated)
+assert all(torch.equal(x, y) for x, y in zip(a, b))
+assert torch.equal(a[0], torch.full((2, 3), 3.0))
+assert world.gather_bytes == 0
+print("RING_OK", p, flush=True)
+launcher.shutdown()
+"""
+
+
+def test_process_world_ring_shift_in_rank_order(tmp_path):
+    """bit: in a three-process gloo world of W = 6, ``ppermute`` moves a
+    payload dataclass and a tuple of tensors as ``LocalWorld.ppermute``
+    does, at shift 1 and W - 1, with ``ppermute_bytes`` the bytes one rank
+    received and ``sent_bytes`` those sent across processes; Method 6's
+    adoption equals the emulated world's."""
+    outs = _finish(_cluster(tmp_path, 3, [], script=_RING_CHILD), "ring")
+    for p, out in enumerate(outs):
+        assert f"RING_OK {p}" in out, out[-2000:]
 
 
 # -- the launcher and the layout, in process ---------------------------------
@@ -388,29 +522,22 @@ def test_adapt_refused_across_processes_as_in_jax(tmp_path, monkeypatch):
     ttrainer.check_supported(TrainConfig(platform="cpu", **kw))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(method=5, gather_type="ring"), "--gather-type ring in a multi"),
-    (dict(method=4, gather_type="ring_rs"), "--gather-type ring_rs in a"),
-    (dict(method=3, collective="fused_q"), "--collective fused_q in a"),
-    (dict(method=4, overlap="bucket"), "--overlap bucket in a"),
-    (dict(method=4, feed="device", scan_window=4), "--scan-window 4 in a"),
-])
-def test_multi_process_refusals(monkeypatch, kw, match):
-    """The options whose ring shift (or captured collectives) across
-    processes is a later slice, refused by name with their ROADMAP item;
-    outside a cluster each is accepted."""
-    cfg = TrainConfig(platform="cpu", network="LeNet", dataset="mnist10k",
-                      **kw)
-    ttrainer.check_supported(cfg)
-    _as_cluster(monkeypatch, 2)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        ttrainer.check_supported(cfg)
-    assert "ROADMAP Queue 1 item 3b" in str(err.value)
-
-
-def test_auto_scan_window_is_one_in_a_cluster(monkeypatch):
-    cfg = TrainConfig(platform="cpu", network="LeNet", dataset="mnist10k",
-                      method=4, feed="device")
-    assert tconfig.resolve_scan_window(cfg) == 8
-    _as_cluster(monkeypatch, 2)
-    assert tconfig.resolve_scan_window(cfg) == 1
+def test_auto_scan_window_matches_jax_in_and_out_of_a_cluster(monkeypatch):
+    """bit: the auto window (and an explicit one) is the JAX package's
+    ``resolve_scan_window``, the same inside a cluster as outside it (it
+    was 1 in a cluster until the windows ran across processes)."""
+    kws = [dict(method=4, feed="device"), dict(method=6, feed="device"),
+           dict(method=4, feed="device", log_every=3),
+           dict(method=4, feed="device", scan_window=4),
+           dict(method=4, feed="u8")]
+    for nprocs in (1, 2):
+        if nprocs > 1:
+            _as_cluster(monkeypatch, nprocs)
+        for kw in kws:
+            cfg = dict(network="LeNet", dataset="mnist10k", **kw)
+            want = jconfig.resolve_scan_window(JConfig(**cfg))
+            assert tconfig.resolve_scan_window(
+                TrainConfig(platform="cpu", **cfg)) == want, (nprocs, kw)
+    assert tconfig.resolve_scan_window(TrainConfig(
+        platform="cpu", network="LeNet", dataset="mnist10k", method=6,
+        feed="device")) == 20
